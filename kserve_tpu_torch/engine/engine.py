@@ -1,0 +1,549 @@
+"""Continuous-batching LLM engine on PyTorch.
+
+Port of the unified-ragged serving path of kserve_tpu/engine/engine.py:
+
+- fixed decode slots; every waiting request seats as a prefilling slot and
+  its prompt chunks ride the next `mixed` steps (engine/compiled.py), in
+  the same packed buffer as the decode lanes' next tokens
+- paged KV on the device (engine/kvcache.py), pages grown as lanes advance
+- sampling on the device (engine/sampling.py), per-lane params as tensors
+- each request owns an asyncio queue fed by the run loop
+
+The device call and the fetch of its [steps, B] tokens run in a worker
+thread (`asyncio.to_thread`), so the event loop keeps answering health
+probes and new requests while a step computes.
+
+Not ported in this slice: the prefix cache, KV tiers and persistence, the
+peer page fabric, speculative decoding, data/tensor/pipeline/sequence
+parallelism, P/D disaggregation, drain/checkpoint/resume, the watchdog,
+metrics, the AOT cache and preemption.  Admission waits for free pages.
+"""
+
+from __future__ import annotations
+
+import asyncio
+import logging
+import time
+from typing import AsyncIterator, Dict, List, Optional
+
+import numpy as np
+import torch
+
+from ..device import resolve_device
+from ..models import llama
+from ..ops.paged_attention_cuda import RAGGED_BQ
+from .compiled import make_mixed
+from .kvcache import KVCacheConfig, PageAllocator, init_kv_pages, pages_needed
+from .sampling import SamplingParams, SamplingState
+from .tokenizer import BaseTokenizer, IncrementalDetokenizer
+from .types import EngineConfig, GenerationOutput, _QueuedRequest, _Slot
+
+logger = logging.getLogger(__name__)
+
+
+class LLMEngine:
+    """Drive with `await engine.start()`, submit with `generate()`."""
+
+    def __init__(
+        self,
+        model_config: llama.LlamaConfig,
+        engine_config: EngineConfig,
+        tokenizer: BaseTokenizer,
+        params: Optional[dict] = None,
+        rng_seed: int = 0,
+        device=None,
+    ):
+        self.device = resolve_device(device)
+        unsupported = {
+            "kv_quant": engine_config.kv_quant != "none",
+            "weight_quant": engine_config.weight_quant != "none",
+            "tp": engine_config.tp != 1,
+            "dp": engine_config.dp != 1,
+            "sp": engine_config.sp != 1,
+            "pp": engine_config.pp != 1,
+            "spec_decode_k": engine_config.spec_decode_k is not None,
+        }
+        bad = sorted(k for k, v in unsupported.items() if v)
+        if bad:
+            raise NotImplementedError(
+                f"the PyTorch engine does not support {bad} yet")
+        if tokenizer is not None and tokenizer.vocab_size > model_config.vocab_size:
+            raise ValueError(
+                f"tokenizer vocab ({tokenizer.vocab_size}) exceeds model "
+                f"vocab ({model_config.vocab_size})")
+        if self.device.type == "cuda" and engine_config.dtype != model_config.dtype:
+            raise ValueError(
+                f"the CUDA kernels read KV pages in the activation dtype: "
+                f"kv dtype {engine_config.dtype} != model dtype "
+                f"{model_config.dtype}")
+        self.model_config = model_config
+        self.config = engine_config
+        self.tokenizer = tokenizer
+        t0 = time.perf_counter()
+        if params is None:
+            params = llama.init_params(model_config, seed=1, device=self.device)
+        self.params = params
+        self.cache_config = KVCacheConfig(
+            n_layers=model_config.n_layers,
+            n_kv_heads=model_config.n_kv_heads,
+            head_dim=model_config.head_dim,
+            page_size=engine_config.page_size,
+            num_pages=engine_config.num_pages,
+            max_pages_per_seq=engine_config.max_pages_per_seq,
+            dtype=engine_config.dtype,
+        )
+        self.kv_pages = init_kv_pages(self.cache_config, self.device)
+        self.allocator = PageAllocator(engine_config.num_pages)
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        self.startup_seconds = time.perf_counter() - t0
+        self._rng = torch.Generator(device=self.device)
+        self._rng.manual_seed(rng_seed)
+        # slices start at multiples of the CUDA ragged kernel's block (one
+        # lane per block); the plain CPU version packs densely
+        self._ragged_align = RAGGED_BQ if self.device.type == "cuda" else 1
+        if (engine_config.max_batch_size * self._ragged_align
+                > engine_config.prefill_buckets[-1]):
+            raise ValueError(
+                "max_batch_size x the kernel block alignment must fit the "
+                "largest prefill bucket (a pure-decode step packs every lane)")
+        self._mixed = make_mixed(model_config, engine_config)
+        self._slots: List[_Slot] = [
+            _Slot() for _ in range(engine_config.max_batch_size)]
+        self._waiting: List[_QueuedRequest] = []
+        self._wake = asyncio.Event()
+        self._task: Optional[asyncio.Task] = None
+        self._stopped = False
+        self.steps = 0  # mixed dispatches so far
+
+    # ---------------- public API ----------------
+
+    async def start(self):
+        if self._task is None:
+            self._task = asyncio.create_task(self._run_loop())
+            logger.info(
+                "LLM engine started on %s: slots=%d pages=%d page_size=%d",
+                self.device, self.config.max_batch_size,
+                self.config.num_pages, self.config.page_size)
+
+    async def stop(self):
+        self._stopped = True
+        self._wake.set()
+        self._fail_waiting(RuntimeError("engine stopped"))
+        if self._task is not None:
+            try:
+                await asyncio.wait_for(self._task, timeout=30)
+            except (asyncio.TimeoutError, asyncio.CancelledError):
+                self._task.cancel()
+            self._task = None
+        self._fail_waiting(RuntimeError("engine stopped"))
+        for slot in self._slots:
+            if slot.request_id is not None:
+                slot.queue.put_nowait(RuntimeError("engine stopped"))
+                self.allocator.free(slot.pages)
+                slot.reset()
+
+    def generate(self, prompt_ids: List[int],
+                 params: SamplingParams) -> AsyncIterator[GenerationOutput]:
+        """Submit a request; yields one GenerationOutput per emitted token.
+        Validation runs here, before the stream starts."""
+        if not prompt_ids:
+            raise ValueError("empty prompt")
+        if params.max_tokens < 1:
+            raise ValueError("max_tokens must be at least 1")
+        if len(prompt_ids) + params.max_tokens > self.config.max_model_len:
+            raise ValueError(
+                f"prompt+max_tokens exceeds max_model_len {self.config.max_model_len}")
+        if max(prompt_ids) >= self.model_config.vocab_size or min(prompt_ids) < 0:
+            raise ValueError("prompt token id outside the model vocabulary")
+        if self._stopped:
+            raise RuntimeError("engine is stopped")
+        req = _QueuedRequest(f"req-{time.monotonic_ns()}", list(prompt_ids),
+                             params, asyncio.Queue())
+        return self._submit_and_stream(req)
+
+    async def _submit_and_stream(self, req: _QueuedRequest):
+        self._waiting.append(req)
+        self._wake.set()
+        try:
+            while True:
+                out = await req.queue.get()
+                if isinstance(out, Exception):
+                    raise out
+                yield out
+                if out.finished:
+                    return
+        finally:
+            # client went away: release the slot and pages
+            self.cancel(req.request_id)
+
+    def cancel(self, request_id: str) -> None:
+        self._waiting = [r for r in self._waiting if r.request_id != request_id]
+        for slot in self._slots:
+            if slot.request_id == request_id:
+                self.allocator.free(slot.pages)
+                slot.reset()
+                self._wake.set()
+
+    def _fail_waiting(self, exc: Exception) -> None:
+        pending, self._waiting = self._waiting, []
+        for req in pending:
+            req.queue.put_nowait(exc)
+
+    # ---------------- run loop ----------------
+
+    async def _run_loop(self):
+        try:
+            while not self._stopped:
+                did_work = False
+                while self._waiting and self._free_slot_index() is not None:
+                    if not self._admit_prefilling(self._waiting[0]):
+                        break
+                    did_work = True
+                if await self._step_mixed():
+                    did_work = True
+                if not did_work:
+                    self._wake.clear()
+                    await self._wake.wait()
+                else:
+                    await asyncio.sleep(0)
+        except Exception as e:  # noqa: BLE001 — engine death must reach every stream
+            logger.exception("engine loop crashed")
+            for slot in self._slots:
+                if slot.request_id is not None:
+                    slot.queue.put_nowait(e)
+                    self.allocator.free(slot.pages)
+                    slot.reset()
+            self._fail_waiting(e)
+
+    def _free_slot_index(self) -> Optional[int]:
+        for i, slot in enumerate(self._slots):
+            if slot.request_id is None:
+                return i
+        return None
+
+    def _bucket_for(self, n: int) -> int:
+        for b in self.config.prefill_buckets:
+            if n <= b:
+                return b
+        return self.config.prefill_buckets[-1]
+
+    def _admit_prefilling(self, req: _QueuedRequest) -> bool:
+        """Seat the head of the queue as a prefilling slot once its pages
+        (plus decode headroom for a long prompt) are free."""
+        idx = self._free_slot_index()
+        if idx is None:
+            return False
+        ps = self.config.page_size
+        total = len(req.prompt_ids)
+        need = pages_needed(total + 1, ps)
+        if need > self.config.max_pages_per_seq:
+            self._waiting.remove(req)
+            req.queue.put_nowait(ValueError(
+                f"prompt needs {need} pages > max_pages_per_seq "
+                f"{self.config.max_pages_per_seq}"))
+            return True
+        required = need
+        if total > self.config.prefill_buckets[-1]:
+            # many chunks in flight before the first token: keep a couple
+            # of dispatches of decode headroom
+            required = min(
+                need + pages_needed(2 * self.config.steps_per_sync, ps),
+                self.config.num_pages - 1)
+        if not self.allocator.can_allocate(required):
+            return False
+        pages = self.allocator.allocate(need)
+        self._waiting.remove(req)
+        slot = self._slots[idx]
+        slot.request_id = req.request_id
+        slot.pages = pages
+        slot.queue = req.queue
+        slot.prefilling = {"req": req, "seq": req.prompt_ids, "done": 0}
+        return True
+
+    def _ensure_pages_at(self, slot: _Slot, base: int, extra: int) -> None:
+        needed = min(pages_needed(base + extra, self.config.page_size),
+                     self.config.max_pages_per_seq)
+        while len(slot.pages) < needed and self.allocator.can_allocate(1):
+            slot.pages.extend(self.allocator.allocate(1))
+
+    def _grow_pages(self) -> None:
+        """Grow every decode lane's pages toward this dispatch's writes.
+        With no preemption, a cache too small for every decoding lane
+        truncates them honestly ("length") rather than deadlocking."""
+        ps = self.config.page_size
+        active = [s for s in self._slots
+                  if s.request_id is not None and s.prefilling is None]
+        starved = []
+        for slot in active:
+            if slot.pos >= self.config.max_model_len:
+                continue
+            grow = min(self.config.steps_per_sync,
+                       self.config.max_model_len - slot.pos)
+            self._ensure_pages_at(slot, slot.pos, grow)
+            if len(slot.pages) * ps <= slot.pos:
+                starved.append(slot)
+        if starved and len(starved) == len(active):
+            logger.warning("KV cache exhausted: truncating %d lane(s)", len(starved))
+            for slot in starved:
+                self._finish(slot, "length")
+
+    def _prepare_chunk(self) -> Optional[dict]:
+        """Host-side decode state of this step's decode lanes."""
+        B = self.config.max_batch_size
+        self._grow_pages()
+        tokens = np.zeros((B,), np.int32)
+        pos = np.zeros((B,), np.int32)
+        active = np.zeros((B,), bool)
+        capacity = np.zeros((B,), np.int32)
+        counters = np.zeros((B,), np.int32)
+        for i, slot in enumerate(self._slots):
+            if slot.request_id is None or slot.prefilling is not None:
+                continue
+            base = slot.pos
+            tokens[i] = slot.generated[-1]
+            if self.config.max_model_len - base <= 0:
+                self._finish(slot, "length")
+                continue
+            if len(slot.pages) * self.config.page_size <= base:
+                continue  # no capacity this step
+            pos[i] = base
+            active[i] = True
+            capacity[i] = len(slot.pages) * self.config.page_size
+            counters[i] = base - slot.prompt_len + 1
+        if not active.any():
+            return None
+        return {"tokens": tokens, "pos": pos, "active": active,
+                "capacity": capacity, "counters": counters}
+
+    async def _step_mixed(self) -> bool:
+        """One engine step: every prefilling slot contributes its next
+        prompt chunk and every decode lane its next token, in one packed
+        `mixed` dispatch."""
+        meta = self._prepare_chunk()
+        prefilling = [(i, s) for i, s in enumerate(self._slots)
+                      if s.request_id is not None and s.prefilling is not None]
+        if meta is None and not prefilling:
+            return False
+        plan = self._plan_ragged(meta, prefilling)
+        chunk_np = await asyncio.to_thread(self._dispatch, plan)
+        self.steps += 1
+        self._route_mixed(plan, chunk_np)
+        return True
+
+    def _dispatch(self, plan: dict) -> np.ndarray:
+        """Run one mixed step and fetch its tokens (worker thread)."""
+        with torch.inference_mode():
+            out, self.kv_pages = self._mixed(
+                self.params, plan["q_tokens"], plan["token_seq"],
+                plan["token_pos"], plan["q_start"], plan["q_len"],
+                plan["kv_start"], plan["last_idx"], self.kv_pages,
+                plan["page_table"], plan["joins"], plan["scan_tok0"],
+                plan["scan_pos0"], plan["step0_emits"], plan["capacity"],
+                plan["counters"], plan["state"], self._rng)
+            return out.cpu().numpy()
+
+    def _plan_ragged(self, meta: Optional[dict], prefilling) -> dict:
+        """Pack this step's ragged buffer (host side): decode lanes first,
+        one token each, then each prefilling slot's next chunk, within one
+        largest-prefill-bucket token budget.  Slices start at multiples of
+        the kernel block.  Returns the packed arrays plus per-lane routing
+        windows."""
+        B = self.config.max_batch_size
+        ps = self.config.page_size
+        steps = self.config.steps_per_sync
+        align = self._ragged_align
+        budget = self.config.prefill_buckets[-1]
+
+        def aligned(n: int) -> int:
+            return -(-n // align) * align
+
+        q_start = np.zeros((B,), np.int32)
+        q_len = np.zeros((B,), np.int32)
+        kv_start = np.zeros((B,), np.int32)
+        last_idx = np.zeros((B,), np.int32)
+        joins = np.zeros((B,), bool)
+        scan_tok0 = np.full((B,), -1, np.int32)
+        scan_pos0 = np.zeros((B,), np.int32)
+        step0_emits = np.zeros((B,), np.int32)
+        capacity = np.zeros((B,), np.int32)
+        counters = np.zeros((B,), np.int32)
+        params_list = [SamplingParams() for _ in range(B)]
+        tok_list: List[int] = []
+        seq_list: List[int] = []
+        pos_list: List[int] = []
+        consume: Dict[int, tuple] = {}  # lane -> (first row, n rows)
+        chunks: List[tuple] = []  # (lane, chunk len, final?)
+        offset = 0
+        n_decode = 0
+
+        def place(lane: int, tokens: List[int], positions: List[int]):
+            nonlocal offset, budget
+            n = len(tokens)
+            pad = aligned(n) - n
+            tok_list.extend(tokens + [0] * pad)
+            seq_list.extend([lane] * n + [-1] * pad)
+            pos_list.extend(positions + [0] * pad)
+            q_start[lane] = offset
+            q_len[lane] = n
+            last_idx[lane] = offset + n - 1
+            offset += aligned(n)
+            budget -= aligned(n)
+
+        if meta is not None:
+            for i, slot in enumerate(self._slots):
+                if not meta["active"][i]:
+                    continue
+                pos = int(meta["pos"][i])
+                cap = int(meta["capacity"][i])
+                place(i, [int(meta["tokens"][i])], [pos])
+                kv_start[i] = pos
+                joins[i] = True
+                scan_pos0[i] = pos + 1
+                step0_emits[i] = 1
+                capacity[i] = cap
+                counters[i] = int(meta["counters"][i])
+                params_list[i] = slot.params
+                consume[i] = (0, min(steps, cap - pos))
+                n_decode += 1
+
+        n_prefill_tokens = 0
+        for i, slot in prefilling:
+            pf = slot.prefilling
+            req = pf["req"]
+            seq, done = pf["seq"], pf["done"]
+            total = len(seq)
+            n = min(total - done, budget)
+            if n <= 0:
+                continue  # out of token budget; this lane rides next step
+            place(i, list(seq[done:done + n]), list(range(done, done + n)))
+            kv_start[i] = done
+            cap = len(slot.pages) * ps
+            capacity[i] = cap
+            params_list[i] = req.params
+            final = done + n >= total
+            if final:
+                joins[i] = True
+                scan_pos0[i] = total
+                step0_emits[i] = 1
+                # row 0 (the first token) is emitted at seating; the
+                # consume window covers the decode loop only
+                consume[i] = (1, max(0, min(steps - 1, cap - total)))
+            else:
+                consume[i] = (0, 0)
+            chunks.append((i, n, final))
+            n_prefill_tokens += n
+
+        T = aligned(self._bucket_for(max(offset, 1)))
+        pad = T - offset
+        tok_list.extend([0] * pad)
+        seq_list.extend([-1] * pad)
+        pos_list.extend([0] * pad)
+        width = self.config.page_bucket(max(
+            [len(s.pages) for s in self._slots if s.request_id is not None]
+            or [1]))
+        page_table = np.zeros((B, width), np.int32)
+        for i, slot in enumerate(self._slots):
+            if slot.request_id is not None and slot.pages:
+                page_table[i, : len(slot.pages)] = slot.pages
+        return {
+            "q_tokens": np.asarray(tok_list, np.int32),
+            "token_seq": np.asarray(seq_list, np.int32),
+            "token_pos": np.asarray(pos_list, np.int32),
+            "q_start": q_start,
+            "q_len": q_len,
+            "kv_start": kv_start,
+            "last_idx": last_idx,
+            "page_table": page_table,
+            "joins": joins,
+            "scan_tok0": scan_tok0,
+            "scan_pos0": scan_pos0,
+            "step0_emits": step0_emits,
+            "capacity": capacity,
+            "counters": counters,
+            "state": SamplingState.from_params(params_list, self.device),
+            "consume": consume,
+            "chunks": chunks,
+            "prefill_tokens": n_prefill_tokens,
+            "decode_tokens": n_decode,
+        }
+
+    def _route_mixed(self, plan: dict, chunk_np: np.ndarray) -> None:
+        """Consume one dispatch's [steps, B] tokens: advance chunk cursors,
+        seat lanes whose prompt completed (emitting their first token),
+        then stream each lane's decode window.  Lanes cancelled while the
+        step ran are seen as empty and their tokens dropped."""
+        for i, n, final in plan["chunks"]:
+            slot = self._slots[i]
+            if slot.request_id is None or slot.prefilling is None:
+                continue
+            pf = slot.prefilling
+            pf["done"] += n
+            if final:
+                self._seat_fresh(slot, pf["req"], int(chunk_np[0, i]))
+                self._emit(slot, int(chunk_np[0, i]))
+        for i in sorted(plan["consume"]):
+            first_row, n_rows = plan["consume"][i]
+            slot = self._slots[i]
+            for s in range(first_row, first_row + n_rows):
+                if slot.request_id is None:
+                    break  # finished or cancelled: drop the tail
+                token = int(chunk_np[s, i])
+                slot.pos += 1
+                slot.generated.append(token)
+                self._emit(slot, token)
+
+    def _seat_fresh(self, slot: _Slot, req: _QueuedRequest, first_token: int) -> None:
+        slot.prefilling = None
+        slot.prompt_len = len(req.prompt_ids)
+        slot.pos = len(req.prompt_ids)  # position of the token decoded next
+        slot.generated = [first_token]
+        slot.params = req.params
+        slot.detok = IncrementalDetokenizer(self.tokenizer)
+        slot.stop_texts = list(req.params.stop or [])
+
+    def _emit(self, slot: _Slot, token: int) -> None:
+        """Stream one token; apply stop conditions."""
+        n_gen = len(slot.generated)
+        params = slot.params
+        finish_reason = None
+        is_eos = (
+            token == self.tokenizer.eos_token_id
+            and not params.ignore_eos
+            and n_gen > params.min_tokens
+        )
+        delta = "" if is_eos else slot.detok.push(token)
+        text = slot.detok.text
+        if is_eos:
+            finish_reason = "stop"
+        elif n_gen >= params.max_tokens:
+            finish_reason = "length"
+        else:
+            for stop in slot.stop_texts:
+                if stop and stop in text:
+                    cut = text.index(stop)
+                    delta = delta[: max(0, len(delta) - (len(text) - cut))]
+                    finish_reason = "stop"
+                    break
+        slot.queue.put_nowait(GenerationOutput(
+            token_id=token,
+            text_delta=delta,
+            finished=finish_reason is not None,
+            finish_reason=finish_reason,
+            num_generated=n_gen,
+        ))
+        if finish_reason is not None:
+            self.allocator.free(slot.pages)
+            slot.reset()
+            self._wake.set()
+
+    def _finish(self, slot: _Slot, reason: str) -> None:
+        slot.queue.put_nowait(GenerationOutput(
+            token_id=-1,
+            text_delta="",
+            finished=True,
+            finish_reason=reason,
+            num_generated=len(slot.generated),
+        ))
+        self.allocator.free(slot.pages)
+        slot.reset()

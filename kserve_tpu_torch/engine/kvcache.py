@@ -1,0 +1,130 @@
+"""Paged KV cache: per-layer device tensors + host-side page allocator.
+
+Port of kserve_tpu/engine/kvcache.py.  Layout per layer (unchanged):
+[num_pages, 2, n_kv_heads, page_size, head_dim], page-major, K at index 0
+and V at index 1 of the second axis.  Page 0 is the null page: padded
+table entries and padding tokens point at it, so every gather and scatter
+index is valid.  Writes update the pages in place (`index_put_`), which
+takes the place of the JAX package's buffer donation.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import List
+
+import torch
+
+
+@dataclass
+class KVCacheConfig:
+    n_layers: int
+    n_kv_heads: int
+    head_dim: int
+    page_size: int = 16
+    num_pages: int = 1024
+    max_pages_per_seq: int = 128
+    dtype: str = "bfloat16"
+
+
+def init_kv_pages(config: KVCacheConfig, device="cpu") -> List[torch.Tensor]:
+    """[n_layers] list of zeroed [num_pages, 2, n_kv_heads, page_size,
+    head_dim] tensors on `device`."""
+    shape = (config.num_pages, 2, config.n_kv_heads, config.page_size,
+             config.head_dim)
+    dtype = getattr(torch, config.dtype)
+    return [torch.zeros(shape, dtype=dtype, device=device)
+            for _ in range(config.n_layers)]
+
+
+class PageAllocator:
+    """Host-side free-list with refcounts; page 0 is reserved (null page
+    for padding).  A page returns to the free list only when its last
+    reference drops."""
+
+    def __init__(self, num_pages: int):
+        self.num_pages = num_pages
+        self._free = list(range(num_pages - 1, 0, -1))  # stack, page 0 reserved
+        self._refs = [0] * num_pages
+
+    @property
+    def free_pages(self) -> int:
+        return len(self._free)
+
+    def can_allocate(self, n: int) -> bool:
+        return len(self._free) >= n
+
+    def allocate(self, n: int) -> List[int]:
+        if n > len(self._free):
+            raise MemoryError(f"KV cache exhausted: need {n} pages, {len(self._free)} free")
+        pages = [self._free.pop() for _ in range(n)]
+        for p in pages:
+            self._refs[p] = 1
+        return pages
+
+    def share(self, pages: List[int]) -> None:
+        for p in pages:
+            if p != 0:
+                self._refs[p] += 1
+
+    def free(self, pages: List[int]) -> None:
+        for p in pages:
+            if p == 0:
+                continue
+            if self._refs[p] <= 0:
+                # a double free must not put the page on the list twice
+                # (two sequences would then share it and corrupt KV)
+                continue
+            self._refs[p] -= 1
+            if self._refs[p] == 0:
+                self._free.append(p)
+
+
+def pages_needed(n_tokens: int, page_size: int) -> int:
+    return (n_tokens + page_size - 1) // page_size
+
+
+def _scatter_kv(kv_pages: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                pages_flat: torch.Tensor, slot_flat: torch.Tensor) -> torch.Tensor:
+    """Write K/V rows ([N, n_kv, d] each) in place at flat (page, slot)
+    indices; returns the same tensor."""
+    values = torch.stack([k, v], dim=1).to(kv_pages.dtype)  # [N, 2, n_kv, d]
+    kv_pages[pages_flat.long(), :, :, slot_flat.long(), :] = values
+    return kv_pages
+
+
+def write_ragged_kv(
+    kv_pages: torch.Tensor,  # [num_pages, 2, n_kv, ps, d]
+    k: torch.Tensor,  # [T, n_kv, d] packed ragged slice keys
+    v: torch.Tensor,  # [T, n_kv, d]
+    page_table: torch.Tensor,  # [B, max_pages_per_seq]
+    token_seq: torch.Tensor,  # [T] lane per packed token (-1 = padding)
+    token_pos: torch.Tensor,  # [T] absolute position per packed token
+    page_size: int,
+) -> torch.Tensor:
+    """Ragged-batch scatter: each packed token lands at its lane's (page,
+    slot) for its position; padding tokens write to the null page."""
+    valid = token_seq >= 0
+    seq_ix = token_seq.clamp(min=0).long()
+    col = (token_pos // page_size).clamp(max=page_table.shape[1] - 1).long()
+    page = torch.where(valid, page_table[seq_ix, col], torch.zeros_like(token_seq))
+    slot = token_pos % page_size
+    return _scatter_kv(kv_pages, k, v, page, slot)
+
+
+def append_token_kv(
+    kv_pages: torch.Tensor,  # [num_pages, 2, n_kv, ps, d]
+    k: torch.Tensor,  # [B, n_kv, d]
+    v: torch.Tensor,  # [B, n_kv, d]
+    page_table: torch.Tensor,  # [B, max_pages_per_seq]
+    pos: torch.Tensor,  # [B] position being written
+    active: torch.Tensor,  # [B] bool: inactive lanes write to the null page
+    page_size: int,
+) -> torch.Tensor:
+    """Decode-step scatter: one new token per active lane."""
+    B = k.shape[0]
+    b = torch.arange(B, device=pos.device)
+    col = (pos // page_size).clamp(max=page_table.shape[1] - 1).long()
+    page = torch.where(active, page_table[b, col], torch.zeros_like(pos))
+    slot = pos % page_size
+    return _scatter_kv(kv_pages, k, v, page, slot)

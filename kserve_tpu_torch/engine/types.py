@@ -1,0 +1,92 @@
+"""Engine runtime types: configuration, the output record, and slot and
+queue bookkeeping.
+
+Port of kserve_tpu/engine/types.py (EngineConfig :36 with the fields this
+slice uses, GenerationOutput :317, _Slot :331, _QueuedRequest :359).  The
+knobs the slice does not run yet (kv_quant, weight_quant, tp/dp/sp/pp,
+spec_decode_k) are kept so a configuration asking for them is rejected at
+engine construction instead of silently ignored.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import List, Optional, Tuple
+
+
+@dataclass
+class EngineConfig:
+    max_batch_size: int = 8
+    page_size: int = 16
+    num_pages: int = 2048
+    max_pages_per_seq: int = 128
+    max_prefill_len: int = 1024
+    prefill_buckets: Tuple[int, ...] = (32, 64, 128, 256, 512, 1024)
+    dtype: str = "bfloat16"  # KV cache dtype
+    # decode steps run per dispatch (the `mixed` loop); streaming
+    # granularity is this many tokens
+    steps_per_sync: int = 8
+    # not run by this port yet: any other value is rejected
+    kv_quant: str = "none"
+    weight_quant: str = "none"
+    tp: int = 1
+    dp: int = 1
+    sp: int = 1
+    pp: int = 1
+    spec_decode_k: Optional[int] = None
+
+    def __post_init__(self):
+        # buckets must reach max_prefill_len or long prompts would overflow
+        buckets = sorted(
+            {b for b in self.prefill_buckets if b <= self.max_prefill_len}
+            | {self.max_prefill_len}
+        )
+        self.prefill_buckets = tuple(buckets)
+
+    @property
+    def max_model_len(self) -> int:
+        return self.max_pages_per_seq * self.page_size
+
+    def page_bucket(self, n_pages: int) -> int:
+        """Page-table width bucket (pow2): attention only gathers as many
+        pages as the longest active sequence owns."""
+        b = 8
+        while b < n_pages:
+            b *= 2
+        return min(b, self.max_pages_per_seq)
+
+
+@dataclass
+class GenerationOutput:
+    token_id: int
+    text_delta: str
+    finished: bool = False
+    finish_reason: Optional[str] = None
+    num_generated: int = 0
+
+
+class _Slot:
+    """Host-side state for one decode lane."""
+
+    __slots__ = (
+        "request_id", "prompt_len", "pages", "pos", "generated", "params",
+        "queue", "detok", "stop_texts", "prefilling",
+    )
+
+    def __init__(self):
+        self.request_id: Optional[str] = None
+        # chunked prefill in progress: {"req", "seq", "done"}; each mixed
+        # step carries the lane's next chunk
+        self.prefilling: Optional[dict] = None
+
+    def reset(self):
+        self.request_id = None
+        self.prefilling = None
+
+
+class _QueuedRequest:
+    def __init__(self, request_id, prompt_ids, params, queue):
+        self.request_id = request_id
+        self.prompt_ids: List[int] = prompt_ids
+        self.params = params
+        self.queue = queue

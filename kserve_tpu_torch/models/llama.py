@@ -1,0 +1,459 @@
+"""Llama-family decoder in PyTorch (Llama 2/3, Mistral, Qwen2/3 and
+Gemma-2-style variants through config knobs: GQA, RoPE theta and llama3
+scaling, qkv bias, per-head qk-norm, tied embeddings, sandwich norms,
+attention and final logit softcaps, attention-scale override, per-layer
+sliding windows, GeGLU).
+
+Port of kserve_tpu/models/llama.py: the two entry points the `mixed`
+program runs, `forward_ragged` (:720) and `decode_step` (:656), and their
+helpers.  Parameters are a plain dict with the JAX package's key names and
+layout (`w` is [in, out], `y = x @ w`), so `params_from_jax` carries a JAX
+pytree across without a transpose.  The large matrix products are plain
+`@`; attention goes through ops/attention.py (the CUDA kernels on the
+card).  Not ported in this slice: LoRA, MoE, int8 weights, pipeline
+parallelism, the legacy prefill programs, checkpoint loading.
+"""
+
+from __future__ import annotations
+
+import json
+from dataclasses import dataclass
+from typing import Any, Dict, List, Optional, Tuple
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from ..engine.kvcache import append_token_kv, write_ragged_kv
+from ..ops.attention import paged_attention, ragged_paged_attention
+from ..ops.norms import rms_norm, rms_norm_plus_one
+from ..ops.rotary import rope_cos_sin, rope_frequencies, rotate
+
+Params = Dict[str, Any]
+
+
+def _map_hidden_act(act) -> str:
+    if act in (None, "silu", "swish"):
+        return "silu"
+    if act in ("gelu_pytorch_tanh", "gelu_tanh"):
+        return "gelu_tanh"
+    raise ValueError(f"unsupported hidden_act {act!r}")
+
+
+@dataclass
+class LlamaConfig:
+    vocab_size: int = 32000
+    hidden_size: int = 4096
+    intermediate_size: int = 11008
+    n_layers: int = 32
+    n_heads: int = 32
+    n_kv_heads: int = 32
+    head_dim: Optional[int] = None
+    rope_theta: float = 10000.0
+    rope_scaling: Optional[dict] = None
+    rms_norm_eps: float = 1e-5
+    max_position_embeddings: int = 4096
+    tie_word_embeddings: bool = False
+    attention_bias: bool = False
+    qk_norm: bool = False  # per-head RMSNorm on q/k before rope (Qwen3)
+    hidden_act: str = "silu"  # or "gelu_tanh" (GeGLU)
+    norm_plus_one: bool = False  # RMSNorm multiplies by (1 + w)
+    embed_scale: bool = False  # inputs scaled by sqrt(hidden_size)
+    sandwich_norms: bool = False  # post-attn + post-ffn norms per layer
+    attn_logit_softcap: float = 0.0  # tanh cap on attention scores
+    query_pre_attn_scalar: Optional[float] = None  # attn scale = qpas**-0.5
+    sliding_window: int = 0  # > 0: window on layers marked sliding
+    layer_types: Optional[Tuple[str, ...]] = None
+    logit_softcap: float = 0.0  # tanh cap on the final logits
+    dtype: str = "bfloat16"
+
+    def __post_init__(self):
+        if self.head_dim is None:
+            self.head_dim = self.hidden_size // self.n_heads
+        if self.layer_types is not None:
+            self.layer_types = tuple(self.layer_types)
+
+    def layer_window(self, i: int) -> int:
+        """Sliding-window width for layer i (0 = full attention)."""
+        if self.sliding_window <= 0:
+            return 0
+        if self.layer_types is None:
+            return self.sliding_window
+        return (self.sliding_window
+                if self.layer_types[i] == "sliding_attention" else 0)
+
+    @property
+    def attn_scale(self) -> Optional[float]:
+        if self.query_pre_attn_scalar is None:
+            return None
+        return float(self.query_pre_attn_scalar) ** -0.5
+
+    @property
+    def torch_dtype(self) -> torch.dtype:
+        return getattr(torch, self.dtype)
+
+    @staticmethod
+    def tiny(**overrides) -> "LlamaConfig":
+        base = dict(
+            vocab_size=512,
+            hidden_size=64,
+            intermediate_size=128,
+            n_layers=2,
+            n_heads=4,
+            n_kv_heads=2,
+            max_position_embeddings=256,
+        )
+        base.update(overrides)
+        return LlamaConfig(**base)
+
+    @staticmethod
+    def llama3_8b() -> "LlamaConfig":
+        return LlamaConfig(
+            vocab_size=128256,
+            hidden_size=4096,
+            intermediate_size=14336,
+            n_layers=32,
+            n_heads=32,
+            n_kv_heads=8,
+            rope_theta=500000.0,
+            max_position_embeddings=8192,
+        )
+
+    @staticmethod
+    def llama3_1b() -> "LlamaConfig":
+        """Llama-3.2-1B shape (head_dim 64)."""
+        return LlamaConfig(
+            vocab_size=128256,
+            hidden_size=2048,
+            intermediate_size=8192,
+            n_layers=16,
+            n_heads=32,
+            n_kv_heads=8,
+            head_dim=64,
+            rope_theta=500000.0,
+            max_position_embeddings=8192,
+            tie_word_embeddings=True,
+        )
+
+    @staticmethod
+    def qwen3_0_6b() -> "LlamaConfig":
+        return LlamaConfig(
+            vocab_size=151936,
+            hidden_size=1024,
+            intermediate_size=3072,
+            n_layers=28,
+            n_heads=16,
+            n_kv_heads=8,
+            head_dim=128,
+            rope_theta=1000000.0,
+            max_position_embeddings=32768,
+            tie_word_embeddings=True,
+            qk_norm=True,
+            rms_norm_eps=1e-6,
+        )
+
+    @staticmethod
+    def gemma2_2b() -> "LlamaConfig":
+        return LlamaConfig(
+            vocab_size=256000,
+            hidden_size=2304,
+            intermediate_size=9216,
+            n_layers=26,
+            n_heads=8,
+            n_kv_heads=4,
+            head_dim=256,
+            rope_theta=10000.0,
+            max_position_embeddings=8192,
+            tie_word_embeddings=True,
+            hidden_act="gelu_tanh",
+            norm_plus_one=True,
+            embed_scale=True,
+            sandwich_norms=True,
+            attn_logit_softcap=50.0,
+            logit_softcap=30.0,
+            query_pre_attn_scalar=256,
+            sliding_window=4096,
+            layer_types=tuple(
+                "sliding_attention" if i % 2 == 0 else "full_attention"
+                for i in range(26)),
+            rms_norm_eps=1e-6,
+        )
+
+    @staticmethod
+    def from_hf_config(path_or_dict) -> "LlamaConfig":
+        """Map a HuggingFace config.json (Llama/Mistral/Qwen2/Qwen3/Gemma-2)
+        onto LlamaConfig; raises on what this port does not run (MoE)."""
+        if isinstance(path_or_dict, str):
+            with open(path_or_dict) as f:
+                cfg = json.load(f)
+        else:
+            cfg = dict(path_or_dict)
+        if cfg.get("num_local_experts"):
+            raise NotImplementedError("MoE checkpoints are not ported yet")
+        rope_scaling = cfg.get("rope_scaling")
+        if rope_scaling is not None:
+            # validate eagerly: an unsupported variant must not load
+            rope_frequencies(
+                cfg.get("head_dim") or cfg["hidden_size"] // cfg["num_attention_heads"],
+                cfg.get("rope_theta", 10000.0),
+                rope_scaling,
+            )
+        gemma2 = cfg.get("model_type") == "gemma2"
+        return LlamaConfig(
+            vocab_size=cfg["vocab_size"],
+            hidden_size=cfg["hidden_size"],
+            intermediate_size=(
+                cfg["intermediate_size"] if "intermediate_size" in cfg
+                else cfg["ffn_dim"]),
+            n_layers=cfg["num_hidden_layers"],
+            n_heads=cfg["num_attention_heads"],
+            n_kv_heads=cfg.get("num_key_value_heads", cfg["num_attention_heads"]),
+            head_dim=cfg.get("head_dim"),
+            rope_theta=cfg.get("rope_theta", 10000.0),
+            rope_scaling=rope_scaling,
+            rms_norm_eps=cfg.get("rms_norm_eps", 1e-5),
+            max_position_embeddings=cfg.get("max_position_embeddings", 4096),
+            tie_word_embeddings=cfg.get("tie_word_embeddings", False),
+            attention_bias=cfg.get("attention_bias", False),
+            qk_norm=(
+                cfg.get("model_type") == "qwen3"
+                or any("Qwen3" in a for a in (cfg.get("architectures") or []))),
+            hidden_act=_map_hidden_act(
+                cfg.get("hidden_act", cfg.get("hidden_activation"))),
+            norm_plus_one=gemma2,
+            embed_scale=gemma2,
+            sandwich_norms=gemma2,
+            attn_logit_softcap=cfg.get("attn_logit_softcapping") or 0.0,
+            logit_softcap=cfg.get("final_logit_softcapping") or 0.0,
+            query_pre_attn_scalar=cfg.get("query_pre_attn_scalar"),
+            sliding_window=(cfg.get("sliding_window") or 0) if gemma2 else 0,
+            layer_types=(
+                tuple(cfg["layer_types"]) if cfg.get("layer_types")
+                else tuple(
+                    "sliding_attention" if i % 2 == 0 else "full_attention"
+                    for i in range(cfg["num_hidden_layers"]))
+                if gemma2 and (cfg.get("sliding_window") or 0) > 0
+                else None),
+        )
+
+
+def init_params(config: LlamaConfig, seed: int = 1, device="cpu",
+                scale: float = 0.02) -> Params:
+    """Random parameters made directly on `device` from a seeded
+    torch.Generator: N(0, scale) linears and embedding, the JAX package's
+    norm and bias initial values and key names."""
+    dtype = config.torch_dtype
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    h, hd = config.hidden_size, config.head_dim
+    nq, nkv, f = config.n_heads, config.n_kv_heads, config.intermediate_size
+
+    def dense(*shape):
+        w = torch.randn(shape, generator=gen, device=device, dtype=torch.float32)
+        return w.mul_(scale).to(dtype)
+
+    def const(value, *shape):
+        return torch.full(shape, value, dtype=dtype, device=device)
+
+    norm_value = 0.0 if config.norm_plus_one else 1.0
+    layers = []
+    for i in range(config.n_layers):
+        layer = {
+            "attn_norm": const(norm_value, h),
+            "wq": dense(h, nq * hd),
+            "wk": dense(h, nkv * hd),
+            "wv": dense(h, nkv * hd),
+            "wo": dense(nq * hd, h),
+            "mlp_norm": const(norm_value, h),
+            "w_gate": dense(h, f),
+            "w_up": dense(h, f),
+            "w_down": dense(f, h),
+        }
+        if config.attention_bias:
+            layer["bq"] = const(0.0, nq * hd)
+            layer["bk"] = const(0.0, nkv * hd)
+            layer["bv"] = const(0.0, nkv * hd)
+        if config.qk_norm:
+            layer["q_norm"] = const(1.0, hd)
+            layer["k_norm"] = const(1.0, hd)
+        if config.sandwich_norms:
+            layer["post_attn_norm"] = const(0.0, h)
+            layer["post_mlp_norm"] = const(0.0, h)
+        if config.sliding_window > 0:
+            layer["attn_window"] = config.layer_window(i)
+        layers.append(layer)
+    params: Params = {
+        "embed": dense(config.vocab_size, h),
+        "final_norm": const(norm_value, h),
+        "layers": layers,
+    }
+    if not config.tie_word_embeddings:
+        params["lm_head"] = dense(h, config.vocab_size)
+    return params
+
+
+def params_from_jax(params_np: Params, config: LlamaConfig, device="cpu") -> Params:
+    """The JAX package's params pytree, with numpy leaves, -> this port's
+    parameters on `device` in config.dtype.  Same keys and layouts; the
+    per-layer `attn_window` becomes a Python int.  Raises on leaves this
+    slice does not run (int8 weights, LoRA stacks, MoE routers)."""
+    dtype = config.torch_dtype
+
+    def tensor(x) -> torch.Tensor:
+        if isinstance(x, dict):
+            raise NotImplementedError(
+                "quantized (int8) weights are not ported yet")
+        return torch.tensor(np.asarray(x, dtype=np.float32)).to(
+            device=device, dtype=dtype)
+
+    layers = []
+    for layer in params_np["layers"]:
+        out = {}
+        for key, value in layer.items():
+            if key in ("lora", "router"):
+                raise NotImplementedError(f"layer key {key!r} is not ported yet")
+            out[key] = int(np.asarray(value)) if key == "attn_window" else tensor(value)
+        layers.append(out)
+    params: Params = {"layers": layers}
+    for key in ("embed", "final_norm", "lm_head"):
+        if key in params_np:
+            params[key] = tensor(params_np[key])
+    return params
+
+
+def _norm(x: torch.Tensor, weight: torch.Tensor, config: LlamaConfig) -> torch.Tensor:
+    if config.norm_plus_one:
+        return rms_norm_plus_one(x, weight, config.rms_norm_eps)
+    return rms_norm(x, weight, config.rms_norm_eps)
+
+
+def _act(x: torch.Tensor, config: LlamaConfig) -> torch.Tensor:
+    if config.hidden_act == "gelu_tanh":
+        return F.gelu(x, approximate="tanh")
+    return F.silu(x)
+
+
+def _embed(params: Params, tokens: torch.Tensor, config: LlamaConfig) -> torch.Tensor:
+    x = params["embed"][tokens.long()].to(config.torch_dtype)
+    if config.embed_scale:
+        # the normalizer is cast to the activation dtype first (HF parity)
+        x = x * torch.tensor(config.hidden_size ** 0.5, dtype=x.dtype)
+    return x
+
+
+def _qkv(layer: Params, x: torch.Tensor, config: LlamaConfig):
+    """x [N, h] -> q [N, nq, d], k/v [N, nkv, d]."""
+    N = x.shape[0]
+    q = x @ layer["wq"]
+    k = x @ layer["wk"]
+    v = x @ layer["wv"]
+    if config.attention_bias:
+        q = q + layer["bq"]
+        k = k + layer["bk"]
+        v = v + layer["bv"]
+    q = q.reshape(N, config.n_heads, config.head_dim)
+    k = k.reshape(N, config.n_kv_heads, config.head_dim)
+    v = v.reshape(N, config.n_kv_heads, config.head_dim)
+    if config.qk_norm:
+        q = rms_norm(q, layer["q_norm"], config.rms_norm_eps)
+        k = rms_norm(k, layer["k_norm"], config.rms_norm_eps)
+    return q, k, v
+
+
+def _mlp(layer: Params, x: torch.Tensor, config: LlamaConfig) -> torch.Tensor:
+    gate = _act(x @ layer["w_gate"], config)
+    up = x @ layer["w_up"]
+    return (gate * up) @ layer["w_down"]
+
+
+def _logits(params: Params, x: torch.Tensor, config: LlamaConfig) -> torch.Tensor:
+    x = _norm(x, params["final_norm"], config)
+    head = params.get("lm_head")
+    logits = (x @ params["embed"].T if head is None else x @ head).float()
+    if config.logit_softcap > 0.0:
+        logits = torch.tanh(logits / config.logit_softcap) * config.logit_softcap
+    return logits
+
+
+def _block(layer: Params, x: torch.Tensor, cos, sin, config: LlamaConfig,
+           attend) -> torch.Tensor:
+    """One transformer block over N tokens x [N, h]; `attend(q, k, v,
+    window)` writes K/V to the cache and returns attention [N, nq, d]."""
+    residual = x
+    h = _norm(x, layer["attn_norm"], config)
+    q, k, v = _qkv(layer, h, config)
+    q = rotate(q, cos, sin)
+    k = rotate(k, cos, sin)
+    attn = attend(q, k, v, layer.get("attn_window", 0))
+    attn = attn.reshape(x.shape[0], -1) @ layer["wo"]
+    if config.sandwich_norms:
+        attn = _norm(attn, layer["post_attn_norm"], config)
+    x = residual + attn
+    residual = x
+    out = _mlp(layer, _norm(x, layer["mlp_norm"], config), config)
+    if config.sandwich_norms:
+        out = _norm(out, layer["post_mlp_norm"], config)
+    return residual + out
+
+
+def decode_step(
+    params: Params,
+    config: LlamaConfig,
+    tokens: torch.Tensor,  # [B] current tokens
+    pos: torch.Tensor,  # [B] int32 their positions
+    kv_pages: List[torch.Tensor],
+    page_table: torch.Tensor,  # [B, W] int32
+    active: torch.Tensor,  # [B] bool
+    page_size: int,
+    attention_fn=None,  # replaces ops.attention.paged_attention (same signature)
+) -> Tuple[torch.Tensor, List[torch.Tensor]]:
+    """One decode token per lane; returns ([B, vocab] f32 logits, pages).
+    Pages are written in place."""
+    attention = attention_fn or paged_attention
+    x = _embed(params, tokens, config)  # [B, h]
+    cos, sin = rope_cos_sin(pos, config.head_dim, config.rope_theta,
+                            config.rope_scaling)
+    seq_lens = torch.where(active, pos + 1, torch.zeros_like(pos)).to(torch.int32)
+    for layer, pages in zip(params["layers"], kv_pages):
+        def attend(q, k, v, window, pages=pages):
+            append_token_kv(pages, k, v, page_table, pos, active, page_size)
+            return attention(q, pages, page_table, seq_lens,
+                             logit_softcap=config.attn_logit_softcap,
+                             scale=config.attn_scale, window=window)
+        x = _block(layer, x, cos, sin, config, attend)
+    return _logits(params, x, config), kv_pages
+
+
+def forward_ragged(
+    params: Params,
+    config: LlamaConfig,
+    tokens: torch.Tensor,  # [T] packed ragged token buffer
+    token_seq: torch.Tensor,  # [T] lane per token (-1 = padding)
+    token_pos: torch.Tensor,  # [T] absolute position per token
+    q_start: torch.Tensor,  # [B] first packed index of each lane's slice
+    q_len: torch.Tensor,  # [B] slice length (0 = inactive lane)
+    kv_start: torch.Tensor,  # [B] tokens cached before the slice
+    kv_pages: List[torch.Tensor],
+    page_table: torch.Tensor,  # [B, W] int32
+    page_size: int,
+    last_idx: torch.Tensor,  # [B] packed index of each lane's last token
+    attention_fn=None,  # replaces ops.attention.ragged_paged_attention
+) -> Tuple[torch.Tensor, List[torch.Tensor]]:
+    """The unified mixed-batch forward: every lane's slice (a prompt, a
+    prompt chunk or one decode token) sits in one packed buffer.  Each
+    layer writes the slice's K/V into the pages, then runs ragged paged
+    attention with the causal mask anchored at each lane's kv offset.
+    Returns ([B, vocab] f32 logits at each lane's last token, pages)."""
+    attention = attention_fn or ragged_paged_attention
+    x = _embed(params, tokens, config)  # [T, h]
+    cos, sin = rope_cos_sin(token_pos, config.head_dim, config.rope_theta,
+                            config.rope_scaling)
+    for layer, pages in zip(params["layers"], kv_pages):
+        def attend(q, k, v, window, pages=pages):
+            write_ragged_kv(pages, k, v, page_table, token_seq, token_pos,
+                            page_size)
+            return attention(q, pages, page_table, q_start, q_len, kv_start,
+                             logit_softcap=config.attn_logit_softcap,
+                             scale=config.attn_scale, window=window)
+        x = _block(layer, x, cos, sin, config, attend)
+    return _logits(params, x[last_idx.long()], config), kv_pages

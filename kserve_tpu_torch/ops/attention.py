@@ -1,0 +1,172 @@
+"""Attention over the paged KV cache: the plain PyTorch versions and the
+dispatchers that route to the hand-written CUDA kernels.
+
+Port of kserve_tpu/ops/attention.py (the decode and ragged paths):
+
+- `paged_attention_plain` / `ragged_paged_attention_plain` are the gather
+  versions (`paged_attention_xla` :171, `ragged_paged_attention_xla` :326).
+  They materialize the gathered KV, run on any device, and are what the
+  CPU tests and chip_smoke.py hold the kernels against.
+- `paged_attention` / `ragged_paged_attention` dispatch on the tensor's
+  device: a CPU tensor takes the plain version, a CUDA tensor launches the
+  kernel (ops/paged_attention_cuda.py) or raises.  There is no size
+  threshold: on the card the kernel always runs.
+
+`window` is a Python int (0 = full attention), `scale` None means
+1/sqrt(head_dim).
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from . import paged_attention_cuda as _cuda
+
+_MASKED = -1e30
+
+
+def _gather_history(kv_pages: torch.Tensor, page_table: torch.Tensor):
+    """Gather each lane's pages -> (k [B, W*ps, nkv, d], v [B, W*ps, nkv, d])."""
+    B, W = page_table.shape
+    nkv, ps, d = kv_pages.shape[2], kv_pages.shape[3], kv_pages.shape[4]
+    gathered = kv_pages[page_table.long()]  # [B, W, 2, nkv, ps, d]
+    k = gathered[:, :, 0].permute(0, 1, 3, 2, 4).reshape(B, W * ps, nkv, d)
+    v = gathered[:, :, 1].permute(0, 1, 3, 2, 4).reshape(B, W * ps, nkv, d)
+    return k, v
+
+
+def paged_attention_plain(
+    q: torch.Tensor,  # [B, nq, d], one decode token per lane
+    kv_pages: torch.Tensor,  # [num_pages, 2, nkv, ps, d]
+    page_table: torch.Tensor,  # [B, W]
+    seq_lens: torch.Tensor,  # [B] int (length INCLUDING the current token)
+    logit_softcap: float = 0.0,
+    scale: Optional[float] = None,
+    window: int = 0,
+) -> torch.Tensor:
+    """Decode attention by gather + masked softmax (f32 math)."""
+    B, nq, d = q.shape
+    k, v = _gather_history(kv_pages, page_table)
+    L, nkv = k.shape[1], k.shape[2]
+    group = nq // nkv
+    if scale is None:
+        scale = 1.0 / float(d) ** 0.5
+    qg = q.float().reshape(B, nkv, group, d)
+    scores = torch.einsum("bkgd,blkd->bkgl", qg, k.float()) * scale
+    if logit_softcap > 0.0:
+        scores = torch.tanh(scores / logit_softcap) * logit_softcap
+    pos = torch.arange(L, dtype=torch.int32, device=q.device)
+    seq_lens = seq_lens.to(q.device)
+    mask = pos[None, :] < seq_lens[:, None]  # [B, L]
+    if window > 0:
+        dist = (seq_lens[:, None] - 1) - pos[None, :]
+        mask = mask & (dist < window)
+    scores = torch.where(mask[:, None, None, :], scores,
+                         torch.full_like(scores, _MASKED))
+    weights = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bkgl,blkd->bkgd", weights, v.float()).reshape(B, nq, d)
+    # an inactive lane (seq_len 0) is exactly 0, as in the Pallas and CUDA
+    # kernels; the JAX gather returned the mean of its null-page rows
+    out = torch.where((seq_lens > 0)[:, None, None], out, torch.zeros_like(out))
+    return out.to(q.dtype)
+
+
+def ragged_token_metadata(q_start: torch.Tensor, q_len: torch.Tensor, T: int):
+    """Per-token (lane index, local offset, validity) for a packed ragged
+    buffer of T tokens, derived on the tensor's device.  Tokens outside
+    every lane's slice get lane -1."""
+    idx = torch.arange(T, dtype=torch.int32, device=q_start.device)
+    member = ((idx[None, :] >= q_start[:, None])
+              & (idx[None, :] < (q_start + q_len)[:, None]))  # [B, T]
+    valid = member.any(dim=0)
+    lane = member.to(torch.int32).argmax(dim=0).to(torch.int32)
+    token_seq = torch.where(valid, lane, torch.full_like(lane, -1))
+    token_loc = idx - q_start[lane]
+    return token_seq, token_loc, valid
+
+
+def ragged_paged_attention_plain(
+    q: torch.Tensor,  # [T, nq, d] packed ragged query buffer
+    kv_pages: torch.Tensor,  # [num_pages, 2, nkv, ps, d]
+    page_table: torch.Tensor,  # [B, W]
+    q_start: torch.Tensor,  # [B] first packed index of each lane's slice
+    q_len: torch.Tensor,  # [B] slice length (0 = inactive lane)
+    kv_start: torch.Tensor,  # [B] tokens cached BEFORE this slice
+    logit_softcap: float = 0.0,
+    scale: Optional[float] = None,
+    window: int = 0,
+) -> torch.Tensor:
+    """Gather version of the ragged contract: query j of lane i sits at
+    kv_start[i]+j and attends causally to the lane's pages (already holding
+    the slice's own K/V).  Rows outside every slice are exactly 0."""
+    T, nq, d = q.shape
+    if scale is None:
+        scale = 1.0 / float(d) ** 0.5
+    k_all, v_all = _gather_history(kv_pages, page_table)  # [B, L, nkv, d]
+    L, nkv = k_all.shape[1], k_all.shape[2]
+    group = nq // nkv
+    token_seq, token_loc, valid = ragged_token_metadata(q_start, q_len, T)
+    seq_ix = token_seq.clamp(min=0).long()
+    q_pos = kv_start[seq_ix] + token_loc  # [T] absolute query positions
+    k_t = k_all[seq_ix]  # [T, L, nkv, d]
+    v_t = v_all[seq_ix]
+    qg = q.float().reshape(T, nkv, group, d)
+    scores = torch.einsum("tkgd,tlkd->tkgl", qg, k_t.float()) * scale
+    if logit_softcap > 0.0:
+        scores = torch.tanh(scores / logit_softcap) * logit_softcap
+    kpos = torch.arange(L, dtype=torch.int32, device=q.device)
+    mask = (kpos[None, :] <= q_pos[:, None]) & valid[:, None]  # [T, L]
+    if window > 0:
+        dist = q_pos[:, None] - kpos[None, :]
+        mask = mask & (dist < window)
+    scores = torch.where(mask[:, None, None, :], scores,
+                         torch.full_like(scores, _MASKED))
+    weights = torch.softmax(scores, dim=-1)
+    out = torch.einsum("tkgl,tlkd->tkgd", weights, v_t.float()).reshape(T, nq, d)
+    out = torch.where(valid[:, None, None], out, torch.zeros_like(out))
+    return out.to(q.dtype)
+
+
+def ragged_paged_attention(
+    q: torch.Tensor,
+    kv_pages: torch.Tensor,
+    page_table: torch.Tensor,
+    q_start: torch.Tensor,
+    q_len: torch.Tensor,
+    kv_start: torch.Tensor,
+    logit_softcap: float = 0.0,
+    scale: Optional[float] = None,
+    window: int = 0,
+) -> torch.Tensor:
+    """The ragged contract on the tensor's device: the CUDA kernel for a
+    CUDA tensor (raising on what it does not take), the plain version for
+    a CPU tensor."""
+    if q.device.type == "cpu":
+        return ragged_paged_attention_plain(
+            q, kv_pages, page_table, q_start, q_len, kv_start,
+            logit_softcap=logit_softcap, scale=scale, window=window)
+    return _cuda.ragged_paged_attention_cuda(
+        q, kv_pages, page_table, q_start, q_len, kv_start,
+        logit_softcap=logit_softcap, scale=scale, window=window)
+
+
+def paged_attention(
+    q: torch.Tensor,
+    kv_pages: torch.Tensor,
+    page_table: torch.Tensor,
+    seq_lens: torch.Tensor,
+    logit_softcap: float = 0.0,
+    scale: Optional[float] = None,
+    window: int = 0,
+) -> torch.Tensor:
+    """Decode attention on the tensor's device (kernel on CUDA, plain on
+    CPU); the kernel takes windows and scale overrides natively."""
+    if q.device.type == "cpu":
+        return paged_attention_plain(
+            q, kv_pages, page_table, seq_lens, logit_softcap=logit_softcap,
+            scale=scale, window=window)
+    return _cuda.paged_decode_attention_cuda(
+        q, kv_pages, page_table, seq_lens, logit_softcap=logit_softcap,
+        scale=scale, window=window)

@@ -1,0 +1,150 @@
+"""Wrappers of the hand-written CUDA paged-attention kernels (csrc/).
+
+- `ragged_paged_attention_cuda` launches csrc/ragged_paged_attention.cu,
+  the port of kserve_tpu/ops/pallas_paged_attention.py:_ragged_kernel.
+- `paged_decode_attention_cuda` launches csrc/paged_decode_attention.cu,
+  the port of :_decode_kernel and (at head_dim 64) :_packed_decode_kernel.
+
+Each wrapper takes CUDA tensors only: it checks device, dtype (bf16 or
+f32), shape and contiguity, raises on anything its kernel does not take,
+allocates the output with torch.empty, launches on the current stream and
+raises if the launch failed.  It never falls back to the plain version;
+the dispatchers in ops/attention.py route CPU tensors to the plain
+versions before a wrapper is reached.  `LAUNCHES` counts launches.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from ._build import load_library
+
+RAGGED_BQ = 8  # query tokens per kernel block; slices start at multiples
+HEAD_DIMS = (64, 128)
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+#: kernel name -> launches in this process (chip_smoke.py zeroes it before
+#: driving the main path and reads it after)
+LAUNCHES = {"ragged_paged_attention": 0, "paged_decode_attention": 0}
+
+
+def reset_launch_counts() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+def _require(cond: bool, msg: str) -> None:
+    if not cond:
+        raise ValueError(msg)
+
+
+def _check_common(q: torch.Tensor, kv_pages: torch.Tensor, ints) -> None:
+    _require(q.is_cuda, f"CUDA kernel needs CUDA tensors, got {q.device}")
+    _require(q.dtype in _DTYPE_CODES,
+             f"CUDA kernel takes float32 or bfloat16, got {q.dtype}")
+    _require(kv_pages.dtype == q.dtype,
+             f"kv_pages dtype {kv_pages.dtype} != q dtype {q.dtype}")
+    _require(kv_pages.dim() == 5 and kv_pages.shape[1] == 2,
+             f"kv_pages must be [P, 2, nkv, ps, d], got {tuple(kv_pages.shape)}")
+    d = q.shape[-1]
+    _require(d in HEAD_DIMS, f"CUDA kernel takes head_dim {HEAD_DIMS}, got {d}")
+    _require(kv_pages.shape[4] == d, "kv_pages head_dim != q head_dim")
+    nq, nkv = q.shape[-2], kv_pages.shape[2]
+    _require(nq % nkv == 0, f"n_heads {nq} not a multiple of n_kv_heads {nkv}")
+    for t in (q, kv_pages, *ints):
+        _require(t.device == q.device, "all tensors must be on one device")
+        _require(t.is_contiguous(), "CUDA kernel needs contiguous tensors")
+    for t in ints:
+        _require(t.dtype == torch.int32, f"index tensors must be int32, got {t.dtype}")
+    _require(q.data_ptr() % 16 == 0 and kv_pages.data_ptr() % 16 == 0,
+             "q and kv_pages must be 16-byte aligned")
+
+
+def _raise_on(err: int, name: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"{name} kernel launch failed: cudaError {err}")
+
+
+def ragged_block_metadata(q_start: torch.Tensor, q_len: torch.Tensor,
+                          G: int, bq: int = RAGGED_BQ):
+    """[G] (lane index, first query offset) per bq-token block, on the
+    device with no host sync; blocks outside every slice get lane -1.
+    Port of kserve_tpu/ops/pallas_paged_attention.py:_ragged_block_metadata."""
+    blk0 = torch.arange(G, dtype=torch.int32, device=q_start.device) * bq
+    member = ((blk0[None, :] >= q_start[:, None])
+              & (blk0[None, :] < (q_start + q_len)[:, None]))  # [B, G]
+    hit = member.any(dim=0)
+    lane = member.to(torch.int32).argmax(dim=0).to(torch.int32)
+    block_seq = torch.where(hit, lane, torch.full_like(lane, -1))
+    block_qoff = torch.where(hit, blk0 - q_start[lane],
+                             torch.zeros_like(blk0))
+    return block_seq.contiguous(), block_qoff.to(torch.int32).contiguous()
+
+
+def ragged_paged_attention_cuda(
+    q: torch.Tensor,  # [T, nq, d], slices at RAGGED_BQ-aligned offsets
+    kv_pages: torch.Tensor,  # [num_pages, 2, nkv, ps, d]
+    page_table: torch.Tensor,  # [B, W] int32
+    q_start: torch.Tensor,  # [B] int32, multiples of RAGGED_BQ
+    q_len: torch.Tensor,  # [B] int32 (0 = inactive lane)
+    kv_start: torch.Tensor,  # [B] int32
+    logit_softcap: float = 0.0,
+    scale: Optional[float] = None,
+    window: int = 0,  # > 0: sliding-window width
+) -> torch.Tensor:
+    ints = (page_table, q_start, q_len, kv_start)
+    _check_common(q, kv_pages, ints)
+    T, nq, d = q.shape
+    _require(T % RAGGED_BQ == 0,
+             f"ragged buffer length {T} not a multiple of RAGGED_BQ="
+             f"{RAGGED_BQ}; pad the packed buffer")
+    B, W = page_table.shape
+    _require(q_start.shape == (B,) and q_len.shape == (B,)
+             and kv_start.shape == (B,), "lane metadata must be [B]")
+    G = T // RAGGED_BQ
+    block_seq, block_qoff = ragged_block_metadata(q_start, q_len, G)
+    if scale is None:
+        scale = 1.0 / float(d) ** 0.5
+    out = torch.empty_like(q)
+    lib = load_library()
+    err = lib.kt_ragged_paged_attention(
+        q.data_ptr(), kv_pages.data_ptr(), page_table.data_ptr(),
+        block_seq.data_ptr(), block_qoff.data_ptr(), kv_start.data_ptr(),
+        q_len.data_ptr(), out.data_ptr(), G, nq, kv_pages.shape[2], d,
+        kv_pages.shape[3], W, float(scale), float(logit_softcap),
+        int(window), _DTYPE_CODES[q.dtype],
+        torch.cuda.current_stream(q.device).cuda_stream)
+    _raise_on(err, "ragged_paged_attention")
+    LAUNCHES["ragged_paged_attention"] += 1
+    return out
+
+
+def paged_decode_attention_cuda(
+    q: torch.Tensor,  # [B, nq, d], one decode token per lane
+    kv_pages: torch.Tensor,  # [num_pages, 2, nkv, ps, d]
+    page_table: torch.Tensor,  # [B, W] int32
+    seq_lens: torch.Tensor,  # [B] int32 (0 = inactive lane)
+    logit_softcap: float = 0.0,
+    scale: Optional[float] = None,
+    window: int = 0,
+) -> torch.Tensor:
+    ints = (page_table, seq_lens)
+    _check_common(q, kv_pages, ints)
+    B, nq, d = q.shape
+    _require(page_table.shape[0] == B and seq_lens.shape == (B,),
+             "page_table/seq_lens must cover the batch")
+    if scale is None:
+        scale = 1.0 / float(d) ** 0.5
+    out = torch.empty_like(q)
+    lib = load_library()
+    err = lib.kt_paged_decode_attention(
+        q.data_ptr(), kv_pages.data_ptr(), page_table.data_ptr(),
+        seq_lens.data_ptr(), out.data_ptr(), B, nq, kv_pages.shape[2], d,
+        kv_pages.shape[3], page_table.shape[1], float(scale),
+        float(logit_softcap), int(window), _DTYPE_CODES[q.dtype],
+        torch.cuda.current_stream(q.device).cuda_stream)
+    _raise_on(err, "paged_decode_attention")
+    LAUNCHES["paged_decode_attention"] += 1
+    return out

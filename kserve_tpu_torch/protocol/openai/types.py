@@ -1,0 +1,296 @@
+"""OpenAI completion and chat types as standard-library dataclasses.
+
+Port of kserve_tpu/protocol/openai/types.py (the fields this slice
+serves) with hand validation in place of pydantic, which the card machine
+does not have.  `CompletionRequest.from_json` / `ChatCompletionRequest.
+from_json` raise InvalidInput (HTTP 400) on a malformed body, and on what
+this slice refuses: `logprobs`, sampling penalties, `logit_bias`, `echo`,
+`best_of`, `suffix`.  Responses serialize with `to_dict()`, dropping None
+fields as the JAX package's `model_dump(exclude_none=True)` does.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import time
+import uuid
+from dataclasses import dataclass, field
+from typing import Any, List, Optional, Union
+
+from ...errors import InvalidInput
+
+
+def random_uuid(prefix: str = "") -> str:
+    return f"{prefix}{uuid.uuid4().hex}"
+
+
+def _drop_none(value):
+    if isinstance(value, dict):
+        return {k: _drop_none(v) for k, v in value.items() if v is not None}
+    if isinstance(value, list):
+        return [_drop_none(v) for v in value]
+    return value
+
+
+class _Serializable:
+    def to_dict(self) -> dict:
+        return _drop_none(dataclasses.asdict(self))
+
+
+def _get(body: dict, name: str, kinds, default=None, *, required=False):
+    """body[name] checked against `kinds` (bool is never an int here)."""
+    if name not in body or body[name] is None:
+        if required:
+            raise InvalidInput(f"missing required field {name!r}")
+        return default
+    value = body[name]
+    kinds = kinds if isinstance(kinds, tuple) else (kinds,)
+    accepted = kinds + (int,) if float in kinds else kinds  # JSON 0 is a float too
+    if (isinstance(value, bool) and bool not in kinds) or not isinstance(value, accepted):
+        raise InvalidInput(f"field {name!r} must be {_names(kinds)}")
+    if float in kinds and isinstance(value, int):
+        value = float(value)
+    return value
+
+
+def _names(kinds) -> str:
+    return " or ".join(k.__name__ for k in kinds)
+
+
+def _check_refused(body: dict) -> None:
+    """Fields this slice does not serve: 400 rather than silently ignored."""
+    if body.get("logprobs") not in (None, False) or body.get("top_logprobs") is not None:
+        raise InvalidInput("logprobs are not supported by this server yet")
+    for name in ("frequency_penalty", "presence_penalty"):
+        if body.get(name) not in (None, 0, 0.0):
+            raise InvalidInput(f"{name} is not supported by this server yet")
+    if body.get("repetition_penalty") not in (None, 1, 1.0):
+        raise InvalidInput("repetition_penalty is not supported by this server yet")
+    if body.get("logit_bias"):
+        raise InvalidInput("logit_bias is not supported by this server yet")
+    if body.get("echo"):
+        raise InvalidInput("echo is not supported by this server yet")
+    if body.get("best_of") not in (None, 1):
+        raise InvalidInput("best_of is not supported by this server yet")
+    if body.get("suffix"):
+        raise InvalidInput("suffix is not supported by this server yet")
+
+
+def _sampling_fields(body: dict) -> dict:
+    out = dict(
+        temperature=_get(body, "temperature", float, 1.0),
+        top_p=_get(body, "top_p", float, 1.0),
+        top_k=_get(body, "top_k", int),
+        min_p=_get(body, "min_p", float),
+        seed=_get(body, "seed", int),
+        ignore_eos=_get(body, "ignore_eos", bool, False),
+        min_tokens=_get(body, "min_tokens", int, 0),
+        n=_get(body, "n", int, 1),
+        stream=_get(body, "stream", bool, False),
+    )
+    if out["temperature"] < 0:
+        raise InvalidInput("temperature must be >= 0")
+    if not 0.0 < out["top_p"] <= 1.0:
+        raise InvalidInput("top_p must be in (0, 1]")
+    if out["top_k"] is not None and out["top_k"] < 0:
+        raise InvalidInput("top_k must be >= 0")
+    if out["min_p"] is not None and not 0.0 <= out["min_p"] <= 1.0:
+        raise InvalidInput("min_p must be in [0, 1]")
+    if out["n"] < 1:
+        raise InvalidInput("n must be >= 1")
+    stop = body.get("stop")
+    if stop is not None and not (
+            isinstance(stop, str)
+            or (isinstance(stop, list) and all(isinstance(s, str) for s in stop))):
+        raise InvalidInput("field 'stop' must be a string or a list of strings")
+    out["stop"] = stop
+    opts = _get(body, "stream_options", dict)
+    out["include_usage"] = bool(opts and opts.get("include_usage"))
+    return out
+
+
+@dataclass
+class UsageInfo(_Serializable):
+    prompt_tokens: int = 0
+    completion_tokens: int = 0
+    total_tokens: int = 0
+
+
+@dataclass
+class ModelCard(_Serializable):
+    id: str
+    object: str = "model"
+    created: int = field(default_factory=lambda: int(time.time()))
+    owned_by: str = "kserve-tpu-torch"
+
+
+@dataclass
+class ModelList(_Serializable):
+    object: str = "list"
+    data: List[ModelCard] = field(default_factory=list)
+
+
+@dataclass
+class CompletionRequest:
+    model: str
+    prompt: Union[str, List[str], List[int], List[List[int]]]
+    max_tokens: int = 16
+    temperature: float = 1.0
+    top_p: float = 1.0
+    top_k: Optional[int] = None
+    min_p: Optional[float] = None
+    seed: Optional[int] = None
+    stop: Optional[Union[str, List[str]]] = None
+    stream: bool = False
+    include_usage: bool = False
+    ignore_eos: bool = False
+    min_tokens: int = 0
+    n: int = 1
+
+    @staticmethod
+    def from_json(body: Any) -> "CompletionRequest":
+        if not isinstance(body, dict):
+            raise InvalidInput("request body must be a JSON object")
+        _check_refused(body)
+        prompt = body.get("prompt")
+        ok = isinstance(prompt, str) or (
+            isinstance(prompt, list) and prompt and (
+                all(isinstance(p, str) for p in prompt)
+                or all(isinstance(p, int) and not isinstance(p, bool) for p in prompt)
+                or all(isinstance(p, list) and p and all(
+                    isinstance(t, int) and not isinstance(t, bool) for t in p)
+                    for p in prompt)))
+        if not ok:
+            raise InvalidInput(
+                "field 'prompt' must be a string, a list of strings, a list "
+                "of token ids or a list of token-id lists")
+        max_tokens = _get(body, "max_tokens", int, 16)
+        if max_tokens < 1:
+            raise InvalidInput("max_tokens must be >= 1")
+        return CompletionRequest(
+            model=_get(body, "model", str, required=True), prompt=prompt,
+            max_tokens=max_tokens, **_sampling_fields(body))
+
+
+@dataclass
+class ChatMessage:
+    role: str
+    content: str
+
+
+@dataclass
+class ChatCompletionRequest:
+    model: str
+    messages: List[ChatMessage]
+    max_tokens: Optional[int] = None
+    temperature: float = 1.0
+    top_p: float = 1.0
+    top_k: Optional[int] = None
+    min_p: Optional[float] = None
+    seed: Optional[int] = None
+    stop: Optional[Union[str, List[str]]] = None
+    stream: bool = False
+    include_usage: bool = False
+    ignore_eos: bool = False
+    min_tokens: int = 0
+    n: int = 1
+
+    @staticmethod
+    def from_json(body: Any) -> "ChatCompletionRequest":
+        if not isinstance(body, dict):
+            raise InvalidInput("request body must be a JSON object")
+        _check_refused(body)
+        raw = body.get("messages")
+        if not isinstance(raw, list) or not raw:
+            raise InvalidInput("field 'messages' must be a non-empty list")
+        messages = []
+        for m in raw:
+            if not isinstance(m, dict) or not isinstance(m.get("role"), str):
+                raise InvalidInput("every message needs a string 'role'")
+            content = m.get("content")
+            if isinstance(content, list):
+                # text parts only; other parts carry nothing this model reads
+                if not all(isinstance(p, dict) for p in content):
+                    raise InvalidInput("message content parts must be objects")
+                content = "".join(
+                    str(p.get("text") or "") for p in content
+                    if p.get("type") == "text")
+            elif content is None:
+                content = ""
+            elif not isinstance(content, str):
+                raise InvalidInput("message content must be a string or a list of parts")
+            messages.append(ChatMessage(role=m["role"], content=content))
+        max_tokens = (_get(body, "max_completion_tokens", int)
+                      or _get(body, "max_tokens", int))
+        if max_tokens is not None and max_tokens < 1:
+            raise InvalidInput("max_tokens must be >= 1")
+        return ChatCompletionRequest(
+            model=_get(body, "model", str, required=True), messages=messages,
+            max_tokens=max_tokens, **_sampling_fields(body))
+
+
+@dataclass
+class CompletionChoice(_Serializable):
+    index: int
+    text: str
+    finish_reason: Optional[str] = None
+
+
+@dataclass
+class Completion(_Serializable):
+    id: str = field(default_factory=lambda: random_uuid("cmpl-"))
+    object: str = "text_completion"
+    created: int = field(default_factory=lambda: int(time.time()))
+    model: str = ""
+    choices: List[CompletionChoice] = field(default_factory=list)
+    usage: Optional[UsageInfo] = None
+
+
+@dataclass
+class ChatCompletionResponseMessage(_Serializable):
+    role: str = "assistant"
+    content: Optional[str] = None
+
+
+@dataclass
+class ChatCompletionChoice(_Serializable):
+    index: int
+    message: ChatCompletionResponseMessage
+    finish_reason: Optional[str] = None
+
+
+@dataclass
+class ChatCompletion(_Serializable):
+    id: str = field(default_factory=lambda: random_uuid("chatcmpl-"))
+    object: str = "chat.completion"
+    created: int = field(default_factory=lambda: int(time.time()))
+    model: str = ""
+    choices: List[ChatCompletionChoice] = field(default_factory=list)
+    usage: Optional[UsageInfo] = None
+
+
+@dataclass
+class ChatCompletionChunkDelta(_Serializable):
+    role: Optional[str] = None
+    content: Optional[str] = None
+
+
+@dataclass
+class ChatCompletionChunkChoice(_Serializable):
+    index: int
+    delta: ChatCompletionChunkDelta
+    finish_reason: Optional[str] = None
+
+
+@dataclass
+class ChatCompletionChunk(_Serializable):
+    id: str = field(default_factory=lambda: random_uuid("chatcmpl-"))
+    object: str = "chat.completion.chunk"
+    created: int = field(default_factory=lambda: int(time.time()))
+    model: str = ""
+    choices: List[ChatCompletionChunkChoice] = field(default_factory=list)
+    usage: Optional[UsageInfo] = None
+
+
+def error_body(message: str, err_type: str = "invalid_request_error") -> dict:
+    return {"error": {"message": message, "type": err_type}}

@@ -1,0 +1,267 @@
+"""Generative runtime of the PyTorch port: OpenAI completions and chat
+(non-streaming and SSE) on top of engine.LLMEngine.
+
+Port of kserve_tpu/runtimes/generative_server.py (`JAXGenerativeModel`
+becomes `TorchGenerativeModel`; the flags this slice uses keep their
+names).  Checkpoint loading is not ported yet: weights are seeded random
+(`--random_weights`), made on the device.
+
+Entrypoint:
+    python -m kserve_tpu_torch.runtimes.generative_server \\
+        --model_name=llama3-8b --model_config=llama3-8b --random_weights \\
+        [--device cuda|cpu]
+"""
+
+from __future__ import annotations
+
+import argparse
+import asyncio
+import logging
+from typing import AsyncIterator, List, Optional
+
+from ..device import resolve_device
+from ..engine.engine import EngineConfig, LLMEngine
+from ..engine.sampling import SamplingParams
+from ..engine.tokenizer import load_tokenizer
+from ..errors import InvalidInput
+from ..model_server import ModelServer
+from ..models import llama
+from ..protocol.openai.types import (
+    ChatCompletion,
+    ChatCompletionChoice,
+    ChatCompletionChunk,
+    ChatCompletionChunkChoice,
+    ChatCompletionChunkDelta,
+    ChatCompletionRequest,
+    ChatCompletionResponseMessage,
+    Completion,
+    CompletionChoice,
+    CompletionRequest,
+    UsageInfo,
+    random_uuid,
+)
+
+logger = logging.getLogger(__name__)
+
+_NAMED_CONFIGS = {
+    "tiny": llama.LlamaConfig.tiny,
+    "llama3-1b": llama.LlamaConfig.llama3_1b,
+    "llama3-8b": llama.LlamaConfig.llama3_8b,
+    "qwen3-0.6b": llama.LlamaConfig.qwen3_0_6b,
+    "gemma2-2b": llama.LlamaConfig.gemma2_2b,
+}
+
+
+class TorchGenerativeModel:
+    def __init__(
+        self,
+        name: str,
+        model_config: llama.LlamaConfig,
+        engine_config: Optional[EngineConfig] = None,
+        random_weights: bool = False,
+        device=None,
+    ):
+        if not random_weights:
+            raise ValueError(
+                "checkpoint loading is not ported yet: pass --random_weights")
+        self.name = name
+        self.device = resolve_device(device)
+        self.model_config = model_config
+        self.engine_config = engine_config or EngineConfig()
+        self.tokenizer = load_tokenizer(model_config.vocab_size)
+        self.engine: Optional[LLMEngine] = None
+        self.ready = False
+
+    async def start_engine(self) -> None:
+        """Build the engine (weights and KV cache on the device, off the
+        event loop) and start its run loop; the model then turns ready."""
+        self.engine = await asyncio.to_thread(
+            LLMEngine, self.model_config, self.engine_config, self.tokenizer,
+            device=self.device)
+        await self.engine.start()
+        self.ready = True
+        logger.info("generative model %s ready on %s", self.name, self.device)
+
+    async def stop(self) -> None:
+        self.ready = False
+        if self.engine is not None:
+            await self.engine.stop()
+
+    # ---------------- helpers ----------------
+
+    @staticmethod
+    def _sampling_from(req, max_tokens: int) -> SamplingParams:
+        stop = [req.stop] if isinstance(req.stop, str) else req.stop
+        return SamplingParams(
+            temperature=req.temperature,
+            top_p=req.top_p,
+            top_k=req.top_k or 0,
+            min_p=req.min_p or 0.0,
+            max_tokens=max_tokens,
+            min_tokens=req.min_tokens,
+            ignore_eos=req.ignore_eos,
+            stop=stop,
+            seed=req.seed,
+        )
+
+    def _encode_prompt(self, prompt) -> List[List[int]]:
+        if isinstance(prompt, str):
+            return [self.tokenizer.encode(prompt)]
+        if isinstance(prompt[0], int):
+            return [list(prompt)]
+        if isinstance(prompt[0], str):
+            return [self.tokenizer.encode(p) for p in prompt]
+        return [list(p) for p in prompt]
+
+    def _generate(self, prompt_ids, params) -> AsyncIterator:
+        """engine.generate with its validation errors as 400s (raised here,
+        before any response bytes are sent)."""
+        try:
+            return self.engine.generate(prompt_ids, params)
+        except ValueError as e:
+            raise InvalidInput(str(e)) from e
+
+    @staticmethod
+    async def _run_one(source):
+        text, n_gen, finish = "", 0, None
+        async for out in source:
+            text += out.text_delta
+            n_gen = out.num_generated
+            finish = out.finish_reason
+        return text, n_gen, finish or "stop"
+
+    # ---------------- completions ----------------
+
+    async def create_completion(self, request: CompletionRequest):
+        prompts = self._encode_prompt(request.prompt)
+        params = self._sampling_from(request, request.max_tokens)
+        if request.stream:
+            if len(prompts) > 1 or request.n > 1:
+                raise InvalidInput("streaming supports a single prompt with n=1")
+            return self._stream_completion(
+                request, prompts[0], self._generate(prompts[0], params))
+        runs = [p for p in prompts for _ in range(request.n)]
+        sources = [self._generate(p, params) for p in runs]
+        results = await asyncio.gather(*[self._run_one(s) for s in sources])
+        usage = UsageInfo()
+        choices = []
+        for idx, (prompt_ids, (text, n_gen, finish)) in enumerate(zip(runs, results)):
+            choices.append(CompletionChoice(index=idx, text=text, finish_reason=finish))
+            usage.prompt_tokens += len(prompt_ids)
+            usage.completion_tokens += n_gen
+        usage.total_tokens = usage.prompt_tokens + usage.completion_tokens
+        return Completion(model=request.model, choices=choices, usage=usage)
+
+    async def _stream_completion(self, request, prompt_ids, source):
+        completion_id = random_uuid("cmpl-")
+        try:
+            async for out in source:
+                chunk = Completion(
+                    id=completion_id, model=request.model,
+                    choices=[CompletionChoice(index=0, text=out.text_delta,
+                                              finish_reason=out.finish_reason)])
+                if request.include_usage and out.finished:
+                    chunk.usage = UsageInfo(
+                        prompt_tokens=len(prompt_ids),
+                        completion_tokens=out.num_generated,
+                        total_tokens=len(prompt_ids) + out.num_generated)
+                yield chunk
+        finally:
+            await source.aclose()
+
+    # ---------------- chat ----------------
+
+    def _chat_prompt(self, request: ChatCompletionRequest) -> List[int]:
+        messages = [{"role": m.role, "content": m.content} for m in request.messages]
+        text = self.tokenizer.apply_chat_template(messages, add_generation_prompt=True)
+        return self.tokenizer.encode(text)
+
+    async def create_chat_completion(self, request: ChatCompletionRequest):
+        prompt_ids = self._chat_prompt(request)
+        params = self._sampling_from(request, request.max_tokens or 256)
+        if request.stream:
+            if request.n > 1:
+                raise InvalidInput("streaming supports n=1")
+            return self._stream_chat(
+                request, prompt_ids, self._generate(prompt_ids, params))
+        sources = [self._generate(prompt_ids, params) for _ in range(request.n)]
+        results = await asyncio.gather(*[self._run_one(s) for s in sources])
+        usage = UsageInfo(prompt_tokens=len(prompt_ids) * request.n)
+        choices = []
+        for i, (text, n_gen, finish) in enumerate(results):
+            choices.append(ChatCompletionChoice(
+                index=i, message=ChatCompletionResponseMessage(content=text),
+                finish_reason=finish))
+            usage.completion_tokens += n_gen
+        usage.total_tokens = usage.prompt_tokens + usage.completion_tokens
+        return ChatCompletion(model=request.model, choices=choices, usage=usage)
+
+    async def _stream_chat(self, request, prompt_ids, source):
+        chunk_id = random_uuid("chatcmpl-")
+        yield ChatCompletionChunk(
+            id=chunk_id, model=request.model,
+            choices=[ChatCompletionChunkChoice(
+                index=0, delta=ChatCompletionChunkDelta(role="assistant", content=""))])
+        try:
+            async for out in source:
+                chunk = ChatCompletionChunk(
+                    id=chunk_id, model=request.model,
+                    choices=[ChatCompletionChunkChoice(
+                        index=0, delta=ChatCompletionChunkDelta(content=out.text_delta),
+                        finish_reason=out.finish_reason)])
+                if request.include_usage and out.finished:
+                    chunk.usage = UsageInfo(
+                        prompt_tokens=len(prompt_ids),
+                        completion_tokens=out.num_generated,
+                        total_tokens=len(prompt_ids) + out.num_generated)
+                yield chunk
+        finally:
+            await source.aclose()
+
+
+def build_arg_parser() -> argparse.ArgumentParser:
+    parser = argparse.ArgumentParser(description="kserve_tpu_torch generative server")
+    parser.add_argument("--model_name", default="model")
+    parser.add_argument("--model_config", required=True, choices=sorted(_NAMED_CONFIGS))
+    parser.add_argument("--random_weights", action="store_true")
+    parser.add_argument("--http_port", default=8080, type=int)
+    parser.add_argument("--max_batch_size", default=8, type=int)
+    parser.add_argument("--kv_pages", default=2048, type=int)
+    parser.add_argument("--page_size", default=16, type=int)
+    parser.add_argument("--max_model_len", default=2048, type=int)
+    parser.add_argument("--max_prefill_len", default=1024, type=int)
+    parser.add_argument("--kv_dtype", default="bfloat16", type=str)
+    parser.add_argument("--device", default="cuda",
+                        help="cuda (default) or cpu; without CUDA, cuda raises")
+    return parser
+
+
+def build_model(args) -> TorchGenerativeModel:
+    """The served model for parsed `build_arg_parser()` arguments.  The
+    model's activation dtype follows --kv_dtype (the kernels read pages in
+    the activation dtype)."""
+    model_config = _NAMED_CONFIGS[args.model_config]()
+    model_config.dtype = args.kv_dtype
+    engine_config = EngineConfig(
+        max_batch_size=args.max_batch_size,
+        page_size=args.page_size,
+        num_pages=args.kv_pages,
+        max_pages_per_seq=max(1, args.max_model_len // args.page_size),
+        max_prefill_len=args.max_prefill_len,
+        dtype=args.kv_dtype,
+    )
+    return TorchGenerativeModel(
+        args.model_name, model_config, engine_config,
+        random_weights=args.random_weights, device=args.device)
+
+
+def main(argv=None) -> None:
+    logging.basicConfig(level=logging.INFO,
+                        format="%(asctime)s %(levelname)s %(name)s: %(message)s")
+    args = build_arg_parser().parse_args(argv)
+    model = build_model(args)
+    ModelServer(http_port=args.http_port).start([model])
+
+
+if __name__ == "__main__":
+    main()

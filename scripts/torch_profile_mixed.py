@@ -1,0 +1,158 @@
+"""Profile one `mixed` engine step of the PyTorch port (kserve_tpu_torch)
+on one GPU: where a step's time goes at Llama-3-8B shape.
+
+    python3 scripts/torch_profile_mixed.py [--batch 8] [--context 512]
+
+Two plans, each run through kserve_tpu_torch.engine.compiled.make_mixed
+with seeded random weights (greedy sampling, steps_per_sync decode steps):
+  decode       every lane decodes one token at `--context` cached tokens
+  prefill_mix  lane 0 carries a `--chunk`-token prompt chunk, the others
+               decode as above
+For each: wall time of the step (host clock around the call and the token
+fetch), the host's enqueue time, and from torch.profiler the device time
+by kernel class and the device idle share (1 - busy / wall).  JSON lines
+on stdout; needs CUDA.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import subprocess
+import sys
+import time
+
+import numpy as np
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+
+import torch  # noqa: E402
+
+from kserve_tpu_torch.engine.compiled import make_mixed  # noqa: E402
+from kserve_tpu_torch.engine.kvcache import KVCacheConfig, init_kv_pages  # noqa: E402
+from kserve_tpu_torch.engine.sampling import SamplingParams, SamplingState  # noqa: E402
+from kserve_tpu_torch.engine.types import EngineConfig  # noqa: E402
+from kserve_tpu_torch.models import llama  # noqa: E402
+from kserve_tpu_torch.ops.paged_attention_cuda import RAGGED_BQ  # noqa: E402
+
+CLASSES = (
+    ("ragged_attention", ("ragged_kernel",)),
+    ("decode_attention", ("paged_decode_kernel",)),
+    ("gemm", ("gemm", "cutlass", "xmma", "nvjet", "sm90_", "cublas")),
+    ("kv_scatter_gather", ("index", "scatter", "gather")),
+)
+
+
+def _classify(name: str) -> str:
+    low = name.lower()
+    for cls, keys in CLASSES:
+        if any(k in low for k in keys):
+            return cls
+    return "elementwise_other"
+
+
+def _plan(lanes, B, W, ps):
+    """lanes {i: (kv_start, n_tokens)}; every lane joins the decode loop."""
+    tok, seq, pos = [], [], []
+    z = lambda: np.zeros(B, np.int32)  # noqa: E731
+    q_start, q_len, kv_start, last = z(), z(), z(), z()
+    scan_pos0, step0_emits, capacity = z(), z(), z()
+    for i, (h, n) in sorted(lanes.items()):
+        q_start[i], q_len[i], kv_start[i] = len(tok), n, h
+        last[i] = len(tok) + n - 1
+        pad = -n % RAGGED_BQ
+        tok += [1] * n + [0] * pad
+        seq += [i] * n + [-1] * pad
+        pos += list(range(h, h + n)) + [0] * pad
+        scan_pos0[i], step0_emits[i], capacity[i] = h + n, 1, W * ps
+    T = max(len(tok), RAGGED_BQ)
+    arr = lambda x: np.asarray(x + [0] * (T - len(x)), np.int32)  # noqa: E731
+    seq += [-1] * (T - len(seq))
+    table = (1 + np.arange(B * W, dtype=np.int32)).reshape(B, W)
+    return (arr(tok), np.asarray(seq, np.int32), arr(pos), q_start, q_len,
+            kv_start, last, table, np.ones(B, bool), np.full(B, -1, np.int32),
+            scan_pos0, step0_emits, capacity, np.zeros(B, np.int32))
+
+
+def main(argv=None) -> int:
+    p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    p.add_argument("--batch", type=int, default=8)
+    p.add_argument("--context", type=int, default=512)
+    p.add_argument("--chunk", type=int, default=1024)
+    p.add_argument("--steps_per_sync", type=int, default=8)
+    p.add_argument("--iters", type=int, default=3)
+    args = p.parse_args(argv)
+    if not torch.cuda.is_available():
+        raise SystemExit("needs a CUDA device")
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True).stdout.strip()
+    print(json.dumps({"device": smi, "torch": torch.__version__}), flush=True)
+
+    mc = llama.LlamaConfig.llama3_8b()
+    ps, B = 16, args.batch
+    W = -(-(max(args.context, args.chunk) + args.steps_per_sync + 1) // ps)
+    ec = EngineConfig(max_batch_size=B, page_size=ps, steps_per_sync=args.steps_per_sync)
+    params = llama.init_params(mc, seed=1, device="cuda")
+    pages = init_kv_pages(KVCacheConfig(
+        n_layers=mc.n_layers, n_kv_heads=mc.n_kv_heads, head_dim=mc.head_dim,
+        page_size=ps, num_pages=1 + B * W), "cuda")
+    mixed = make_mixed(mc, ec)
+    state = SamplingState.from_params([SamplingParams(temperature=0.0)] * B, "cuda")
+    gen = torch.Generator(device="cuda")
+    plans = {
+        "decode": {i: (args.context, 1) for i in range(B)},
+        "prefill_mix": {0: (0, args.chunk),
+                        **{i: (args.context, 1) for i in range(1, B)}},
+    }
+    for name, lanes in plans.items():
+        plan = _plan(lanes, B, W, ps)
+
+        def step():
+            t0 = time.perf_counter()
+            out, _ = mixed(params, *plan[:7], pages, *plan[7:], state, gen)
+            t1 = time.perf_counter()
+            out.cpu()
+            return t1 - t0, time.perf_counter() - t0
+
+        with torch.inference_mode():
+            step()  # warm-up: cuBLAS heuristics, kernel library build
+            runs = [step() for _ in range(args.iters)]
+            with torch.profiler.profile(activities=[
+                    torch.profiler.ProfilerActivity.CPU,
+                    torch.profiler.ProfilerActivity.CUDA]) as prof:
+                prof_host, prof_wall = step()
+        by_class, top, launches = {}, [], 0
+        for ev in prof.key_averages():
+            # kernels only: CPU-side ops (aten::mm, ...) also report the
+            # device time of the kernels they launched
+            if ev.device_type != torch.autograd.DeviceType.CUDA:
+                continue
+            dev_us = ev.self_device_time_total
+            if dev_us <= 0:
+                continue
+            cls = _classify(ev.key)
+            by_class[cls] = by_class.get(cls, 0.0) + dev_us / 1e3
+            launches += ev.count
+            top.append((dev_us / 1e3, ev.count, ev.key[:90]))
+        top.sort(reverse=True)
+        busy = sum(by_class.values())
+        wall = min(r[1] for r in runs) * 1e3
+        print(json.dumps({
+            "plan": name, "batch": B, "context": args.context,
+            "chunk": args.chunk if name == "prefill_mix" else 0,
+            "steps_per_sync": args.steps_per_sync,
+            "wall_ms": wall, "wall_ms_per_step": wall / args.steps_per_sync,
+            "host_enqueue_ms": min(r[0] for r in runs) * 1e3,
+            "profiled_wall_ms": prof_wall * 1e3,
+            "device_busy_ms": busy, "kernel_launches": launches,
+            "device_idle_share": max(0.0, 1 - busy / (prof_wall * 1e3)),
+            "device_ms_by_class": by_class,
+            "top_kernels": [{"ms": t, "calls": c, "name": n} for t, c, n in top[:12]],
+        }), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,229 @@
+"""Attention, norms and rope of the PyTorch port against the JAX package
+on the CPU.
+
+The port's plain ragged and decode attention (what the CUDA kernels are
+held against on the card) must match the Pallas kernels in interpret mode
+and the XLA gather versions, over the ragged compositions the engine's
+mixed program produces.  Both sides run in float32 on the same numpy
+inputs, so differences are summation order only: atol/rtol 2e-5."""
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from kserve_tpu.ops import attention as jax_attn
+from kserve_tpu.ops import norms as jax_norms
+from kserve_tpu.ops import rotary as jax_rotary
+from kserve_tpu.ops.pallas_paged_attention import (
+    paged_attention_pallas,
+    ragged_paged_attention_pallas,
+)
+from kserve_tpu_torch.ops import attention as attn
+from kserve_tpu_torch.ops import norms, rotary
+from kserve_tpu_torch.ops.paged_attention_cuda import RAGGED_BQ, ragged_block_metadata
+
+PS = 16
+NKV = 2
+NQ = 8  # GQA group 4, as Llama-3-8B
+TOL = dict(atol=2e-5, rtol=2e-5)  # f32 both sides; summation order only
+
+CASES = {
+    "mixed": [(10, 1), (8, 5), (0, 7), (0, 0)],
+    "pure_prefill": [(0, 7), (0, 12), (0, 3)],
+    "pure_decode": [(10, 1), (3, 1), (17, 1), (1, 1)],
+    "chunked": [(16, 8), (16, 5), (0, 1)],
+    "inactive_lane": [(5, 1), (0, 0), (0, 0)],
+}
+
+
+def _align(n):
+    return -(-n // RAGGED_BQ) * RAGGED_BQ
+
+
+def _ragged_case(lanes, d=128, seed=0):
+    """Packed queries at 8-aligned offsets and random pages, every lane on
+    its own pages (page 0 the null page)."""
+    rng = np.random.RandomState(seed)
+    B = len(lanes)
+    W = max(-(-(h + q) // PS) for h, q in lanes) or 1
+    q_start, off = [], 0
+    for _, qn in lanes:
+        q_start.append(off)
+        off += _align(qn)
+    T = max(off, RAGGED_BQ)
+    pages = rng.randn(1 + B * W, 2, NKV, PS, d).astype(np.float32)
+    table = np.zeros((B, W), np.int32)
+    for i, (h, qn) in enumerate(lanes):
+        n = -(-(h + qn) // PS)
+        table[i, :n] = 1 + i * W + np.arange(n)
+    return dict(
+        q=rng.randn(T, NQ, d).astype(np.float32), kv_pages=pages,
+        page_table=table, q_start=np.asarray(q_start, np.int32),
+        q_len=np.asarray([q for _, q in lanes], np.int32),
+        kv_start=np.asarray([h for h, _ in lanes], np.int32))
+
+
+def _port_ragged(case, **kw):
+    t = {k: torch.from_numpy(v) for k, v in case.items()}
+    return attn.ragged_paged_attention(
+        t["q"], t["kv_pages"], t["page_table"], t["q_start"], t["q_len"],
+        t["kv_start"], **kw).numpy()
+
+
+def _jax_args(case):
+    return (jnp.asarray(case["q"]), jnp.asarray(case["kv_pages"]),
+            jnp.asarray(case["page_table"]), jnp.asarray(case["q_start"]),
+            jnp.asarray(case["q_len"]), jnp.asarray(case["kv_start"]))
+
+
+@pytest.mark.parametrize("name", sorted(CASES))
+def test_ragged_plain_matches_pallas_interpret_and_xla(name):
+    case = _ragged_case(CASES[name], seed=len(name))
+    got = _port_ragged(case)
+    pallas = np.asarray(ragged_paged_attention_pallas(
+        *_jax_args(case), window=jnp.asarray(0, jnp.int32), interpret=True))
+    xla = np.asarray(jax_attn.ragged_paged_attention_xla(*_jax_args(case)))
+    np.testing.assert_allclose(got, pallas, **TOL)
+    np.testing.assert_allclose(got, xla, **TOL)
+    # rows outside every slice are exactly zero (the kernel contract)
+    valid = np.zeros(case["q"].shape[0], bool)
+    for s, n in zip(case["q_start"], case["q_len"]):
+        valid[s:s + n] = True
+    assert np.all(got[~valid] == 0.0)
+
+
+def test_ragged_sliding_window():
+    case = _ragged_case([(30, 1), (20, 9), (0, 14)], seed=3)
+    got = _port_ragged(case, window=6)
+    want = np.asarray(ragged_paged_attention_pallas(
+        *_jax_args(case), window=jnp.asarray(6, jnp.int32), interpret=True))
+    np.testing.assert_allclose(got, want, **TOL)
+
+
+def test_ragged_softcap_and_scale_override():
+    case = _ragged_case(CASES["chunked"], seed=5)
+    got = _port_ragged(case, logit_softcap=8.0, scale=0.17)
+    want = np.asarray(jax_attn.ragged_paged_attention_xla(
+        *_jax_args(case), logit_softcap=8.0, scale=0.17))
+    np.testing.assert_allclose(got, want, **TOL)
+    pallas = np.asarray(ragged_paged_attention_pallas(
+        *_jax_args(case), window=jnp.asarray(0, jnp.int32), logit_softcap=8.0,
+        scale=0.17, interpret=True))
+    np.testing.assert_allclose(got, pallas, **TOL)
+
+
+def test_ragged_metadata_matches_jax():
+    from kserve_tpu.ops.pallas_paged_attention import _ragged_block_metadata
+
+    case = _ragged_case(CASES["mixed"], seed=9)
+    G = case["q"].shape[0] // RAGGED_BQ
+    seq, qoff = ragged_block_metadata(
+        torch.from_numpy(case["q_start"]), torch.from_numpy(case["q_len"]), G)
+    jseq, jqoff = _ragged_block_metadata(
+        jnp.asarray(case["q_start"]), jnp.asarray(case["q_len"]), G, RAGGED_BQ)
+    np.testing.assert_array_equal(seq.numpy(), np.asarray(jseq))
+    np.testing.assert_array_equal(qoff.numpy(), np.asarray(jqoff))
+    tseq, tloc, tvalid = attn.ragged_token_metadata(
+        torch.from_numpy(case["q_start"]), torch.from_numpy(case["q_len"]),
+        case["q"].shape[0])
+    jtseq, jtloc, jtvalid = jax_attn.ragged_token_metadata(
+        jnp.asarray(case["q_start"]), jnp.asarray(case["q_len"]), case["q"].shape[0])
+    np.testing.assert_array_equal(tseq.numpy(), np.asarray(jtseq))
+    np.testing.assert_array_equal(tvalid.numpy(), np.asarray(jtvalid))
+    valid = tvalid.numpy()
+    np.testing.assert_array_equal(tloc.numpy()[valid], np.asarray(jtloc)[valid])
+
+
+@pytest.mark.parametrize("d,softcap", [(128, 0.0), (128, 30.0), (64, 0.0), (64, 20.0)])
+def test_decode_plain_matches_pallas_interpret(d, softcap):
+    """d=64 goes through the JAX package's packed two-tokens-per-row
+    kernel.  An inactive lane (seq_len 0) is exactly zero in the port (as
+    in its CUDA kernel); the JAX kernel returns an unspecified value there
+    (the mean of the null page when the lane shares a block with active
+    ones), which every caller discards, so only active lanes compare."""
+    rng = np.random.RandomState(d + int(softcap))
+    lens = np.asarray([37, 1, 0, 64], np.int32)
+    W = 4
+    pages = rng.randn(1 + len(lens) * W, 2, NKV, PS, d).astype(np.float32)
+    table = (1 + np.arange(len(lens) * W, dtype=np.int32)).reshape(len(lens), W)
+    q = rng.randn(len(lens), NQ, d).astype(np.float32)
+    got = attn.paged_attention(
+        torch.from_numpy(q), torch.from_numpy(pages), torch.from_numpy(table),
+        torch.from_numpy(lens), logit_softcap=softcap).numpy()
+    want = np.asarray(paged_attention_pallas(
+        jnp.asarray(q), jnp.asarray(pages), jnp.asarray(table),
+        jnp.asarray(lens), logit_softcap=softcap, interpret=True))
+    live = lens > 0
+    np.testing.assert_allclose(got[live], want[live], **TOL)
+    assert np.all(got[~live] == 0.0)
+
+
+def test_decode_window_and_scale_match_xla():
+    rng = np.random.RandomState(11)
+    d = 128
+    lens = np.asarray([50, 3, 20], np.int32)
+    W = 4
+    pages = rng.randn(1 + 3 * W, 2, NKV, PS, d).astype(np.float32)
+    table = (1 + np.arange(3 * W, dtype=np.int32)).reshape(3, W)
+    q = rng.randn(3, NQ, d).astype(np.float32)
+    got = attn.paged_attention(
+        torch.from_numpy(q), torch.from_numpy(pages), torch.from_numpy(table),
+        torch.from_numpy(lens), logit_softcap=5.0, scale=0.2, window=7).numpy()
+    want = np.asarray(jax_attn.paged_attention_xla(
+        jnp.asarray(q), jnp.asarray(pages), jnp.asarray(table), jnp.asarray(lens),
+        5.0, scale=0.2, window=jnp.asarray(7, jnp.int32)))
+    np.testing.assert_allclose(got, want, **TOL)
+
+
+def test_rms_norms_match_jax():
+    rng = np.random.RandomState(0)
+    x = rng.randn(5, 64).astype(np.float32)
+    w = rng.randn(64).astype(np.float32)
+    np.testing.assert_allclose(
+        norms.rms_norm(torch.from_numpy(x), torch.from_numpy(w), 1e-5).numpy(),
+        np.asarray(jax_norms.rms_norm(jnp.asarray(x), jnp.asarray(w), 1e-5)),
+        **TOL)
+    np.testing.assert_allclose(
+        norms.rms_norm_plus_one(torch.from_numpy(x), torch.from_numpy(w)).numpy(),
+        np.asarray(jax_norms.rms_norm_plus_one(jnp.asarray(x), jnp.asarray(w))),
+        **TOL)
+
+
+@pytest.mark.parametrize("scaling", [
+    None,
+    {"rope_type": "linear", "factor": 2.0},
+    {"rope_type": "llama3", "factor": 8.0, "low_freq_factor": 1.0,
+     "high_freq_factor": 4.0, "original_max_position_embeddings": 8192},
+])
+def test_rope_matches_jax(scaling):
+    """Phases reach angles of up to ~3000 rad: f32 sin/cos of the two
+    libraries differ by a few ulps of the angle, hence atol 1e-4."""
+    rng = np.random.RandomState(1)
+    x = rng.randn(2, 6, 4, 128).astype(np.float32)
+    pos = rng.randint(0, 3000, size=(2, 6)).astype(np.int32)
+    got = rotary.apply_rope(torch.from_numpy(x), torch.from_numpy(pos),
+                            500000.0, scaling).numpy()
+    want = np.asarray(jax_rotary.apply_rope(
+        jnp.asarray(x), jnp.asarray(pos), 500000.0, scaling))
+    np.testing.assert_allclose(got, want, atol=1e-4, rtol=1e-4)
+    np.testing.assert_allclose(
+        rotary.rope_frequencies(128, 500000.0, scaling).numpy(),
+        np.asarray(jax_rotary.rope_frequencies(128, 500000.0, scaling)),
+        rtol=1e-6)
+
+
+def test_cuda_wrappers_refuse_cpu_tensors():
+    """A wrapper launches its kernel or raises; it never computes the
+    plain version itself (the dispatchers route CPU tensors)."""
+    from kserve_tpu_torch.ops import paged_attention_cuda as K
+
+    case = {k: torch.from_numpy(v) for k, v in _ragged_case(CASES["mixed"]).items()}
+    with pytest.raises(ValueError, match="CUDA"):
+        K.ragged_paged_attention_cuda(**case)
+    with pytest.raises(ValueError, match="CUDA"):
+        K.paged_decode_attention_cuda(
+            case["q"][:4], case["kv_pages"], case["page_table"],
+            torch.ones(4, dtype=torch.int32))
+    assert K.LAUNCHES == {"ragged_paged_attention": 0, "paged_decode_attention": 0}

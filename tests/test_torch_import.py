@@ -1,0 +1,100 @@
+"""The PyTorch port stands alone: importing it loads neither jax nor the
+JAX package, no source of it (or chip_smoke.py) imports them, and its
+entry points refuse to run without CUDA unless asked for the CPU."""
+
+import ast
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+REPO = Path(__file__).resolve().parents[1]
+PKG = REPO / "kserve_tpu_torch"
+FORBIDDEN_ROOTS = {"jax", "jaxlib", "kserve_tpu"}
+
+
+def _port_modules():
+    names = []
+    for path in sorted(PKG.rglob("*.py")):
+        rel = path.relative_to(REPO).with_suffix("")
+        parts = list(rel.parts)
+        if parts[-1] == "__init__":
+            parts = parts[:-1]
+        names.append(".".join(parts))
+    return names
+
+
+def test_import_loads_no_jax_and_no_jax_package():
+    code = (
+        "import importlib, sys\n"
+        f"for name in {_port_modules()!r}:\n"
+        "    importlib.import_module(name)\n"
+        "bad = sorted(m for m in sys.modules\n"
+        "             if m.split('.')[0] in ('jax', 'jaxlib', 'kserve_tpu'))\n"
+        "print(bad)\n"
+        "sys.exit(1 if bad else 0)\n"
+    )
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+@pytest.mark.parametrize("path", sorted(PKG.rglob("*.py")) + [REPO / "chip_smoke.py"],
+                         ids=lambda p: str(p.relative_to(REPO)))
+def test_source_imports_no_jax(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            mods = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            mods = [node.module or ""]
+        else:
+            continue
+        for mod in mods:
+            assert mod.split(".")[0] not in FORBIDDEN_ROOTS, (
+                f"{path.relative_to(REPO)}:{node.lineno} imports {mod}")
+
+
+def test_entry_points_raise_without_cuda(monkeypatch):
+    from kserve_tpu_torch.device import resolve_device
+    from kserve_tpu_torch.engine.engine import EngineConfig, LLMEngine
+    from kserve_tpu_torch.engine.tokenizer import ByteTokenizer
+    from kserve_tpu_torch.models.llama import LlamaConfig
+    from kserve_tpu_torch.runtimes.generative_server import (
+        TorchGenerativeModel,
+        build_arg_parser,
+        build_model,
+    )
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = LlamaConfig.tiny(dtype="float32")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        resolve_device()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        LLMEngine(cfg, EngineConfig(dtype="float32"), ByteTokenizer(512))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        TorchGenerativeModel("m", cfg, random_weights=True)
+    args = build_arg_parser().parse_args(
+        ["--model_config=tiny", "--random_weights"])
+    assert args.device == "cuda"
+    with pytest.raises(RuntimeError, match="CUDA"):
+        build_model(args)
+    # asking for the CPU is allowed
+    assert resolve_device("cpu").type == "cpu"
+
+
+def test_engine_rejects_what_the_slice_does_not_run():
+    from kserve_tpu_torch.engine.engine import EngineConfig, LLMEngine
+    from kserve_tpu_torch.engine.tokenizer import ByteTokenizer
+    from kserve_tpu_torch.models.llama import LlamaConfig
+
+    cfg = LlamaConfig.tiny(dtype="float32")
+    for knob in (dict(kv_quant="int8"), dict(weight_quant="int8"), dict(tp=2),
+                 dict(pp=2), dict(sp=2), dict(dp=2), dict(spec_decode_k=2)):
+        with pytest.raises(NotImplementedError):
+            LLMEngine(cfg, EngineConfig(dtype="float32", **knob),
+                      ByteTokenizer(512), device="cpu")

@@ -1,0 +1,150 @@
+"""The PyTorch port's standard-library OpenAI server, driven over real
+sockets with the tiny config on --device cpu: health, models, a
+completion, a streamed chat (SSE chunks then [DONE]) and 400s."""
+
+import http.client
+import json
+import socket
+import threading
+import time
+
+import pytest
+
+from kserve_tpu_torch.model_server import ModelServer
+from kserve_tpu_torch.runtimes.generative_server import build_arg_parser, build_model
+
+ARGS = ["--model_name=tiny", "--model_config=tiny", "--random_weights",
+        "--device=cpu", "--kv_dtype=float32", "--http_port=0",
+        "--max_model_len=256", "--kv_pages=128", "--max_prefill_len=64"]
+
+
+@pytest.fixture(scope="module")
+def server():
+    model = build_model(build_arg_parser().parse_args(ARGS))
+    srv = ModelServer(http_port=0, host="127.0.0.1")
+    thread = threading.Thread(target=srv.start, args=([model],), daemon=True)
+    thread.start()
+    assert srv.listening.wait(60), "server did not start"
+    srv.model = model
+    yield srv
+    srv.request_stop()
+    thread.join(30)
+    assert not thread.is_alive()
+
+
+def _request(srv, method, path, body=None):
+    conn = http.client.HTTPConnection("127.0.0.1", srv.port, timeout=60)
+    try:
+        if isinstance(body, dict):
+            body = json.dumps(body)
+        conn.request(method, path, body=body,
+                     headers={"Content-Type": "application/json"})
+        resp = conn.getresponse()
+        return resp.status, resp.getheader("Content-Type"), resp.read().decode()
+    finally:
+        conn.close()
+
+
+def test_health_and_models(server):
+    assert _request(server, "GET", "/v2/health/live")[0] == 200
+    status, _, body = _request(server, "GET", "/v2/health/ready")
+    assert status == 200 and json.loads(body) == {"ready": True}
+    status, _, body = _request(server, "GET", "/openai/v1/models")
+    assert status == 200
+    assert [m["id"] for m in json.loads(body)["data"]] == ["tiny"]
+
+
+def test_completion(server):
+    status, ctype, body = _request(server, "POST", "/openai/v1/completions", {
+        "model": "tiny", "prompt": "hello world", "max_tokens": 7,
+        "temperature": 0, "ignore_eos": True})
+    assert status == 200 and ctype == "application/json"
+    resp = json.loads(body)
+    assert resp["object"] == "text_completion"
+    assert resp["choices"][0]["finish_reason"] == "length"
+    assert resp["usage"] == {"prompt_tokens": 12, "completion_tokens": 7,
+                             "total_tokens": 19}
+    # greedy is deterministic
+    again = json.loads(_request(server, "POST", "/openai/v1/completions", {
+        "model": "tiny", "prompt": "hello world", "max_tokens": 7,
+        "temperature": 0, "ignore_eos": True})[2])
+    assert again["choices"][0]["text"] == resp["choices"][0]["text"]
+
+
+def test_streaming_chat(server):
+    status, ctype, body = _request(server, "POST", "/openai/v1/chat/completions", {
+        "model": "tiny", "stream": True, "max_tokens": 5, "temperature": 0,
+        "ignore_eos": True, "messages": [{"role": "user", "content": "hi"}]})
+    assert status == 200 and ctype == "text/event-stream"
+    events = [line[len("data: "):] for line in body.split("\n")
+              if line.startswith("data: ")]
+    assert events[-1] == "[DONE]"
+    chunks = [json.loads(e) for e in events[:-1]]
+    assert chunks[0]["choices"][0]["delta"]["role"] == "assistant"
+    assert all(c["object"] == "chat.completion.chunk" for c in chunks)
+    assert len(chunks) == 1 + 5  # the role chunk, then one per token
+    assert chunks[-1]["choices"][0]["finish_reason"] == "length"
+
+
+@pytest.mark.parametrize("body", [
+    b"{not json",
+    {"model": "tiny", "prompt": "x", "logprobs": 3},
+    {"model": "tiny", "messages": [{"role": "user", "content": "x"}], "logprobs": True},
+    {"model": "tiny", "prompt": "x", "frequency_penalty": 0.5},
+    {"model": "tiny", "prompt": 5},
+    {"prompt": "x"},
+    {"model": "tiny", "prompt": "x", "max_tokens": 100000},
+], ids=["malformed", "logprobs", "chat_logprobs", "penalty", "bad_prompt",
+        "no_model", "too_long"])
+def test_bad_requests_are_400(server, body):
+    path = ("/openai/v1/chat/completions"
+            if isinstance(body, dict) and "messages" in body
+            else "/openai/v1/completions")
+    status, _, text = _request(server, "POST", path, body)
+    assert status == 400, text
+    assert "error" in json.loads(text)
+
+
+def _raw(server, payload: bytes) -> socket.socket:
+    sock = socket.create_connection(("127.0.0.1", server.port), timeout=60)
+    sock.sendall(payload)
+    return sock
+
+
+def test_client_disconnect_mid_stream_frees_the_slot(server):
+    body = json.dumps({"model": "tiny", "prompt": "x", "stream": True,
+                       "max_tokens": 200, "ignore_eos": True}).encode()
+    sock = _raw(server, b"POST /openai/v1/completions HTTP/1.1\r\n"
+                + f"Content-Length: {len(body)}\r\n\r\n".encode() + body)
+    seen = b""
+    while b"data: " not in seen:  # streaming has started
+        seen += sock.recv(4096)
+    sock.close()
+    engine = server.model.engine
+    deadline = time.monotonic() + 30
+    while time.monotonic() < deadline:
+        if all(s.request_id is None for s in engine._slots):
+            break
+        time.sleep(0.05)
+    assert all(s.request_id is None for s in engine._slots)
+    assert engine.allocator.free_pages == engine.config.num_pages - 1
+
+
+def test_expect_100_continue(server):
+    body = json.dumps({"model": "tiny", "prompt": "x", "max_tokens": 2}).encode()
+    sock = _raw(server, b"POST /openai/v1/completions HTTP/1.1\r\n"
+                + f"Content-Length: {len(body)}\r\nExpect: 100-continue\r\n\r\n"
+                .encode())
+    assert sock.recv(64).startswith(b"HTTP/1.1 100 Continue")
+    sock.sendall(body)
+    reply = b""
+    while chunk := sock.recv(4096):
+        reply += chunk
+    sock.close()
+    assert reply.startswith(b"HTTP/1.1 200 OK")
+
+
+def test_unknown_model_is_404(server):
+    status, _, _ = _request(server, "POST", "/openai/v1/completions",
+                            {"model": "nope", "prompt": "x"})
+    assert status == 404
