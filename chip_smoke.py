@@ -7,14 +7,20 @@ Run from the root of a checkout on a machine with one NVIDIA H100:
 Phases, each printing JSON lines:
   device   card name and power limit (nvidia-smi), torch/CUDA versions
   build    compiles csrc/*.cu into build/kserve_tpu_torch/ (nvcc, sm_90a)
-  kernels  every CUDA kernel of the main path against its plain PyTorch
-           version on the card, at Llama-3-8B's attention shape (and the
-           decode kernel at head_dim 64, Llama-3.2-1B's), with timings
+  kernels  every CUDA kernel against its plain PyTorch version on the
+           card, at Llama-3-8B's attention shape (and at head_dim 64,
+           Llama-3.2-1B's), with timings
   serve    the port's OpenAI server (kserve_tpu_torch.runtimes.
            generative_server) with Llama-3-8B at full width and depth and
            seeded random weights: concurrent completions and one streamed
-           chat over HTTP, launch counts of both kernels, and step-0 logits
-           through the kernels against the plain versions
+           chat over HTTP, launch counts of the ragged and decode kernels,
+           and step-0 logits through the kernels against the plain versions
+  spec     the same server with --spec_decode_k=3 (speculative decoding):
+           concurrent greedy completions and a seeded sampled one, the
+           dense kernel's launch count and the draft statistics, one verify
+           round's logits through the kernels against the plain versions,
+           and greedy streams spec-on against spec-off in float32 at full
+           width and 2 layers
 The line before the last is {"kernels": [...]}, the last is
 {"ok": true, "device": {...}}.  Any failure raises and exits non-zero;
 nothing falls back to the CPU or to the plain versions.
@@ -47,7 +53,16 @@ KERNEL_META = {
         "source": "kserve_tpu_torch/csrc/paged_decode_attention.cu",
         "replaces": "kserve_tpu/ops/pallas_paged_attention.py:147",
     },
+    "dense_ragged_paged_attention": {
+        "route": "cuda",
+        "source": "kserve_tpu_torch/csrc/dense_ragged_paged_attention.cu",
+        "replaces": "kserve_tpu/ops/pallas_paged_attention.py:556",
+    },
 }
+# the phase whose run supplies each kernel's launch count
+KERNEL_PATH = {"ragged_paged_attention": "serve",
+               "paged_decode_attention": "serve",
+               "dense_ragged_paged_attention": "spec"}
 
 
 def emit(obj) -> None:
@@ -170,6 +185,55 @@ DECODE_CASES = {
                                 softcap=30.0, window=256, scale=0.07),
     "f32": dict(d=128, lens=[100, 0, 37, 512], dtype="float32"),
 }
+
+
+# speculative verify packing, 8 lanes: (K+1, stride) per case; lane 3 is
+# inactive and lane 5 holds 1,500 tokens but has q_len 0 (starved of page
+# capacity mid-dispatch): neither may read a page
+DENSE_HISTORY = [310, 1024, 57, 0, 1999, 1500, 130, 777]
+DENSE_CASES = {
+    "k0_sp1": dict(kp=1, sp=1),
+    "k1_sp2": dict(kp=2, sp=2),
+    "k2_sp4": dict(kp=3, sp=4),
+    "k3_sp4": dict(kp=4, sp=4),  # the served K=3
+    "k3_sp4_window": dict(kp=4, sp=4, window=96),
+    "k3_sp4_f32": dict(kp=4, sp=4, dtype="float32"),
+    "k3_sp4_d64": dict(kp=4, sp=4, d=64),
+}
+for _case in DENSE_CASES.values():
+    _case["lanes"] = [(h, 0 if i in (3, 5) else _case["kp"])
+                      for i, h in enumerate(DENSE_HISTORY)]
+
+
+def _dense_inputs(torch, gen, case, nq=32, nkv=8, ps=16):
+    dtype = getattr(torch, case.get("dtype", "bfloat16"))
+    d, sp, lanes = case.get("d", 128), case["sp"], case["lanes"]
+    pages, table = _make_cache(torch, gen, [h + case["kp"] for h, _ in lanes],
+                               nkv, d, ps, dtype)
+    q = torch.randn((len(lanes) * sp, nq, d), generator=gen,
+                    device="cuda").to(dtype)
+    ints = lambda xs: torch.tensor(xs, dtype=torch.int32, device="cuda")  # noqa: E731
+    return dict(
+        q=q, kv_pages=pages, page_table=table,
+        q_start=ints([i * sp for i in range(len(lanes))]),
+        q_len=ints([qn for _, qn in lanes]), kv_start=ints([h for h, _ in lanes]),
+        dense_stride=sp, window=case.get("window", 0))
+
+
+def _dense_kernel(q, kv_pages, page_table, q_start, q_len, kv_start,
+                  dense_stride, **kw):
+    from kserve_tpu_torch.ops.paged_attention_cuda import (
+        dense_ragged_paged_attention_cuda,
+    )
+
+    return dense_ragged_paged_attention_cuda(
+        q, kv_pages, page_table, q_len, kv_start, dense_stride, **kw)
+
+
+def _dense_plain(dense_stride, **kw):
+    from kserve_tpu_torch.ops.attention import ragged_paged_attention_plain
+
+    return ragged_paged_attention_plain(**kw)
 
 
 def _ragged_inputs(torch, gen, case, nq=32, nkv=8, d=128, ps=16):
@@ -301,14 +365,18 @@ def phase_kernels(torch) -> dict:
     specs = [
         ("ragged_paged_attention", RAGGED_CASES, _ragged_inputs,
          K.ragged_paged_attention_cuda, A.ragged_paged_attention_plain,
-         ("prefill_chunk",)),
+         ("prefill_chunk",), _sdpa_ragged, _ragged_work),
         # the first timed case fills the summary row; d=64 is the port of
         # _packed_decode_kernel, timed for its own PERF.md row
         ("paged_decode_attention", DECODE_CASES, _decode_inputs,
          K.paged_decode_attention_cuda, A.paged_attention_plain,
-         ("d128", "d64_llama3_1b")),
+         ("d128", "d64_llama3_1b"), _sdpa_decode, _decode_work),
+        # the library yardstick of a verify round is the ragged one: SDPA
+        # on the gathered KV with each lane's causal-offset mask
+        ("dense_ragged_paged_attention", DENSE_CASES, _dense_inputs,
+         _dense_kernel, _dense_plain, ("k3_sp4",), _sdpa_ragged, _ragged_work),
     ]
-    for name, cases, make, kernel, plain, timed in specs:
+    for name, cases, make, kernel, plain, timed, library, work in specs:
         worst = 0.0
         for case_name, case in cases.items():
             inp = make(torch, gen, case)
@@ -332,11 +400,8 @@ def phase_kernels(torch) -> dict:
             ms = _time_ms(torch, lambda: kernel(**inp))
             plain_ms = _time_ms(torch, lambda: plain(**inp), iters=20,
                                 warmup=1)
-            lib = (_sdpa_ragged if name.startswith("ragged")
-                   else _sdpa_decode)(torch, inp, case)
-            library_ms = _time_ms(torch, lib)
-            nbytes, flops = (_ragged_work(case) if name.startswith("ragged")
-                             else _decode_work(case))
+            library_ms = _time_ms(torch, library(torch, inp, case))
+            nbytes, flops = work(case)
             bound_ms, bound_by = _bound(nbytes, flops, BF16_FLOPS_PER_S)
             if case_name == timed[0]:
                 rows[name] = {
@@ -365,10 +430,10 @@ def main() -> int:
     info = phase_device(torch)
     phase_build()
     rows = phase_kernels(torch)
-    serve_counts = phase_serve(torch)
-    for name, n in serve_counts.items():
-        rows[name]["launches"] = n
-    missing = [n for n in rows if serve_counts.get(n, 0) <= 0]
+    counts = {"serve": phase_serve(torch), "spec": phase_spec(torch)}
+    for name, row in rows.items():
+        row["launches"] = counts[KERNEL_PATH[name]].get(name, 0)
+    missing = [n for n, row in rows.items() if row["launches"] <= 0]
     if missing:
         raise AssertionError(f"main path never launched kernel(s) {missing}")
     print(json.dumps({"kernels": list(rows.values())}), flush=True)
@@ -437,9 +502,11 @@ def _stream_chat(port: int, body: dict, t_send: list):
         conn.close()
 
 
-def _logits_check(torch, engine) -> dict:
-    """Step-0 logits of one packed plan (then one decode step) through the
-    CUDA kernels and through the plain versions, on the served weights:
+def _logits_check(torch, engine, verify_k=None) -> dict:
+    """Step-0 logits of one packed plan, then one decode step (and with
+    `verify_k`, one speculative verify round of K+1 tokens per lane at the
+    dense stride), through the CUDA kernels and through the plain versions,
+    on the served weights:
 
     - float32 (an f32 copy of the weights): kernels and plain versions sum
       in another order only; they must agree within F32_LOGITS_REL_TOL of
@@ -460,7 +527,8 @@ def _logits_check(torch, engine) -> dict:
     mc32 = dataclasses.replace(mc16, dtype="float32")
     ps = engine.config.page_size
     lens = [40, 100, 7]
-    W = -(-(max(lens) + 1) // ps)
+    kp = 0 if verify_k is None else verify_k + 1
+    W = -(-(max(lens) + 1 + kp) // ps)
     gen = torch.Generator(device="cuda")
     gen.manual_seed(7)
     tokens, seq, pos, q_start, last = [], [], [], [], []
@@ -475,12 +543,25 @@ def _logits_check(torch, engine) -> dict:
     ints = lambda xs: torch.tensor(xs, dtype=torch.int32, device="cuda")  # noqa: E731
     table = ints([[1 + i * W + j for j in range(W)] for i in range(len(lens))])
     active = torch.ones(len(lens), dtype=torch.bool, device="cuda")
+    if verify_k is not None:
+        # lane i's verify slice: its next token plus K drafts, at
+        # positions lens[i]+1 .., packed at the stride the engine uses
+        sp = A.dense_stride_for(kp, RAGGED_BQ)
+        drafts = torch.randint(0, mc16.vocab_size, (len(lens), verify_k),
+                               generator=gen, device="cuda")
+        v_seq, v_pos, v_at = [], [], []
+        for i, n in enumerate(lens):
+            v_seq += [i] * kp + [-1] * (sp - kp)
+            v_pos += list(range(n + 1, n + 1 + kp)) + [0] * (sp - kp)
+            v_at += [i * sp + j for j in range(kp)]
     params32 = {
         k: ([{n: (t.float() if torch.is_tensor(t) else t) for n, t in layer.items()}
              for layer in v] if k == "layers" else v.float())
         for k, v in engine.params.items()}
 
-    def run(params, mc, plain: bool, next_tokens=None):
+    def run(params, mc, plain: bool, picks=None):
+        """([step0, step1(, verify)] logits, the tokens fed after step 0
+        and step 1 — the f32 plain run's greedy picks, reused by all)."""
         pages = init_kv_pages(KVCacheConfig(
             n_layers=mc.n_layers, n_kv_heads=mc.n_kv_heads,
             head_dim=mc.head_dim, page_size=ps,
@@ -489,22 +570,37 @@ def _logits_check(torch, engine) -> dict:
             params, mc, ints(tokens), ints(seq), ints(pos), ints(q_start),
             ints(lens), ints([0] * len(lens)), pages, table, ps, ints(last),
             attention_fn=A.ragged_paged_attention_plain if plain else None)
-        if next_tokens is None:
-            next_tokens = torch.argmax(step0, dim=-1).to(torch.int32)
+        if picks is None:
+            picks = [torch.argmax(step0, dim=-1).to(torch.int32)]
         step1, _ = llama.decode_step(
-            params, mc, next_tokens, ints(lens), pages, table, active, ps,
+            params, mc, picks[0], ints(lens), pages, table, active, ps,
             attention_fn=A.paged_attention_plain if plain else None)
-        return step0, step1, next_tokens
+        out = [step0, step1]
+        if verify_k is not None:
+            if len(picks) == 1:
+                picks.append(torch.argmax(step1, dim=-1).to(torch.int32))
+            slices = torch.cat([picks[1][:, None], drafts.to(torch.int32)], 1)
+            v_tok = torch.zeros((len(lens), sp), dtype=torch.int32, device="cuda")
+            v_tok[:, :kp] = slices
+            verify, _ = llama.forward_ragged(
+                params, mc, v_tok.reshape(-1), ints(v_seq), ints(v_pos),
+                ints([i * sp for i in range(len(lens))]), ints([kp] * len(lens)),
+                ints([n + 1 for n in lens]), pages, table, ps, ints(last),
+                attention_fn=A.ragged_paged_attention_plain if plain else None,
+                logits_at=ints(v_at), dense_stride=sp)
+            out.append(verify)
+        return out, picks
 
     with torch.inference_mode():
-        p32 = run(params32, mc32, plain=True)
-        k32 = run(params32, mc32, plain=False, next_tokens=p32[2])
+        p32, picks = run(params32, mc32, plain=True)
+        k32, _ = run(params32, mc32, plain=False, picks=picks)
         del params32
-        p16 = run(engine.params, mc16, plain=True, next_tokens=p32[2])
-        k16 = run(engine.params, mc16, plain=False, next_tokens=p32[2])
+        p16, _ = run(engine.params, mc16, plain=True, picks=picks)
+        k16, _ = run(engine.params, mc16, plain=False, picks=picks)
     torch.cuda.empty_cache()
     out = {}
-    for i, name in enumerate(("forward_ragged", "decode_step")):
+    names = ("forward_ragged", "decode_step", "verify")[:len(p32)]
+    for i, name in enumerate(names):
         scale = float(p32[i].abs().max())
         err32 = float((k32[i] - p32[i]).abs().max())
         noise16 = float((p16[i] - p32[i]).abs().max())
@@ -525,21 +621,19 @@ def _logits_check(torch, engine) -> dict:
     return out
 
 
-def phase_serve(torch) -> dict:
-    """The port's server at Llama-3-8B full width and depth: returns the
-    kernel launch counts of the served requests."""
+def _start_server(torch, argv, phase: str):
+    """The port's server built from command-line `argv` through
+    build_arg_parser/build_model, listening on a free port in a thread and
+    ready; returns (model, server, thread)."""
     import threading
-    from concurrent.futures import ThreadPoolExecutor
 
     from kserve_tpu_torch.model_server import ModelServer
-    from kserve_tpu_torch.ops import paged_attention_cuda as K
     from kserve_tpu_torch.runtimes.generative_server import (
         build_arg_parser,
         build_model,
     )
 
-    args = build_arg_parser().parse_args(SERVE_ARGS)
-    model = build_model(args)
+    model = build_model(build_arg_parser().parse_args(argv))
     server = ModelServer(http_port=0, host="127.0.0.1")
     t0 = time.perf_counter()
     errors = []
@@ -558,13 +652,37 @@ def phase_serve(torch) -> dict:
         raise errors[0]
     if not server.listening.is_set():
         raise TimeoutError("server did not start listening")
-    startup_s = time.perf_counter() - t0
-    port = server.port
-    status, _ = _http(port, "GET", "/v2/health/ready")
+    status, _ = _http(server.port, "GET", "/v2/health/ready")
     assert status == 200, f"ready probe answered {status}"
-    emit({"phase": "serve", "event": "ready", "startup_s": startup_s,
+    emit({"phase": phase, "event": "ready",
+          "startup_s": time.perf_counter() - t0,
           "engine_build_s": model.engine.startup_seconds,
           "memory_allocated_gb": torch.cuda.memory_allocated() / 1e9})
+    return model, server, thread
+
+
+def _stop_server(torch, model, server, thread) -> None:
+    """Stop the server thread and free the model's device memory."""
+    import gc
+
+    server.request_stop()
+    thread.join(120)
+    if thread.is_alive():
+        raise RuntimeError("server thread did not stop")
+    model.engine = None
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def phase_serve(torch) -> dict:
+    """The port's server at Llama-3-8B full width and depth: returns the
+    kernel launch counts of the served requests."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from kserve_tpu_torch.ops import paged_attention_cuda as K
+
+    model, server, thread = _start_server(torch, SERVE_ARGS, "serve")
+    port = server.port
 
     base = "The port of a serving stack from one accelerator to another "
     prompts = [
@@ -633,11 +751,254 @@ def phase_serve(torch) -> dict:
                           for name, text, _ in prompts},
     }
     emit(summary)
-    server.request_stop()
-    thread.join(120)
-    if thread.is_alive():
-        raise RuntimeError("server thread did not stop")
+    _stop_server(torch, model, server, thread)
     return counts
+
+
+
+
+SPEC_K = 3
+
+
+def phase_spec(torch) -> dict:
+    """The port's server with --spec_decode_k=3 at Llama-3-8B full width
+    and depth: returns the kernel launch counts of the served requests."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from kserve_tpu_torch.ops import paged_attention_cuda as K
+
+    emit({"phase": "spec", "event": "start",
+          "memory_allocated_gb": torch.cuda.memory_allocated() / 1e9})
+    model, server, thread = _start_server(
+        torch, SERVE_ARGS + [f"--spec_decode_k={SPEC_K}"], "spec")
+    engine = model.engine
+    base = "The port of a serving stack from one accelerator to another "
+    prompts = [
+        ("short", "Tell me about the sea.", 48),
+        ("medium", base * 6, 56),
+        ("repetitive", "ab " * 40, 64),  # bigrams the drafter can follow
+        ("haiku", "Write a haiku about paged attention.", 64),
+        ("sampled", "Pick a random word.", 48),
+    ]
+    torch.cuda.synchronize()
+    K.reset_launch_counts()
+    t_run = time.perf_counter()
+    with ThreadPoolExecutor(max_workers=len(prompts)) as pool:
+        futs = {
+            name: pool.submit(_http, server.port, "POST", "/openai/v1/completions", {
+                "model": "llama3-8b", "prompt": text, "max_tokens": n,
+                "ignore_eos": True, **SAMPLED.get(name, {"temperature": 0})})
+            for name, text, n in prompts
+        }
+        results = {name: f.result() for name, f in futs.items()}
+    wall = time.perf_counter() - t_run
+    torch.cuda.synchronize()
+    counts = dict(K.LAUNCHES)
+    generated = 0
+    for name, _, n in prompts:
+        status, body = results[name]
+        if status != 200:
+            raise AssertionError(f"spec completion {name} answered {status}: "
+                                 f"{body[:300]!r}")
+        resp = json.loads(body)
+        got = resp["usage"]["completion_tokens"]
+        if got != n or resp["choices"][0]["finish_reason"] != "length":
+            raise AssertionError(f"spec completion {name}: {got} tokens "
+                                 f"({resp['choices'][0]['finish_reason']}), wanted {n}")
+        generated += got
+    stats = dict(engine.spec_stats)
+    if counts["dense_ragged_paged_attention"] <= 0:
+        raise AssertionError(f"the spec path never launched the dense kernel: {counts}")
+    if not (stats["drafted"] > 0
+            and stats["drafted"] == stats["accepted"] + stats["rejected"]):
+        raise AssertionError(f"draft statistics do not add up: {stats}")
+    logits = _logits_check(torch, engine, verify_k=SPEC_K)
+    emit({
+        "phase": "spec", "model": "llama3-8b (random weights, seed 1)",
+        "spec_decode_k": SPEC_K, "requests": len(prompts),
+        "tokens_generated": generated, "wall_s": wall,
+        "tok_per_s": generated / wall, "spec_stats": stats,
+        "acceptance": stats["accepted"] / stats["drafted"],
+        "mixed_dispatches": engine.steps, "dense_dispatches": engine.dense_steps,
+        "chained_dispatches": engine.chained_dispatches,
+        "launches": counts, "logits_check": logits,
+    })
+    del engine
+    _stop_server(torch, model, server, thread)
+    emit(_spec_identity_f32(torch))
+    return counts
+
+
+def _check_dispatch_has_no_sync(torch, engine) -> dict:
+    """Enqueue one mixed_decode dispatch and one chained on it with CUDA
+    sync debugging set to "error": any operation that waits on the device
+    (a blocking copy, .item(), nonzero, boolean-mask indexing) raises.
+    Returns what the two dispatches emitted."""
+    import numpy as np
+
+    from kserve_tpu_torch.engine.sampling import SamplingParams, SamplingState
+
+    B, ps = engine.config.max_batch_size, engine.config.page_size
+    pos = np.asarray([5, 40, 100, 17] + [0] * (B - 4), np.int32)
+    live = pos > 0
+    per_lane = -(-(int(pos.max()) + 2 * engine._max_step_advance) // ps)
+    table = np.zeros((B, per_lane), np.int32)
+    pages = engine.allocator.allocate(int(live.sum()) * per_lane)
+    table[live] = np.asarray(pages, np.int32).reshape(-1, per_lane)
+    plan = {
+        "tokens": np.arange(B, dtype=np.int32) + 65, "pos": pos, "live": live,
+        "capacity": np.where(live, per_lane * ps, 0).astype(np.int32),
+        "counters": np.ones(B, np.int32), "page_table": table,
+        "state": SamplingState.from_params(
+            [SamplingParams(temperature=0.0)] * (B - 1)
+            + [SamplingParams(temperature=0.8, top_k=50, seed=3)], "cuda"),
+    }
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        first = engine._dispatch_dense(plan)
+        second = engine._dispatch_dense(plan, chain=first)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    emitted = [int(engine._wait_dense(c)[1].sum()) for c in (first, second)]
+    engine.allocator.free(pages)
+    if min(emitted) <= 0:
+        raise AssertionError(f"sync-checked dispatches emitted {emitted} tokens")
+    return {"ok": True, "tokens_emitted": emitted}
+
+
+def _teacher_engine_class(LLMEngine, upload, streams: dict):
+    """An LLMEngine whose draft-table rows hold the bigrams of each lane's
+    prompt plus its spec-off greedy stream (`streams`: prompt tuple ->
+    tokens), so a draft is the token greedy decode emits next unless that
+    token recurs with another successor.  Random weights accept almost no
+    bigram drafts of their own; these are accepted, and must reproduce the
+    reference token for token."""
+    import numpy as np
+
+    class TeacherDrafts(LLMEngine):
+        def _refresh_draft_table(self):
+            dirty = self._draft_dirty
+            super()._refresh_draft_table()
+            for i, slot in enumerate(self._slots):
+                if ((dirty is not None and i not in dirty)
+                        or slot.request_id is None or slot.prefilling is not None):
+                    continue
+                seq = np.asarray(slot.prompt_ids + streams[tuple(slot.prompt_ids)])
+                row = np.full((self.model_config.vocab_size,), -1, np.int32)
+                row[seq[:-1]] = seq[1:]
+                self._draft_table[i] = upload(row, self.device)
+
+    return TeacherDrafts
+
+
+def _spec_identity_f32(torch) -> dict:
+    """Greedy streams with speculative decoding on against off, in float32
+    at Llama-3-8B width and 2 layers (bf16 noise of a random model flips
+    near-tied argmaxes; f32 does not): once with the engine's own bigram
+    drafts, once with drafts taken from the reference streams (so that
+    rounds accept drafts).  A stream that differs fails unless the
+    reference's top-2 logit gap at the first differing token is within the
+    f32 logits tolerance (a tie the two paths may break either way)."""
+    import asyncio
+    import dataclasses
+    import gc
+
+    from kserve_tpu_torch.device import upload
+    from kserve_tpu_torch.engine.engine import EngineConfig, LLMEngine
+    from kserve_tpu_torch.engine.kvcache import KVCacheConfig, init_kv_pages
+    from kserve_tpu_torch.engine.sampling import SamplingParams
+    from kserve_tpu_torch.engine.tokenizer import load_tokenizer
+    from kserve_tpu_torch.models import llama
+    from kserve_tpu_torch.ops import attention as A
+
+    mc = dataclasses.replace(llama.LlamaConfig.llama3_8b(), n_layers=2,
+                             dtype="float32")
+    params = llama.init_params(mc, seed=1, device="cuda")
+    tok = load_tokenizer(mc.vocab_size)
+    ec = dict(max_batch_size=8, page_size=16, num_pages=512,
+              max_pages_per_seq=128, max_prefill_len=1024, dtype="float32")
+    prompts = [tok.encode(t) for t in (
+        "Tell me about the sea.", "ab " * 40,
+        "Write a haiku about paged attention.", "Pick a random word.")]
+    n_tokens = 48
+
+    async def streams(engine):
+        async def one(ids):
+            sp = SamplingParams(temperature=0.0, max_tokens=n_tokens, ignore_eos=True)
+            return [o.token_id async for o in engine.generate(ids, sp)]
+
+        await engine.start()
+        try:
+            return await asyncio.wait_for(
+                asyncio.gather(*[one(p) for p in prompts]), 600)
+        finally:
+            await engine.stop()
+
+    off = LLMEngine(mc, EngineConfig(**ec), tok, params=params, device="cuda")
+    ref = asyncio.run(streams(off))
+    del off
+    gc.collect()
+    on = LLMEngine(mc, EngineConfig(spec_decode_k=SPEC_K, **ec), tok,
+                   params=params, device="cuda")
+    got = asyncio.run(streams(on))
+    teacher_cls = _teacher_engine_class(
+        LLMEngine, upload, {tuple(p): a for p, a in zip(prompts, ref)})
+    teacher = teacher_cls(mc, EngineConfig(spec_decode_k=SPEC_K, **ec), tok,
+                          params=params, device="cuda")
+    taught = asyncio.run(streams(teacher))
+    ints = lambda xs: torch.tensor(xs, dtype=torch.int32, device="cuda")  # noqa: E731
+
+    def ref_logits(seq):
+        """Plain f32 logits after `seq` (one lane, plain attention)."""
+        n, W = len(seq), -(-len(seq) // 16)
+        pages = init_kv_pages(KVCacheConfig(
+            n_layers=mc.n_layers, n_kv_heads=mc.n_kv_heads, head_dim=mc.head_dim,
+            page_size=16, num_pages=1 + W, dtype="float32"), "cuda")
+        with torch.inference_mode():
+            logits, _ = llama.forward_ragged(
+                params, mc, ints(seq), ints([0] * n), ints(list(range(n))),
+                ints([0]), ints([n]), ints([0]), pages,
+                ints([list(range(1, W + 1))]), 16, ints([n - 1]),
+                attention_fn=A.ragged_paged_attention_plain)
+        return logits[0]
+
+    def compare(engine, streams_on, drafts: str) -> dict:
+        differing = []
+        for i, (a, b) in enumerate(zip(ref, streams_on)):
+            if len(a) != n_tokens or len(b) != n_tokens:
+                raise AssertionError(f"f32 stream {i}: {len(a)} / {len(b)} tokens")
+            if a == b:
+                continue
+            j = next(t for t in range(n_tokens) if a[t] != b[t])
+            logits = ref_logits(prompts[i] + a[:j])
+            top2 = torch.topk(logits, 2).values
+            gap = float(top2[0] - top2[1])
+            tol = F32_LOGITS_REL_TOL * float(logits.abs().max())
+            differing.append({"stream": i, "token": j, "top2_gap": gap, "tol": tol})
+            if gap > tol:
+                raise AssertionError(
+                    f"f32 greedy stream {i} differs spec-on ({drafts} drafts) "
+                    f"vs spec-off at token {j} with top-2 gap {gap} > tol {tol}")
+        if engine.dense_steps <= 0:
+            raise AssertionError("the f32 spec engine never ran a dense dispatch")
+        return {"drafts": drafts,
+                "identical": sum(a == b for a, b in zip(ref, streams_on)),
+                "differing": differing, "spec_stats": dict(engine.spec_stats),
+                "dense_dispatches": engine.dense_steps,
+                "chained_dispatches": engine.chained_dispatches}
+
+    out = {"phase": "spec", "check": "f32_2layer_greedy_identity",
+           "streams": len(ref), "tokens_each": n_tokens,
+           "runs": [compare(on, got, "bigram"), compare(teacher, taught, "reference")]}
+    if teacher.spec_stats["accepted"] <= 0:
+        raise AssertionError(
+            f"reference drafts were never accepted: {teacher.spec_stats}")
+    out["no_sync_dispatch"] = _check_dispatch_has_no_sync(torch, on)
+    del on, teacher, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
 
 
 if __name__ == "__main__":

@@ -1,23 +1,29 @@
-"""The engine's device program: the unified ragged `mixed` step.
+"""The engine's device programs: the unified ragged `mixed` step and the
+speculative `mixed_decode` step.
 
-Port of kserve_tpu/engine/compiled.py:_make_mixed (:465-529).  Where the
-JAX package jits one program and runs its decode loop as a `lax.scan`,
-this is a plain function whose loop is a Python loop: PyTorch runs
-eagerly, and every per-step control value (positions, which lanes are
-live, the sampling counters) follows from the host-side plan alone, so
-they are all computed and uploaded before the first launch and the loop
-enqueues device work without waiting on the device.  KV pages are updated
-in place.
+Ports of kserve_tpu/engine/compiled.py:_make_mixed (:465-529) and
+:_make_mixed_decode (:531-697).  Where the JAX package jits a program and
+runs its loop as a `lax.scan`, these are plain functions whose loop is a
+Python loop: PyTorch runs eagerly.  Neither loop waits on the device: in
+`mixed` every per-step control value (positions, which lanes are live,
+the sampling counters) follows from the host-side plan alone and is
+uploaded before the first launch; in `mixed_decode` they depend on how
+many drafts the device accepted, so they stay device tensors from round
+to round.  Host data goes up through pinned memory without a stream
+sync (device.upload).  KV pages and the draft table are updated in place.
 """
 
 from __future__ import annotations
 
-from typing import List
+from typing import List, Optional
 
 import numpy as np
 import torch
 
+from ..device import upload
 from ..models import llama
+from ..ops.attention import dense_stride_for
+from ..ops.paged_attention_cuda import RAGGED_BQ
 from .sampling import SamplingState, sample_tokens
 
 
@@ -41,7 +47,7 @@ def make_mixed(model_config: llama.LlamaConfig, engine_config):
         device = kv_pages[0].device
 
         def dev(x, dtype=torch.int32):
-            return torch.as_tensor(np.asarray(x), device=device).to(dtype)
+            return upload(x, device, dtype)
 
         # host bookkeeping of the decode loop: positions advance and
         # counters count only on live steps, independent of the tokens
@@ -60,6 +66,7 @@ def make_mixed(model_config: llama.LlamaConfig, engine_config):
             pos_h += live
             counters_h += live
         table = dev(page_table)
+        counters_dev = dev(np.stack(step_counters))
         if steps > 1:
             pos_dev = dev(np.stack(step_pos))
             live_dev = dev(np.stack(step_live), torch.bool)
@@ -68,7 +75,7 @@ def make_mixed(model_config: llama.LlamaConfig, engine_config):
             params, model_config, dev(q_tokens), dev(token_seq),
             dev(token_pos), dev(q_start), dev(q_len), dev(kv_start),
             kv_pages, table, page_size, dev(last_idx))
-        sampled0 = sample_tokens(logits, state, rng, step_counters[0])
+        sampled0 = sample_tokens(logits, state, rng, counters_dev[0])
         tok0 = dev(scan_tok0)
         tokens = torch.where(tok0 >= 0, tok0, sampled0)
         out = [sampled0]
@@ -77,9 +84,124 @@ def make_mixed(model_config: llama.LlamaConfig, engine_config):
             logits, kv_pages = llama.decode_step(
                 params, model_config, tokens, pos_dev[s], kv_pages, table,
                 live, page_size)
-            nxt = sample_tokens(logits, state, rng, step_counters[s + 1])
+            nxt = sample_tokens(logits, state, rng, counters_dev[s + 1])
             tokens = torch.where(live, nxt, tokens)
             out.append(tokens)
         return torch.stack(out), kv_pages
 
     return mixed
+
+
+def make_mixed_decode(model_config: llama.LlamaConfig, engine_config,
+                      k_drafts: int, align: int):
+    """The `mixed_decode` step: dense decode packing plus self-drafting
+    speculative verify, for K = k_drafts drafts per lane per round.
+
+    Every round, each live lane packs a (K+1)-token slice (its last
+    accepted token plus K drafts walked out of its row of the bigram
+    `draft_table`; an unseen bigram drafts the token itself) at the static
+    stride `sp = dense_stride_for(K+1, align)`, writes the slice's KV, runs
+    forward_ragged once and samples a target token at every slice
+    position, with the row counter `cnt + j` (so seeded rows draw what
+    sequential decode draws).  The lane emits its longest accepted prefix
+    plus the bonus token and advances position and counter by as many;
+    rejected drafts' KV sits past the causal horizon and is overwritten by
+    the next slice.  The accepted chain's bigrams are learned into the
+    table.  A lane runs a round only when its pages cover the whole K+1
+    write window.  K = 0 is dense-packed plain decode.
+
+    `align` is the kernel block (RAGGED_BQ on the card, 1 for the plain
+    CPU version): a stride below RAGGED_BQ routes attention to the
+    dense-stride kernel.  The draft table is [B+1, V] int32 (-1 = unseen);
+    row B is a dump row that masked-out bigram writes land in, so the
+    learning scatter needs no data-dependent indexing (None when K = 0).
+
+    Returns ([rounds, B, K+1] int32 target samples, [rounds, B] int32 emit
+    counts, pages, the table, and the (token, pos, counter) device carry a
+    chained dispatch starts from)."""
+    Kp = k_drafts + 1
+    rounds = engine_config.steps_per_sync
+    page_size = engine_config.page_size
+    sp = dense_stride_for(Kp, align)
+    dense_stride = sp if (align > 1 and sp < RAGGED_BQ) else None
+
+    def mixed_decode(params, tokens, pos, kv_pages: List[torch.Tensor],
+                     page_table, live, capacity, counters,
+                     draft_table: Optional[torch.Tensor],
+                     state: SamplingState, rng: torch.Generator):
+        device = kv_pages[0].device
+
+        def dev(x, dtype=torch.int32):
+            return upload(x, device, dtype)
+
+        tok, p, cnt = dev(tokens), dev(pos), dev(counters)
+        table = dev(page_table)
+        live_d, cap = dev(live, torch.bool), dev(capacity)
+        B = tok.shape[0]
+        T = B * sp
+        lane_ix = torch.arange(B, device=device)
+        rows = torch.arange(T, device=device)
+        lane_of = rows // sp  # [T] lane of each packed row
+        off = (rows % sp).to(torch.int32)  # offset within the lane's stride
+        in_slice = off < Kp  # rows past K+1 are stride padding
+        q_start = (lane_ix * sp).to(torch.int32)
+        j = torch.arange(Kp, device=device)
+        # packed indices of the real slice rows, (lane, offset) order
+        logits_at = (lane_ix[:, None] * sp + j[None, :]).reshape(-1)
+        row_state = state.repeat_rows(Kp)
+        pad = torch.zeros((B, sp - Kp), dtype=torch.int32, device=device)
+        minus1 = torch.full((T,), -1, dtype=torch.int32, device=device)
+        pair_lane = lane_ix[:, None].expand(B, Kp)
+        later = j[None, :] > j[:, None]  # [Kp, Kp]: j' after j
+        toks_out, n_out = [], []
+        for _ in range(rounds):
+            ok = live_d & (p + Kp <= cap)
+            drafts = []
+            prev = tok
+            for _ in range(k_drafts):
+                nxt = draft_table[lane_ix, prev.long()]
+                nxt = torch.where(nxt >= 0, nxt, prev)
+                drafts.append(nxt)
+                prev = nxt
+            slice_toks = torch.stack([tok] + drafts, dim=1)  # [B, Kp]
+            q_tokens = torch.cat([slice_toks, pad], dim=1).reshape(T)
+            token_seq = torch.where(ok[lane_of] & in_slice,
+                                    lane_of.to(torch.int32), minus1)
+            token_pos = p[lane_of] + off
+            q_len = torch.where(ok, Kp, 0).to(torch.int32)
+            logits, kv_pages = llama.forward_ragged(
+                params, model_config, q_tokens, token_seq, token_pos,
+                q_start, q_len, p, kv_pages, table, page_size, q_start,
+                logits_at=logits_at, dense_stride=dense_stride)  # [B*Kp, V]
+            row_counters = (cnt[:, None] + j[None, :]).reshape(-1)
+            sampled = sample_tokens(logits, row_state, rng,
+                                    row_counters).reshape(B, Kp)
+            if k_drafts > 0:
+                match = slice_toks[:, 1:] == sampled[:, :-1]
+                acc = torch.cumprod(match.to(torch.int32), dim=1).sum(dim=1)
+            else:
+                acc = torch.zeros_like(lane_ix)
+            n_emit = torch.where(ok, acc + 1, 0).to(torch.int32)
+            new_tok = torch.where(ok, sampled[lane_ix, acc], tok)
+            if k_drafts > 0:
+                # learn the accepted chain's bigrams chain[j] -> chain[j+1];
+                # of two pairs with one source the later one wins (as the
+                # JAX scatter's in-order updates), and every masked pair
+                # goes to the dump row B
+                chain = torch.cat([tok[:, None], sampled], dim=1)  # [B, Kp+1]
+                srcs, dsts = chain[:, :-1], chain[:, 1:]
+                pair_ok = ok[:, None] & (j[None, :] <= acc[:, None])
+                overwritten = ((srcs[:, :, None] == srcs[:, None, :])
+                               & pair_ok[:, None, :] & later[None]).any(dim=2)
+                at = torch.where(pair_ok & ~overwritten, pair_lane, B)
+                draft_table[at.reshape(-1), srcs.reshape(-1).long()] = (
+                    dsts.reshape(-1))
+            p = p + n_emit
+            cnt = cnt + n_emit
+            tok = new_tok
+            toks_out.append(sampled)
+            n_out.append(n_emit)
+        return (torch.stack(toks_out), torch.stack(n_out), kv_pages,
+                draft_table, (tok, p, cnt))
+
+    return mixed_decode

@@ -8,15 +8,18 @@ Port of the unified-ragged serving path of kserve_tpu/engine/engine.py:
 - paged KV on the device (engine/kvcache.py), pages grown as lanes advance
 - sampling on the device (engine/sampling.py), per-lane params as tensors
 - each request owns an asyncio queue fed by the run loop
+- with `spec_decode_k` set, pure-decode steps run the dense speculative
+  `mixed_decode` program instead, chained depth 2 (`_step_dense`)
 
-The device call and the fetch of its [steps, B] tokens run in a worker
-thread (`asyncio.to_thread`), so the event loop keeps answering health
-probes and new requests while a step computes.
+The device call and the fetch of its tokens run in a worker thread
+(`asyncio.to_thread`), so the event loop keeps answering health probes and
+new requests while a step computes.
 
-Not ported in this slice: the prefix cache, KV tiers and persistence, the
-peer page fabric, speculative decoding, data/tensor/pipeline/sequence
-parallelism, P/D disaggregation, drain/checkpoint/resume, the watchdog,
-metrics, the AOT cache and preemption.  Admission waits for free pages.
+Not ported yet: the prefix cache, KV tiers and persistence, the peer page
+fabric, data/tensor/pipeline/sequence parallelism, P/D disaggregation,
+drain/checkpoint/resume, the watchdog, metrics, the AOT cache and
+preemption (the speculative path has none either).  Admission waits for
+free pages.
 """
 
 from __future__ import annotations
@@ -29,10 +32,11 @@ from typing import AsyncIterator, Dict, List, Optional
 import numpy as np
 import torch
 
-from ..device import resolve_device
+from ..device import resolve_device, upload
 from ..models import llama
+from ..ops.attention import dense_stride_for
 from ..ops.paged_attention_cuda import RAGGED_BQ
-from .compiled import make_mixed
+from .compiled import make_mixed, make_mixed_decode
 from .kvcache import KVCacheConfig, PageAllocator, init_kv_pages, pages_needed
 from .sampling import SamplingParams, SamplingState
 from .tokenizer import BaseTokenizer, IncrementalDetokenizer
@@ -61,7 +65,6 @@ class LLMEngine:
             "dp": engine_config.dp != 1,
             "sp": engine_config.sp != 1,
             "pp": engine_config.pp != 1,
-            "spec_decode_k": engine_config.spec_decode_k is not None,
         }
         bad = sorted(k for k, v in unsupported.items() if v)
         if bad:
@@ -108,6 +111,37 @@ class LLMEngine:
                 "max_batch_size x the kernel block alignment must fit the "
                 "largest prefill bucket (a pure-decode step packs every lane)")
         self._mixed = make_mixed(model_config, engine_config)
+        # speculative decoding (kserve_tpu/engine/engine.py:516-571)
+        spec_k = engine_config.spec_decode_k
+        if spec_k is not None:
+            if spec_k < 0:
+                raise ValueError(f"spec_decode_k must be >= 0, got {spec_k}")
+            stride = dense_stride_for(spec_k + 1, self._ragged_align)
+            if (self._ragged_align > 1
+                    and (engine_config.max_batch_size * stride)
+                    % self._ragged_align):
+                raise ValueError(
+                    "spec_decode_k on the kernel path needs max_batch_size * "
+                    f"padded-slice stride ({engine_config.max_batch_size}*"
+                    f"{stride}) to be a multiple of the "
+                    f"{self._ragged_align}-token block")
+        self._spec_k = spec_k
+        self._mixed_decode = (
+            None if spec_k is None else make_mixed_decode(
+                model_config, engine_config, spec_k, self._ragged_align))
+        # worst-case per-lane advance of one dispatch: every round accepts
+        # all K drafts plus the bonus token
+        self._max_step_advance = engine_config.steps_per_sync * ((spec_k or 0) + 1)
+        # hard per-lane kv ceiling: a lane within K tokens of it can never
+        # fit another (K+1)-token slice, so _step_mixed hands such batches
+        # to the plain mixed path
+        self._dense_lane_cap = engine_config.max_model_len
+        # [B+1, V] bigram draft table on the device (-1 = unseen; row B is
+        # the program's dump row) and the rows whose occupant changed since
+        # it was last seeded (None = every row)
+        self._draft_table: Optional[torch.Tensor] = None
+        self._draft_dirty: Optional[set] = None
+        self.spec_stats = {"drafted": 0, "accepted": 0, "rejected": 0}
         self._slots: List[_Slot] = [
             _Slot() for _ in range(engine_config.max_batch_size)]
         self._waiting: List[_QueuedRequest] = []
@@ -115,6 +149,8 @@ class LLMEngine:
         self._task: Optional[asyncio.Task] = None
         self._stopped = False
         self.steps = 0  # mixed dispatches so far
+        self.dense_steps = 0  # mixed_decode dispatches so far
+        self.chained_dispatches = 0  # of those, launched behind another
 
     # ---------------- public API ----------------
 
@@ -278,7 +314,7 @@ class LLMEngine:
         for slot in active:
             if slot.pos >= self.config.max_model_len:
                 continue
-            grow = min(self.config.steps_per_sync,
+            grow = min(self._max_step_advance,
                        self.config.max_model_len - slot.pos)
             self._ensure_pages_at(slot, slot.pos, grow)
             if len(slot.pages) * ps <= slot.pos:
@@ -325,6 +361,9 @@ class LLMEngine:
                       if s.request_id is not None and s.prefilling is not None]
         if meta is None and not prefilling:
             return False
+        if self._mixed_decode is not None and not prefilling and self._dense_fits(meta):
+            await self._step_dense(meta)
+            return True
         plan = self._plan_ragged(meta, prefilling)
         chunk_np = await asyncio.to_thread(self._dispatch, plan)
         self.steps += 1
@@ -439,13 +478,8 @@ class LLMEngine:
         tok_list.extend([0] * pad)
         seq_list.extend([-1] * pad)
         pos_list.extend([0] * pad)
-        width = self.config.page_bucket(max(
-            [len(s.pages) for s in self._slots if s.request_id is not None]
-            or [1]))
-        page_table = np.zeros((B, width), np.int32)
-        for i, slot in enumerate(self._slots):
-            if slot.request_id is not None and slot.pages:
-                page_table[i, : len(slot.pages)] = slot.pages
+        page_table = self._page_table(
+            [s.request_id is not None for s in self._slots])
         return {
             "q_tokens": np.asarray(tok_list, np.int32),
             "token_seq": np.asarray(seq_list, np.int32),
@@ -493,14 +527,237 @@ class LLMEngine:
                 slot.generated.append(token)
                 self._emit(slot, token)
 
+    # ---------------- dense / speculative decode stepping ----------------
+    # Port of kserve_tpu/engine/engine.py:3386-3623.  Unlike the JAX engine
+    # this one frees a finished lane's pages at once even while a chained
+    # dispatch that still writes them is in flight: every dispatch runs on
+    # one CUDA stream, so a later owner's writes land after the stale ones
+    # and it reads no position it has not written.
+
+    def _dense_fits(self, meta: dict) -> bool:
+        """Whether a pure-decode step can run the dense program: every
+        decode lane has room for a full (K+1)-token slice, below its hard
+        ceiling (a lane within K tokens of max_model_len steps on the plain
+        mixed path for its last stretch, token-identical) and within the
+        pages it holds now.  The second test is this port's: it has no
+        preemption, so a lane short of pages steps on the mixed path, which
+        truncates it if nothing frees, instead of sitting out dense rounds."""
+        kp = self._spec_k + 1
+        for i, slot in enumerate(self._slots):
+            if slot.request_id is None or not meta["active"][i]:
+                continue
+            if (slot.pos + kp > self._dense_lane_cap
+                    or meta["capacity"][i] < slot.pos + kp):
+                return False
+        return True
+
+    def _page_table(self, live) -> np.ndarray:
+        """[B, bucketed width] page table of the `live` lanes (other rows 0)."""
+        B = self.config.max_batch_size
+        width = self.config.page_bucket(max(
+            [len(s.pages) for i, s in enumerate(self._slots) if live[i]] or [1]))
+        table = np.zeros((B, width), np.int32)
+        for i, slot in enumerate(self._slots):
+            if live[i] and slot.pages:
+                table[i, : len(slot.pages)] = slot.pages
+        return table
+
+    def _refresh_draft_table(self) -> None:
+        """Re-seed the draft table's rows whose occupant changed from that
+        occupant's prompt + generated bigrams (a later occurrence wins);
+        rows that stayed resident keep what the device learned."""
+        if not self._spec_k:
+            return  # K = 0 drafts nothing and has no table
+        V = self.model_config.vocab_size
+        B = self.config.max_batch_size
+
+        def row_data(i: int) -> np.ndarray:
+            row = np.full((V,), -1, np.int32)
+            slot = self._slots[i] if i < B else None
+            if slot is not None and slot.request_id is not None and slot.prefilling is None:
+                seq = np.asarray(slot.prompt_ids + slot.generated, np.int64)
+                if seq.shape[0] >= 2:
+                    row[seq[:-1]] = seq[1:]
+            return row
+
+        if self._draft_table is None or self._draft_dirty is None:
+            self._draft_table = upload(
+                np.stack([row_data(i) for i in range(B + 1)]), self.device)
+        elif self._draft_dirty:
+            idx = sorted(self._draft_dirty)
+            self._draft_table[upload(idx, self.device, torch.int64)] = upload(
+                np.stack([row_data(i) for i in idx]), self.device)
+        self._draft_dirty = set()
+
+    def _plan_dense(self, meta: dict) -> dict:
+        """Host inputs of one unchained mixed_decode dispatch."""
+        self._refresh_draft_table()
+        live = meta["active"].copy()
+        return {
+            "tokens": meta["tokens"], "pos": meta["pos"], "live": live,
+            "capacity": meta["capacity"], "counters": meta["counters"],
+            "page_table": self._page_table(live),
+            "state": SamplingState.from_params(
+                [s.params if live[i] else SamplingParams()
+                 for i, s in enumerate(self._slots)], self.device),
+            "rids": [s.request_id for s in self._slots],
+        }
+
+    def _plan_dense_chained(self, prev: dict) -> Optional[dict]:
+        """A dispatch chained on the in-flight one: tokens, positions and
+        counters come from its device carry; the host refreshes what it
+        owns, page capacity (grown toward two in-flight dispatches) and
+        the page table.  None drains the pipeline instead."""
+        B = self.config.max_batch_size
+        adv = self._max_step_advance
+        kp = self._spec_k + 1
+        live = prev["live"].copy()
+        capacity = np.zeros((B,), np.int32)
+        for i, slot in enumerate(self._slots):
+            if not live[i]:
+                continue
+            if slot.request_id != prev["rids"][i]:
+                live[i] = False
+                continue
+            if slot.pos + adv + kp > self._dense_lane_cap:
+                # the in-flight dispatch may carry this lane to where no
+                # further slice fits its ceiling: the unchained re-plan
+                # hands it to the mixed path
+                return None
+            grow = min(2 * adv, self.config.max_model_len - slot.pos)
+            if grow > 0:
+                self._ensure_pages_at(slot, slot.pos, grow)
+            capacity[i] = len(slot.pages) * self.config.page_size
+        if not live.any():
+            return None
+        return {**prev, "live": live, "capacity": capacity,
+                "page_table": self._page_table(live)}
+
+    def _dispatch_dense(self, plan: dict, chain: Optional[dict] = None) -> dict:
+        """Enqueue one mixed_decode dispatch (worker thread), then the
+        copies of its outputs into pinned host buffers and an event after
+        them, before any later dispatch is enqueued.  `chain` is the
+        in-flight dispatch whose device (token, pos, counter) carry this
+        one starts from."""
+        with torch.inference_mode():
+            if chain is not None:
+                tok, pos, cnt = chain["carry"]
+            else:
+                tok, pos, cnt = plan["tokens"], plan["pos"], plan["counters"]
+            toks, n_emit, self.kv_pages, self._draft_table, carry = (
+                self._mixed_decode(
+                    self.params, tok, pos, self.kv_pages, plan["page_table"],
+                    plan["live"], plan["capacity"], cnt, self._draft_table,
+                    plan["state"], self._rng))
+            if self.device.type != "cuda":
+                return {"carry": carry, "host": (toks, n_emit), "event": None}
+            host = []
+            for t in (toks, n_emit):
+                h = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+                h.copy_(t, non_blocking=True)
+                host.append(h)
+            event = torch.cuda.Event()
+            event.record()
+            return {"carry": carry, "host": tuple(host), "event": event}
+
+    @staticmethod
+    def _wait_dense(chunk: dict):
+        if chunk["event"] is not None:
+            chunk["event"].synchronize()
+        return tuple(t.numpy() for t in chunk["host"])
+
+    async def _route_dense(self, plan: dict, chunk: dict):
+        """Consume one mixed_decode dispatch: per round, each live lane
+        emits its accepted drafts plus the bonus token (none when the
+        round was skipped for capacity).  A lane whose request went away
+        while the dispatch ran is discarded whole.  Returns (any lane
+        finished, any token routed)."""
+        toks_np, n_np = await asyncio.to_thread(self._wait_dense, chunk)
+        k = self._spec_k
+        routed = drafted = accepted = 0
+        finished_any = False
+        for i, slot in enumerate(self._slots):
+            if not plan["live"][i]:
+                continue
+            if slot.request_id is None or slot.request_id != plan["rids"][i]:
+                finished_any = True
+                continue
+            for r in range(toks_np.shape[0]):
+                n = int(n_np[r, i])
+                if n <= 0:
+                    continue
+                emitted = 0
+                for j in range(n):
+                    token = int(toks_np[r, i, j])
+                    slot.pos += 1
+                    slot.generated.append(token)
+                    self._emit(slot, token)
+                    routed += 1
+                    emitted += 1
+                    if slot.request_id is None:
+                        break  # finished at this token: drop the tail
+                # all emitted tokens but the round's bonus sample are
+                # accepted drafts (a finish mid-round consumed drafts only)
+                drafted += k
+                accepted += min(emitted, n - 1)
+                if slot.request_id is None:
+                    finished_any = True
+                    break
+            if slot.request_id is not None and slot.pos >= self.config.max_model_len:
+                self._finish(slot, "length")
+                finished_any = True
+        if k > 0:
+            self.spec_stats["drafted"] += drafted
+            self.spec_stats["accepted"] += accepted
+            self.spec_stats["rejected"] += drafted - accepted
+        return finished_any, routed > 0
+
+    async def _step_dense(self, meta: dict) -> None:
+        """Dense speculative decode with a depth-2 pipeline: dispatch N+1,
+        chained on N's device carry, is enqueued before N's tokens are
+        routed, so routing N overlaps N+1 on the device."""
+        plan = self._plan_dense(meta)
+        chunk = await asyncio.to_thread(self._dispatch_dense, plan)
+        self.dense_steps += 1
+        while True:
+            plan2 = chunk2 = None
+            admission_blocked = (not self._waiting
+                                 or self._free_slot_index() is None)
+            # a lane that surely finishes inside the in-flight dispatch
+            # drains the pipeline anyway: do not chain a discarded dispatch
+            predictable_finish = any(
+                s.request_id is not None and plan["live"][i]
+                and len(s.generated) + self._max_step_advance >= s.params.max_tokens
+                for i, s in enumerate(self._slots))
+            if admission_blocked and not predictable_finish and not self._stopped:
+                plan2 = self._plan_dense_chained(plan)
+            if plan2 is not None:
+                chunk2 = await asyncio.to_thread(self._dispatch_dense, plan2, chunk)
+                self.dense_steps += 1
+                self.chained_dispatches += 1
+            finished_any, routed_any = await self._route_dense(plan, chunk)
+            await asyncio.sleep(0)  # flush streams while N+1 runs
+            if chunk2 is None:
+                break
+            plan, chunk = plan2, chunk2
+            if (finished_any or not routed_any or self._stopped
+                    or (self._waiting and self._free_slot_index() is not None)):
+                # stale lanes, admission can proceed, or every round was
+                # skipped for capacity: drain the pipeline and re-plan
+                await self._route_dense(plan, chunk)
+                break
+
     def _seat_fresh(self, slot: _Slot, req: _QueuedRequest, first_token: int) -> None:
         slot.prefilling = None
+        slot.prompt_ids = req.prompt_ids
         slot.prompt_len = len(req.prompt_ids)
         slot.pos = len(req.prompt_ids)  # position of the token decoded next
         slot.generated = [first_token]
         slot.params = req.params
         slot.detok = IncrementalDetokenizer(self.tokenizer)
         slot.stop_texts = list(req.params.stop or [])
+        if self._draft_dirty is not None:
+            self._draft_dirty.add(self._slots.index(slot))
 
     def _emit(self, slot: _Slot, token: int) -> None:
         """Stream one token; apply stop conditions."""

@@ -1,17 +1,21 @@
 """Engine runtime types: configuration, the output record, and slot and
 queue bookkeeping.
 
-Port of kserve_tpu/engine/types.py (EngineConfig :36 with the fields this
-slice uses, GenerationOutput :317, _Slot :331, _QueuedRequest :359).  The
-knobs the slice does not run yet (kv_quant, weight_quant, tp/dp/sp/pp,
-spec_decode_k) are kept so a configuration asking for them is rejected at
-engine construction instead of silently ignored.
+Port of kserve_tpu/engine/types.py (EngineConfig :36 with the fields the
+port uses, spec_decode_k_from_env :210, GenerationOutput :317, _Slot
+:331, _QueuedRequest :359).  The knobs the port does not run yet
+(kv_quant, weight_quant, tp/dp/sp/pp) are kept so a configuration asking
+for them is rejected at engine construction instead of silently ignored.
 """
 
 from __future__ import annotations
 
+import logging
+import os
 from dataclasses import dataclass
 from typing import List, Optional, Tuple
+
+logger = logging.getLogger(__name__)
 
 
 @dataclass
@@ -26,6 +30,9 @@ class EngineConfig:
     # decode steps run per dispatch (the `mixed` loop); streaming
     # granularity is this many tokens
     steps_per_sync: int = 8
+    # speculative decoding: K draft tokens per lane verified per round of
+    # the dense `mixed_decode` program (0 = dense packing alone; None = off)
+    spec_decode_k: Optional[int] = None
     # not run by this port yet: any other value is rejected
     kv_quant: str = "none"
     weight_quant: str = "none"
@@ -33,7 +40,6 @@ class EngineConfig:
     dp: int = 1
     sp: int = 1
     pp: int = 1
-    spec_decode_k: Optional[int] = None
 
     def __post_init__(self):
         # buckets must reach max_prefill_len or long prompts would overflow
@@ -56,6 +62,25 @@ class EngineConfig:
         return min(b, self.max_pages_per_seq)
 
 
+def spec_decode_k_from_env() -> Optional[int]:
+    """$KSERVE_TPU_SPEC_DECODE_K -> EngineConfig.spec_decode_k: unset or
+    empty = off (None); an integer >= 0 enables speculative decoding with
+    that K.  A malformed value is logged and ignored rather than crash the
+    server on a typo."""
+    raw = os.environ.get("KSERVE_TPU_SPEC_DECODE_K", "").strip()
+    if not raw:
+        return None
+    try:
+        k = int(raw)
+    except ValueError:
+        k = -1
+    if k < 0:
+        logger.warning("ignoring malformed KSERVE_TPU_SPEC_DECODE_K=%r (want "
+                       "an integer >= 0)", raw)
+        return None
+    return k
+
+
 @dataclass
 class GenerationOutput:
     token_id: int
@@ -69,8 +94,8 @@ class _Slot:
     """Host-side state for one decode lane."""
 
     __slots__ = (
-        "request_id", "prompt_len", "pages", "pos", "generated", "params",
-        "queue", "detok", "stop_texts", "prefilling",
+        "request_id", "prompt_ids", "prompt_len", "pages", "pos", "generated",
+        "params", "queue", "detok", "stop_texts", "prefilling",
     )
 
     def __init__(self):

@@ -4,9 +4,9 @@ scaling, qkv bias, per-head qk-norm, tied embeddings, sandwich norms,
 attention and final logit softcaps, attention-scale override, per-layer
 sliding windows, GeGLU).
 
-Port of kserve_tpu/models/llama.py: the two entry points the `mixed`
-program runs, `forward_ragged` (:720) and `decode_step` (:656), and their
-helpers.  Parameters are a plain dict with the JAX package's key names and
+Port of kserve_tpu/models/llama.py: the entry points the `mixed` and
+`mixed_decode` programs run, `forward_ragged` (:720, with `logits_at` and
+`dense_stride`) and `decode_step` (:656), and their helpers.  Parameters are a plain dict with the JAX package's key names and
 layout (`w` is [in, out], `y = x @ w`), so `params_from_jax` carries a JAX
 pytree across without a transpose.  The large matrix products are plain
 `@`; attention goes through ops/attention.py (the CUDA kernels on the
@@ -16,6 +16,7 @@ parallelism, the legacy prefill programs, checkpoint loading.
 
 from __future__ import annotations
 
+import functools
 import json
 from dataclasses import dataclass
 from typing import Any, Dict, List, Optional, Tuple
@@ -438,13 +439,23 @@ def forward_ragged(
     page_size: int,
     last_idx: torch.Tensor,  # [B] packed index of each lane's last token
     attention_fn=None,  # replaces ops.attention.ragged_paged_attention
+    logits_at: Optional[torch.Tensor] = None,  # [N] packed indices
+    dense_stride: Optional[int] = None,  # dense packing stride (< 8: the
+    # speculative-verify layout, lanes sharing kernel blocks)
 ) -> Tuple[torch.Tensor, List[torch.Tensor]]:
     """The unified mixed-batch forward: every lane's slice (a prompt, a
     prompt chunk or one decode token) sits in one packed buffer.  Each
     layer writes the slice's K/V into the pages, then runs ragged paged
     attention with the causal mask anchored at each lane's kv offset.
-    Returns ([B, vocab] f32 logits at each lane's last token, pages)."""
-    attention = attention_fn or ragged_paged_attention
+    Returns ([B, vocab] f32 logits at each lane's last token, pages), or
+    with `logits_at` the [N, vocab] logits at every listed token (the
+    speculative-verify surface: each slice position needs its own
+    next-token distribution)."""
+    if attention_fn is not None:
+        attention = attention_fn
+    else:
+        attention = functools.partial(ragged_paged_attention,
+                                      dense_stride=dense_stride)
     x = _embed(params, tokens, config)  # [T, h]
     cos, sin = rope_cos_sin(token_pos, config.head_dim, config.rope_theta,
                             config.rope_scaling)
@@ -456,4 +467,5 @@ def forward_ragged(
                              logit_softcap=config.attn_logit_softcap,
                              scale=config.attn_scale, window=window)
         x = _block(layer, x, cos, sin, config, attend)
-    return _logits(params, x[last_idx.long()], config), kv_pages
+    rows = last_idx if logits_at is None else logits_at
+    return _logits(params, x[rows.long()], config), kv_pages

@@ -49,6 +49,10 @@ _SIGNATURES = {
     # page_size, W, scale, softcap, window, dtype, stream
     "kt_paged_decode_attention": (
         [_P] * 5 + [_I] * 6 + [_F, _F, _I, _I, _P]),
+    # q, pages, page_table, kv_start, q_len, out, B, sp, nq, nkv,
+    # head_dim, page_size, W, scale, softcap, window, dtype, stream
+    "kt_dense_ragged_paged_attention": (
+        [_P] * 6 + [_I] * 7 + [_F, _F, _I, _I, _P]),
 }
 
 

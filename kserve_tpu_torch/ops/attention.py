@@ -11,6 +11,11 @@ Port of kserve_tpu/ops/attention.py (the decode and ragged paths):
   device: a CPU tensor takes the plain version, a CUDA tensor launches the
   kernel (ops/paged_attention_cuda.py) or raises.  There is no size
   threshold: on the card the kernel always runs.
+- `ragged_paged_attention(..., dense_stride=sp)` with sp < RAGGED_BQ is
+  the speculative-verify packing (lane i's slice at offset i*sp, so lanes
+  share kernel blocks): on the card it goes to the dense-stride kernel.
+  The plain version is per-token and serves any packing, so it is the
+  plain version of both ragged kernels.
 
 `window` is a Python int (0 = full attention), `scale` None means
 1/sqrt(head_dim).
@@ -129,6 +134,42 @@ def ragged_paged_attention_plain(
     return out.to(q.dtype)
 
 
+def dense_stride_for(width: int, align: int) -> int:
+    """Packed-slice stride for lanes carrying `width` query tokens each
+    under a kernel block alignment of `align` (RAGGED_BQ on the kernel
+    path, 1 for the plain version).  Port of
+    kserve_tpu/ops/attention.py:dense_stride_for.
+
+    - align <= 1: pack densely, stride == width.
+    - width a multiple of align, or larger than it: round up to the next
+      align multiple (every block still belongs to one lane).
+    - width < align: the smallest power of two >= width, which divides
+      align: lanes share blocks at this stride (the dense-stride kernel)."""
+    if width <= 0:
+        raise ValueError(f"slice width must be positive, got {width}")
+    if align <= 1 or width % align == 0:
+        return width
+    if width > align:
+        return -(-width // align) * align
+    sp = 1
+    while sp < width:
+        sp *= 2
+    return sp
+
+
+def check_dense_packing(T: int, B: int, dense_stride: int) -> None:
+    """The dense packing's shape rules, with the JAX package's messages
+    (pallas_paged_attention.py:787-795)."""
+    if _cuda.RAGGED_BQ % dense_stride != 0:
+        raise ValueError(
+            f"dense_stride {dense_stride} must divide RAGGED_BQ="
+            f"{_cuda.RAGGED_BQ}")
+    if B * dense_stride != T:
+        raise ValueError(
+            f"dense packing expects T == B*stride "
+            f"({B}*{dense_stride}), got T={T}")
+
+
 def ragged_paged_attention(
     q: torch.Tensor,
     kv_pages: torch.Tensor,
@@ -139,13 +180,23 @@ def ragged_paged_attention(
     logit_softcap: float = 0.0,
     scale: Optional[float] = None,
     window: int = 0,
+    dense_stride: Optional[int] = None,
 ) -> torch.Tensor:
     """The ragged contract on the tensor's device: the CUDA kernel for a
     CUDA tensor (raising on what it does not take), the plain version for
-    a CPU tensor."""
+    a CPU tensor.  `dense_stride` < RAGGED_BQ picks the dense-stride
+    kernel; the route depends on it alone, since checking the slices'
+    offsets would need a device sync."""
+    dense = dense_stride is not None and dense_stride < _cuda.RAGGED_BQ
+    if dense:
+        check_dense_packing(q.shape[0], page_table.shape[0], dense_stride)
     if q.device.type == "cpu":
         return ragged_paged_attention_plain(
             q, kv_pages, page_table, q_start, q_len, kv_start,
+            logit_softcap=logit_softcap, scale=scale, window=window)
+    if dense:
+        return _cuda.dense_ragged_paged_attention_cuda(
+            q, kv_pages, page_table, q_len, kv_start, dense_stride,
             logit_softcap=logit_softcap, scale=scale, window=window)
     return _cuda.ragged_paged_attention_cuda(
         q, kv_pages, page_table, q_start, q_len, kv_start,

@@ -4,6 +4,9 @@
   the port of kserve_tpu/ops/pallas_paged_attention.py:_ragged_kernel.
 - `paged_decode_attention_cuda` launches csrc/paged_decode_attention.cu,
   the port of :_decode_kernel and (at head_dim 64) :_packed_decode_kernel.
+- `dense_ragged_paged_attention_cuda` launches
+  csrc/dense_ragged_paged_attention.cu, the port of :_dense_ragged_kernel
+  (the speculative-verify packing, lanes at a stride below RAGGED_BQ).
 
 Each wrapper takes CUDA tensors only: it checks device, dtype (bf16 or
 f32), shape and contiguity, raises on anything its kernel does not take,
@@ -27,7 +30,8 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 #: kernel name -> launches in this process (chip_smoke.py zeroes it before
 #: driving the main path and reads it after)
-LAUNCHES = {"ragged_paged_attention": 0, "paged_decode_attention": 0}
+LAUNCHES = {"ragged_paged_attention": 0, "paged_decode_attention": 0,
+            "dense_ragged_paged_attention": 0}
 
 
 def reset_launch_counts() -> None:
@@ -147,4 +151,43 @@ def paged_decode_attention_cuda(
         torch.cuda.current_stream(q.device).cuda_stream)
     _raise_on(err, "paged_decode_attention")
     LAUNCHES["paged_decode_attention"] += 1
+    return out
+
+
+def dense_ragged_paged_attention_cuda(
+    q: torch.Tensor,  # [B*sp, nq, d], lane i's slice at rows i*sp ..
+    kv_pages: torch.Tensor,  # [num_pages, 2, nkv, ps, d]
+    page_table: torch.Tensor,  # [B, W] int32
+    q_len: torch.Tensor,  # [B] int32, <= sp (0 = the lane reads nothing)
+    kv_start: torch.Tensor,  # [B] int32
+    dense_stride: int,  # sp: divides RAGGED_BQ
+    logit_softcap: float = 0.0,
+    scale: Optional[float] = None,
+    window: int = 0,
+) -> torch.Tensor:
+    if not torch.is_tensor(kv_pages) or kv_pages.dtype == torch.int8:
+        raise NotImplementedError(
+            "int8 KV pages are not ported to the dense-stride kernel yet")
+    ints = (page_table, q_len, kv_start)
+    _check_common(q, kv_pages, ints)
+    T, nq, d = q.shape
+    B, W = page_table.shape
+    sp = int(dense_stride)
+    _require(0 < sp < RAGGED_BQ and RAGGED_BQ % sp == 0,
+             f"dense_stride {sp} must divide RAGGED_BQ={RAGGED_BQ}")
+    _require(T == B * sp, f"dense packing expects T == B*stride ({B}*{sp}), got T={T}")
+    _require(q_len.shape == (B,) and kv_start.shape == (B,),
+             "lane metadata must be [B]")
+    if scale is None:
+        scale = 1.0 / float(d) ** 0.5
+    out = torch.empty_like(q)
+    lib = load_library()
+    err = lib.kt_dense_ragged_paged_attention(
+        q.data_ptr(), kv_pages.data_ptr(), page_table.data_ptr(),
+        kv_start.data_ptr(), q_len.data_ptr(), out.data_ptr(), B, sp, nq,
+        kv_pages.shape[2], d, kv_pages.shape[3], W, float(scale),
+        float(logit_softcap), int(window), _DTYPE_CODES[q.dtype],
+        torch.cuda.current_stream(q.device).cuda_stream)
+    _raise_on(err, "dense_ragged_paged_attention")
+    LAUNCHES["dense_ragged_paged_attention"] += 1
     return out

@@ -9,7 +9,7 @@ names).  Checkpoint loading is not ported yet: weights are seeded random
 Entrypoint:
     python -m kserve_tpu_torch.runtimes.generative_server \\
         --model_name=llama3-8b --model_config=llama3-8b --random_weights \\
-        [--device cuda|cpu]
+        [--device cuda|cpu] [--spec_decode_k K]
 """
 
 from __future__ import annotations
@@ -23,6 +23,7 @@ from ..device import resolve_device
 from ..engine.engine import EngineConfig, LLMEngine
 from ..engine.sampling import SamplingParams
 from ..engine.tokenizer import load_tokenizer
+from ..engine.types import spec_decode_k_from_env
 from ..errors import InvalidInput
 from ..model_server import ModelServer
 from ..models import llama
@@ -233,6 +234,12 @@ def build_arg_parser() -> argparse.ArgumentParser:
     parser.add_argument("--kv_dtype", default="bfloat16", type=str)
     parser.add_argument("--device", default="cuda",
                         help="cuda (default) or cpu; without CUDA, cuda raises")
+    parser.add_argument(
+        "--spec_decode_k", default=None, type=int,
+        help="speculative decoding: K draft tokens per lane verified per "
+        "round of the dense mixed_decode program (0 = dense packing "
+        "alone); defaults to $KSERVE_TPU_SPEC_DECODE_K (off).  Greedy and "
+        "seeded streams stay token-identical to spec-off")
     return parser
 
 
@@ -249,6 +256,8 @@ def build_model(args) -> TorchGenerativeModel:
         max_pages_per_seq=max(1, args.max_model_len // args.page_size),
         max_prefill_len=args.max_prefill_len,
         dtype=args.kv_dtype,
+        spec_decode_k=(args.spec_decode_k if args.spec_decode_k is not None
+                       else spec_decode_k_from_env()),
     )
     return TorchGenerativeModel(
         args.model_name, model_config, engine_config,

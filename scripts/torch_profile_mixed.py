@@ -1,13 +1,19 @@
 """Profile one `mixed` engine step of the PyTorch port (kserve_tpu_torch)
 on one GPU: where a step's time goes at Llama-3-8B shape.
 
-    python3 scripts/torch_profile_mixed.py [--batch 8] [--context 512]
+    python3 scripts/torch_profile_mixed.py [--batch 8] [--context 512] [--spec_k 3]
 
-Two plans, each run through kserve_tpu_torch.engine.compiled.make_mixed
-with seeded random weights (greedy sampling, steps_per_sync decode steps):
+Two plans run through kserve_tpu_torch.engine.compiled.make_mixed with
+seeded random weights (greedy sampling, steps_per_sync decode steps):
   decode       every lane decodes one token at `--context` cached tokens
   prefill_mix  lane 0 carries a `--chunk`-token prompt chunk, the others
                decode as above
+and two through make_mixed_decode (speculative decoding, `--spec_k`
+drafts per lane per round, steps_per_sync rounds, every lane at
+`--context` cached tokens, an empty draft table):
+  spec_greedy   every lane greedy
+  spec_sampled  one lane seeded and sampled (temperature, top-k/p, min-p),
+                the others greedy: the sampler's sort and threefry run
 For each: wall time of the step (host clock around the call and the token
 fetch), the host's enqueue time, and from torch.profiler the device time
 by kernel class and the device idle share (1 - busy / wall).  JSON lines
@@ -29,7 +35,7 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import torch  # noqa: E402
 
-from kserve_tpu_torch.engine.compiled import make_mixed  # noqa: E402
+from kserve_tpu_torch.engine.compiled import make_mixed, make_mixed_decode  # noqa: E402
 from kserve_tpu_torch.engine.kvcache import KVCacheConfig, init_kv_pages  # noqa: E402
 from kserve_tpu_torch.engine.sampling import SamplingParams, SamplingState  # noqa: E402
 from kserve_tpu_torch.engine.types import EngineConfig  # noqa: E402
@@ -37,10 +43,12 @@ from kserve_tpu_torch.models import llama  # noqa: E402
 from kserve_tpu_torch.ops.paged_attention_cuda import RAGGED_BQ  # noqa: E402
 
 CLASSES = (
+    ("dense_attention", ("dense_ragged_kernel",)),
     ("ragged_attention", ("ragged_kernel",)),
     ("decode_attention", ("paged_decode_kernel",)),
     ("gemm", ("gemm", "cutlass", "xmma", "nvjet", "sm90_", "cublas")),
     ("kv_scatter_gather", ("index", "scatter", "gather")),
+    ("sort", ("sort", "radix")),
 )
 
 
@@ -82,6 +90,7 @@ def main(argv=None) -> int:
     p.add_argument("--chunk", type=int, default=1024)
     p.add_argument("--steps_per_sync", type=int, default=8)
     p.add_argument("--iters", type=int, default=3)
+    p.add_argument("--spec_k", type=int, default=3)
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("needs a CUDA device")
@@ -92,28 +101,53 @@ def main(argv=None) -> int:
 
     mc = llama.LlamaConfig.llama3_8b()
     ps, B = 16, args.batch
-    W = -(-(max(args.context, args.chunk) + args.steps_per_sync + 1) // ps)
+    max_advance = args.steps_per_sync * (args.spec_k + 1)
+    W = -(-(max(args.context, args.chunk) + max_advance + 1) // ps)
     ec = EngineConfig(max_batch_size=B, page_size=ps, steps_per_sync=args.steps_per_sync)
     params = llama.init_params(mc, seed=1, device="cuda")
     pages = init_kv_pages(KVCacheConfig(
         n_layers=mc.n_layers, n_kv_heads=mc.n_kv_heads, head_dim=mc.head_dim,
         page_size=ps, num_pages=1 + B * W), "cuda")
     mixed = make_mixed(mc, ec)
-    state = SamplingState.from_params([SamplingParams(temperature=0.0)] * B, "cuda")
+    mixed_decode = make_mixed_decode(mc, ec, args.spec_k, RAGGED_BQ)
+    greedy = SamplingState.from_params([SamplingParams(temperature=0.0)] * B, "cuda")
+    sampled = SamplingState.from_params(
+        [SamplingParams(temperature=0.8, top_k=50, top_p=0.9, min_p=0.01, seed=7)]
+        + [SamplingParams(temperature=0.0)] * (B - 1), "cuda")
     gen = torch.Generator(device="cuda")
+    table = (1 + np.arange(B * W, dtype=np.int32)).reshape(B, W)
     plans = {
         "decode": {i: (args.context, 1) for i in range(B)},
         "prefill_mix": {0: (0, args.chunk),
                         **{i: (args.context, 1) for i in range(1, B)}},
+        "spec_greedy": greedy,
+        "spec_sampled": sampled,
     }
     for name, lanes in plans.items():
-        plan = _plan(lanes, B, W, ps)
+        if name.startswith("spec"):
+            state = lanes
+            drafts = torch.full((B + 1, mc.vocab_size), -1, dtype=torch.int32,
+                                device="cuda")
+
+            def run():
+                # [rounds, B, K+1] tokens and [rounds, B] emit counts
+                return mixed_decode(
+                    params, np.ones(B, np.int32), np.full(B, args.context, np.int32),
+                    pages, table, np.ones(B, bool), np.full(B, W * ps, np.int32),
+                    np.zeros(B, np.int32), drafts, state, gen)[:2]
+        else:
+            plan = _plan(lanes, B, W, ps)
+            state = greedy
+
+            def run():
+                return mixed(params, *plan[:7], pages, *plan[7:], state, gen)[:1]
 
         def step():
             t0 = time.perf_counter()
-            out, _ = mixed(params, *plan[:7], pages, *plan[7:], state, gen)
+            out = run()
             t1 = time.perf_counter()
-            out.cpu()
+            for t in out:
+                t.cpu()
             return t1 - t0, time.perf_counter() - t0
 
         with torch.inference_mode():
@@ -142,6 +176,7 @@ def main(argv=None) -> int:
         print(json.dumps({
             "plan": name, "batch": B, "context": args.context,
             "chunk": args.chunk if name == "prefill_mix" else 0,
+            "spec_k": args.spec_k if name.startswith("spec") else None,
             "steps_per_sync": args.steps_per_sync,
             "wall_ms": wall, "wall_ms_per_step": wall / args.steps_per_sync,
             "host_enqueue_ms": min(r[0] for r in runs) * 1e3,

@@ -226,4 +226,10 @@ def test_cuda_wrappers_refuse_cpu_tensors():
         K.paged_decode_attention_cuda(
             case["q"][:4], case["kv_pages"], case["page_table"],
             torch.ones(4, dtype=torch.int32))
-    assert K.LAUNCHES == {"ragged_paged_attention": 0, "paged_decode_attention": 0}
+    B = case["page_table"].shape[0]
+    with pytest.raises(ValueError, match="CUDA"):
+        K.dense_ragged_paged_attention_cuda(
+            case["q"][: B * 2], case["kv_pages"], case["page_table"],
+            case["q_len"].clamp(max=2), case["kv_start"], 2)
+    assert K.LAUNCHES == {"ragged_paged_attention": 0, "paged_decode_attention": 0,
+                          "dense_ragged_paged_attention": 0}
