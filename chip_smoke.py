@@ -7,20 +7,28 @@ Run from the root of a checkout on a machine with one NVIDIA H100:
 Phases, each printing JSON lines:
   device   card name and power limit (nvidia-smi), torch/CUDA versions
   build    compiles csrc/*.cu into build/kserve_tpu_torch/ (nvcc, sm_90a)
-  kernels  every CUDA kernel against its plain PyTorch version on the
-           card, at Llama-3-8B's attention shape (and at head_dim 64,
-           Llama-3.2-1B's), with timings
+  kernels  every CUDA kernel instance against its plain PyTorch version on
+           the card, at Llama-3-8B's attention shape (and at head_dim 64,
+           Llama-3.2-1B's), over bf16/f32 pages and over int8 pages with
+           f32 row scales, with timings
   serve    the port's OpenAI server (kserve_tpu_torch.runtimes.
            generative_server) with Llama-3-8B at full width and depth and
            seeded random weights: concurrent completions and one streamed
            chat over HTTP, launch counts of the ragged and decode kernels,
            and step-0 logits through the kernels against the plain versions
-  spec     the same server with --spec_decode_k=3 (speculative decoding):
+  d64      the same server with --model_config=llama3-1b (head_dim 64, full
+           depth): the served path of the decode kernel's d=64 instance
+  spec     the server with --spec_decode_k=3 (speculative decoding):
            concurrent greedy completions and a seeded sampled one, the
            dense kernel's launch count and the draft statistics, one verify
            round's logits through the kernels against the plain versions,
            and greedy streams spec-on against spec-off in float32 at full
            width and 2 layers
+  kvq      the int8 KV cache (--kv_quant=int8) at Llama-3-8B full width and
+           depth: the serve phase's requests, then --spec_decode_k=3 with
+           the spec phase's, every attention through the kernels' int8
+           instances, logits through them against the plain int8 versions,
+           and a no-sync check of two chained int8 spec dispatches
 The line before the last is {"kernels": [...]}, the last is
 {"ok": true, "device": {...}}.  Any failure raises and exits non-zero;
 nothing falls back to the CPU or to the plain versions.
@@ -42,27 +50,42 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOPS_PER_S = 989e12
 
+_RAGGED_SRC = "kserve_tpu_torch/csrc/ragged_paged_attention.cu"
+_DECODE_SRC = "kserve_tpu_torch/csrc/paged_decode_attention.cu"
+_DENSE_SRC = "kserve_tpu_torch/csrc/dense_ragged_paged_attention.cu"
+_PALLAS = "kserve_tpu/ops/pallas_paged_attention.py"
+# one summary row per kernel instance that stands for a TPU kernel (the
+# int8 decode instance stands for paged_attention_xla's int8 gather: the
+# JAX package has no int8 Pallas decode kernel)
 KERNEL_META = {
     "ragged_paged_attention": {
-        "route": "cuda",
-        "source": "kserve_tpu_torch/csrc/ragged_paged_attention.cu",
-        "replaces": "kserve_tpu/ops/pallas_paged_attention.py:430",
-    },
+        "route": "cuda", "source": _RAGGED_SRC, "replaces": f"{_PALLAS}:430"},
     "paged_decode_attention": {
-        "route": "cuda",
-        "source": "kserve_tpu_torch/csrc/paged_decode_attention.cu",
-        "replaces": "kserve_tpu/ops/pallas_paged_attention.py:147",
-    },
+        "route": "cuda", "source": _DECODE_SRC, "replaces": f"{_PALLAS}:147"},
+    "paged_decode_attention_d64": {
+        "route": "cuda", "source": _DECODE_SRC, "replaces": f"{_PALLAS}:218"},
     "dense_ragged_paged_attention": {
-        "route": "cuda",
-        "source": "kserve_tpu_torch/csrc/dense_ragged_paged_attention.cu",
-        "replaces": "kserve_tpu/ops/pallas_paged_attention.py:556",
-    },
+        "route": "cuda", "source": _DENSE_SRC, "replaces": f"{_PALLAS}:556"},
+    "ragged_paged_attention_int8": {
+        "route": "cuda", "source": _RAGGED_SRC, "replaces": f"{_PALLAS}:430"},
+    "dense_ragged_paged_attention_int8": {
+        "route": "cuda", "source": _DENSE_SRC, "replaces": f"{_PALLAS}:556"},
+    "paged_decode_attention_int8": {
+        "route": "cuda", "source": _DECODE_SRC,
+        "replaces": "kserve_tpu/ops/attention.py:171"},
 }
-# the phase whose run supplies each kernel's launch count
-KERNEL_PATH = {"ragged_paged_attention": "serve",
-               "paged_decode_attention": "serve",
-               "dense_ragged_paged_attention": "spec"}
+# row -> (the phase whose served run supplies its launch count, the
+# LAUNCHES key counted there)
+KERNEL_PATH = {
+    "ragged_paged_attention": ("serve", "ragged_paged_attention"),
+    "paged_decode_attention": ("serve", "paged_decode_attention"),
+    "paged_decode_attention_d64": ("d64", "paged_decode_attention"),
+    "dense_ragged_paged_attention": ("spec", "dense_ragged_paged_attention"),
+    "ragged_paged_attention_int8": ("kvq", "ragged_paged_attention_int8"),
+    "paged_decode_attention_int8": ("kvq", "paged_decode_attention_int8"),
+    "dense_ragged_paged_attention_int8": (
+        "kvq_spec", "dense_ragged_paged_attention_int8"),
+}
 
 
 def emit(obj) -> None:
@@ -144,14 +167,19 @@ def _bf16_tol(ref) -> float:
     return 2.0 * 2.0 ** (math.floor(math.log2(mag)) - 7)
 
 
-def _make_cache(torch, gen, lanes_kv, nkv, d, ps, dtype):
+def _make_cache(torch, gen, lanes_kv, nkv, d, ps, dtype, kv_quant="none"):
     """Random pages holding `lanes_kv` tokens per lane, each lane on its own
-    shuffled pages (page 0 stays the null page)."""
+    shuffled pages (page 0 stays the null page).  kv_quant "int8" gives
+    the quantized cache (int8 pages, f32 row scales), quantized by the
+    port's own kvcache.quantize_rows."""
+    from kserve_tpu_torch.engine.kvcache import quantize_rows
+
     need = [max(1, -(-n // ps)) for n in lanes_kv]
     W = max(need)
     P = 1 + sum(need)
     pages = torch.randn((P, 2, nkv, ps, d), generator=gen, device="cuda",
-                        dtype=torch.float32).to(dtype)
+                        dtype=torch.float32)
+    pages = quantize_rows(pages) if kv_quant == "int8" else pages.to(dtype)
     perm = (torch.randperm(P - 1, generator=gen, device="cuda") + 1).tolist()
     table = torch.zeros((len(lanes_kv), W), dtype=torch.int32)
     used = 0
@@ -159,6 +187,12 @@ def _make_cache(torch, gen, lanes_kv, nkv, d, ps, dtype):
         table[i, :n] = torch.tensor(perm[used:used + n], dtype=torch.int32)
         used += n
     return pages, table.cuda()
+
+
+def _int8(cases: dict) -> dict:
+    """The same cases over the int8 cache, named `<case>_int8`."""
+    return {f"{name}_int8": dict(case, kv_quant="int8")
+            for name, case in cases.items()}
 
 
 RAGGED_CASES = {
@@ -176,6 +210,9 @@ RAGGED_CASES = {
                           softcap=50.0, scale=0.0625),
     "f32": dict(lanes=[(40, 9), (0, 30), (100, 1)], dtype="float32"),
 }
+RAGGED_CASES.update(_int8({k: RAGGED_CASES[k] for k in (
+    "prefill_chunk", "mixed", "pure_decode", "window", "softcap_scale", "f32")}))
+RAGGED_CASES["d64_int8"] = dict(RAGGED_CASES["mixed_int8"], d=64)
 
 DECODE_CASES = {
     # 8 lanes at mixed lengths up to ~2k tokens, one inactive
@@ -185,11 +222,13 @@ DECODE_CASES = {
                                 softcap=30.0, window=256, scale=0.07),
     "f32": dict(d=128, lens=[100, 0, 37, 512], dtype="float32"),
 }
+DECODE_CASES.update(_int8(DECODE_CASES))
 
 
 # speculative verify packing, 8 lanes: (K+1, stride) per case; lane 3 is
 # inactive and lane 5 holds 1,500 tokens but has q_len 0 (starved of page
-# capacity mid-dispatch): neither may read a page
+# capacity mid-dispatch): neither may read a page (nor, over int8 pages,
+# a scale)
 DENSE_HISTORY = [310, 1024, 57, 0, 1999, 1500, 130, 777]
 DENSE_CASES = {
     "k0_sp1": dict(kp=1, sp=1),
@@ -200,6 +239,8 @@ DENSE_CASES = {
     "k3_sp4_f32": dict(kp=4, sp=4, dtype="float32"),
     "k3_sp4_d64": dict(kp=4, sp=4, d=64),
 }
+DENSE_CASES.update(_int8({k: DENSE_CASES[k] for k in (
+    "k1_sp2", "k3_sp4", "k3_sp4_window", "k3_sp4_f32", "k3_sp4_d64")}))
 for _case in DENSE_CASES.values():
     _case["lanes"] = [(h, 0 if i in (3, 5) else _case["kp"])
                       for i, h in enumerate(DENSE_HISTORY)]
@@ -209,7 +250,7 @@ def _dense_inputs(torch, gen, case, nq=32, nkv=8, ps=16):
     dtype = getattr(torch, case.get("dtype", "bfloat16"))
     d, sp, lanes = case.get("d", 128), case["sp"], case["lanes"]
     pages, table = _make_cache(torch, gen, [h + case["kp"] for h, _ in lanes],
-                               nkv, d, ps, dtype)
+                               nkv, d, ps, dtype, case.get("kv_quant", "none"))
     q = torch.randn((len(lanes) * sp, nq, d), generator=gen,
                     device="cuda").to(dtype)
     ints = lambda xs: torch.tensor(xs, dtype=torch.int32, device="cuda")  # noqa: E731
@@ -236,18 +277,18 @@ def _dense_plain(dense_stride, **kw):
     return ragged_paged_attention_plain(**kw)
 
 
-def _ragged_inputs(torch, gen, case, nq=32, nkv=8, d=128, ps=16):
+def _ragged_inputs(torch, gen, case, nq=32, nkv=8, ps=16):
     from kserve_tpu_torch.ops.paged_attention_cuda import RAGGED_BQ
 
     dtype = getattr(torch, case.get("dtype", "bfloat16"))
-    lanes = case["lanes"]
+    d, lanes = case.get("d", 128), case["lanes"]
     q_start, off = [], 0
     for _, qn in lanes:
         q_start.append(off)
         off += -(-qn // RAGGED_BQ) * RAGGED_BQ
     T = max(off, RAGGED_BQ)
     pages, table = _make_cache(torch, gen, [h + qn for h, qn in lanes],
-                               nkv, d, ps, dtype)
+                               nkv, d, ps, dtype, case.get("kv_quant", "none"))
     q = torch.randn((T, nq, d), generator=gen, device="cuda").to(dtype)
     ints = lambda xs: torch.tensor(xs, dtype=torch.int32, device="cuda")  # noqa: E731
     return dict(
@@ -262,7 +303,8 @@ def _decode_inputs(torch, gen, case, nq=32, nkv=8, ps=16):
     dtype = getattr(torch, case.get("dtype", "bfloat16"))
     d = case["d"]
     lens = case["lens"]
-    pages, table = _make_cache(torch, gen, lens, nkv, d, ps, dtype)
+    pages, table = _make_cache(torch, gen, lens, nkv, d, ps, dtype,
+                               case.get("kv_quant", "none"))
     q = torch.randn((len(lens), nq, d), generator=gen, device="cuda").to(dtype)
     return dict(
         q=q, kv_pages=pages, page_table=table,
@@ -271,10 +313,17 @@ def _decode_inputs(torch, gen, case, nq=32, nkv=8, ps=16):
         window=case.get("window", 0))
 
 
-def _ragged_work(case, nq=32, nkv=8, d=128, itemsize=2):
+def _kv_row_bytes(case, d: int, itemsize: int) -> int:
+    """Bytes of one cached K or V row of one kv head: d int8 values plus a
+    4-byte f32 scale, or d values of the page dtype."""
+    return d + 4 if case.get("kv_quant") == "int8" else d * itemsize
+
+
+def _ragged_work(case, nq=32, nkv=8, itemsize=2):
     """Bytes the function must move and flops it must do on this case."""
-    lanes, window = case["lanes"], case.get("window", 0)
-    kv_bytes = sum(h + qn for h, qn in lanes if qn) * nkv * d * 2 * itemsize
+    lanes, window, d = case["lanes"], case.get("window", 0), case.get("d", 128)
+    row = _kv_row_bytes(case, d, itemsize)
+    kv_bytes = sum(h + qn for h, qn in lanes if qn) * nkv * 2 * row
     q_bytes = sum(qn for _, qn in lanes) * nq * d * itemsize
     flops = 0
     for h, qn in lanes:
@@ -289,7 +338,7 @@ def _ragged_work(case, nq=32, nkv=8, d=128, itemsize=2):
 def _decode_work(case, nq=32, nkv=8, itemsize=2):
     d, lens, window = case["d"], case["lens"], case.get("window", 0)
     live = [min(n, window) if window > 0 else n for n in lens]
-    kv_bytes = sum(live) * nkv * d * 2 * itemsize
+    kv_bytes = sum(live) * nkv * 2 * _kv_row_bytes(case, d, itemsize)
     q_bytes = sum(1 for n in lens if n) * nq * d * itemsize
     return kv_bytes + 2 * q_bytes, sum(4 * n * d * nq for n in live)
 
@@ -302,8 +351,8 @@ def _bound(nbytes: int, flops: int, flops_per_s: float):
 
 def _sdpa_ragged(torch, inp, case):
     """One F.scaled_dot_product_attention call over the gathered KV of
-    every lane (padded batch, boolean causal/window mask): the library
-    yardstick, timed only."""
+    every lane (padded batch, boolean causal/window mask; an int8 cache
+    dequantized to q's dtype first): the library yardstick, timed only."""
     import torch.nn.functional as F
 
     from kserve_tpu_torch.ops.attention import _gather_history
@@ -328,8 +377,8 @@ def _sdpa_ragged(torch, inp, case):
         if window > 0:
             m = m & (qpos[:, None] - kpos[None, :] < window)
         mask[i, 0] = m
-    kb = k.transpose(1, 2).contiguous()
-    vb = v.transpose(1, 2).contiguous()
+    kb = k.to(q.dtype).transpose(1, 2).contiguous()
+    vb = v.to(q.dtype).transpose(1, 2).contiguous()
     scale = case.get("scale") or 1.0 / d ** 0.5
     return lambda: F.scaled_dot_product_attention(
         qb, kb, vb, attn_mask=mask, scale=scale, enable_gqa=True)
@@ -346,39 +395,51 @@ def _sdpa_decode(torch, inp, case):
     kpos = torch.arange(L, device="cuda")
     mask = (kpos[None, :] < lens[:, None])[:, None, None, :]
     qb = inp["q"][:, :, None, :]
-    kb = k.transpose(1, 2).contiguous()
-    vb = v.transpose(1, 2).contiguous()
+    kb = k.to(qb.dtype).transpose(1, 2).contiguous()
+    vb = v.to(qb.dtype).transpose(1, 2).contiguous()
     scale = case.get("scale") or 1.0 / inp["q"].shape[-1] ** 0.5
     return lambda: F.scaled_dot_product_attention(
         qb, kb, vb, attn_mask=mask, scale=scale, enable_gqa=True)
 
 
+def _row_of(kernel: str, case) -> str:
+    """The summary row a case belongs to."""
+    if case.get("kv_quant") == "int8":
+        return kernel + "_int8"
+    if kernel == "paged_decode_attention" and case["d"] == 64:
+        return "paged_decode_attention_d64"
+    return kernel
+
+
 def phase_kernels(torch) -> dict:
-    """Each kernel against its plain version; returns the per-kernel
-    summary rows (launches are filled in by the serve phase)."""
+    """Each kernel instance against its plain version; returns the
+    per-row summaries (launches are filled in by the served phases)."""
     from kserve_tpu_torch.ops import attention as A
     from kserve_tpu_torch.ops import paged_attention_cuda as K
 
     gen = torch.Generator(device="cuda")
     gen.manual_seed(20261016)
     rows = {}
+    worst = {}
     specs = [
+        # (kernel, cases, inputs, kernel wrapper, plain version, timed
+        # cases (each fills its row), library yardstick, work)
         ("ragged_paged_attention", RAGGED_CASES, _ragged_inputs,
          K.ragged_paged_attention_cuda, A.ragged_paged_attention_plain,
-         ("prefill_chunk",), _sdpa_ragged, _ragged_work),
-        # the first timed case fills the summary row; d=64 is the port of
-        # _packed_decode_kernel, timed for its own PERF.md row
+         ("prefill_chunk", "prefill_chunk_int8"), _sdpa_ragged, _ragged_work),
+        # d=64 is the port of _packed_decode_kernel, timed for its own row
         ("paged_decode_attention", DECODE_CASES, _decode_inputs,
          K.paged_decode_attention_cuda, A.paged_attention_plain,
-         ("d128", "d64_llama3_1b"), _sdpa_decode, _decode_work),
+         ("d128", "d64_llama3_1b", "d128_int8"), _sdpa_decode, _decode_work),
         # the library yardstick of a verify round is the ragged one: SDPA
         # on the gathered KV with each lane's causal-offset mask
         ("dense_ragged_paged_attention", DENSE_CASES, _dense_inputs,
-         _dense_kernel, _dense_plain, ("k3_sp4",), _sdpa_ragged, _ragged_work),
+         _dense_kernel, _dense_plain, ("k3_sp4", "k3_sp4_int8"), _sdpa_ragged,
+         _ragged_work),
     ]
     for name, cases, make, kernel, plain, timed, library, work in specs:
-        worst = 0.0
         for case_name, case in cases.items():
+            row = _row_of(name, case)
             inp = make(torch, gen, case)
             got = kernel(**inp)
             ref = plain(**inp)
@@ -387,36 +448,40 @@ def phase_kernels(torch) -> dict:
             tol = (1e-4 if case.get("dtype") == "float32"
                    else _bf16_tol(ref.float()))
             ok = err <= tol and bool(torch.isfinite(got).all())
-            emit({"phase": "kernels", "kernel": name, "case": case_name,
+            emit({"phase": "kernels", "kernel": name, "row": row,
+                  "case": case_name,
                   "dtype": str(inp["q"].dtype).replace("torch.", ""),
+                  "kv": case.get("kv_quant", "none"),
                   "max_abs_err": err, "tol": tol, "ok": ok})
             if not ok:
                 raise AssertionError(
                     f"{name}/{case_name}: kernel disagrees with the plain "
                     f"version (max_abs_err {err} > tol {tol})")
-            worst = max(worst, err)
-            if case_name not in timed:
-                continue
-            ms = _time_ms(torch, lambda: kernel(**inp))
-            plain_ms = _time_ms(torch, lambda: plain(**inp), iters=20,
-                                warmup=1)
-            library_ms = _time_ms(torch, library(torch, inp, case))
-            nbytes, flops = work(case)
-            bound_ms, bound_by = _bound(nbytes, flops, BF16_FLOPS_PER_S)
-            if case_name == timed[0]:
-                rows[name] = {
-                    "name": name, **KERNEL_META[name], "launches": 0,
+            worst[row] = max(worst.get(row, 0.0), err)
+            if case_name in timed:
+                ms = _time_ms(torch, lambda: kernel(**inp))
+                plain_ms = _time_ms(torch, lambda: plain(**inp), iters=20,
+                                    warmup=1)
+                library_ms = _time_ms(torch, library(torch, inp, case))
+                nbytes, flops = work(case)
+                bound_ms, bound_by = _bound(nbytes, flops, BF16_FLOPS_PER_S)
+                rows[row] = {
+                    "name": row, **KERNEL_META[row], "launches": 0,
                     "max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms,
                     "bound_ms": bound_ms, "bound_by": bound_by,
                     "library_ms": library_ms,
                 }
-            emit({"phase": "kernels", "kernel": name, "timed_case": case_name,
-                  "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
-                  "bound_ms": bound_ms, "bound_by": bound_by,
-                  "bytes": nbytes, "flops": flops})
+                emit({"phase": "kernels", "kernel": name, "row": row,
+                      "timed_case": case_name, "ms": ms, "plain_ms": plain_ms,
+                      "library_ms": library_ms, "bound_ms": bound_ms,
+                      "bound_by": bound_by, "bytes": nbytes, "flops": flops})
             del inp, got, ref
             torch.cuda.empty_cache()
-        rows[name]["max_abs_err"] = worst
+    for row, summary in rows.items():
+        summary["max_abs_err"] = worst[row]
+    missing = sorted(set(KERNEL_META) - set(rows))
+    if missing:
+        raise AssertionError(f"kernel rows without a timed case: {missing}")
     return rows
 
 
@@ -427,15 +492,20 @@ def main() -> int:
     _require_package()
     import torch
 
+    t0 = time.perf_counter()
     info = phase_device(torch)
     phase_build()
     rows = phase_kernels(torch)
-    counts = {"serve": phase_serve(torch), "spec": phase_spec(torch)}
+    counts = {"serve": phase_serve(torch), "d64": phase_d64(torch),
+              "spec": phase_spec(torch)}
+    counts.update(phase_kvq(torch))
     for name, row in rows.items():
-        row["launches"] = counts[KERNEL_PATH[name]].get(name, 0)
+        phase, key = KERNEL_PATH[name]
+        row["launches"] = counts[phase].get(key, 0)
     missing = [n for n, row in rows.items() if row["launches"] <= 0]
     if missing:
         raise AssertionError(f"main path never launched kernel(s) {missing}")
+    emit({"phase": "done", "wall_s": time.perf_counter() - t0})
     print(json.dumps({"kernels": list(rows.values())}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": info["name"], "count": info["count"]}}),
@@ -454,10 +524,21 @@ SERVE_ARGS = ["--model_name=llama3-8b", "--model_config=llama3-8b",
 # f32 logits through 32 layers, kernel vs plain attention: the two sum in
 # another order only (~1e-7 relative per layer)
 F32_LOGITS_REL_TOL = 1e-3
+# each attention call of the f32 plain run, repeated through the kernel on
+# the same inputs and cache: summation order only, relative to max(1,
+# max|plain|) (the f32 kernel cases' 1e-4)
+ATTN_F32_REL_TOL = 1e-4
 # bf16 logits: bf16 rounding of activations in every layer dominates; the
 # kernel path may stray from the plain bf16 path by at most this multiple
 # of the plain bf16 path's own distance from f32
 BF16_NOISE_FACTOR = 2.0
+# f32 logits over an int8 cache: a K/V element that the two paths compute
+# a few ulps apart can round to neighbouring int8 steps, and 32 layers
+# amplify such flips far past F32_LOGITS_REL_TOL, so the kernel path may
+# stray from the plain int8 path by at most this multiple of the plain
+# int8 path's own distance from the unquantized plain path (the model's
+# int8 noise); each kernel call is held to ATTN_F32_REL_TOL all the same
+INT8_NOISE_FACTOR = 1.0
 
 
 def _http(port: int, method: str, path: str, body=None, timeout=600):
@@ -506,25 +587,31 @@ def _logits_check(torch, engine, verify_k=None) -> dict:
     """Step-0 logits of one packed plan, then one decode step (and with
     `verify_k`, one speculative verify round of K+1 tokens per lane at the
     dense stride), through the CUDA kernels and through the plain versions,
-    on the served weights:
+    on the served weights and over a cache of the engine's kind (pages in
+    the activation dtype, or int8 pages with scales):
 
-    - float32 (an f32 copy of the weights): kernels and plain versions sum
-      in another order only; they must agree within F32_LOGITS_REL_TOL of
-      the largest |logit|.
+    - float32, each attention call (an f32 copy of the weights): the plain
+      run also calls the kernel on the same inputs and cache; they must
+      agree within ATTN_F32_REL_TOL.
+    - float32 logits: kernels and plain versions sum in another order
+      only; they must agree within F32_LOGITS_REL_TOL of the largest
+      |logit|, or over an int8 cache within INT8_NOISE_FACTOR times the
+      model's int8 noise.
     - bfloat16 (the served path): the plain bf16 path's distance from the
       plain f32 path is bf16's own noise on this model; the kernel path
       may differ from the plain bf16 path by at most BF16_NOISE_FACTOR
       times that noise.
     """
     import dataclasses
+    import functools
 
-    from kserve_tpu_torch.engine.kvcache import KVCacheConfig, init_kv_pages
     from kserve_tpu_torch.models import llama
     from kserve_tpu_torch.ops import attention as A
     from kserve_tpu_torch.ops.paged_attention_cuda import RAGGED_BQ
 
     mc16 = engine.model_config
     mc32 = dataclasses.replace(mc16, dtype="float32")
+    kv_quant = engine.config.kv_quant
     ps = engine.config.page_size
     lens = [40, 100, 7]
     kp = 0 if verify_k is None else verify_k + 1
@@ -543,6 +630,7 @@ def _logits_check(torch, engine, verify_k=None) -> dict:
     ints = lambda xs: torch.tensor(xs, dtype=torch.int32, device="cuda")  # noqa: E731
     table = ints([[1 + i * W + j for j in range(W)] for i in range(len(lens))])
     active = torch.ones(len(lens), dtype=torch.bool, device="cuda")
+    sp = None
     if verify_k is not None:
         # lane i's verify slice: its next token plus K drafts, at
         # positions lens[i]+1 .., packed at the stride the engine uses
@@ -558,23 +646,42 @@ def _logits_check(torch, engine, verify_k=None) -> dict:
         k: ([{n: (t.float() if torch.is_tensor(t) else t) for n, t in layer.items()}
              for layer in v] if k == "layers" else v.float())
         for k, v in engine.params.items()}
+    attn_err = {}  # step name -> worst paired kernel-vs-plain error
 
-    def run(params, mc, plain: bool, picks=None):
+    def attention(mode: str, step: str, plain, kernel):
+        """The attention_fn of one step: the plain version, the kernel
+        (None: the model's own dispatch), or "paired": the plain version,
+        with the kernel run on the same inputs and held against it."""
+        if mode == "plain":
+            return plain
+        if mode == "kernel":
+            return None
+
+        def paired(q, pages, *args, **kw):
+            ref = plain(q, pages, *args, **kw)
+            got = kernel(q, pages, *args, **kw)
+            err = float((got.float() - ref.float()).abs().max()) / max(
+                1.0, float(ref.float().abs().max()))
+            attn_err[step] = max(attn_err.get(step, 0.0), err)
+            return ref
+        return paired
+
+    def run(params, mc, mode: str, picks=None, cache_kind=kv_quant):
         """([step0, step1(, verify)] logits, the tokens fed after step 0
         and step 1 — the f32 plain run's greedy picks, reused by all)."""
-        pages = init_kv_pages(KVCacheConfig(
-            n_layers=mc.n_layers, n_kv_heads=mc.n_kv_heads,
-            head_dim=mc.head_dim, page_size=ps,
-            num_pages=1 + len(lens) * W, dtype=mc.dtype), "cuda")
+        pages = _fresh_cache(mc, ps, 1 + len(lens) * W, cache_kind)
         step0, _ = llama.forward_ragged(
             params, mc, ints(tokens), ints(seq), ints(pos), ints(q_start),
             ints(lens), ints([0] * len(lens)), pages, table, ps, ints(last),
-            attention_fn=A.ragged_paged_attention_plain if plain else None)
+            attention_fn=attention(mode, "forward_ragged",
+                                   A.ragged_paged_attention_plain,
+                                   A.ragged_paged_attention))
         if picks is None:
             picks = [torch.argmax(step0, dim=-1).to(torch.int32)]
         step1, _ = llama.decode_step(
             params, mc, picks[0], ints(lens), pages, table, active, ps,
-            attention_fn=A.paged_attention_plain if plain else None)
+            attention_fn=attention(mode, "decode_step", A.paged_attention_plain,
+                                   A.paged_attention))
         out = [step0, step1]
         if verify_k is not None:
             if len(picks) == 1:
@@ -586,17 +693,21 @@ def _logits_check(torch, engine, verify_k=None) -> dict:
                 params, mc, v_tok.reshape(-1), ints(v_seq), ints(v_pos),
                 ints([i * sp for i in range(len(lens))]), ints([kp] * len(lens)),
                 ints([n + 1 for n in lens]), pages, table, ps, ints(last),
-                attention_fn=A.ragged_paged_attention_plain if plain else None,
+                attention_fn=attention(
+                    mode, "verify", A.ragged_paged_attention_plain,
+                    functools.partial(A.ragged_paged_attention, dense_stride=sp)),
                 logits_at=ints(v_at), dense_stride=sp)
             out.append(verify)
         return out, picks
 
     with torch.inference_mode():
-        p32, picks = run(params32, mc32, plain=True)
-        k32, _ = run(params32, mc32, plain=False, picks=picks)
+        p32, picks = run(params32, mc32, "paired")
+        k32, _ = run(params32, mc32, "kernel", picks=picks)
+        if kv_quant == "int8":
+            x32, _ = run(params32, mc32, "plain", picks=picks, cache_kind="none")
         del params32
-        p16, _ = run(engine.params, mc16, plain=True, picks=picks)
-        k16, _ = run(engine.params, mc16, plain=False, picks=picks)
+        p16, _ = run(engine.params, mc16, "plain", picks=picks)
+        k16, _ = run(engine.params, mc16, "kernel", picks=picks)
     torch.cuda.empty_cache()
     out = {}
     names = ("forward_ragged", "decode_step", "verify")[:len(p32)]
@@ -606,19 +717,51 @@ def _logits_check(torch, engine, verify_k=None) -> dict:
         noise16 = float((p16[i] - p32[i]).abs().max())
         err16 = float((k16[i] - p16[i]).abs().max())
         row = {
+            "attn_f32_max_rel_err": attn_err[name], "attn_f32_tol": ATTN_F32_REL_TOL,
             "f32_max_abs_err": err32, "f32_tol": F32_LOGITS_REL_TOL * scale,
             "bf16_max_abs_err": err16, "bf16_noise": noise16,
             "bf16_tol": BF16_NOISE_FACTOR * noise16, "max_abs_logit": scale,
             "bf16_argmax_agree": float(
                 (k16[i].argmax(-1) == p16[i].argmax(-1)).float().mean()),
         }
+        if kv_quant == "int8":
+            row["int8_noise_f32"] = float((p32[i] - x32[i]).abs().max())
+            row["f32_tol"] = INT8_NOISE_FACTOR * row["int8_noise_f32"]
         out[name] = row
         finite = all(bool(torch.isfinite(t[i]).all()) for t in (k32, k16))
-        if not (finite and err32 <= row["f32_tol"] and err16 <= row["bf16_tol"]):
+        if not (finite and attn_err[name] <= ATTN_F32_REL_TOL
+                and err32 <= row["f32_tol"] and err16 <= row["bf16_tol"]):
             raise AssertionError(
                 f"{name} logits through the kernels disagree with the plain "
                 f"versions: {row}")
     return out
+
+
+def _fresh_cache(mc, page_size: int, num_pages: int, kv_quant: str):
+    """An empty cache on the card for model config `mc`: pages in its
+    dtype, or with kv_quant "int8" (int8 pages, f32 scales) per layer."""
+    import dataclasses
+
+    from kserve_tpu_torch.engine.kvcache import (
+        KVCacheConfig,
+        init_kv_pages,
+        init_kv_scales,
+    )
+
+    cfg = KVCacheConfig(n_layers=mc.n_layers, n_kv_heads=mc.n_kv_heads,
+                        head_dim=mc.head_dim, page_size=page_size,
+                        num_pages=num_pages, dtype=mc.dtype)
+    if kv_quant != "int8":
+        return init_kv_pages(cfg, "cuda")
+    pages = init_kv_pages(dataclasses.replace(cfg, dtype="int8"), "cuda")
+    return list(zip(pages, init_kv_scales(cfg, "cuda")))
+
+
+def _kv_cache_gb(engine) -> float:
+    """Device bytes of the engine's KV cache (pages and any scales)."""
+    tensors = [t for layer in engine.kv_pages
+               for t in (layer if isinstance(layer, tuple) else (layer,))]
+    return sum(t.numel() * t.element_size() for t in tensors) / 1e9
 
 
 def _start_server(torch, argv, phase: str):
@@ -674,26 +817,32 @@ def _stop_server(torch, model, server, thread) -> None:
     torch.cuda.empty_cache()
 
 
-def phase_serve(torch) -> dict:
-    """The port's server at Llama-3-8B full width and depth: returns the
-    kernel launch counts of the served requests."""
+BASE_TEXT = "The port of a serving stack from one accelerator to another "
+SERVE_PROMPTS = [
+    ("short", "Tell me about the sea.", 32),
+    ("medium", BASE_TEXT * 6, 48),
+    ("long", (BASE_TEXT * 40)[:1200], 64),  # > the 1024-token prefill bucket
+    ("repeat_a", "Write a haiku about paged attention.", 40),
+    ("repeat_b", "Write a haiku about paged attention.", 40),
+    ("sampled", "Pick a random word.", 32),
+]
+
+
+def _serve_run(torch, argv, phase: str, prompts, chat_tokens: int = 48) -> dict:
+    """The port's server built from `argv`: `prompts` ((name, text,
+    max_tokens), all concurrent) plus one streamed chat of `chat_tokens`;
+    checks every answer, then the logits through the kernels against the
+    plain versions.  Emits the phase summary and returns the kernel launch
+    counts of the served requests (zeroed just before them, read just
+    after)."""
     from concurrent.futures import ThreadPoolExecutor
 
     from kserve_tpu_torch.ops import paged_attention_cuda as K
 
-    model, server, thread = _start_server(torch, SERVE_ARGS, "serve")
-    port = server.port
-
-    base = "The port of a serving stack from one accelerator to another "
-    prompts = [
-        ("short", "Tell me about the sea.", 32),
-        ("medium", base * 6, 48),
-        ("long", (base * 40)[:1200], 64),  # > the 1024-token prefill bucket
-        ("repeat_a", "Write a haiku about paged attention.", 40),
-        ("repeat_b", "Write a haiku about paged attention.", 40),
-        ("sampled", "Pick a random word.", 32),
-    ]
-    chat = {"model": "llama3-8b", "stream": True, "max_tokens": 48,
+    t_phase = time.perf_counter()
+    model, server, thread = _start_server(torch, argv, phase)
+    port, name = server.port, model.name
+    chat = {"model": name, "stream": True, "max_tokens": chat_tokens,
             "temperature": 0, "ignore_eos": True,
             "messages": [{"role": "user", "content": "Say something long."}]}
 
@@ -704,13 +853,13 @@ def phase_serve(torch) -> dict:
     t_run = time.perf_counter()
     with ThreadPoolExecutor(max_workers=len(prompts) + 1) as pool:
         futs = {
-            name: pool.submit(_http, port, "POST", "/openai/v1/completions", {
-                "model": "llama3-8b", "prompt": text, "max_tokens": n,
-                "ignore_eos": True, **SAMPLED.get(name, {"temperature": 0})})
-            for name, text, n in prompts
+            label: pool.submit(_http, port, "POST", "/openai/v1/completions", {
+                "model": name, "prompt": text, "max_tokens": n,
+                "ignore_eos": True, **SAMPLED.get(label, {"temperature": 0})})
+            for label, text, n in prompts
         }
         chat_fut = pool.submit(_stream_chat, port, chat, t_send)
-        results = {name: f.result() for name, f in futs.items()}
+        results = {label: f.result() for label, f in futs.items()}
         chat_status, events, ttft = chat_fut.result()
     wall = time.perf_counter() - t_run
     torch.cuda.synchronize()
@@ -719,114 +868,195 @@ def phase_serve(torch) -> dict:
 
     generated = 0
     texts = {}
-    for name, text, n in prompts:
-        status, body = results[name]
+    for label, text, n in prompts:
+        status, body = results[label]
         if status != 200:
-            raise AssertionError(f"completion {name} answered {status}: {body[:300]!r}")
+            raise AssertionError(f"{phase} completion {label} answered {status}: "
+                                 f"{body[:300]!r}")
         resp = json.loads(body)
         got = resp["usage"]["completion_tokens"]
         if got != n or resp["choices"][0]["finish_reason"] != "length":
-            raise AssertionError(f"completion {name}: {got} tokens, wanted {n}")
+            raise AssertionError(f"{phase} completion {label}: {got} tokens, "
+                                 f"wanted {n}")
         generated += got
-        texts[name] = resp["choices"][0]["text"]
-    if texts["repeat_a"] != texts["repeat_b"]:
+        texts[label] = resp["choices"][0]["text"]
+    if texts.get("repeat_a") != texts.get("repeat_b"):
         raise AssertionError("a repeated greedy prompt gave another text")
     if chat_status != 200 or events[-1] != "[DONE]":
         raise AssertionError(f"streamed chat answered {chat_status}, last event "
                              f"{events[-1] if events else None!r}")
     token_events = [json.loads(e) for e in events[1:-1]]
-    if len(token_events) != chat["max_tokens"]:
+    if len(token_events) != chat_tokens:
         raise AssertionError(f"streamed chat gave {len(token_events)} token events")
     generated += len(token_events)
 
     logits = _logits_check(torch, model.engine)
-    summary = {
-        "phase": "serve", "model": "llama3-8b (random weights, seed 1)",
+    emit({
+        "phase": phase, "model": f"{name} (random weights, seed 1)",
+        "kv_quant": model.engine.config.kv_quant,
+        "kv_cache_gb": _kv_cache_gb(model.engine),
         "requests": len(prompts) + 1, "tokens_generated": generated,
         "wall_s": wall, "tok_per_s": generated / wall, "chat_ttft_s": ttft,
         "engine_steps": model.engine.steps,
         "max_memory_allocated_gb": peak_gb,
         "launches": counts, "logits_check": logits,
-        "prompt_tokens": {name: len(model.tokenizer.encode(text))
-                          for name, text, _ in prompts},
-    }
-    emit(summary)
+        "prompt_tokens": {label: len(model.tokenizer.encode(text))
+                          for label, text, _ in prompts},
+        "phase_wall_s": time.perf_counter() - t_phase,
+    })
     _stop_server(torch, model, server, thread)
     return counts
 
 
+def _require_launches(phase: str, counts: dict, launched, idle=()) -> None:
+    """Every LAUNCHES key in `launched` ran in the phase, none in `idle`."""
+    bad = ([k for k in launched if counts.get(k, 0) <= 0]
+           + [k for k in idle if counts.get(k, 0) > 0])
+    if bad:
+        raise AssertionError(f"{phase}: unexpected launch counts of {bad}: {counts}")
+
+
+def phase_serve(torch) -> dict:
+    """The port's server at Llama-3-8B full width and depth: returns the
+    kernel launch counts of the served requests."""
+    counts = _serve_run(torch, SERVE_ARGS, "serve", SERVE_PROMPTS)
+    _require_launches("serve", counts,
+                      ("ragged_paged_attention", "paged_decode_attention"))
+    return counts
+
+
+D64_ARGS = ["--model_name=llama3-1b", "--model_config=llama3-1b",
+            "--random_weights", "--http_port=0", "--device=cuda"]
+
+
+def phase_d64(torch) -> dict:
+    """Llama-3.2-1B (head_dim 64) at full depth in bf16: three completions
+    and a streamed chat of 32 tokens, one prompt over a 16-token page.
+    This is the served path of the decode kernel's d=64 instance (the port
+    of _packed_decode_kernel) and of the ragged kernel at d=64."""
+    prompts = [
+        ("short", "Tell me about the sea.", 32),
+        ("long", BASE_TEXT * 2, 32),  # 120 tokens: eight pages
+        ("sampled", "Pick a random word.", 32),
+    ]
+    counts = _serve_run(torch, D64_ARGS, "d64", prompts, chat_tokens=32)
+    _require_launches("d64", counts,
+                      ("ragged_paged_attention", "paged_decode_attention"))
+    return counts
 
 
 SPEC_K = 3
 
 
-def phase_spec(torch) -> dict:
-    """The port's server with --spec_decode_k=3 at Llama-3-8B full width
-    and depth: returns the kernel launch counts of the served requests."""
+SPEC_PROMPTS = [
+    ("short", "Tell me about the sea.", 48),
+    ("medium", BASE_TEXT * 6, 56),
+    ("repetitive", "ab " * 40, 64),  # bigrams the drafter can follow
+    ("haiku", "Write a haiku about paged attention.", 64),
+    ("sampled", "Pick a random word.", 48),
+]
+
+
+def _spec_run(torch, argv, phase: str, check_no_sync: bool = False) -> dict:
+    """A --spec_decode_k=SPEC_K server built from `argv` at Llama-3-8B full
+    width and depth: SPEC_PROMPTS concurrently, the draft statistics, one
+    verify round's logits through the kernels against the plain versions
+    and, with `check_no_sync`, two chained dispatches on the served engine
+    under CUDA sync debugging.  Returns the kernel launch counts of the
+    served requests."""
     from concurrent.futures import ThreadPoolExecutor
 
     from kserve_tpu_torch.ops import paged_attention_cuda as K
 
-    emit({"phase": "spec", "event": "start",
+    t_phase = time.perf_counter()
+    emit({"phase": phase, "event": "start",
           "memory_allocated_gb": torch.cuda.memory_allocated() / 1e9})
-    model, server, thread = _start_server(
-        torch, SERVE_ARGS + [f"--spec_decode_k={SPEC_K}"], "spec")
+    model, server, thread = _start_server(torch, argv, phase)
     engine = model.engine
-    base = "The port of a serving stack from one accelerator to another "
-    prompts = [
-        ("short", "Tell me about the sea.", 48),
-        ("medium", base * 6, 56),
-        ("repetitive", "ab " * 40, 64),  # bigrams the drafter can follow
-        ("haiku", "Write a haiku about paged attention.", 64),
-        ("sampled", "Pick a random word.", 48),
-    ]
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     K.reset_launch_counts()
     t_run = time.perf_counter()
-    with ThreadPoolExecutor(max_workers=len(prompts)) as pool:
+    with ThreadPoolExecutor(max_workers=len(SPEC_PROMPTS)) as pool:
         futs = {
-            name: pool.submit(_http, server.port, "POST", "/openai/v1/completions", {
-                "model": "llama3-8b", "prompt": text, "max_tokens": n,
-                "ignore_eos": True, **SAMPLED.get(name, {"temperature": 0})})
-            for name, text, n in prompts
+            label: pool.submit(_http, server.port, "POST", "/openai/v1/completions", {
+                "model": model.name, "prompt": text, "max_tokens": n,
+                "ignore_eos": True, **SAMPLED.get(label, {"temperature": 0})})
+            for label, text, n in SPEC_PROMPTS
         }
-        results = {name: f.result() for name, f in futs.items()}
+        results = {label: f.result() for label, f in futs.items()}
     wall = time.perf_counter() - t_run
     torch.cuda.synchronize()
     counts = dict(K.LAUNCHES)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
     generated = 0
-    for name, _, n in prompts:
-        status, body = results[name]
+    for label, _, n in SPEC_PROMPTS:
+        status, body = results[label]
         if status != 200:
-            raise AssertionError(f"spec completion {name} answered {status}: "
+            raise AssertionError(f"{phase} completion {label} answered {status}: "
                                  f"{body[:300]!r}")
         resp = json.loads(body)
         got = resp["usage"]["completion_tokens"]
         if got != n or resp["choices"][0]["finish_reason"] != "length":
-            raise AssertionError(f"spec completion {name}: {got} tokens "
+            raise AssertionError(f"{phase} completion {label}: {got} tokens "
                                  f"({resp['choices'][0]['finish_reason']}), wanted {n}")
         generated += got
     stats = dict(engine.spec_stats)
-    if counts["dense_ragged_paged_attention"] <= 0:
-        raise AssertionError(f"the spec path never launched the dense kernel: {counts}")
+    dense = "dense_ragged_paged_attention" + (
+        "_int8" if engine.config.kv_quant == "int8" else "")
+    _require_launches(phase, counts, (dense,))
     if not (stats["drafted"] > 0
             and stats["drafted"] == stats["accepted"] + stats["rejected"]):
         raise AssertionError(f"draft statistics do not add up: {stats}")
     logits = _logits_check(torch, engine, verify_k=SPEC_K)
-    emit({
-        "phase": "spec", "model": "llama3-8b (random weights, seed 1)",
-        "spec_decode_k": SPEC_K, "requests": len(prompts),
+    summary = {
+        "phase": phase, "model": f"{model.name} (random weights, seed 1)",
+        "kv_quant": engine.config.kv_quant, "kv_cache_gb": _kv_cache_gb(engine),
+        "spec_decode_k": SPEC_K, "requests": len(SPEC_PROMPTS),
         "tokens_generated": generated, "wall_s": wall,
         "tok_per_s": generated / wall, "spec_stats": stats,
         "acceptance": stats["accepted"] / stats["drafted"],
         "mixed_dispatches": engine.steps, "dense_dispatches": engine.dense_steps,
         "chained_dispatches": engine.chained_dispatches,
+        "max_memory_allocated_gb": peak_gb,
         "launches": counts, "logits_check": logits,
-    })
+    }
+    if check_no_sync:
+        summary["no_sync_dispatch"] = _check_dispatch_has_no_sync(torch, engine)
+    summary["phase_wall_s"] = time.perf_counter() - t_phase
+    emit(summary)
     del engine
     _stop_server(torch, model, server, thread)
+    return counts
+
+
+def phase_spec(torch) -> dict:
+    """The port's server with --spec_decode_k=3 at Llama-3-8B full width
+    and depth, then the f32 2-layer spec-on/off identity: returns the
+    kernel launch counts of the served requests."""
+    counts = _spec_run(torch, SERVE_ARGS + [f"--spec_decode_k={SPEC_K}"], "spec")
     emit(_spec_identity_f32(torch))
     return counts
+
+
+def phase_kvq(torch) -> dict:
+    """The int8 KV cache at Llama-3-8B full width and depth: the serve
+    phase's requests with --kv_quant=int8, then the spec phase's with
+    --kv_quant=int8 --spec_decode_k=3.  Every attention of both runs must
+    go through an int8 kernel instance (the bf16-page instances launch
+    never); returns {"kvq": counts, "kvq_spec": counts}."""
+    int8 = ["--kv_quant=int8"]
+    plain_keys = ("ragged_paged_attention", "paged_decode_attention",
+                  "dense_ragged_paged_attention")
+    counts = _serve_run(torch, SERVE_ARGS + int8, "kvq", SERVE_PROMPTS)
+    _require_launches("kvq", counts, ("ragged_paged_attention_int8",
+                                      "paged_decode_attention_int8"), plain_keys)
+    spec_counts = _spec_run(
+        torch, SERVE_ARGS + int8 + [f"--spec_decode_k={SPEC_K}"], "kvq_spec",
+        check_no_sync=True)
+    _require_launches("kvq_spec", spec_counts,
+                      ("dense_ragged_paged_attention_int8",), plain_keys)
+    return {"kvq": counts, "kvq_spec": spec_counts}
 
 
 def _check_dispatch_has_no_sync(torch, engine) -> dict:

@@ -1,9 +1,13 @@
-// Shared pieces of the two paged-attention kernels: 16-byte row loads from
+// Shared pieces of the paged-attention kernels: 16-byte row loads from
 // the page-major cache into f32 shared memory, and one online-softmax step
 // over a tile of KT keys for R query rows.
 //
 // Cache layout (the JAX package's, unchanged): pages [P, 2, nkv, ps, d],
 // K at index 0 and V at index 1 of the second axis, page 0 the null page.
+// Pages are f32 or bf16 (the q dtype) or, with int8 KV, int8 with one f32
+// scale per row in scales [P, 2, nkv, ps]: a staged int8 row is
+// dequantized to q * scale in f32 (the Pallas kernels' `k * s[..., None]`),
+// so the tile in shared memory is f32 whatever the page type.
 // Every CTA owns the R query rows of ONE kv head, so the K/V rows it
 // stages are shared by the whole GQA group.
 //
@@ -20,10 +24,25 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 namespace kt {
 
 // a masked score; exp(MASKED - m) is never taken, masked keys weigh 0
 constexpr float MASKED = -1e30f;
+
+// element-type codes of the C entry points: q/out take 0 or 1, pages any
+template <typename T> struct DtypeCode;
+template <> struct DtypeCode<float> { static constexpr int value = 0; };
+template <> struct DtypeCode<__nv_bfloat16> { static constexpr int value = 1; };
+template <> struct DtypeCode<int8_t> { static constexpr int value = 2; };
+
+// whether the (q dtype, page dtype, scales) triple names an instance
+template <typename T, typename P>
+inline bool is_instance(int dtype, int kv_dtype, const void* scales) {
+  return dtype == DtypeCode<T>::value && kv_dtype == DtypeCode<P>::value &&
+         (scales != nullptr) == std::is_same<P, int8_t>::value;
+}
 
 __device__ __forceinline__ void load_vec(const float* src, float* dst) {
   const float4 f = *reinterpret_cast<const float4*>(src);
@@ -41,6 +60,20 @@ __device__ __forceinline__ void load_vec(const __nv_bfloat16* src, float* dst) {
   }
 }
 
+// 16 int8 values, each times the row's f32 scale
+__device__ __forceinline__ void load_vec_scaled(const int8_t* src, float* dst,
+                                                float s) {
+  const int4 u = *reinterpret_cast<const int4*>(src);
+  const char4* c = reinterpret_cast<const char4*>(&u);
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    dst[4 * j] = static_cast<float>(c[j].x) * s;
+    dst[4 * j + 1] = static_cast<float>(c[j].y) * s;
+    dst[4 * j + 2] = static_cast<float>(c[j].z) * s;
+    dst[4 * j + 3] = static_cast<float>(c[j].w) * s;
+  }
+}
+
 __device__ __forceinline__ void store_out(float x, float* dst) { *dst = x; }
 __device__ __forceinline__ void store_out(float x, __nv_bfloat16* dst) {
   *dst = __float2bfloat16(x);
@@ -51,12 +84,15 @@ struct VecOf { static constexpr int n = 16 / sizeof(T); };
 
 // Stage keys/values [lo, lo+KT) of kv head `h` for the sequence whose page
 // table row is `pt` (W entries).  Positions at or past `hi`, or past the
-// table, are zero-filled: the mask drops them, zeros keep NaN out.
-template <typename T, int D, int KT, int NT>
+// table, are zero-filled: the mask drops them, zeros keep NaN out, and
+// their scales are never read.  `scales` is used for int8 pages only (one
+// scalar load per 16-value vector: 4 B per row need no vector alignment).
+template <typename P, int D, int KT, int NT>
 __device__ __forceinline__ void load_kv_tile(
-    const T* __restrict__ pages, const int* __restrict__ pt, int W,
-    int nkv, int ps, int h, int lo, int hi, float* k_s, float* v_s) {
-  constexpr int V = VecOf<T>::n;
+    const P* __restrict__ pages, const float* __restrict__ scales,
+    const int* __restrict__ pt, int W, int nkv, int ps, int h, int lo,
+    int hi, float* k_s, float* v_s) {
+  constexpr int V = VecOf<P>::n;
   constexpr int DP = D + 4;
   constexpr int PER_ROW = D / V;
   for (int idx = threadIdx.x; idx < 2 * KT * PER_ROW; idx += NT) {
@@ -69,9 +105,12 @@ __device__ __forceinline__ void load_kv_tile(
     const int slot_page = pos / ps;
     if (pos < hi && slot_page < W) {
       const int64_t page = pt[slot_page];
-      const int64_t off =
-          (((page * 2 + kv) * nkv + h) * (int64_t)ps + (pos % ps)) * D + c;
-      load_vec(pages + off, dst);
+      const int64_t row = ((page * 2 + kv) * nkv + h) * (int64_t)ps + (pos % ps);
+      if constexpr (std::is_same<P, int8_t>::value) {
+        load_vec_scaled(pages + row * D + c, dst, scales[row]);
+      } else {
+        load_vec(pages + row * D + c, dst);
+      }
     } else {
 #pragma unroll
       for (int j = 0; j < V; ++j) dst[j] = 0.f;

@@ -3,8 +3,10 @@
 // drafts, padded to the stride SP) sits at packed rows i*SP .. i*SP+SP-1,
 // so several lanes share one 8-token block of the solo ragged kernel.
 //
-// Replaces kserve_tpu/ops/pallas_paged_attention.py:_dense_ragged_kernel
-// (without its int8-page variant, which this port does not take yet).
+// Replaces kserve_tpu/ops/pallas_paged_attention.py:_dense_ragged_kernel,
+// both its bf16/f32-page form and its int8-page form (`quantized=True`,
+// :583-663): int8 rows are dequantized by their f32 scales as they are
+// staged, into the same f32 tile.
 //
 // Contract: the slice's own K/V are already written to the pages; query j
 // of lane i sits at kv_start[i]+j and sees keys 0..kv_start[i]+j (causal),
@@ -30,10 +32,11 @@ namespace {
 constexpr int DEN_KT = 16;   // keys per staged tile
 constexpr int DEN_NT = 128;  // threads per CTA
 
-template <typename T, int D>
+template <typename T, typename P, int D>
 __global__ void __launch_bounds__(DEN_NT) dense_ragged_kernel(
     const T* __restrict__ q,             // [B*sp, nq, D]
-    const T* __restrict__ pages,         // [P, 2, nkv, ps, D]
+    const P* __restrict__ pages,         // [P, 2, nkv, ps, D]
+    const float* __restrict__ scales,    // [P, 2, nkv, ps] (int8 pages only)
     const int* __restrict__ page_table,  // [B, W]
     const int* __restrict__ kv_start,    // [B]
     const int* __restrict__ q_len,       // [B]
@@ -77,6 +80,7 @@ __global__ void __launch_bounds__(DEN_NT) dense_ragged_kernel(
   __syncthreads();
 
   // keys this lane needs: positions 0 .. kv0 + qn - 1; none when qn == 0
+  // (no page and no scale is read for such a lane)
   const int kv_hi = qn > 0 ? kv0 + qn : 0;
   int lo = 0;
   if (window > 0 && kv0 - window + 1 > 0) lo = kv0 - window + 1;
@@ -88,8 +92,8 @@ __global__ void __launch_bounds__(DEN_NT) dense_ragged_kernel(
     return j < qn && kpos <= qpos && (window <= 0 || qpos - kpos < window);
   };
   for (int t0 = lo; t0 < kv_hi; t0 += DEN_KT) {
-    kt::load_kv_tile<T, D, DEN_KT, DEN_NT>(pages, pt, W, nkv, ps, h, t0,
-                                           kv_hi, k_s, v_s);
+    kt::load_kv_tile<P, D, DEN_KT, DEN_NT>(pages, scales, pt, W, nkv, ps, h,
+                                           t0, kv_hi, k_s, v_s);
     __syncthreads();
     kt::attend_tile<D, DEN_KT, DEN_NT>(R, t0, softcap, q_s, k_s, v_s, p_s,
                                        acc_s, m_s, l_s, a_s, key_ok);
@@ -105,46 +109,56 @@ __global__ void __launch_bounds__(DEN_NT) dense_ragged_kernel(
   }
 }
 
-template <typename T, int D>
-cudaError_t launch(const void* q, const void* pages, const int* page_table,
-                   const int* kv_start, const int* q_len, void* out, int B,
-                   int sp, int nq, int nkv, int ps, int W, float scale,
-                   float softcap, int window, cudaStream_t stream) {
+template <typename T, typename P, int D>
+cudaError_t launch(const void* q, const void* pages, const float* scales,
+                   const int* page_table, const int* kv_start,
+                   const int* q_len, void* out, int B, int sp, int nq,
+                   int nkv, int ps, int W, float scale, float softcap,
+                   int window, cudaStream_t stream) {
   const int R = sp * (nq / nkv);
   const size_t bytes = sizeof(float) * kt::smem_floats<D, DEN_KT>(R);
-  auto kernel = dense_ragged_kernel<T, D>;
+  auto kernel = dense_ragged_kernel<T, P, D>;
   cudaError_t err = kt::allow_smem(kernel, bytes);
   if (err != cudaSuccess) return err;
   dim3 grid(B, nkv);
   kernel<<<grid, DEN_NT, bytes, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(pages), page_table,
-      kv_start, q_len, static_cast<T*>(out), sp, nq, nkv, ps, W, scale,
-      softcap, window);
+      static_cast<const T*>(q), static_cast<const P*>(pages), scales,
+      page_table, kv_start, q_len, static_cast<T*>(out), sp, nq, nkv, ps, W,
+      scale, softcap, window);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16.  The packed buffer holds B*sp rows;
-// sp divides 8.  Returns a cudaError_t (0 = launched).
+// dtype (q and out): 0 = float32, 1 = bfloat16.  kv_dtype (pages): the
+// same codes, or 2 = int8 with `scales` [P, 2, nkv, ps] f32 (null
+// otherwise).  The packed buffer holds B*sp rows; sp divides 8.  Returns a
+// cudaError_t (0 = launched).
 extern "C" int kt_dense_ragged_paged_attention(
-    const void* q, const void* pages, const void* page_table,
-    const void* kv_start, const void* q_len, void* out, int B, int sp,
-    int nq, int nkv, int head_dim, int page_size, int W, float scale,
-    float softcap, int window, int dtype, void* stream) {
+    const void* q, const void* pages, const void* scales,
+    const void* page_table, const void* kv_start, const void* q_len,
+    void* out, int B, int sp, int nq, int nkv, int head_dim, int page_size,
+    int W, float scale, float softcap, int window, int dtype, int kv_dtype,
+    void* stream) {
   if (B <= 0 || sp <= 0 || 8 % sp != 0 || nkv <= 0 || nq % nkv != 0)
     return (int)cudaErrorInvalidValue;
+  const float* sc = static_cast<const float*>(scales);
   const int* pt = static_cast<const int*>(page_table);
   const int* ks = static_cast<const int*>(kv_start);
   const int* ql = static_cast<const int*>(q_len);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define KT_DENSE(T, D)                                                       \
-  return (int)launch<T, D>(q, pages, pt, ks, ql, out, B, sp, nq, nkv,       \
-                           page_size, W, scale, softcap, window, st)
-  if (dtype == 1 && head_dim == 128) KT_DENSE(__nv_bfloat16, 128);
-  if (dtype == 1 && head_dim == 64) KT_DENSE(__nv_bfloat16, 64);
-  if (dtype == 0 && head_dim == 128) KT_DENSE(float, 128);
-  if (dtype == 0 && head_dim == 64) KT_DENSE(float, 64);
+#define KT_DENSE(T, P, D)                                                    \
+  if (kt::is_instance<T, P>(dtype, kv_dtype, scales) && head_dim == D)      \
+  return (int)launch<T, P, D>(q, pages, sc, pt, ks, ql, out, B, sp, nq, nkv, \
+                              page_size, W, scale, softcap, window, st)
+  KT_DENSE(__nv_bfloat16, __nv_bfloat16, 128);
+  KT_DENSE(__nv_bfloat16, __nv_bfloat16, 64);
+  KT_DENSE(float, float, 128);
+  KT_DENSE(float, float, 64);
+  KT_DENSE(__nv_bfloat16, int8_t, 128);
+  KT_DENSE(__nv_bfloat16, int8_t, 64);
+  KT_DENSE(float, int8_t, 128);
+  KT_DENSE(float, int8_t, 64);
 #undef KT_DENSE
   return (int)cudaErrorInvalidValue;
 }

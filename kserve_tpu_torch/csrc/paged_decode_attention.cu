@@ -3,6 +3,11 @@
 // Replaces kserve_tpu/ops/pallas_paged_attention.py:_decode_kernel and, at
 // HEAD_DIM=64, :_packed_decode_kernel (the TPU packed two tokens into one
 // 128-lane row; Hopper needs no such layout, d=64 is one more instance).
+// Its int8-page instance stands for no Pallas kernel: the JAX package runs
+// int8 decode through the XLA gather (kserve_tpu/ops/attention.py:
+// paged_attention_xla), and this instance computes that function with the
+// Pallas kernels' f32 dequant (each staged int8 row times its f32 scale),
+// reading half the bytes of a bf16 cache plus 4 B of scale per row.
 //
 // What bounds it on the H100: bytes.  A decode step reads each live
 // sequence's K and V once, sum_b seq_len_b * nkv * d * 2 * 2 B for bf16, at
@@ -22,10 +27,11 @@ namespace {
 constexpr int DEC_KT = 32;   // keys per staged tile
 constexpr int DEC_NT = 128;  // threads per CTA
 
-template <typename T, int D>
+template <typename T, typename P, int D>
 __global__ void __launch_bounds__(DEC_NT) paged_decode_kernel(
     const T* __restrict__ q,            // [B, nq, D]
-    const T* __restrict__ pages,        // [P, 2, nkv, ps, D]
+    const P* __restrict__ pages,        // [P, 2, nkv, ps, D]
+    const float* __restrict__ scales,   // [P, 2, nkv, ps] (int8 pages only)
     const int* __restrict__ page_table, // [B, W]
     const int* __restrict__ seq_lens,   // [B]
     T* __restrict__ out,                // [B, nq, D]
@@ -70,8 +76,8 @@ __global__ void __launch_bounds__(DEC_NT) paged_decode_kernel(
     return kpos < seq_len && (window <= 0 || qpos - kpos < window);
   };
   for (int t0 = lo; t0 < seq_len; t0 += DEC_KT) {
-    kt::load_kv_tile<T, D, DEC_KT, DEC_NT>(pages, pt, W, nkv, ps, h, t0,
-                                           seq_len, k_s, v_s);
+    kt::load_kv_tile<P, D, DEC_KT, DEC_NT>(pages, scales, pt, W, nkv, ps, h,
+                                           t0, seq_len, k_s, v_s);
     __syncthreads();
     kt::attend_tile<D, DEC_KT, DEC_NT>(R, t0, softcap, q_s, k_s, v_s, p_s,
                                        acc_s, m_s, l_s, a_s, key_ok);
@@ -85,41 +91,50 @@ __global__ void __launch_bounds__(DEC_NT) paged_decode_kernel(
   }
 }
 
-template <typename T, int D>
-cudaError_t launch(const void* q, const void* pages, const int* page_table,
-                   const int* seq_lens, void* out, int B, int nq, int nkv,
-                   int ps, int W, float scale, float softcap, int window,
-                   cudaStream_t stream) {
+template <typename T, typename P, int D>
+cudaError_t launch(const void* q, const void* pages, const float* scales,
+                   const int* page_table, const int* seq_lens, void* out,
+                   int B, int nq, int nkv, int ps, int W, float scale,
+                   float softcap, int window, cudaStream_t stream) {
   const int R = nq / nkv;
   const size_t bytes = sizeof(float) * kt::smem_floats<D, DEC_KT>(R);
-  auto kernel = paged_decode_kernel<T, D>;
+  auto kernel = paged_decode_kernel<T, P, D>;
   cudaError_t err = kt::allow_smem(kernel, bytes);
   if (err != cudaSuccess) return err;
   dim3 grid(B, nkv);
   kernel<<<grid, DEC_NT, bytes, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(pages), page_table,
-      seq_lens, static_cast<T*>(out), nq, nkv, ps, W, scale, softcap, window);
+      static_cast<const T*>(q), static_cast<const P*>(pages), scales,
+      page_table, seq_lens, static_cast<T*>(out), nq, nkv, ps, W, scale,
+      softcap, window);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16.  Returns a cudaError_t (0 = launched).
+// dtype (q and out): 0 = float32, 1 = bfloat16.  kv_dtype (pages): the
+// same codes, or 2 = int8 with `scales` [P, 2, nkv, ps] f32 (null
+// otherwise).  Returns a cudaError_t (0 = launched).
 extern "C" int kt_paged_decode_attention(
-    const void* q, const void* pages, const void* page_table,
-    const void* seq_lens, void* out, int B, int nq, int nkv, int head_dim,
-    int page_size, int W, float scale, float softcap, int window, int dtype,
-    void* stream) {
+    const void* q, const void* pages, const void* scales,
+    const void* page_table, const void* seq_lens, void* out, int B, int nq,
+    int nkv, int head_dim, int page_size, int W, float scale, float softcap,
+    int window, int dtype, int kv_dtype, void* stream) {
+  const float* sc = static_cast<const float*>(scales);
   const int* pt = static_cast<const int*>(page_table);
   const int* sl = static_cast<const int*>(seq_lens);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define KT_DEC(T, D)                                                        \
-  return (int)launch<T, D>(q, pages, pt, sl, out, B, nq, nkv, page_size, W, \
-                           scale, softcap, window, s)
-  if (dtype == 1 && head_dim == 128) KT_DEC(__nv_bfloat16, 128);
-  if (dtype == 1 && head_dim == 64) KT_DEC(__nv_bfloat16, 64);
-  if (dtype == 0 && head_dim == 128) KT_DEC(float, 128);
-  if (dtype == 0 && head_dim == 64) KT_DEC(float, 64);
+#define KT_DEC(T, P, D)                                                     \
+  if (kt::is_instance<T, P>(dtype, kv_dtype, scales) && head_dim == D)     \
+  return (int)launch<T, P, D>(q, pages, sc, pt, sl, out, B, nq, nkv,        \
+                              page_size, W, scale, softcap, window, s)
+  KT_DEC(__nv_bfloat16, __nv_bfloat16, 128);
+  KT_DEC(__nv_bfloat16, __nv_bfloat16, 64);
+  KT_DEC(float, float, 128);
+  KT_DEC(float, float, 64);
+  KT_DEC(__nv_bfloat16, int8_t, 128);
+  KT_DEC(__nv_bfloat16, int8_t, 64);
+  KT_DEC(float, int8_t, 128);
+  KT_DEC(float, int8_t, 64);
 #undef KT_DEC
   return (int)cudaErrorInvalidValue;
 }

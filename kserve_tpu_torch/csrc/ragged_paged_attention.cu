@@ -1,8 +1,11 @@
 // Ragged paged attention over one packed buffer of prompt chunks and decode
 // tokens (the step-0 attention of every `mixed` engine step).
 //
-// Replaces kserve_tpu/ops/pallas_paged_attention.py:_ragged_kernel (without
-// its int8-page variant, which this port does not take yet).
+// Replaces kserve_tpu/ops/pallas_paged_attention.py:_ragged_kernel, both its
+// bf16/f32-page form and its int8-page form (`quantized=True`, :450-516):
+// the int8 instance stages int8 rows and dequantizes each by its f32 scale
+// into the same f32 tile, so the softmax and P @ V do not change.  An int8
+// row reads half the bytes of a bf16 one plus a 4-byte scale.
 //
 // Contract (docs/kernels.md of the JAX package): the packed query buffer
 // [T, nq, d] holds each lane's slice at an offset that is a multiple of
@@ -30,10 +33,11 @@ constexpr int RAG_BQ = 8;    // query tokens per block (the packing unit)
 constexpr int RAG_KT = 16;   // keys per staged tile
 constexpr int RAG_NT = 128;  // threads per CTA
 
-template <typename T, int D>
+template <typename T, typename P, int D>
 __global__ void __launch_bounds__(RAG_NT) ragged_kernel(
     const T* __restrict__ q,             // [T, nq, D]
-    const T* __restrict__ pages,         // [P, 2, nkv, ps, D]
+    const P* __restrict__ pages,         // [P, 2, nkv, ps, D]
+    const float* __restrict__ scales,    // [P, 2, nkv, ps] (int8 pages only)
     const int* __restrict__ page_table,  // [B, W]
     const int* __restrict__ block_seq,   // [G]
     const int* __restrict__ block_qoff,  // [G]
@@ -92,8 +96,8 @@ __global__ void __launch_bounds__(RAG_NT) ragged_kernel(
     return j < qn && kpos <= qpos && (window <= 0 || qpos - kpos < window);
   };
   for (int t0 = lo; t0 < kv_hi; t0 += RAG_KT) {
-    kt::load_kv_tile<T, D, RAG_KT, RAG_NT>(pages, pt, W, nkv, ps, h, t0,
-                                           kv_hi, k_s, v_s);
+    kt::load_kv_tile<P, D, RAG_KT, RAG_NT>(pages, scales, pt, W, nkv, ps, h,
+                                           t0, kv_hi, k_s, v_s);
     __syncthreads();
     kt::attend_tile<D, RAG_KT, RAG_NT>(R, t0, softcap, q_s, k_s, v_s, p_s,
                                        acc_s, m_s, l_s, a_s, key_ok);
@@ -110,48 +114,57 @@ __global__ void __launch_bounds__(RAG_NT) ragged_kernel(
   }
 }
 
-template <typename T, int D>
-cudaError_t launch(const void* q, const void* pages, const int* page_table,
-                   const int* block_seq, const int* block_qoff,
-                   const int* kv_start, const int* q_len, void* out, int G,
-                   int nq, int nkv, int ps, int W, float scale, float softcap,
-                   int window, cudaStream_t stream) {
+template <typename T, typename P, int D>
+cudaError_t launch(const void* q, const void* pages, const float* scales,
+                   const int* page_table, const int* block_seq,
+                   const int* block_qoff, const int* kv_start,
+                   const int* q_len, void* out, int G, int nq, int nkv,
+                   int ps, int W, float scale, float softcap, int window,
+                   cudaStream_t stream) {
   const int R = RAG_BQ * (nq / nkv);
   const size_t bytes = sizeof(float) * kt::smem_floats<D, RAG_KT>(R);
-  auto kernel = ragged_kernel<T, D>;
+  auto kernel = ragged_kernel<T, P, D>;
   cudaError_t err = kt::allow_smem(kernel, bytes);
   if (err != cudaSuccess) return err;
   dim3 grid(G, nkv);
   kernel<<<grid, RAG_NT, bytes, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(pages), page_table,
-      block_seq, block_qoff, kv_start, q_len, static_cast<T*>(out), nq, nkv,
-      ps, W, scale, softcap, window);
+      static_cast<const T*>(q), static_cast<const P*>(pages), scales,
+      page_table, block_seq, block_qoff, kv_start, q_len,
+      static_cast<T*>(out), nq, nkv, ps, W, scale, softcap, window);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16.  T (the buffer length) must be a
-// multiple of 8; G = T / 8.  Returns a cudaError_t (0 = launched).
+// dtype (q and out): 0 = float32, 1 = bfloat16.  kv_dtype (pages): the
+// same codes, or 2 = int8 with `scales` [P, 2, nkv, ps] f32 (null
+// otherwise).  T (the buffer length) must be a multiple of 8; G = T / 8.
+// Returns a cudaError_t (0 = launched).
 extern "C" int kt_ragged_paged_attention(
-    const void* q, const void* pages, const void* page_table,
-    const void* block_seq, const void* block_qoff, const void* kv_start,
-    const void* q_len, void* out, int G, int nq, int nkv, int head_dim,
-    int page_size, int W, float scale, float softcap, int window, int dtype,
-    void* stream) {
+    const void* q, const void* pages, const void* scales,
+    const void* page_table, const void* block_seq, const void* block_qoff,
+    const void* kv_start, const void* q_len, void* out, int G, int nq,
+    int nkv, int head_dim, int page_size, int W, float scale, float softcap,
+    int window, int dtype, int kv_dtype, void* stream) {
+  const float* sc = static_cast<const float*>(scales);
   const int* pt = static_cast<const int*>(page_table);
   const int* bs = static_cast<const int*>(block_seq);
   const int* bo = static_cast<const int*>(block_qoff);
   const int* ks = static_cast<const int*>(kv_start);
   const int* ql = static_cast<const int*>(q_len);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define KT_RAG(T, D)                                                         \
-  return (int)launch<T, D>(q, pages, pt, bs, bo, ks, ql, out, G, nq, nkv,    \
-                           page_size, W, scale, softcap, window, st)
-  if (dtype == 1 && head_dim == 128) KT_RAG(__nv_bfloat16, 128);
-  if (dtype == 1 && head_dim == 64) KT_RAG(__nv_bfloat16, 64);
-  if (dtype == 0 && head_dim == 128) KT_RAG(float, 128);
-  if (dtype == 0 && head_dim == 64) KT_RAG(float, 64);
+#define KT_RAG(T, P, D)                                                      \
+  if (kt::is_instance<T, P>(dtype, kv_dtype, scales) && head_dim == D)      \
+  return (int)launch<T, P, D>(q, pages, sc, pt, bs, bo, ks, ql, out, G, nq,  \
+                              nkv, page_size, W, scale, softcap, window, st)
+  KT_RAG(__nv_bfloat16, __nv_bfloat16, 128);
+  KT_RAG(__nv_bfloat16, __nv_bfloat16, 64);
+  KT_RAG(float, float, 128);
+  KT_RAG(float, float, 64);
+  KT_RAG(__nv_bfloat16, int8_t, 128);
+  KT_RAG(__nv_bfloat16, int8_t, 64);
+  KT_RAG(float, int8_t, 128);
+  KT_RAG(float, int8_t, 64);
 #undef KT_RAG
   return (int)cudaErrorInvalidValue;
 }

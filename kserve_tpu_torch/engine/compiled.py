@@ -11,6 +11,9 @@ uploaded before the first launch; in `mixed_decode` they depend on how
 many drafts the device accepted, so they stay device tensors from round
 to round.  Host data goes up through pinned memory without a stream
 sync (device.upload).  KV pages and the draft table are updated in place.
+A layer's cache is its pages or, with int8 KV, (int8 pages, scales): the
+programs only hand it on (the counterpart of the JAX package's `_kv_pin`
+tuple branch, compiled.py:189-215).
 """
 
 from __future__ import annotations
@@ -24,6 +27,7 @@ from ..device import upload
 from ..models import llama
 from ..ops.attention import dense_stride_for
 from ..ops.paged_attention_cuda import RAGGED_BQ
+from .kvcache import KVLayer, layer_pages
 from .sampling import SamplingState, sample_tokens
 
 
@@ -41,10 +45,10 @@ def make_mixed(model_config: llama.LlamaConfig, engine_config):
     page_size = engine_config.page_size
 
     def mixed(params, q_tokens, token_seq, token_pos, q_start, q_len,
-              kv_start, last_idx, kv_pages: List[torch.Tensor], page_table,
+              kv_start, last_idx, kv_pages: List[KVLayer], page_table,
               joins, scan_tok0, scan_pos0, step0_emits, capacity, counters,
               state: SamplingState, rng: torch.Generator):
-        device = kv_pages[0].device
+        device = layer_pages(kv_pages[0]).device
 
         def dev(x, dtype=torch.int32):
             return upload(x, device, dtype)
@@ -125,11 +129,11 @@ def make_mixed_decode(model_config: llama.LlamaConfig, engine_config,
     sp = dense_stride_for(Kp, align)
     dense_stride = sp if (align > 1 and sp < RAGGED_BQ) else None
 
-    def mixed_decode(params, tokens, pos, kv_pages: List[torch.Tensor],
+    def mixed_decode(params, tokens, pos, kv_pages: List[KVLayer],
                      page_table, live, capacity, counters,
                      draft_table: Optional[torch.Tensor],
                      state: SamplingState, rng: torch.Generator):
-        device = kv_pages[0].device
+        device = layer_pages(kv_pages[0]).device
 
         def dev(x, dtype=torch.int32):
             return upload(x, device, dtype)

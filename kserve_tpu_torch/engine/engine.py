@@ -10,6 +10,9 @@ Port of the unified-ragged serving path of kserve_tpu/engine/engine.py:
 - each request owns an asyncio queue fed by the run loop
 - with `spec_decode_k` set, pure-decode steps run the dense speculative
   `mixed_decode` program instead, chained depth 2 (`_step_dense`)
+- with `kv_quant="int8"` each layer's cache is (int8 pages, f32 row
+  scales) and every attention over it runs the kernels' int8 instances;
+  activations stay in the model dtype
 
 The device call and the fetch of its tokens run in a worker thread
 (`asyncio.to_thread`), so the event loop keeps answering health probes and
@@ -18,13 +21,14 @@ new requests while a step computes.
 Not ported yet: the prefix cache, KV tiers and persistence, the peer page
 fabric, data/tensor/pipeline/sequence parallelism, P/D disaggregation,
 drain/checkpoint/resume, the watchdog, metrics, the AOT cache and
-preemption (the speculative path has none either).  Admission waits for
-free pages.
+preemption (the speculative path has none either), so the int8 cache has
+no spill, re-inject or P/D wire either.  Admission waits for free pages.
 """
 
 from __future__ import annotations
 
 import asyncio
+import dataclasses
 import logging
 import time
 from typing import AsyncIterator, Dict, List, Optional
@@ -37,7 +41,13 @@ from ..models import llama
 from ..ops.attention import dense_stride_for
 from ..ops.paged_attention_cuda import RAGGED_BQ
 from .compiled import make_mixed, make_mixed_decode
-from .kvcache import KVCacheConfig, PageAllocator, init_kv_pages, pages_needed
+from .kvcache import (
+    KVCacheConfig,
+    PageAllocator,
+    init_kv_pages,
+    init_kv_scales,
+    pages_needed,
+)
 from .sampling import SamplingParams, SamplingState
 from .tokenizer import BaseTokenizer, IncrementalDetokenizer
 from .types import EngineConfig, GenerationOutput, _QueuedRequest, _Slot
@@ -58,8 +68,11 @@ class LLMEngine:
         device=None,
     ):
         self.device = resolve_device(device)
+        if engine_config.kv_quant not in ("none", "int8"):
+            raise ValueError(
+                f"unknown kv_quant {engine_config.kv_quant!r}; supported: none, int8"
+            )
         unsupported = {
-            "kv_quant": engine_config.kv_quant != "none",
             "weight_quant": engine_config.weight_quant != "none",
             "tp": engine_config.tp != 1,
             "dp": engine_config.dp != 1,
@@ -75,6 +88,8 @@ class LLMEngine:
                 f"tokenizer vocab ({tokenizer.vocab_size}) exceeds model "
                 f"vocab ({model_config.vocab_size})")
         if self.device.type == "cuda" and engine_config.dtype != model_config.dtype:
+            # with kv_quant=int8 the pages are int8 and `dtype` names the
+            # activations the kernels take alongside them
             raise ValueError(
                 f"the CUDA kernels read KV pages in the activation dtype: "
                 f"kv dtype {engine_config.dtype} != model dtype "
@@ -95,7 +110,15 @@ class LLMEngine:
             max_pages_per_seq=engine_config.max_pages_per_seq,
             dtype=engine_config.dtype,
         )
-        self.kv_pages = init_kv_pages(self.cache_config, self.device)
+        if engine_config.kv_quant == "int8":
+            # (int8 pages, f32 row scales) per layer (kserve_tpu/engine/
+            # engine.py:355-366): half the bytes of a bf16 cache
+            pages = init_kv_pages(
+                dataclasses.replace(self.cache_config, dtype="int8"), self.device)
+            self.kv_pages = list(zip(
+                pages, init_kv_scales(self.cache_config, self.device)))
+        else:
+            self.kv_pages = init_kv_pages(self.cache_config, self.device)
         self.allocator = PageAllocator(engine_config.num_pages)
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)

@@ -6,14 +6,23 @@ and V at index 1 of the second axis.  Page 0 is the null page: padded
 table entries and padding tokens point at it, so every gather and scatter
 index is valid.  Writes update the pages in place (`index_put_`), which
 takes the place of the JAX package's buffer donation.
+
+With int8 KV (`kv_quant="int8"`) a layer's cache is the tuple (int8 pages,
+f32 scales), the scales [num_pages, 2, n_kv_heads, page_size] holding one
+symmetric absmax scale per K or V row (kvcache.py:237-265 of the JAX
+package).  Quantizing is plain torch on the device, as the JAX package
+does it in XLA outside any kernel, and never waits on the device.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import List
+from typing import List, Tuple, Union
 
 import torch
+
+#: one layer's cache: the pages, or (int8 pages, f32 row scales)
+KVLayer = Union[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]
 
 
 @dataclass
@@ -35,6 +44,36 @@ def init_kv_pages(config: KVCacheConfig, device="cpu") -> List[torch.Tensor]:
     dtype = getattr(torch, config.dtype)
     return [torch.zeros(shape, dtype=dtype, device=device)
             for _ in range(config.n_layers)]
+
+
+def init_kv_scales(config: KVCacheConfig, device="cpu") -> List[torch.Tensor]:
+    """[n_layers] list of [num_pages, 2, n_kv_heads, page_size] f32 row
+    scales, all ones (the int8 cache's companion arrays)."""
+    shape = (config.num_pages, 2, config.n_kv_heads, config.page_size)
+    return [torch.ones(shape, dtype=torch.float32, device=device)
+            for _ in range(config.n_layers)]
+
+
+def layer_pages(layer: KVLayer) -> torch.Tensor:
+    """The page tensor of one layer's cache, plain or quantized."""
+    return layer[0] if isinstance(layer, tuple) else layer
+
+
+def quantize_rows(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x [..., d] -> (int8 rows, f32 row scales [...]): symmetric absmax,
+    scale = max(absmax / 127, 1e-8), round half to even, clip to +-127."""
+    xf = x.float()
+    absmax = xf.abs().amax(dim=-1, keepdim=True)
+    scale = torch.clamp(absmax / 127.0, min=1e-8)
+    q = torch.clamp(torch.round(xf / scale), -127, 127).to(torch.int8)
+    return q, scale[..., 0]
+
+
+def dequantize_rows(q: torch.Tensor, scale: torch.Tensor,
+                    dtype=torch.float32) -> torch.Tensor:
+    """int8 rows [..., d] times their f32 scales [...], in f32, cast to
+    `dtype`."""
+    return (q.float() * scale[..., None].float()).to(dtype)
 
 
 class PageAllocator:
@@ -84,24 +123,34 @@ def pages_needed(n_tokens: int, page_size: int) -> int:
     return (n_tokens + page_size - 1) // page_size
 
 
-def _scatter_kv(kv_pages: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                pages_flat: torch.Tensor, slot_flat: torch.Tensor) -> torch.Tensor:
+def _scatter_kv(kv_pages: KVLayer, k: torch.Tensor, v: torch.Tensor,
+                pages_flat: torch.Tensor, slot_flat: torch.Tensor) -> KVLayer:
     """Write K/V rows ([N, n_kv, d] each) in place at flat (page, slot)
-    indices; returns the same tensor."""
-    values = torch.stack([k, v], dim=1).to(kv_pages.dtype)  # [N, 2, n_kv, d]
-    kv_pages[pages_flat.long(), :, :, slot_flat.long(), :] = values
+    indices into a plain or quantized cache (the quantized one takes the
+    int8 rows and their scales); returns the same cache."""
+    pages_ix, slot_ix = pages_flat.long(), slot_flat.long()
+    values = torch.stack([k, v], dim=1)  # [N, 2, n_kv, d]
+    if isinstance(kv_pages, tuple):
+        pages, scales = kv_pages
+        # one pass over K and V together: row-wise, so the same bits as
+        # quantizing each alone, in half the launches
+        q, s = quantize_rows(values)  # [N, 2, n_kv, d] int8, [N, 2, n_kv] f32
+        pages[pages_ix, :, :, slot_ix, :] = q
+        scales[pages_ix, :, :, slot_ix] = s
+        return kv_pages
+    kv_pages[pages_ix, :, :, slot_ix, :] = values.to(kv_pages.dtype)
     return kv_pages
 
 
 def write_ragged_kv(
-    kv_pages: torch.Tensor,  # [num_pages, 2, n_kv, ps, d]
+    kv_pages: KVLayer,  # [num_pages, 2, n_kv, ps, d] or (int8 pages, scales)
     k: torch.Tensor,  # [T, n_kv, d] packed ragged slice keys
     v: torch.Tensor,  # [T, n_kv, d]
     page_table: torch.Tensor,  # [B, max_pages_per_seq]
     token_seq: torch.Tensor,  # [T] lane per packed token (-1 = padding)
     token_pos: torch.Tensor,  # [T] absolute position per packed token
     page_size: int,
-) -> torch.Tensor:
+) -> KVLayer:
     """Ragged-batch scatter: each packed token lands at its lane's (page,
     slot) for its position; padding tokens write to the null page."""
     valid = token_seq >= 0
@@ -113,14 +162,14 @@ def write_ragged_kv(
 
 
 def append_token_kv(
-    kv_pages: torch.Tensor,  # [num_pages, 2, n_kv, ps, d]
+    kv_pages: KVLayer,  # [num_pages, 2, n_kv, ps, d] or (int8 pages, scales)
     k: torch.Tensor,  # [B, n_kv, d]
     v: torch.Tensor,  # [B, n_kv, d]
     page_table: torch.Tensor,  # [B, max_pages_per_seq]
     pos: torch.Tensor,  # [B] position being written
     active: torch.Tensor,  # [B] bool: inactive lanes write to the null page
     page_size: int,
-) -> torch.Tensor:
+) -> KVLayer:
     """Decode-step scatter: one new token per active lane."""
     B = k.shape[0]
     b = torch.arange(B, device=pos.device)

@@ -4,8 +4,8 @@ queue bookkeeping.
 Port of kserve_tpu/engine/types.py (EngineConfig :36 with the fields the
 port uses, spec_decode_k_from_env :210, GenerationOutput :317, _Slot
 :331, _QueuedRequest :359).  The knobs the port does not run yet
-(kv_quant, weight_quant, tp/dp/sp/pp) are kept so a configuration asking
-for them is rejected at engine construction instead of silently ignored.
+(weight_quant, tp/dp/sp/pp) are kept so a configuration asking for them
+is rejected at engine construction instead of silently ignored.
 """
 
 from __future__ import annotations
@@ -33,8 +33,10 @@ class EngineConfig:
     # speculative decoding: K draft tokens per lane verified per round of
     # the dense `mixed_decode` program (0 = dense packing alone; None = off)
     spec_decode_k: Optional[int] = None
+    # int8 KV (kvcache.py): pages int8 with per-row f32 scales, half the
+    # bytes of a bf16 cache; `dtype` then names the activations
+    kv_quant: str = "none"  # none | int8
     # not run by this port yet: any other value is rejected
-    kv_quant: str = "none"
     weight_quant: str = "none"
     tp: int = 1
     dp: int = 1

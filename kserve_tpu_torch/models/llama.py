@@ -25,7 +25,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from ..engine.kvcache import append_token_kv, write_ragged_kv
+from ..engine.kvcache import KVLayer, append_token_kv, write_ragged_kv
 from ..ops.attention import paged_attention, ragged_paged_attention
 from ..ops.norms import rms_norm, rms_norm_plus_one
 from ..ops.rotary import rope_cos_sin, rope_frequencies, rotate
@@ -402,14 +402,14 @@ def decode_step(
     config: LlamaConfig,
     tokens: torch.Tensor,  # [B] current tokens
     pos: torch.Tensor,  # [B] int32 their positions
-    kv_pages: List[torch.Tensor],
+    kv_pages: List[KVLayer],  # per layer: pages, or (int8 pages, scales)
     page_table: torch.Tensor,  # [B, W] int32
     active: torch.Tensor,  # [B] bool
     page_size: int,
     attention_fn=None,  # replaces ops.attention.paged_attention (same signature)
-) -> Tuple[torch.Tensor, List[torch.Tensor]]:
+) -> Tuple[torch.Tensor, List[KVLayer]]:
     """One decode token per lane; returns ([B, vocab] f32 logits, pages).
-    Pages are written in place."""
+    Pages (and, for an int8 cache, their scales) are written in place."""
     attention = attention_fn or paged_attention
     x = _embed(params, tokens, config)  # [B, h]
     cos, sin = rope_cos_sin(pos, config.head_dim, config.rope_theta,
@@ -434,7 +434,7 @@ def forward_ragged(
     q_start: torch.Tensor,  # [B] first packed index of each lane's slice
     q_len: torch.Tensor,  # [B] slice length (0 = inactive lane)
     kv_start: torch.Tensor,  # [B] tokens cached before the slice
-    kv_pages: List[torch.Tensor],
+    kv_pages: List[KVLayer],  # per layer: pages, or (int8 pages, scales)
     page_table: torch.Tensor,  # [B, W] int32
     page_size: int,
     last_idx: torch.Tensor,  # [B] packed index of each lane's last token
@@ -442,7 +442,7 @@ def forward_ragged(
     logits_at: Optional[torch.Tensor] = None,  # [N] packed indices
     dense_stride: Optional[int] = None,  # dense packing stride (< 8: the
     # speculative-verify layout, lanes sharing kernel blocks)
-) -> Tuple[torch.Tensor, List[torch.Tensor]]:
+) -> Tuple[torch.Tensor, List[KVLayer]]:
     """The unified mixed-batch forward: every lane's slice (a prompt, a
     prompt chunk or one decode token) sits in one packed buffer.  Each
     layer writes the slice's K/V into the pages, then runs ragged paged

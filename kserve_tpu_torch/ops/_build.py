@@ -40,19 +40,19 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 _SIGNATURES = {
-    # q, pages, page_table, block_seq, block_qoff, kv_start, q_len, out,
-    # G, nq, nkv, head_dim, page_size, W, scale, softcap, window, dtype,
-    # stream
+    # q, pages, scales, page_table, block_seq, block_qoff, kv_start, q_len,
+    # out, G, nq, nkv, head_dim, page_size, W, scale, softcap, window,
+    # dtype, kv_dtype, stream
     "kt_ragged_paged_attention": (
-        [_P] * 8 + [_I] * 6 + [_F, _F, _I, _I, _P]),
-    # q, pages, page_table, seq_lens, out, B, nq, nkv, head_dim,
-    # page_size, W, scale, softcap, window, dtype, stream
+        [_P] * 9 + [_I] * 6 + [_F, _F, _I, _I, _I, _P]),
+    # q, pages, scales, page_table, seq_lens, out, B, nq, nkv, head_dim,
+    # page_size, W, scale, softcap, window, dtype, kv_dtype, stream
     "kt_paged_decode_attention": (
-        [_P] * 5 + [_I] * 6 + [_F, _F, _I, _I, _P]),
-    # q, pages, page_table, kv_start, q_len, out, B, sp, nq, nkv,
-    # head_dim, page_size, W, scale, softcap, window, dtype, stream
+        [_P] * 6 + [_I] * 6 + [_F, _F, _I, _I, _I, _P]),
+    # q, pages, scales, page_table, kv_start, q_len, out, B, sp, nq, nkv,
+    # head_dim, page_size, W, scale, softcap, window, dtype, kv_dtype, stream
     "kt_dense_ragged_paged_attention": (
-        [_P] * 6 + [_I] * 7 + [_F, _F, _I, _I, _P]),
+        [_P] * 7 + [_I] * 7 + [_F, _F, _I, _I, _I, _P]),
 }
 
 

@@ -17,6 +17,13 @@ Port of kserve_tpu/ops/attention.py (the decode and ragged paths):
   The plain version is per-token and serves any packing, so it is the
   plain version of both ragged kernels.
 
+Every function takes a layer's cache as the pages [P, 2, nkv, ps, d] or,
+with int8 KV, the tuple (int8 pages, f32 scales [P, 2, nkv, ps]).  The
+plain versions dequantize int8 rows in f32, as the Pallas kernels do
+(pallas_paged_attention.py:512-516, :659-663), since they are those
+kernels' plain versions; the JAX package's XLA gather rounds the
+dequantized rows to bf16 instead (ROADMAP §C).
+
 `window` is a Python int (0 = full attention), `scale` None means
 1/sqrt(head_dim).
 """
@@ -27,16 +34,23 @@ from typing import Optional
 
 import torch
 
+from ..engine.kvcache import KVLayer, dequantize_rows
 from . import paged_attention_cuda as _cuda
 
 _MASKED = -1e30
 
 
-def _gather_history(kv_pages: torch.Tensor, page_table: torch.Tensor):
-    """Gather each lane's pages -> (k [B, W*ps, nkv, d], v [B, W*ps, nkv, d])."""
+def _gather_history(kv_pages: KVLayer, page_table: torch.Tensor):
+    """Gather each lane's pages -> (k [B, W*ps, nkv, d], v [B, W*ps, nkv, d]),
+    int8 rows dequantized in f32."""
     B, W = page_table.shape
-    nkv, ps, d = kv_pages.shape[2], kv_pages.shape[3], kv_pages.shape[4]
-    gathered = kv_pages[page_table.long()]  # [B, W, 2, nkv, ps, d]
+    if isinstance(kv_pages, tuple):
+        pages, scales = kv_pages
+        table = page_table.long()
+        gathered = dequantize_rows(pages[table], scales[table])  # f32
+    else:
+        gathered = kv_pages[page_table.long()]  # [B, W, 2, nkv, ps, d]
+    nkv, ps, d = gathered.shape[3], gathered.shape[4], gathered.shape[5]
     k = gathered[:, :, 0].permute(0, 1, 3, 2, 4).reshape(B, W * ps, nkv, d)
     v = gathered[:, :, 1].permute(0, 1, 3, 2, 4).reshape(B, W * ps, nkv, d)
     return k, v
@@ -44,7 +58,7 @@ def _gather_history(kv_pages: torch.Tensor, page_table: torch.Tensor):
 
 def paged_attention_plain(
     q: torch.Tensor,  # [B, nq, d], one decode token per lane
-    kv_pages: torch.Tensor,  # [num_pages, 2, nkv, ps, d]
+    kv_pages: KVLayer,  # [num_pages, 2, nkv, ps, d] or (int8 pages, scales)
     page_table: torch.Tensor,  # [B, W]
     seq_lens: torch.Tensor,  # [B] int (length INCLUDING the current token)
     logit_softcap: float = 0.0,
@@ -94,7 +108,7 @@ def ragged_token_metadata(q_start: torch.Tensor, q_len: torch.Tensor, T: int):
 
 def ragged_paged_attention_plain(
     q: torch.Tensor,  # [T, nq, d] packed ragged query buffer
-    kv_pages: torch.Tensor,  # [num_pages, 2, nkv, ps, d]
+    kv_pages: KVLayer,  # [num_pages, 2, nkv, ps, d] or (int8 pages, scales)
     page_table: torch.Tensor,  # [B, W]
     q_start: torch.Tensor,  # [B] first packed index of each lane's slice
     q_len: torch.Tensor,  # [B] slice length (0 = inactive lane)
@@ -172,7 +186,7 @@ def check_dense_packing(T: int, B: int, dense_stride: int) -> None:
 
 def ragged_paged_attention(
     q: torch.Tensor,
-    kv_pages: torch.Tensor,
+    kv_pages: KVLayer,
     page_table: torch.Tensor,
     q_start: torch.Tensor,
     q_len: torch.Tensor,
@@ -205,7 +219,7 @@ def ragged_paged_attention(
 
 def paged_attention(
     q: torch.Tensor,
-    kv_pages: torch.Tensor,
+    kv_pages: KVLayer,
     page_table: torch.Tensor,
     seq_lens: torch.Tensor,
     logit_softcap: float = 0.0,

@@ -9,7 +9,7 @@ names).  Checkpoint loading is not ported yet: weights are seeded random
 Entrypoint:
     python -m kserve_tpu_torch.runtimes.generative_server \\
         --model_name=llama3-8b --model_config=llama3-8b --random_weights \\
-        [--device cuda|cpu] [--spec_decode_k K]
+        [--device cuda|cpu] [--spec_decode_k K] [--kv_quant int8]
 """
 
 from __future__ import annotations
@@ -232,6 +232,10 @@ def build_arg_parser() -> argparse.ArgumentParser:
     parser.add_argument("--max_model_len", default=2048, type=int)
     parser.add_argument("--max_prefill_len", default=1024, type=int)
     parser.add_argument("--kv_dtype", default="bfloat16", type=str)
+    parser.add_argument(
+        "--kv_quant", default="none", choices=("none", "int8"),
+        help="int8: KV pages in int8 with per-row f32 scales (half the KV "
+        "bytes of bfloat16; --kv_dtype then sets the activation dtype)")
     parser.add_argument("--device", default="cuda",
                         help="cuda (default) or cpu; without CUDA, cuda raises")
     parser.add_argument(
@@ -246,7 +250,7 @@ def build_arg_parser() -> argparse.ArgumentParser:
 def build_model(args) -> TorchGenerativeModel:
     """The served model for parsed `build_arg_parser()` arguments.  The
     model's activation dtype follows --kv_dtype (the kernels read pages in
-    the activation dtype)."""
+    the activation dtype, or int8 pages with --kv_quant int8)."""
     model_config = _NAMED_CONFIGS[args.model_config]()
     model_config.dtype = args.kv_dtype
     engine_config = EngineConfig(
@@ -256,6 +260,7 @@ def build_model(args) -> TorchGenerativeModel:
         max_pages_per_seq=max(1, args.max_model_len // args.page_size),
         max_prefill_len=args.max_prefill_len,
         dtype=args.kv_dtype,
+        kv_quant=args.kv_quant,
         spec_decode_k=(args.spec_decode_k if args.spec_decode_k is not None
                        else spec_decode_k_from_env()),
     )

@@ -2,6 +2,7 @@
 on one GPU: where a step's time goes at Llama-3-8B shape.
 
     python3 scripts/torch_profile_mixed.py [--batch 8] [--context 512] [--spec_k 3]
+        [--kv_quant int8]
 
 Two plans run through kserve_tpu_torch.engine.compiled.make_mixed with
 seeded random weights (greedy sampling, steps_per_sync decode steps):
@@ -14,10 +15,12 @@ drafts per lane per round, steps_per_sync rounds, every lane at
   spec_greedy   every lane greedy
   spec_sampled  one lane seeded and sampled (temperature, top-k/p, min-p),
                 the others greedy: the sampler's sort and threefry run
-For each: wall time of the step (host clock around the call and the token
-fetch), the host's enqueue time, and from torch.profiler the device time
-by kernel class and the device idle share (1 - busy / wall).  JSON lines
-on stdout; needs CUDA.
+With `--kv_quant int8` the cache is (int8 pages, f32 row scales), as the
+engine keeps it with --kv_quant int8, and attention runs the kernels'
+int8 instances.  For each: wall time of the step (host clock around the
+call and the token fetch), the host's enqueue time, and from
+torch.profiler the device time by kernel class and the device idle share
+(1 - busy / wall).  JSON lines on stdout; needs CUDA.
 """
 
 from __future__ import annotations
@@ -36,7 +39,11 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 import torch  # noqa: E402
 
 from kserve_tpu_torch.engine.compiled import make_mixed, make_mixed_decode  # noqa: E402
-from kserve_tpu_torch.engine.kvcache import KVCacheConfig, init_kv_pages  # noqa: E402
+from kserve_tpu_torch.engine.kvcache import (  # noqa: E402
+    KVCacheConfig,
+    init_kv_pages,
+    init_kv_scales,
+)
 from kserve_tpu_torch.engine.sampling import SamplingParams, SamplingState  # noqa: E402
 from kserve_tpu_torch.engine.types import EngineConfig  # noqa: E402
 from kserve_tpu_torch.models import llama  # noqa: E402
@@ -91,6 +98,7 @@ def main(argv=None) -> int:
     p.add_argument("--steps_per_sync", type=int, default=8)
     p.add_argument("--iters", type=int, default=3)
     p.add_argument("--spec_k", type=int, default=3)
+    p.add_argument("--kv_quant", default="none", choices=("none", "int8"))
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("needs a CUDA device")
@@ -105,9 +113,13 @@ def main(argv=None) -> int:
     W = -(-(max(args.context, args.chunk) + max_advance + 1) // ps)
     ec = EngineConfig(max_batch_size=B, page_size=ps, steps_per_sync=args.steps_per_sync)
     params = llama.init_params(mc, seed=1, device="cuda")
-    pages = init_kv_pages(KVCacheConfig(
+    kv_config = KVCacheConfig(
         n_layers=mc.n_layers, n_kv_heads=mc.n_kv_heads, head_dim=mc.head_dim,
-        page_size=ps, num_pages=1 + B * W), "cuda")
+        page_size=ps, num_pages=1 + B * W,
+        dtype="int8" if args.kv_quant == "int8" else mc.dtype)
+    pages = init_kv_pages(kv_config, "cuda")
+    if args.kv_quant == "int8":
+        pages = list(zip(pages, init_kv_scales(kv_config, "cuda")))
     mixed = make_mixed(mc, ec)
     mixed_decode = make_mixed_decode(mc, ec, args.spec_k, RAGGED_BQ)
     greedy = SamplingState.from_params([SamplingParams(temperature=0.0)] * B, "cuda")
@@ -174,7 +186,8 @@ def main(argv=None) -> int:
         busy = sum(by_class.values())
         wall = min(r[1] for r in runs) * 1e3
         print(json.dumps({
-            "plan": name, "batch": B, "context": args.context,
+            "plan": name, "kv_quant": args.kv_quant, "batch": B,
+            "context": args.context,
             "chunk": args.chunk if name == "prefill_mix" else 0,
             "spec_k": args.spec_k if name.startswith("spec") else None,
             "steps_per_sync": args.steps_per_sync,

@@ -231,5 +231,8 @@ def test_cuda_wrappers_refuse_cpu_tensors():
         K.dense_ragged_paged_attention_cuda(
             case["q"][: B * 2], case["kv_pages"], case["page_table"],
             case["q_len"].clamp(max=2), case["kv_start"], 2)
-    assert K.LAUNCHES == {"ragged_paged_attention": 0, "paged_decode_attention": 0,
-                          "dense_ragged_paged_attention": 0}
+    assert set(K.LAUNCHES) == {
+        f"{name}{suffix}" for suffix in ("", "_int8")
+        for name in ("ragged_paged_attention", "paged_decode_attention",
+                     "dense_ragged_paged_attention")}
+    assert not any(K.LAUNCHES.values())

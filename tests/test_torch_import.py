@@ -93,8 +93,8 @@ def test_engine_rejects_what_the_slice_does_not_run():
     from kserve_tpu_torch.models.llama import LlamaConfig
 
     cfg = LlamaConfig.tiny(dtype="float32")
-    for knob in (dict(kv_quant="int8"), dict(weight_quant="int8"), dict(tp=2),
-                 dict(pp=2), dict(sp=2), dict(dp=2)):
+    for knob in (dict(weight_quant="int8"), dict(tp=2), dict(pp=2), dict(sp=2),
+                 dict(dp=2)):
         with pytest.raises(NotImplementedError):
             LLMEngine(cfg, EngineConfig(dtype="float32", **knob),
                       ByteTokenizer(512), device="cpu")
