@@ -3,6 +3,7 @@
 Run from the root of a checkout on a machine with one NVIDIA H100:
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --kernels-only [--package-root DIR]
 
 Phases, each printing JSON lines:
   device   card name and power limit (nvidia-smi), torch/CUDA versions
@@ -10,12 +11,15 @@ Phases, each printing JSON lines:
   kernels  every CUDA kernel instance against its plain PyTorch version on
            the card, at Llama-3-8B's attention shape (and at head_dim 64,
            Llama-3.2-1B's), over bf16/f32 pages and over int8 pages with
-           f32 row scales, with timings
+           f32 row scales, timed warm and with a cold L2, each as the
+           host enqueues it (ms) and on the device alone (device_ms)
   serve    the port's OpenAI server (kserve_tpu_torch.runtimes.
            generative_server) with Llama-3-8B at full width and depth and
            seeded random weights: concurrent completions and one streamed
            chat over HTTP, launch counts of the ragged and decode kernels,
-           and step-0 logits through the kernels against the plain versions
+           step-0 logits through the kernels against the plain versions,
+           and every attention call paired with its plain version in f32
+           and in bf16
   d64      the same server with --model_config=llama3-1b (head_dim 64, full
            depth): the served path of the decode kernel's d=64 instance
   spec     the server with --spec_decode_k=3 (speculative decoding):
@@ -32,6 +36,12 @@ Phases, each printing JSON lines:
 The line before the last is {"kernels": [...]}, the last is
 {"ok": true, "device": {...}}.  Any failure raises and exits non-zero;
 nothing falls back to the CPU or to the plain versions.
+
+--kernels-only runs the device, build and kernels phases alone and prints
+the kernel phase's lines (no summary, no served phases).  --package-root
+DIR imports kserve_tpu_torch from DIR instead of this checkout (e.g. an
+unpacked `git archive` of another commit under build/), so two trees'
+kernels are timed by the same cases and the same timing code.
 """
 
 from __future__ import annotations
@@ -49,6 +59,12 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 # H100 SXM peaks (NVIDIA data sheet, dense): HBM bytes/s and bf16 flop/s
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOPS_PER_S = 989e12
+# written between the calls of a cold-L2 timing: 5x the H100's 50 MB L2,
+# as a layer's pages were last touched a whole step earlier when served
+FLUSH_BYTES = 256 << 20
+# device spin before each device-only timed call (~0.5 ms), longer than
+# the host's enqueue of one call, so the timing events bracket its kernels
+SPIN_CYCLES = 1_000_000
 
 _RAGGED_SRC = "kserve_tpu_torch/csrc/ragged_paged_attention.cu"
 _DECODE_SRC = "kserve_tpu_torch/csrc/paged_decode_attention.cu"
@@ -142,13 +158,29 @@ def phase_build() -> None:
 # ---------------------------------------------------------------- kernels
 
 
-def _time_ms(torch, fn, iters: int = 25, warmup: int = 3) -> float:
-    """Median of per-call CUDA-event times (ms)."""
+def _time_ms(torch, fn, iters: int = 25, warmup: int = 3,
+             cold: bool = False, device_only: bool = False) -> float:
+    """Median of per-call CUDA-event times (ms).  The events bracket the
+    call as the host enqueues it onto an idle device, so a call whose
+    kernels finish before its host work does reads as that host work (the
+    `ms` of every kernel row since PR 1).  device_only: each call is
+    enqueued behind a device spin longer than its host work, so the events
+    bracket its kernels only.  cold: FLUSH_BYTES are written before each
+    call (outside the events), so it finds nothing of its inputs in the
+    L2."""
+    flush = (torch.empty(FLUSH_BYTES, dtype=torch.uint8, device="cuda")
+             if cold else None)
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     times = []
     for _ in range(iters):
+        if flush is not None:
+            flush.fill_(1)
+            if not device_only:
+                torch.cuda.synchronize()
+        if device_only:
+            torch.cuda._sleep(SPIN_CYCLES)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -213,6 +245,17 @@ RAGGED_CASES = {
 RAGGED_CASES.update(_int8({k: RAGGED_CASES[k] for k in (
     "prefill_chunk", "mixed", "pure_decode", "window", "softcap_scale", "f32")}))
 RAGGED_CASES["d64_int8"] = dict(RAGGED_CASES["mixed_int8"], d=64)
+# lanes of 1..65 tokens back to back: lane boundaries at every offset of
+# the tensor-core kernel's 16-token query tile, with and without a
+# window, bf16 and int8 pages, d 128 and 64
+_EDGES = [(0, 1), (5, 7), (30, 8), (100, 9), (0, 15), (17, 16), (250, 17),
+          (0, 63), (64, 64), (700, 65)]
+for _d in (128, 64):
+    for _w in (0, 40):
+        _edge = dict(lanes=_EDGES, window=_w, d=_d)
+        _name = f"tile_edges_d{_d}" + ("_window" if _w else "")
+        RAGGED_CASES[_name] = _edge
+        RAGGED_CASES[_name + "_int8"] = dict(_edge, kv_quant="int8")
 
 DECODE_CASES = {
     # 8 lanes at mixed lengths up to ~2k tokens, one inactive
@@ -244,6 +287,21 @@ DENSE_CASES.update(_int8({k: DENSE_CASES[k] for k in (
 for _case in DENSE_CASES.values():
     _case["lanes"] = [(h, 0 if i in (3, 5) else _case["kp"])
                       for i, h in enumerate(DENSE_HISTORY)]
+# the split-KV kernel's edges: every lane split 8+ ways (128-key chunks),
+# and one live lane among inactive ones, bf16 and int8 pages, d 128 and 64
+_SPLIT = [3000, 1100, 1500, 2900, 1025, 2000, 1300, 1800]
+for _d in (128, 64):
+    for _kv in ("none", "int8"):
+        _sfx = f"_d{_d}" + ("_int8" if _kv == "int8" else "")
+        DENSE_CASES["split8" + _sfx] = dict(
+            kp=4, sp=4, d=_d, kv_quant=_kv, lanes=[(h, 4) for h in _SPLIT])
+        DENSE_CASES["one_live" + _sfx] = dict(
+            kp=4, sp=4, d=_d, kv_quant=_kv,
+            lanes=[(0, 0), (0, 0), (2500, 4)] + [(0, 0)] * 5)
+# a long verify round: 8 lanes of ~4,000 cached tokens at (K+1, stride)
+# = (4, 4) (timed, not a row of its own)
+DENSE_CASES["long_k3_sp4"] = dict(
+    kp=4, sp=4, lanes=[(4000 - 37 * i, 4) for i in range(8)])
 
 
 def _dense_inputs(torch, gen, case, nq=32, nkv=8, ps=16):
@@ -423,19 +481,23 @@ def phase_kernels(torch) -> dict:
     worst = {}
     specs = [
         # (kernel, cases, inputs, kernel wrapper, plain version, timed
-        # cases (each fills its row), library yardstick, work)
+        # cases (True: the case fills its row; False: timed and emitted
+        # only), library yardstick, work)
         ("ragged_paged_attention", RAGGED_CASES, _ragged_inputs,
          K.ragged_paged_attention_cuda, A.ragged_paged_attention_plain,
-         ("prefill_chunk", "prefill_chunk_int8"), _sdpa_ragged, _ragged_work),
+         {"prefill_chunk": True, "prefill_chunk_int8": True,
+          "pure_decode": False, "mixed": False}, _sdpa_ragged, _ragged_work),
         # d=64 is the port of _packed_decode_kernel, timed for its own row
         ("paged_decode_attention", DECODE_CASES, _decode_inputs,
          K.paged_decode_attention_cuda, A.paged_attention_plain,
-         ("d128", "d64_llama3_1b", "d128_int8"), _sdpa_decode, _decode_work),
+         {"d128": True, "d64_llama3_1b": True, "d128_int8": True},
+         _sdpa_decode, _decode_work),
         # the library yardstick of a verify round is the ragged one: SDPA
         # on the gathered KV with each lane's causal-offset mask
         ("dense_ragged_paged_attention", DENSE_CASES, _dense_inputs,
-         _dense_kernel, _dense_plain, ("k3_sp4", "k3_sp4_int8"), _sdpa_ragged,
-         _ragged_work),
+         _dense_kernel, _dense_plain,
+         {"k3_sp4": True, "k3_sp4_int8": True, "long_k3_sp4": False},
+         _sdpa_ragged, _ragged_work),
     ]
     for name, cases, make, kernel, plain, timed, library, work in specs:
         for case_name, case in cases.items():
@@ -459,22 +521,33 @@ def phase_kernels(torch) -> dict:
                     f"version (max_abs_err {err} > tol {tol})")
             worst[row] = max(worst.get(row, 0.0), err)
             if case_name in timed:
-                ms = _time_ms(torch, lambda: kernel(**inp))
-                plain_ms = _time_ms(torch, lambda: plain(**inp), iters=20,
-                                    warmup=1)
-                library_ms = _time_ms(torch, library(torch, inp, case))
+                sdpa = library(torch, inp, case)
+                call = lambda: kernel(**inp)  # noqa: E731
+                times = {
+                    "ms": _time_ms(torch, call),
+                    "ms_cold": _time_ms(torch, call, cold=True),
+                    "device_ms": _time_ms(torch, call, device_only=True),
+                    "device_ms_cold": _time_ms(torch, call, cold=True,
+                                               device_only=True),
+                    "plain_ms": _time_ms(torch, lambda: plain(**inp), iters=20,
+                                         warmup=1),
+                    "library_ms": _time_ms(torch, sdpa),
+                    "library_device_ms": _time_ms(torch, sdpa, device_only=True),
+                }
                 nbytes, flops = work(case)
                 bound_ms, bound_by = _bound(nbytes, flops, BF16_FLOPS_PER_S)
-                rows[row] = {
-                    "name": row, **KERNEL_META[row], "launches": 0,
-                    "max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms,
-                    "bound_ms": bound_ms, "bound_by": bound_by,
-                    "library_ms": library_ms,
-                }
+                if timed[case_name]:
+                    rows[row] = {
+                        "name": row, **KERNEL_META[row], "launches": 0,
+                        "max_abs_err": 0.0, **times, "bound_ms": bound_ms,
+                        "bound_by": bound_by, "timed_case": case_name,
+                    }
                 emit({"phase": "kernels", "kernel": name, "row": row,
-                      "timed_case": case_name, "ms": ms, "plain_ms": plain_ms,
-                      "library_ms": library_ms, "bound_ms": bound_ms,
-                      "bound_by": bound_by, "bytes": nbytes, "flops": flops})
+                      "timed_case": case_name, **times, "bound_ms": bound_ms,
+                      "bound_by": bound_by, "bytes": nbytes, "flops": flops,
+                      "x_library": times["ms"] / times["library_ms"],
+                      "x_library_device": (times["device_ms"]
+                                           / times["library_device_ms"])})
             del inp, got, ref
             torch.cuda.empty_cache()
     for row, summary in rows.items():
@@ -488,14 +561,31 @@ def phase_kernels(torch) -> dict:
 # ---------------------------------------------------------------- main
 
 
-def main() -> int:
-    _require_package()
+def main(argv=None) -> int:
+    import argparse
+
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--kernels-only", action="store_true",
+                    help="device, build and kernel phases only")
+    ap.add_argument("--package-root", default=None,
+                    help="import kserve_tpu_torch from this directory")
+    args = ap.parse_args(argv)
+    if args.package_root:
+        root = os.path.abspath(args.package_root)
+        if not os.path.isdir(os.path.join(root, "kserve_tpu_torch")):
+            raise SystemExit(f"{root} holds no kserve_tpu_torch/")
+        sys.path.insert(0, root)
+    else:
+        _require_package()
     import torch
 
     t0 = time.perf_counter()
     info = phase_device(torch)
     phase_build()
     rows = phase_kernels(torch)
+    if args.kernels_only:
+        emit({"phase": "done", "wall_s": time.perf_counter() - t0})
+        return 0
     counts = {"serve": phase_serve(torch), "d64": phase_d64(torch),
               "spec": phase_spec(torch)}
     counts.update(phase_kvq(torch))
@@ -590,9 +680,11 @@ def _logits_check(torch, engine, verify_k=None) -> dict:
     on the served weights and over a cache of the engine's kind (pages in
     the activation dtype, or int8 pages with scales):
 
-    - float32, each attention call (an f32 copy of the weights): the plain
-      run also calls the kernel on the same inputs and cache; they must
-      agree within ATTN_F32_REL_TOL.
+    - each attention call, float32 (an f32 copy of the weights) and
+      bfloat16 (the served weights): the plain run also calls the kernel
+      on the same inputs and cache; they must agree within
+      ATTN_F32_REL_TOL (f32) or within _bf16_tol of that call's plain
+      output (bf16: the kernel cases' gate, at the served shapes).
     - float32 logits: kernels and plain versions sum in another order
       only; they must agree within F32_LOGITS_REL_TOL of the largest
       |logit|, or over an int8 cache within INT8_NOISE_FACTOR times the
@@ -646,7 +738,10 @@ def _logits_check(torch, engine, verify_k=None) -> dict:
         k: ([{n: (t.float() if torch.is_tensor(t) else t) for n, t in layer.items()}
              for layer in v] if k == "layers" else v.float())
         for k, v in engine.params.items()}
-    attn_err = {}  # step name -> worst paired kernel-vs-plain error
+    # (dtype, step name) -> (error, tolerance) of the paired call that came
+    # closest to its tolerance: f32 relative to max(1, max|plain|), bf16
+    # absolute against _bf16_tol of the call's plain output
+    attn_err = {}
 
     def attention(mode: str, step: str, plain, kernel):
         """The attention_fn of one step: the plain version, the kernel
@@ -660,9 +755,15 @@ def _logits_check(torch, engine, verify_k=None) -> dict:
         def paired(q, pages, *args, **kw):
             ref = plain(q, pages, *args, **kw)
             got = kernel(q, pages, *args, **kw)
-            err = float((got.float() - ref.float()).abs().max()) / max(
-                1.0, float(ref.float().abs().max()))
-            attn_err[step] = max(attn_err.get(step, 0.0), err)
+            diff = float((got.float() - ref.float()).abs().max())
+            if ref.dtype == torch.float32:
+                err = diff / max(1.0, float(ref.float().abs().max()))
+                tol = ATTN_F32_REL_TOL
+            else:
+                err, tol = diff, _bf16_tol(ref.float())
+            key = ("f32" if ref.dtype == torch.float32 else "bf16", step)
+            if key not in attn_err or err / tol > attn_err[key][0] / attn_err[key][1]:
+                attn_err[key] = (err, tol)
             return ref
         return paired
 
@@ -706,7 +807,7 @@ def _logits_check(torch, engine, verify_k=None) -> dict:
         if kv_quant == "int8":
             x32, _ = run(params32, mc32, "plain", picks=picks, cache_kind="none")
         del params32
-        p16, _ = run(engine.params, mc16, "plain", picks=picks)
+        p16, _ = run(engine.params, mc16, "paired", picks=picks)
         k16, _ = run(engine.params, mc16, "kernel", picks=picks)
     torch.cuda.empty_cache()
     out = {}
@@ -717,7 +818,10 @@ def _logits_check(torch, engine, verify_k=None) -> dict:
         noise16 = float((p16[i] - p32[i]).abs().max())
         err16 = float((k16[i] - p16[i]).abs().max())
         row = {
-            "attn_f32_max_rel_err": attn_err[name], "attn_f32_tol": ATTN_F32_REL_TOL,
+            "attn_f32_max_rel_err": attn_err["f32", name][0],
+            "attn_f32_tol": ATTN_F32_REL_TOL,
+            "attn_bf16_max_abs_err": attn_err["bf16", name][0],
+            "attn_bf16_tol": attn_err["bf16", name][1],
             "f32_max_abs_err": err32, "f32_tol": F32_LOGITS_REL_TOL * scale,
             "bf16_max_abs_err": err16, "bf16_noise": noise16,
             "bf16_tol": BF16_NOISE_FACTOR * noise16, "max_abs_logit": scale,
@@ -729,7 +833,8 @@ def _logits_check(torch, engine, verify_k=None) -> dict:
             row["f32_tol"] = INT8_NOISE_FACTOR * row["int8_noise_f32"]
         out[name] = row
         finite = all(bool(torch.isfinite(t[i]).all()) for t in (k32, k16))
-        if not (finite and attn_err[name] <= ATTN_F32_REL_TOL
+        paired_ok = all(e <= t for e, t in (attn_err["f32", name], attn_err["bf16", name]))
+        if not (finite and paired_ok
                 and err32 <= row["f32_tol"] and err16 <= row["bf16_tol"]):
             raise AssertionError(
                 f"{name} logits through the kernels disagree with the plain "
@@ -899,13 +1004,39 @@ def _serve_run(torch, argv, phase: str, prompts, chat_tokens: int = 48) -> dict:
         "wall_s": wall, "tok_per_s": generated / wall, "chat_ttft_s": ttft,
         "engine_steps": model.engine.steps,
         "max_memory_allocated_gb": peak_gb,
-        "launches": counts, "logits_check": logits,
+        "launches": counts,
+        "launches_per_dispatch": _launches_per_dispatch(phase, model.engine, counts),
+        "logits_check": logits,
         "prompt_tokens": {label: len(model.tokenizer.encode(text))
                           for label, text, _ in prompts},
         "phase_wall_s": time.perf_counter() - t_phase,
     })
     _stop_server(torch, model, server, thread)
     return counts
+
+
+def _launches_per_dispatch(phase: str, engine, counts: dict) -> dict:
+    """The served launches against the engine's dispatches: a mixed
+    dispatch launches the ragged kernel once per layer (step 0) and the
+    decode kernel once per layer in each of its steps_per_sync - 1 decode
+    steps; a dense (spec) dispatch launches the dense kernel once per
+    layer per round.  How many dispatches a phase runs follows the
+    requests' arrival; the launches per dispatch must not move."""
+    layers = engine.model_config.n_layers
+    steps = engine.config.steps_per_sync
+    mixed, dense = engine.steps, engine.dense_steps
+    sfx = "_int8" if engine.config.kv_quant == "int8" else ""
+    per = {"ragged_paged_attention" + sfx: layers,
+           "paged_decode_attention" + sfx: layers * (steps - 1),
+           "dense_ragged_paged_attention" + sfx: layers * steps}
+    want = {k: n * (dense if k.startswith("dense") else mixed)
+            for k, n in per.items()}
+    got = {k: counts.get(k, 0) for k in want}
+    if got != want:
+        raise AssertionError(f"{phase}: launches {got} != {want} for {mixed} "
+                             f"mixed and {dense} dense dispatches")
+    return {"mixed_dispatches": mixed, "dense_dispatches": dense,
+            "per_dispatch": per}
 
 
 def _require_launches(phase: str, counts: dict, launched, idle=()) -> None:
@@ -1019,7 +1150,9 @@ def _spec_run(torch, argv, phase: str, check_no_sync: bool = False) -> dict:
         "mixed_dispatches": engine.steps, "dense_dispatches": engine.dense_steps,
         "chained_dispatches": engine.chained_dispatches,
         "max_memory_allocated_gb": peak_gb,
-        "launches": counts, "logits_check": logits,
+        "launches": counts,
+        "launches_per_dispatch": _launches_per_dispatch(phase, engine, counts),
+        "logits_check": logits,
     }
     if check_no_sync:
         summary["no_sync_dispatch"] = _check_dispatch_has_no_sync(torch, engine)

@@ -21,6 +21,8 @@ from typing import List, Tuple, Union
 
 import torch
 
+from ..device import resolve_device
+
 #: one layer's cache: the pages, or (int8 pages, f32 row scales)
 KVLayer = Union[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]
 
@@ -36,9 +38,10 @@ class KVCacheConfig:
     dtype: str = "bfloat16"
 
 
-def init_kv_pages(config: KVCacheConfig, device="cpu") -> List[torch.Tensor]:
+def init_kv_pages(config: KVCacheConfig, device=None) -> List[torch.Tensor]:
     """[n_layers] list of zeroed [num_pages, 2, n_kv_heads, page_size,
-    head_dim] tensors on `device`."""
+    head_dim] tensors on `device` (default CUDA; raises without a card)."""
+    device = resolve_device(device)
     shape = (config.num_pages, 2, config.n_kv_heads, config.page_size,
              config.head_dim)
     dtype = getattr(torch, config.dtype)
@@ -46,9 +49,11 @@ def init_kv_pages(config: KVCacheConfig, device="cpu") -> List[torch.Tensor]:
             for _ in range(config.n_layers)]
 
 
-def init_kv_scales(config: KVCacheConfig, device="cpu") -> List[torch.Tensor]:
+def init_kv_scales(config: KVCacheConfig, device=None) -> List[torch.Tensor]:
     """[n_layers] list of [num_pages, 2, n_kv_heads, page_size] f32 row
-    scales, all ones (the int8 cache's companion arrays)."""
+    scales, all ones (the int8 cache's companion arrays), on `device`
+    (default CUDA; raises without a card)."""
+    device = resolve_device(device)
     shape = (config.num_pages, 2, config.n_kv_heads, config.page_size)
     return [torch.ones(shape, dtype=torch.float32, device=device)
             for _ in range(config.n_layers)]

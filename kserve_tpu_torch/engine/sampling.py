@@ -25,7 +25,7 @@ from typing import List, Optional, Sequence
 
 import torch
 
-from ..device import upload
+from ..device import resolve_device, upload
 
 
 @dataclass
@@ -58,8 +58,11 @@ class SamplingState:
     all_greedy: bool  # host: no lane draws at all
 
     @staticmethod
-    def from_params(params_list: Sequence[SamplingParams], device="cpu") -> "SamplingState":
-        device = torch.device(device)
+    def from_params(params_list: Sequence[SamplingParams],
+                    device=None) -> "SamplingState":
+        """The batch's sampling state on `device` (default CUDA; raises
+        without a card)."""
+        device = resolve_device(device)
         seeds = [p.seed if p.seed is not None else -1 for p in params_list]
         rows = [i for i, s in enumerate(seeds) if s >= 0]
 

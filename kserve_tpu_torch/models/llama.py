@@ -25,6 +25,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..device import resolve_device
 from ..engine.kvcache import KVLayer, append_token_kv, write_ragged_kv
 from ..ops.attention import paged_attention, ragged_paged_attention
 from ..ops.norms import rms_norm, rms_norm_plus_one
@@ -238,11 +239,13 @@ class LlamaConfig:
         )
 
 
-def init_params(config: LlamaConfig, seed: int = 1, device="cpu",
+def init_params(config: LlamaConfig, seed: int = 1, device=None,
                 scale: float = 0.02) -> Params:
-    """Random parameters made directly on `device` from a seeded
-    torch.Generator: N(0, scale) linears and embedding, the JAX package's
-    norm and bias initial values and key names."""
+    """Random parameters made directly on `device` (default CUDA; raises
+    without a card) from a seeded torch.Generator: N(0, scale) linears and
+    embedding, the JAX package's norm and bias initial values and key
+    names."""
+    device = resolve_device(device)
     dtype = config.torch_dtype
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
@@ -293,11 +296,13 @@ def init_params(config: LlamaConfig, seed: int = 1, device="cpu",
     return params
 
 
-def params_from_jax(params_np: Params, config: LlamaConfig, device="cpu") -> Params:
+def params_from_jax(params_np: Params, config: LlamaConfig, device=None) -> Params:
     """The JAX package's params pytree, with numpy leaves, -> this port's
-    parameters on `device` in config.dtype.  Same keys and layouts; the
-    per-layer `attn_window` becomes a Python int.  Raises on leaves this
-    slice does not run (int8 weights, LoRA stacks, MoE routers)."""
+    parameters on `device` (default CUDA; raises without a card) in
+    config.dtype.  Same keys and layouts; the per-layer `attn_window`
+    becomes a Python int.  Raises on leaves this slice does not run (int8
+    weights, LoRA stacks, MoE routers)."""
+    device = resolve_device(device)
     dtype = config.torch_dtype
 
     def tensor(x) -> torch.Tensor:

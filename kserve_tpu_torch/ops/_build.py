@@ -40,19 +40,20 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 _SIGNATURES = {
-    # q, pages, scales, page_table, block_seq, block_qoff, kv_start, q_len,
-    # out, G, nq, nkv, head_dim, page_size, W, scale, softcap, window,
-    # dtype, kv_dtype, stream
+    # q, pages, scales, page_table, q_start, q_len, kv_start, out, B, G,
+    # tq, tiles, slabs, nq, nkv, head_dim, page_size, W, scale, softcap,
+    # window, dtype, kv_dtype, stream
     "kt_ragged_paged_attention": (
-        [_P] * 9 + [_I] * 6 + [_F, _F, _I, _I, _I, _P]),
+        [_P] * 8 + [_I] * 10 + [_F, _F, _I, _I, _I, _P]),
     # q, pages, scales, page_table, seq_lens, out, B, nq, nkv, head_dim,
     # page_size, W, scale, softcap, window, dtype, kv_dtype, stream
     "kt_paged_decode_attention": (
         [_P] * 6 + [_I] * 6 + [_F, _F, _I, _I, _I, _P]),
-    # q, pages, scales, page_table, kv_start, q_len, out, B, sp, nq, nkv,
-    # head_dim, page_size, W, scale, softcap, window, dtype, kv_dtype, stream
+    # q, pages, scales, page_table, kv_start, q_len, out, partials,
+    # tickets, B, sp, nq, nkv, head_dim, page_size, W, chunk, splits, slabs,
+    # scale, softcap, window, dtype, kv_dtype, stream
     "kt_dense_ragged_paged_attention": (
-        [_P] * 7 + [_I] * 7 + [_F, _F, _I, _I, _I, _P]),
+        [_P] * 9 + [_I] * 10 + [_F, _F, _I, _I, _I, _P]),
 }
 
 

@@ -10,22 +10,30 @@
 
 Each takes a layer's cache as the pages [P, 2, nkv, ps, d] in q's dtype or,
 with int8 KV, the tuple (int8 pages, f32 scales [P, 2, nkv, ps]): the
-int8 instances dequantize each staged row by its scale in f32 (the
-Pallas kernels' `quantized=True` form; for decode, the function of
+function of the Pallas kernels' `quantized=True` form (for decode, of
 kserve_tpu/ops/attention.py:paged_attention_xla's int8 branch).
+
+With bf16 q the ragged and dense kernels run on the tensor cores (bf16
+MMA, f32 accumulation; int8 rows become exact bf16 and their scales are
+applied in f32 to the scores and to P); their launch shapes come from
+`ragged_launch_plan` and `dense_launch_plan`, host-side upper bounds
+computed from shapes alone (no host sync): the kernels' CTAs find their
+own lane and split and exit when they have none.  With f32 q, and in the
+decode kernel, each staged row is dequantized in f32 on CUDA cores.
 
 Each wrapper takes CUDA tensors only: it checks device, dtype (q bf16 or
 f32), shape and contiguity, raises on anything its kernel does not take,
-allocates the output with torch.empty, launches on the current stream and
-raises if the launch failed.  It never falls back to the plain version;
-the dispatchers in ops/attention.py route CPU tensors to the plain
-versions before a wrapper is reached.  `LAUNCHES` counts launches, the
-int8 instances under their own `*_int8` keys.
+allocates the output (and the dense kernel's split scratch) with
+torch.empty, launches on the current stream and raises if the launch
+failed.  It never falls back to the plain version; the dispatchers in
+ops/attention.py route CPU tensors to the plain versions before a wrapper
+is reached.  `LAUNCHES` counts launches, the int8 instances under their
+own `*_int8` keys.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -110,20 +118,83 @@ def _raise_on(err: int, name: str) -> None:
         raise RuntimeError(f"{name} kernel launch failed: cudaError {err}")
 
 
-def ragged_block_metadata(q_start: torch.Tensor, q_len: torch.Tensor,
-                          G: int, bq: int = RAGGED_BQ):
-    """[G] (lane index, first query offset) per bq-token block, on the
-    device with no host sync; blocks outside every slice get lane -1.
-    Port of kserve_tpu/ops/pallas_paged_attention.py:_ragged_block_metadata."""
-    blk0 = torch.arange(G, dtype=torch.int32, device=q_start.device) * bq
-    member = ((blk0[None, :] >= q_start[:, None])
-              & (blk0[None, :] < (q_start + q_len)[:, None]))  # [B, G]
-    hit = member.any(dim=0)
-    lane = member.to(torch.int32).argmax(dim=0).to(torch.int32)
-    block_seq = torch.where(hit, lane, torch.full_like(lane, -1))
-    block_qoff = torch.where(hit, blk0 - q_start[lane],
-                             torch.zeros_like(blk0))
-    return block_seq.contiguous(), block_qoff.to(torch.int32).contiguous()
+# tensor-core tiles of the bf16-q kernels (csrc/attention_tc.cuh)
+TC_ROWS = 64  # query rows of a ragged CTA: 4 warps x one m16 slab
+TC_KT = 64  # keys per staged K/V tile
+DENSE_ROWS = 16  # query rows of a dense CTA: one m16 slab
+DENSE_MIN_CHUNK = 128  # keys per split, at least
+DENSE_MAX_SPLITS = 32  # splits per (lane, kv head, slab), at most
+
+
+class RaggedPlan(NamedTuple):
+    """Launch shape of the bf16-q ragged kernel: CTA x takes the x-th
+    tile of `tq` tokens in a prefix count of ceil(q_len / tq) per lane;
+    grid (tiles, nkv, slabs), slab z the rows [64z, 64z+64) of a tile's
+    tq * group rows."""
+    tq: int
+    tiles: int
+    slabs: int
+
+
+def ragged_launch_plan(T: int, nq: int, nkv: int) -> RaggedPlan:
+    """The ragged kernel's grid for a packed buffer of T tokens (slices at
+    RAGGED_BQ-aligned offsets): tq is the largest power of two with
+    tq * group <= TC_ROWS (16 at group 4), and `tiles` bounds
+    sum(ceil(q_len / tq)) for every packing of T, since each tile starts on
+    its own RAGGED_BQ block (tq >= 8) or each block holds RAGGED_BQ / tq
+    tiles (tq < 8)."""
+    group = nq // nkv
+    tq = 1
+    while 2 * tq * group <= TC_ROWS:
+        tq *= 2
+    G = T // RAGGED_BQ
+    return RaggedPlan(tq=tq, tiles=G * max(1, RAGGED_BQ // tq),
+                      slabs=-(-tq * group // TC_ROWS))
+
+
+class DensePlan(NamedTuple):
+    """Split-KV shape of the bf16-q dense kernel: each (lane, kv head,
+    slab of DENSE_ROWS rows) covers its keys in splits of `chunk` keys;
+    grid (B, nkv * slabs, splits)."""
+    chunk: int
+    splits: int
+    slabs: int
+
+
+def dense_launch_plan(W: int, page_size: int, sp: int, nq: int,
+                      nkv: int) -> DensePlan:
+    """The dense kernel's grid for page tables of W pages: a lane's keys
+    lie in [0, W * page_size), so ceil(W * page_size / chunk) splits
+    cover any lane.  chunk is a multiple of TC_KT, at least
+    DENSE_MIN_CHUNK, and large enough for at most DENSE_MAX_SPLITS."""
+    keys = W * page_size
+    chunk = max(DENSE_MIN_CHUNK, -(-keys // DENSE_MAX_SPLITS))
+    chunk = -(-chunk // TC_KT) * TC_KT
+    return DensePlan(chunk=chunk, splits=max(1, -(-keys // chunk)),
+                     slabs=-(-sp * (nq // nkv) // DENSE_ROWS))
+
+
+def dense_scratch_shape(B: int, nkv: int, plan: DensePlan,
+                        d: int) -> Tuple[int, int, int, int]:
+    """f32 scratch of the split partials, as one buffer: per (lane, kv
+    head, slab) and split, DENSE_ROWS rows of o [d], then the same rows'
+    (m, l) pairs (the kernel's layout: o [slots, splits, rows, d] followed
+    by (m, l) [slots, splits, rows, 2])."""
+    return (B * nkv * plan.slabs, plan.splits, DENSE_ROWS, d + 2)
+
+
+# device -> int32 merge tickets of the dense kernel, zero between calls
+# (the merging CTA resets its ticket); grown on demand, shared by calls in
+# stream order
+_TICKETS: Dict[torch.device, torch.Tensor] = {}
+
+
+def _dense_tickets(device: torch.device, n: int) -> torch.Tensor:
+    t = _TICKETS.get(device)
+    if t is None or t.numel() < n:
+        t = torch.zeros(max(n, 1024), dtype=torch.int32, device=device)
+        _TICKETS[device] = t
+    return t
 
 
 def ragged_paged_attention_cuda(
@@ -146,8 +217,8 @@ def ragged_paged_attention_cuda(
     B, W = page_table.shape
     _require(q_start.shape == (B,) and q_len.shape == (B,)
              and kv_start.shape == (B,), "lane metadata must be [B]")
-    G = T // RAGGED_BQ
-    block_seq, block_qoff = ragged_block_metadata(q_start, q_len, G)
+    nkv = pages.shape[2]
+    plan = ragged_launch_plan(T, nq, nkv)
     if scale is None:
         scale = 1.0 / float(d) ** 0.5
     out = torch.empty_like(q)
@@ -155,9 +226,9 @@ def ragged_paged_attention_cuda(
     pages_ptr, scales_ptr, kv_code = _page_args(q, pages, scales)
     err = lib.kt_ragged_paged_attention(
         q.data_ptr(), pages_ptr, scales_ptr, page_table.data_ptr(),
-        block_seq.data_ptr(), block_qoff.data_ptr(), kv_start.data_ptr(),
-        q_len.data_ptr(), out.data_ptr(), G, nq, pages.shape[2], d,
-        pages.shape[3], W, float(scale), float(logit_softcap),
+        q_start.data_ptr(), q_len.data_ptr(), kv_start.data_ptr(),
+        out.data_ptr(), B, T // RAGGED_BQ, plan.tq, plan.tiles, plan.slabs,
+        nq, nkv, d, pages.shape[3], W, float(scale), float(logit_softcap),
         int(window), _DTYPE_CODES[q.dtype], kv_code,
         torch.cuda.current_stream(q.device).cuda_stream)
     _raise_on(err, "ragged_paged_attention")
@@ -218,14 +289,24 @@ def dense_ragged_paged_attention_cuda(
              "lane metadata must be [B]")
     if scale is None:
         scale = 1.0 / float(d) ** 0.5
+    nkv, ps = pages.shape[2], pages.shape[3]
     out = torch.empty_like(q)
+    partials_ptr = tickets_ptr = None
+    plan = DensePlan(chunk=0, splits=0, slabs=0)  # the f32 design has none
+    if q.dtype == torch.bfloat16:
+        plan = dense_launch_plan(W, ps, sp, nq, nkv)
+        shape = dense_scratch_shape(B, nkv, plan, d)
+        partials = torch.empty(shape, dtype=torch.float32, device=q.device)
+        partials_ptr = partials.data_ptr()
+        tickets_ptr = _dense_tickets(q.device, shape[0]).data_ptr()
     lib = load_library()
     pages_ptr, scales_ptr, kv_code = _page_args(q, pages, scales)
     err = lib.kt_dense_ragged_paged_attention(
         q.data_ptr(), pages_ptr, scales_ptr, page_table.data_ptr(),
-        kv_start.data_ptr(), q_len.data_ptr(), out.data_ptr(), B, sp, nq,
-        pages.shape[2], d, pages.shape[3], W, float(scale),
-        float(logit_softcap), int(window), _DTYPE_CODES[q.dtype], kv_code,
+        kv_start.data_ptr(), q_len.data_ptr(), out.data_ptr(), partials_ptr,
+        tickets_ptr, B, sp, nq, nkv, d, ps, W, plan.chunk, plan.splits,
+        plan.slabs, float(scale), float(logit_softcap), int(window),
+        _DTYPE_CODES[q.dtype], kv_code,
         torch.cuda.current_stream(q.device).cuda_stream)
     _raise_on(err, "dense_ragged_paged_attention")
     _count("dense_ragged_paged_attention", scales)

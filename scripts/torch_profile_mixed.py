@@ -2,7 +2,7 @@
 on one GPU: where a step's time goes at Llama-3-8B shape.
 
     python3 scripts/torch_profile_mixed.py [--batch 8] [--context 512] [--spec_k 3]
-        [--kv_quant int8]
+        [--kv_quant int8] [--package-root DIR]
 
 Two plans run through kserve_tpu_torch.engine.compiled.make_mixed with
 seeded random weights (greedy sampling, steps_per_sync decode steps):
@@ -20,7 +20,10 @@ engine keeps it with --kv_quant int8, and attention runs the kernels'
 int8 instances.  For each: wall time of the step (host clock around the
 call and the token fetch), the host's enqueue time, and from
 torch.profiler the device time by kernel class and the device idle share
-(1 - busy / wall).  JSON lines on stdout; needs CUDA.
+(1 - busy / wall), with the launches of each kernel by name.  JSON lines
+on stdout; needs CUDA.  --package-root DIR profiles the kserve_tpu_torch
+of another tree (e.g. an unpacked `git archive` of another commit) with
+this script's plans and counting.
 """
 
 from __future__ import annotations
@@ -34,20 +37,9 @@ import time
 
 import numpy as np
 
-sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+import torch
 
-import torch  # noqa: E402
-
-from kserve_tpu_torch.engine.compiled import make_mixed, make_mixed_decode  # noqa: E402
-from kserve_tpu_torch.engine.kvcache import (  # noqa: E402
-    KVCacheConfig,
-    init_kv_pages,
-    init_kv_scales,
-)
-from kserve_tpu_torch.engine.sampling import SamplingParams, SamplingState  # noqa: E402
-from kserve_tpu_torch.engine.types import EngineConfig  # noqa: E402
-from kserve_tpu_torch.models import llama  # noqa: E402
-from kserve_tpu_torch.ops.paged_attention_cuda import RAGGED_BQ  # noqa: E402
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 CLASSES = (
     ("dense_attention", ("dense_ragged_kernel",)),
@@ -67,8 +59,9 @@ def _classify(name: str) -> str:
     return "elementwise_other"
 
 
-def _plan(lanes, B, W, ps):
-    """lanes {i: (kv_start, n_tokens)}; every lane joins the decode loop."""
+def _plan(lanes, B, W, ps, bq):
+    """lanes {i: (kv_start, n_tokens)} packed at multiples of bq tokens;
+    every lane joins the decode loop."""
     tok, seq, pos = [], [], []
     z = lambda: np.zeros(B, np.int32)  # noqa: E731
     q_start, q_len, kv_start, last = z(), z(), z(), z()
@@ -76,12 +69,12 @@ def _plan(lanes, B, W, ps):
     for i, (h, n) in sorted(lanes.items()):
         q_start[i], q_len[i], kv_start[i] = len(tok), n, h
         last[i] = len(tok) + n - 1
-        pad = -n % RAGGED_BQ
+        pad = -n % bq
         tok += [1] * n + [0] * pad
         seq += [i] * n + [-1] * pad
         pos += list(range(h, h + n)) + [0] * pad
         scan_pos0[i], step0_emits[i], capacity[i] = h + n, 1, W * ps
-    T = max(len(tok), RAGGED_BQ)
+    T = max(len(tok), bq)
     arr = lambda x: np.asarray(x + [0] * (T - len(x)), np.int32)  # noqa: E731
     seq += [-1] * (T - len(seq))
     table = (1 + np.arange(B * W, dtype=np.int32)).reshape(B, W)
@@ -99,13 +92,27 @@ def main(argv=None) -> int:
     p.add_argument("--iters", type=int, default=3)
     p.add_argument("--spec_k", type=int, default=3)
     p.add_argument("--kv_quant", default="none", choices=("none", "int8"))
+    p.add_argument("--package-root", default=REPO,
+                   help="import kserve_tpu_torch from this directory")
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("needs a CUDA device")
+    sys.path.insert(0, os.path.abspath(args.package_root))
+    from kserve_tpu_torch.engine.compiled import make_mixed, make_mixed_decode
+    from kserve_tpu_torch.engine.kvcache import (
+        KVCacheConfig,
+        init_kv_pages,
+        init_kv_scales,
+    )
+    from kserve_tpu_torch.engine.sampling import SamplingParams, SamplingState
+    from kserve_tpu_torch.engine.types import EngineConfig
+    from kserve_tpu_torch.models import llama
+    from kserve_tpu_torch.ops.paged_attention_cuda import RAGGED_BQ
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip()
-    print(json.dumps({"device": smi, "torch": torch.__version__}), flush=True)
+    print(json.dumps({"device": smi, "torch": torch.__version__,
+                      "package": os.path.dirname(llama.__file__)}), flush=True)
 
     mc = llama.LlamaConfig.llama3_8b()
     ps, B = 16, args.batch
@@ -148,7 +155,7 @@ def main(argv=None) -> int:
                     pages, table, np.ones(B, bool), np.full(B, W * ps, np.int32),
                     np.zeros(B, np.int32), drafts, state, gen)[:2]
         else:
-            plan = _plan(lanes, B, W, ps)
+            plan = _plan(lanes, B, W, ps, RAGGED_BQ)
             state = greedy
 
             def run():
@@ -169,7 +176,7 @@ def main(argv=None) -> int:
                     torch.profiler.ProfilerActivity.CPU,
                     torch.profiler.ProfilerActivity.CUDA]) as prof:
                 prof_host, prof_wall = step()
-        by_class, top, launches = {}, [], 0
+        by_class, top, launches, by_name = {}, [], 0, {}
         for ev in prof.key_averages():
             # kernels only: CPU-side ops (aten::mm, ...) also report the
             # device time of the kernels they launched
@@ -181,6 +188,7 @@ def main(argv=None) -> int:
             cls = _classify(ev.key)
             by_class[cls] = by_class.get(cls, 0.0) + dev_us / 1e3
             launches += ev.count
+            by_name[ev.key] = by_name.get(ev.key, 0) + ev.count
             top.append((dev_us / 1e3, ev.count, ev.key[:90]))
         top.sort(reverse=True)
         busy = sum(by_class.values())
@@ -198,6 +206,7 @@ def main(argv=None) -> int:
             "device_idle_share": max(0.0, 1 - busy / (prof_wall * 1e3)),
             "device_ms_by_class": by_class,
             "top_kernels": [{"ms": t, "calls": c, "name": n} for t, c, n in top[:12]],
+            "launches_by_kernel": by_name,
         }), flush=True)
     return 0
 

@@ -22,7 +22,8 @@ from kserve_tpu.ops.pallas_paged_attention import (
 )
 from kserve_tpu_torch.ops import attention as attn
 from kserve_tpu_torch.ops import norms, rotary
-from kserve_tpu_torch.ops.paged_attention_cuda import RAGGED_BQ, ragged_block_metadata
+from kserve_tpu_torch.ops import paged_attention_cuda as K
+from kserve_tpu_torch.ops.paged_attention_cuda import RAGGED_BQ
 
 PS = 16
 NKV = 2
@@ -114,17 +115,35 @@ def test_ragged_softcap_and_scale_override():
     np.testing.assert_allclose(got, pallas, **TOL)
 
 
+def _slice_owner(q_start, q_len, row):
+    """The lane whose slice holds packed row `row`, or -1: the rule each CTA
+    of the port's ragged kernels applies by scanning q_start/q_len (csrc
+    ragged_paged_attention.cu slice_owner) in place of the JAX package's
+    block metadata.  A host statement of the rule, not the CUDA code: the
+    device code is held to it on the card by chip_smoke.py's ragged cases
+    (tile_edges_*, mixed, pure_decode)."""
+    for i, (s, n) in enumerate(zip(q_start, q_len)):
+        if n > 0 and s <= row < s + n:
+            return i
+    return -1
+
+
 def test_ragged_metadata_matches_jax():
+    """The block-owner rule of the port's ragged kernels (as `_slice_owner`
+    states it; the CUDA code runs only on the card) and the port's token
+    metadata against the JAX package's."""
     from kserve_tpu.ops.pallas_paged_attention import _ragged_block_metadata
 
     case = _ragged_case(CASES["mixed"], seed=9)
     G = case["q"].shape[0] // RAGGED_BQ
-    seq, qoff = ragged_block_metadata(
-        torch.from_numpy(case["q_start"]), torch.from_numpy(case["q_len"]), G)
     jseq, jqoff = _ragged_block_metadata(
         jnp.asarray(case["q_start"]), jnp.asarray(case["q_len"]), G, RAGGED_BQ)
-    np.testing.assert_array_equal(seq.numpy(), np.asarray(jseq))
-    np.testing.assert_array_equal(qoff.numpy(), np.asarray(jqoff))
+    seq = [_slice_owner(case["q_start"], case["q_len"], g * RAGGED_BQ)
+           for g in range(G)]
+    qoff = [g * RAGGED_BQ - case["q_start"][s] if s >= 0 else 0
+            for g, s in enumerate(seq)]
+    np.testing.assert_array_equal(seq, np.asarray(jseq))
+    np.testing.assert_array_equal(qoff, np.asarray(jqoff))
     tseq, tloc, tvalid = attn.ragged_token_metadata(
         torch.from_numpy(case["q_start"]), torch.from_numpy(case["q_len"]),
         case["q"].shape[0])
@@ -212,6 +231,101 @@ def test_rope_matches_jax(scaling):
         rotary.rope_frequencies(128, 500000.0, scaling).numpy(),
         np.asarray(jax_rotary.rope_frequencies(128, 500000.0, scaling)),
         rtol=1e-6)
+
+
+def _random_packing(rng, B):
+    """Lane lengths drawn around the tile edges (0, 1, 8, 9, 16, 17, ...)
+    packed in lane order at RAGGED_BQ-aligned offsets, with whole padding
+    blocks between some slices and at the end: (T, q_start, q_len)."""
+    lens = rng.choice([0, 1, 7, 8, 9, 15, 16, 17, 63, 64, 65], size=B)
+    q_start, off = [], 0
+    for n in lens:
+        off += RAGGED_BQ * rng.randint(0, 2)
+        q_start.append(off)
+        off += _align(int(n))
+    T = max(off + RAGGED_BQ * rng.randint(0, 3), RAGGED_BQ)
+    return T, np.asarray(q_start), lens
+
+
+@pytest.mark.parametrize("group", [1, 2, 3, 4, 8, 16, 128])
+def test_ragged_launch_plan_covers_every_tile(group):
+    """Brute force over random packings: the grid of `ragged_launch_plan`
+    holds every (lane, tile) of the prefix count, its slabs cover every
+    (token, head) row of each tile exactly once, and x < T/8 reaches every
+    8-token block (the CTAs that zero padding rows).  The tile rule here is
+    the contract the CUDA tile_of implements, not that code: chip_smoke.py's
+    tile_edges_* cases hold the kernel to it on the card."""
+    nkv = 2
+    rng = np.random.RandomState(group)
+    for _ in range(80):
+        T, q_start, q_len = _random_packing(rng, rng.randint(1, 10))
+        plan = K.ragged_launch_plan(T, group * nkv, nkv)
+        tq = plan.tq
+        assert tq & (tq - 1) == 0
+        assert tq * group <= K.TC_ROWS or tq == 1
+        assert (plan.slabs - 1) * K.TC_ROWS < tq * group <= plan.slabs * K.TC_ROWS
+        tiles = [(i, t) for i, n in enumerate(q_len) for t in range(-(-n // tq))]
+        assert len(tiles) <= plan.tiles
+        assert plan.tiles >= T // RAGGED_BQ
+        covered = []
+        for i, t in tiles:
+            for z in range(plan.slabs):
+                for rr in range(z * K.TC_ROWS, min((z + 1) * K.TC_ROWS, tq * group)):
+                    j = t * tq + rr // group
+                    if j < q_len[i]:
+                        covered.append((q_start[i] + j, rr % group))
+        want = [(s + j, hh) for s, n in zip(q_start, q_len)
+                for j in range(n) for hh in range(group)]
+        assert sorted(covered) == sorted(want)
+
+
+@pytest.mark.parametrize("sp,group", [(1, 4), (2, 4), (4, 4), (4, 8), (4, 2), (2, 1)])
+def test_dense_launch_plan_covers_every_split(sp, group):
+    """Brute force over random lanes (inactive ones, long ones, windows):
+    the splits of every lane's key range fit the grid of
+    `dense_launch_plan` and cover the range once; the slabs cover the
+    lane's sp * group rows; the scratch holds a partial per (lane, kv head,
+    slab, split).  The key range and split bounds here restate the CUDA
+    kernel's (lo, hi, nsp) arithmetic; the kernel itself is held to them on
+    the card by chip_smoke.py's split8_* and one_live_* dense cases."""
+    nkv, d = 2, 128
+    rng = np.random.RandomState(sp * 10 + group)
+    for W, ps in [(1, 16), (2, 8), (7, 16), (126, 16), (128, 16), (512, 16), (4096, 16)]:
+        plan = K.dense_launch_plan(W, ps, sp, group * nkv, nkv)
+        keys = W * ps
+        assert plan.chunk % K.TC_KT == 0 and plan.chunk >= K.DENSE_MIN_CHUNK
+        assert 1 <= plan.splits <= K.DENSE_MAX_SPLITS
+        assert ((plan.slabs - 1) * K.DENSE_ROWS < sp * group
+                <= plan.slabs * K.DENSE_ROWS)
+        assert K.dense_scratch_shape(5, nkv, plan, d) == (
+            5 * nkv * plan.slabs, plan.splits, K.DENSE_ROWS, d + 2)
+        for _ in range(100):
+            qn = int(rng.randint(0, sp + 1))
+            kv0 = int(rng.randint(0, max(keys - qn, 0) + 1))
+            window = int(rng.choice([0, 1, 96, 1000]))
+            hi = min(kv0 + qn, keys) if qn else 0
+            lo = (max(0, kv0 - window + 1) if window else 0) // K.TC_KT * K.TC_KT
+            nsp = -(-(hi - lo) // plan.chunk) if hi > lo else 0
+            assert nsp <= plan.splits
+            got = [k for z in range(nsp)
+                   for k in range(lo + z * plan.chunk, min(lo + (z + 1) * plan.chunk, hi))]
+            assert got == list(range(lo, hi))
+            # every key a query of the lane sees lies in [lo, hi)
+            for j in range(qn):
+                first = max(0, kv0 + j - window + 1) if window else 0
+                assert lo <= first and kv0 + j < hi
+
+
+def test_dense_launch_plan_fills_the_card_on_the_timed_round():
+    """The chunk puts >= 2 CTAs on every one of an H100's 132 SMs in
+    chip_smoke.py's timed verify round (8 lanes, Llama-3-8B's 8 kv heads,
+    K + 1 = 4 at stride 4, 16-token pages)."""
+    history = [310, 1024, 57, 0, 1999, 1500, 130, 777]
+    live = [h + 4 for i, h in enumerate(history) if i not in (3, 5)]
+    W = -(-max(live) // 16)
+    plan = K.dense_launch_plan(W, 16, 4, 32, 8)
+    ctas = 8 * plan.slabs * sum(-(-n // plan.chunk) for n in live)
+    assert ctas >= 2 * 132
 
 
 def test_cuda_wrappers_refuse_cpu_tensors():

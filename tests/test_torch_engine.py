@@ -39,7 +39,7 @@ def _models(**overrides):
     jcfg = jl.LlamaConfig.tiny(dtype="float32", **overrides)
     tcfg = tl.LlamaConfig.tiny(dtype="float32", **overrides)
     jparams = jl.init_params(jcfg, jax.random.PRNGKey(0))
-    return jcfg, tcfg, jparams, tl.params_from_jax(jax.tree.map(np.asarray, jparams), tcfg)
+    return jcfg, tcfg, jparams, tl.params_from_jax(jax.tree.map(np.asarray, jparams), tcfg, device="cpu")
 
 
 def _mixed_plan(lanes, B=3, W=4):
@@ -83,9 +83,9 @@ def test_mixed_step_matches_jax_program():
                head_dim=tcfg.head_dim, page_size=PS, num_pages=1 + B * W,
                dtype="float32")
     jpages = jax_init_kv_pages(JaxKVConfig(**kvc))
-    tpages = init_kv_pages(KVCacheConfig(**kvc))
+    tpages = init_kv_pages(KVCacheConfig(**kvc), device="cpu")
     greedy_j = js.SamplingState.from_params([js.SamplingParams(temperature=0.0)] * B)
-    greedy_t = ts.SamplingState.from_params([ts.SamplingParams(temperature=0.0)] * B)
+    greedy_t = ts.SamplingState.from_params([ts.SamplingParams(temperature=0.0)] * B, device="cpu")
     rng = np.random.RandomState(0)
     p0, p1, p2 = (rng.randint(0, 512, n).tolist() for n in (10, 6, 9))
 

@@ -72,7 +72,7 @@ def test_append_token_kv_bit_equal_and_inactive_to_null_page():
 def test_init_kv_pages_layout():
     cfg = kv.KVCacheConfig(n_layers=3, n_kv_heads=NKV, head_dim=D, page_size=PS,
                            num_pages=P, dtype="bfloat16")
-    pages = kv.init_kv_pages(cfg)
+    pages = kv.init_kv_pages(cfg, device="cpu")
     assert len(pages) == 3
     assert pages[0].shape == (P, 2, NKV, PS, D) and pages[0].dtype == torch.bfloat16
     assert all(int(p.count_nonzero()) == 0 for p in pages)
@@ -96,3 +96,28 @@ def test_page_allocator_refcounts_and_double_free():
     a.free([0])  # the null page is never freed
     assert a.free_pages == 0
     assert kv.pages_needed(17, 8) == jkv.pages_needed(17, 8) == 3
+
+
+def test_helpers_default_to_cuda_and_raise_without_a_card(monkeypatch):
+    """init_params, params_from_jax, init_kv_pages, init_kv_scales and
+    SamplingState.from_params put their tensors on CUDA unless given a
+    device (the JAX package puts arrays on its accelerator by default);
+    with no card they raise instead of falling back to the CPU."""
+    from kserve_tpu_torch.engine.sampling import SamplingParams, SamplingState
+    from kserve_tpu_torch.models import llama
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = kv.KVCacheConfig(n_layers=1, n_kv_heads=NKV, head_dim=D,
+                           page_size=PS, num_pages=2, dtype="float32")
+    mc = llama.LlamaConfig.tiny()
+    calls = [
+        lambda: kv.init_kv_pages(cfg),
+        lambda: kv.init_kv_scales(cfg),
+        lambda: llama.init_params(mc),
+        lambda: llama.params_from_jax({}, mc),
+        lambda: SamplingState.from_params([SamplingParams()]),
+    ]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="pass device='cpu'"):
+            call()
+    assert kv.init_kv_pages(cfg, device="cpu")[0].device.type == "cpu"

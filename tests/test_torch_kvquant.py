@@ -149,7 +149,7 @@ def test_append_token_kv_int8_bit_equal_and_inactive_to_null_page():
 def test_init_kv_scales_layout():
     cfg = kv.KVCacheConfig(n_layers=2, n_kv_heads=NKV, head_dim=16,
                            page_size=PS, num_pages=5)
-    scales = kv.init_kv_scales(cfg)
+    scales = kv.init_kv_scales(cfg, device="cpu")
     want = jkv.init_kv_scales(jkv.KVCacheConfig(
         n_layers=2, n_kv_heads=NKV, head_dim=16, page_size=PS, num_pages=5))
     assert len(scales) == 2
@@ -284,7 +284,7 @@ def _models(**overrides):
     jcfg = jl.LlamaConfig.tiny(dtype="float32", **overrides)
     tcfg = tl.LlamaConfig.tiny(dtype="float32", **overrides)
     jparams = jl.init_params(jcfg, jax.random.PRNGKey(0))
-    return jcfg, tcfg, jparams, tl.params_from_jax(jax.tree.map(np.asarray, jparams), tcfg)
+    return jcfg, tcfg, jparams, tl.params_from_jax(jax.tree.map(np.asarray, jparams), tcfg, device="cpu")
 
 
 def _caches(cfg, num_pages):
@@ -367,7 +367,7 @@ def test_mixed_program_int8_matches_jax():
         jax.random.PRNGKey(1), jnp.full((B,), -1, jnp.int32))
     tout, tpages = tmixed(
         tparams, *plan, tpages, *after,
-        ts.SamplingState.from_params([ts.SamplingParams(temperature=0.0)] * B),
+        ts.SamplingState.from_params([ts.SamplingParams(temperature=0.0)] * B, device="cpu"),
         torch.Generator())
     assert isinstance(tpages[0], tuple) and tpages[0][0].dtype == torch.int8
     np.testing.assert_array_equal(tout.numpy(), np.asarray(jout))

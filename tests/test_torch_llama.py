@@ -71,7 +71,7 @@ def test_forward_ragged_and_decode_match_jax(name):
     jcfg = jl.LlamaConfig.tiny(**overrides)
     tcfg = tl.LlamaConfig.tiny(**overrides)
     jparams = jl.init_params(jcfg, jax.random.PRNGKey(0))
-    tparams = tl.params_from_jax(jax.tree.map(np.asarray, jparams), tcfg)
+    tparams = tl.params_from_jax(jax.tree.map(np.asarray, jparams), tcfg, device="cpu")
     num_pages = 1 + 3 * 4
     jpages = jax_init_kv_pages(JaxKVConfig(
         n_layers=jcfg.n_layers, n_kv_heads=jcfg.n_kv_heads,
@@ -80,7 +80,7 @@ def test_forward_ragged_and_decode_match_jax(name):
     tpages = init_kv_pages(KVCacheConfig(
         n_layers=tcfg.n_layers, n_kv_heads=tcfg.n_kv_heads,
         head_dim=tcfg.head_dim, page_size=PS, num_pages=num_pages,
-        dtype="float32"))
+        dtype="float32"), device="cpu")
     rng = np.random.RandomState(len(name))
     prompt0 = rng.randint(0, 512, 18).tolist()
     prompt1 = rng.randint(0, 512, 6).tolist()
@@ -127,13 +127,13 @@ def test_params_from_jax_keeps_keys_and_layout():
     jcfg = jl.LlamaConfig.tiny(dtype="float32", **CONFIGS["gemma2_style"])
     tcfg = tl.LlamaConfig.tiny(dtype="float32", **CONFIGS["gemma2_style"])
     jparams = jax.tree.map(np.asarray, jl.init_params(jcfg, jax.random.PRNGKey(3)))
-    tparams = tl.params_from_jax(jparams, tcfg)
+    tparams = tl.params_from_jax(jparams, tcfg, device="cpu")
     for j, t in zip(jparams["layers"], tparams["layers"]):
         assert set(j) == set(t)
         assert t["attn_window"] in (0, 6) and isinstance(t["attn_window"], int)
         np.testing.assert_array_equal(t["wq"].numpy(), j["wq"])  # [in, out]
     # the port's own random init has the same keys and shapes
-    own = tl.init_params(tcfg, seed=1)
+    own = tl.init_params(tcfg, seed=1, device="cpu")
     assert set(own) == set(tparams)
     for a, b in zip(own["layers"], tparams["layers"]):
         assert set(a) == set(b)
@@ -143,7 +143,7 @@ def test_params_from_jax_keeps_keys_and_layout():
     with pytest.raises(NotImplementedError):
         tl.params_from_jax(
             {**jparams, "layers": [{**jparams["layers"][0],
-                                    "wq": {"q": 1, "s": 1}}]}, tcfg)
+                                    "wq": {"q": 1, "s": 1}}]}, tcfg, device="cpu")
 
 
 def test_named_configs_match_jax():

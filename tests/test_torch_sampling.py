@@ -36,7 +36,7 @@ def _logits(seed=0):
 def _states():
     jp = [js.SamplingParams(**r) for r in ROWS]
     tp = [ts.SamplingParams(**r) for r in ROWS]
-    return js.SamplingState.from_params(jp), ts.SamplingState.from_params(tp)
+    return js.SamplingState.from_params(jp), ts.SamplingState.from_params(tp, device="cpu")
 
 
 def _jax_masked(logits, state):
@@ -69,7 +69,7 @@ def test_greedy_rows_exact():
     ttok = ts.sample_tokens(torch.from_numpy(logits), tstate,
                             torch.Generator().manual_seed(0)).numpy()
     assert ttok[0] == jtok[0] == logits[0].argmax()
-    greedy = ts.SamplingState.from_params([ts.SamplingParams(temperature=0.0)] * 6)
+    greedy = ts.SamplingState.from_params([ts.SamplingParams(temperature=0.0)] * 6, device="cpu")
     assert greedy.all_greedy
     np.testing.assert_array_equal(
         ts.sample_tokens(torch.from_numpy(logits), greedy).numpy(),
@@ -109,9 +109,9 @@ def test_seeded_row_reproducible_across_batch_positions():
     row = logits[1].copy()
     seeded = ts.SamplingParams(temperature=1.0, seed=1234)
     free = ts.SamplingParams(temperature=1.0)
-    a = ts.SamplingState.from_params([free, seeded, free, free])
+    a = ts.SamplingState.from_params([free, seeded, free, free], device="cpu")
     batch_b = np.stack([logits[0], logits[2], logits[3], row])
-    b = ts.SamplingState.from_params([free, free, free, seeded])
+    b = ts.SamplingState.from_params([free, free, free, seeded], device="cpu")
     for counter in range(6):
         ta = ts.sample_tokens(torch.from_numpy(logits), a,
                               torch.Generator().manual_seed(counter),
@@ -162,7 +162,7 @@ def test_seeded_tokens_equal_jax_sampler():
         rows = [dict(r, temperature=max(r["temperature"], 0.6), seed=int(s))
                 for r, s in zip(ROWS, seeds)]
         jstate = js.SamplingState.from_params([js.SamplingParams(**r) for r in rows])
-        tstate = ts.SamplingState.from_params([ts.SamplingParams(**r) for r in rows])
+        tstate = ts.SamplingState.from_params([ts.SamplingParams(**r) for r in rows], device="cpu")
         want = np.asarray(js.sample_tokens(
             jnp.asarray(logits), jstate, jax.random.PRNGKey(trial),
             jnp.asarray(counters)))

@@ -60,7 +60,7 @@ def _models():
     jcfg = jl.LlamaConfig.tiny(dtype="float32")
     tcfg = tl.LlamaConfig.tiny(dtype="float32")
     jparams = jl.init_params(jcfg, jax.random.PRNGKey(0))
-    return jcfg, tcfg, jparams, tl.params_from_jax(jax.tree.map(np.asarray, jparams), tcfg)
+    return jcfg, tcfg, jparams, tl.params_from_jax(jax.tree.map(np.asarray, jparams), tcfg, device="cpu")
 
 
 # ---------------------------------------------------------------- packing
@@ -205,7 +205,7 @@ def test_mixed_decode_matches_jax_program(k_drafts):
         toks, n, pages, table, (tok, pos, cnt) = fn(
             tparams, inp["tokens"], inp["pos"], pages, inp["page_table"],
             inp["live"], inp["capacity"], inp["counters"], table,
-            ts.SamplingState.from_params([ts.SamplingParams(**p) for p in params]),
+            ts.SamplingState.from_params([ts.SamplingParams(**p) for p in params], device="cpu"),
             torch.Generator().manual_seed(0))
         live = inp["live"]
         # the unseeded batch noise differs (torch.Generator vs the JAX key):
