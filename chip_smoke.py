@@ -12,14 +12,15 @@ Phases, each printing JSON lines:
            the card, at Llama-3-8B's attention shape (and at head_dim 64,
            Llama-3.2-1B's), over bf16/f32 pages and over int8 pages with
            f32 row scales, timed warm and with a cold L2, each as the
-           host enqueues it (ms) and on the device alone (device_ms)
+           host enqueues it (ms) and on the device alone (device_ms),
+           with the host's own time per call (host_ms)
   serve    the port's OpenAI server (kserve_tpu_torch.runtimes.
            generative_server) with Llama-3-8B at full width and depth and
            seeded random weights: concurrent completions and one streamed
            chat over HTTP, launch counts of the ragged and decode kernels,
            step-0 logits through the kernels against the plain versions,
-           and every attention call paired with its plain version in f32
-           and in bf16
+           every attention call paired with its plain version in f32
+           and in bf16, and one decode step under CUDA sync debugging
   d64      the same server with --model_config=llama3-1b (head_dim 64, full
            depth): the served path of the decode kernel's d=64 instance
   spec     the server with --spec_decode_k=3 (speculative decoding):
@@ -42,6 +43,8 @@ the kernel phase's lines (no summary, no served phases).  --package-root
 DIR imports kserve_tpu_torch from DIR instead of this checkout (e.g. an
 unpacked `git archive` of another commit under build/), so two trees'
 kernels are timed by the same cases and the same timing code.
+--decode-min-chunk N sets the decode kernel's least keys per split (the
+chunk sweep of PERF.md; the default is the package's own).
 """
 
 from __future__ import annotations
@@ -191,6 +194,20 @@ def _time_ms(torch, fn, iters: int = 25, warmup: int = 3,
     return statistics.median(times)
 
 
+def _host_ms(torch, fn, iters: int = 25, warmup: int = 3) -> float:
+    """Median host time (ms) of one call as the host enqueues it onto an
+    idle device: perf_counter around the call, no sync inside it."""
+    for _ in range(warmup):
+        fn()
+    times = []
+    for _ in range(iters):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
 def _bf16_tol(ref) -> float:
     """Two bf16 ulps at the reference's largest magnitude: both sides do
     f32 math from the same bf16 inputs (the kernel in another summation
@@ -266,6 +283,25 @@ DECODE_CASES = {
     "f32": dict(d=128, lens=[100, 0, 37, 512], dtype="float32"),
 }
 DECODE_CASES.update(_int8(DECODE_CASES))
+# the split-KV kernel's edges (128-key chunks at these tables), over bf16
+# and int8 pages at d 128 and 64: every lane split 8+ ways; one live lane
+# among inactive ones; lanes on both sides of a 64-key tile and a 128-key
+# chunk and one that fills its table (W * ps = 2048); a window whose lower
+# edge falls inside a lane's first split; and a long step of 8 lanes of
+# ~4,000 tokens (timed, not a row of its own)
+_DECODE_SPLIT = {
+    "split8": dict(lens=[3000, 1100, 1500, 2900, 1025, 2000, 1300, 1800]),
+    "one_live": dict(lens=[0, 0, 2500, 0, 0, 0, 0, 0]),
+    "split_edges": dict(lens=[1, 63, 64, 65, 127, 128, 129, 2048]),
+    "window_across_split": dict(lens=[1000, 700, 333, 2048, 5, 129, 450, 0],
+                                window=200),
+    "long": dict(lens=[4000 - 37 * i for i in range(8)]),
+}
+for _d in (128, 64):
+    for _kv in ("none", "int8"):
+        for _name, _case in _DECODE_SPLIT.items():
+            DECODE_CASES[f"{_name}_d{_d}" + ("_int8" if _kv == "int8" else "")] = dict(
+                _case, d=_d, kv_quant=_kv)
 
 
 # speculative verify packing, 8 lanes: (K+1, stride) per case; lane 3 is
@@ -490,7 +526,9 @@ def phase_kernels(torch) -> dict:
         # d=64 is the port of _packed_decode_kernel, timed for its own row
         ("paged_decode_attention", DECODE_CASES, _decode_inputs,
          K.paged_decode_attention_cuda, A.paged_attention_plain,
-         {"d128": True, "d64_llama3_1b": True, "d128_int8": True},
+         {"d128": True, "d64_llama3_1b": True, "d128_int8": True,
+          "long_d128": False, "long_d128_int8": False, "long_d64": False,
+          "long_d64_int8": False},
          _sdpa_decode, _decode_work),
         # the library yardstick of a verify round is the ragged one: SDPA
         # on the gathered KV with each lane's causal-offset mask
@@ -525,6 +563,7 @@ def phase_kernels(torch) -> dict:
                 call = lambda: kernel(**inp)  # noqa: E731
                 times = {
                     "ms": _time_ms(torch, call),
+                    "host_ms": _host_ms(torch, call),
                     "ms_cold": _time_ms(torch, call, cold=True),
                     "device_ms": _time_ms(torch, call, device_only=True),
                     "device_ms_cold": _time_ms(torch, call, cold=True,
@@ -569,6 +608,10 @@ def main(argv=None) -> int:
                     help="device, build and kernel phases only")
     ap.add_argument("--package-root", default=None,
                     help="import kserve_tpu_torch from this directory")
+    ap.add_argument("--decode-min-chunk", type=int, default=None,
+                    help="keys per split of the decode kernel, at least "
+                         "(a multiple of 64; default: the package's "
+                         "DECODE_MIN_CHUNK)")
     args = ap.parse_args(argv)
     if args.package_root:
         root = os.path.abspath(args.package_root)
@@ -579,6 +622,14 @@ def main(argv=None) -> int:
         _require_package()
     import torch
 
+    if args.decode_min_chunk is not None:
+        from kserve_tpu_torch.ops import paged_attention_cuda as K
+
+        if args.decode_min_chunk <= 0 or args.decode_min_chunk % K.TC_KT:
+            raise SystemExit(f"--decode-min-chunk must be a positive multiple "
+                             f"of {K.TC_KT}")
+        K.DECODE_MIN_CHUNK = args.decode_min_chunk
+        K.decode_launch_plan.cache_clear()
     t0 = time.perf_counter()
     info = phase_device(torch)
     phase_build()
@@ -996,6 +1047,7 @@ def _serve_run(torch, argv, phase: str, prompts, chat_tokens: int = 48) -> dict:
     generated += len(token_events)
 
     logits = _logits_check(torch, model.engine)
+    decode_no_sync = _check_decode_has_no_sync(torch, model.engine)
     emit({
         "phase": phase, "model": f"{name} (random weights, seed 1)",
         "kv_quant": model.engine.config.kv_quant,
@@ -1007,12 +1059,54 @@ def _serve_run(torch, argv, phase: str, prompts, chat_tokens: int = 48) -> dict:
         "launches": counts,
         "launches_per_dispatch": _launches_per_dispatch(phase, model.engine, counts),
         "logits_check": logits,
+        "decode_no_sync": decode_no_sync,
         "prompt_tokens": {label: len(model.tokenizer.encode(text))
                           for label, text, _ in prompts},
         "phase_wall_s": time.perf_counter() - t_phase,
     })
     _stop_server(torch, model, server, thread)
     return counts
+
+
+def _check_decode_has_no_sync(torch, engine) -> dict:
+    """One llama.decode_step on the served weights over a fresh cache of
+    the engine's kind (8 lanes, one inactive), warm, then once more with
+    CUDA sync debugging set to "error": the step, its decode attention
+    calls among them, must not wait on the device (the split kernels plan
+    from shapes alone and reuse their scratch).  The checked step must
+    launch the decode kernel once per layer and give finite logits."""
+    from kserve_tpu_torch.models import llama
+    from kserve_tpu_torch.ops import paged_attention_cuda as K
+
+    mc, ps = engine.model_config, engine.config.page_size
+    lens = [40, 100, 7, 0, 300, 1, 17, 64]
+    B, W = len(lens), -(-(max(lens) + 1) // ps)
+    pages = _fresh_cache(mc, ps, 1 + B * W, engine.config.kv_quant)
+    ints = lambda xs: torch.tensor(xs, dtype=torch.int32, device="cuda")  # noqa: E731
+    table = ints([[1 + i * W + j for j in range(W)] for i in range(B)])
+    pos = ints(lens)
+    active = torch.tensor([n > 0 for n in lens], device="cuda")
+    tokens = ints([65 + i for i in range(B)])
+    key = "paged_decode_attention" + (
+        "_int8" if engine.config.kv_quant == "int8" else "")
+    with torch.inference_mode():
+        llama.decode_step(engine.params, mc, tokens, pos, pages, table, active, ps)
+        torch.cuda.synchronize()
+        before = K.LAUNCHES[key]
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            logits, _ = llama.decode_step(engine.params, mc, tokens, pos, pages,
+                                          table, active, ps)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    launched = K.LAUNCHES[key] - before
+    finite = bool(torch.isfinite(logits).all())
+    del pages
+    torch.cuda.empty_cache()
+    if launched != mc.n_layers or not finite:
+        raise AssertionError(f"sync-checked decode step: {launched} {key} launches "
+                             f"for {mc.n_layers} layers, finite logits {finite}")
+    return {"ok": True, "decode_launches": launched}
 
 
 def _launches_per_dispatch(phase: str, engine, counts: dict) -> dict:

@@ -1,5 +1,5 @@
 // Tensor-core building blocks of the bf16-q paged-attention kernels
-// (ragged and dense-stride), for Hopper (sm_90a):
+// (ragged, dense-stride and decode), for Hopper (sm_90a):
 //
 //   - cp.async loaders of one paged K/V tile (KT keys of one kv head) into
 //     a shared-memory stage, for bf16 pages and for int8 pages with their
@@ -11,8 +11,12 @@
 //   - one warp's online softmax over a 16-row slab in registers: row max
 //     and row sum by quad shuffles, P rounded to bf16 in registers as the
 //     A operand of P @ V, O accumulated in f32 registers;
-//   - the key loop both kernels run over their staged tiles, the shared-
-//     memory size of a CTA, and a launcher's once-per-device opt-in to it.
+//   - the key loop all three kernels run over their staged tiles, the
+//     shared-memory size of a CTA, and a launcher's once-per-device opt-in
+//     to it;
+//   - the split-KV CTA of the dense-stride and decode kernels
+//     (`split_kv_slab`): split bounds, key loop, the 4 warps' fold and the
+//     in-kernel merge of the splits by the last one to arrive.
 //
 // Numerics: q stays unscaled bf16 and K bf16 (or exact bf16 of int8), so
 // S = Q K^T multiplies exact values with f32 accumulation; the softmax
@@ -490,6 +494,262 @@ __device__ __forceinline__ void key_loop(
   }
   cp_async_wait<0>();
   __syncthreads();
+}
+
+// ------------------------------------------------------------ split-KV CTA
+
+constexpr int SLAB_ROWS = 16;    // query rows of a split-KV CTA: one m16 slab
+constexpr int SLAB_KW = KT / 4;  // keys of a staged tile per warp
+constexpr int MAX_SPLITS = 32;   // splits per (lane, kv head, slab), at most
+
+// the 4 warps' partial states, folded in shared memory after the key loop
+template <int D>
+__host__ __device__ constexpr int fold_bytes() { return 4 * SLAB_ROWS * (D + 2) * 4; }
+
+// Whether a launcher's split plan and scratch are ones split_kv_slab takes
+// (rows: a lane's query rows, sp * group).
+inline bool split_plan_ok(const void* partials, const void* tickets, int chunk,
+                          int splits, int slabs, int rows) {
+  return partials != nullptr && tickets != nullptr && chunk > 0 &&
+         chunk % KT == 0 && splits > 0 && splits <= MAX_SPLITS && slabs > 0 &&
+         rows <= slabs * SLAB_ROWS;
+}
+
+// The split-KV CTA of the dense-stride and decode kernels, grid (B, nkv *
+// slabs, splits).  Lane b = blockIdx.x holds qn query tokens (0: it reads
+// nothing) at packed rows b*sp .. and positions kv0 .. kv0+qn-1; its
+// sp * group rows are (token rr / group, head h * group + rr % group), and
+// slab zs holds rows [16 zs, 16 zs + 16).  The lane's keys [lo, hi) split
+// into chunks of `chunk` keys (at most `splits`).  Split z runs key_loop
+// over its chunk and the 4 warps fold their (m, l, o) in shared memory;
+// with one split that is the output.  Otherwise each split writes its
+// (m, l, o) in f32 to `partials` (o [slots, splits, 16, D], then (m, l)
+// [slots, splits, 16, 2]; slot (b * nkv + h) * slabs + zs), and the last
+// split to take the slot's ticket (after __threadfence) merges them and
+// resets the ticket: one launch, no host sync.  Tickets are zero between
+// calls, so calls that share the scratch must run in stream order.  Rows
+// that are no query (past qn, stride padding) are written 0; rows past the
+// lane's sp * group are neither read nor written.  `smem` is the CTA's
+// dynamic shared memory, smem_bytes<P, D>(SLAB_ROWS).
+template <typename P, int D>
+__device__ __forceinline__ void split_kv_slab(
+    const __nv_bfloat16* __restrict__ q, const P* __restrict__ pages,
+    const float* __restrict__ scales, const int* __restrict__ page_table,
+    __nv_bfloat16* __restrict__ out, float* __restrict__ partials,
+    int* __restrict__ tickets, int qn, int kv0, int sp, int nq, int nkv, int ps,
+    int W, int chunk, int splits, int slabs, float scale, float softcap,
+    int window, char* smem) {
+  constexpr int CS = bf16_stride<D>();
+  constexpr int SB = stage_bytes<P, D>();
+  constexpr int QCH = D / 8;
+  static_assert(fold_bytes<D>() <= 2 * SB, "the warps' partials reuse the stages");
+  char* q_s = smem;                     // [16][CS]
+  char* stages = q_s + SLAB_ROWS * CS;  // [2][SB]; then the warps' fold
+  char* conv = stages + 2 * SB;         // int8: [2*KT][CS]
+  __shared__ int last_s;
+  __shared__ float wk_s[SLAB_ROWS][MAX_SPLITS];  // the merge's split weights
+  __shared__ float inv_s[SLAB_ROWS];
+
+  const int b = blockIdx.x;
+  const int h = blockIdx.y / slabs;
+  const int zs = blockIdx.y - h * slabs;
+  const int z = blockIdx.z;
+  const int group = nq / nkv;
+  const int rows_lane = sp * group;
+  const int nrows = min(SLAB_ROWS, rows_lane - zs * SLAB_ROWS);  // rows of the slab
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int64_t row0 = (int64_t)b * sp;
+  // global element offset of slab row r < nrows
+  auto out_row = [&](int r) -> int64_t {
+    const int rr = zs * SLAB_ROWS + r;
+    return ((row0 + rr / group) * nq + h * group + rr % group) * (int64_t)D;
+  };
+  auto is_query = [&](int r) {
+    return r < nrows && (zs * SLAB_ROWS + r) / group < qn;
+  };
+
+  // key range [lo, hi) and its splits; a lane with qn 0 has none
+  const int hi = qn > 0 ? min(kv0 + qn, W * ps) : 0;
+  int lo = window > 0 ? max(0, kv0 - window + 1) : 0;
+  lo = (lo / KT) * KT;
+  const int nsp = hi > lo ? min((hi - lo + chunk - 1) / chunk, splits) : 0;
+  if (nsp == 0) {  // every row of the slab is 0; nothing is read
+    if (z == 0)
+      for (int idx = threadIdx.x; idx < nrows * QCH; idx += NT) {
+        const int r = idx / QCH;
+        *reinterpret_cast<uint4*>(out + out_row(r) + (idx - r * QCH) * 8) =
+            make_uint4(0u, 0u, 0u, 0u);
+      }
+    return;
+  }
+  if (z >= nsp) return;
+  const int s_lo = lo + z * chunk;
+  const int s_hi = min(s_lo + chunk, hi);
+  const int n = (s_hi - s_lo + KT - 1) / KT;
+  const int* pt = page_table + (int64_t)b * W;
+
+  for (int idx = threadIdx.x; idx < SLAB_ROWS * QCH; idx += NT) {
+    const int r = idx / QCH;
+    const int c = idx - r * QCH;
+    const bool ok = is_query(r);
+    const __nv_bfloat16* src = ok ? q + out_row(r) + c * 8 : q;
+    cp_async16(smem_addr(q_s + r * CS + c * 16), src, ok);
+  }
+  int qpos[2];
+#pragma unroll
+  for (int k = 0; k < 2; ++k) {
+    const int r = (lane >> 2) + 8 * k;
+    qpos[k] = is_query(r) ? kv0 + (zs * SLAB_ROWS + r) / group : -1;
+  }
+  int qmin, qmax;
+  warp_span(qpos, qmin, qmax);
+
+  // each warp takes SLAB_KW keys of every staged tile for the slab's rows
+  SlabState<D> st;
+  key_loop<P, D, SLAB_KW>(st, q_s, 0, pages, scales, pt, nkv, ps, h, s_lo, s_hi,
+                          n, stages, conv, warp * SLAB_KW, qpos, qmin, qmax,
+                          window, scale, softcap);
+
+  // fold the 4 warps: each writes its rows' o as [warp][row][D], then
+  // (m, l) as [warp][row]
+  st.reduce_l();
+  float* wo = reinterpret_cast<float*>(stages);
+  float* wm = wo + 4 * SLAB_ROWS * D;
+  float* wl = wm + 4 * SLAB_ROWS;
+  {
+    const int g = lane >> 2;
+    const int c = lane & 3;
+    float* p0 = wo + (warp * SLAB_ROWS + g) * D;
+    float* p1 = p0 + 8 * D;
+    if (g < nrows) {
+#pragma unroll
+      for (int nn = 0; nn < D / 8; ++nn)
+        *reinterpret_cast<float2*>(p0 + 8 * nn + 2 * c) =
+            make_float2(st.o[nn][0], st.o[nn][1]);
+    }
+    if (g + 8 < nrows) {
+#pragma unroll
+      for (int nn = 0; nn < D / 8; ++nn)
+        *reinterpret_cast<float2*>(p1 + 8 * nn + 2 * c) =
+            make_float2(st.o[nn][2], st.o[nn][3]);
+    }
+    if (c == 0) {
+      wm[warp * SLAB_ROWS + g] = st.m[0];
+      wl[warp * SLAB_ROWS + g] = st.l[0];
+      wm[warp * SLAB_ROWS + g + 8] = st.m[1];
+      wl[warp * SLAB_ROWS + g + 8] = st.l[1];
+    }
+  }
+  __syncthreads();
+
+  // this CTA's state, 4 floats of a row per step: one split's output, or
+  // its partial in scratch
+  const int slot = (b * nkv + h) * slabs + zs;
+  const int nslots = gridDim.x * gridDim.y;
+  float* part_o = partials + (int64_t)slot * splits * SLAB_ROWS * D;
+  float* part_ml = partials + (int64_t)nslots * splits * SLAB_ROWS * D +
+                   (int64_t)slot * splits * SLAB_ROWS * 2;
+  for (int idx = threadIdx.x; idx < nrows * D / 4; idx += NT) {
+    const int r = idx / (D / 4);
+    const int d = (idx - r * (D / 4)) * 4;
+    float m = MASKED;
+#pragma unroll
+    for (int w = 0; w < 4; ++w) m = fmaxf(m, wm[w * SLAB_ROWS + r]);
+    float l = 0.f;
+    float4 o = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+    for (int w = 0; w < 4; ++w) {
+      const float wt = exp2f(wm[w * SLAB_ROWS + r] - m);
+      const float4 x = *reinterpret_cast<const float4*>(wo + (w * SLAB_ROWS + r) * D + d);
+      l += wl[w * SLAB_ROWS + r] * wt;
+      o.x += x.x * wt;
+      o.y += x.y * wt;
+      o.z += x.z * wt;
+      o.w += x.w * wt;
+    }
+    if (nsp == 1) {
+      const float inv = is_query(r) && l > 0.f ? 1.f / l : 0.f;
+      *reinterpret_cast<uint2*>(out + out_row(r) + d) =
+          make_uint2(pack_bf16(o.x * inv, o.y * inv), pack_bf16(o.z * inv, o.w * inv));
+    } else {
+      *reinterpret_cast<float4*>(part_o + ((int64_t)z * SLAB_ROWS + r) * D + d) = o;
+      if (d == 0)
+        *reinterpret_cast<float2*>(part_ml + ((int64_t)z * SLAB_ROWS + r) * 2) =
+            make_float2(m, l);
+    }
+  }
+  if (nsp == 1) return;
+
+  // the last split to arrive merges every split's partial
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0) last_s = atomicAdd(tickets + slot, 1) == nsp - 1;
+  __syncthreads();
+  if (!last_s) return;
+  __threadfence();
+  {
+    // per row: 8 threads fold the splits' (m, l) into each split's weight
+    // and the row's 1 / l (a row past nrows reads nothing)
+    static_assert(SLAB_ROWS * 8 == NT, "8 threads per row");
+    const int r = threadIdx.x / 8;
+    const int sub = threadIdx.x % 8;
+    const int kn = r < nrows ? nsp : 0;
+    float m = MASKED;
+    for (int k = sub; k < kn; k += 8)
+      m = fmaxf(m, __ldcg(part_ml + ((int64_t)k * SLAB_ROWS + r) * 2));
+#pragma unroll
+    for (int o = 1; o < 8; o <<= 1) m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, o));
+    float l = 0.f;
+    for (int k = sub; k < kn; k += 8) {
+      const float2 ml = __ldcg(reinterpret_cast<const float2*>(
+          part_ml + ((int64_t)k * SLAB_ROWS + r) * 2));
+      const float wt = exp2f(ml.x - m);
+      wk_s[r][k] = wt;
+      l += ml.y * wt;
+    }
+#pragma unroll
+    for (int o = 1; o < 8; o <<= 1) l += __shfl_xor_sync(0xffffffffu, l, o);
+    if (sub == 0) inv_s[r] = is_query(r) && l > 0.f ? 1.f / l : 0.f;
+  }
+  __syncthreads();
+  constexpr int CPT = SLAB_ROWS * D / 4 / NT;  // float4 chunks per thread, at most
+  const int chunks = nrows * D / 4;
+  float4 acc[CPT];
+#pragma unroll
+  for (int u = 0; u < CPT; ++u) acc[u] = make_float4(0.f, 0.f, 0.f, 0.f);
+  // four splits' loads in flight at a time
+#pragma unroll 4
+  for (int k = 0; k < nsp; ++k) {
+#pragma unroll
+    for (int u = 0; u < CPT; ++u) {
+      const int idx = threadIdx.x + u * NT;
+      if (idx < chunks) {
+        const int r = idx / (D / 4);
+        const int d = (idx - r * (D / 4)) * 4;
+        const float wt = wk_s[r][k];
+        const float4 x = __ldcg(reinterpret_cast<const float4*>(
+            part_o + ((int64_t)k * SLAB_ROWS + r) * D + d));
+        acc[u].x += x.x * wt;
+        acc[u].y += x.y * wt;
+        acc[u].z += x.z * wt;
+        acc[u].w += x.w * wt;
+      }
+    }
+  }
+#pragma unroll
+  for (int u = 0; u < CPT; ++u) {
+    const int idx = threadIdx.x + u * NT;
+    if (idx < chunks) {
+      const int r = idx / (D / 4);
+      const int d = (idx - r * (D / 4)) * 4;
+      const float inv = inv_s[r];
+      *reinterpret_cast<uint2*>(out + out_row(r) + d) = make_uint2(
+          pack_bf16(acc[u].x * inv, acc[u].y * inv),
+          pack_bf16(acc[u].z * inv, acc[u].w * inv));
+    }
+  }
+  if (threadIdx.x == 0) tickets[slot] = 0;
 }
 
 }  // namespace tc

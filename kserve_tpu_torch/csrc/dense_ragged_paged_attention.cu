@@ -41,6 +41,8 @@
 //     head, slab) after __threadfence) merges them and resets the ticket:
 //     one launch, no host sync.  The ticket buffer is zeroed once by the
 //     wrapper; calls that share it must run in stream order.
+//   - That CTA, from split bounds to merge, is tc::split_kv_slab
+//     (attention_tc.cuh); the decode kernel runs it at stride 1.
 // f32 q (f32 or int8 pages): the first, CUDA-core design in attention_common.cuh
 //   (TF32 tensor cores cannot meet the 1e-4 f32 gate): one CTA per (lane,
 //   kv head), 16-key tiles, f32 online softmax.
@@ -51,11 +53,8 @@
 
 namespace {
 
-constexpr int DEN_KT = 16;    // keys per staged tile (f32 design)
-constexpr int DEN_NT = 128;   // threads per CTA
-constexpr int DEN_ROWS = 16;  // query rows of a tensor-core CTA: one slab
-constexpr int DEN_KW = tc::KT / 4;  // keys of a staged tile per warp
-constexpr int MAX_SPLITS = 32;  // splits per (lane, kv head, slab), at most
+constexpr int DEN_KT = 16;   // keys per staged tile (f32 design)
+constexpr int DEN_NT = 128;  // threads per CTA (f32 design)
 
 // ---------------------------------------------------------------- f32 q
 
@@ -157,14 +156,9 @@ cudaError_t launch_f32(const void* q, const void* pages, const float* scales,
 
 // ---------------------------------------------------------------- bf16 q
 
-// the 4 warps' partial states, folded in shared memory after the key loop
-template <int D>
-__host__ __device__ constexpr int merge_bytes() { return 4 * DEN_ROWS * (D + 2) * 4; }
-
-// grid (B, nkv * slabs, splits).  Rows of slab zs: rr = 16 zs + r of the
-// lane's sp * group rows, token rr / group, head h * group + rr % group.
-// Two CTAs per SM at d 128 (their shared memory allows two): the bound
-// also keeps ptxas from trading registers for spills.
+// grid (B, nkv * slabs, splits): tc::split_kv_slab over the lane's
+// q_len / kv_start.  Two CTAs per SM at d 128 (their shared memory allows
+// two): the bound also keeps ptxas from trading registers for spills.
 template <typename P, int D>
 __global__ void __launch_bounds__(tc::NT, 2) dense_ragged_kernel_tc(
     const __nv_bfloat16* __restrict__ q,  // [B*sp, nq, D]
@@ -178,212 +172,11 @@ __global__ void __launch_bounds__(tc::NT, 2) dense_ragged_kernel_tc(
     int* __restrict__ tickets,            // [B*nkv*slabs], zero between calls
     int sp, int nq, int nkv, int ps, int W, int chunk, int splits, int slabs,
     float scale, float softcap, int window) {
-  using namespace tc;
-  constexpr int CS = bf16_stride<D>();
-  constexpr int SB = stage_bytes<P, D>();
-  constexpr int QCH = D / 8;
-  static_assert(merge_bytes<D>() <= 2 * SB, "the warps' partials reuse the stages");
   extern __shared__ uint4 smem_tc[];
-  char* q_s = reinterpret_cast<char*>(smem_tc);  // [16][CS]
-  char* stages = q_s + DEN_ROWS * CS;            // [2][SB]; then the partials
-  char* conv = stages + 2 * SB;                  // int8: [2*KT][CS]
-  __shared__ int last_s;
-  __shared__ float wk_s[DEN_ROWS][MAX_SPLITS];  // the merge's split weights
-  __shared__ float inv_s[DEN_ROWS];
-
-  const int b = blockIdx.x;
-  const int h = blockIdx.y / slabs;
-  const int zs = blockIdx.y - h * slabs;
-  const int z = blockIdx.z;
-  const int group = nq / nkv;
-  const int rows_lane = sp * group;
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int qn = q_len[b];
-  const int kv0 = kv_start[b];
-  const int64_t row0 = (int64_t)b * sp;
-  // global element offset of slab row r (-1: no such row)
-  auto out_row = [&](int r) -> int64_t {
-    const int rr = zs * DEN_ROWS + r;
-    if (rr >= rows_lane) return -1;
-    return ((row0 + rr / group) * nq + h * group + rr % group) * (int64_t)D;
-  };
-  auto is_query = [&](int r) {
-    const int rr = zs * DEN_ROWS + r;
-    return rr < rows_lane && rr / group < qn;
-  };
-
-  // key range [lo, hi) and its splits; a lane with q_len 0 has none
-  const int hi = qn > 0 ? min(kv0 + qn, W * ps) : 0;
-  int lo = window > 0 ? max(0, kv0 - window + 1) : 0;
-  lo = (lo / KT) * KT;
-  const int nsp = hi > lo ? min((hi - lo + chunk - 1) / chunk, splits) : 0;
-  if (nsp == 0) {  // every row of the slab is 0; nothing is read
-    if (z == 0)
-      for (int idx = threadIdx.x; idx < DEN_ROWS * D; idx += NT) {
-        const int64_t o = out_row(idx / D);
-        if (o >= 0) out[o + idx % D] = __float2bfloat16(0.f);
-      }
-    return;
-  }
-  if (z >= nsp) return;
-  const int s_lo = lo + z * chunk;
-  const int s_hi = min(s_lo + chunk, hi);
-  const int n = (s_hi - s_lo + KT - 1) / KT;
-  const int* pt = page_table + (int64_t)b * W;
-
-  for (int idx = threadIdx.x; idx < DEN_ROWS * QCH; idx += NT) {
-    const int r = idx / QCH;
-    const int c = idx - r * QCH;
-    const bool ok = is_query(r);
-    const __nv_bfloat16* src = ok ? q + out_row(r) + c * 8 : q;
-    cp_async16(smem_addr(q_s + r * CS + c * 16), src, ok);
-  }
-  int qpos[2];
-#pragma unroll
-  for (int k = 0; k < 2; ++k) {
-    const int r = (lane >> 2) + 8 * k;
-    qpos[k] = is_query(r) ? kv0 + (zs * DEN_ROWS + r) / group : -1;
-  }
-  int qmin, qmax;
-  warp_span(qpos, qmin, qmax);
-
-  // each warp takes DEN_KW keys of every staged tile for the slab's rows
-  SlabState<D> st;
-  key_loop<P, D, DEN_KW>(st, q_s, 0, pages, scales, pt, nkv, ps, h, s_lo, s_hi,
-                         n, stages, conv, warp * DEN_KW, qpos, qmin, qmax,
-                         window, scale, softcap);
-
-  // fold the 4 warps: each writes its rows' o as [warp][row][D], then
-  // (m, l) as [warp][row]
-  st.reduce_l();
-  float* wo = reinterpret_cast<float*>(stages);
-  float* wm = wo + 4 * DEN_ROWS * D;
-  float* wl = wm + 4 * DEN_ROWS;
-  {
-    const int g = lane >> 2;
-    const int c = lane & 3;
-    float* p0 = wo + (warp * DEN_ROWS + g) * D;
-    float* p1 = p0 + 8 * D;
-#pragma unroll
-    for (int nn = 0; nn < D / 8; ++nn) {
-      *reinterpret_cast<float2*>(p0 + 8 * nn + 2 * c) =
-          make_float2(st.o[nn][0], st.o[nn][1]);
-      *reinterpret_cast<float2*>(p1 + 8 * nn + 2 * c) =
-          make_float2(st.o[nn][2], st.o[nn][3]);
-    }
-    if (c == 0) {
-      wm[warp * DEN_ROWS + g] = st.m[0];
-      wl[warp * DEN_ROWS + g] = st.l[0];
-      wm[warp * DEN_ROWS + g + 8] = st.m[1];
-      wl[warp * DEN_ROWS + g + 8] = st.l[1];
-    }
-  }
-  __syncthreads();
-
-  // this CTA's state, 4 floats of a row per step: one split's output, or
-  // its partial in scratch (o [slot][split][row][D], then (m, l))
-  const int slot = (b * nkv + h) * slabs + zs;
-  const int nslots = gridDim.x * gridDim.y;
-  float* part_o = partials + (int64_t)slot * splits * DEN_ROWS * D;
-  float* part_ml = partials + (int64_t)nslots * splits * DEN_ROWS * D +
-                   (int64_t)slot * splits * DEN_ROWS * 2;
-  for (int idx = threadIdx.x; idx < DEN_ROWS * D / 4; idx += NT) {
-    const int r = idx / (D / 4);
-    const int d = (idx - r * (D / 4)) * 4;
-    float m = MASKED;
-#pragma unroll
-    for (int w = 0; w < 4; ++w) m = fmaxf(m, wm[w * DEN_ROWS + r]);
-    float l = 0.f;
-    float4 o = make_float4(0.f, 0.f, 0.f, 0.f);
-#pragma unroll
-    for (int w = 0; w < 4; ++w) {
-      const float wt = exp2f(wm[w * DEN_ROWS + r] - m);
-      const float4 x = *reinterpret_cast<const float4*>(wo + (w * DEN_ROWS + r) * D + d);
-      l += wl[w * DEN_ROWS + r] * wt;
-      o.x += x.x * wt;
-      o.y += x.y * wt;
-      o.z += x.z * wt;
-      o.w += x.w * wt;
-    }
-    if (nsp == 1) {
-      const int64_t dst = out_row(r);
-      if (dst < 0) continue;
-      const float inv = is_query(r) && l > 0.f ? 1.f / l : 0.f;
-      *reinterpret_cast<uint2*>(out + dst + d) =
-          make_uint2(pack_bf16(o.x * inv, o.y * inv), pack_bf16(o.z * inv, o.w * inv));
-    } else {
-      *reinterpret_cast<float4*>(part_o + ((int64_t)z * DEN_ROWS + r) * D + d) = o;
-      if (d == 0)
-        *reinterpret_cast<float2*>(part_ml + ((int64_t)z * DEN_ROWS + r) * 2) =
-            make_float2(m, l);
-    }
-  }
-  if (nsp == 1) return;
-
-  // the last split to arrive merges every split's partial
-  __threadfence();
-  __syncthreads();
-  if (threadIdx.x == 0) last_s = atomicAdd(tickets + slot, 1) == nsp - 1;
-  __syncthreads();
-  if (!last_s) return;
-  __threadfence();
-  {
-    // per row: 8 threads fold the splits' (m, l) into each split's weight
-    // and the row's 1 / l
-    static_assert(DEN_ROWS * 8 == NT, "8 threads per row");
-    const int r = threadIdx.x / 8;
-    const int sub = threadIdx.x % 8;
-    float m = MASKED;
-    for (int k = sub; k < nsp; k += 8)
-      m = fmaxf(m, __ldcg(part_ml + ((int64_t)k * DEN_ROWS + r) * 2));
-#pragma unroll
-    for (int o = 1; o < 8; o <<= 1) m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, o));
-    float l = 0.f;
-    for (int k = sub; k < nsp; k += 8) {
-      const float2 ml = __ldcg(reinterpret_cast<const float2*>(
-          part_ml + ((int64_t)k * DEN_ROWS + r) * 2));
-      const float wt = exp2f(ml.x - m);
-      wk_s[r][k] = wt;
-      l += ml.y * wt;
-    }
-#pragma unroll
-    for (int o = 1; o < 8; o <<= 1) l += __shfl_xor_sync(0xffffffffu, l, o);
-    if (sub == 0) inv_s[r] = is_query(r) && l > 0.f ? 1.f / l : 0.f;
-  }
-  __syncthreads();
-  constexpr int CPT = DEN_ROWS * D / 4 / NT;  // float4 chunks per thread
-  float4 acc[CPT];
-#pragma unroll
-  for (int u = 0; u < CPT; ++u) acc[u] = make_float4(0.f, 0.f, 0.f, 0.f);
-  for (int k = 0; k < nsp; ++k) {
-#pragma unroll
-    for (int u = 0; u < CPT; ++u) {
-      const int idx = threadIdx.x + u * NT;
-      const int r = idx / (D / 4);
-      const int d = (idx - r * (D / 4)) * 4;
-      const float wt = wk_s[r][k];
-      const float4 x = __ldcg(reinterpret_cast<const float4*>(
-          part_o + ((int64_t)k * DEN_ROWS + r) * D + d));
-      acc[u].x += x.x * wt;
-      acc[u].y += x.y * wt;
-      acc[u].z += x.z * wt;
-      acc[u].w += x.w * wt;
-    }
-  }
-#pragma unroll
-  for (int u = 0; u < CPT; ++u) {
-    const int idx = threadIdx.x + u * NT;
-    const int r = idx / (D / 4);
-    const int d = (idx - r * (D / 4)) * 4;
-    const int64_t dst = out_row(r);
-    if (dst < 0) continue;
-    const float inv = inv_s[r];
-    *reinterpret_cast<uint2*>(out + dst + d) = make_uint2(
-        pack_bf16(acc[u].x * inv, acc[u].y * inv),
-        pack_bf16(acc[u].z * inv, acc[u].w * inv));
-  }
-  if (threadIdx.x == 0) tickets[slot] = 0;
+  tc::split_kv_slab<P, D>(q, pages, scales, page_table, out, partials, tickets,
+                          q_len[blockIdx.x], kv_start[blockIdx.x], sp, nq, nkv,
+                          ps, W, chunk, splits, slabs, scale, softcap, window,
+                          reinterpret_cast<char*>(smem_tc));
 }
 
 template <typename P, int D>
@@ -393,11 +186,9 @@ cudaError_t launch_tc(const void* q, const void* pages, const float* scales,
                       int* tickets, int B, int sp, int nq, int nkv, int ps,
                       int W, int chunk, int splits, int slabs, float scale,
                       float softcap, int window, cudaStream_t stream) {
-  if (partials == nullptr || tickets == nullptr || chunk <= 0 ||
-      chunk % tc::KT != 0 || splits <= 0 || splits > MAX_SPLITS || slabs <= 0 ||
-      sp * (nq / nkv) > slabs * DEN_ROWS)
+  if (!tc::split_plan_ok(partials, tickets, chunk, splits, slabs, sp * (nq / nkv)))
     return cudaErrorInvalidValue;
-  constexpr int bytes = tc::smem_bytes<P, D>(DEN_ROWS);
+  constexpr int bytes = tc::smem_bytes<P, D>(tc::SLAB_ROWS);
   auto kernel = dense_ragged_kernel_tc<P, D>;
   static tc::SmemOptIn opt_in;
   cudaError_t err = opt_in.ensure(kernel, bytes);

@@ -45,10 +45,11 @@ _SIGNATURES = {
     # window, dtype, kv_dtype, stream
     "kt_ragged_paged_attention": (
         [_P] * 8 + [_I] * 10 + [_F, _F, _I, _I, _I, _P]),
-    # q, pages, scales, page_table, seq_lens, out, B, nq, nkv, head_dim,
-    # page_size, W, scale, softcap, window, dtype, kv_dtype, stream
+    # q, pages, scales, page_table, seq_lens, out, partials, tickets, B,
+    # nq, nkv, head_dim, page_size, W, chunk, splits, slabs, scale,
+    # softcap, window, dtype, kv_dtype, stream
     "kt_paged_decode_attention": (
-        [_P] * 6 + [_I] * 6 + [_F, _F, _I, _I, _I, _P]),
+        [_P] * 8 + [_I] * 9 + [_F, _F, _I, _I, _I, _P]),
     # q, pages, scales, page_table, kv_start, q_len, out, partials,
     # tickets, B, sp, nq, nkv, head_dim, page_size, W, chunk, splits, slabs,
     # scale, softcap, window, dtype, kv_dtype, stream
@@ -124,6 +125,8 @@ def build() -> Path:
 def load_library() -> ctypes.CDLL:
     """The kernel library, built on first call and bound with ctypes."""
     global _lib
+    if _lib is not None:  # every launch asks: no lock once loaded
+        return _lib
     with _lock:
         if _lib is None:
             lib = ctypes.CDLL(str(build()))

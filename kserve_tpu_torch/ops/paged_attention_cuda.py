@@ -13,26 +13,32 @@ with int8 KV, the tuple (int8 pages, f32 scales [P, 2, nkv, ps]): the
 function of the Pallas kernels' `quantized=True` form (for decode, of
 kserve_tpu/ops/attention.py:paged_attention_xla's int8 branch).
 
-With bf16 q the ragged and dense kernels run on the tensor cores (bf16
-MMA, f32 accumulation; int8 rows become exact bf16 and their scales are
-applied in f32 to the scores and to P); their launch shapes come from
-`ragged_launch_plan` and `dense_launch_plan`, host-side upper bounds
-computed from shapes alone (no host sync): the kernels' CTAs find their
-own lane and split and exit when they have none.  With f32 q, and in the
-decode kernel, each staged row is dequantized in f32 on CUDA cores.
+With bf16 q all three kernels run on the tensor cores (bf16 MMA, f32
+accumulation; int8 rows become exact bf16 and their scales are applied in
+f32 to the scores and to P), fed by cp.async double buffering.  The
+dense and decode kernels split each lane's keys across CTAs and merge
+the splits in-kernel (csrc/attention_tc.cuh split_kv_slab; decode is the
+dense function at stride 1).  Their launch shapes come from
+`ragged_launch_plan`, `dense_launch_plan` and `decode_launch_plan`,
+host-side upper bounds computed from shapes alone (no host sync): the
+kernels' CTAs find their own lane and split from the lane metadata on
+the device and exit when they have none.  With f32 q each staged row is
+dequantized in f32 on CUDA cores (the first design).
 
 Each wrapper takes CUDA tensors only: it checks device, dtype (q bf16 or
 f32), shape and contiguity, raises on anything its kernel does not take,
-allocates the output (and the dense kernel's split scratch) with
-torch.empty, launches on the current stream and raises if the launch
-failed.  It never falls back to the plain version; the dispatchers in
-ops/attention.py route CPU tensors to the plain versions before a wrapper
-is reached.  `LAUNCHES` counts launches, the int8 instances under their
-own `*_int8` keys.
+allocates the output with torch.empty, launches on the current stream
+and raises if the launch failed.  The split kernels' f32 partials and
+merge tickets are one scratch per device, reused in stream order
+(`_split_scratch`).  A wrapper never falls back to the plain version;
+the dispatchers in ops/attention.py route CPU tensors to the plain
+versions before a wrapper is reached.  `LAUNCHES` counts launches, the
+int8 instances under their own `*_int8` keys.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
@@ -44,6 +50,7 @@ RAGGED_BQ = 8  # query tokens per kernel block; slices start at multiples
 HEAD_DIMS = (64, 128)
 # element-type codes of the C entry points (q/out take 0 or 1, pages any)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+_BF16_CODE = 1
 _INT8_CODE = 2
 
 _KERNELS = ("ragged_paged_attention", "paged_decode_attention",
@@ -63,50 +70,67 @@ def _require(cond: bool, msg: str) -> None:
         raise ValueError(msg)
 
 
-def _check_common(q: torch.Tensor, kv_pages: KVLayer,
-                  ints) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
-    """Check what every kernel takes; returns (pages, scales or None)."""
-    _require(q.is_cuda, f"CUDA kernel needs CUDA tensors, got {q.device}")
-    _require(q.dtype in _DTYPE_CODES,
-             f"CUDA kernel takes float32 or bfloat16, got {q.dtype}")
+class _Checked(NamedTuple):
+    """What _check_common found: the pages, the int8 scales (or None), the
+    cache's kv heads and page size, and the C entry points' codes of q's
+    and the pages' element types."""
+    pages: torch.Tensor
+    scales: Optional[torch.Tensor]
+    nkv: int
+    ps: int
+    code: int
+    kv_code: int
+
+
+def _check_common(q: torch.Tensor, kv_pages: KVLayer, ints) -> _Checked:
+    """Check what every kernel takes.  Each message is formatted only when
+    its check fails, and each shape is read once: the wrappers run
+    hundreds of times per engine step."""
+    if not q.is_cuda:
+        raise ValueError(f"CUDA kernel needs CUDA tensors, got {q.device}")
+    code = _DTYPE_CODES.get(q.dtype)
+    if code is None:
+        raise ValueError(f"CUDA kernel takes float32 or bfloat16, got {q.dtype}")
     if isinstance(kv_pages, tuple):
         _require(len(kv_pages) == 2, "a quantized cache is (int8 pages, scales)")
         pages, scales = kv_pages
-        _require(pages.dtype == torch.int8,
-                 f"quantized pages must be int8, got {pages.dtype}")
-        _require(scales.dtype == torch.float32,
-                 f"KV scales must be float32, got {scales.dtype}")
-        _require(tuple(scales.shape) == tuple(pages.shape[:4]),
-                 f"KV scales must be [P, 2, nkv, ps] = {tuple(pages.shape[:4])}, "
-                 f"got {tuple(scales.shape)}")
-        extra = (scales,)
+        if pages.dtype != torch.int8:
+            raise ValueError(f"quantized pages must be int8, got {pages.dtype}")
+        if scales.dtype != torch.float32:
+            raise ValueError(f"KV scales must be float32, got {scales.dtype}")
+        if scales.shape != pages.shape[:4]:
+            raise ValueError(
+                f"KV scales must be [P, 2, nkv, ps] = {tuple(pages.shape[:4])}, "
+                f"got {tuple(scales.shape)}")
+        extra, kv_code = (scales,), _INT8_CODE
     else:
-        pages, scales, extra = kv_pages, None, ()
-        _require(pages.dtype == q.dtype,
-                 f"kv_pages dtype {pages.dtype} != q dtype {q.dtype}")
-    _require(pages.dim() == 5 and pages.shape[1] == 2,
-             f"kv_pages must be [P, 2, nkv, ps, d], got {tuple(pages.shape)}")
-    d = q.shape[-1]
-    _require(d in HEAD_DIMS, f"CUDA kernel takes head_dim {HEAD_DIMS}, got {d}")
-    _require(pages.shape[4] == d, "kv_pages head_dim != q head_dim")
-    nq, nkv = q.shape[-2], pages.shape[2]
-    _require(nq % nkv == 0, f"n_heads {nq} not a multiple of n_kv_heads {nkv}")
+        pages, scales, extra, kv_code = kv_pages, None, (), code
+        if pages.dtype != q.dtype:
+            raise ValueError(f"kv_pages dtype {pages.dtype} != q dtype {q.dtype}")
+    pshape, qshape = pages.shape, q.shape
+    if len(pshape) != 5 or pshape[1] != 2:
+        raise ValueError(f"kv_pages must be [P, 2, nkv, ps, d], got {tuple(pshape)}")
+    d = qshape[-1]
+    if d not in HEAD_DIMS:
+        raise ValueError(f"CUDA kernel takes head_dim {HEAD_DIMS}, got {d}")
+    _require(pshape[4] == d, "kv_pages head_dim != q head_dim")
+    nq, nkv = qshape[-2], pshape[2]
+    if nq % nkv:
+        raise ValueError(f"n_heads {nq} not a multiple of n_kv_heads {nkv}")
+    index = q.get_device()
     for t in (q, pages, *extra, *ints):
-        _require(t.device == q.device, "all tensors must be on one device")
+        _require(t.get_device() == index, "all tensors must be on one device")
         _require(t.is_contiguous(), "CUDA kernel needs contiguous tensors")
     for t in ints:
-        _require(t.dtype == torch.int32, f"index tensors must be int32, got {t.dtype}")
+        if t.dtype != torch.int32:
+            raise ValueError(f"index tensors must be int32, got {t.dtype}")
     _require(q.data_ptr() % 16 == 0 and pages.data_ptr() % 16 == 0,
              "q and kv_pages must be 16-byte aligned")
-    return pages, scales
+    return _Checked(pages, scales, nkv, pshape[3], code, kv_code)
 
 
-def _page_args(q: torch.Tensor, pages: torch.Tensor,
-               scales: Optional[torch.Tensor]):
-    """(pages pointer, scales pointer or None, page dtype code)."""
-    if scales is None:
-        return pages.data_ptr(), None, _DTYPE_CODES[q.dtype]
-    return pages.data_ptr(), scales.data_ptr(), _INT8_CODE
+def _scales_ptr(c: _Checked) -> Optional[int]:
+    return None if c.scales is None else c.scales.data_ptr()
 
 
 def _count(name: str, scales: Optional[torch.Tensor]) -> None:
@@ -121,9 +145,10 @@ def _raise_on(err: int, name: str) -> None:
 # tensor-core tiles of the bf16-q kernels (csrc/attention_tc.cuh)
 TC_ROWS = 64  # query rows of a ragged CTA: 4 warps x one m16 slab
 TC_KT = 64  # keys per staged K/V tile
-DENSE_ROWS = 16  # query rows of a dense CTA: one m16 slab
-DENSE_MIN_CHUNK = 128  # keys per split, at least
-DENSE_MAX_SPLITS = 32  # splits per (lane, kv head, slab), at most
+SPLIT_ROWS = 16  # query rows of a split-KV (dense or decode) CTA: one m16 slab
+SPLIT_MAX_SPLITS = 32  # splits per (lane, kv head, slab), at most
+DENSE_MIN_CHUNK = 128  # keys per split of the dense kernel, at least
+DECODE_MIN_CHUNK = 128  # keys per split of the decode kernel, at least
 
 
 class RaggedPlan(NamedTuple):
@@ -152,49 +177,100 @@ def ragged_launch_plan(T: int, nq: int, nkv: int) -> RaggedPlan:
                       slabs=-(-tq * group // TC_ROWS))
 
 
-class DensePlan(NamedTuple):
-    """Split-KV shape of the bf16-q dense kernel: each (lane, kv head,
-    slab of DENSE_ROWS rows) covers its keys in splits of `chunk` keys;
-    grid (B, nkv * slabs, splits)."""
+class SplitPlan(NamedTuple):
+    """Split-KV shape of the bf16-q dense and decode kernels
+    (tc::split_kv_slab): each (lane, kv head, slab of SPLIT_ROWS rows)
+    covers its keys in splits of `chunk` keys; grid (B, nkv * slabs,
+    splits)."""
     chunk: int
     splits: int
     slabs: int
 
 
-def dense_launch_plan(W: int, page_size: int, sp: int, nq: int,
-                      nkv: int) -> DensePlan:
-    """The dense kernel's grid for page tables of W pages: a lane's keys
-    lie in [0, W * page_size), so ceil(W * page_size / chunk) splits
-    cover any lane.  chunk is a multiple of TC_KT, at least
-    DENSE_MIN_CHUNK, and large enough for at most DENSE_MAX_SPLITS."""
+def _split_plan(W: int, page_size: int, rows: int, min_chunk: int) -> SplitPlan:
+    """A lane's keys lie in [0, W * page_size), so ceil(W * page_size /
+    chunk) splits cover any lane.  chunk is a multiple of TC_KT, at least
+    `min_chunk`, and large enough for at most SPLIT_MAX_SPLITS; `rows`
+    query rows per lane and kv head take ceil(rows / SPLIT_ROWS) slabs."""
     keys = W * page_size
-    chunk = max(DENSE_MIN_CHUNK, -(-keys // DENSE_MAX_SPLITS))
+    chunk = max(min_chunk, -(-keys // SPLIT_MAX_SPLITS))
     chunk = -(-chunk // TC_KT) * TC_KT
-    return DensePlan(chunk=chunk, splits=max(1, -(-keys // chunk)),
-                     slabs=-(-sp * (nq // nkv) // DENSE_ROWS))
+    return SplitPlan(chunk=chunk, splits=max(1, -(-keys // chunk)),
+                     slabs=-(-rows // SPLIT_ROWS))
 
 
-def dense_scratch_shape(B: int, nkv: int, plan: DensePlan,
+@functools.lru_cache(maxsize=256)
+def dense_launch_plan(W: int, page_size: int, sp: int, nq: int,
+                      nkv: int) -> SplitPlan:
+    """The dense kernel's grid for page tables of W pages, sp * group rows
+    per lane and kv head, splits of at least DENSE_MIN_CHUNK keys."""
+    return _split_plan(W, page_size, sp * (nq // nkv), DENSE_MIN_CHUNK)
+
+
+@functools.lru_cache(maxsize=256)
+def decode_launch_plan(W: int, page_size: int, nq: int, nkv: int) -> SplitPlan:
+    """The decode kernel's grid for page tables of W pages: the dense
+    plan at stride 1 (group rows per lane and kv head), splits of at least
+    DECODE_MIN_CHUNK keys.  The grid is a bound from the table's width
+    alone: each CTA finds its lane's key range from seq_lens in the kernel,
+    so no host sync and no launch is needed to plan."""
+    return _split_plan(W, page_size, nq // nkv, DECODE_MIN_CHUNK)
+
+
+_NO_PLAN = SplitPlan(chunk=0, splits=0, slabs=0)  # the f32 designs have none
+
+
+def split_scratch_shape(B: int, nkv: int, plan: SplitPlan,
                         d: int) -> Tuple[int, int, int, int]:
-    """f32 scratch of the split partials, as one buffer: per (lane, kv
-    head, slab) and split, DENSE_ROWS rows of o [d], then the same rows'
-    (m, l) pairs (the kernel's layout: o [slots, splits, rows, d] followed
-    by (m, l) [slots, splits, rows, 2])."""
-    return (B * nkv * plan.slabs, plan.splits, DENSE_ROWS, d + 2)
+    """f32 scratch of the split partials of one call: per (lane, kv head,
+    slab) and split, SPLIT_ROWS rows of o [d], then the same rows' (m, l)
+    pairs (the kernel's layout: o [slots, splits, rows, d] followed by
+    (m, l) [slots, splits, rows, 2])."""
+    return (B * nkv * plan.slabs, plan.splits, SPLIT_ROWS, d + 2)
 
 
-# device -> int32 merge tickets of the dense kernel, zero between calls
-# (the merging CTA resets its ticket); grown on demand, shared by calls in
-# stream order
-_TICKETS: Dict[torch.device, torch.Tensor] = {}
+class _Scratch(NamedTuple):
+    partials: torch.Tensor  # f32 split partials
+    tickets: torch.Tensor  # int32 merge tickets
+    partials_ptr: int
+    tickets_ptr: int
 
 
-def _dense_tickets(device: torch.device, n: int) -> torch.Tensor:
-    t = _TICKETS.get(device)
-    if t is None or t.numel() < n:
-        t = torch.zeros(max(n, 1024), dtype=torch.int32, device=device)
-        _TICKETS[device] = t
-    return t
+# device index -> the split-KV kernels' scratch, grown on demand and
+# shared by every dense and decode call on the device.  Calls reuse it in
+# stream order: each launches on the current stream, which the port
+# leaves at the device's default stream (the engine's dispatch threads,
+# its decode loop and the spec path's depth-2 chain all enqueue there),
+# so a call's CTAs start after the previous call's merge.  Tickets are
+# zero between calls: zeroed when made, reset by each merging CTA.  No
+# per-call allocation, so a CUDA graph of the decode loop can capture the
+# calls as they are.
+_SCRATCH: Dict[int, _Scratch] = {}
+
+
+def _split_scratch(q: torch.Tensor, B: int, nkv: int, plan: SplitPlan,
+                   d: int) -> Tuple[int, int]:
+    """(partials pointer, tickets pointer) for one split-KV call."""
+    slots, splits, rows, width = split_scratch_shape(B, nkv, plan, d)
+    floats = slots * splits * rows * width
+    index = q.get_device()
+    sc = _SCRATCH.get(index)
+    if sc is None or sc.partials.numel() < floats or sc.tickets.numel() < slots:
+        partials, tickets = (None, None) if sc is None else sc[:2]
+        if partials is None or partials.numel() < floats:
+            partials = torch.empty(max(floats, 1 << 20), dtype=torch.float32,
+                                   device=q.device)
+        if tickets is None or tickets.numel() < slots:
+            tickets = torch.zeros(max(slots, 1024), dtype=torch.int32,
+                                  device=q.device)
+        sc = _Scratch(partials, tickets, partials.data_ptr(), tickets.data_ptr())
+        _SCRATCH[index] = sc
+    return sc.partials_ptr, sc.tickets_ptr
+
+
+def _stream(q: torch.Tensor) -> int:
+    """The current stream of q's device, where every launch goes."""
+    return torch.cuda.current_stream(q.get_device()).cuda_stream
 
 
 def ragged_paged_attention_cuda(
@@ -209,30 +285,27 @@ def ragged_paged_attention_cuda(
     window: int = 0,  # > 0: sliding-window width
 ) -> torch.Tensor:
     ints = (page_table, q_start, q_len, kv_start)
-    pages, scales = _check_common(q, kv_pages, ints)
+    c = _check_common(q, kv_pages, ints)
     T, nq, d = q.shape
-    _require(T % RAGGED_BQ == 0,
-             f"ragged buffer length {T} not a multiple of RAGGED_BQ="
-             f"{RAGGED_BQ}; pad the packed buffer")
+    if T % RAGGED_BQ:
+        raise ValueError(f"ragged buffer length {T} not a multiple of RAGGED_BQ="
+                         f"{RAGGED_BQ}; pad the packed buffer")
     B, W = page_table.shape
     _require(q_start.shape == (B,) and q_len.shape == (B,)
              and kv_start.shape == (B,), "lane metadata must be [B]")
-    nkv = pages.shape[2]
-    plan = ragged_launch_plan(T, nq, nkv)
+    plan = ragged_launch_plan(T, nq, c.nkv)
     if scale is None:
         scale = 1.0 / float(d) ** 0.5
     out = torch.empty_like(q)
     lib = load_library()
-    pages_ptr, scales_ptr, kv_code = _page_args(q, pages, scales)
     err = lib.kt_ragged_paged_attention(
-        q.data_ptr(), pages_ptr, scales_ptr, page_table.data_ptr(),
+        q.data_ptr(), c.pages.data_ptr(), _scales_ptr(c), page_table.data_ptr(),
         q_start.data_ptr(), q_len.data_ptr(), kv_start.data_ptr(),
         out.data_ptr(), B, T // RAGGED_BQ, plan.tq, plan.tiles, plan.slabs,
-        nq, nkv, d, pages.shape[3], W, float(scale), float(logit_softcap),
-        int(window), _DTYPE_CODES[q.dtype], kv_code,
-        torch.cuda.current_stream(q.device).cuda_stream)
+        nq, c.nkv, d, c.ps, W, float(scale), float(logit_softcap),
+        int(window), c.code, c.kv_code, _stream(q))
     _raise_on(err, "ragged_paged_attention")
-    _count("ragged_paged_attention", scales)
+    _count("ragged_paged_attention", c.scales)
     return out
 
 
@@ -245,24 +318,30 @@ def paged_decode_attention_cuda(
     scale: Optional[float] = None,
     window: int = 0,
 ) -> torch.Tensor:
-    ints = (page_table, seq_lens)
-    pages, scales = _check_common(q, kv_pages, ints)
+    """Decode attention on the card: with bf16 q the split-KV tensor-core
+    kernel (plan from decode_launch_plan, scratch from _split_scratch), with
+    f32 q the CUDA-core one."""
+    c = _check_common(q, kv_pages, (page_table, seq_lens))
     B, nq, d = q.shape
-    _require(page_table.shape[0] == B and seq_lens.shape == (B,),
+    Bt, W = page_table.shape
+    _require(Bt == B and seq_lens.shape == (B,),
              "page_table/seq_lens must cover the batch")
     if scale is None:
         scale = 1.0 / float(d) ** 0.5
     out = torch.empty_like(q)
+    partials_ptr = tickets_ptr = None
+    plan = _NO_PLAN
+    if c.code == _BF16_CODE:
+        plan = decode_launch_plan(W, c.ps, nq, c.nkv)
+        partials_ptr, tickets_ptr = _split_scratch(q, B, c.nkv, plan, d)
     lib = load_library()
-    pages_ptr, scales_ptr, kv_code = _page_args(q, pages, scales)
     err = lib.kt_paged_decode_attention(
-        q.data_ptr(), pages_ptr, scales_ptr, page_table.data_ptr(),
-        seq_lens.data_ptr(), out.data_ptr(), B, nq, pages.shape[2], d,
-        pages.shape[3], page_table.shape[1], float(scale),
-        float(logit_softcap), int(window), _DTYPE_CODES[q.dtype], kv_code,
-        torch.cuda.current_stream(q.device).cuda_stream)
+        q.data_ptr(), c.pages.data_ptr(), _scales_ptr(c), page_table.data_ptr(),
+        seq_lens.data_ptr(), out.data_ptr(), partials_ptr, tickets_ptr, B, nq,
+        c.nkv, d, c.ps, W, plan.chunk, plan.splits, plan.slabs, float(scale),
+        float(logit_softcap), int(window), c.code, c.kv_code, _stream(q))
     _raise_on(err, "paged_decode_attention")
-    _count("paged_decode_attention", scales)
+    _count("paged_decode_attention", c.scales)
     return out
 
 
@@ -277,37 +356,31 @@ def dense_ragged_paged_attention_cuda(
     scale: Optional[float] = None,
     window: int = 0,
 ) -> torch.Tensor:
-    ints = (page_table, q_len, kv_start)
-    pages, scales = _check_common(q, kv_pages, ints)
+    c = _check_common(q, kv_pages, (page_table, q_len, kv_start))
     T, nq, d = q.shape
     B, W = page_table.shape
     sp = int(dense_stride)
-    _require(0 < sp < RAGGED_BQ and RAGGED_BQ % sp == 0,
-             f"dense_stride {sp} must divide RAGGED_BQ={RAGGED_BQ}")
-    _require(T == B * sp, f"dense packing expects T == B*stride ({B}*{sp}), got T={T}")
+    if not (0 < sp < RAGGED_BQ and RAGGED_BQ % sp == 0):
+        raise ValueError(f"dense_stride {sp} must divide RAGGED_BQ={RAGGED_BQ}")
+    if T != B * sp:
+        raise ValueError(f"dense packing expects T == B*stride ({B}*{sp}), got T={T}")
     _require(q_len.shape == (B,) and kv_start.shape == (B,),
              "lane metadata must be [B]")
     if scale is None:
         scale = 1.0 / float(d) ** 0.5
-    nkv, ps = pages.shape[2], pages.shape[3]
     out = torch.empty_like(q)
     partials_ptr = tickets_ptr = None
-    plan = DensePlan(chunk=0, splits=0, slabs=0)  # the f32 design has none
-    if q.dtype == torch.bfloat16:
-        plan = dense_launch_plan(W, ps, sp, nq, nkv)
-        shape = dense_scratch_shape(B, nkv, plan, d)
-        partials = torch.empty(shape, dtype=torch.float32, device=q.device)
-        partials_ptr = partials.data_ptr()
-        tickets_ptr = _dense_tickets(q.device, shape[0]).data_ptr()
+    plan = _NO_PLAN
+    if c.code == _BF16_CODE:
+        plan = dense_launch_plan(W, c.ps, sp, nq, c.nkv)
+        partials_ptr, tickets_ptr = _split_scratch(q, B, c.nkv, plan, d)
     lib = load_library()
-    pages_ptr, scales_ptr, kv_code = _page_args(q, pages, scales)
     err = lib.kt_dense_ragged_paged_attention(
-        q.data_ptr(), pages_ptr, scales_ptr, page_table.data_ptr(),
+        q.data_ptr(), c.pages.data_ptr(), _scales_ptr(c), page_table.data_ptr(),
         kv_start.data_ptr(), q_len.data_ptr(), out.data_ptr(), partials_ptr,
-        tickets_ptr, B, sp, nq, nkv, d, ps, W, plan.chunk, plan.splits,
+        tickets_ptr, B, sp, nq, c.nkv, d, c.ps, W, plan.chunk, plan.splits,
         plan.slabs, float(scale), float(logit_softcap), int(window),
-        _DTYPE_CODES[q.dtype], kv_code,
-        torch.cuda.current_stream(q.device).cuda_stream)
+        c.code, c.kv_code, _stream(q))
     _raise_on(err, "dense_ragged_paged_attention")
-    _count("dense_ragged_paged_attention", scales)
+    _count("dense_ragged_paged_attention", c.scales)
     return out

@@ -155,16 +155,31 @@ def test_ragged_metadata_matches_jax():
     np.testing.assert_array_equal(tloc.numpy()[valid], np.asarray(jtloc)[valid])
 
 
-@pytest.mark.parametrize("d,softcap", [(128, 0.0), (128, 30.0), (64, 0.0), (64, 20.0)])
-def test_decode_plain_matches_pallas_interpret(d, softcap):
+_DECODE_LANES = ([37, 1, 0, 64], 4)
+# lanes on both sides of the split kernel's 128-key chunks and one that
+# fills its table (W * PS = 2048 keys)
+_SPLIT_EDGE_LANES = ([127, 128, 129, 2048], 128)
+
+
+@pytest.mark.parametrize("d,softcap,lanes", [
+    pytest.param(128, 0.0, _DECODE_LANES, id="128-0.0"),
+    pytest.param(128, 30.0, _DECODE_LANES, id="128-30.0"),
+    pytest.param(64, 0.0, _DECODE_LANES, id="64-0.0"),
+    pytest.param(64, 20.0, _DECODE_LANES, id="64-20.0"),
+    pytest.param(128, 0.0, _SPLIT_EDGE_LANES, id="128-0.0-split_edges"),
+    pytest.param(64, 20.0, _SPLIT_EDGE_LANES, id="64-20.0-split_edges"),
+])
+def test_decode_plain_matches_pallas_interpret(d, softcap, lanes):
     """d=64 goes through the JAX package's packed two-tokens-per-row
     kernel.  An inactive lane (seq_len 0) is exactly zero in the port (as
     in its CUDA kernel); the JAX kernel returns an unspecified value there
     (the mean of the null page when the lane shares a block with active
-    ones), which every caller discards, so only active lanes compare."""
+    ones), which every caller discards, so only active lanes compare.  The
+    split-edge lanes sit at the CUDA kernel's split boundaries; this plain
+    version is what chip_smoke.py holds that kernel to on the card."""
     rng = np.random.RandomState(d + int(softcap))
-    lens = np.asarray([37, 1, 0, 64], np.int32)
-    W = 4
+    lens = np.asarray(lanes[0], np.int32)
+    W = lanes[1]
     pages = rng.randn(1 + len(lens) * W, 2, NKV, PS, d).astype(np.float32)
     table = (1 + np.arange(len(lens) * W, dtype=np.int32)).reshape(len(lens), W)
     q = rng.randn(len(lens), NQ, d).astype(np.float32)
@@ -286,19 +301,20 @@ def test_dense_launch_plan_covers_every_split(sp, group):
     `dense_launch_plan` and cover the range once; the slabs cover the
     lane's sp * group rows; the scratch holds a partial per (lane, kv head,
     slab, split).  The key range and split bounds here restate the CUDA
-    kernel's (lo, hi, nsp) arithmetic; the kernel itself is held to them on
-    the card by chip_smoke.py's split8_* and one_live_* dense cases."""
+    split CTA's (lo, hi, nsp) arithmetic (tc::split_kv_slab); the kernel
+    itself is held to them on the card by chip_smoke.py's split8_* and
+    one_live_* dense cases."""
     nkv, d = 2, 128
     rng = np.random.RandomState(sp * 10 + group)
     for W, ps in [(1, 16), (2, 8), (7, 16), (126, 16), (128, 16), (512, 16), (4096, 16)]:
         plan = K.dense_launch_plan(W, ps, sp, group * nkv, nkv)
         keys = W * ps
         assert plan.chunk % K.TC_KT == 0 and plan.chunk >= K.DENSE_MIN_CHUNK
-        assert 1 <= plan.splits <= K.DENSE_MAX_SPLITS
-        assert ((plan.slabs - 1) * K.DENSE_ROWS < sp * group
-                <= plan.slabs * K.DENSE_ROWS)
-        assert K.dense_scratch_shape(5, nkv, plan, d) == (
-            5 * nkv * plan.slabs, plan.splits, K.DENSE_ROWS, d + 2)
+        assert 1 <= plan.splits <= K.SPLIT_MAX_SPLITS
+        assert ((plan.slabs - 1) * K.SPLIT_ROWS < sp * group
+                <= plan.slabs * K.SPLIT_ROWS)
+        assert K.split_scratch_shape(5, nkv, plan, d) == (
+            5 * nkv * plan.slabs, plan.splits, K.SPLIT_ROWS, d + 2)
         for _ in range(100):
             qn = int(rng.randint(0, sp + 1))
             kv0 = int(rng.randint(0, max(keys - qn, 0) + 1))
@@ -326,6 +342,96 @@ def test_dense_launch_plan_fills_the_card_on_the_timed_round():
     plan = K.dense_launch_plan(W, 16, 4, 32, 8)
     ctas = 8 * plan.slabs * sum(-(-n // plan.chunk) for n in live)
     assert ctas >= 2 * 132
+
+
+def _decode_splits(seq_len, window, W, ps, plan):
+    """The decode kernel's key range and splits for one lane, as
+    tc::split_kv_slab computes them at stride 1 (one query token at
+    seq_len - 1, none when seq_len is 0): (lo, hi, [(s_lo, s_hi), ...])."""
+    qn, kv0 = int(seq_len > 0), seq_len - 1
+    hi = min(kv0 + qn, W * ps) if qn else 0
+    lo = (max(0, kv0 - window + 1) if window else 0) // K.TC_KT * K.TC_KT
+    nsp = -(-(hi - lo) // plan.chunk) if hi > lo else 0
+    return lo, hi, [(lo + z * plan.chunk, min(lo + (z + 1) * plan.chunk, hi))
+                    for z in range(min(nsp, plan.splits))], nsp
+
+
+@pytest.mark.parametrize("group", [1, 4, 8, 16, 32])
+def test_decode_launch_plan_covers_every_split(group):
+    """Brute force over random lengths (with 0, 1, chunk - 1, chunk,
+    chunk + 1 and W * ps) and windows (0, 1, 96, 1000): every lane's
+    splits fit the grid of `decode_launch_plan`, cover its key range once
+    and each hold at most one chunk; the range holds every key the query
+    sees; the slabs cover the group's rows; the scratch holds a partial
+    per (lane, kv head, slab, split).  The arithmetic restates the CUDA
+    split CTA's (tc::split_kv_slab at stride 1); the kernel is held to it
+    on the card by chip_smoke.py's split8, one_live, split_edges and
+    window_across_split decode cases."""
+    nkv, ps, d = 2, 16, 128
+    rng = np.random.RandomState(group)
+    for W in (1, 7, 128, 512, 4096):
+        plan = K.decode_launch_plan(W, ps, group * nkv, nkv)
+        keys = W * ps
+        assert plan.chunk % K.TC_KT == 0 and plan.chunk >= K.DECODE_MIN_CHUNK
+        assert 1 <= plan.splits <= K.SPLIT_MAX_SPLITS
+        assert plan.splits * plan.chunk >= keys
+        assert (plan.slabs - 1) * K.SPLIT_ROWS < group <= plan.slabs * K.SPLIT_ROWS
+        assert K.split_scratch_shape(3, nkv, plan, d) == (
+            3 * nkv * plan.slabs, plan.splits, K.SPLIT_ROWS, d + 2)
+        edges = [0, 1, plan.chunk - 1, plan.chunk, plan.chunk + 1, keys]
+        lens = [n for n in edges if n <= keys] + list(rng.randint(0, keys + 1, 60))
+        for seq_len in lens:
+            for window in (0, 1, 96, 1000):
+                lo, hi, splits, nsp = _decode_splits(int(seq_len), window, W, ps, plan)
+                assert nsp <= plan.splits
+                assert (seq_len == 0) == (nsp == 0)
+                # back to back from lo to hi, each 1..chunk keys: every key
+                # of [lo, hi) once
+                bounds = [lo] + [b for _, b in splits]
+                assert [a for a, _ in splits] == bounds[:-1] and bounds[-1] == hi
+                assert all(0 < b - a <= plan.chunk for a, b in splits)
+                if seq_len:  # the keys the query sees lie in [lo, hi)
+                    first = max(0, seq_len - window) if window else 0
+                    assert lo <= first and seq_len <= hi
+
+
+def test_decode_launch_plan_fills_the_card():
+    """At least 2 CTAs with keys to read on every one of an H100's 132 SMs
+    in chip_smoke.py's timed decode case (8 lanes of 2048, 1, 17, 300,
+    1500, 0, 911 and 64 tokens; Llama-3-8B's 32 q / 8 kv heads, 16-token
+    pages)."""
+    lens = [2048, 1, 17, 300, 1500, 0, 911, 64]
+    W = -(-max(lens) // 16)
+    plan = K.decode_launch_plan(W, 16, 32, 8)
+    ctas = 8 * plan.slabs * sum(_decode_splits(n, 0, W, 16, plan)[3] for n in lens)
+    assert ctas >= 2 * 132
+
+
+def test_profile_classes_the_decode_kernels():
+    """scripts/torch_profile_mixed.py sums device time by kernel class
+    from the kernels' symbol names: both decode kernels (the split-KV
+    tensor-core one and the f32 one) count as decode attention, not as
+    the dense kernel whose CTA they share."""
+    import importlib.util
+    from pathlib import Path
+
+    path = Path(__file__).resolve().parent.parent / "scripts" / "torch_profile_mixed.py"
+    spec = importlib.util.spec_from_file_location("torch_profile_mixed", path)
+    prof = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(prof)
+    for name, cls in [
+        ("void (anonymous namespace)::paged_decode_kernel_tc<__nv_bfloat16, 128>"
+         "(__nv_bfloat16 const*, ...)", "decode_attention"),
+        ("void (anonymous namespace)::paged_decode_kernel_tc<signed char, 64>"
+         "(__nv_bfloat16 const*, ...)", "decode_attention"),
+        ("void (anonymous namespace)::paged_decode_kernel<float, float, 128>"
+         "(float const*, ...)", "decode_attention"),
+        ("void (anonymous namespace)::dense_ragged_kernel_tc<__nv_bfloat16, 128>"
+         "(__nv_bfloat16 const*, ...)", "dense_attention"),
+        ("void (anonymous namespace)::ragged_kernel_tc<__nv_bfloat16, 128>"
+         "(__nv_bfloat16 const*, ...)", "ragged_attention"),
+    ]:
+        assert prof._classify(name) == cls, name
 
 
 def test_cuda_wrappers_refuse_cpu_tensors():
