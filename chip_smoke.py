@@ -10,10 +10,11 @@ Phases, each printing JSON lines:
   build    compiles csrc/*.cu into build/kserve_tpu_torch/ (nvcc, sm_90a)
   kernels  every CUDA kernel instance against its plain PyTorch version on
            the card, at Llama-3-8B's attention shape (and at head_dim 64,
-           Llama-3.2-1B's), over bf16/f32 pages and over int8 pages with
-           f32 row scales, timed warm and with a cold L2, each as the
-           host enqueues it (ms) and on the device alone (device_ms),
-           with the host's own time per call (host_ms)
+           Llama-3.2-1B's, and 256, Gemma-2-2B's), over bf16/f32 pages and
+           over int8 pages with f32 row scales, timed warm and with a cold
+           L2, each as the host enqueues it (ms) and on the device alone
+           (device_ms), with the host's own time per call (host_ms); a
+           head_dim no instance takes must raise
   serve    the port's OpenAI server (kserve_tpu_torch.runtimes.
            generative_server) with Llama-3-8B at full width and depth and
            seeded random weights: concurrent completions and one streamed
@@ -34,6 +35,13 @@ Phases, each printing JSON lines:
            the spec phase's, every attention through the kernels' int8
            instances, logits through them against the plain int8 versions,
            and a no-sync check of two chained int8 spec dispatches
+  gemma2   Gemma-2-2B (head_dim 256, softcap 50, 4,096-token windows) at
+           full width and depth with --spec_decode_k=3, over bf16 and then
+           int8 pages, one prompt past the window: the served path of
+           every d=256 instance, with the serve phase's gates
+  pressure Llama-3-8B on 33 KV pages for six completions that need 54:
+           the engine must preempt and re-prefill, and every completion
+           must reach its max_tokens
 The line before the last is {"kernels": [...]}, the last is
 {"ok": true, "device": {...}}.  Any failure raises and exits non-zero;
 nothing falls back to the CPU or to the plain versions.
@@ -73,6 +81,9 @@ _RAGGED_SRC = "kserve_tpu_torch/csrc/ragged_paged_attention.cu"
 _DECODE_SRC = "kserve_tpu_torch/csrc/paged_decode_attention.cu"
 _DENSE_SRC = "kserve_tpu_torch/csrc/dense_ragged_paged_attention.cu"
 _PALLAS = "kserve_tpu/ops/pallas_paged_attention.py"
+# the LAUNCHES keys of the bf16/f32-page instances (int8: + "_int8")
+_ATTENTION_KEYS = ("ragged_paged_attention", "paged_decode_attention",
+                   "dense_ragged_paged_attention")
 # one summary row per kernel instance that stands for a TPU kernel (the
 # int8 decode instance stands for paged_attention_xla's int8 gather: the
 # JAX package has no int8 Pallas decode kernel)
@@ -93,6 +104,11 @@ KERNEL_META = {
         "route": "cuda", "source": _DECODE_SRC,
         "replaces": "kserve_tpu/ops/attention.py:171"},
 }
+# the head_dim 256 instances (Gemma-2): a row each, ports of the same
+# TPU kernels, launched by the gemma2 phases
+for _kernel in _ATTENTION_KEYS:
+    for _sfx in ("", "_int8"):
+        KERNEL_META[f"{_kernel}_d256{_sfx}"] = KERNEL_META[_kernel + _sfx]
 # row -> (the phase whose served run supplies its launch count, the
 # LAUNCHES key counted there)
 KERNEL_PATH = {
@@ -105,6 +121,9 @@ KERNEL_PATH = {
     "dense_ragged_paged_attention_int8": (
         "kvq_spec", "dense_ragged_paged_attention_int8"),
 }
+for _kernel in _ATTENTION_KEYS:
+    KERNEL_PATH[f"{_kernel}_d256"] = ("gemma2", _kernel)
+    KERNEL_PATH[f"{_kernel}_d256_int8"] = ("gemma2_int8", f"{_kernel}_int8")
 
 
 def emit(obj) -> None:
@@ -244,6 +263,11 @@ def _int8(cases: dict) -> dict:
             for name, case in cases.items()}
 
 
+# Gemma-2-2B's attention, the served shape of the head_dim 256 instances:
+# 8 q / 4 kv heads, softcap 50, 4,096-token windows (on alternate layers),
+# scale query_pre_attn_scalar^-0.5
+GEMMA = dict(d=256, nq=8, nkv=4, softcap=50.0, window=4096, scale=256 ** -0.5)
+
 RAGGED_CASES = {
     # lanes as (kv_start, q_len); the first mirrors a serve step that
     # carries the long prompt's first 1024-token chunk plus decode lanes
@@ -262,12 +286,24 @@ RAGGED_CASES = {
 RAGGED_CASES.update(_int8({k: RAGGED_CASES[k] for k in (
     "prefill_chunk", "mixed", "pure_decode", "window", "softcap_scale", "f32")}))
 RAGGED_CASES["d64_int8"] = dict(RAGGED_CASES["mixed_int8"], d=64)
+_RAGGED_D256 = {
+    # a served 1,024-token chunk of a prompt that runs past the window
+    # (queries at 3,700 .. 4,723) beside decode lanes, two of them past the
+    # window; its plain version runs in slices of 512 queries (plain_rows),
+    # since its [T, keys, nkv, d] gather of all 1,048 rows would not fit
+    # the card
+    "prefill_chunk_d256": dict(lanes=[(3700, 1024), (4500, 1), (57, 1), (4300, 1)],
+                               plain_rows=512, **GEMMA),
+    "f32_d256": dict(lanes=[(40, 9), (0, 30), (4200, 1)], dtype="float32", **GEMMA),
+}
+RAGGED_CASES.update(_RAGGED_D256)
+RAGGED_CASES.update(_int8(_RAGGED_D256))
 # lanes of 1..65 tokens back to back: lane boundaries at every offset of
 # the tensor-core kernel's 16-token query tile, with and without a
-# window, bf16 and int8 pages, d 128 and 64
+# window, bf16 and int8 pages, d 128, 64 and 256
 _EDGES = [(0, 1), (5, 7), (30, 8), (100, 9), (0, 15), (17, 16), (250, 17),
           (0, 63), (64, 64), (700, 65)]
-for _d in (128, 64):
+for _d in (128, 64, 256):
     for _w in (0, 40):
         _edge = dict(lanes=_EDGES, window=_w, d=_d)
         _name = f"tile_edges_d{_d}" + ("_window" if _w else "")
@@ -283,8 +319,16 @@ DECODE_CASES = {
     "f32": dict(d=128, lens=[100, 0, 37, 512], dtype="float32"),
 }
 DECODE_CASES.update(_int8(DECODE_CASES))
-# the split-KV kernel's edges (128-key chunks at these tables), over bf16
-# and int8 pages at d 128 and 64: every lane split 8+ ways; one live lane
+_DECODE_D256 = {
+    # one lane of 6,000 tokens and one of 4,500, both past the window
+    "d256": dict(lens=[6000, 1, 17, 300, 4500, 0, 911, 64], **GEMMA),
+    "f32_d256": dict(lens=[100, 0, 37, 4200], dtype="float32", **GEMMA),
+}
+DECODE_CASES.update(_DECODE_D256)
+DECODE_CASES.update(_int8(_DECODE_D256))
+# the split-KV kernel's edges (128-key chunks at these tables; 64 at d
+# 256), over bf16 and int8 pages at d 128, 64 and 256: every lane split
+# 8+ ways; one live lane
 # among inactive ones; lanes on both sides of a 64-key tile and a 128-key
 # chunk and one that fills its table (W * ps = 2048); a window whose lower
 # edge falls inside a lane's first split; and a long step of 8 lanes of
@@ -297,7 +341,7 @@ _DECODE_SPLIT = {
                                 window=200),
     "long": dict(lens=[4000 - 37 * i for i in range(8)]),
 }
-for _d in (128, 64):
+for _d in (128, 64, 256):
     for _kv in ("none", "int8"):
         for _name, _case in _DECODE_SPLIT.items():
             DECODE_CASES[f"{_name}_d{_d}" + ("_int8" if _kv == "int8" else "")] = dict(
@@ -317,16 +361,22 @@ DENSE_CASES = {
     "k3_sp4_window": dict(kp=4, sp=4, window=96),
     "k3_sp4_f32": dict(kp=4, sp=4, dtype="float32"),
     "k3_sp4_d64": dict(kp=4, sp=4, d=64),
+    # Gemma-2-2B's verify round: two lanes past the window
+    "k3_sp4_d256": dict(kp=4, sp=4, history=[310, 5000, 57, 0, 1999, 1500, 130, 4500],
+                        **GEMMA),
+    "k3_sp4_f32_d256": dict(kp=4, sp=4, dtype="float32", **GEMMA),
 }
 DENSE_CASES.update(_int8({k: DENSE_CASES[k] for k in (
-    "k1_sp2", "k3_sp4", "k3_sp4_window", "k3_sp4_f32", "k3_sp4_d64")}))
+    "k1_sp2", "k3_sp4", "k3_sp4_window", "k3_sp4_f32", "k3_sp4_d64",
+    "k3_sp4_d256", "k3_sp4_f32_d256")}))
 for _case in DENSE_CASES.values():
     _case["lanes"] = [(h, 0 if i in (3, 5) else _case["kp"])
-                      for i, h in enumerate(DENSE_HISTORY)]
+                      for i, h in enumerate(_case.get("history", DENSE_HISTORY))]
 # the split-KV kernel's edges: every lane split 8+ ways (128-key chunks),
-# and one live lane among inactive ones, bf16 and int8 pages, d 128 and 64
+# and one live lane among inactive ones, bf16 and int8 pages, d 128, 64
+# and 256
 _SPLIT = [3000, 1100, 1500, 2900, 1025, 2000, 1300, 1800]
-for _d in (128, 64):
+for _d in (128, 64, 256):
     for _kv in ("none", "int8"):
         _sfx = f"_d{_d}" + ("_int8" if _kv == "int8" else "")
         DENSE_CASES["split8" + _sfx] = dict(
@@ -340,9 +390,15 @@ DENSE_CASES["long_k3_sp4"] = dict(
     kp=4, sp=4, lanes=[(4000 - 37 * i, 4) for i in range(8)])
 
 
-def _dense_inputs(torch, gen, case, nq=32, nkv=8, ps=16):
+def _heads(case):
+    """(nq, nkv) of a case: Llama-3-8B's 32 / 8 unless it names others."""
+    return case.get("nq", 32), case.get("nkv", 8)
+
+
+def _dense_inputs(torch, gen, case, ps=16):
     dtype = getattr(torch, case.get("dtype", "bfloat16"))
     d, sp, lanes = case.get("d", 128), case["sp"], case["lanes"]
+    nq, nkv = _heads(case)
     pages, table = _make_cache(torch, gen, [h + case["kp"] for h, _ in lanes],
                                nkv, d, ps, dtype, case.get("kv_quant", "none"))
     q = torch.randn((len(lanes) * sp, nq, d), generator=gen,
@@ -352,7 +408,8 @@ def _dense_inputs(torch, gen, case, nq=32, nkv=8, ps=16):
         q=q, kv_pages=pages, page_table=table,
         q_start=ints([i * sp for i in range(len(lanes))]),
         q_len=ints([qn for _, qn in lanes]), kv_start=ints([h for h, _ in lanes]),
-        dense_stride=sp, window=case.get("window", 0))
+        dense_stride=sp, logit_softcap=case.get("softcap", 0.0),
+        scale=case.get("scale"), window=case.get("window", 0))
 
 
 def _dense_kernel(q, kv_pages, page_table, q_start, q_len, kv_start,
@@ -371,11 +428,32 @@ def _dense_plain(dense_stride, **kw):
     return ragged_paged_attention_plain(**kw)
 
 
-def _ragged_inputs(torch, gen, case, nq=32, nkv=8, ps=16):
+def _plain_in_slices(plain, rows: int):
+    """The plain ragged version run one lane and at most `rows` queries at
+    a time: query j of lane i sees only lane i's pages and its position
+    kv_start[i] + j, so a sub-lane of queries a .. a+m-1 at kv_start
+    kv_start[i] + a gives the same rows.  Rows outside every lane stay 0."""
+    def run(q, kv_pages, page_table, q_start, q_len, kv_start, **kw):
+        out = q.new_zeros(q.shape)
+        ints = lambda xs: q_start.new_tensor(xs)  # noqa: E731
+        for i, (s, n, h) in enumerate(zip(q_start.tolist(), q_len.tolist(),
+                                          kv_start.tolist())):
+            for a in range(0, n, rows):
+                m = min(rows, n - a)
+                out[s + a:s + a + m] = plain(
+                    q[s + a:s + a + m], kv_pages, page_table[i:i + 1],
+                    ints([0]), ints([m]), ints([h + a]), **kw)
+        return out
+
+    return run
+
+
+def _ragged_inputs(torch, gen, case, ps=16):
     from kserve_tpu_torch.ops.paged_attention_cuda import RAGGED_BQ
 
     dtype = getattr(torch, case.get("dtype", "bfloat16"))
     d, lanes = case.get("d", 128), case["lanes"]
+    nq, nkv = _heads(case)
     q_start, off = [], 0
     for _, qn in lanes:
         q_start.append(off)
@@ -393,9 +471,10 @@ def _ragged_inputs(torch, gen, case, nq=32, nkv=8, ps=16):
         window=case.get("window", 0))
 
 
-def _decode_inputs(torch, gen, case, nq=32, nkv=8, ps=16):
+def _decode_inputs(torch, gen, case, ps=16):
     dtype = getattr(torch, case.get("dtype", "bfloat16"))
     d = case["d"]
+    nq, nkv = _heads(case)
     lens = case["lens"]
     pages, table = _make_cache(torch, gen, lens, nkv, d, ps, dtype,
                                case.get("kv_quant", "none"))
@@ -413,11 +492,14 @@ def _kv_row_bytes(case, d: int, itemsize: int) -> int:
     return d + 4 if case.get("kv_quant") == "int8" else d * itemsize
 
 
-def _ragged_work(case, nq=32, nkv=8, itemsize=2):
+def _ragged_work(case, itemsize=2):
     """Bytes the function must move and flops it must do on this case."""
     lanes, window, d = case["lanes"], case.get("window", 0), case.get("d", 128)
+    nq, nkv = _heads(case)
     row = _kv_row_bytes(case, d, itemsize)
-    kv_bytes = sum(h + qn for h, qn in lanes if qn) * nkv * 2 * row
+    # each live lane's keys from its first query's window to its last query
+    kv_bytes = sum(h + qn - (max(0, h - window + 1) if window > 0 else 0)
+                   for h, qn in lanes if qn) * nkv * 2 * row
     q_bytes = sum(qn for _, qn in lanes) * nq * d * itemsize
     flops = 0
     for h, qn in lanes:
@@ -429,8 +511,9 @@ def _ragged_work(case, nq=32, nkv=8, itemsize=2):
     return kv_bytes + 2 * q_bytes, flops
 
 
-def _decode_work(case, nq=32, nkv=8, itemsize=2):
+def _decode_work(case, itemsize=2):
     d, lens, window = case["d"], case["lens"], case.get("window", 0)
+    nq, nkv = _heads(case)
     live = [min(n, window) if window > 0 else n for n in lens]
     kv_bytes = sum(live) * nkv * 2 * _kv_row_bytes(case, d, itemsize)
     q_bytes = sum(1 for n in lens if n) * nq * d * itemsize
@@ -487,7 +570,10 @@ def _sdpa_decode(torch, inp, case):
     L = k.shape[1]
     lens = inp["seq_lens"]
     kpos = torch.arange(L, device="cuda")
-    mask = (kpos[None, :] < lens[:, None])[:, None, None, :]
+    mask = kpos[None, :] < lens[:, None]
+    if case.get("window", 0) > 0:
+        mask = mask & (lens[:, None] - 1 - kpos[None, :] < case["window"])
+    mask = mask[:, None, None, :]
     qb = inp["q"][:, :, None, :]
     kb = k.to(qb.dtype).transpose(1, 2).contiguous()
     vb = v.to(qb.dtype).transpose(1, 2).contiguous()
@@ -498,8 +584,11 @@ def _sdpa_decode(torch, inp, case):
 
 def _row_of(kernel: str, case) -> str:
     """The summary row a case belongs to."""
-    if case.get("kv_quant") == "int8":
-        return kernel + "_int8"
+    int8 = "_int8" if case.get("kv_quant") == "int8" else ""
+    if case.get("d") == 256:
+        return f"{kernel}_d256{int8}"
+    if int8:
+        return kernel + int8
     if kernel == "paged_decode_attention" and case["d"] == 64:
         return "paged_decode_attention_d64"
     return kernel
@@ -522,11 +611,13 @@ def phase_kernels(torch) -> dict:
         ("ragged_paged_attention", RAGGED_CASES, _ragged_inputs,
          K.ragged_paged_attention_cuda, A.ragged_paged_attention_plain,
          {"prefill_chunk": True, "prefill_chunk_int8": True,
+          "prefill_chunk_d256": True, "prefill_chunk_d256_int8": True,
           "pure_decode": False, "mixed": False}, _sdpa_ragged, _ragged_work),
         # d=64 is the port of _packed_decode_kernel, timed for its own row
         ("paged_decode_attention", DECODE_CASES, _decode_inputs,
          K.paged_decode_attention_cuda, A.paged_attention_plain,
          {"d128": True, "d64_llama3_1b": True, "d128_int8": True,
+          "d256": True, "d256_int8": True,
           "long_d128": False, "long_d128_int8": False, "long_d64": False,
           "long_d64_int8": False},
          _sdpa_decode, _decode_work),
@@ -534,15 +625,18 @@ def phase_kernels(torch) -> dict:
         # on the gathered KV with each lane's causal-offset mask
         ("dense_ragged_paged_attention", DENSE_CASES, _dense_inputs,
          _dense_kernel, _dense_plain,
-         {"k3_sp4": True, "k3_sp4_int8": True, "long_k3_sp4": False},
+         {"k3_sp4": True, "k3_sp4_int8": True, "k3_sp4_d256": True,
+          "k3_sp4_d256_int8": True, "long_k3_sp4": False},
          _sdpa_ragged, _ragged_work),
     ]
     for name, cases, make, kernel, plain, timed, library, work in specs:
         for case_name, case in cases.items():
             row = _row_of(name, case)
             inp = make(torch, gen, case)
+            case_plain = (_plain_in_slices(plain, case["plain_rows"])
+                          if "plain_rows" in case else plain)
             got = kernel(**inp)
-            ref = plain(**inp)
+            ref = case_plain(**inp)
             torch.cuda.synchronize()
             err = float((got.float() - ref.float()).abs().max())
             tol = (1e-4 if case.get("dtype") == "float32"
@@ -568,11 +662,20 @@ def phase_kernels(torch) -> dict:
                     "device_ms": _time_ms(torch, call, device_only=True),
                     "device_ms_cold": _time_ms(torch, call, cold=True,
                                                device_only=True),
-                    "plain_ms": _time_ms(torch, lambda: plain(**inp), iters=20,
-                                         warmup=1),
-                    "library_ms": _time_ms(torch, sdpa),
-                    "library_device_ms": _time_ms(torch, sdpa, device_only=True),
+                    "plain_ms": _time_ms(torch, lambda: case_plain(**inp),
+                                         iters=20, warmup=1),
                 }
+                sdpa_ms = _time_ms(torch, sdpa)
+                sdpa_dev = _time_ms(torch, sdpa, device_only=True)
+                if case.get("softcap", 0.0) > 0.0:
+                    # SDPA takes no softcap: no one PyTorch call computes
+                    # this function, so its time (same shapes and mask, no
+                    # tanh) is kept as a yardstick under its own names
+                    times.update(library_ms=None, library_device_ms=None,
+                                 sdpa_no_softcap_ms=sdpa_ms,
+                                 sdpa_no_softcap_device_ms=sdpa_dev)
+                else:
+                    times.update(library_ms=sdpa_ms, library_device_ms=sdpa_dev)
                 nbytes, flops = work(case)
                 bound_ms, bound_by = _bound(nbytes, flops, BF16_FLOPS_PER_S)
                 if timed[case_name]:
@@ -584,17 +687,44 @@ def phase_kernels(torch) -> dict:
                 emit({"phase": "kernels", "kernel": name, "row": row,
                       "timed_case": case_name, **times, "bound_ms": bound_ms,
                       "bound_by": bound_by, "bytes": nbytes, "flops": flops,
-                      "x_library": times["ms"] / times["library_ms"],
-                      "x_library_device": (times["device_ms"]
-                                           / times["library_device_ms"])})
+                      "x_library": times["ms"] / sdpa_ms,
+                      "x_library_device": times["device_ms"] / sdpa_dev})
             del inp, got, ref
             torch.cuda.empty_cache()
     for row, summary in rows.items():
         summary["max_abs_err"] = worst[row]
+    _check_head_dim_refused(torch, gen)
     missing = sorted(set(KERNEL_META) - set(rows))
     if missing:
         raise AssertionError(f"kernel rows without a timed case: {missing}")
     return rows
+
+
+def _check_head_dim_refused(torch, gen) -> None:
+    """A head_dim that no instance takes (96) raises ValueError in every
+    wrapper on CUDA tensors, and nothing launches."""
+    from kserve_tpu_torch.ops import paged_attention_cuda as K
+
+    before = dict(K.LAUNCHES)
+    ragged = _ragged_inputs(torch, gen, dict(lanes=[(5, 3), (0, 9)], d=96))
+    decode = _decode_inputs(torch, gen, dict(lens=[7, 30], d=96))
+    dense = _dense_inputs(torch, gen, dict(kp=4, sp=4, d=96,
+                                           lanes=[(5, 4), (20, 4)]))
+    for name, call in (
+            ("ragged", lambda: K.ragged_paged_attention_cuda(**ragged)),
+            ("decode", lambda: K.paged_decode_attention_cuda(**decode)),
+            ("dense", lambda: _dense_kernel(**dense))):
+        try:
+            call()
+        except ValueError as e:
+            if "head_dim" not in str(e):
+                raise
+        else:
+            raise AssertionError(f"the {name} kernel took head_dim 96")
+    torch.cuda.synchronize()
+    if dict(K.LAUNCHES) != before:
+        raise AssertionError("a refused head_dim launched a kernel")
+    emit({"phase": "kernels", "check": "head_dim_96_refused", "ok": True})
 
 
 # ---------------------------------------------------------------- main
@@ -625,9 +755,9 @@ def main(argv=None) -> int:
     if args.decode_min_chunk is not None:
         from kserve_tpu_torch.ops import paged_attention_cuda as K
 
-        if args.decode_min_chunk <= 0 or args.decode_min_chunk % K.TC_KT:
+        if args.decode_min_chunk <= 0 or args.decode_min_chunk % K.tc_kt(128):
             raise SystemExit(f"--decode-min-chunk must be a positive multiple "
-                             f"of {K.TC_KT}")
+                             f"of {K.tc_kt(128)}")
         K.DECODE_MIN_CHUNK = args.decode_min_chunk
         K.decode_launch_plan.cache_clear()
     t0 = time.perf_counter()
@@ -640,6 +770,8 @@ def main(argv=None) -> int:
     counts = {"serve": phase_serve(torch), "d64": phase_d64(torch),
               "spec": phase_spec(torch)}
     counts.update(phase_kvq(torch))
+    counts.update(phase_gemma2(torch))
+    phase_pressure(torch)
     for name, row in rows.items():
         phase, key = KERNEL_PATH[name]
         row["launches"] = counts[phase].get(key, 0)
@@ -1182,11 +1314,13 @@ SPEC_PROMPTS = [
 ]
 
 
-def _spec_run(torch, argv, phase: str, check_no_sync: bool = False) -> dict:
-    """A --spec_decode_k=SPEC_K server built from `argv` at Llama-3-8B full
-    width and depth: SPEC_PROMPTS concurrently, the draft statistics, one
-    verify round's logits through the kernels against the plain versions
-    and, with `check_no_sync`, two chained dispatches on the served engine
+def _spec_run(torch, argv, phase: str, check_no_sync: bool = False,
+              prompts=SPEC_PROMPTS, decode_no_sync: bool = False) -> dict:
+    """A --spec_decode_k=SPEC_K server built from `argv` (a model at full
+    width and depth): `prompts` concurrently, the draft statistics, one
+    verify round's logits through the kernels against the plain versions,
+    with `decode_no_sync` one decode step under CUDA sync debugging and,
+    with `check_no_sync`, two chained dispatches on the served engine
     under CUDA sync debugging.  Returns the kernel launch counts of the
     served requests."""
     from concurrent.futures import ThreadPoolExecutor
@@ -1202,12 +1336,12 @@ def _spec_run(torch, argv, phase: str, check_no_sync: bool = False) -> dict:
     torch.cuda.reset_peak_memory_stats()
     K.reset_launch_counts()
     t_run = time.perf_counter()
-    with ThreadPoolExecutor(max_workers=len(SPEC_PROMPTS)) as pool:
+    with ThreadPoolExecutor(max_workers=len(prompts)) as pool:
         futs = {
             label: pool.submit(_http, server.port, "POST", "/openai/v1/completions", {
                 "model": model.name, "prompt": text, "max_tokens": n,
                 "ignore_eos": True, **SAMPLED.get(label, {"temperature": 0})})
-            for label, text, n in SPEC_PROMPTS
+            for label, text, n in prompts
         }
         results = {label: f.result() for label, f in futs.items()}
     wall = time.perf_counter() - t_run
@@ -1215,7 +1349,7 @@ def _spec_run(torch, argv, phase: str, check_no_sync: bool = False) -> dict:
     counts = dict(K.LAUNCHES)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     generated = 0
-    for label, _, n in SPEC_PROMPTS:
+    for label, _, n in prompts:
         status, body = results[label]
         if status != 200:
             raise AssertionError(f"{phase} completion {label} answered {status}: "
@@ -1237,7 +1371,9 @@ def _spec_run(torch, argv, phase: str, check_no_sync: bool = False) -> dict:
     summary = {
         "phase": phase, "model": f"{model.name} (random weights, seed 1)",
         "kv_quant": engine.config.kv_quant, "kv_cache_gb": _kv_cache_gb(engine),
-        "spec_decode_k": SPEC_K, "requests": len(SPEC_PROMPTS),
+        "spec_decode_k": SPEC_K, "requests": len(prompts),
+        "prompt_tokens": {label: len(model.tokenizer.encode(text))
+                          for label, text, _ in prompts},
         "tokens_generated": generated, "wall_s": wall,
         "tok_per_s": generated / wall, "spec_stats": stats,
         "acceptance": stats["accepted"] / stats["drafted"],
@@ -1248,6 +1384,8 @@ def _spec_run(torch, argv, phase: str, check_no_sync: bool = False) -> dict:
         "launches_per_dispatch": _launches_per_dispatch(phase, engine, counts),
         "logits_check": logits,
     }
+    if decode_no_sync:
+        summary["decode_no_sync"] = _check_decode_has_no_sync(torch, engine)
     if check_no_sync:
         summary["no_sync_dispatch"] = _check_dispatch_has_no_sync(torch, engine)
     summary["phase_wall_s"] = time.perf_counter() - t_phase
@@ -1273,17 +1411,117 @@ def phase_kvq(torch) -> dict:
     go through an int8 kernel instance (the bf16-page instances launch
     never); returns {"kvq": counts, "kvq_spec": counts}."""
     int8 = ["--kv_quant=int8"]
-    plain_keys = ("ragged_paged_attention", "paged_decode_attention",
-                  "dense_ragged_paged_attention")
     counts = _serve_run(torch, SERVE_ARGS + int8, "kvq", SERVE_PROMPTS)
     _require_launches("kvq", counts, ("ragged_paged_attention_int8",
-                                      "paged_decode_attention_int8"), plain_keys)
+                                      "paged_decode_attention_int8"),
+                      _ATTENTION_KEYS)
     spec_counts = _spec_run(
         torch, SERVE_ARGS + int8 + [f"--spec_decode_k={SPEC_K}"], "kvq_spec",
         check_no_sync=True)
     _require_launches("kvq_spec", spec_counts,
-                      ("dense_ragged_paged_attention_int8",), plain_keys)
+                      ("dense_ragged_paged_attention_int8",), _ATTENTION_KEYS)
     return {"kvq": counts, "kvq_spec": spec_counts}
+
+
+GEMMA_ARGS = ["--model_name=gemma2-2b", "--model_config=gemma2-2b",
+              "--random_weights", "--http_port=0", "--device=cuda",
+              "--max_model_len=8192", f"--spec_decode_k={SPEC_K}"]
+GEMMA_PROMPTS = SPEC_PROMPTS[:3] + [
+    # 4,300 tokens: five chunks over the 1,024 bucket, the last past the
+    # 4,096-token window of the sliding layers, then decode past it
+    ("past_window", (BASE_TEXT * 71)[:4300], 32),
+    ("sampled", "Pick a random word.", 48),
+]
+
+
+def phase_gemma2(torch) -> dict:
+    """Gemma-2-2B (head_dim 256, softcap 50, 4,096-token windows on
+    alternate layers, scale 256^-0.5) at full width and depth with
+    --spec_decode_k=3, over bf16 pages and then with --kv_quant=int8:
+    GEMMA_PROMPTS concurrently (one prompt past the window), each run's
+    logits, paired attention calls and no-sync checks.  The first mixed
+    dispatches launch the ragged and decode kernels, the later rounds the
+    dense one: together the two runs launch every d=256 bf16-q instance,
+    and neither launches the other's.  Returns {"gemma2": counts,
+    "gemma2_int8": counts}."""
+    int8_keys = tuple(k + "_int8" for k in _ATTENTION_KEYS)
+    counts = _spec_run(torch, GEMMA_ARGS, "gemma2", prompts=GEMMA_PROMPTS,
+                       decode_no_sync=True)
+    _require_launches("gemma2", counts, _ATTENTION_KEYS, int8_keys)
+    int8 = _spec_run(torch, GEMMA_ARGS + ["--kv_quant=int8"], "gemma2_int8",
+                     prompts=GEMMA_PROMPTS, decode_no_sync=True)
+    _require_launches("gemma2_int8", int8, int8_keys, _ATTENTION_KEYS)
+    return {"gemma2": counts, "gemma2_int8": int8}
+
+
+# 32 usable pages of 16 tokens (512 positions) for six completions that
+# need 8-10 pages each: the cache cannot hold them all
+PRESSURE_PAGES = 33
+PRESSURE_PROMPTS = [
+    (f"p{i}", (BASE_TEXT * 2)[: 24 + 7 * i], 96) for i in range(5)
+] + [("sampled", "Pick a random word.", 96)]
+
+
+def phase_pressure(torch) -> dict:
+    """Llama-3-8B at full width and depth on PRESSURE_PAGES KV pages: six
+    concurrent completions that the cache cannot hold at once.  The engine
+    must preempt (and re-prefill) rather than truncate: every completion
+    reaches its max_tokens with finish_reason "length" at exactly that
+    count, preemption_count > 0, and every page is free afterwards.
+    Returns the kernel launch counts of the served requests."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from kserve_tpu_torch.ops import paged_attention_cuda as K
+
+    t_phase = time.perf_counter()
+    model, server, thread = _start_server(
+        torch, SERVE_ARGS + [f"--kv_pages={PRESSURE_PAGES}"], "pressure")
+    engine = model.engine
+    K.reset_launch_counts()
+    t_run = time.perf_counter()
+    with ThreadPoolExecutor(max_workers=len(PRESSURE_PROMPTS)) as pool:
+        futs = {
+            label: pool.submit(_http, server.port, "POST", "/openai/v1/completions", {
+                "model": model.name, "prompt": text, "max_tokens": n,
+                "ignore_eos": True, **SAMPLED.get(label, {"temperature": 0})})
+            for label, text, n in PRESSURE_PROMPTS
+        }
+        results = {label: f.result() for label, f in futs.items()}
+    wall = time.perf_counter() - t_run
+    torch.cuda.synchronize()
+    counts = dict(K.LAUNCHES)
+    finished = {}
+    for label, _, n in PRESSURE_PROMPTS:
+        status, body = results[label]
+        if status != 200:
+            raise AssertionError(f"pressure completion {label} answered {status}: "
+                                 f"{body[:300]!r}")
+        resp = json.loads(body)
+        got = resp["usage"]["completion_tokens"]
+        reason = resp["choices"][0]["finish_reason"]
+        finished[label] = [got, reason]
+        if got != n or reason != "length":
+            raise AssertionError(f"pressure completion {label}: {got} tokens "
+                                 f"({reason}), wanted {n}: truncated")
+    free = engine.allocator.free_pages
+    if engine.preemption_count <= 0 or free != PRESSURE_PAGES - 1:
+        raise AssertionError(f"pressure: {engine.preemption_count} preemptions, "
+                             f"{free} of {PRESSURE_PAGES - 1} pages free after")
+    _require_launches("pressure", counts, ("ragged_paged_attention",
+                                           "paged_decode_attention"))
+    generated = sum(n for _, _, n in PRESSURE_PROMPTS)
+    emit({"phase": "pressure", "model": f"{model.name} (random weights, seed 1)",
+          "kv_pages": PRESSURE_PAGES, "kv_cache_gb": _kv_cache_gb(engine),
+          "requests": len(PRESSURE_PROMPTS),
+          "prompt_tokens": {label: len(model.tokenizer.encode(text))
+                            for label, text, _ in PRESSURE_PROMPTS},
+          "completions": finished, "preemption_count": engine.preemption_count,
+          "mixed_dispatches": engine.steps, "tokens_generated": generated,
+          "wall_s": wall, "tok_per_s": generated / wall, "launches": counts,
+          "phase_wall_s": time.perf_counter() - t_phase})
+    del engine
+    _stop_server(torch, model, server, thread)
+    return counts
 
 
 def _check_dispatch_has_no_sync(torch, engine) -> dict:

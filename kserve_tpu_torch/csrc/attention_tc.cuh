@@ -10,7 +10,8 @@
 //   - ldmatrix fragments and mma.sync.m16n8k16 (bf16 in, f32 accumulate);
 //   - one warp's online softmax over a 16-row slab in registers: row max
 //     and row sum by quad shuffles, P rounded to bf16 in registers as the
-//     A operand of P @ V, O accumulated in f32 registers;
+//     A operand of P @ V, O accumulated in f32 registers (all D columns,
+//     or one half of them in the split CTA at d=256);
 //   - the key loop all three kernels run over their staged tiles, the
 //     shared-memory size of a CTA, and a launcher's once-per-device opt-in
 //     to it;
@@ -26,6 +27,13 @@
 //
 // Shared-memory rows are padded by 16 bytes, so the 8 rows an ldmatrix
 // phase reads fall on 8 distinct 16-byte bank groups (no conflicts).
+//
+// head_dim 256 (Gemma-2) has a tiling of its own, since d=128's budget
+// would double: stages of 32 keys instead of 64 (the stage bytes of
+// d=128), the queries' A fragments read from shared memory at every
+// k-step instead of held in 64 registers (QSmem), and in the split CTA
+// two warps along a tile's keys times two along the head dim, so each
+// warp accumulates 128 of O's 256 columns (64 registers, not 128).
 // Cache layout (the JAX package's): pages [P, 2, nkv, ps, d], K at index 0
 // and V at 1 of the second axis; int8 scales [P, 2, nkv, ps].
 #pragma once
@@ -41,8 +49,12 @@ namespace tc {
 
 constexpr float MASKED = -1e30f;  // a masked score (log2 domain); weighs 0
 constexpr float LOG2E = 1.4426950408889634f;
-constexpr int KT = 64;   // keys per staged tile
 constexpr int NT = 128;  // threads per CTA: 4 warps
+
+// keys per staged K/V tile: 64, or 32 at head_dim 256, whose stage then
+// takes the bytes of a 64-key stage at d=128
+template <int D>
+__host__ __device__ constexpr int tile_keys() { return D > 128 ? 32 : 64; }
 
 template <typename P>
 __host__ __device__ constexpr bool is_int8() { return std::is_same<P, int8_t>::value; }
@@ -56,7 +68,8 @@ __host__ __device__ constexpr int staged_stride() { return (int)sizeof(P) * D + 
 // one stage: KT K rows, KT V rows, then (int8) KT K and KT V f32 scales
 template <typename P, int D>
 __host__ __device__ constexpr int stage_bytes() {
-  return 2 * KT * staged_stride<P, D>() + (is_int8<P>() ? 2 * KT * 4 : 0);
+  return 2 * tile_keys<D>() * staged_stride<P, D>() +
+         (is_int8<P>() ? 2 * tile_keys<D>() * 4 : 0);
 }
 
 // Dynamic shared memory of a CTA of `rows` query rows: the queries (bf16,
@@ -65,7 +78,7 @@ __host__ __device__ constexpr int stage_bytes() {
 template <typename P, int D>
 __host__ __device__ constexpr int smem_bytes(int rows) {
   return rows * bf16_stride<D>() + 2 * stage_bytes<P, D>() +
-         (is_int8<P>() ? 2 * KT * bf16_stride<D>() : 0);
+         (is_int8<P>() ? 2 * tile_keys<D>() * bf16_stride<D>() : 0);
 }
 
 // A launcher's opt-in of its kernel instance to more dynamic shared memory
@@ -192,6 +205,7 @@ __device__ __forceinline__ void issue_kv_tile(
     const P* __restrict__ pages, const float* __restrict__ scales,
     const int* __restrict__ pt, int nkv, int ps, int ps_log2, int h, int lo,
     int hi, char* stage) {
+  constexpr int KT = tile_keys<D>();
   constexpr int SS = staged_stride<P, D>();
   constexpr int CH = (int)sizeof(P) * D / 16;  // 16-byte chunks per row
   constexpr int EPC = 16 / (int)sizeof(P);     // elements per chunk
@@ -240,6 +254,7 @@ __device__ __forceinline__ void issue_kv_tile(
 // bf16_stride<D>), 8 values per thread step.
 template <int D>
 __device__ __forceinline__ void convert_kv_tile(const char* stage, char* conv) {
+  constexpr int KT = tile_keys<D>();
   constexpr int SS = staged_stride<int8_t, D>();
   constexpr int CS = bf16_stride<D>();
   constexpr int C8 = D / 8;
@@ -257,7 +272,7 @@ __device__ __forceinline__ void convert_kv_tile(const char* stage, char* conv) {
 // the K scales of a landed int8 stage (V scales follow at + KT)
 template <typename P, int D>
 __device__ __forceinline__ const float* stage_scales(const char* stage) {
-  return reinterpret_cast<const float*>(stage + 2 * KT * staged_stride<P, D>());
+  return reinterpret_cast<const float*>(stage + 2 * tile_keys<D>() * staged_stride<P, D>());
 }
 
 // One warp's online-softmax state over a 16-row slab.  Lane (g = lane/4,
@@ -288,33 +303,64 @@ struct SlabState {
   }
 };
 
-// A fragments of the 16 query rows starting at row `row0` of q_s (bf16,
-// stride bf16_stride<D>), for D/16 k-steps.
+// This lane's ldmatrix address of the A fragment of k-step 0 of the 16
+// query rows starting at row `row0` of q_s (bf16, stride bf16_stride<D>);
+// k-step kk is 32 bytes on.
 template <int D>
-__device__ __forceinline__ void load_q_frags(uint32_t (&qf)[D / 16][4],
-                                             const char* q_s, int row0) {
-  constexpr int CS = bf16_stride<D>();
+__device__ __forceinline__ uint32_t q_frag_addr(const char* q_s, int row0) {
   const int lane = threadIdx.x & 31;
   const int i = lane >> 3;
   const int row = row0 + (i & 1) * 8 + (lane & 7);
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk)
-    ldsm_x4(qf[kk], smem_addr(q_s + row * CS + (16 * kk + (i >> 1) * 8) * 2));
+  return smem_addr(q_s + row * bf16_stride<D>() + (i >> 1) * 16);
 }
+
+// A warp's A fragments of its 16 query rows for the D/16 k-steps of
+// S = Q K^T, either held in registers, loaded once after the queries land
+// (QRegs), or read from shared memory by ldmatrix at every k-step (QSmem:
+// 64 registers fewer at d=256, where O alone takes 128 of a thread's 255).
+template <int D>
+struct QRegs {
+  uint32_t f[D / 16][4];
+  __device__ __forceinline__ void load(const char* q_s, int row0) {
+    const uint32_t addr = q_frag_addr<D>(q_s, row0);
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) ldsm_x4(f[kk], addr + 32 * kk);
+  }
+  __device__ __forceinline__ void frag(int kk, uint32_t (&a)[4]) const {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) a[e] = f[kk][e];
+  }
+};
+
+template <int D>
+struct QSmem {
+  uint32_t addr;
+  __device__ __forceinline__ void load(const char* q_s, int row0) {
+    addr = q_frag_addr<D>(q_s, row0);
+  }
+  __device__ __forceinline__ void frag(int kk, uint32_t (&a)[4]) const {
+    ldsm_x4(a, addr + 32 * kk);
+  }
+};
+
+template <int D>
+using QFrags = typename std::conditional<(D > 128), QSmem<D>, QRegs<D>>::type;
 
 // One online-softmax step of a warp's slab over KW keys staged as bf16
 // rows (stride bf16_stride<D>) at k_rows / v_rows, absolute positions
-// key0 .. key0+KW-1.  qpos[k] is the position of the lane's row g + 8k
+// key0 .. key0+KW-1.  S takes all D dims of the queries (qf); O takes the
+// DO columns of V that v_rows points at (DO = D, or half of it in the
+// split CTA at d=256).  qpos[k] is the position of the lane's row g + 8k
 // (-1: the row is not a query and sees no key); a key is seen when
 // key <= qpos and, with window > 0, qpos - key < window.  I8: ksc / vsc
 // are the keys' f32 scales, folded into S's columns and P's columns.
-template <int D, int KW, bool I8>
+template <int D, int DO, int KW, bool I8, typename Q>
 __device__ __forceinline__ void attend(
-    SlabState<D>& st, const uint32_t (&qf)[D / 16][4], const char* k_rows,
+    SlabState<DO>& st, const Q& qf, const char* k_rows,
     const char* v_rows, const float* ksc, const float* vsc, int key0,
     const int (&qpos)[2], int window, float scale, float softcap) {
   static_assert(KW % 16 == 0, "keys per warp step: a multiple of 16");
-  static_assert(D % 64 == 0, "head_dim: a multiple of 64");
+  static_assert(D % 64 == 0 && DO % 64 == 0, "head_dim: a multiple of 64");
   constexpr int CS = bf16_stride<D>();
   const int lane = threadIdx.x & 31;
   const int c = lane & 3;
@@ -330,6 +376,8 @@ __device__ __forceinline__ void attend(
   // use them, so the ldmatrix latencies overlap
 #pragma unroll
   for (int kk = 0; kk < D / 16; ++kk) {
+    uint32_t a[4];
+    qf.frag(kk, a);
     uint32_t b[KW / 16][4];
 #pragma unroll
     for (int jp = 0; jp < KW / 16; ++jp) {
@@ -341,8 +389,8 @@ __device__ __forceinline__ void attend(
     }
 #pragma unroll
     for (int jp = 0; jp < KW / 16; ++jp) {
-      mma_bf16(s[2 * jp], qf[kk], b[jp][0], b[jp][1]);
-      mma_bf16(s[2 * jp + 1], qf[kk], b[jp][2], b[jp][3]);
+      mma_bf16(s[2 * jp], a, b[jp][0], b[jp][1]);
+      mma_bf16(s[2 * jp + 1], a, b[jp][2], b[jp][3]);
     }
   }
 
@@ -391,7 +439,7 @@ __device__ __forceinline__ void attend(
 #pragma unroll
   for (int r = 0; r < 2; ++r) st.l[r] = st.l[r] * alpha[r] + rs[r];
 #pragma unroll
-  for (int n = 0; n < D / 8; ++n) {
+  for (int n = 0; n < DO / 8; ++n) {
     st.o[n][0] *= alpha[0];
     st.o[n][1] *= alpha[0];
     st.o[n][2] *= alpha[1];
@@ -412,7 +460,7 @@ __device__ __forceinline__ void attend(
     // (16kk.., 16np+8..), (16kk+8.., 16np+8..): the b0/b1 pairs of dim
     // tiles 2np and 2np+1; four loads in flight before their MMAs
 #pragma unroll
-    for (int n0 = 0; n0 < D / 16; n0 += 4) {
+    for (int n0 = 0; n0 < DO / 16; n0 += 4) {
       uint32_t b[4][4];
 #pragma unroll
       for (int u = 0; u < 4; ++u)
@@ -444,28 +492,30 @@ __device__ __forceinline__ void warp_span(const int (&qpos)[2], int& qmin,
   qmin = __reduce_min_sync(0xffffffffu, lo);
 }
 
-// A CTA's key loop: n tiles of KT keys from `lo` (keys at or past `hi`
-// zero-filled, unread) stream through the two stages at `stages` by
-// cp.async, tile it+1 in flight while tile it is in the MMA; int8 stages
-// are converted into `conv` first.  Each warp attends keys [koff, koff+KW)
-// of every tile with its slab of 16 query rows, row `q_row` of q_s on, whose
-// async copies the caller has issued (they land with tile 0); qpos is the
-// lane's rows' positions (-1: no query) and [qmin, qmax] the warp's span.
-// st starts afresh; on return every copy has landed and the stages are free.
-template <typename P, int D, int KW>
+// A CTA's key loop: n tiles of KT = tile_keys<D>() keys from `lo` (keys
+// at or past `hi` zero-filled, unread) stream through the two stages at
+// `stages` by cp.async, tile it+1 in flight while tile it is in the MMA; int8
+// stages are converted into `conv` first.  Each warp attends keys [koff,
+// koff+KW) of every tile with its slab of 16 query rows, row `q_row` of q_s
+// on, whose async copies the caller has issued (they land with tile 0),
+// into the DO output columns from `col0`; qpos is the lane's rows'
+// positions (-1: no query) and [qmin, qmax] the warp's span.  st starts
+// afresh; on return every copy has landed and the stages are free.
+template <typename P, int D, int DO, int KW>
 __device__ __forceinline__ void key_loop(
-    SlabState<D>& st, const char* q_s, int q_row, const P* __restrict__ pages,
+    SlabState<DO>& st, const char* q_s, int q_row, const P* __restrict__ pages,
     const float* __restrict__ scales, const int* __restrict__ pt, int nkv, int ps,
-    int h, int lo, int hi, int n, char* stages, char* conv, int koff,
+    int h, int lo, int hi, int n, char* stages, char* conv, int koff, int col0,
     const int (&qpos)[2], int qmin, int qmax, int window, float scale,
     float softcap) {
+  constexpr int KT = tile_keys<D>();
   constexpr int CS = bf16_stride<D>();
   constexpr int SB = stage_bytes<P, D>();
   const int psl = page_log2(ps);
   if (n > 0) issue_kv_tile<P, D>(pages, scales, pt, nkv, ps, psl, h, lo, hi, stages);
   cp_async_commit();  // the queries and tile 0
   st.init();
-  uint32_t qf[D / 16][4];
+  QFrags<D> qf;
   for (int it = 0; it < n; ++it) {
     char* cur = stages + (it & 1) * SB;
     if (it + 1 < n)
@@ -474,7 +524,7 @@ __device__ __forceinline__ void key_loop(
     cp_async_commit();
     cp_async_wait<1>();  // tile it (and the queries) landed
     __syncthreads();
-    if (it == 0) load_q_frags<D>(qf, q_s, q_row);
+    if (it == 0) qf.load(q_s, q_row);
     const char* k_rows = cur;
     const float* ksc = nullptr;
     const float* vsc = nullptr;
@@ -487,9 +537,9 @@ __device__ __forceinline__ void key_loop(
     }
     const int key0 = lo + it * KT + koff;
     if (warp_sees(key0, KW, qmin, qmax, window))
-      attend<D, KW, is_int8<P>()>(st, qf, k_rows + koff * CS,
-                                  k_rows + (KT + koff) * CS, ksc, vsc, key0,
-                                  qpos, window, scale, softcap);
+      attend<D, DO, KW, is_int8<P>()>(st, qf, k_rows + koff * CS,
+                                      k_rows + (KT + koff) * CS + col0 * 2, ksc,
+                                      vsc, key0, qpos, window, scale, softcap);
     __syncthreads();  // stage `it` (and conv) free for the next copies
   }
   cp_async_wait<0>();
@@ -498,21 +548,30 @@ __device__ __forceinline__ void key_loop(
 
 // ------------------------------------------------------------ split-KV CTA
 
-constexpr int SLAB_ROWS = 16;    // query rows of a split-KV CTA: one m16 slab
-constexpr int SLAB_KW = KT / 4;  // keys of a staged tile per warp
-constexpr int MAX_SPLITS = 32;   // splits per (lane, kv head, slab), at most
+constexpr int SLAB_ROWS = 16;   // query rows of a split-KV CTA: one m16 slab
+constexpr int SLAB_KW = 16;     // keys of a staged tile per warp
+constexpr int MAX_SPLITS = 32;  // splits per (lane, kv head, slab), at most
 
-// the 4 warps' partial states, folded in shared memory after the key loop
+// The split CTA's 4 warps: key_groups along a staged tile's keys (4, or 2
+// at d=256's 32-key tiles) times 4 / key_groups along the head dim, each
+// warp accumulating D / (4 / key_groups) of O's columns.
 template <int D>
-__host__ __device__ constexpr int fold_bytes() { return 4 * SLAB_ROWS * (D + 2) * 4; }
+__host__ __device__ constexpr int key_groups() { return tile_keys<D>() / SLAB_KW; }
 
-// Whether a launcher's split plan and scratch are ones split_kv_slab takes
-// (rows: a lane's query rows, sp * group).
+// the key groups' partial states, folded in shared memory after the key loop
+template <int D>
+__host__ __device__ constexpr int fold_bytes() {
+  return key_groups<D>() * SLAB_ROWS * (D + 2) * 4;
+}
+
+// Whether a launcher's split plan and scratch are ones split_kv_slab<P, D>
+// takes (rows: a lane's query rows, sp * group).
+template <int D>
 inline bool split_plan_ok(const void* partials, const void* tickets, int chunk,
                           int splits, int slabs, int rows) {
   return partials != nullptr && tickets != nullptr && chunk > 0 &&
-         chunk % KT == 0 && splits > 0 && splits <= MAX_SPLITS && slabs > 0 &&
-         rows <= slabs * SLAB_ROWS;
+         chunk % tile_keys<D>() == 0 && splits > 0 && splits <= MAX_SPLITS &&
+         slabs > 0 && rows <= slabs * SLAB_ROWS;
 }
 
 // The split-KV CTA of the dense-stride and decode kernels, grid (B, nkv *
@@ -521,8 +580,10 @@ inline bool split_plan_ok(const void* partials, const void* tickets, int chunk,
 // sp * group rows are (token rr / group, head h * group + rr % group), and
 // slab zs holds rows [16 zs, 16 zs + 16).  The lane's keys [lo, hi) split
 // into chunks of `chunk` keys (at most `splits`).  Split z runs key_loop
-// over its chunk and the 4 warps fold their (m, l, o) in shared memory;
-// with one split that is the output.  Otherwise each split writes its
+// over its chunk and the key groups fold their (m, l, o) in shared memory
+// (at d=256 each of a group's two warps holds half of o's columns; both
+// compute the same S, so either's (m, l) serves); with one split that is
+// the output.  Otherwise each split writes its
 // (m, l, o) in f32 to `partials` (o [slots, splits, 16, D], then (m, l)
 // [slots, splits, 16, 2]; slot (b * nkv + h) * slabs + zs), and the last
 // split to take the slot's ticket (after __threadfence) merges them and
@@ -539,9 +600,13 @@ __device__ __forceinline__ void split_kv_slab(
     int* __restrict__ tickets, int qn, int kv0, int sp, int nq, int nkv, int ps,
     int W, int chunk, int splits, int slabs, float scale, float softcap,
     int window, char* smem) {
+  constexpr int KT = tile_keys<D>();
   constexpr int CS = bf16_stride<D>();
   constexpr int SB = stage_bytes<P, D>();
   constexpr int QCH = D / 8;
+  constexpr int KG = key_groups<D>();
+  constexpr int DO = D / (4 / KG);  // output columns per warp
+  static_assert(KG * SLAB_KW == KT && 4 % KG == 0, "4 warps tile keys x columns");
   static_assert(fold_bytes<D>() <= 2 * SB, "the warps' partials reuse the stages");
   char* q_s = smem;                     // [16][CS]
   char* stages = q_s + SLAB_ROWS * CS;  // [2][SB]; then the warps' fold
@@ -559,6 +624,8 @@ __device__ __forceinline__ void split_kv_slab(
   const int nrows = min(SLAB_ROWS, rows_lane - zs * SLAB_ROWS);  // rows of the slab
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
+  const int kg = warp % KG;          // the warp's keys of a tile: [16 kg, 16 kg + 16)
+  const int col0 = (warp / KG) * DO;  // and its output columns: [col0, col0 + DO)
   const int64_t row0 = (int64_t)b * sp;
   // global element offset of slab row r < nrows
   auto out_row = [&](int r) -> int64_t {
@@ -606,39 +673,39 @@ __device__ __forceinline__ void split_kv_slab(
   warp_span(qpos, qmin, qmax);
 
   // each warp takes SLAB_KW keys of every staged tile for the slab's rows
-  SlabState<D> st;
-  key_loop<P, D, SLAB_KW>(st, q_s, 0, pages, scales, pt, nkv, ps, h, s_lo, s_hi,
-                          n, stages, conv, warp * SLAB_KW, qpos, qmin, qmax,
-                          window, scale, softcap);
+  SlabState<DO> st;
+  key_loop<P, D, DO, SLAB_KW>(st, q_s, 0, pages, scales, pt, nkv, ps, h, s_lo,
+                              s_hi, n, stages, conv, kg * SLAB_KW, col0, qpos,
+                              qmin, qmax, window, scale, softcap);
 
-  // fold the 4 warps: each writes its rows' o as [warp][row][D], then
-  // (m, l) as [warp][row]
+  // fold the key groups: each warp writes its rows' o columns into
+  // [group][row][D], then a group's (m, l) as [group][row]
   st.reduce_l();
   float* wo = reinterpret_cast<float*>(stages);
-  float* wm = wo + 4 * SLAB_ROWS * D;
-  float* wl = wm + 4 * SLAB_ROWS;
+  float* wm = wo + KG * SLAB_ROWS * D;
+  float* wl = wm + KG * SLAB_ROWS;
   {
     const int g = lane >> 2;
     const int c = lane & 3;
-    float* p0 = wo + (warp * SLAB_ROWS + g) * D;
+    float* p0 = wo + (kg * SLAB_ROWS + g) * D + col0;
     float* p1 = p0 + 8 * D;
     if (g < nrows) {
 #pragma unroll
-      for (int nn = 0; nn < D / 8; ++nn)
+      for (int nn = 0; nn < DO / 8; ++nn)
         *reinterpret_cast<float2*>(p0 + 8 * nn + 2 * c) =
             make_float2(st.o[nn][0], st.o[nn][1]);
     }
     if (g + 8 < nrows) {
 #pragma unroll
-      for (int nn = 0; nn < D / 8; ++nn)
+      for (int nn = 0; nn < DO / 8; ++nn)
         *reinterpret_cast<float2*>(p1 + 8 * nn + 2 * c) =
             make_float2(st.o[nn][2], st.o[nn][3]);
     }
-    if (c == 0) {
-      wm[warp * SLAB_ROWS + g] = st.m[0];
-      wl[warp * SLAB_ROWS + g] = st.l[0];
-      wm[warp * SLAB_ROWS + g + 8] = st.m[1];
-      wl[warp * SLAB_ROWS + g + 8] = st.l[1];
+    if (c == 0 && col0 == 0) {
+      wm[kg * SLAB_ROWS + g] = st.m[0];
+      wl[kg * SLAB_ROWS + g] = st.l[0];
+      wm[kg * SLAB_ROWS + g + 8] = st.m[1];
+      wl[kg * SLAB_ROWS + g + 8] = st.l[1];
     }
   }
   __syncthreads();
@@ -655,11 +722,11 @@ __device__ __forceinline__ void split_kv_slab(
     const int d = (idx - r * (D / 4)) * 4;
     float m = MASKED;
 #pragma unroll
-    for (int w = 0; w < 4; ++w) m = fmaxf(m, wm[w * SLAB_ROWS + r]);
+    for (int w = 0; w < KG; ++w) m = fmaxf(m, wm[w * SLAB_ROWS + r]);
     float l = 0.f;
     float4 o = make_float4(0.f, 0.f, 0.f, 0.f);
 #pragma unroll
-    for (int w = 0; w < 4; ++w) {
+    for (int w = 0; w < KG; ++w) {
       const float wt = exp2f(wm[w * SLAB_ROWS + r] - m);
       const float4 x = *reinterpret_cast<const float4*>(wo + (w * SLAB_ROWS + r) * D + d);
       l += wl[w * SLAB_ROWS + r] * wt;

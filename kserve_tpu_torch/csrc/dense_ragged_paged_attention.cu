@@ -34,7 +34,9 @@
 //     tensor cores are used because the 16 rows are exactly one MMA slab
 //     and the P @ V product then needs no per-thread loops; the kernel is
 //     held by its loads either way.  int8 stages become exact bf16 tiles,
-//     their scales folded into S and P in f32 (attention_tc.cuh).
+//     their scales folded into S and P in f32 (attention_tc.cuh).  At
+//     head_dim 256 a stage holds 32 keys and the 4 warps are 2 along the
+//     keys times 2 along the head dim (128 output columns each).
 //   - The 4 warps' (m, l, o) fold in shared memory; with one split that is
 //     the output.  Otherwise each split writes its (m, l, o) in f32 to
 //     scratch, and the last split to arrive (an atomic ticket per (lane,
@@ -186,7 +188,7 @@ cudaError_t launch_tc(const void* q, const void* pages, const float* scales,
                       int* tickets, int B, int sp, int nq, int nkv, int ps,
                       int W, int chunk, int splits, int slabs, float scale,
                       float softcap, int window, cudaStream_t stream) {
-  if (!tc::split_plan_ok(partials, tickets, chunk, splits, slabs, sp * (nq / nkv)))
+  if (!tc::split_plan_ok<D>(partials, tickets, chunk, splits, slabs, sp * (nq / nkv)))
     return cudaErrorInvalidValue;
   constexpr int bytes = tc::smem_bytes<P, D>(tc::SLAB_ROWS);
   auto kernel = dense_ragged_kernel_tc<P, D>;
@@ -239,12 +241,16 @@ extern "C" int kt_dense_ragged_paged_attention(
                                   st)
   KT_DENSE_TC(__nv_bfloat16, 128);
   KT_DENSE_TC(__nv_bfloat16, 64);
+  KT_DENSE_TC(__nv_bfloat16, 256);
   KT_DENSE_TC(int8_t, 128);
   KT_DENSE_TC(int8_t, 64);
+  KT_DENSE_TC(int8_t, 256);
   KT_DENSE(float, float, 128);
   KT_DENSE(float, float, 64);
+  KT_DENSE(float, float, 256);
   KT_DENSE(float, int8_t, 128);
   KT_DENSE(float, int8_t, 64);
+  KT_DENSE(float, int8_t, 256);
 #undef KT_DENSE
 #undef KT_DENSE_TC
   return (int)cudaErrorInvalidValue;

@@ -22,7 +22,7 @@
 // has 64 (lane, kv head) pairs for 132 SMs, so the keys are split across
 // CTAs and each CTA's loads overlap its math.
 //
-// bf16 q (over bf16 or int8 pages, d 128 and 64): decode is the dense-
+// bf16 q (over bf16 or int8 pages, d 64, 128 and 256): decode is the dense-
 // stride function at stride 1 (one query token at position seq_len - 1),
 // so the CTA is the dense kernel's, tc::split_kv_slab (attention_tc.cuh):
 //   - split-KV over (lane, kv head, split): the lane's keys split into
@@ -34,7 +34,8 @@
 //   - two cp.async stages of 64 keys, each warp 16 keys of a stage on
 //     mma.sync m16n8k16 (bf16 in, f32 accumulate): the group's 4 rows
 //     fill 4 of an m16 slab's 16, which costs nothing in a kernel held by
-//     its loads; int8 stages become exact bf16 tiles;
+//     its loads; int8 stages become exact bf16 tiles; at d=256 the stages
+//     hold 32 keys and two warps split each 16 keys' output columns;
 //   - the warps' (m, l, o) fold in shared memory, and the last split to
 //     take the (lane, kv head) ticket merges the f32 partials in-kernel.
 // f32 q (f32 or int8 pages): the first, CUDA-core design in
@@ -166,7 +167,7 @@ cudaError_t launch_tc(const void* q, const void* pages, const float* scales,
                       int ps, int W, int chunk, int splits, int slabs,
                       float scale, float softcap, int window,
                       cudaStream_t stream) {
-  if (!tc::split_plan_ok(partials, tickets, chunk, splits, slabs, nq / nkv))
+  if (!tc::split_plan_ok<D>(partials, tickets, chunk, splits, slabs, nq / nkv))
     return cudaErrorInvalidValue;
   constexpr int bytes = tc::smem_bytes<P, D>(tc::SLAB_ROWS);
   auto kernel = paged_decode_kernel_tc<P, D>;
@@ -214,12 +215,16 @@ extern "C" int kt_paged_decode_attention(
                                   page_size, W, scale, softcap, window, s)
   KT_DEC_TC(__nv_bfloat16, 128);
   KT_DEC_TC(__nv_bfloat16, 64);
+  KT_DEC_TC(__nv_bfloat16, 256);
   KT_DEC_TC(int8_t, 128);
   KT_DEC_TC(int8_t, 64);
+  KT_DEC_TC(int8_t, 256);
   KT_DEC(float, float, 128);
   KT_DEC(float, float, 64);
+  KT_DEC(float, float, 256);
   KT_DEC(float, int8_t, 128);
   KT_DEC(float, int8_t, 64);
+  KT_DEC(float, int8_t, 256);
 #undef KT_DEC
 #undef KT_DEC_TC
   return (int)cudaErrorInvalidValue;

@@ -26,10 +26,13 @@
 //     of ceil(q_len / TQ) over the lanes, the lane's last (longest) tiles
 //     first; the grid is a host-side upper bound (T/8 tiles x nkv) and
 //     surplus CTAs only zero the padding rows of their 8-token block.
-//   - K/V stream through two shared-memory stages of 64 keys filled by
-//     cp.async while the previous tile is in the MMA; int8 stages are
-//     turned into exact bf16 tiles in shared memory, their scales folded
-//     into S (K) and P (V) in f32.
+//   - K/V stream through two shared-memory stages of 64 keys (32 at
+//     head_dim 256) filled by cp.async while the previous tile is in the
+//     MMA; int8 stages are turned into exact bf16 tiles in shared memory,
+//     their scales folded into S (K) and P (V) in f32.
+//   - At head_dim 256 each warp's O takes 128 registers, so its query
+//     fragments are read from shared memory at every k-step instead of
+//     held in registers (attention_tc.cuh QSmem).
 //   - Key tiles that the causal limit or the window removes whole are not
 //     loaded: the range stops at the tile's last valid query and starts at
 //     its first query's window; a warp skips the MMA of a tile none of its
@@ -304,6 +307,7 @@ __global__ void __launch_bounds__(tc::NT, 2) ragged_kernel_tc(
   warp_span(qpos, qmin, qmax);
 
   // key tiles [lo, hi): from the first query's window to the last query
+  constexpr int KT = tile_keys<D>();
   const int hi = min(kv0 + j_hi + 1, W * ps);
   int lo = window > 0 ? max(0, kv0 + j_lo - window + 1) : 0;
   lo = (lo / KT) * KT;
@@ -311,11 +315,12 @@ __global__ void __launch_bounds__(tc::NT, 2) ragged_kernel_tc(
   const int* pt = page_table + (int64_t)s * W;
 
   SlabState<D> st;
-  key_loop<P, D, KT>(st, q_s, warp * 16, pages, scales, pt, nkv, ps, h, lo, hi,
-                     n, stages, conv, 0, qpos, qmin, qmax, window, scale,
-                     softcap);
+  key_loop<P, D, D, KT>(st, q_s, warp * 16, pages, scales, pt, nkv, ps, h, lo,
+                        hi, n, stages, conv, 0, 0, qpos, qmin, qmax, window,
+                        scale, softcap);
 
-  // normalized rows as bf16 into q_s (the queries live in registers now)
+  // normalized rows as bf16 into q_s (every warp is past its last read of
+  // the queries: key_loop ends on a barrier)
   st.reduce_l();
   {
     const int g = lane >> 2;
@@ -405,12 +410,16 @@ extern "C" int kt_ragged_paged_attention(
                                   window, st)
   KT_RAG_TC(__nv_bfloat16, 128);
   KT_RAG_TC(__nv_bfloat16, 64);
+  KT_RAG_TC(__nv_bfloat16, 256);
   KT_RAG_TC(int8_t, 128);
   KT_RAG_TC(int8_t, 64);
+  KT_RAG_TC(int8_t, 256);
   KT_RAG(float, float, 128);
   KT_RAG(float, float, 64);
+  KT_RAG(float, float, 256);
   KT_RAG(float, int8_t, 128);
   KT_RAG(float, int8_t, 64);
+  KT_RAG(float, int8_t, 256);
 #undef KT_RAG
 #undef KT_RAG_TC
   return (int)cudaErrorInvalidValue;

@@ -13,16 +13,23 @@ Port of the unified-ragged serving path of kserve_tpu/engine/engine.py:
 - with `kv_quant="int8"` each layer's cache is (int8 pages, f32 row
   scales) and every attention over it runs the kernels' int8 instances;
   activations stay in the model dtype
+- a cache too small for every lane preempts (`_grow_and_preempt`): a
+  prefilling slot first, else the newest decoding lane but the oldest,
+  which goes back to the front of the queue and, once re-admitted,
+  re-prefills its prompt plus all but its last generated token through
+  the ordinary ragged chunks and resumes decoding where it stopped; the
+  client's stream only pauses
 
 The device call and the fetch of its tokens run in a worker thread
 (`asyncio.to_thread`), so the event loop keeps answering health probes and
 new requests while a step computes.
 
-Not ported yet: the prefix cache, KV tiers and persistence, the peer page
-fabric, data/tensor/pipeline/sequence parallelism, P/D disaggregation,
-drain/checkpoint/resume, the watchdog, metrics, the AOT cache and
-preemption (the speculative path has none either), so the int8 cache has
-no spill, re-inject or P/D wire either.  Admission waits for free pages.
+Not ported yet: the prefix cache, KV tiers and persistence (so a
+preempted lane always recomputes its KV: no spill to host memory and no
+re-inject, for bf16 or int8 caches), the peer page fabric,
+data/tensor/pipeline/sequence parallelism, P/D disaggregation,
+drain/checkpoint/resume, the watchdog, metrics and the AOT cache.
+Admission waits for free pages.
 """
 
 from __future__ import annotations
@@ -174,6 +181,8 @@ class LLMEngine:
         self.steps = 0  # mixed dispatches so far
         self.dense_steps = 0  # mixed_decode dispatches so far
         self.chained_dispatches = 0  # of those, launched behind another
+        self.preemption_count = 0  # slots sent back to the queue
+        self._admission_seq = 0  # seating order of decoding lanes
 
     # ---------------- public API ----------------
 
@@ -289,12 +298,14 @@ class LLMEngine:
 
     def _admit_prefilling(self, req: _QueuedRequest) -> bool:
         """Seat the head of the queue as a prefilling slot once its pages
-        (plus decode headroom for a long prompt) are free."""
+        (plus decode headroom for a long prompt or a resume) are free.  A
+        preempted request re-prefills its prompt plus all but its last
+        generated token (kserve_tpu/engine/engine.py:2272-2273)."""
         idx = self._free_slot_index()
         if idx is None:
             return False
         ps = self.config.page_size
-        total = len(req.prompt_ids)
+        total = req.kv_len
         need = pages_needed(total + 1, ps)
         if need > self.config.max_pages_per_seq:
             self._waiting.remove(req)
@@ -303,9 +314,10 @@ class LLMEngine:
                 f"{self.config.max_pages_per_seq}"))
             return True
         required = need
-        if total > self.config.prefill_buckets[-1]:
-            # many chunks in flight before the first token: keep a couple
-            # of dispatches of decode headroom
+        if req.resume is not None or total > self.config.prefill_buckets[-1]:
+            # many chunks in flight before the first token, or a resume
+            # that an at once starving cache would only bounce back out:
+            # keep a couple of dispatches of decode headroom
             required = min(
                 need + pages_needed(2 * self.config.steps_per_sync, ps),
                 self.config.num_pages - 1)
@@ -317,7 +329,10 @@ class LLMEngine:
         slot.request_id = req.request_id
         slot.pages = pages
         slot.queue = req.queue
-        slot.prefilling = {"req": req, "seq": req.prompt_ids, "done": 0}
+        seq = req.prompt_ids
+        if req.resume is not None:
+            seq = req.prompt_ids + req.resume["generated"][:-1]
+        slot.prefilling = {"req": req, "seq": seq, "done": 0}
         return True
 
     def _ensure_pages_at(self, slot: _Slot, base: int, extra: int) -> None:
@@ -326,31 +341,83 @@ class LLMEngine:
         while len(slot.pages) < needed and self.allocator.can_allocate(1):
             slot.pages.extend(self.allocator.allocate(1))
 
-    def _grow_pages(self) -> None:
-        """Grow every decode lane's pages toward this dispatch's writes.
-        With no preemption, a cache too small for every decoding lane
-        truncates them honestly ("length") rather than deadlocking."""
+    def _grow_and_preempt(self) -> None:
+        """Before an unchained dispatch (nothing is in flight): grow every
+        decoding lane's pages toward the dispatch's worst-case advance.
+        While a lane is starved (no page for its next token), free pages:
+        preempt a prefilling slot first (it has emitted nothing), else the
+        newest decoding lane other than the oldest, which therefore always
+        finishes.  Only the oldest lane left alone and starved, one that
+        exceeds the whole cache by itself, is truncated ("length").  Port
+        of kserve_tpu/engine/engine.py:2563-2641 without its prefix-cache
+        eviction and host spill, which the port lacks; every lane can be
+        preempted (its `_can_preempt` is always true), so the JAX branch
+        where starved lanes pause for want of a victim cannot arise."""
         ps = self.config.page_size
-        active = [s for s in self._slots
-                  if s.request_id is not None and s.prefilling is None]
-        starved = []
-        for slot in active:
-            if slot.pos >= self.config.max_model_len:
+        while True:
+            active = [s for s in self._slots
+                      if s.request_id is not None and s.prefilling is None]
+            starved = []
+            for slot in active:
+                if slot.pos >= self.config.max_model_len:
+                    continue  # finished as "length" in _prepare_chunk
+                grow = min(self._max_step_advance,
+                           self.config.max_model_len - slot.pos)
+                self._ensure_pages_at(slot, slot.pos, grow)
+                if len(slot.pages) * ps <= slot.pos:
+                    starved.append(slot)
+            if not starved:
+                return
+            prefilling = [s for s in self._slots
+                          if s.request_id is not None and s.prefilling is not None]
+            if prefilling:
+                self._preempt_prefilling(prefilling[-1])
                 continue
-            grow = min(self._max_step_advance,
-                       self.config.max_model_len - slot.pos)
-            self._ensure_pages_at(slot, slot.pos, grow)
-            if len(slot.pages) * ps <= slot.pos:
-                starved.append(slot)
-        if starved and len(starved) == len(active):
-            logger.warning("KV cache exhausted: truncating %d lane(s)", len(starved))
+            oldest = min(active, key=lambda s: s.admitted_at)
+            candidates = [s for s in active if s is not oldest]
+            if candidates:
+                self._preempt(max(candidates, key=lambda s: s.admitted_at))
+                continue
+            logger.warning("KV cache smaller than one sequence: truncating "
+                           "%d lane(s)", len(starved))
             for slot in starved:
                 self._finish(slot, "length")
+
+    def _preempt_prefilling(self, slot: _Slot) -> None:
+        """Requeue a prefilling slot's request at the front and free its
+        pages: it has emitted nothing, so only its chunks are lost."""
+        req = slot.prefilling["req"]
+        self.allocator.free(slot.pages)
+        slot.reset()
+        self._waiting.insert(0, req)
+        self.preemption_count += 1
+        logger.info("preempted prefilling request %s", req.request_id)
+
+    def _preempt(self, slot: _Slot) -> None:
+        """Requeue a decoding slot at the front of the queue and free its
+        pages; its resume state re-prefills prompt + generated[:-1] when it
+        is admitted again.  Nothing is emitted: the client's stream only
+        pauses (kserve_tpu/engine/engine.py:2665, its recompute branch)."""
+        req = _QueuedRequest(slot.request_id, slot.prompt_ids, slot.params,
+                             slot.queue)
+        req.resume = {
+            "generated": slot.generated,
+            "detok": slot.detok,
+            "stop_texts": slot.stop_texts,
+            "pos": slot.pos,  # the device KV covers positions 0 .. pos-1
+            "admitted_at": slot.admitted_at,
+        }
+        self.allocator.free(slot.pages)
+        slot.reset()
+        self._waiting.insert(0, req)
+        self.preemption_count += 1
+        logger.info("preempted request %s at position %d", req.request_id,
+                    req.resume["pos"])
 
     def _prepare_chunk(self) -> Optional[dict]:
         """Host-side decode state of this step's decode lanes."""
         B = self.config.max_batch_size
-        self._grow_pages()
+        self._grow_and_preempt()
         tokens = np.zeros((B,), np.int32)
         pos = np.zeros((B,), np.int32)
         active = np.zeros((B,), bool)
@@ -484,7 +551,17 @@ class LLMEngine:
             capacity[i] = cap
             params_list[i] = req.params
             final = done + n >= total
-            if final:
+            if final and req.resume is not None:
+                # a re-prefill's step-0 sample is dropped: the decode loop
+                # goes on from the last generated token at its position,
+                # with the sampling counter where the lane stopped
+                gen = req.resume["generated"]
+                joins[i] = True
+                scan_tok0[i] = gen[-1]
+                scan_pos0[i] = req.resume["pos"]
+                counters[i] = len(gen)
+                consume[i] = (1, max(0, min(steps - 1, cap - req.resume["pos"])))
+            elif final:
                 joins[i] = True
                 scan_pos0[i] = total
                 step0_emits[i] = 1
@@ -527,16 +604,19 @@ class LLMEngine:
 
     def _route_mixed(self, plan: dict, chunk_np: np.ndarray) -> None:
         """Consume one dispatch's [steps, B] tokens: advance chunk cursors,
-        seat lanes whose prompt completed (emitting their first token),
-        then stream each lane's decode window.  Lanes cancelled while the
-        step ran are seen as empty and their tokens dropped."""
+        seat lanes whose prompt completed (a fresh one emits its first
+        token, a resumed one its stream state and nothing), then stream
+        each lane's decode window.  Lanes cancelled while the step ran are
+        seen as empty and their tokens dropped."""
         for i, n, final in plan["chunks"]:
             slot = self._slots[i]
             if slot.request_id is None or slot.prefilling is None:
                 continue
             pf = slot.prefilling
             pf["done"] += n
-            if final:
+            if final and pf["req"].resume is not None:
+                self._seat_resumed(slot, pf["req"])
+            elif final:
                 self._seat_fresh(slot, pf["req"], int(chunk_np[0, i]))
                 self._emit(slot, int(chunk_np[0, i]))
         for i in sorted(plan["consume"]):
@@ -562,9 +642,11 @@ class LLMEngine:
         decode lane has room for a full (K+1)-token slice, below its hard
         ceiling (a lane within K tokens of max_model_len steps on the plain
         mixed path for its last stretch, token-identical) and within the
-        pages it holds now.  The second test is this port's: it has no
-        preemption, so a lane short of pages steps on the mixed path, which
-        truncates it if nothing frees, instead of sitting out dense rounds."""
+        pages it holds now.  The second test is this port's: a lane with
+        pages for its next token but not for a whole slice is not starved,
+        so no preemption frees pages for it; it steps on the mixed path
+        (token-identical) up to its last page, where _grow_and_preempt
+        finds it starved, instead of sitting out every dense round."""
         kp = self._spec_k + 1
         for i, slot in enumerate(self._slots):
             if slot.request_id is None or not meta["active"][i]:
@@ -779,6 +861,25 @@ class LLMEngine:
         slot.params = req.params
         slot.detok = IncrementalDetokenizer(self.tokenizer)
         slot.stop_texts = list(req.params.stop or [])
+        self._admission_seq += 1
+        slot.admitted_at = self._admission_seq
+        if self._draft_dirty is not None:
+            self._draft_dirty.add(self._slots.index(slot))
+
+    def _seat_resumed(self, slot: _Slot, req: _QueuedRequest) -> None:
+        """Seat a re-prefilled request with the stream state it had when it
+        was preempted, its seating order included (so the oldest lane stays
+        the oldest).  Port of kserve_tpu/engine/engine.py:2451."""
+        r = req.resume
+        slot.prefilling = None
+        slot.prompt_ids = req.prompt_ids
+        slot.prompt_len = len(req.prompt_ids)
+        slot.pos = r["pos"]
+        slot.generated = r["generated"]
+        slot.params = req.params
+        slot.detok = r["detok"]
+        slot.stop_texts = r["stop_texts"]
+        slot.admitted_at = r["admitted_at"]
         if self._draft_dirty is not None:
             self._draft_dirty.add(self._slots.index(slot))
 

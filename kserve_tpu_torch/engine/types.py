@@ -3,7 +3,7 @@ queue bookkeeping.
 
 Port of kserve_tpu/engine/types.py (EngineConfig :36 with the fields the
 port uses, spec_decode_k_from_env :210, GenerationOutput :317, _Slot
-:331, _QueuedRequest :359).  The knobs the port does not run yet
+:331, _QueuedRequest :359 with its `resume` state and `kv_len`).  The knobs the port does not run yet
 (weight_quant, tp/dp/sp/pp) are kept so a configuration asking for them
 is rejected at engine construction instead of silently ignored.
 """
@@ -97,7 +97,7 @@ class _Slot:
 
     __slots__ = (
         "request_id", "prompt_ids", "prompt_len", "pages", "pos", "generated",
-        "params", "queue", "detok", "stop_texts", "prefilling",
+        "params", "queue", "detok", "stop_texts", "prefilling", "admitted_at",
     )
 
     def __init__(self):
@@ -117,3 +117,11 @@ class _QueuedRequest:
         self.prompt_ids: List[int] = prompt_ids
         self.params = params
         self.queue = queue
+        # a preempted request's stream state, restored when it seats again:
+        # {"generated", "detok", "stop_texts", "pos", "admitted_at"}
+        self.resume: Optional[dict] = None
+
+    @property
+    def kv_len(self) -> int:
+        """Token positions whose KV must exist before decoding starts."""
+        return self.resume["pos"] if self.resume else len(self.prompt_ids)

@@ -13,9 +13,11 @@ with int8 KV, the tuple (int8 pages, f32 scales [P, 2, nkv, ps]): the
 function of the Pallas kernels' `quantized=True` form (for decode, of
 kserve_tpu/ops/attention.py:paged_attention_xla's int8 branch).
 
-With bf16 q all three kernels run on the tensor cores (bf16 MMA, f32
-accumulation; int8 rows become exact bf16 and their scales are applied in
-f32 to the scores and to P), fed by cp.async double buffering.  The
+Every kernel takes head_dim 64, 128 and 256 (`HEAD_DIMS`; any other
+raises).  With bf16 q all three kernels run on the tensor cores (bf16
+MMA, f32 accumulation; int8 rows become exact bf16 and their scales are
+applied in f32 to the scores and to P), fed by cp.async double
+buffering; d=256 has a tiling of its own (32-key stages, `tc_kt`).  The
 dense and decode kernels split each lane's keys across CTAs and merge
 the splits in-kernel (csrc/attention_tc.cuh split_kv_slab; decode is the
 dense function at stride 1).  Their launch shapes come from
@@ -47,7 +49,7 @@ from ..engine.kvcache import KVLayer
 from ._build import load_library
 
 RAGGED_BQ = 8  # query tokens per kernel block; slices start at multiples
-HEAD_DIMS = (64, 128)
+HEAD_DIMS = (64, 128, 256)
 # element-type codes of the C entry points (q/out take 0 or 1, pages any)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _BF16_CODE = 1
@@ -86,6 +88,10 @@ def _check_common(q: torch.Tensor, kv_pages: KVLayer, ints) -> _Checked:
     """Check what every kernel takes.  Each message is formatted only when
     its check fails, and each shape is read once: the wrappers run
     hundreds of times per engine step."""
+    qshape = q.shape
+    d = qshape[-1]
+    if d not in HEAD_DIMS:
+        raise ValueError(f"CUDA kernel takes head_dim {HEAD_DIMS}, got {d}")
     if not q.is_cuda:
         raise ValueError(f"CUDA kernel needs CUDA tensors, got {q.device}")
     code = _DTYPE_CODES.get(q.dtype)
@@ -107,12 +113,9 @@ def _check_common(q: torch.Tensor, kv_pages: KVLayer, ints) -> _Checked:
         pages, scales, extra, kv_code = kv_pages, None, (), code
         if pages.dtype != q.dtype:
             raise ValueError(f"kv_pages dtype {pages.dtype} != q dtype {q.dtype}")
-    pshape, qshape = pages.shape, q.shape
+    pshape = pages.shape
     if len(pshape) != 5 or pshape[1] != 2:
         raise ValueError(f"kv_pages must be [P, 2, nkv, ps, d], got {tuple(pshape)}")
-    d = qshape[-1]
-    if d not in HEAD_DIMS:
-        raise ValueError(f"CUDA kernel takes head_dim {HEAD_DIMS}, got {d}")
     _require(pshape[4] == d, "kv_pages head_dim != q head_dim")
     nq, nkv = qshape[-2], pshape[2]
     if nq % nkv:
@@ -144,11 +147,26 @@ def _raise_on(err: int, name: str) -> None:
 
 # tensor-core tiles of the bf16-q kernels (csrc/attention_tc.cuh)
 TC_ROWS = 64  # query rows of a ragged CTA: 4 warps x one m16 slab
-TC_KT = 64  # keys per staged K/V tile
 SPLIT_ROWS = 16  # query rows of a split-KV (dense or decode) CTA: one m16 slab
 SPLIT_MAX_SPLITS = 32  # splits per (lane, kv head, slab), at most
-DENSE_MIN_CHUNK = 128  # keys per split of the dense kernel, at least
-DECODE_MIN_CHUNK = 128  # keys per split of the decode kernel, at least
+# keys per split of the dense and decode kernels, at least, at head_dim
+# <= 128; min_chunk() keeps a split's bytes at larger head dims
+DENSE_MIN_CHUNK = 128
+DECODE_MIN_CHUNK = 128
+
+
+def tc_kt(d: int) -> int:
+    """Keys per staged K/V tile of the tensor-core kernels (tc::tile_keys<D>): 64,
+    or 32 at head_dim 256, whose stage then takes d=128's bytes."""
+    return 32 if d > 128 else 64
+
+
+def min_chunk(base: int, d: int) -> int:
+    """Least keys per split at head_dim d for a least of `base` keys at
+    d <= 128: the same bytes per split (64 keys at d=256 for the default
+    128: two of its 32-key tiles, so a CTA still overlaps one tile's load
+    with the other's math)."""
+    return base * 128 // max(d, 128)
 
 
 class RaggedPlan(NamedTuple):
@@ -187,34 +205,40 @@ class SplitPlan(NamedTuple):
     slabs: int
 
 
-def _split_plan(W: int, page_size: int, rows: int, min_chunk: int) -> SplitPlan:
+def _split_plan(W: int, page_size: int, rows: int, least: int,
+                d: int) -> SplitPlan:
     """A lane's keys lie in [0, W * page_size), so ceil(W * page_size /
-    chunk) splits cover any lane.  chunk is a multiple of TC_KT, at least
-    `min_chunk`, and large enough for at most SPLIT_MAX_SPLITS; `rows`
+    chunk) splits cover any lane.  chunk is a multiple of tc_kt(d), at
+    least `least`, and large enough for at most SPLIT_MAX_SPLITS; `rows`
     query rows per lane and kv head take ceil(rows / SPLIT_ROWS) slabs."""
     keys = W * page_size
-    chunk = max(min_chunk, -(-keys // SPLIT_MAX_SPLITS))
-    chunk = -(-chunk // TC_KT) * TC_KT
+    kt = tc_kt(d)
+    chunk = max(least, -(-keys // SPLIT_MAX_SPLITS))
+    chunk = -(-chunk // kt) * kt
     return SplitPlan(chunk=chunk, splits=max(1, -(-keys // chunk)),
                      slabs=-(-rows // SPLIT_ROWS))
 
 
 @functools.lru_cache(maxsize=256)
-def dense_launch_plan(W: int, page_size: int, sp: int, nq: int,
-                      nkv: int) -> SplitPlan:
+def dense_launch_plan(W: int, page_size: int, sp: int, nq: int, nkv: int,
+                      d: int) -> SplitPlan:
     """The dense kernel's grid for page tables of W pages, sp * group rows
-    per lane and kv head, splits of at least DENSE_MIN_CHUNK keys."""
-    return _split_plan(W, page_size, sp * (nq // nkv), DENSE_MIN_CHUNK)
+    per lane and kv head, head_dim d, splits of at least
+    min_chunk(DENSE_MIN_CHUNK, d) keys."""
+    return _split_plan(W, page_size, sp * (nq // nkv),
+                       min_chunk(DENSE_MIN_CHUNK, d), d)
 
 
 @functools.lru_cache(maxsize=256)
-def decode_launch_plan(W: int, page_size: int, nq: int, nkv: int) -> SplitPlan:
+def decode_launch_plan(W: int, page_size: int, nq: int, nkv: int,
+                       d: int) -> SplitPlan:
     """The decode kernel's grid for page tables of W pages: the dense
     plan at stride 1 (group rows per lane and kv head), splits of at least
-    DECODE_MIN_CHUNK keys.  The grid is a bound from the table's width
-    alone: each CTA finds its lane's key range from seq_lens in the kernel,
-    so no host sync and no launch is needed to plan."""
-    return _split_plan(W, page_size, nq // nkv, DECODE_MIN_CHUNK)
+    min_chunk(DECODE_MIN_CHUNK, d) keys.  The grid is a bound from the
+    table's width alone: each CTA finds its lane's key range from seq_lens
+    in the kernel, so no host sync and no launch is needed to plan."""
+    return _split_plan(W, page_size, nq // nkv,
+                       min_chunk(DECODE_MIN_CHUNK, d), d)
 
 
 _NO_PLAN = SplitPlan(chunk=0, splits=0, slabs=0)  # the f32 designs have none
@@ -332,7 +356,7 @@ def paged_decode_attention_cuda(
     partials_ptr = tickets_ptr = None
     plan = _NO_PLAN
     if c.code == _BF16_CODE:
-        plan = decode_launch_plan(W, c.ps, nq, c.nkv)
+        plan = decode_launch_plan(W, c.ps, nq, c.nkv, d)
         partials_ptr, tickets_ptr = _split_scratch(q, B, c.nkv, plan, d)
     lib = load_library()
     err = lib.kt_paged_decode_attention(
@@ -372,7 +396,7 @@ def dense_ragged_paged_attention_cuda(
     partials_ptr = tickets_ptr = None
     plan = _NO_PLAN
     if c.code == _BF16_CODE:
-        plan = dense_launch_plan(W, c.ps, sp, nq, c.nkv)
+        plan = dense_launch_plan(W, c.ps, sp, nq, c.nkv, d)
         partials_ptr, tickets_ptr = _split_scratch(q, B, c.nkv, plan, d)
     lib = load_library()
     err = lib.kt_dense_ragged_paged_attention(

@@ -4,8 +4,10 @@ on the CPU.
 The port's plain ragged and decode attention (what the CUDA kernels are
 held against on the card) must match the Pallas kernels in interpret mode
 and the XLA gather versions, over the ragged compositions the engine's
-mixed program produces.  Both sides run in float32 on the same numpy
-inputs, so differences are summation order only: atol/rtol 2e-5."""
+mixed program produces, at head_dim 128, 64 and 256 (Gemma-2's, with its
+8 q / 4 kv heads where the case says so).  Both sides run in float32 on
+the same numpy inputs, so differences are summation order only:
+atol/rtol 2e-5."""
 
 import numpy as np
 import pytest
@@ -37,13 +39,16 @@ CASES = {
     "chunked": [(16, 8), (16, 5), (0, 1)],
     "inactive_lane": [(5, 1), (0, 0), (0, 0)],
 }
+# the same packings at head_dim 256 and Gemma-2-2B's GQA group 2
+D256_CASES = {"mixed_d256": CASES["mixed"], "chunked_d256": CASES["chunked"]}
+GEMMA_NQ = 4  # with NKV = 2: group 2, as gemma2-2b's 8 q / 4 kv heads
 
 
 def _align(n):
     return -(-n // RAGGED_BQ) * RAGGED_BQ
 
 
-def _ragged_case(lanes, d=128, seed=0):
+def _ragged_case(lanes, d=128, seed=0, nq=NQ):
     """Packed queries at 8-aligned offsets and random pages, every lane on
     its own pages (page 0 the null page)."""
     rng = np.random.RandomState(seed)
@@ -60,7 +65,7 @@ def _ragged_case(lanes, d=128, seed=0):
         n = -(-(h + qn) // PS)
         table[i, :n] = 1 + i * W + np.arange(n)
     return dict(
-        q=rng.randn(T, NQ, d).astype(np.float32), kv_pages=pages,
+        q=rng.randn(T, nq, d).astype(np.float32), kv_pages=pages,
         page_table=table, q_start=np.asarray(q_start, np.int32),
         q_len=np.asarray([q for _, q in lanes], np.int32),
         kv_start=np.asarray([h for h, _ in lanes], np.int32))
@@ -79,9 +84,12 @@ def _jax_args(case):
             jnp.asarray(case["q_len"]), jnp.asarray(case["kv_start"]))
 
 
-@pytest.mark.parametrize("name", sorted(CASES))
+@pytest.mark.parametrize("name", sorted(CASES) + sorted(D256_CASES))
 def test_ragged_plain_matches_pallas_interpret_and_xla(name):
-    case = _ragged_case(CASES[name], seed=len(name))
+    if name in D256_CASES:
+        case = _ragged_case(D256_CASES[name], d=256, seed=len(name), nq=GEMMA_NQ)
+    else:
+        case = _ragged_case(CASES[name], seed=len(name))
     got = _port_ragged(case)
     pallas = np.asarray(ragged_paged_attention_pallas(
         *_jax_args(case), window=jnp.asarray(0, jnp.int32), interpret=True))
@@ -101,6 +109,18 @@ def test_ragged_sliding_window():
     want = np.asarray(ragged_paged_attention_pallas(
         *_jax_args(case), window=jnp.asarray(6, jnp.int32), interpret=True))
     np.testing.assert_allclose(got, want, **TOL)
+    # head_dim 256 at Gemma-2's group 2, with its softcap and scale: the
+    # Pallas kernel and the XLA gather
+    case = _ragged_case([(30, 1), (20, 9), (0, 14)], d=256, seed=4, nq=GEMMA_NQ)
+    kw = dict(logit_softcap=50.0, scale=0.0625)
+    got = _port_ragged(case, window=6, **kw)
+    win = jnp.asarray(6, jnp.int32)
+    want = np.asarray(ragged_paged_attention_pallas(
+        *_jax_args(case), window=win, interpret=True, **kw))
+    np.testing.assert_allclose(got, want, **TOL)
+    xla = np.asarray(jax_attn.ragged_paged_attention_xla(
+        *_jax_args(case), window=win, **kw))
+    np.testing.assert_allclose(got, xla, **TOL)
 
 
 def test_ragged_softcap_and_scale_override():
@@ -159,6 +179,8 @@ _DECODE_LANES = ([37, 1, 0, 64], 4)
 # lanes on both sides of the split kernel's 128-key chunks and one that
 # fills its table (W * PS = 2048 keys)
 _SPLIT_EDGE_LANES = ([127, 128, 129, 2048], 128)
+# the same at head_dim 256, whose chunks are 64 keys
+_SPLIT_EDGE_LANES_D256 = ([63, 64, 65, 1024], 64)
 
 
 @pytest.mark.parametrize("d,softcap,lanes", [
@@ -168,6 +190,8 @@ _SPLIT_EDGE_LANES = ([127, 128, 129, 2048], 128)
     pytest.param(64, 20.0, _DECODE_LANES, id="64-20.0"),
     pytest.param(128, 0.0, _SPLIT_EDGE_LANES, id="128-0.0-split_edges"),
     pytest.param(64, 20.0, _SPLIT_EDGE_LANES, id="64-20.0-split_edges"),
+    pytest.param(256, 50.0, _DECODE_LANES, id="256-50.0"),
+    pytest.param(256, 0.0, _SPLIT_EDGE_LANES_D256, id="256-0.0-split_edges"),
 ])
 def test_decode_plain_matches_pallas_interpret(d, softcap, lanes):
     """d=64 goes through the JAX package's packed two-tokens-per-row
@@ -195,20 +219,24 @@ def test_decode_plain_matches_pallas_interpret(d, softcap, lanes):
 
 
 def test_decode_window_and_scale_match_xla():
+    """At head_dim 128, and at 256 with Gemma-2's group 2, softcap 50 and
+    scale 256^-0.5."""
     rng = np.random.RandomState(11)
-    d = 128
     lens = np.asarray([50, 3, 20], np.int32)
     W = 4
-    pages = rng.randn(1 + 3 * W, 2, NKV, PS, d).astype(np.float32)
     table = (1 + np.arange(3 * W, dtype=np.int32)).reshape(3, W)
-    q = rng.randn(3, NQ, d).astype(np.float32)
-    got = attn.paged_attention(
-        torch.from_numpy(q), torch.from_numpy(pages), torch.from_numpy(table),
-        torch.from_numpy(lens), logit_softcap=5.0, scale=0.2, window=7).numpy()
-    want = np.asarray(jax_attn.paged_attention_xla(
-        jnp.asarray(q), jnp.asarray(pages), jnp.asarray(table), jnp.asarray(lens),
-        5.0, scale=0.2, window=jnp.asarray(7, jnp.int32)))
-    np.testing.assert_allclose(got, want, **TOL)
+    for d, nq, softcap, scale in ((128, NQ, 5.0, 0.2), (256, GEMMA_NQ, 50.0, 0.0625)):
+        pages = rng.randn(1 + 3 * W, 2, NKV, PS, d).astype(np.float32)
+        q = rng.randn(3, nq, d).astype(np.float32)
+        got = attn.paged_attention(
+            torch.from_numpy(q), torch.from_numpy(pages), torch.from_numpy(table),
+            torch.from_numpy(lens), logit_softcap=softcap, scale=scale,
+            window=7).numpy()
+        want = np.asarray(jax_attn.paged_attention_xla(
+            jnp.asarray(q), jnp.asarray(pages), jnp.asarray(table),
+            jnp.asarray(lens), softcap, scale=scale,
+            window=jnp.asarray(7, jnp.int32)))
+        np.testing.assert_allclose(got, want, **TOL)
 
 
 def test_rms_norms_match_jax():
@@ -269,7 +297,9 @@ def test_ragged_launch_plan_covers_every_tile(group):
     (token, head) row of each tile exactly once, and x < T/8 reaches every
     8-token block (the CTAs that zero padding rows).  The tile rule here is
     the contract the CUDA tile_of implements, not that code: chip_smoke.py's
-    tile_edges_* cases hold the kernel to it on the card."""
+    tile_edges_* cases hold the kernel to it on the card.  The plan does not
+    depend on head_dim (64 query rows per CTA at every d; at d=256 the
+    stages shrink, not the rows), so group 2 is gemma2-2b's d=256 plan."""
     nkv = 2
     rng = np.random.RandomState(group)
     for _ in range(80):
@@ -294,8 +324,13 @@ def test_ragged_launch_plan_covers_every_tile(group):
         assert sorted(covered) == sorted(want)
 
 
-@pytest.mark.parametrize("sp,group", [(1, 4), (2, 4), (4, 4), (4, 8), (4, 2), (2, 1)])
-def test_dense_launch_plan_covers_every_split(sp, group):
+@pytest.mark.parametrize("sp,group,d", [
+    pytest.param(1, 4, 128, id="1-4"), pytest.param(2, 4, 128, id="2-4"),
+    pytest.param(4, 4, 128, id="4-4"), pytest.param(4, 8, 128, id="4-8"),
+    pytest.param(4, 2, 128, id="4-2"), pytest.param(2, 1, 128, id="2-1"),
+    pytest.param(4, 2, 256, id="4-2-d256"), pytest.param(1, 2, 256, id="1-2-d256"),
+])
+def test_dense_launch_plan_covers_every_split(sp, group, d):
     """Brute force over random lanes (inactive ones, long ones, windows):
     the splits of every lane's key range fit the grid of
     `dense_launch_plan` and cover the range once; the slabs cover the
@@ -303,13 +338,15 @@ def test_dense_launch_plan_covers_every_split(sp, group):
     slab, split).  The key range and split bounds here restate the CUDA
     split CTA's (lo, hi, nsp) arithmetic (tc::split_kv_slab); the kernel
     itself is held to them on the card by chip_smoke.py's split8_* and
-    one_live_* dense cases."""
-    nkv, d = 2, 128
-    rng = np.random.RandomState(sp * 10 + group)
+    one_live_* dense cases.  At d=256 the tiles are 32 keys and the least
+    chunk 64."""
+    nkv, kt = 2, K.tc_kt(d)
+    rng = np.random.RandomState(sp * 10 + group + d)
     for W, ps in [(1, 16), (2, 8), (7, 16), (126, 16), (128, 16), (512, 16), (4096, 16)]:
-        plan = K.dense_launch_plan(W, ps, sp, group * nkv, nkv)
+        plan = K.dense_launch_plan(W, ps, sp, group * nkv, nkv, d)
         keys = W * ps
-        assert plan.chunk % K.TC_KT == 0 and plan.chunk >= K.DENSE_MIN_CHUNK
+        assert plan.chunk % kt == 0
+        assert plan.chunk >= K.min_chunk(K.DENSE_MIN_CHUNK, d)
         assert 1 <= plan.splits <= K.SPLIT_MAX_SPLITS
         assert ((plan.slabs - 1) * K.SPLIT_ROWS < sp * group
                 <= plan.slabs * K.SPLIT_ROWS)
@@ -320,7 +357,7 @@ def test_dense_launch_plan_covers_every_split(sp, group):
             kv0 = int(rng.randint(0, max(keys - qn, 0) + 1))
             window = int(rng.choice([0, 1, 96, 1000]))
             hi = min(kv0 + qn, keys) if qn else 0
-            lo = (max(0, kv0 - window + 1) if window else 0) // K.TC_KT * K.TC_KT
+            lo = (max(0, kv0 - window + 1) if window else 0) // kt * kt
             nsp = -(-(hi - lo) // plan.chunk) if hi > lo else 0
             assert nsp <= plan.splits
             got = [k for z in range(nsp)
@@ -339,25 +376,30 @@ def test_dense_launch_plan_fills_the_card_on_the_timed_round():
     history = [310, 1024, 57, 0, 1999, 1500, 130, 777]
     live = [h + 4 for i, h in enumerate(history) if i not in (3, 5)]
     W = -(-max(live) // 16)
-    plan = K.dense_launch_plan(W, 16, 4, 32, 8)
+    plan = K.dense_launch_plan(W, 16, 4, 32, 8, 128)
     ctas = 8 * plan.slabs * sum(-(-n // plan.chunk) for n in live)
     assert ctas >= 2 * 132
 
 
-def _decode_splits(seq_len, window, W, ps, plan):
+def _decode_splits(seq_len, window, W, ps, plan, d=128):
     """The decode kernel's key range and splits for one lane, as
     tc::split_kv_slab computes them at stride 1 (one query token at
     seq_len - 1, none when seq_len is 0): (lo, hi, [(s_lo, s_hi), ...])."""
     qn, kv0 = int(seq_len > 0), seq_len - 1
     hi = min(kv0 + qn, W * ps) if qn else 0
-    lo = (max(0, kv0 - window + 1) if window else 0) // K.TC_KT * K.TC_KT
+    kt = K.tc_kt(d)
+    lo = (max(0, kv0 - window + 1) if window else 0) // kt * kt
     nsp = -(-(hi - lo) // plan.chunk) if hi > lo else 0
     return lo, hi, [(lo + z * plan.chunk, min(lo + (z + 1) * plan.chunk, hi))
                     for z in range(min(nsp, plan.splits))], nsp
 
 
-@pytest.mark.parametrize("group", [1, 4, 8, 16, 32])
-def test_decode_launch_plan_covers_every_split(group):
+@pytest.mark.parametrize("group,d", [
+    pytest.param(1, 128, id="1"), pytest.param(4, 128, id="4"),
+    pytest.param(8, 128, id="8"), pytest.param(16, 128, id="16"),
+    pytest.param(32, 128, id="32"), pytest.param(2, 256, id="2-d256"),
+])
+def test_decode_launch_plan_covers_every_split(group, d):
     """Brute force over random lengths (with 0, 1, chunk - 1, chunk,
     chunk + 1 and W * ps) and windows (0, 1, 96, 1000): every lane's
     splits fit the grid of `decode_launch_plan`, cover its key range once
@@ -366,13 +408,14 @@ def test_decode_launch_plan_covers_every_split(group):
     per (lane, kv head, slab, split).  The arithmetic restates the CUDA
     split CTA's (tc::split_kv_slab at stride 1); the kernel is held to it
     on the card by chip_smoke.py's split8, one_live, split_edges and
-    window_across_split decode cases."""
-    nkv, ps, d = 2, 16, 128
-    rng = np.random.RandomState(group)
+    window_across_split decode cases (at d 128, 64 and 256)."""
+    nkv, ps = 2, 16
+    rng = np.random.RandomState(group + d)
     for W in (1, 7, 128, 512, 4096):
-        plan = K.decode_launch_plan(W, ps, group * nkv, nkv)
+        plan = K.decode_launch_plan(W, ps, group * nkv, nkv, d)
         keys = W * ps
-        assert plan.chunk % K.TC_KT == 0 and plan.chunk >= K.DECODE_MIN_CHUNK
+        assert plan.chunk % K.tc_kt(d) == 0
+        assert plan.chunk >= K.min_chunk(K.DECODE_MIN_CHUNK, d)
         assert 1 <= plan.splits <= K.SPLIT_MAX_SPLITS
         assert plan.splits * plan.chunk >= keys
         assert (plan.slabs - 1) * K.SPLIT_ROWS < group <= plan.slabs * K.SPLIT_ROWS
@@ -382,7 +425,8 @@ def test_decode_launch_plan_covers_every_split(group):
         lens = [n for n in edges if n <= keys] + list(rng.randint(0, keys + 1, 60))
         for seq_len in lens:
             for window in (0, 1, 96, 1000):
-                lo, hi, splits, nsp = _decode_splits(int(seq_len), window, W, ps, plan)
+                lo, hi, splits, nsp = _decode_splits(int(seq_len), window, W, ps,
+                                                     plan, d)
                 assert nsp <= plan.splits
                 assert (seq_len == 0) == (nsp == 0)
                 # back to back from lo to hi, each 1..chunk keys: every key
@@ -402,7 +446,7 @@ def test_decode_launch_plan_fills_the_card():
     pages)."""
     lens = [2048, 1, 17, 300, 1500, 0, 911, 64]
     W = -(-max(lens) // 16)
-    plan = K.decode_launch_plan(W, 16, 32, 8)
+    plan = K.decode_launch_plan(W, 16, 32, 8, 128)
     ctas = 8 * plan.slabs * sum(_decode_splits(n, 0, W, 16, plan)[3] for n in lens)
     assert ctas >= 2 * 132
 
@@ -451,6 +495,20 @@ def test_cuda_wrappers_refuse_cpu_tensors():
         K.dense_ragged_paged_attention_cuda(
             case["q"][: B * 2], case["kv_pages"], case["page_table"],
             case["q_len"].clamp(max=2), case["kv_start"], 2)
+    # a head_dim no instance takes raises before any launch, on every
+    # wrapper (on the card as here)
+    case96 = {k: torch.from_numpy(v) for k, v in
+              _ragged_case(CASES["mixed"], d=96).items()}
+    with pytest.raises(ValueError, match="head_dim"):
+        K.ragged_paged_attention_cuda(**case96)
+    with pytest.raises(ValueError, match="head_dim"):
+        K.paged_decode_attention_cuda(
+            case96["q"][:4], case96["kv_pages"], case96["page_table"],
+            torch.ones(4, dtype=torch.int32))
+    with pytest.raises(ValueError, match="head_dim"):
+        K.dense_ragged_paged_attention_cuda(
+            case96["q"][: B * 2], case96["kv_pages"], case96["page_table"],
+            case96["q_len"].clamp(max=2), case96["kv_start"], 2)
     assert set(K.LAUNCHES) == {
         f"{name}{suffix}" for suffix in ("", "_int8")
         for name in ("ragged_paged_attention", "paged_decode_attention",

@@ -7,7 +7,7 @@ package on the CPU.
   scales) dequantize in f32, as the Pallas kernels do: against
   ragged_paged_attention_pallas(..., interpret=True) they differ by
   summation order only (f32, atol/rtol 2e-5; the dense packing 2e-4, as
-  the JAX package's own dense test).
+  the JAX package's own dense test), at head_dim 128, 64 and 256.
 - The JAX XLA gathers round dequantized rows to bf16 (ROADMAP §C), so the
   port is held to them at the JAX package's own int8 tolerance, atol 2e-2
   (tests/test_ragged_attention.py:245-252).
@@ -170,6 +170,9 @@ RAGGED_CASES = {  # tests/test_ragged_attention.py:173-178, plus window/softcap
     "window": dict(lanes=[(30, 1), (20, 9), (0, 7)], window=6),
     "softcap_scale": dict(lanes=[(10, 1), (3, 1), (17, 1), (1, 1)],
                           softcap=6.0, scale=0.21),
+    # head_dim 256 with Gemma-2's softcap and scale
+    "window_d256": dict(lanes=[(30, 1), (20, 9), (0, 7)], window=6, d=256,
+                        softcap=50.0, scale=0.0625),
 }
 STATIC = ("logit_softcap", "scale")
 _pallas = jax.jit(functools.partial(ragged_paged_attention_pallas, interpret=True),
@@ -217,7 +220,7 @@ def _jax_args(case):
 @pytest.mark.parametrize("name", sorted(RAGGED_CASES))
 def test_ragged_int8_plain_matches_pallas_interpret_and_xla(name):
     spec = RAGGED_CASES[name]
-    case = _ragged_int8(spec["lanes"], seed=len(name))
+    case = _ragged_int8(spec["lanes"], d=spec.get("d", 128), seed=len(name))
     kw = dict(logit_softcap=spec.get("softcap", 0.0), scale=spec.get("scale"))
     window = spec.get("window", 0)
     got = attn.ragged_paged_attention(*_torch_args(case), window=window, **kw).numpy()
@@ -228,12 +231,13 @@ def test_ragged_int8_plain_matches_pallas_interpret_and_xla(name):
     np.testing.assert_allclose(got, xla, **XLA_TOL)
 
 
-@pytest.mark.parametrize("Kp,sp", [(4, 4), (2, 2)], ids=["k3_sp4", "k1_sp2"])
-def test_dense_int8_plain_matches_pallas_interpret(Kp, sp):
+@pytest.mark.parametrize("Kp,sp,d", [(4, 4, 128), (2, 2, 128), (4, 4, 256)],
+                         ids=["k3_sp4", "k1_sp2", "k3_sp4_d256"])
+def test_dense_int8_plain_matches_pallas_interpret(Kp, sp, d):
     """The spec-verify packing over int8 pages; every third lane has
     q_len 0 and reads nothing."""
-    rng = np.random.RandomState(Kp)
-    B, W, d = 8, 4, 128
+    rng = np.random.RandomState(Kp + d)
+    B, W = 8, 4
     kv_start = rng.randint(0, 12, B).astype(np.int32)
     q_len = np.asarray([0 if i % 3 == 2 else Kp for i in range(B)], np.int32)
     table = (1 + np.arange(B * W, dtype=np.int32)).reshape(B, W)
@@ -252,7 +256,7 @@ def test_dense_int8_plain_matches_pallas_interpret(Kp, sp):
     assert np.all(got[~valid] == 0.0)
 
 
-@pytest.mark.parametrize("d", [128, 64])
+@pytest.mark.parametrize("d", [128, 64, 256])
 def test_decode_int8_plain_matches_xla(d):
     """paged_attention_xla's int8 branch (bf16 dequant) is the JAX
     function the decode kernel's int8 instance computes; the plain version

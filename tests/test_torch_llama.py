@@ -2,11 +2,15 @@
 
 JAX init_params -> numpy -> params_from_jax gives both sides the same
 weights; the same packed ragged plans and decode step then run through
-kserve_tpu.models.llama and kserve_tpu_torch.models.llama.  Three tiny
+kserve_tpu.models.llama and kserve_tpu_torch.models.llama.  Four tiny
 configs: Llama-style at head_dim 128 with llama3 rope scaling, a Qwen3-style
-qk-norm config with qkv bias and tied embeddings, and a Gemma-2-style
-config with softcaps, a sliding window, query_pre_attn_scalar and sandwich
-norms.  Everything runs in float32."""
+qk-norm config with qkv bias and tied embeddings, and two Gemma-2-style
+configs with softcaps, a sliding window, query_pre_attn_scalar and sandwich
+norms, one at head_dim 256 (gemma2-2b's, the kernels' d=256 instances on
+the card), whose greedy engine streams must also equal the JAX engine's.
+Everything runs in float32."""
+
+import asyncio
 
 import jax
 import jax.numpy as jnp
@@ -14,10 +18,16 @@ import numpy as np
 import pytest
 import torch
 
+from kserve_tpu.engine import engine as jeng
+from kserve_tpu.engine import sampling as js
 from kserve_tpu.engine.kvcache import KVCacheConfig as JaxKVConfig
 from kserve_tpu.engine.kvcache import init_kv_pages as jax_init_kv_pages
+from kserve_tpu.engine.tokenizer import ByteTokenizer as JaxByteTokenizer
 from kserve_tpu.models import llama as jl
+from kserve_tpu_torch.engine import sampling as ts
+from kserve_tpu_torch.engine.engine import EngineConfig, LLMEngine
 from kserve_tpu_torch.engine.kvcache import KVCacheConfig, init_kv_pages
+from kserve_tpu_torch.engine.tokenizer import ByteTokenizer
 from kserve_tpu_torch.models import llama as tl
 
 PS = 8
@@ -40,6 +50,15 @@ CONFIGS = {
         hidden_act="gelu_tanh", norm_plus_one=True, embed_scale=True,
         sandwich_norms=True, attn_logit_softcap=50.0, logit_softcap=30.0,
         query_pre_attn_scalar=24, sliding_window=6,
+        layer_types=("sliding_attention", "full_attention"),
+        tie_word_embeddings=True, rms_norm_eps=1e-6),
+    # gemma2-2b's attention at tiny width: head_dim 256, query_pre_attn_scalar
+    # 256, softcaps on, 2 q / 1 kv heads, window 8 on the first layer
+    "gemma2_d256": dict(
+        hidden_size=128, n_heads=2, n_kv_heads=1, head_dim=256,
+        hidden_act="gelu_tanh", norm_plus_one=True, embed_scale=True,
+        sandwich_norms=True, attn_logit_softcap=50.0, logit_softcap=30.0,
+        query_pre_attn_scalar=256, sliding_window=8,
         layer_types=("sliding_attention", "full_attention"),
         tie_word_embeddings=True, rms_norm_eps=1e-6),
 }
@@ -85,11 +104,17 @@ def test_forward_ragged_and_decode_match_jax(name):
     prompt0 = rng.randint(0, 512, 18).tolist()
     prompt1 = rng.randint(0, 512, 6).tolist()
 
+    # one jit per JAX entry point: a single compile instead of one per
+    # primitive and shape of the eager forward
+    jfwd = jax.jit(lambda p, packed, pages, table, last: jl.forward_ragged(
+        p, jcfg, *packed, pages, table, PS, last))
+    jdec = jax.jit(lambda p, tokens, pos, pages, table, active: jl.decode_step(
+        p, jcfg, tokens, pos, pages, table, active, PS))
+
     def both(plan):
         *packed, table, last = plan
-        jl_out, new = jl.forward_ragged(
-            jparams, jcfg, *[jnp.asarray(a) for a in packed], jpages,
-            jnp.asarray(table), PS, jnp.asarray(last))
+        jl_out, new = jfwd(jparams, [jnp.asarray(a) for a in packed], jpages,
+                           jnp.asarray(table), jnp.asarray(last))
         tl_out, _ = tl.forward_ragged(
             tparams, tcfg, *[torch.from_numpy(a) for a in packed], tpages,
             torch.from_numpy(table), PS, torch.from_numpy(last))
@@ -112,9 +137,8 @@ def test_forward_ragged_and_decode_match_jax(name):
     pos = np.asarray([18, 7, 0], np.int32)
     active = np.asarray([True, True, False])
     table = (1 + np.arange(12, dtype=np.int32)).reshape(3, 4)
-    jd, jpages = jl.decode_step(
-        jparams, jcfg, jnp.asarray(tokens), jnp.asarray(pos), jpages,
-        jnp.asarray(table), jnp.asarray(active), PS)
+    jd, jpages = jdec(jparams, jnp.asarray(tokens), jnp.asarray(pos), jpages,
+                      jnp.asarray(table), jnp.asarray(active))
     td, _ = tl.decode_step(
         tparams, tcfg, torch.from_numpy(tokens), torch.from_numpy(pos), tpages,
         torch.from_numpy(table), torch.from_numpy(active), PS)
@@ -159,3 +183,40 @@ def test_named_configs_match_jax():
     j, t = jl.LlamaConfig.from_hf_config(hf), tl.LlamaConfig.from_hf_config(hf)
     for field in t.__dataclass_fields__:
         assert getattr(t, field) == getattr(j, field), field
+
+
+def test_gemma2_d256_greedy_streams_match_jax_engine():
+    """The head_dim 256 Gemma-2 through both engines: concurrent greedy
+    streams (one prompt past the window of 8, one chunked past the
+    16-token bucket) equal token for token."""
+    overrides = dict(CONFIGS["gemma2_d256"], dtype="float32")
+    jcfg = jl.LlamaConfig.tiny(**overrides)
+    tcfg = tl.LlamaConfig.tiny(**overrides)
+    jparams = jl.init_params(jcfg, jax.random.PRNGKey(0))
+    tparams = tl.params_from_jax(jax.tree.map(np.asarray, jparams), tcfg, device="cpu")
+    engine = dict(max_batch_size=4, page_size=PS, num_pages=32, max_pages_per_seq=8,
+                  max_prefill_len=16, prefill_buckets=(16,), steps_per_sync=4,
+                  dtype="float32")
+    rng = np.random.RandomState(2)
+    prompts = [rng.randint(0, 256, n).tolist() for n in (5, 12, 21)]
+
+    async def streams(eng, params_cls):
+        async def one(ids):
+            params = params_cls(temperature=0.0, max_tokens=10, ignore_eos=True)
+            return [o.token_id async for o in eng.generate(ids, params)]
+
+        await eng.start()
+        try:
+            return await asyncio.wait_for(
+                asyncio.gather(*[one(p) for p in prompts]), 120)
+        finally:
+            await eng.stop()
+
+    want = asyncio.run(streams(jeng.LLMEngine(
+        jcfg, jeng.EngineConfig(prefix_cache=False, **engine),
+        JaxByteTokenizer(512), params=jparams, rng_seed=0), js.SamplingParams))
+    got = asyncio.run(streams(LLMEngine(
+        tcfg, EngineConfig(**engine), ByteTokenizer(512), params=tparams,
+        rng_seed=0, device="cpu"), ts.SamplingParams))
+    assert [len(s) for s in got] == [10, 10, 10]
+    assert got == want

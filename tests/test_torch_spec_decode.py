@@ -74,13 +74,13 @@ def test_dense_stride_for_matches_jax():
         attn.dense_stride_for(0, 8)
 
 
-def _dense_case(Kp, sp, B=8, seed=0):
-    """tests/test_ragged_attention.py:_dense_case at this file's shapes:
-    every third lane inactive, the slices' K/V written by the JAX package's
-    write_ragged_kv."""
+def _dense_case(Kp, sp, B=8, seed=0, d=D):
+    """tests/test_ragged_attention.py:_dense_case at this file's shapes
+    (head_dim d): every third lane inactive, the slices' K/V written by
+    the JAX package's write_ragged_kv."""
     rng = np.random.RandomState(seed)
     T, W = B * sp, 8
-    pages = rng.randn(1 + B * W, 2, NKV, PS, D).astype(np.float32)
+    pages = rng.randn(1 + B * W, 2, NKV, PS, d).astype(np.float32)
     table = np.zeros((B, W), np.int32)
     kv_start = rng.randint(0, 12, B).astype(np.int32)
     q_len = np.asarray([0 if i % 3 == 2 else Kp for i in range(B)], np.int32)
@@ -89,27 +89,29 @@ def _dense_case(Kp, sp, B=8, seed=0):
         for p in range(-(-(int(kv_start[i]) + Kp) // PS)):
             table[i, p] = used
             used += 1
-    q = np.zeros((T, NQ, D), np.float32)
+    q = np.zeros((T, NQ, d), np.float32)
     tok_seq = np.full((T,), -1, np.int32)
     tok_pos = np.zeros((T,), np.int32)
     for i in range(B):
         for j in range(int(q_len[i])):
-            q[i * sp + j] = rng.randn(NQ, D)
+            q[i * sp + j] = rng.randn(NQ, d)
             tok_seq[i * sp + j] = i
             tok_pos[i * sp + j] = kv_start[i] + j
     pages = np.array(jax_write_ragged_kv(
-        jnp.asarray(pages), jnp.asarray(rng.randn(T, NKV, D).astype(np.float32)),
-        jnp.asarray(rng.randn(T, NKV, D).astype(np.float32)), jnp.asarray(table),
+        jnp.asarray(pages), jnp.asarray(rng.randn(T, NKV, d).astype(np.float32)),
+        jnp.asarray(rng.randn(T, NKV, d).astype(np.float32)), jnp.asarray(table),
         jnp.asarray(tok_seq), jnp.asarray(tok_pos), PS))
     return dict(q=q, kv_pages=pages, page_table=table,
                 q_start=(np.arange(B) * sp).astype(np.int32), q_len=q_len,
                 kv_start=kv_start)
 
 
-@pytest.mark.parametrize("Kp,sp,window", [(2, 2, 0), (3, 4, 0), (3, 4, 5)],
-                         ids=["k1_sp2", "k2_sp4", "k2_sp4_window5"])
-def test_plain_dense_packing_matches_pallas_interpret(Kp, sp, window):
-    case = _dense_case(Kp, sp, seed=Kp + sp + window)
+@pytest.mark.parametrize("Kp,sp,window,d", [(2, 2, 0, D), (3, 4, 0, D),
+                                            (3, 4, 5, D), (4, 4, 5, 256)],
+                         ids=["k1_sp2", "k2_sp4", "k2_sp4_window5",
+                              "k3_sp4_window5_d256"])
+def test_plain_dense_packing_matches_pallas_interpret(Kp, sp, window, d):
+    case = _dense_case(Kp, sp, seed=Kp + sp + window, d=d)
     t = {k: torch.from_numpy(v) for k, v in case.items()}
     got = attn.ragged_paged_attention(
         t["q"], t["kv_pages"], t["page_table"], t["q_start"], t["q_len"],
