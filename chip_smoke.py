@@ -42,6 +42,16 @@ Phases, each printing JSON lines:
   pressure Llama-3-8B on 33 KV pages for six completions that need 54:
            the engine must preempt and re-prefill, and every completion
            must reach its max_tokens
+  legacy   the legacy programs at Llama-3-8B full width and depth: (a) the
+           serve phase's engine with completions and a streamed chat that
+           ask for logprobs and sampling penalties, which run on the legacy
+           route per iteration beside plain ones on `mixed`; (b) the whole
+           engine on the legacy route, --kv_quant=int8 --max_batch_size=160
+           (above what one ragged buffer holds), 160 concurrent
+           completions, one prompt chunked; logprob gates, launch counts,
+           logits of the prefill and decode programs' model calls, a no-sync
+           decode_penalized_lp dispatch, and wall and device time per
+           dispatch
 The line before the last is {"kernels": [...]}, the last is
 {"ok": true, "device": {...}}.  Any failure raises and exits non-zero;
 nothing falls back to the CPU or to the plain versions.
@@ -341,6 +351,11 @@ _DECODE_SPLIT = {
                                 window=200),
     "long": dict(lens=[4000 - 37 * i for i in range(8)]),
 }
+# the legacy phase's whole-engine batch: 160 lanes of 25-64 cached tokens
+# and one of 1,225 (timed, not a row of its own)
+DECODE_CASES["b160_d128"] = dict(
+    d=128, lens=[25 + (7 * i) % 40 for i in range(159)] + [1225])
+DECODE_CASES["b160_d128_int8"] = dict(DECODE_CASES["b160_d128"], kv_quant="int8")
 for _d in (128, 64, 256):
     for _kv in ("none", "int8"):
         for _name, _case in _DECODE_SPLIT.items():
@@ -619,7 +634,7 @@ def phase_kernels(torch) -> dict:
          {"d128": True, "d64_llama3_1b": True, "d128_int8": True,
           "d256": True, "d256_int8": True,
           "long_d128": False, "long_d128_int8": False, "long_d64": False,
-          "long_d64_int8": False},
+          "long_d64_int8": False, "b160_d128": False, "b160_d128_int8": False},
          _sdpa_decode, _decode_work),
         # the library yardstick of a verify round is the ragged one: SDPA
         # on the gathered KV with each lane's causal-offset mask
@@ -772,6 +787,7 @@ def main(argv=None) -> int:
     counts.update(phase_kvq(torch))
     counts.update(phase_gemma2(torch))
     phase_pressure(torch)
+    phase_legacy(torch)
     for name, row in rows.items():
         phase, key = KERNEL_PATH[name]
         row["launches"] = counts[phase].get(key, 0)
@@ -856,12 +872,15 @@ def _stream_chat(port: int, body: dict, t_send: list):
         conn.close()
 
 
-def _logits_check(torch, engine, verify_k=None) -> dict:
+def _logits_check(torch, engine, verify_k=None, legacy=False) -> dict:
     """Step-0 logits of one packed plan, then one decode step (and with
     `verify_k`, one speculative verify round of K+1 tokens per lane at the
-    dense stride), through the CUDA kernels and through the plain versions,
-    on the served weights and over a cache of the engine's kind (pages in
-    the activation dtype, or int8 pages with scales):
+    dense stride; with `legacy`, the legacy programs' model calls: a
+    batched llama.prefill of the same prompts into a second cache, whose
+    attention is plain PyTorch on both paths, and one decode step over the
+    cache it wrote), through the CUDA kernels and through the plain
+    versions, on the served weights and over a cache of the engine's kind
+    (pages in the activation dtype, or int8 pages with scales):
 
     - each attention call, float32 (an f32 copy of the weights) and
       bfloat16 (the served weights): the plain run also calls the kernel
@@ -894,11 +913,14 @@ def _logits_check(torch, engine, verify_k=None) -> dict:
     gen = torch.Generator(device="cuda")
     gen.manual_seed(7)
     tokens, seq, pos, q_start, last = [], [], [], [], []
+    prompts = torch.zeros((len(lens), max(lens)), dtype=torch.int32)
     for i, n in enumerate(lens):
         q_start.append(len(tokens))
         pad = -(-n // RAGGED_BQ) * RAGGED_BQ - n
-        tokens += torch.randint(0, mc16.vocab_size, (n,), generator=gen,
-                                device="cuda").tolist() + [0] * pad
+        ids = torch.randint(0, mc16.vocab_size, (n,), generator=gen,
+                            device="cuda").tolist()
+        prompts[i, :n] = torch.tensor(ids, dtype=torch.int32)
+        tokens += ids + [0] * pad
         seq += [i] * n + [-1] * pad
         pos += list(range(n)) + [0] * pad
         last.append(q_start[-1] + n - 1)
@@ -951,8 +973,9 @@ def _logits_check(torch, engine, verify_k=None) -> dict:
         return paired
 
     def run(params, mc, mode: str, picks=None, cache_kind=kv_quant):
-        """([step0, step1(, verify)] logits, the tokens fed after step 0
-        and step 1 — the f32 plain run's greedy picks, reused by all)."""
+        """([step0, step1(, verify)(, legacy_prefill, legacy_decode)]
+        logits, the tokens fed after each step that another follows — the
+        f32 plain run's greedy picks, reused by all)."""
         pages = _fresh_cache(mc, ps, 1 + len(lens) * W, cache_kind)
         step0, _ = llama.forward_ragged(
             params, mc, ints(tokens), ints(seq), ints(pos), ints(q_start),
@@ -982,6 +1005,19 @@ def _logits_check(torch, engine, verify_k=None) -> dict:
                     functools.partial(A.ragged_paged_attention, dense_stride=sp)),
                 logits_at=ints(v_at), dense_stride=sp)
             out.append(verify)
+        if legacy:
+            # the `prefill` program's model call, then a `decode` step over
+            # the cache it wrote (int8 rows quantized by the prefill)
+            lpages = _fresh_cache(mc, ps, 1 + len(lens) * W, cache_kind)
+            pre, _ = llama.prefill(params, mc, prompts.to("cuda"), ints(lens),
+                                   lpages, table, ps)
+            if len(picks) == len(out) - 1:
+                picks.append(torch.argmax(pre, dim=-1).to(torch.int32))
+            dec, _ = llama.decode_step(
+                params, mc, picks[-1], ints(lens), lpages, table, active, ps,
+                attention_fn=attention(mode, "legacy_decode",
+                                       A.paged_attention_plain, A.paged_attention))
+            out += [pre, dec]
         return out, picks
 
     with torch.inference_mode():
@@ -994,29 +1030,39 @@ def _logits_check(torch, engine, verify_k=None) -> dict:
         k16, _ = run(engine.params, mc16, "kernel", picks=picks)
     torch.cuda.empty_cache()
     out = {}
-    names = ("forward_ragged", "decode_step", "verify")[:len(p32)]
+    names = ["forward_ragged", "decode_step"] + (
+        ["verify"] if verify_k is not None else []) + (
+        ["legacy_prefill", "legacy_decode"] if legacy else [])
     for i, name in enumerate(names):
         scale = float(p32[i].abs().max())
         err32 = float((k32[i] - p32[i]).abs().max())
         noise16 = float((p16[i] - p32[i]).abs().max())
         err16 = float((k16[i] - p16[i]).abs().max())
+        # the prefill's attention is plain PyTorch on both paths: no
+        # kernel call to pair (None)
+        f32_pair, bf16_pair = (attn_err.get(("f32", name)),
+                               attn_err.get(("bf16", name)))
         row = {
-            "attn_f32_max_rel_err": attn_err["f32", name][0],
+            "attn_f32_max_rel_err": f32_pair and f32_pair[0],
             "attn_f32_tol": ATTN_F32_REL_TOL,
-            "attn_bf16_max_abs_err": attn_err["bf16", name][0],
-            "attn_bf16_tol": attn_err["bf16", name][1],
+            "attn_bf16_max_abs_err": bf16_pair and bf16_pair[0],
+            "attn_bf16_tol": bf16_pair and bf16_pair[1],
             "f32_max_abs_err": err32, "f32_tol": F32_LOGITS_REL_TOL * scale,
             "bf16_max_abs_err": err16, "bf16_noise": noise16,
             "bf16_tol": BF16_NOISE_FACTOR * noise16, "max_abs_logit": scale,
             "bf16_argmax_agree": float(
                 (k16[i].argmax(-1) == p16[i].argmax(-1)).float().mean()),
         }
-        if kv_quant == "int8":
+        if kv_quant == "int8" and name != "legacy_prefill":
+            # (the prefill's logits read no cache: no int8 noise there)
             row["int8_noise_f32"] = float((p32[i] - x32[i]).abs().max())
             row["f32_tol"] = INT8_NOISE_FACTOR * row["int8_noise_f32"]
         out[name] = row
         finite = all(bool(torch.isfinite(t[i]).all()) for t in (k32, k16))
-        paired_ok = all(e <= t for e, t in (attn_err["f32", name], attn_err["bf16", name]))
+        pairs = [p for p in (f32_pair, bf16_pair) if p is not None]
+        if len(pairs) != (0 if name == "legacy_prefill" else 2):
+            raise AssertionError(f"{name}: paired attention calls {pairs}")
+        paired_ok = all(e <= t for e, t in pairs)
         if not (finite and paired_ok
                 and err32 <= row["f32_tol"] and err16 <= row["bf16_tol"]):
             raise AssertionError(
@@ -1206,13 +1252,21 @@ def _check_decode_has_no_sync(torch, engine) -> dict:
     CUDA sync debugging set to "error": the step, its decode attention
     calls among them, must not wait on the device (the split kernels plan
     from shapes alone and reuse their scratch).  The checked step must
-    launch the decode kernel once per layer and give finite logits."""
+    launch the decode kernel once per layer and give finite logits.  Then
+    the same for one `decode_penalized_lp` dispatch of the engine's legacy
+    programs (penalties on device counts, a seeded lane, top-k logprobs):
+    steps_per_sync decode launches per layer, finite logprobs, and one
+    count per live step added."""
+    import numpy as np
+
+    from kserve_tpu_torch.engine.sampling import SamplingParams, SamplingState
     from kserve_tpu_torch.models import llama
     from kserve_tpu_torch.ops import paged_attention_cuda as K
 
     mc, ps = engine.model_config, engine.config.page_size
+    steps = engine.config.steps_per_sync
     lens = [40, 100, 7, 0, 300, 1, 17, 64]
-    B, W = len(lens), -(-(max(lens) + 1) // ps)
+    B, W = len(lens), -(-(max(lens) + 1 + steps) // ps)
     pages = _fresh_cache(mc, ps, 1 + B * W, engine.config.kv_quant)
     ints = lambda xs: torch.tensor(xs, dtype=torch.int32, device="cuda")  # noqa: E731
     table = ints([[1 + i * W + j for j in range(W)] for i in range(B)])
@@ -1233,12 +1287,55 @@ def _check_decode_has_no_sync(torch, engine) -> dict:
             torch.cuda.set_sync_debug_mode("default")
     launched = K.LAUNCHES[key] - before
     finite = bool(torch.isfinite(logits).all())
-    del pages
-    torch.cuda.empty_cache()
     if launched != mc.n_layers or not finite:
         raise AssertionError(f"sync-checked decode step: {launched} {key} launches "
                              f"for {mc.n_layers} layers, finite logits {finite}")
-    return {"ok": True, "decode_launches": launched}
+
+    program = engine._legacy.get("decode_penalized_lp")
+    params = ([SamplingParams(temperature=0.0, repetition_penalty=1.2, logprobs=5),
+               SamplingParams(temperature=0.8, seed=3, frequency_penalty=0.5,
+                              presence_penalty=0.3, logprobs=2)]
+              + [SamplingParams(temperature=0.0)] * (B - 2))
+    state = SamplingState.from_params(params, "cuda")
+    prompt = torch.zeros((B, mc.vocab_size), dtype=torch.bool, device="cuda")
+    prompt[:, 60:80] = True
+    live = np.asarray([n > 0 for n in lens])
+    host = dict(tokens=np.arange(65, 65 + B, dtype=np.int32),
+                pos=np.asarray(lens, np.int32), page_table=table.cpu().numpy(),
+                active=live, capacity=np.full(B, W * ps, np.int32),
+                counters=np.ones(B, np.int32))
+    gen = torch.Generator(device="cuda")
+
+    def dispatch(counts):
+        return program(engine.params, host["tokens"], host["pos"], pages,
+                       host["page_table"], host["active"], host["capacity"],
+                       host["counters"], state, gen, prompt, counts)
+
+    with torch.inference_mode():
+        dispatch(torch.zeros((B, mc.vocab_size), dtype=torch.int32, device="cuda"))
+        counts = torch.zeros((B, mc.vocab_size), dtype=torch.int32, device="cuda")
+        torch.cuda.synchronize()
+        before = K.LAUNCHES[key]
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            (toks, lp, top_vals, _), _, counts = dispatch(counts)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+    program_launches = K.LAUNCHES[key] - before
+    lp_ok = bool(torch.isfinite(lp[:, live]).all() and (lp[:, live] <= 0).all()
+                 and torch.isfinite(top_vals[:, live]).all())
+    counted = int(counts.sum())
+    del pages
+    torch.cuda.empty_cache()
+    if (program_launches != mc.n_layers * steps or not lp_ok
+            or counted != steps * int(live.sum()) or toks.shape != (steps, B)):
+        raise AssertionError(
+            f"sync-checked decode_penalized_lp: {program_launches} {key} "
+            f"launches for {mc.n_layers} layers x {steps} steps, logprobs "
+            f"ok {lp_ok}, {counted} counts")
+    return {"ok": True, "decode_launches": launched,
+            "decode_penalized_lp_launches": program_launches}
 
 
 def _launches_per_dispatch(phase: str, engine, counts: dict) -> dict:
@@ -1246,23 +1343,33 @@ def _launches_per_dispatch(phase: str, engine, counts: dict) -> dict:
     dispatch launches the ragged kernel once per layer (step 0) and the
     decode kernel once per layer in each of its steps_per_sync - 1 decode
     steps; a dense (spec) dispatch launches the dense kernel once per
-    layer per round.  How many dispatches a phase runs follows the
-    requests' arrival; the launches per dispatch must not move."""
+    layer per round; a legacy decode dispatch (`decode`, `decode_lp`,
+    `decode_penalized`, `decode_penalized_lp`) the decode kernel once per
+    layer in each of its steps_per_sync steps, and the legacy prefill
+    programs none (their attention is plain PyTorch).  How many dispatches
+    a phase runs follows the requests' arrival; the launches per dispatch
+    must not move."""
     layers = engine.model_config.n_layers
     steps = engine.config.steps_per_sync
     mixed, dense = engine.steps, engine.dense_steps
+    legacy = sum(n for name, n in engine.legacy_dispatches.items()
+                 if name.startswith("decode"))
     sfx = "_int8" if engine.config.kv_quant == "int8" else ""
     per = {"ragged_paged_attention" + sfx: layers,
            "paged_decode_attention" + sfx: layers * (steps - 1),
            "dense_ragged_paged_attention" + sfx: layers * steps}
+    per_legacy = {"paged_decode_attention" + sfx: layers * steps}
     want = {k: n * (dense if k.startswith("dense") else mixed)
-            for k, n in per.items()}
+            + per_legacy.get(k, 0) * legacy for k, n in per.items()}
     got = {k: counts.get(k, 0) for k in want}
     if got != want:
         raise AssertionError(f"{phase}: launches {got} != {want} for {mixed} "
-                             f"mixed and {dense} dense dispatches")
+                             f"mixed, {dense} dense and {legacy} legacy decode "
+                             f"dispatches")
     return {"mixed_dispatches": mixed, "dense_dispatches": dense,
-            "per_dispatch": per}
+            "legacy_decode_dispatches": legacy, "per_dispatch": per,
+            "per_legacy_decode_dispatch": per_legacy,
+            "legacy_dispatches": dict(engine.legacy_dispatches)}
 
 
 def _require_launches(phase: str, counts: dict, launched, idle=()) -> None:
@@ -1555,7 +1662,7 @@ def _check_dispatch_has_no_sync(torch, engine) -> dict:
         second = engine._dispatch_dense(plan, chain=first)
     finally:
         torch.cuda.set_sync_debug_mode("default")
-    emitted = [int(engine._wait_dense(c)[1].sum()) for c in (first, second)]
+    emitted = [int(engine._wait_host(c)[1].sum()) for c in (first, second)]
     engine.allocator.free(pages)
     if min(emitted) <= 0:
         raise AssertionError(f"sync-checked dispatches emitted {emitted} tokens")
@@ -1694,6 +1801,299 @@ def _spec_identity_f32(torch) -> dict:
     gc.collect()
     torch.cuda.empty_cache()
     return out
+
+
+
+# ---------------------------------------------------------------- legacy
+
+# (label, prompt, max_tokens, sampling fields): beside two plain greedy
+# completions, three that the mixed program does not serve, so every
+# iteration they are seated in runs the legacy programs; the plain ones
+# run 16 tokens longer and finish on `mixed`
+LEGACY_TOP = 5
+LEGACY_PROMPTS = [
+    ("logprobs", "Tell me about the sea.", 32,
+     {"temperature": 0, "logprobs": LEGACY_TOP}),
+    ("penalized", BASE_TEXT * 3, 32,
+     {"temperature": 0, "frequency_penalty": 0.5, "presence_penalty": 0.3}),
+    ("rep_seeded", "Pick a random word.", 32,
+     {"temperature": 0.8, "seed": 11, "repetition_penalty": 1.2}),
+    ("plain_a", "Write a haiku about paged attention.", 48, {"temperature": 0}),
+    ("plain_b", BASE_TEXT * 6, 48, {"temperature": 0}),
+]
+LEGACY_CHAT_TOKENS = 32
+# the whole-engine route: more slots than one 1,024-token ragged buffer
+# holds at the kernel's 8-token alignment (128), an int8 cache
+LEGACY_BATCH = 160
+LEGACY_B_TOKENS = 24
+LEGACY_B_PROMPTS = [
+    (f"r{i}", f"Request {i}: tell me about the sea.", LEGACY_B_TOKENS)
+    for i in range(LEGACY_BATCH - 2)
+] + [("long", (BASE_TEXT * 40)[:1200], LEGACY_B_TOKENS),  # 1,201 tokens
+     ("sampled", "Pick a random word.", LEGACY_B_TOKENS)]
+
+
+def _check_greedy_top(label: str, token: str, logprob: float, top) -> None:
+    """A greedy token's logprob entry: at most LEGACY_TOP alternatives as
+    (token text, logprob) best first, the token the top-1 entry (unless
+    the top two tie, which top-k may order either way) and its logprob
+    equal to that entry's."""
+    if not (logprob <= 0.0 and 1 <= len(top) <= LEGACY_TOP
+            and top[0][1] == logprob
+            and (top[0][0] == token or top[1][1] == top[0][1])):
+        raise AssertionError(f"legacy {label}: greedy token {token!r} "
+                             f"logprob {logprob} against top {top}")
+
+
+def _check_completion_logprobs(label: str, resp: dict, n: int) -> None:
+    """The completions logprobs block: one entry per token, each value <=
+    0, each top_logprobs dict ({token text: logprob}, the sampled token
+    folded in) of at most LEGACY_TOP entries, and greedy tokens on top."""
+    lp = resp["choices"][0]["logprobs"]
+    if not (len(lp["tokens"]) == len(lp["token_logprobs"]) == len(lp["text_offset"])
+            == len(lp["top_logprobs"]) == n):
+        raise AssertionError(f"legacy {label}: logprobs of {n} tokens: {lp}")
+    for tok, value, top in zip(lp["tokens"], lp["token_logprobs"], lp["top_logprobs"]):
+        ranked = sorted(top.items(), key=lambda kv: -kv[1])
+        _check_greedy_top(label, tok, value, ranked)
+        if top.get(tok) != value:
+            raise AssertionError(f"legacy {label}: {tok!r} {value} not in {top}")
+
+
+def _legacy_requests(torch, server, name, prompts, chat=None):
+    """`prompts` (and the streamed `chat` body) concurrently: (results
+    {label: (status, body)}, chat (status, events, ttft), wall s, kernel
+    launch counts zeroed just before and read just after)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from kserve_tpu_torch.ops import paged_attention_cuda as K
+
+    torch.cuda.synchronize()
+    K.reset_launch_counts()
+    t_run = time.perf_counter()
+    with ThreadPoolExecutor(max_workers=len(prompts) + 1) as pool:
+        futs = {
+            label: pool.submit(_http, server.port, "POST", "/openai/v1/completions", {
+                "model": name, "prompt": text, "max_tokens": n,
+                "ignore_eos": True, **fields})
+            for label, text, n, fields in prompts
+        }
+        chat_fut = (pool.submit(_stream_chat, server.port, chat, [])
+                    if chat is not None else None)
+        results = {label: f.result() for label, f in futs.items()}
+        chat_out = chat_fut.result() if chat_fut is not None else None
+    wall = time.perf_counter() - t_run
+    torch.cuda.synchronize()
+    return results, chat_out, wall, dict(K.LAUNCHES)
+
+
+def _completed(phase: str, results: dict, prompts) -> dict:
+    """Every completion answered 200 with exactly its max_tokens; returns
+    the parsed bodies."""
+    out = {}
+    for label, _, n, _ in prompts:
+        status, body = results[label]
+        if status != 200:
+            raise AssertionError(f"{phase} completion {label} answered {status}: "
+                                 f"{body[:300]!r}")
+        resp = json.loads(body)
+        got = resp["usage"]["completion_tokens"]
+        if got != n or resp["choices"][0]["finish_reason"] != "length":
+            raise AssertionError(f"{phase} completion {label}: {got} tokens, "
+                                 f"wanted {n}")
+        out[label] = resp
+    return out
+
+
+def _profile_call(torch, fn) -> dict:
+    """Wall ms of one call to a synchronize (best of 3, warm), and the
+    device busy ms (kernels' summed device time) and kernel launches of
+    one more call under torch.profiler."""
+    for _ in range(2):
+        fn()
+    torch.cuda.synchronize()
+    walls = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        prof_wall = time.perf_counter() - t0
+    busy, launches = 0.0, 0
+    for ev in prof.key_averages():
+        # kernels only: CPU-side ops also report their kernels' time
+        if ev.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        if ev.self_device_time_total > 0:
+            busy += ev.self_device_time_total / 1e3
+            launches += ev.count
+    return {"wall_ms": min(walls) * 1e3, "device_busy_ms": busy,
+            "kernel_launches": launches, "profiled_wall_ms": prof_wall * 1e3,
+            "device_idle_share": max(0.0, 1 - busy / (prof_wall * 1e3))}
+
+
+def _legacy_dispatch_times(torch, engine, lanes: int) -> dict:
+    """Wall and device time of one `prefill` (prefill_batch prompts of 48
+    tokens), `decode` and `decode_penalized_lp` dispatch (`lanes` greedy
+    lanes of 40-100 cached tokens; penalties and top-5 logprobs on every
+    lane of the latter) of the engine's legacy programs on its weights
+    over a fresh cache of its kind."""
+    import numpy as np
+
+    from kserve_tpu_torch.engine.sampling import SamplingParams, SamplingState
+
+    mc, ec = engine.model_config, engine.config
+    ps, steps, Bp = ec.page_size, ec.steps_per_sync, ec.prefill_batch
+    lens = np.asarray([40 + (7 * i) % 61 for i in range(lanes)], np.int32)
+    W = -(-(int(lens.max()) + 1 + steps) // ps)
+    pages = _fresh_cache(mc, ps, 1 + lanes * W, ec.kv_quant)
+    table = (1 + np.arange(lanes * W, dtype=np.int32)).reshape(lanes, W)
+    rng = np.random.RandomState(5)
+    prompts = rng.randint(0, mc.vocab_size, (Bp, 64)).astype(np.int32)
+    valid = np.full(Bp, 48, np.int32)
+    gen = torch.Generator(device="cuda")
+    greedy = [SamplingParams(temperature=0.0)]
+    penal = [SamplingParams(temperature=0.0, repetition_penalty=1.2,
+                            frequency_penalty=0.5, logprobs=5)]
+    state = {k: SamplingState.from_params(v * n, "cuda") for k, v, n in (
+        ("prefill", greedy, Bp), ("decode", greedy, lanes),
+        ("penalized", penal, lanes))}
+    counts = torch.zeros((lanes, mc.vocab_size), dtype=torch.int32, device="cuda")
+    prompt = torch.zeros((lanes, mc.vocab_size), dtype=torch.bool, device="cuda")
+    prompt[:, 100:140] = True
+    decode_args = (engine.params, np.full(lanes, 65, np.int32), lens, pages,
+                   table, np.ones(lanes, bool), np.full(lanes, W * ps, np.int32),
+                   np.ones(lanes, np.int32))
+    legacy = engine._legacy
+    calls = {
+        "prefill": lambda: legacy.get("prefill")(
+            engine.params, prompts, valid, pages, table[:Bp], state["prefill"],
+            gen),
+        "decode": lambda: legacy.get("decode")(*decode_args, state["decode"], gen),
+        "decode_penalized_lp": lambda: legacy.get("decode_penalized_lp")(
+            *decode_args, state["penalized"], gen, prompt, counts),
+    }
+    with torch.inference_mode():
+        out = {name: _profile_call(torch, fn) for name, fn in calls.items()}
+    del pages, counts, prompt
+    torch.cuda.empty_cache()
+    out["lanes"] = lanes
+    return out
+
+
+def phase_legacy(torch) -> None:
+    """The legacy programs on the card, Llama-3-8B at full width and depth
+    (seeded random weights):
+
+    (a) the serve phase's engine (8 slots, bf16): LEGACY_PROMPTS and a
+        streamed chat with logprobs and top_logprobs concurrently.  Every
+        completion reaches max_tokens; each logprobs block has one entry
+        per token, values <= 0, at most LEGACY_TOP alternatives, greedy
+        tokens on top; the engine ran both mixed and legacy decode
+        dispatches, with the per-dispatch launches of each.
+    (b) --kv_quant=int8 --max_batch_size=160 (the batch that raised before
+        the legacy route), LEGACY_B_PROMPTS concurrently, one of 1,201
+        tokens: the engine resolved to the legacy route and never launched
+        the ragged kernel, every legacy decode dispatch launched the int8
+        decode kernel n_layers x steps_per_sync times, and every
+        completion reached max_tokens.
+
+    Each part holds the prefill and decode programs' logits through the
+    kernels to the plain versions (_logits_check with `legacy`), checks a
+    decode_penalized_lp dispatch for host syncs and times one prefill,
+    decode and decode_penalized_lp dispatch."""
+    t_phase = time.perf_counter()
+    emit({"phase": "legacy", "event": "start",
+          "memory_allocated_gb": torch.cuda.memory_allocated() / 1e9})
+    model, server, thread = _start_server(torch, SERVE_ARGS, "legacy")
+    engine = model.engine
+    chat = {"model": model.name, "stream": True,
+            "max_tokens": LEGACY_CHAT_TOKENS, "temperature": 0,
+            "ignore_eos": True, "logprobs": True, "top_logprobs": LEGACY_TOP,
+            "messages": [{"role": "user", "content": "Say something long."}]}
+    results, (chat_status, events, ttft), wall, counts = _legacy_requests(
+        torch, server, model.name, LEGACY_PROMPTS, chat)
+    resps = _completed("legacy", results, LEGACY_PROMPTS)
+    _check_completion_logprobs("logprobs", resps["logprobs"], 32)
+    if chat_status != 200 or events[-1] != "[DONE]":
+        raise AssertionError(f"legacy chat answered {chat_status}")
+    token_events = [json.loads(e) for e in events[1:-1]]
+    if len(token_events) != LEGACY_CHAT_TOKENS:
+        raise AssertionError(f"legacy chat gave {len(token_events)} token events")
+    for ev in token_events:
+        (entry,) = ev["choices"][0]["logprobs"]["content"]
+        _check_greedy_top("chat", entry["token"], entry["logprob"],
+                          [(t["token"], t["logprob"]) for t in entry["top_logprobs"]])
+    legacy_decodes = sum(n for k, n in engine.legacy_dispatches.items()
+                         if k.startswith("decode"))
+    if engine.steps <= 0 or legacy_decodes <= 0:
+        raise AssertionError(f"legacy: {engine.steps} mixed and {legacy_decodes} "
+                             f"legacy decode dispatches; wanted both")
+    _require_launches("legacy", counts, ("paged_decode_attention",
+                                         "ragged_paged_attention"))
+    generated = sum(n for _, _, n, _ in LEGACY_PROMPTS) + LEGACY_CHAT_TOKENS
+    summary = {
+        "phase": "legacy", "part": "per_iteration",
+        "model": f"{model.name} (random weights, seed 1)",
+        "kv_quant": engine.config.kv_quant,
+        "requests": len(LEGACY_PROMPTS) + 1, "tokens_generated": generated,
+        "wall_s": wall, "tok_per_s": generated / wall, "chat_ttft_s": ttft,
+        "launches": counts,
+        "launches_per_dispatch": _launches_per_dispatch("legacy", engine, counts),
+        "programs_built": engine._legacy.built,
+        "logits_check": _logits_check(torch, engine, legacy=True),
+        "decode_no_sync": _check_decode_has_no_sync(torch, engine),
+        "dispatch_times": _legacy_dispatch_times(
+            torch, engine, engine.config.max_batch_size),
+    }
+    del engine
+    _stop_server(torch, model, server, thread)
+    t_part = time.perf_counter()
+    emit(dict(summary, part_wall_s=t_part - t_phase))
+
+    model, server, thread = _start_server(
+        torch, SERVE_ARGS + ["--kv_quant=int8", f"--max_batch_size={LEGACY_BATCH}"],
+        "legacy_b160")
+    engine = model.engine
+    if engine._use_mixed:
+        raise AssertionError("max_batch_size 160 resolved to the mixed program")
+    prompts = [(label, text, n, SAMPLED.get(label, {"temperature": 0}))
+               for label, text, n in LEGACY_B_PROMPTS]
+    results, _, wall, counts = _legacy_requests(torch, server, model.name, prompts)
+    _completed("legacy_b160", results, prompts)
+    int8_decode = "paged_decode_attention_int8"
+    every_key = _ATTENTION_KEYS + tuple(k + "_int8" for k in _ATTENTION_KEYS)
+    _require_launches("legacy_b160", counts, (int8_decode,),
+                      [k for k in every_key if k != int8_decode])
+    used = engine.legacy_dispatches
+    if used["prefill"] <= 0 or used["prefill_chunk"] < 2:
+        raise AssertionError(f"legacy_b160: legacy dispatches {used}; wanted "
+                             f"batched prefills and a chunked prompt")
+    generated = LEGACY_BATCH * LEGACY_B_TOKENS
+    summary = {
+        "phase": "legacy", "part": "whole_engine",
+        "model": f"{model.name} (random weights, seed 1)",
+        "kv_quant": engine.config.kv_quant, "kv_cache_gb": _kv_cache_gb(engine),
+        "max_batch_size": LEGACY_BATCH, "requests": len(prompts),
+        "prompt_tokens_long": len(model.tokenizer.encode(LEGACY_B_PROMPTS[-2][1])),
+        "tokens_generated": generated, "wall_s": wall,
+        "tok_per_s": generated / wall, "launches": counts,
+        "launches_per_dispatch": _launches_per_dispatch("legacy_b160", engine, counts),
+        "programs_built": engine._legacy.built,
+        "logits_check": _logits_check(torch, engine, legacy=True),
+        "decode_no_sync": _check_decode_has_no_sync(torch, engine),
+        "dispatch_times": _legacy_dispatch_times(torch, engine, LEGACY_BATCH),
+    }
+    del engine
+    _stop_server(torch, model, server, thread)
+    done = time.perf_counter()
+    emit(dict(summary, part_wall_s=done - t_part, phase_wall_s=done - t_phase))
 
 
 if __name__ == "__main__":

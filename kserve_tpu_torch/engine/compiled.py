@@ -1,8 +1,10 @@
-"""The engine's device programs: the unified ragged `mixed` step and the
-speculative `mixed_decode` step.
+"""The engine's device programs: the unified ragged `mixed` step, the
+speculative `mixed_decode` step and the legacy program set.
 
-Ports of kserve_tpu/engine/compiled.py:_make_mixed (:465-529) and
-:_make_mixed_decode (:531-697).  Where the JAX package jits a program and
+Ports of kserve_tpu/engine/compiled.py:_make_mixed (:465-529),
+:_make_mixed_decode (:531-697) and the legacy programs (`LegacyPrograms`:
+:_make_prefill, :_make_decode and its logprob and penalized forms,
+:_prefill_chunk and :_make_sample_first, :294-447 and :699).  Where the JAX package jits a program and
 runs its loop as a `lax.scan`, these are plain functions whose loop is a
 Python loop: PyTorch runs eagerly.  Neither loop waits on the device: in
 `mixed` every per-step control value (positions, which lanes are live,
@@ -28,7 +30,12 @@ from ..models import llama
 from ..ops.attention import dense_stride_for
 from ..ops.paged_attention_cuda import RAGGED_BQ
 from .kvcache import KVLayer, layer_pages
-from .sampling import SamplingState, sample_tokens
+from .sampling import (
+    SamplingState,
+    apply_penalties,
+    compute_logprobs,
+    sample_tokens,
+)
 
 
 def make_mixed(model_config: llama.LlamaConfig, engine_config):
@@ -209,3 +216,199 @@ def make_mixed_decode(model_config: llama.LlamaConfig, engine_config,
                 draft_table, (tok, p, cnt))
 
     return mixed_decode
+
+
+class LegacyPrograms:
+    """The legacy program set under the JAX package's names: the batched
+    `prefill` (and `prefill_lp`), `prefill_chunk`, `sample_first` (and
+    `sample_first_lp`), and `decode`, `decode_lp`, `decode_penalized`,
+    `decode_penalized_lp`.  The engine runs them for the whole engine when
+    its batch does not fit one ragged buffer, and for an iteration in
+    which a lane asks for logprobs or sampling penalties, which `mixed`
+    does not compute.  A program is built the first time `get` asks for
+    it, so an engine that never serves such lanes never builds the top-k
+    or the [B, V] count scatter (`built` lists what was).
+
+    Attention: `prefill` and `prefill_chunk` run the plain PyTorch prefill
+    attention (XLA code in the JAX package); `decode*` run
+    llama.decode_step, so the decode kernel on the card.  Host inputs go
+    up through pinned memory without a stream sync; the decode loop's
+    positions, live lanes and counters follow from the host plan alone,
+    as in `mixed`, so no program waits on the device."""
+
+    NAMES = ("prefill", "prefill_lp", "prefill_chunk", "sample_first",
+             "sample_first_lp", "decode", "decode_lp", "decode_penalized",
+             "decode_penalized_lp")
+
+    def __init__(self, model_config: llama.LlamaConfig, engine_config):
+        self.model_config = model_config
+        self.config = engine_config
+        self._programs = {}
+
+    @property
+    def built(self) -> List[str]:
+        return sorted(self._programs)
+
+    def get(self, name: str):
+        fn = self._programs.get(name)
+        if fn is None:
+            if name not in self.NAMES:
+                raise KeyError(f"no legacy program {name!r}")
+            lp = name.endswith("_lp")
+            base = name[:-3] if lp else name
+            if base == "prefill":
+                fn = self._make_prefill(lp)
+            elif base == "prefill_chunk":
+                fn = self._make_prefill_chunk()
+            elif base == "sample_first":
+                fn = self._make_sample_first(lp)
+            else:
+                fn = self._make_decode(base == "decode_penalized", lp)
+            self._programs[name] = fn
+        return fn
+
+    def _first_token(self, logits, state: SamplingState, rng, in_prompt,
+                     with_logprobs: bool):
+        """The first token of each row from its prompt's last logits: the
+        repetition penalty counts the prompt's tokens as seen (frequency
+        and presence have no output yet), then seeded rows draw with
+        counter 0.  Rows with the default penalties are bit for bit the
+        unpenalized math."""
+        logits = apply_penalties(
+            logits, torch.zeros(logits.shape, dtype=torch.int32,
+                                device=logits.device),
+            state.repetition_penalty, state.frequency_penalty,
+            state.presence_penalty, in_prompt)
+        first = sample_tokens(logits, state, rng)
+        if with_logprobs:
+            return first, compute_logprobs(logits, first,
+                                           self.config.max_logprobs)
+        return first
+
+    def _make_prefill(self, with_logprobs: bool):
+        """prefill(params, tokens [Bp, T], valid_len [Bp], pages, page_ids
+        [Bp, W], state, rng) -> (first [Bp] int32[, (lp, top_vals,
+        top_ids)], pages): whole prompts through llama.prefill, the
+        in-prompt mask of the first token's repetition penalty made on the
+        device (compiled.py:294-341)."""
+        mc, ps = self.model_config, self.config.page_size
+
+        def prefill(params, tokens, valid_len, kv_pages: List[KVLayer],
+                    page_ids, state: SamplingState, rng: torch.Generator):
+            device = layer_pages(kv_pages[0]).device
+            tok, valid = upload(tokens, device), upload(valid_len, device)
+            logits, kv_pages = llama.prefill(
+                params, mc, tok, valid, kv_pages, upload(page_ids, device), ps)
+            Bp, T = tok.shape
+            pos_valid = (torch.arange(T, dtype=torch.int32, device=device)[None, :]
+                         < valid[:, None])
+            in_prompt = torch.zeros(
+                (Bp, logits.shape[-1]), dtype=torch.int32, device=device
+            ).scatter_reduce_(1, tok.long(), pos_valid.to(torch.int32),
+                              reduce="amax").bool()
+            out = self._first_token(logits, state, rng, in_prompt,
+                                    with_logprobs)
+            if with_logprobs:
+                return out[0], out[1], kv_pages
+            return out, kv_pages
+
+        return prefill
+
+    def _make_prefill_chunk(self):
+        """prefill_chunk(params, tokens [B, C], chunk_start [B], valid_len
+        [B], pages, page_ids [B, W]) -> ([B, V] f32 logits at each chunk's
+        last valid token, pages) (compiled.py:447)."""
+        mc, ps = self.model_config, self.config.page_size
+
+        def prefill_chunk(params, tokens, chunk_start, valid_len,
+                          kv_pages: List[KVLayer], page_ids):
+            device = layer_pages(kv_pages[0]).device
+            return llama.prefill_chunk(
+                params, mc, upload(tokens, device), upload(chunk_start, device),
+                upload(valid_len, device), kv_pages, upload(page_ids, device),
+                ps)
+
+        return prefill_chunk
+
+    def _make_sample_first(self, with_logprobs: bool):
+        """sample_first(logits [B, V], state, rng, in_prompt [B, V] bool) ->
+        first [B] int32 (or (first, (lp, top_vals, top_ids))): the first
+        token after a chunked prefill, with the batched prefill's penalty
+        semantics (compiled.py:699)."""
+
+        def sample_first(logits, state: SamplingState, rng: torch.Generator,
+                         in_prompt):
+            return self._first_token(
+                logits, state, rng, upload(in_prompt, logits.device, torch.bool),
+                with_logprobs)
+
+        return sample_first
+
+    def _make_decode(self, with_penalties: bool, with_logprobs: bool):
+        """decode(params, tokens [B], pos [B], pages, page_table [B, W],
+        active [B], capacity [B], counters [B], state, rng[, prompt_mask
+        [B, V] bool, counts [B, V] int32]) -> (out, pages[, counts]):
+        steps_per_sync steps of llama.decode_step (compiled.py:343-418).
+
+        A lane steps while active and below its page capacity; past it
+        the lane holds its token and position and writes to the null page.
+        Seeded lanes draw with counter `counters + live steps so far`.
+        `out` is [steps, B] int32 tokens, or with logprobs (tokens, lp
+        [steps, B], top_vals and top_ids [steps, B, max_logprobs]).  The
+        penalized form penalizes each step's logits with the device counts
+        and the prompt mask, and adds `live` at each sampled token to the
+        counts, in place.  `tokens` may be the device tokens of a chained
+        dispatch; every other input is host data."""
+        mc, steps = self.model_config, self.config.steps_per_sync
+        ps, k_lp = self.config.page_size, self.config.max_logprobs
+
+        def decode(params, tokens, pos, kv_pages: List[KVLayer], page_table,
+                   active, capacity, counters, state: SamplingState,
+                   rng: torch.Generator, prompt_mask=None, counts=None):
+            device = layer_pages(kv_pages[0]).device
+            pos_h = np.asarray(pos, np.int64).copy()
+            cnt_h = np.asarray(counters, np.int64).copy()
+            active_h = np.asarray(active, bool)
+            cap_h = np.asarray(capacity, np.int64)
+            step_pos, step_live, step_cnt = [], [], []
+            for _ in range(steps):
+                live = active_h & (pos_h < cap_h)
+                step_pos.append(pos_h.copy())
+                step_live.append(live)
+                step_cnt.append(cnt_h.copy())
+                pos_h += live
+                cnt_h += live
+            pos_d = upload(np.stack(step_pos), device)
+            live_d = upload(np.stack(step_live), device, torch.bool)
+            cnt_d = upload(np.stack(step_cnt), device)
+            table = upload(page_table, device)
+            tok = tokens if torch.is_tensor(tokens) else upload(tokens, device)
+            toks, lps, tvs, tis = [], [], [], []
+            for s in range(steps):
+                live = live_d[s]
+                logits, kv_pages = llama.decode_step(
+                    params, mc, tok, pos_d[s], kv_pages, table, live, ps)
+                if with_penalties:
+                    logits = apply_penalties(
+                        logits, counts, state.repetition_penalty,
+                        state.frequency_penalty, state.presence_penalty,
+                        prompt_mask)
+                nxt = sample_tokens(logits, state, rng, cnt_d[s])
+                tok = torch.where(live, nxt, tok)
+                if with_logprobs:
+                    lp, tv, ti = compute_logprobs(logits, tok, k_lp)
+                    lps.append(lp)
+                    tvs.append(tv)
+                    tis.append(ti)
+                if with_penalties:
+                    counts.scatter_add_(1, tok.long()[:, None],
+                                        live.to(counts.dtype)[:, None])
+                toks.append(tok)
+            out = torch.stack(toks)
+            if with_logprobs:
+                out = (out, torch.stack(lps), torch.stack(tvs), torch.stack(tis))
+            if with_penalties:
+                return out, kv_pages, counts
+            return out, kv_pages
+
+        return decode

@@ -19,17 +19,31 @@ Port of the unified-ragged serving path of kserve_tpu/engine/engine.py:
   re-prefills its prompt plus all but its last generated token through
   the ordinary ragged chunks and resumes decoding where it stopped; the
   client's stream only pauses
+- the legacy programs (compiled.LegacyPrograms: batched `prefill`,
+  `prefill_chunk`, `sample_first`, the `decode` family) serve two
+  routes, as in the JAX engine: the whole engine when its batch does not
+  fit one packed buffer (`resolve_use_mixed`: above 128 slots at the
+  default buckets on the card) or `use_ragged=False`, admitting through
+  `_admit_batch` and stepping through `_advance_prefills` and
+  `_decode_once`; and one iteration of the mixed engine in which a
+  seated lane asks for logprobs or sampling penalties
+  (`_needs_legacy_step`), which `mixed` does not compute.  Legacy decode
+  dispatches chain depth 2 on the device tokens of the one in flight.
 
-The device call and the fetch of its tokens run in a worker thread
+The device calls and the fetches of their tokens run in worker threads
 (`asyncio.to_thread`), so the event loop keeps answering health probes and
-new requests while a step computes.
+new requests while a step computes.  Every launch goes to one CUDA stream,
+so a finished lane's pages are freed at once even while a chained
+dispatch that still writes them is in flight (the JAX engine defers such
+frees): a later owner's writes land after the stale ones, and it reads no
+position it has not written.
 
 Not ported yet: the prefix cache, KV tiers and persistence (so a
 preempted lane always recomputes its KV: no spill to host memory and no
-re-inject, for bf16 or int8 caches), the peer page fabric,
-data/tensor/pipeline/sequence parallelism, P/D disaggregation,
-drain/checkpoint/resume, the watchdog, metrics and the AOT cache.
-Admission waits for free pages.
+re-inject, for bf16 or int8 caches), injected KV (`inject`, `inject_q`),
+the peer page fabric, data/tensor/pipeline/sequence parallelism, P/D
+disaggregation, drain/checkpoint/resume, the watchdog, metrics and the
+AOT cache.  Admission waits for free pages.
 """
 
 from __future__ import annotations
@@ -47,7 +61,7 @@ from ..device import resolve_device, upload
 from ..models import llama
 from ..ops.attention import dense_stride_for
 from ..ops.paged_attention_cuda import RAGGED_BQ
-from .compiled import make_mixed, make_mixed_decode
+from .compiled import LegacyPrograms, make_mixed, make_mixed_decode
 from .kvcache import (
     KVCacheConfig,
     PageAllocator,
@@ -60,6 +74,23 @@ from .tokenizer import BaseTokenizer, IncrementalDetokenizer
 from .types import EngineConfig, GenerationOutput, _QueuedRequest, _Slot
 
 logger = logging.getLogger(__name__)
+
+
+def resolve_use_mixed(config: EngineConfig, align: int) -> bool:
+    """Whether the engine runs the unified ragged `mixed` program
+    (kserve_tpu/engine/engine.py:499-515).  A pure-decode step packs
+    every lane in one buffer of slices aligned to `align` (the CUDA
+    ragged kernel's block on the card, 1 for the plain version), so the
+    largest prefill bucket must cover max_batch_size x align.  use_ragged
+    None takes mixed where it fits and the legacy programs elsewhere;
+    True where it does not fit raises; False is the legacy programs."""
+    mixed_ok = config.max_batch_size * align <= config.prefill_buckets[-1]
+    if config.use_ragged and not mixed_ok:
+        raise NotImplementedError(
+            "use_ragged=True requires max_batch_size (x the kernel's block "
+            "alignment) <= the largest prefill bucket; set use_ragged="
+            "None/False for this batch")
+    return mixed_ok if config.use_ragged is None else bool(config.use_ragged)
 
 
 class LLMEngine:
@@ -135,17 +166,19 @@ class LLMEngine:
         # slices start at multiples of the CUDA ragged kernel's block (one
         # lane per block); the plain CPU version packs densely
         self._ragged_align = RAGGED_BQ if self.device.type == "cuda" else 1
-        if (engine_config.max_batch_size * self._ragged_align
-                > engine_config.prefill_buckets[-1]):
-            raise ValueError(
-                "max_batch_size x the kernel block alignment must fit the "
-                "largest prefill bucket (a pure-decode step packs every lane)")
+        self._use_mixed = resolve_use_mixed(engine_config, self._ragged_align)
         self._mixed = make_mixed(model_config, engine_config)
+        self._legacy = LegacyPrograms(model_config, engine_config)
         # speculative decoding (kserve_tpu/engine/engine.py:516-571)
         spec_k = engine_config.spec_decode_k
         if spec_k is not None:
             if spec_k < 0:
                 raise ValueError(f"spec_decode_k must be >= 0, got {spec_k}")
+            if not self._use_mixed:
+                raise NotImplementedError(
+                    "spec_decode_k requires the unified ragged (mixed) path; "
+                    "it does not compose with use_ragged=False or a batch "
+                    "above the largest prefill bucket")
             stride = dense_stride_for(spec_k + 1, self._ragged_align)
             if (self._ragged_align > 1
                     and (engine_config.max_batch_size * stride)
@@ -171,6 +204,17 @@ class LLMEngine:
         # it was last seeded (None = every row)
         self._draft_table: Optional[torch.Tensor] = None
         self._draft_dirty: Optional[set] = None
+        # the penalized decode programs' device [B, V] output counts and
+        # prompt masks, and the rows whose occupant changed since they
+        # were last built (None = every row)
+        self._penalty_counts: Optional[torch.Tensor] = None
+        self._penalty_prompt: Optional[torch.Tensor] = None
+        self._penalty_dirty_rows: Optional[set] = None
+        # a batched prefill's (slot index, request, pages, seq) while it
+        # runs: in no slot and out of the queue, so a crash or a cancel
+        # must find them here
+        self._admitting: List[tuple] = []
+        self._cancelled_admissions: set = set()
         self.spec_stats = {"drafted": 0, "accepted": 0, "rejected": 0}
         self._slots: List[_Slot] = [
             _Slot() for _ in range(engine_config.max_batch_size)]
@@ -183,6 +227,8 @@ class LLMEngine:
         self.chained_dispatches = 0  # of those, launched behind another
         self.preemption_count = 0  # slots sent back to the queue
         self._admission_seq = 0  # seating order of decoding lanes
+        # legacy program -> dispatches so far
+        self.legacy_dispatches = {name: 0 for name in LegacyPrograms.NAMES}
 
     # ---------------- public API ----------------
 
@@ -247,6 +293,8 @@ class LLMEngine:
 
     def cancel(self, request_id: str) -> None:
         self._waiting = [r for r in self._waiting if r.request_id != request_id]
+        if any(req.request_id == request_id for _, req, _, _ in self._admitting):
+            self._cancelled_admissions.add(request_id)
         for slot in self._slots:
             if slot.request_id == request_id:
                 self.allocator.free(slot.pages)
@@ -265,10 +313,15 @@ class LLMEngine:
             while not self._stopped:
                 did_work = False
                 while self._waiting and self._free_slot_index() is not None:
-                    if not self._admit_prefilling(self._waiting[0]):
+                    if self._use_mixed:
+                        admitted = self._admit_prefilling(self._waiting[0])
+                    else:
+                        admitted = await self._admit_batch()
+                    if not admitted:
                         break
                     did_work = True
-                if await self._step_mixed():
+                step = self._step_mixed if self._use_mixed else self._step_legacy
+                if await step():
                     did_work = True
                 if not did_work:
                     self._wake.clear()
@@ -283,6 +336,12 @@ class LLMEngine:
                     self.allocator.free(slot.pages)
                     slot.reset()
             self._fail_waiting(e)
+            # requests a failed _admit_batch took from the queue but never
+            # seated
+            for _, req, pages, _ in self._admitting:
+                self.allocator.free(pages)
+                req.queue.put_nowait(e)
+            self._admitting = []
 
     def _free_slot_index(self) -> Optional[int]:
         for i, slot in enumerate(self._slots):
@@ -313,14 +372,8 @@ class LLMEngine:
                 f"prompt needs {need} pages > max_pages_per_seq "
                 f"{self.config.max_pages_per_seq}"))
             return True
-        required = need
-        if req.resume is not None or total > self.config.prefill_buckets[-1]:
-            # many chunks in flight before the first token, or a resume
-            # that an at once starving cache would only bounce back out:
-            # keep a couple of dispatches of decode headroom
-            required = min(
-                need + pages_needed(2 * self.config.steps_per_sync, ps),
-                self.config.num_pages - 1)
+        required = self._admission_pages(
+            req, need, headroom=total > self.config.prefill_buckets[-1])
         if not self.allocator.can_allocate(required):
             return False
         pages = self.allocator.allocate(need)
@@ -332,8 +385,20 @@ class LLMEngine:
         seq = req.prompt_ids
         if req.resume is not None:
             seq = req.prompt_ids + req.resume["generated"][:-1]
-        slot.prefilling = {"req": req, "seq": seq, "done": 0}
+        slot.prefilling = {"req": req, "seq": seq, "done": 0, "logits": None}
         return True
+
+    def _admission_pages(self, req: _QueuedRequest, need: int,
+                         headroom: bool = False) -> int:
+        """Pages that must be free to admit `req` into `need` pages: a
+        resume, or a prompt of many chunks before its first token
+        (`headroom`), also keeps a couple of dispatches of decode headroom,
+        since a cache that starves at once would only bounce the work back
+        out (kserve_tpu/engine/engine.py:2439)."""
+        if req.resume is None and not headroom:
+            return need
+        extra = pages_needed(2 * self.config.steps_per_sync, self.config.page_size)
+        return min(need + extra, self.config.num_pages - 1)
 
     def _ensure_pages_at(self, slot: _Slot, base: int, extra: int) -> None:
         needed = min(pages_needed(base + extra, self.config.page_size),
@@ -388,6 +453,7 @@ class LLMEngine:
         pages: it has emitted nothing, so only its chunks are lost."""
         req = slot.prefilling["req"]
         self.allocator.free(slot.pages)
+        self._mark_penalty_dirty(self._slots.index(slot))
         slot.reset()
         self._waiting.insert(0, req)
         self.preemption_count += 1
@@ -408,44 +474,77 @@ class LLMEngine:
             "admitted_at": slot.admitted_at,
         }
         self.allocator.free(slot.pages)
+        self._mark_penalty_dirty(self._slots.index(slot))
         slot.reset()
         self._waiting.insert(0, req)
         self.preemption_count += 1
         logger.info("preempted request %s at position %d", req.request_id,
                     req.resume["pos"])
 
-    def _prepare_chunk(self) -> Optional[dict]:
-        """Host-side decode state of this step's decode lanes."""
+    def _prepare_chunk(self, prev: Optional[dict] = None) -> Optional[dict]:
+        """Host-side state of a dispatch's decode lanes (port of
+        kserve_tpu/engine/engine.py:2742-2826).  Unchained (`prev` None),
+        pages grow first and may preempt.  Chained behind the in-flight
+        legacy decode `prev`, a lane starts where prev leaves it, its
+        position advanced by min(steps, prev's capacity) without reading
+        prev's tokens, and pages grow best-effort with no preemption.  A
+        seeded lane's counter is the tokens it has generated, pos -
+        prompt_len + 1.  A penalized dispatch brings the device penalty
+        state up to date first."""
         B = self.config.max_batch_size
-        self._grow_and_preempt()
+        ps = self.config.page_size
+        steps = self.config.steps_per_sync
+        if prev is None:
+            self._grow_and_preempt()
         tokens = np.zeros((B,), np.int32)
         pos = np.zeros((B,), np.int32)
         active = np.zeros((B,), bool)
         capacity = np.zeros((B,), np.int32)
         counters = np.zeros((B,), np.int32)
+        params_list = [SamplingParams()] * B
         for i, slot in enumerate(self._slots):
             if slot.request_id is None or slot.prefilling is not None:
                 continue
-            base = slot.pos
-            tokens[i] = slot.generated[-1]
-            if self.config.max_model_len - base <= 0:
-                self._finish(slot, "length")
+            if prev is not None:
+                if not prev["active"][i]:
+                    continue
+                base = min(int(prev["pos"][i]) + steps, int(prev["capacity"][i]))
+            else:
+                base = slot.pos
+                tokens[i] = slot.generated[-1]
+            grow = min(self._max_step_advance, self.config.max_model_len - base)
+            if grow <= 0:
+                if prev is None:
+                    self._finish(slot, "length")  # at max_model_len
                 continue
-            if len(slot.pages) * self.config.page_size <= base:
+            if prev is not None:
+                self._ensure_pages_at(slot, base, grow)
+            if len(slot.pages) * ps <= base:
                 continue  # no capacity this step
             pos[i] = base
             active[i] = True
-            capacity[i] = len(slot.pages) * self.config.page_size
+            capacity[i] = len(slot.pages) * ps
             counters[i] = base - slot.prompt_len + 1
+            params_list[i] = slot.params
         if not active.any():
             return None
+        lanes = [p for i, p in enumerate(params_list) if active[i]]
+        penalized = any(p.has_penalties for p in lanes)
+        if penalized:
+            self._refresh_penalty_state()
         return {"tokens": tokens, "pos": pos, "active": active,
-                "capacity": capacity, "counters": counters}
+                "capacity": capacity, "counters": counters,
+                "page_table": self._page_table(active),
+                "params": params_list, "penalized": penalized,
+                "want_logprobs": any(p.logprobs is not None for p in lanes)}
 
     async def _step_mixed(self) -> bool:
         """One engine step: every prefilling slot contributes its next
         prompt chunk and every decode lane its next token, in one packed
-        `mixed` dispatch."""
+        `mixed` dispatch; an iteration with a seated lane that asks for
+        logprobs or penalties runs the legacy programs instead."""
+        if self._needs_legacy_step():
+            return await self._step_legacy()
         meta = self._prepare_chunk()
         prefilling = [(i, s) for i, s in enumerate(self._slots)
                       if s.request_id is not None and s.prefilling is not None]
@@ -614,11 +713,8 @@ class LLMEngine:
                 continue
             pf = slot.prefilling
             pf["done"] += n
-            if final and pf["req"].resume is not None:
-                self._seat_resumed(slot, pf["req"])
-            elif final:
-                self._seat_fresh(slot, pf["req"], int(chunk_np[0, i]))
-                self._emit(slot, int(chunk_np[0, i]))
+            if final:
+                self._complete_prefilling(slot, pf["req"], int(chunk_np[0, i]))
         for i in sorted(plan["consume"]):
             first_row, n_rows = plan["consume"][i]
             slot = self._slots[i]
@@ -629,6 +725,345 @@ class LLMEngine:
                 slot.pos += 1
                 slot.generated.append(token)
                 self._emit(slot, token)
+
+    # ---------------- legacy programs ----------------
+    # Port of kserve_tpu/engine/engine.py:1990-2437 (admission and chunked
+    # prefill) and :2742-3100 (decode), without the prefix cache, tiers,
+    # injected KV and sp.
+
+    def _needs_legacy_step(self) -> bool:
+        """Whether a seated lane (prefilling or decoding) asks for logprobs
+        or sampling penalties, which `mixed` does not compute: the
+        iteration then runs the legacy programs (kserve_tpu/engine/
+        engine.py:3087-3100)."""
+        for s in self._slots:
+            if s.request_id is None:
+                continue
+            p = s.prefilling["req"].params if s.prefilling is not None else s.params
+            if p.has_penalties or p.logprobs is not None:
+                return True
+        return False
+
+    async def _step_legacy(self) -> bool:
+        """One legacy iteration: a chunk of every prefilling slot, then a
+        decode dispatch (and its chain) of every seated lane."""
+        did = await self._advance_prefills()
+        if any(s.request_id is not None and s.prefilling is None
+               for s in self._slots):
+            await self._decode_once()
+            did = True
+        return did
+
+    async def _admit_batch(self) -> bool:
+        """Prefill up to `prefill_batch` waiting requests in one `prefill`
+        call, the batch padded to a power of two and the prompts to the
+        bucket of the longest; False when none can be admitted (no slot or
+        no pages).  A prompt longer than the largest bucket is admitted
+        alone as a prefilling slot (`_admit_chunked`).  A resumed request
+        re-prefills prompt + generated[:-1] and its sample is discarded."""
+        ps = self.config.page_size
+        admitted: List[tuple] = []  # (slot index, request, pages, seq)
+        self._admitting = admitted
+        free = [i for i, s in enumerate(self._slots) if s.request_id is None]
+        while (self._waiting and free
+               and len(admitted) < self.config.prefill_batch):
+            req = self._waiting[0]
+            if req.kv_len > self.config.prefill_buckets[-1]:
+                if admitted:
+                    break  # run the batch first
+                self._admitting = []
+                return self._admit_chunked(req)
+            need = pages_needed(req.kv_len + 1, ps)
+            if not self.allocator.can_allocate(self._admission_pages(req, need)):
+                break
+            pages = self.allocator.allocate(need)
+            self._waiting.pop(0)
+            seq = req.prompt_ids
+            if req.resume is not None:
+                seq = req.prompt_ids + req.resume["generated"][:-1]
+            admitted.append((free.pop(0), req, pages, seq))
+        if not admitted:
+            return False
+        bucket = self._bucket_for(max(len(seq) for *_, seq in admitted))
+        Bp = 1
+        while Bp < len(admitted):
+            Bp *= 2
+        tokens = np.zeros((Bp, bucket), np.int32)
+        valid = np.zeros((Bp,), np.int32)
+        page_ids = np.zeros((Bp, self.config.max_pages_per_seq), np.int32)
+        params_list = [SamplingParams()] * Bp
+        for j, (_, req, pages, seq) in enumerate(admitted):
+            tokens[j, :len(seq)] = seq
+            valid[j] = len(seq)
+            page_ids[j, :len(pages)] = pages
+            params_list[j] = req.params
+        # the logprob variant only when a fresh row asked for logprobs
+        name = "prefill_lp" if any(
+            req.resume is None and req.params.logprobs is not None
+            for _, req, _, _ in admitted) else "prefill"
+        first, lp = await asyncio.to_thread(
+            self._run_prefill, name, tokens, valid, page_ids, params_list)
+        self.legacy_dispatches[name] += 1
+        for j, (idx, req, pages, _) in enumerate(admitted):
+            if req.request_id in self._cancelled_admissions:
+                self.allocator.free(pages)  # its client went away meanwhile
+                continue
+            slot = self._slots[idx]
+            slot.request_id, slot.pages, slot.queue = req.request_id, pages, req.queue
+            self._complete_prefilling(slot, req, int(first[j]),
+                                      self._lp_for(req.params, lp, j))
+        self._admitting = []
+        self._cancelled_admissions.clear()
+        return True
+
+    def _admit_chunked(self, req: _QueuedRequest) -> bool:
+        """Admit one prompt longer than the largest bucket as a prefilling
+        slot, whose chunks `_advance_prefills` runs through prefill_chunk
+        (kserve_tpu/engine/engine.py:2241)."""
+        return self._admit_prefilling(req)
+
+    def _run_prefill(self, name: str, tokens, valid, page_ids, params_list):
+        """One batched prefill call and the fetch of its first tokens and
+        logprobs (worker thread)."""
+        with torch.inference_mode():
+            state = SamplingState.from_params(params_list, self.device)
+            out = self._legacy.get(name)(self.params, tokens, valid,
+                                         self.kv_pages, page_ids, state,
+                                         self._rng)
+            self.kv_pages = out[-1]
+            lp = None
+            if name == "prefill_lp":
+                lp = tuple(t.cpu().numpy() for t in out[1])
+            return out[0].cpu().numpy(), lp
+
+    async def _advance_prefills(self) -> bool:
+        """One chunk of every prefilling slot through prefill_chunk; a slot
+        whose prompt is then in the cache is seated, sampling its first
+        token (kserve_tpu/engine/engine.py:2330-2391)."""
+        progressed = False
+        ps = self.config.page_size
+        for slot in list(self._slots):
+            pf = slot.prefilling
+            if slot.request_id is None or pf is None:
+                continue
+            seq, done = pf["seq"], pf["done"]
+            if done < len(seq):
+                n = min(self.config.prefill_buckets[-1], len(seq) - done)
+                tokens = np.zeros((1, self._bucket_for(n)), np.int32)
+                tokens[0, :n] = seq[done:done + n]
+                # the table covers this chunk's writes; the history gather
+                # reads it masked by the history length
+                width = self.config.page_bucket(pages_needed(done + n, ps))
+                page_ids = np.zeros((1, width), np.int32)
+                owned = slot.pages[:width]
+                page_ids[0, :len(owned)] = owned
+                logits = await asyncio.to_thread(
+                    self._run_prefill_chunk, tokens, done, n, page_ids)
+                self.legacy_dispatches["prefill_chunk"] += 1
+                progressed = True
+                if slot.prefilling is not pf:
+                    continue  # cancelled while the chunk ran
+                pf["logits"], pf["done"] = logits, done + n
+            if pf["done"] >= len(seq):
+                await self._finish_prefilling(slot, pf)
+                progressed = True
+        return progressed
+
+    def _run_prefill_chunk(self, tokens, done: int, n: int, page_ids):
+        """One prefill_chunk call (worker thread): its last logits."""
+        with torch.inference_mode():
+            logits, self.kv_pages = self._legacy.get("prefill_chunk")(
+                self.params, tokens, [done], [n], self.kv_pages, page_ids)
+            return logits
+
+    async def _finish_prefilling(self, slot: _Slot, pf: dict) -> None:
+        """Seat a slot whose chunks are all in the cache: a fresh request
+        samples its first token from the last chunk's logits through
+        sample_first (the prompt counted as seen by the repetition
+        penalty), a resumed one seats without one."""
+        req = pf["req"]
+        if req.resume is None:
+            V = self.model_config.vocab_size
+            in_prompt = np.zeros((1, V), bool)
+            in_prompt[0, np.asarray(pf["seq"], np.int64)] = True
+            name = ("sample_first" if req.params.logprobs is None
+                    else "sample_first_lp")
+            first, lp = await asyncio.to_thread(
+                self._run_sample_first, name, pf["logits"], req.params, in_prompt)
+            self.legacy_dispatches[name] += 1
+            if slot.prefilling is not pf:
+                return  # cancelled meanwhile
+            self._complete_prefilling(slot, req, first,
+                                      self._lp_for(req.params, lp, 0))
+        else:
+            self._complete_prefilling(slot, req, None)
+
+    def _run_sample_first(self, name: str, logits, params: SamplingParams,
+                          in_prompt):
+        """One sample_first call and its fetch (worker thread)."""
+        with torch.inference_mode():
+            state = SamplingState.from_params([params], self.device)
+            out = self._legacy.get(name)(logits, state, self._rng, in_prompt)
+            if name == "sample_first":
+                return int(out.cpu()[0]), None
+            return int(out[0].cpu()[0]), tuple(t.cpu().numpy() for t in out[1])
+
+    @staticmethod
+    def _lp_for(params: SamplingParams, lp, j: int, s: Optional[int] = None):
+        """(logprob, top logprobs) of row j (at step s) of a program's
+        (lp, top_vals, top_ids) host arrays, cut to the request's k;
+        (None, None) when it did not ask or the dispatch computed none
+        (kserve_tpu/engine/engine.py:2176)."""
+        if lp is None or params.logprobs is None:
+            return None, None
+        lps, tv, ti = lp
+        if s is not None:
+            lps, tv, ti = lps[s], tv[s], ti[s]
+        k = min(int(params.logprobs), tv.shape[-1])
+        return float(lps[j]), [(int(ti[j, i]), float(tv[j, i])) for i in range(k)]
+
+    def _refresh_penalty_state(self) -> None:
+        """Bring the device [B, V] output counts and prompt masks up to
+        date: rows whose occupant changed are rebuilt from the host's
+        prompt and generated tokens (every row after a full
+        invalidation); a resident lane's row keeps what the penalized
+        programs counted on the device, also while it was skipped for
+        capacity (kserve_tpu/engine/engine.py:2828-2864)."""
+        V = self.model_config.vocab_size
+        B = self.config.max_batch_size
+
+        def rows(idx):
+            counts = np.zeros((len(idx), V), np.int32)
+            prompt = np.zeros((len(idx), V), bool)
+            for r, i in enumerate(idx):
+                slot = self._slots[i]
+                if slot.request_id is not None and slot.prefilling is None:
+                    np.add.at(counts[r], slot.generated, 1)
+                    prompt[r, slot.prompt_ids] = True
+            return (upload(counts, self.device),
+                    upload(prompt, self.device, torch.bool))
+
+        if self._penalty_counts is None or self._penalty_dirty_rows is None:
+            self._penalty_counts, self._penalty_prompt = rows(range(B))
+        elif self._penalty_dirty_rows:
+            idx = sorted(self._penalty_dirty_rows)
+            at = upload(idx, self.device, torch.int64)
+            self._penalty_counts[at], self._penalty_prompt[at] = rows(idx)
+        self._penalty_dirty_rows = set()
+
+    def _mark_penalty_dirty(self, slot_index: Optional[int]) -> None:
+        """A row's occupant changed (None: every row is stale): its penalty
+        state and its draft-table row are rebuilt before they are next
+        used (kserve_tpu/engine/engine.py:2866-2879)."""
+        if slot_index is None:
+            self._penalty_dirty_rows = None
+            self._draft_dirty = None
+            return
+        if self._penalty_dirty_rows is not None:
+            self._penalty_dirty_rows.add(slot_index)
+        if self._draft_dirty is not None:
+            self._draft_dirty.add(slot_index)
+
+    def _dispatch_chunk(self, meta: dict, tokens_dev=None) -> dict:
+        """Enqueue one legacy decode dispatch (worker thread) and the host
+        copies of its outputs: `decode`, with `_penalized` when a lane has
+        penalties and `_lp` when one asked for logprobs.  `tokens_dev`
+        chains it on the in-flight dispatch's device tokens."""
+        name = ("decode_penalized" if meta["penalized"] else "decode") + (
+            "_lp" if meta["want_logprobs"] else "")
+        with torch.inference_mode():
+            state = SamplingState.from_params(meta["params"], self.device)
+            args = (self.params,
+                    meta["tokens"] if tokens_dev is None else tokens_dev,
+                    meta["pos"], self.kv_pages, meta["page_table"],
+                    meta["active"], meta["capacity"], meta["counters"], state,
+                    self._rng)
+            fn = self._legacy.get(name)
+            if meta["penalized"]:
+                out, self.kv_pages, self._penalty_counts = fn(
+                    *args, self._penalty_prompt, self._penalty_counts)
+            else:
+                out, self.kv_pages = fn(*args)
+            outs = out if isinstance(out, tuple) else (out,)
+            return {"name": name, "tokens": outs[0], **self._copy_to_host(outs)}
+
+    async def _launch_chunk(self, meta: dict, prev: Optional[dict] = None) -> dict:
+        """Dispatch a legacy decode (chained on `prev`'s device tokens) and
+        record it."""
+        tokens_dev = None if prev is None else prev["tokens"][-1]
+        chunk = await asyncio.to_thread(self._dispatch_chunk, meta, tokens_dev)
+        self.legacy_dispatches[chunk["name"]] += 1
+        if not meta["penalized"] and self._penalty_counts is not None:
+            # lanes advanced without the device counts: every row is stale
+            self._mark_penalty_dirty(None)
+        if self._spec_k:
+            # nor did the draft table learn these tokens
+            self._draft_dirty = None
+        return chunk
+
+    async def _route_chunk(self, meta: dict, chunk: dict) -> bool:
+        """Stream a finished decode dispatch's tokens (and logprobs): each
+        active lane emits min(steps, capacity - pos) tokens, dropping the
+        tail after a finish.  True when a lane finished (a chained
+        dispatch then has stale lanes)."""
+        host = await asyncio.to_thread(self._wait_host, chunk)
+        toks, lp = host[0], (host[1:] if len(host) > 1 else None)
+        steps = self.config.steps_per_sync
+        finished_any = False
+        for i, slot in enumerate(self._slots):
+            if slot.request_id is None or not meta["active"][i]:
+                continue
+            for s in range(min(steps, int(meta["capacity"][i]) - int(meta["pos"][i]))):
+                if slot.request_id is None:
+                    break  # finished mid-dispatch: drop the tail
+                token = int(toks[s, i])
+                slot.pos += 1
+                slot.generated.append(token)
+                self._emit(slot, token, *self._lp_for(slot.params, lp, i, s))
+            if slot.request_id is None:
+                finished_any = True
+            elif slot.pos >= self.config.max_model_len:
+                self._finish(slot, "length")
+                finished_any = True
+        return finished_any
+
+    async def _decode_once(self) -> None:
+        """Legacy decode with a depth-2 pipeline: dispatch N+1, chained on
+        N's device tokens, is enqueued before N's tokens are routed, so the
+        host's routing overlaps the device (kserve_tpu/engine/engine.py:
+        3032-3085).  It chains only while admission cannot proceed, no
+        prompt is prefilling, no lane surely finishes inside N, and N is
+        not penalized (its counts must be exact at each dispatch)."""
+        meta = self._prepare_chunk()
+        if meta is None:
+            return
+        chunk = await self._launch_chunk(meta)
+        steps = self.config.steps_per_sync
+        while True:
+            meta2 = chunk2 = None
+            admission_blocked = (not self._waiting
+                                 or self._free_slot_index() is None)
+            prefill_pending = any(s.prefilling is not None for s in self._slots)
+            predictable_finish = any(
+                s.request_id is not None and meta["active"][i]
+                and len(s.generated) + steps >= s.params.max_tokens
+                for i, s in enumerate(self._slots))
+            if (admission_blocked and not prefill_pending
+                    and not predictable_finish and not meta["penalized"]
+                    and not self._stopped):
+                meta2 = self._prepare_chunk(prev=meta)
+            if meta2 is not None:
+                chunk2 = await self._launch_chunk(meta2, prev=chunk)
+            finished_any = await self._route_chunk(meta, chunk)
+            await asyncio.sleep(0)  # flush streams while N+1 runs
+            if chunk2 is None:
+                break
+            meta, chunk = meta2, chunk2
+            if (finished_any or self._stopped
+                    or (self._waiting and self._free_slot_index() is not None)):
+                # stale lanes, or admission can proceed: drain and re-plan
+                await self._route_chunk(meta, chunk)
+                break
 
     # ---------------- dense / speculative decode stepping ----------------
     # Port of kserve_tpu/engine/engine.py:3386-3623.  Unlike the JAX engine
@@ -701,7 +1136,7 @@ class LLMEngine:
         return {
             "tokens": meta["tokens"], "pos": meta["pos"], "live": live,
             "capacity": meta["capacity"], "counters": meta["counters"],
-            "page_table": self._page_table(live),
+            "page_table": meta["page_table"],
             "state": SamplingState.from_params(
                 [s.params if live[i] else SamplingParams()
                  for i, s in enumerate(self._slots)], self.device),
@@ -754,19 +1189,28 @@ class LLMEngine:
                     self.params, tok, pos, self.kv_pages, plan["page_table"],
                     plan["live"], plan["capacity"], cnt, self._draft_table,
                     plan["state"], self._rng))
-            if self.device.type != "cuda":
-                return {"carry": carry, "host": (toks, n_emit), "event": None}
-            host = []
-            for t in (toks, n_emit):
-                h = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
-                h.copy_(t, non_blocking=True)
-                host.append(h)
-            event = torch.cuda.Event()
-            event.record()
-            return {"carry": carry, "host": tuple(host), "event": event}
+            return {"carry": carry, **self._copy_to_host((toks, n_emit))}
+
+    def _copy_to_host(self, tensors) -> dict:
+        """Copies of a dispatch's outputs into pinned host buffers and an
+        event after them, enqueued before any later dispatch: {"host",
+        "event"} for `_wait_host`.  On the CPU the outputs are the host
+        buffers."""
+        if self.device.type != "cuda":
+            return {"host": tuple(tensors), "event": None}
+        host = []
+        for t in tensors:
+            h = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+            h.copy_(t, non_blocking=True)
+            host.append(h)
+        event = torch.cuda.Event()
+        event.record()
+        return {"host": tuple(host), "event": event}
 
     @staticmethod
-    def _wait_dense(chunk: dict):
+    def _wait_host(chunk: dict):
+        """The host copies of `_copy_to_host` as numpy arrays, once they
+        landed (worker thread)."""
         if chunk["event"] is not None:
             chunk["event"].synchronize()
         return tuple(t.numpy() for t in chunk["host"])
@@ -777,7 +1221,7 @@ class LLMEngine:
         round was skipped for capacity).  A lane whose request went away
         while the dispatch ran is discarded whole.  Returns (any lane
         finished, any token routed)."""
-        toks_np, n_np = await asyncio.to_thread(self._wait_dense, chunk)
+        toks_np, n_np = await asyncio.to_thread(self._wait_host, chunk)
         k = self._spec_k
         routed = drafted = accepted = 0
         finished_any = False
@@ -863,8 +1307,7 @@ class LLMEngine:
         slot.stop_texts = list(req.params.stop or [])
         self._admission_seq += 1
         slot.admitted_at = self._admission_seq
-        if self._draft_dirty is not None:
-            self._draft_dirty.add(self._slots.index(slot))
+        self._mark_penalty_dirty(self._slots.index(slot))
 
     def _seat_resumed(self, slot: _Slot, req: _QueuedRequest) -> None:
         """Seat a re-prefilled request with the stream state it had when it
@@ -880,11 +1323,26 @@ class LLMEngine:
         slot.detok = r["detok"]
         slot.stop_texts = r["stop_texts"]
         slot.admitted_at = r["admitted_at"]
-        if self._draft_dirty is not None:
-            self._draft_dirty.add(self._slots.index(slot))
+        self._mark_penalty_dirty(self._slots.index(slot))
 
-    def _emit(self, slot: _Slot, token: int) -> None:
-        """Stream one token; apply stop conditions."""
+    def _complete_prefilling(self, slot: _Slot, req: _QueuedRequest,
+                             first_token: Optional[int],
+                             lp: tuple = (None, None)) -> None:
+        """A prefilling slot's prompt is in the cache: seat it, and a fresh
+        request emits its first token.  Shared by the mixed route (the
+        token is the dispatch's step-0 sample) and the legacy chunk loop
+        (sample_first's), so the two cannot drift (kserve_tpu/engine/
+        engine.py:2393)."""
+        if req.resume is not None:
+            self._seat_resumed(slot, req)
+            return
+        self._seat_fresh(slot, req, first_token)
+        self._emit(slot, first_token, *lp)
+
+    def _emit(self, slot: _Slot, token: int, logprob: Optional[float] = None,
+              top_logprobs: Optional[list] = None) -> None:
+        """Stream one token (with its logprobs, when asked for); apply stop
+        conditions."""
         n_gen = len(slot.generated)
         params = slot.params
         finish_reason = None
@@ -912,9 +1370,12 @@ class LLMEngine:
             finished=finish_reason is not None,
             finish_reason=finish_reason,
             num_generated=n_gen,
+            logprob=logprob,
+            top_logprobs=top_logprobs,
         ))
         if finish_reason is not None:
             self.allocator.free(slot.pages)
+            self._mark_penalty_dirty(self._slots.index(slot))
             slot.reset()
             self._wake.set()
 
@@ -927,4 +1388,5 @@ class LLMEngine:
             num_generated=len(slot.generated),
         ))
         self.allocator.free(slot.pages)
+        self._mark_penalty_dirty(self._slots.index(slot))
         slot.reset()

@@ -182,3 +182,45 @@ def append_token_kv(
     page = torch.where(active, page_table[b, col], torch.zeros_like(pos))
     slot = pos % page_size
     return _scatter_kv(kv_pages, k, v, page, slot)
+
+
+def write_prompt_kv_batch(
+    kv_pages: KVLayer,  # [num_pages, 2, n_kv, ps, d] or (int8 pages, scales)
+    k: torch.Tensor,  # [B, T, n_kv, d]
+    v: torch.Tensor,  # [B, T, n_kv, d]
+    page_ids: torch.Tensor,  # [B, W] int32, the rows' pages
+    valid_len: torch.Tensor,  # [B] int32
+    page_size: int,
+) -> KVLayer:
+    """Batched prompt scatter of the legacy `prefill` program (port of
+    kserve_tpu/engine/kvcache.py:131): row b's token t lands at position
+    t; tokens past valid_len[b] write to the null page 0."""
+    return write_chunk_kv_batch(kv_pages, k, v, page_ids,
+                                torch.zeros_like(valid_len), valid_len,
+                                page_size)
+
+
+def write_chunk_kv_batch(
+    kv_pages: KVLayer,  # [num_pages, 2, n_kv, ps, d] or (int8 pages, scales)
+    k: torch.Tensor,  # [B, C, n_kv, d] chunk keys
+    v: torch.Tensor,  # [B, C, n_kv, d]
+    page_ids: torch.Tensor,  # [B, W] int32, the sequences' pages
+    chunk_start: torch.Tensor,  # [B] absolute position of chunk token 0
+    valid_len: torch.Tensor,  # [B] valid tokens within the chunk
+    page_size: int,
+) -> KVLayer:
+    """An offset chunk's scatter (port of kserve_tpu/engine/kvcache.py:150):
+    chunk token t of row b lands at position chunk_start[b] + t; tokens
+    past valid_len[b] write to the null page 0.  int8 caches take
+    quantized rows and their scales."""
+    B, C = k.shape[:2]
+    t = torch.arange(C, dtype=torch.int32, device=k.device)
+    pos = chunk_start.to(k.device)[:, None] + t[None, :]  # [B, C]
+    col = (pos // page_size).clamp(max=page_ids.shape[1] - 1).long()
+    page = torch.gather(page_ids.to(k.device), 1, col)
+    page = torch.where(t[None, :] < valid_len.to(k.device)[:, None], page,
+                       torch.zeros_like(page))
+    slot = pos % page_size
+    return _scatter_kv(kv_pages, k.reshape(B * C, *k.shape[2:]),
+                       v.reshape(B * C, *v.shape[2:]), page.reshape(-1),
+                       slot.reshape(-1))

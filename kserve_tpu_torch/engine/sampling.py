@@ -4,6 +4,8 @@ Port of kserve_tpu/engine/sampling.py: per-lane parameters travel as a
 struct of tensors (`SamplingState`), so one call serves any mix of greedy,
 temperature, top-k, top-p and min-p lanes.  The mask steps are the JAX
 package's, factored into `masked_logits` so they can be compared exactly.
+`apply_penalties` and `compute_logprobs` are the legacy decode programs'
+sampling penalties and OpenAI logprobs (engine/compiled.py).
 
 Random draws are Gumbel-max, argmax(scaled + g) as in
 `jax.random.categorical`.  An unseeded lane takes its noise from the
@@ -36,11 +38,23 @@ class SamplingParams:
     top_p: float = 1.0
     top_k: int = 0  # 0 = disabled
     min_p: float = 0.0
+    repetition_penalty: float = 1.0
+    frequency_penalty: float = 0.0
+    presence_penalty: float = 0.0
     max_tokens: int = 16
     min_tokens: int = 0
     ignore_eos: bool = False
     stop: Optional[List[str]] = None
     seed: Optional[int] = None
+    logprobs: Optional[int] = None  # top alternatives per token (0 = none)
+
+    @property
+    def has_penalties(self) -> bool:
+        """Whether this request needs the penalized decode programs (which
+        carry a [B, V] count array; the others skip it)."""
+        return (self.repetition_penalty != 1.0
+                or self.frequency_penalty != 0.0
+                or self.presence_penalty != 0.0)
 
 
 @dataclass
@@ -54,6 +68,9 @@ class SamplingState:
     top_k: torch.Tensor  # [B] int64 (0 => off)
     min_p: torch.Tensor  # [B] f32
     seed: torch.Tensor  # [B] int64 (-1 => draw from the batch generator)
+    repetition_penalty: torch.Tensor  # [B] f32 (1.0 => off)
+    frequency_penalty: torch.Tensor  # [B] f32 (0.0 => off)
+    presence_penalty: torch.Tensor  # [B] f32 (0.0 => off)
     seeded_rows: Optional[torch.Tensor]  # [n] int64 rows with seed >= 0, or None
     all_greedy: bool  # host: no lane draws at all
 
@@ -75,6 +92,12 @@ class SamplingState:
             top_k=t([p.top_k for p in params_list], torch.int64),
             min_p=t([p.min_p for p in params_list], torch.float32),
             seed=t(seeds, torch.int64),
+            repetition_penalty=t([p.repetition_penalty for p in params_list],
+                                 torch.float32),
+            frequency_penalty=t([p.frequency_penalty for p in params_list],
+                                torch.float32),
+            presence_penalty=t([p.presence_penalty for p in params_list],
+                               torch.float32),
             seeded_rows=t(rows, torch.int64) if rows else None,
             all_greedy=all(p.temperature <= 0.0 for p in params_list),
         )
@@ -92,6 +115,9 @@ class SamplingState:
         return SamplingState(
             temperature=rep(self.temperature), top_p=rep(self.top_p),
             top_k=rep(self.top_k), min_p=rep(self.min_p), seed=rep(self.seed),
+            repetition_penalty=rep(self.repetition_penalty),
+            frequency_penalty=rep(self.frequency_penalty),
+            presence_penalty=rep(self.presence_penalty),
             seeded_rows=rows, all_greedy=self.all_greedy)
 
 
@@ -204,3 +230,41 @@ def sample_tokens(
         noise[rows] = seeded_gumbel(state.seed[rows], counter, scaled.shape[-1])
     sampled = torch.argmax(scaled + noise, dim=-1)
     return torch.where(state.temperature <= 0.0, greedy, sampled).to(torch.int32)
+
+
+def compute_logprobs(
+    logits: torch.Tensor,  # [B, V] f32, post-penalty, pre-temperature
+    sampled: torch.Tensor,  # [B] sampled token ids
+    k: int,  # top alternatives per row (EngineConfig.max_logprobs)
+):
+    """(lp [B], top_vals [B, k], top_ids [B, k] int32) for the OpenAI
+    logprobs surfaces: the log-softmax of the post-penalty logits before
+    temperature and the sampling filters, the sampled token's value and
+    the k largest (kserve_tpu/engine/sampling.py:162-178).  Ties in the
+    top k may be ordered otherwise than lax.top_k orders them."""
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    lp = torch.gather(logp, 1, sampled.long()[:, None])[:, 0]
+    top_vals, top_ids = torch.topk(logp, k, dim=-1)
+    return lp, top_vals, top_ids.to(torch.int32)
+
+
+def apply_penalties(
+    logits: torch.Tensor,  # [B, V]
+    output_counts: torch.Tensor,  # [B, V] int32 counts of generated tokens
+    repetition_penalty: torch.Tensor,  # [B]
+    frequency_penalty: torch.Tensor,  # [B]
+    presence_penalty: torch.Tensor,  # [B]
+    prompt_mask: Optional[torch.Tensor] = None,  # [B, V] bool in-prompt tokens
+) -> torch.Tensor:
+    """vLLM's penalty semantics (kserve_tpu/engine/sampling.py:181-199):
+    the repetition penalty applies to tokens seen in the prompt or the
+    output, dividing a positive logit and multiplying a negative one;
+    frequency and presence penalties apply to generated tokens only.  A
+    row with the default penalties comes back bit for bit."""
+    seen_out = output_counts > 0
+    seen_rep = seen_out if prompt_mask is None else (seen_out | prompt_mask)
+    rp = repetition_penalty[:, None]
+    penalized = torch.where(logits > 0, logits / rp, logits * rp)
+    logits = torch.where(seen_rep, penalized, logits)
+    logits = logits - frequency_penalty[:, None] * output_counts
+    return logits - presence_penalty[:, None] * seen_out.to(logits.dtype)

@@ -2,8 +2,9 @@
 queue bookkeeping.
 
 Port of kserve_tpu/engine/types.py (EngineConfig :36 with the fields the
-port uses, spec_decode_k_from_env :210, GenerationOutput :317, _Slot
-:331, _QueuedRequest :359 with its `resume` state and `kv_len`).  The knobs the port does not run yet
+port uses, spec_decode_k_from_env :210, GenerationOutput :317 with its
+logprobs, _Slot :331, _QueuedRequest :359 with its `resume` state and
+`kv_len`).  The knobs the port does not run yet
 (weight_quant, tp/dp/sp/pp) are kept so a configuration asking for them
 is rejected at engine construction instead of silently ignored.
 """
@@ -36,6 +37,19 @@ class EngineConfig:
     # int8 KV (kvcache.py): pages int8 with per-row f32 scales, half the
     # bytes of a bf16 cache; `dtype` then names the activations
     kv_quant: str = "none"  # none | int8
+    # legacy programs (engine/compiled.py): prompts per batched `prefill`
+    # call, and the top-k width of every logprobs program (the most
+    # alternatives a request may ask for)
+    prefill_batch: int = 8
+    max_logprobs: int = 20
+    # the unified ragged `mixed` program: None = use it when the batch
+    # fits one packed buffer (max_batch_size x the kernel block <= the
+    # largest prefill bucket), else the legacy programs for the whole
+    # engine; True = require it (raises where it does not fit); False =
+    # the legacy programs always.  Under the mixed program an iteration
+    # with a lane that asks for logprobs or penalties still runs the
+    # legacy programs.
+    use_ragged: Optional[bool] = None
     # not run by this port yet: any other value is rejected
     weight_quant: str = "none"
     tp: int = 1
@@ -90,6 +104,10 @@ class GenerationOutput:
     finished: bool = False
     finish_reason: Optional[str] = None
     num_generated: int = 0
+    # the token's log-probability and the request's top alternatives as
+    # (token id, logprob), best first; None unless it asked for logprobs
+    logprob: Optional[float] = None
+    top_logprobs: Optional[List[Tuple[int, float]]] = None
 
 
 class _Slot:
@@ -102,8 +120,10 @@ class _Slot:
 
     def __init__(self):
         self.request_id: Optional[str] = None
-        # chunked prefill in progress: {"req", "seq", "done"}; each mixed
-        # step carries the lane's next chunk
+        # chunked prefill in progress: {"req", "seq", "done", "logits"};
+        # each mixed step, or each legacy prefill_chunk call, carries the
+        # lane's next chunk ("logits": the last legacy chunk's, which the
+        # first token is sampled from)
         self.prefilling: Optional[dict] = None
 
     def reset(self):

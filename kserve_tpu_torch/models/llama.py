@@ -6,12 +6,15 @@ sliding windows, GeGLU).
 
 Port of kserve_tpu/models/llama.py: the entry points the `mixed` and
 `mixed_decode` programs run, `forward_ragged` (:720, with `logits_at` and
-`dense_stride`) and `decode_step` (:656), and their helpers.  Parameters are a plain dict with the JAX package's key names and
+`dense_stride`) and `decode_step` (:656), those the legacy programs run,
+`prefill` (:542) and `prefill_chunk` (:625), and their helpers.
+Parameters are a plain dict with the JAX package's key names and
 layout (`w` is [in, out], `y = x @ w`), so `params_from_jax` carries a JAX
 pytree across without a transpose.  The large matrix products are plain
 `@`; attention goes through ops/attention.py (the CUDA kernels on the
-card).  Not ported in this slice: LoRA, MoE, int8 weights, pipeline
-parallelism, the legacy prefill programs, checkpoint loading.
+card; the prefill attention is plain PyTorch, as it is XLA code in the
+JAX package).  Not ported yet: LoRA, MoE, int8 weights, pipeline
+parallelism, checkpoint loading.
 """
 
 from __future__ import annotations
@@ -26,8 +29,19 @@ import torch
 import torch.nn.functional as F
 
 from ..device import resolve_device
-from ..engine.kvcache import KVLayer, append_token_kv, write_ragged_kv
-from ..ops.attention import paged_attention, ragged_paged_attention
+from ..engine.kvcache import (
+    KVLayer,
+    append_token_kv,
+    write_chunk_kv_batch,
+    write_prompt_kv_batch,
+    write_ragged_kv,
+)
+from ..ops.attention import (
+    causal_prefill_attention,
+    chunked_prefill_attention,
+    paged_attention,
+    ragged_paged_attention,
+)
 from ..ops.norms import rms_norm, rms_norm_plus_one
 from ..ops.rotary import rope_cos_sin, rope_frequencies, rotate
 
@@ -400,6 +414,119 @@ def _block(layer: Params, x: torch.Tensor, cos, sin, config: LlamaConfig,
     if config.sandwich_norms:
         out = _norm(out, layer["post_mlp_norm"], config)
     return residual + out
+
+
+def transformer_block(
+    layer: Params,
+    x: torch.Tensor,  # [B, T, h]
+    positions: torch.Tensor,  # [B, T] int
+    valid_len: torch.Tensor,  # [B]
+    config: LlamaConfig,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """One block over padded prompts, reading no cache (prefill form):
+    returns (x_out [B, T, h], k, v [B, T, nkv, d]) for the caller to
+    write into its pages.  Port of kserve_tpu/models/llama.py:497."""
+    B, T, h = x.shape
+    cos, sin = rope_cos_sin(positions.reshape(-1), config.head_dim,
+                            config.rope_theta, config.rope_scaling)
+    kv = []
+
+    def attend(q, k, v, window):
+        k, v = (t.reshape(B, T, *t.shape[1:]) for t in (k, v))
+        kv.extend((k, v))
+        out = causal_prefill_attention(
+            q.reshape(B, T, *q.shape[1:]), k, v, valid_len,
+            config.attn_logit_softcap, scale=config.attn_scale, window=window)
+        return out.reshape(B * T, *out.shape[2:])
+
+    out = _block(layer, x.reshape(B * T, h), cos, sin, config, attend)
+    return out.reshape(B, T, h), kv[0], kv[1]
+
+
+def _last_logits(params: Params, x: torch.Tensor, valid_len: torch.Tensor,
+                 config: LlamaConfig) -> torch.Tensor:
+    """[B, vocab] f32 logits at each row's last valid token of x [B, T, h]."""
+    last = torch.clamp(valid_len.to(x.device).long() - 1, min=0)
+    rows = torch.arange(x.shape[0], device=x.device)
+    return _logits(params, x[rows, last], config)
+
+
+def prefill(
+    params: Params,
+    config: LlamaConfig,
+    tokens: torch.Tensor,  # [B, T] padded prompts
+    valid_len: torch.Tensor,  # [B]
+    kv_pages: List[KVLayer],  # per layer: pages, or (int8 pages, scales)
+    page_ids: torch.Tensor,  # [B, W] int32, each row's pages
+    page_size: int,
+) -> Tuple[torch.Tensor, List[KVLayer]]:
+    """Whole prompts from position 0: each layer attends causally within
+    the prompt and writes its K/V into the pages (int8 caches take
+    quantized rows while the attention used the unquantized K/V).  Returns
+    ([B, vocab] f32 logits at each row's last valid token, pages).  Port
+    of kserve_tpu/models/llama.py:542."""
+    B, T = tokens.shape
+    positions = torch.arange(T, dtype=torch.int32,
+                             device=tokens.device)[None, :].expand(B, T)
+    x = _embed(params, tokens.reshape(-1), config).reshape(B, T, -1)
+    for layer, pages in zip(params["layers"], kv_pages):
+        x, k, v = transformer_block(layer, x, positions, valid_len, config)
+        write_prompt_kv_batch(pages, k, v, page_ids, valid_len, page_size)
+    return _last_logits(params, x, valid_len, config), kv_pages
+
+
+def chunk_transformer_block(
+    layer: Params,
+    pages: KVLayer,  # this layer's cache
+    x: torch.Tensor,  # [B, C, h]
+    chunk_start: torch.Tensor,  # [B]
+    valid_len: torch.Tensor,  # [B]
+    page_ids: torch.Tensor,  # [B, W]
+    page_size: int,
+    config: LlamaConfig,
+) -> Tuple[torch.Tensor, KVLayer]:
+    """One chunked-prefill block: attend to the cached history and the
+    chunk's causal prefix, then write the chunk's K/V.  Port of
+    kserve_tpu/models/llama.py:577."""
+    B, C, h = x.shape
+    positions = (chunk_start.to(x.device)[:, None]
+                 + torch.arange(C, dtype=torch.int32, device=x.device)[None, :])
+    cos, sin = rope_cos_sin(positions.reshape(-1), config.head_dim,
+                            config.rope_theta, config.rope_scaling)
+
+    def attend(q, k, v, window):
+        k, v = (t.reshape(B, C, *t.shape[1:]) for t in (k, v))
+        out = chunked_prefill_attention(
+            q.reshape(B, C, *q.shape[1:]), k, v, pages, page_ids, chunk_start,
+            valid_len, config.attn_logit_softcap, scale=config.attn_scale,
+            window=window)
+        write_chunk_kv_batch(pages, k, v, page_ids, chunk_start, valid_len,
+                             page_size)
+        return out.reshape(B * C, *out.shape[2:])
+
+    out = _block(layer, x.reshape(B * C, h), cos, sin, config, attend)
+    return out.reshape(B, C, h), pages
+
+
+def prefill_chunk(
+    params: Params,
+    config: LlamaConfig,
+    tokens: torch.Tensor,  # [B, C] one chunk of each prompt (padded)
+    chunk_start: torch.Tensor,  # [B] tokens already prefilled (history)
+    valid_len: torch.Tensor,  # [B] valid tokens within this chunk
+    kv_pages: List[KVLayer],  # per layer: pages, or (int8 pages, scales)
+    page_ids: torch.Tensor,  # [B, W] int32, the sequences' pages
+    page_size: int,
+) -> Tuple[torch.Tensor, List[KVLayer]]:
+    """One chunk of a chunked prefill: returns ([B, vocab] f32 logits at
+    the chunk's last valid token, pages).  chunk_start 0 is the plain
+    prefill of the chunk.  Port of kserve_tpu/models/llama.py:625."""
+    B, C = tokens.shape
+    x = _embed(params, tokens.reshape(-1), config).reshape(B, C, -1)
+    for layer, pages in zip(params["layers"], kv_pages):
+        x, _ = chunk_transformer_block(layer, pages, x, chunk_start, valid_len,
+                                       page_ids, page_size, config)
+    return _last_logits(params, x, valid_len, config), kv_pages
 
 
 def decode_step(

@@ -17,12 +17,17 @@ Port of kserve_tpu/ops/attention.py (the decode and ragged paths):
   The plain version is per-token and serves any packing, so it is the
   plain version of both ragged kernels.
 
-Every function takes a layer's cache as the pages [P, 2, nkv, ps, d] or,
-with int8 KV, the tuple (int8 pages, f32 scales [P, 2, nkv, ps]).  The
-plain versions dequantize int8 rows in f32, as the Pallas kernels do
-(pallas_paged_attention.py:512-516, :659-663), since they are those
-kernels' plain versions; the JAX package's XLA gather rounds the
-dequantized rows to bf16 instead (ROADMAP §C).
+- `causal_prefill_attention` / `chunked_prefill_attention` are the
+  legacy prefill programs' attention (:57, :116): XLA code in the JAX
+  package, no Pallas kernel, so plain PyTorch on the card as well.
+
+Every paged function takes a layer's cache as the pages [P, 2, nkv, ps,
+d] or, with int8 KV, the tuple (int8 pages, f32 scales [P, 2, nkv, ps]).
+The plain versions of the kernels dequantize int8 rows in f32, as the
+Pallas kernels do (pallas_paged_attention.py:512-516, :659-663), since
+they are those kernels' plain versions; the JAX package's XLA gather
+rounds the dequantized rows to bf16 instead (ROADMAP §C), and so does
+`chunked_prefill_attention`, its port.
 
 `window` is a Python int (0 = full attention), `scale` None means
 1/sqrt(head_dim).
@@ -40,14 +45,15 @@ from . import paged_attention_cuda as _cuda
 _MASKED = -1e30
 
 
-def _gather_history(kv_pages: KVLayer, page_table: torch.Tensor):
+def _gather_history(kv_pages: KVLayer, page_table: torch.Tensor,
+                    int8_dtype: torch.dtype = torch.float32):
     """Gather each lane's pages -> (k [B, W*ps, nkv, d], v [B, W*ps, nkv, d]),
-    int8 rows dequantized in f32."""
+    int8 rows dequantized in f32 and cast to `int8_dtype`."""
     B, W = page_table.shape
     if isinstance(kv_pages, tuple):
         pages, scales = kv_pages
         table = page_table.long()
-        gathered = dequantize_rows(pages[table], scales[table])  # f32
+        gathered = dequantize_rows(pages[table], scales[table], int8_dtype)
     else:
         gathered = kv_pages[page_table.long()]  # [B, W, 2, nkv, ps, d]
     nkv, ps, d = gathered.shape[3], gathered.shape[4], gathered.shape[5]
@@ -146,6 +152,85 @@ def ragged_paged_attention_plain(
     out = torch.einsum("tkgl,tlkd->tkgd", weights, v_t.float()).reshape(T, nq, d)
     out = torch.where(valid[:, None, None], out, torch.zeros_like(out))
     return out.to(q.dtype)
+
+
+def _gqa_attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                mask: torch.Tensor, scale: Optional[float],
+                logit_softcap: float) -> torch.Tensor:
+    """Masked GQA softmax attention in f32: q [B, Tq, nq, d], k/v [B, Tk,
+    nkv, d], mask [B, Tq, Tk] bool -> [B, Tq, nq, d] in q's dtype."""
+    B, Tq, nq, d = q.shape
+    nkv = k.shape[2]
+    if scale is None:
+        scale = 1.0 / float(d) ** 0.5
+    qg = q.float().reshape(B, Tq, nkv, nq // nkv, d)
+    scores = torch.einsum("btkgd,bskd->bkgts", qg, k.float()) * scale
+    if logit_softcap > 0.0:
+        scores = torch.tanh(scores / logit_softcap) * logit_softcap
+    scores = torch.where(mask[:, None, None], scores,
+                         torch.full_like(scores, _MASKED))
+    weights = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bkgts,bskd->btkgd", weights, v.float())
+    return out.reshape(B, Tq, nq, d).to(q.dtype)
+
+
+def causal_prefill_attention(
+    q: torch.Tensor,  # [B, T, nq, d]
+    k: torch.Tensor,  # [B, T, nkv, d]
+    v: torch.Tensor,  # [B, T, nkv, d]
+    valid_len: torch.Tensor,  # [B] int
+    logit_softcap: float = 0.0,
+    scale: Optional[float] = None,
+    window: int = 0,
+) -> torch.Tensor:
+    """Causal self-attention over padded prompts, reading no cache (port
+    of kserve_tpu/ops/attention.py:57).  Keys past valid_len are masked;
+    window > 0 keeps the last `window` keys of each query."""
+    T = q.shape[1]
+    t = torch.arange(T, device=q.device)
+    mask = ((t[None, :] <= t[:, None])[None]
+            & (t[None, :] < valid_len.to(q.device)[:, None])[:, None, :])
+    if window > 0:
+        mask = mask & ((t[:, None] - t[None, :]) < window)[None]
+    return _gqa_attend(q, k, v, mask, scale, logit_softcap)
+
+
+def chunked_prefill_attention(
+    q: torch.Tensor,  # [B, C, nq, d] the chunk's queries
+    k_chunk: torch.Tensor,  # [B, C, nkv, d] the chunk's keys
+    v_chunk: torch.Tensor,  # [B, C, nkv, d]
+    kv_pages: KVLayer,  # pages, or (int8 pages, scales), holding the history
+    page_table: torch.Tensor,  # [B, W] pages of positions 0 .. history-1
+    history_len: torch.Tensor,  # [B] tokens already in the cache
+    valid_len: torch.Tensor,  # [B] valid tokens within this chunk
+    logit_softcap: float = 0.0,
+    scale: Optional[float] = None,
+    window: int = 0,
+) -> torch.Tensor:
+    """A prefill chunk's causal attention (port of kserve_tpu/ops/
+    attention.py:116): queries attend to the cached history, gathered from
+    the pages, and to the chunk's own causal prefix, which is not read
+    from the cache.  As the JAX package's XLA gather, an int8 history is
+    dequantized and rounded to bf16, and the chunk's K/V are cast to the
+    history's dtype before the scores."""
+    B, C = q.shape[:2]
+    k_hist, v_hist = _gather_history(kv_pages, page_table.to(q.device),
+                                     torch.bfloat16)
+    H = k_hist.shape[1]
+    k_all = torch.cat([k_hist, k_chunk.to(k_hist.dtype)], dim=1)
+    v_all = torch.cat([v_hist, v_chunk.to(v_hist.dtype)], dim=1)
+    history_len = history_len.to(q.device)
+    hist_pos = torch.arange(H, dtype=torch.int32, device=q.device)
+    c = torch.arange(C, dtype=torch.int32, device=q.device)
+    hist_mask = (hist_pos[None, :] < history_len[:, None])[:, None, :]
+    chunk_mask = ((c[None, :] <= c[:, None])[None]
+                  & (c[None, None, :] < valid_len.to(q.device)[:, None, None]))
+    mask = torch.cat([hist_mask.expand(B, C, H), chunk_mask], dim=-1)
+    if window > 0:
+        q_pos = history_len[:, None] + c[None, :]  # [B, C]
+        k_pos = torch.cat([hist_pos[None, :].expand(B, H), q_pos], dim=1)
+        mask = mask & ((q_pos[:, :, None] - k_pos[:, None, :]) < window)
+    return _gqa_attend(q, k_all, v_all, mask, scale, logit_softcap)
 
 
 def dense_stride_for(width: int, align: int) -> int:

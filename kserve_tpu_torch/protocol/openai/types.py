@@ -1,10 +1,11 @@
 """OpenAI completion and chat types as standard-library dataclasses.
 
-Port of kserve_tpu/protocol/openai/types.py (the fields this slice
-serves) with hand validation in place of pydantic, which the card machine
-does not have.  `CompletionRequest.from_json` / `ChatCompletionRequest.
-from_json` raise InvalidInput (HTTP 400) on a malformed body, and on what
-this slice refuses: `logprobs`, sampling penalties, `logit_bias`, `echo`,
+Port of kserve_tpu/protocol/openai/types.py (the fields the port serves,
+logprobs and sampling penalties among them, and the logprob blocks of
+the responses) with hand validation in place of pydantic, which the card
+machine does not have.  `CompletionRequest.from_json` /
+`ChatCompletionRequest.from_json` raise InvalidInput (HTTP 400) on a
+malformed body, and on what the port refuses: `logit_bias`, `echo`,
 `best_of`, `suffix`.  Responses serialize with `to_dict()`, dropping None
 fields as the JAX package's `model_dump(exclude_none=True)` does.
 """
@@ -15,7 +16,7 @@ import dataclasses
 import time
 import uuid
 from dataclasses import dataclass, field
-from typing import Any, List, Optional, Union
+from typing import Any, Dict, List, Optional, Union
 
 from ...errors import InvalidInput
 
@@ -58,14 +59,7 @@ def _names(kinds) -> str:
 
 
 def _check_refused(body: dict) -> None:
-    """Fields this slice does not serve: 400 rather than silently ignored."""
-    if body.get("logprobs") not in (None, False) or body.get("top_logprobs") is not None:
-        raise InvalidInput("logprobs are not supported by this server yet")
-    for name in ("frequency_penalty", "presence_penalty"):
-        if body.get(name) not in (None, 0, 0.0):
-            raise InvalidInput(f"{name} is not supported by this server yet")
-    if body.get("repetition_penalty") not in (None, 1, 1.0):
-        raise InvalidInput("repetition_penalty is not supported by this server yet")
+    """Fields the port does not serve: 400 rather than silently ignored."""
     if body.get("logit_bias"):
         raise InvalidInput("logit_bias is not supported by this server yet")
     if body.get("echo"):
@@ -87,6 +81,9 @@ def _sampling_fields(body: dict) -> dict:
         min_tokens=_get(body, "min_tokens", int, 0),
         n=_get(body, "n", int, 1),
         stream=_get(body, "stream", bool, False),
+        frequency_penalty=_get(body, "frequency_penalty", float, 0.0),
+        presence_penalty=_get(body, "presence_penalty", float, 0.0),
+        repetition_penalty=_get(body, "repetition_penalty", float),
     )
     if out["temperature"] < 0:
         raise InvalidInput("temperature must be >= 0")
@@ -146,6 +143,10 @@ class CompletionRequest:
     ignore_eos: bool = False
     min_tokens: int = 0
     n: int = 1
+    frequency_penalty: float = 0.0
+    presence_penalty: float = 0.0
+    repetition_penalty: Optional[float] = None
+    logprobs: Optional[int] = None  # top alternatives per token
 
     @staticmethod
     def from_json(body: Any) -> "CompletionRequest":
@@ -169,7 +170,8 @@ class CompletionRequest:
             raise InvalidInput("max_tokens must be >= 1")
         return CompletionRequest(
             model=_get(body, "model", str, required=True), prompt=prompt,
-            max_tokens=max_tokens, **_sampling_fields(body))
+            max_tokens=max_tokens, logprobs=_get(body, "logprobs", int),
+            **_sampling_fields(body))
 
 
 @dataclass
@@ -194,6 +196,11 @@ class ChatCompletionRequest:
     ignore_eos: bool = False
     min_tokens: int = 0
     n: int = 1
+    frequency_penalty: float = 0.0
+    presence_penalty: float = 0.0
+    repetition_penalty: Optional[float] = None
+    logprobs: bool = False  # the chat dialect: a gate ...
+    top_logprobs: Optional[int] = None  # ... and the alternatives' count
 
     @staticmethod
     def from_json(body: Any) -> "ChatCompletionRequest":
@@ -226,7 +233,18 @@ class ChatCompletionRequest:
             raise InvalidInput("max_tokens must be >= 1")
         return ChatCompletionRequest(
             model=_get(body, "model", str, required=True), messages=messages,
-            max_tokens=max_tokens, **_sampling_fields(body))
+            max_tokens=max_tokens, logprobs=_get(body, "logprobs", bool, False),
+            top_logprobs=_get(body, "top_logprobs", int), **_sampling_fields(body))
+
+
+@dataclass
+class CompletionLogprobs(_Serializable):
+    """The legacy completions logprobs block: per token its text, offset
+    and logprob, and with top alternatives a {token text: logprob} dict."""
+    text_offset: List[int] = field(default_factory=list)
+    token_logprobs: List[Optional[float]] = field(default_factory=list)
+    tokens: List[str] = field(default_factory=list)
+    top_logprobs: Optional[List[Optional[Dict[str, float]]]] = None
 
 
 @dataclass
@@ -234,6 +252,7 @@ class CompletionChoice(_Serializable):
     index: int
     text: str
     finish_reason: Optional[str] = None
+    logprobs: Optional[CompletionLogprobs] = None
 
 
 @dataclass
@@ -247,6 +266,26 @@ class Completion(_Serializable):
 
 
 @dataclass
+class ChatCompletionLogprob(_Serializable):
+    token: str
+    logprob: float = -9999.0
+    bytes: Optional[List[int]] = None
+
+
+@dataclass
+class ChatCompletionLogprobsContent(_Serializable):
+    token: str
+    logprob: float = -9999.0
+    bytes: Optional[List[int]] = None
+    top_logprobs: List[ChatCompletionLogprob] = field(default_factory=list)
+
+
+@dataclass
+class ChatCompletionLogprobs(_Serializable):
+    content: Optional[List[ChatCompletionLogprobsContent]] = None
+
+
+@dataclass
 class ChatCompletionResponseMessage(_Serializable):
     role: str = "assistant"
     content: Optional[str] = None
@@ -257,6 +296,7 @@ class ChatCompletionChoice(_Serializable):
     index: int
     message: ChatCompletionResponseMessage
     finish_reason: Optional[str] = None
+    logprobs: Optional[ChatCompletionLogprobs] = None
 
 
 @dataclass
@@ -280,6 +320,7 @@ class ChatCompletionChunkChoice(_Serializable):
     index: int
     delta: ChatCompletionChunkDelta
     finish_reason: Optional[str] = None
+    logprobs: Optional[ChatCompletionLogprobs] = None
 
 
 @dataclass

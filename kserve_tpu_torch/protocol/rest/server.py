@@ -60,8 +60,10 @@ class RESTServer:
 
     async def start(self) -> int:
         """Listen; returns the bound port (port 0 picks a free one)."""
+        # a listen backlog above the largest batch a server seats (asyncio's
+        # default is 100): every lane's client may connect at once
         self._server = await asyncio.start_server(
-            self._handle, self.host, self.port, limit=1 << 16)
+            self._handle, self.host, self.port, limit=1 << 16, backlog=1024)
         self.port = self._server.sockets[0].getsockname()[1]
         logger.info("REST server listening on %s:%d", self.host, self.port)
         return self.port

@@ -3,8 +3,10 @@
 
 Port of kserve_tpu/runtimes/generative_server.py (`JAXGenerativeModel`
 becomes `TorchGenerativeModel`; the flags this slice uses keep their
-names).  Checkpoint loading is not ported yet: weights are seeded random
-(`--random_weights`), made on the device.
+names).  Logprobs (`logprobs`, chat `top_logprobs`) and the sampling
+penalties are served through the engine's legacy programs.  Checkpoint
+loading is not ported yet: weights are seeded random (`--random_weights`),
+made on the device.
 
 Entrypoint:
     python -m kserve_tpu_torch.runtimes.generative_server \\
@@ -33,10 +35,14 @@ from ..protocol.openai.types import (
     ChatCompletionChunk,
     ChatCompletionChunkChoice,
     ChatCompletionChunkDelta,
+    ChatCompletionLogprob,
+    ChatCompletionLogprobs,
+    ChatCompletionLogprobsContent,
     ChatCompletionRequest,
     ChatCompletionResponseMessage,
     Completion,
     CompletionChoice,
+    CompletionLogprobs,
     CompletionRequest,
     UsageInfo,
     random_uuid,
@@ -90,19 +96,43 @@ class TorchGenerativeModel:
 
     # ---------------- helpers ----------------
 
-    @staticmethod
-    def _sampling_from(req, max_tokens: int) -> SamplingParams:
+    def _logprobs_k(self, req) -> Optional[int]:
+        """The two OpenAI logprob dialects as one int: None = not asked, 0 =
+        the sampled token's logprob only, N = N top alternatives (port of
+        kserve_tpu/runtimes/generative_server.py:228-258).  Completions:
+        `logprobs` is the count.  Chat: `logprobs` is a gate and
+        `top_logprobs` the count."""
+        if isinstance(req, ChatCompletionRequest):
+            if req.top_logprobs is not None and not req.logprobs:
+                raise InvalidInput("top_logprobs requires logprobs=true")
+            if not req.logprobs:
+                return None
+            k = req.top_logprobs or 0
+        elif req.logprobs is None:
+            return None
+        else:
+            k = req.logprobs
+        max_k = self.engine_config.max_logprobs
+        if not 0 <= k <= max_k:
+            raise InvalidInput(f"logprobs must be between 0 and {max_k}")
+        return k
+
+    def _sampling_from(self, req, max_tokens: int) -> SamplingParams:
         stop = [req.stop] if isinstance(req.stop, str) else req.stop
         return SamplingParams(
             temperature=req.temperature,
             top_p=req.top_p,
             top_k=req.top_k or 0,
             min_p=req.min_p or 0.0,
+            repetition_penalty=req.repetition_penalty or 1.0,
+            frequency_penalty=req.frequency_penalty or 0.0,
+            presence_penalty=req.presence_penalty or 0.0,
             max_tokens=max_tokens,
             min_tokens=req.min_tokens,
             ignore_eos=req.ignore_eos,
             stop=stop,
             seed=req.seed,
+            logprobs=self._logprobs_k(req),
         )
 
     def _encode_prompt(self, prompt) -> List[List[int]]:
@@ -123,13 +153,64 @@ class TorchGenerativeModel:
             raise InvalidInput(str(e)) from e
 
     @staticmethod
-    async def _run_one(source):
+    async def _run_one(source, with_logprobs: bool):
+        """(text, tokens generated, finish reason, the (token id, text
+        delta, logprob, top) entries when logprobs were asked for)."""
         text, n_gen, finish = "", 0, None
+        entries = [] if with_logprobs else None
         async for out in source:
             text += out.text_delta
             n_gen = out.num_generated
             finish = out.finish_reason
-        return text, n_gen, finish or "stop"
+            if entries is not None and out.token_id >= 0:
+                entries.append((out.token_id, out.text_delta, out.logprob,
+                                out.top_logprobs))
+        return text, n_gen, finish or "stop", entries
+
+    # ---------------- logprob blocks ----------------
+
+    def _token_str(self, token_id: int) -> str:
+        return self.tokenizer.decode([token_id])
+
+    def _completion_logprobs(self, entries, k: int,
+                             offset0: int = 0) -> CompletionLogprobs:
+        """The completions logprobs block of engine entries (port of
+        kserve_tpu/runtimes/generative_server.py:515-540): the sampled
+        token joins each top_logprobs dict, as OpenAI's does.  The dict is
+        keyed by token text, and a byte tokenizer decodes distinct ids to
+        the same text, so the first (best) of a collision is kept."""
+        lp = CompletionLogprobs(top_logprobs=[] if k > 0 else None)
+        offset = offset0
+        for tid, delta, logprob, top in entries:
+            lp.tokens.append(self._token_str(tid))
+            lp.token_logprobs.append(logprob)
+            lp.text_offset.append(offset)
+            offset += len(delta)
+            if k > 0:
+                d: dict = {}
+                for t, v in (top or [])[:k]:
+                    d.setdefault(self._token_str(t), v)
+                if logprob is not None:
+                    d.setdefault(self._token_str(tid), logprob)
+                lp.top_logprobs.append(d)
+        return lp
+
+    def _chat_logprobs(self, entries, k: int) -> ChatCompletionLogprobs:
+        """The chat logprobs block (port of kserve_tpu/runtimes/
+        generative_server.py:542-560)."""
+        content = []
+        for tid, _delta, logprob, top in entries:
+            tok = self._token_str(tid)
+            content.append(ChatCompletionLogprobsContent(
+                token=tok,
+                logprob=logprob if logprob is not None else -9999.0,
+                bytes=list(tok.encode("utf-8")),
+                top_logprobs=[
+                    ChatCompletionLogprob(
+                        token=self._token_str(t), logprob=v,
+                        bytes=list(self._token_str(t).encode("utf-8")))
+                    for t, v in (top or [])[:k]]))
+        return ChatCompletionLogprobs(content=content)
 
     # ---------------- completions ----------------
 
@@ -140,27 +221,41 @@ class TorchGenerativeModel:
             if len(prompts) > 1 or request.n > 1:
                 raise InvalidInput("streaming supports a single prompt with n=1")
             return self._stream_completion(
-                request, prompts[0], self._generate(prompts[0], params))
+                request, prompts[0], params, self._generate(prompts[0], params))
         runs = [p for p in prompts for _ in range(request.n)]
         sources = [self._generate(p, params) for p in runs]
-        results = await asyncio.gather(*[self._run_one(s) for s in sources])
+        k = params.logprobs
+        results = await asyncio.gather(
+            *[self._run_one(s, k is not None) for s in sources])
         usage = UsageInfo()
         choices = []
-        for idx, (prompt_ids, (text, n_gen, finish)) in enumerate(zip(runs, results)):
-            choices.append(CompletionChoice(index=idx, text=text, finish_reason=finish))
+        for idx, (prompt_ids, (text, n_gen, finish, entries)) in enumerate(
+                zip(runs, results)):
+            choices.append(CompletionChoice(
+                index=idx, text=text, finish_reason=finish,
+                logprobs=(None if entries is None
+                          else self._completion_logprobs(entries, k))))
             usage.prompt_tokens += len(prompt_ids)
             usage.completion_tokens += n_gen
         usage.total_tokens = usage.prompt_tokens + usage.completion_tokens
         return Completion(model=request.model, choices=choices, usage=usage)
 
-    async def _stream_completion(self, request, prompt_ids, source):
+    async def _stream_completion(self, request, prompt_ids, params, source):
         completion_id = random_uuid("cmpl-")
+        text_offset = 0
         try:
             async for out in source:
+                lp = None
+                if params.logprobs is not None and out.token_id >= 0:
+                    lp = self._completion_logprobs(
+                        [(out.token_id, out.text_delta, out.logprob,
+                          out.top_logprobs)], params.logprobs, text_offset)
+                text_offset += len(out.text_delta)
                 chunk = Completion(
                     id=completion_id, model=request.model,
                     choices=[CompletionChoice(index=0, text=out.text_delta,
-                                              finish_reason=out.finish_reason)])
+                                              finish_reason=out.finish_reason,
+                                              logprobs=lp)])
                 if request.include_usage and out.finished:
                     chunk.usage = UsageInfo(
                         prompt_tokens=len(prompt_ids),
@@ -184,20 +279,24 @@ class TorchGenerativeModel:
             if request.n > 1:
                 raise InvalidInput("streaming supports n=1")
             return self._stream_chat(
-                request, prompt_ids, self._generate(prompt_ids, params))
+                request, prompt_ids, params, self._generate(prompt_ids, params))
         sources = [self._generate(prompt_ids, params) for _ in range(request.n)]
-        results = await asyncio.gather(*[self._run_one(s) for s in sources])
+        k = params.logprobs
+        results = await asyncio.gather(
+            *[self._run_one(s, k is not None) for s in sources])
         usage = UsageInfo(prompt_tokens=len(prompt_ids) * request.n)
         choices = []
-        for i, (text, n_gen, finish) in enumerate(results):
+        for i, (text, n_gen, finish, entries) in enumerate(results):
             choices.append(ChatCompletionChoice(
                 index=i, message=ChatCompletionResponseMessage(content=text),
-                finish_reason=finish))
+                finish_reason=finish,
+                logprobs=(None if entries is None
+                          else self._chat_logprobs(entries, k))))
             usage.completion_tokens += n_gen
         usage.total_tokens = usage.prompt_tokens + usage.completion_tokens
         return ChatCompletion(model=request.model, choices=choices, usage=usage)
 
-    async def _stream_chat(self, request, prompt_ids, source):
+    async def _stream_chat(self, request, prompt_ids, params, source):
         chunk_id = random_uuid("chatcmpl-")
         yield ChatCompletionChunk(
             id=chunk_id, model=request.model,
@@ -205,11 +304,16 @@ class TorchGenerativeModel:
                 index=0, delta=ChatCompletionChunkDelta(role="assistant", content=""))])
         try:
             async for out in source:
+                lp = None
+                if params.logprobs is not None and out.token_id >= 0:
+                    lp = self._chat_logprobs(
+                        [(out.token_id, out.text_delta, out.logprob,
+                          out.top_logprobs)], params.logprobs)
                 chunk = ChatCompletionChunk(
                     id=chunk_id, model=request.model,
                     choices=[ChatCompletionChunkChoice(
                         index=0, delta=ChatCompletionChunkDelta(content=out.text_delta),
-                        finish_reason=out.finish_reason)])
+                        finish_reason=out.finish_reason, logprobs=lp)])
                 if request.include_usage and out.finished:
                     chunk.usage = UsageInfo(
                         prompt_tokens=len(prompt_ids),

@@ -1,6 +1,8 @@
 """The PyTorch port's standard-library OpenAI server, driven over real
 sockets with the tiny config on --device cpu: health, models, a
-completion, a streamed chat (SSE chunks then [DONE]) and 400s."""
+completion, a streamed chat (SSE chunks then [DONE]), logprob blocks and
+sampling penalties (mirroring tests/test_openai_serving.py:179-310 of the
+JAX server), and 400s."""
 
 import http.client
 import json
@@ -88,13 +90,16 @@ def test_streaming_chat(server):
 
 @pytest.mark.parametrize("body", [
     b"{not json",
-    {"model": "tiny", "prompt": "x", "logprobs": 3},
-    {"model": "tiny", "messages": [{"role": "user", "content": "x"}], "logprobs": True},
-    {"model": "tiny", "prompt": "x", "frequency_penalty": 0.5},
+    # above EngineConfig.max_logprobs (20)
+    {"model": "tiny", "prompt": "x", "logprobs": 21},
+    # top_logprobs without the chat dialect's logprobs gate
+    {"model": "tiny", "messages": [{"role": "user", "content": "x"}],
+     "top_logprobs": 3},
+    {"model": "tiny", "prompt": "x", "logit_bias": {"5": 1.0}},
     {"model": "tiny", "prompt": 5},
     {"prompt": "x"},
     {"model": "tiny", "prompt": "x", "max_tokens": 100000},
-], ids=["malformed", "logprobs", "chat_logprobs", "penalty", "bad_prompt",
+], ids=["malformed", "logprobs", "chat_logprobs", "logit_bias", "bad_prompt",
         "no_model", "too_long"])
 def test_bad_requests_are_400(server, body):
     path = ("/openai/v1/chat/completions"
@@ -148,3 +153,105 @@ def test_unknown_model_is_404(server):
     status, _, _ = _request(server, "POST", "/openai/v1/completions",
                             {"model": "nope", "prompt": "x"})
     assert status == 404
+
+
+def _events(body: str):
+    return [json.loads(line[len("data: "):]) for line in body.split("\n")
+            if line.startswith("data: ") and line != "data: [DONE]"]
+
+
+def test_completion_logprobs(server):
+    status, _, body = _request(server, "POST", "/openai/v1/completions", {
+        "model": "tiny", "prompt": "hello", "max_tokens": 5, "temperature": 0,
+        "ignore_eos": True, "logprobs": 3})
+    assert status == 200, body
+    lp = json.loads(body)["choices"][0]["logprobs"]
+    for key in ("tokens", "token_logprobs", "text_offset", "top_logprobs"):
+        assert len(lp[key]) == 5
+    assert all(v <= 0.0 for v in lp["token_logprobs"])
+    for i, d in enumerate(lp["top_logprobs"]):
+        # keyed by token text: a byte tokenizer can decode two ids to one
+        # string, so only k + 1 bounds the entries
+        assert 1 <= len(d) <= 4
+        # greedy: the sampled token is the argmax, its logprob the best
+        assert abs(max(d.values()) - lp["token_logprobs"][i]) < 1e-4
+
+
+def test_chat_top_logprobs(server):
+    status, _, body = _request(server, "POST", "/openai/v1/chat/completions", {
+        "model": "tiny", "messages": [{"role": "user", "content": "hi"}],
+        "max_tokens": 4, "temperature": 0, "ignore_eos": True,
+        "logprobs": True, "top_logprobs": 2})
+    assert status == 200, body
+    content = json.loads(body)["choices"][0]["logprobs"]["content"]
+    assert len(content) == 4
+    for entry in content:
+        assert entry["logprob"] <= 0.0
+        assert len(entry["top_logprobs"]) == 2
+        assert isinstance(entry["bytes"], list)
+        # greedy: the token is the top-1 entry and carries its logprob
+        assert entry["top_logprobs"][0]["logprob"] == entry["logprob"]
+
+
+@pytest.mark.parametrize("route", ["chat", "completion"])
+def test_streamed_logprobs(server, route):
+    """Every token's delta carries its own one-entry logprobs block."""
+    body = {"model": "tiny", "max_tokens": 4, "temperature": 0,
+            "ignore_eos": True, "stream": True}
+    if route == "chat":
+        path = "/openai/v1/chat/completions"
+        body.update(messages=[{"role": "user", "content": "hi"}],
+                    logprobs=True, top_logprobs=2)
+    else:
+        path = "/openai/v1/completions"
+        body.update(prompt="hi", logprobs=2)
+    status, _, text = _request(server, "POST", path, body)
+    assert status == 200, text
+    with_lp = [e["choices"][0]["logprobs"] for e in _events(text)
+               if e["choices"][0].get("logprobs")]
+    assert len(with_lp) == 4
+    offsets = []
+    for lp in with_lp:
+        if route == "chat":
+            (entry,) = lp["content"]
+            assert entry["logprob"] <= 0.0 and len(entry["top_logprobs"]) == 2
+        else:
+            assert len(lp["tokens"]) == 1 and lp["token_logprobs"][0] <= 0.0
+            assert 1 <= len(lp["top_logprobs"][0]) <= 3
+            offsets.append(lp["text_offset"][0])
+    assert offsets == sorted(offsets)
+
+
+def test_logprobs_beside_a_plain_request(server):
+    """A logprobs request and a plain one decode together; the plain one
+    grows no logprobs field."""
+    import concurrent.futures
+
+    bodies = [{"model": "tiny", "prompt": "aa", "max_tokens": 6,
+               "temperature": 0, "ignore_eos": True, "logprobs": 2},
+              {"model": "tiny", "prompt": "bb", "max_tokens": 6,
+               "temperature": 0, "ignore_eos": True}]
+    with concurrent.futures.ThreadPoolExecutor(2) as pool:
+        replies = list(pool.map(
+            lambda b: _request(server, "POST", "/openai/v1/completions", b),
+            bodies))
+    b1, b2 = (json.loads(r[2])["choices"][0] for r in replies)
+    assert len(b1["logprobs"]["tokens"]) == 6
+    assert "logprobs" not in b2
+
+
+def test_sampling_penalties_are_served(server):
+    """frequency/presence/repetition penalties answer 200 with every token;
+    a strong repetition penalty changes the greedy text of a prompt."""
+    def text(**kw):
+        status, _, body = _request(server, "POST", "/openai/v1/completions", {
+            "model": "tiny", "prompt": "hello world", "max_tokens": 12,
+            "temperature": 0, "ignore_eos": True, **kw})
+        assert status == 200, body
+        resp = json.loads(body)
+        assert resp["usage"]["completion_tokens"] == 12
+        return resp["choices"][0]["text"]
+
+    plain = text()
+    assert text(frequency_penalty=0.5, presence_penalty=0.3) is not None
+    assert text(repetition_penalty=50.0) != plain
