@@ -41,7 +41,7 @@ Phases, each printing JSON lines:
            every d=256 instance, with the serve phase's gates
   pressure Llama-3-8B on 33 KV pages for six completions that need 54:
            the engine must preempt and re-prefill, and every completion
-           must reach its max_tokens
+           must reach its max_tokens (cold cached prompt pages go first)
   legacy   the legacy programs at Llama-3-8B full width and depth: (a) the
            serve phase's engine with completions and a streamed chat that
            ask for logprobs and sampling penalties, which run on the legacy
@@ -52,6 +52,20 @@ Phases, each printing JSON lines:
            logits of the prefill and decode programs' model calls, a no-sync
            decode_penalized_lp dispatch, and wall and device time per
            dispatch
+  prefix   the prefix cache at Llama-3-8B full width and depth, bf16 and
+           then --kv_quant=int8: a 1,040-token shared prefix (65 pages)
+           cached by one request, then six completions with 20-200-token
+           tails and a streamed chat on it, concurrently (>= 6 x 65 page
+           hits, the ragged kernel over the cached pages); TTFT of a
+           1,201-token prompt cold and with 1,184 tokens cached; the
+           first-token logits of a hit prefill against a cold prefill,
+           every attention call of the hit chunk paired with its plain
+           version
+  tiers    the KV tiers: a bit-exact gather -> host -> disk -> inject
+           round trip of 65 pages (bf16, and int8 pages with scales),
+           the decode kernel equal over injected and original pages; the
+           pressure traffic with --kv_offload=host (spilled lanes are
+           injected back); a prefix evicted, demoted and paged back in
 The line before the last is {"kernels": [...]}, the last is
 {"ok": true, "device": {...}}.  Any failure raises and exits non-zero;
 nothing falls back to the CPU or to the plain versions.
@@ -788,6 +802,8 @@ def main(argv=None) -> int:
     counts.update(phase_gemma2(torch))
     phase_pressure(torch)
     phase_legacy(torch)
+    counts.update(phase_prefix(torch))
+    phase_tiers(torch)
     for name, row in rows.items():
         phase, key = KERNEL_PATH[name]
         row["launches"] = counts[phase].get(key, 0)
@@ -844,15 +860,19 @@ def _http(port: int, method: str, path: str, body=None, timeout=600):
         conn.close()
 
 
-def _stream_chat(port: int, body: dict, t_send: list):
-    """POST a streamed chat; returns (status, events, ttft_s)."""
+def _stream_chat(port: int, body: dict, t_send: list,
+                 path: str = "/openai/v1/chat/completions"):
+    """POST a streamed chat, or a streamed completion to `path`; returns
+    (status, events, ttft_s).  The first token's chunk is a chat's second
+    event (the first names the role) and a completion's first."""
     import http.client
 
+    first_token_event = 2 if path.endswith("/chat/completions") else 1
     conn = http.client.HTTPConnection("127.0.0.1", port, timeout=600)
     try:
         t0 = time.perf_counter()
         t_send.append(t0)
-        conn.request("POST", "/openai/v1/chat/completions",
+        conn.request("POST", path,
                      body=json.dumps(body),
                      headers={"Content-Type": "application/json"})
         resp = conn.getresponse()
@@ -865,7 +885,7 @@ def _stream_chat(port: int, body: dict, t_send: list):
             if not line.startswith("data: "):
                 continue
             events.append(line[len("data: "):])
-            if ttft is None and len(events) == 2:  # first token's chunk
+            if ttft is None and len(events) == first_token_event:
                 ttft = time.perf_counter() - t0
         return resp.status, events, ttft
     finally:
@@ -1071,7 +1091,8 @@ def _logits_check(torch, engine, verify_k=None, legacy=False) -> dict:
     return out
 
 
-def _fresh_cache(mc, page_size: int, num_pages: int, kv_quant: str):
+def _fresh_cache(mc, page_size: int, num_pages: int, kv_quant: str,
+                 device="cuda"):
     """An empty cache on the card for model config `mc`: pages in its
     dtype, or with kv_quant "int8" (int8 pages, f32 scales) per layer."""
     import dataclasses
@@ -1086,9 +1107,9 @@ def _fresh_cache(mc, page_size: int, num_pages: int, kv_quant: str):
                         head_dim=mc.head_dim, page_size=page_size,
                         num_pages=num_pages, dtype=mc.dtype)
     if kv_quant != "int8":
-        return init_kv_pages(cfg, "cuda")
-    pages = init_kv_pages(dataclasses.replace(cfg, dtype="int8"), "cuda")
-    return list(zip(pages, init_kv_scales(cfg, "cuda")))
+        return init_kv_pages(cfg, device)
+    pages = init_kv_pages(dataclasses.replace(cfg, dtype="int8"), device)
+    return list(zip(pages, init_kv_scales(cfg, device)))
 
 
 def _kv_cache_gb(engine) -> float:
@@ -1569,20 +1590,34 @@ PRESSURE_PROMPTS = [
 ] + [("sampled", "Pick a random word.", 96)]
 
 
+def _start_pressure_server(torch, phase: str, extra_args=()):
+    return _start_server(
+        torch, SERVE_ARGS + [f"--kv_pages={PRESSURE_PAGES}", *extra_args], phase)
+
+
 def phase_pressure(torch) -> dict:
-    """Llama-3-8B at full width and depth on PRESSURE_PAGES KV pages: six
-    concurrent completions that the cache cannot hold at once.  The engine
-    must preempt (and re-prefill) rather than truncate: every completion
+    """Llama-3-8B at full width and depth on PRESSURE_PAGES KV pages (see
+    _pressure_run).  Returns the kernel launch counts of the served
+    requests."""
+    t_phase = time.perf_counter()
+    model, server, thread = _start_pressure_server(torch, "pressure")
+    counts = _pressure_run(torch, model, server, "pressure", t_phase)
+    _stop_server(torch, model, server, thread)
+    return counts
+
+
+def _pressure_run(torch, model, server, phase: str, t_phase: float) -> dict:
+    """Six concurrent completions that the cache cannot hold at once.  The
+    engine must preempt (and re-prefill, or on a --kv_offload=host server
+    inject the spilled pages back) rather than truncate: every completion
     reaches its max_tokens with finish_reason "length" at exactly that
-    count, preemption_count > 0, and every page is free afterwards.
-    Returns the kernel launch counts of the served requests."""
+    count, preemption_count > 0, and every page is free afterwards but
+    those the prefix cache alone holds.  Returns the kernel launch counts
+    of the served requests."""
     from concurrent.futures import ThreadPoolExecutor
 
     from kserve_tpu_torch.ops import paged_attention_cuda as K
 
-    t_phase = time.perf_counter()
-    model, server, thread = _start_server(
-        torch, SERVE_ARGS + [f"--kv_pages={PRESSURE_PAGES}"], "pressure")
     engine = model.engine
     K.reset_launch_counts()
     t_run = time.perf_counter()
@@ -1601,33 +1636,36 @@ def phase_pressure(torch) -> dict:
     for label, _, n in PRESSURE_PROMPTS:
         status, body = results[label]
         if status != 200:
-            raise AssertionError(f"pressure completion {label} answered {status}: "
+            raise AssertionError(f"{phase} completion {label} answered {status}: "
                                  f"{body[:300]!r}")
         resp = json.loads(body)
         got = resp["usage"]["completion_tokens"]
         reason = resp["choices"][0]["finish_reason"]
         finished[label] = [got, reason]
         if got != n or reason != "length":
-            raise AssertionError(f"pressure completion {label}: {got} tokens "
+            raise AssertionError(f"{phase} completion {label}: {got} tokens "
                                  f"({reason}), wanted {n}: truncated")
     free = engine.allocator.free_pages
-    if engine.preemption_count <= 0 or free != PRESSURE_PAGES - 1:
-        raise AssertionError(f"pressure: {engine.preemption_count} preemptions, "
-                             f"{free} of {PRESSURE_PAGES - 1} pages free after")
-    _require_launches("pressure", counts, ("ragged_paged_attention",
-                                           "paged_decode_attention"))
+    cached = engine._prefix_cache.pages_held_alone()
+    if engine.preemption_count <= 0 or free + cached != PRESSURE_PAGES - 1:
+        raise AssertionError(f"{phase}: {engine.preemption_count} preemptions, "
+                             f"{free} free and {cached} held by the cache alone of "
+                             f"{PRESSURE_PAGES - 1} pages after")
+    _require_launches(phase, counts, ("ragged_paged_attention",
+                                      "paged_decode_attention"))
     generated = sum(n for _, _, n in PRESSURE_PROMPTS)
-    emit({"phase": "pressure", "model": f"{model.name} (random weights, seed 1)",
+    emit({"phase": phase, "model": f"{model.name} (random weights, seed 1)",
           "kv_pages": PRESSURE_PAGES, "kv_cache_gb": _kv_cache_gb(engine),
           "requests": len(PRESSURE_PROMPTS),
           "prompt_tokens": {label: len(model.tokenizer.encode(text))
                             for label, text, _ in PRESSURE_PROMPTS},
           "completions": finished, "preemption_count": engine.preemption_count,
+          "kv_tier_counts": engine.kv_tier_counts,
+          "prefix_cache_hits": engine.prefix_cache_hits,
+          "pages_free_after": free, "pages_cached_after": cached,
           "mixed_dispatches": engine.steps, "tokens_generated": generated,
           "wall_s": wall, "tok_per_s": generated / wall, "launches": counts,
           "phase_wall_s": time.perf_counter() - t_phase})
-    del engine
-    _stop_server(torch, model, server, thread)
     return counts
 
 
@@ -2095,6 +2133,394 @@ def phase_legacy(torch) -> None:
     done = time.perf_counter()
     emit(dict(summary, part_wall_s=done - t_part, phase_wall_s=done - t_phase))
 
+
+
+# ---------------------------------------------------------------- prefix
+
+# BOS + "<|system|>\n" + PREFIX_SYSTEM + "\n" is 1,040 byte-tokenizer
+# tokens (65 pages of 16): the system prompt the chat template renders
+# first, and the head of every completion of the phase
+PREFIX_SYSTEM = (BASE_TEXT * 20)[:1027]
+SHARED_TEXT = "<|system|>\n" + PREFIX_SYSTEM + "\n"
+SHARED_PAGES = 65
+# tokens of each completion's own tail after the shared prefix; each tail
+# starts with its own letter, so no two share a page past the prefix
+PREFIX_TAILS = [20, 56, 92, 128, 164, 200]
+PREFIX_MAX_TOKENS = 24
+PREFIX_CHAT_TOKENS = 32
+# TTFT of a 1,201-token prompt cold, then of one with the same first
+# 1,184 tokens (74 pages) that the cold one left in the cache
+TTFT_DOC_BYTES = 1183
+TTFT_CACHED_PAGES = 74
+TTFT_REPS = 3
+
+
+def _prefix_tail(i: int, n: int) -> str:
+    return (f"{'ABCDEF'[i]} question {i}: " + BASE_TEXT * 4)[:n]
+
+
+def _ttft_pairs(model, port: int) -> dict:
+    """TTFT_REPS pairs of streamed 1,201-token completions on an idle
+    server: a cold prompt (no page cached), then one that shares its first
+    TTFT_CACHED_PAGES pages (1,184 tokens) and prefills 17."""
+    engine, ps = model.engine, model.engine.config.page_size
+    cold, hit = [], []
+    for k in range(TTFT_REPS):
+        doc = (f"Document {k}. " + BASE_TEXT * 30)[:TTFT_DOC_BYTES]
+        for tail, times, want in (("Cold tail follows", cold, 0),
+                                  ("Warm tail follows", hit, TTFT_CACHED_PAGES)):
+            if len(model.tokenizer.encode(doc + tail)) != 1201:
+                raise AssertionError("TTFT prompt is not 1,201 tokens")
+            h0 = engine.prefix_cache_hits
+            status, events, ttft = _stream_chat(port, {
+                "model": model.name, "prompt": doc + tail, "max_tokens": 4,
+                "temperature": 0, "ignore_eos": True, "stream": True}, [],
+                path="/openai/v1/completions")
+            n = sum(1 for e in events if e != "[DONE]")
+            got = engine.prefix_cache_hits - h0
+            if status != 200 or n != 4 or got != want:
+                raise AssertionError(f"TTFT request: status {status}, {n} tokens, "
+                                     f"{got} pages hit, wanted {want}")
+            times.append(ttft)
+    return {"prompt_tokens": 1201, "cached_tokens": TTFT_CACHED_PAGES * ps,
+            "cold_ttft_s": cold, "hit_ttft_s": hit,
+            "cold_ttft_median_s": statistics.median(cold),
+            "hit_ttft_median_s": statistics.median(hit)}
+
+
+def _prefix_logits_check(torch, engine, tail: int = 64) -> dict:
+    """First-token logits of a prompt of SHARED_PAGES cached pages plus
+    `tail` tokens, prefilled through a prefix hit (another request wrote
+    the prefix's pages; the tail's chunk enters the ragged kernel at
+    kv_start = the cached tokens), against a cold prefill of the whole
+    prompt in the engine's chunks, both through the kernels, on the served
+    weights and an f32 copy, over a cache of the engine's kind:
+
+    - float32: within F32_LOGITS_REL_TOL of the largest |logit|, over
+      either cache (both sides read int8 pages alike, so the model's int8
+      noise, the cold f32 prompt over int8 pages against over f32 pages,
+      is printed only);
+    - bfloat16: within BF16_NOISE_FACTOR times the model's bf16 noise
+      (the cold bf16 prompt against the cold f32 one);
+    - each attention call of the hit chunk, paired with its plain version
+      on the same inputs and cache: within ATTN_F32_REL_TOL (f32) or
+      _bf16_tol (bf16), as in _logits_check."""
+    import dataclasses
+
+    from kserve_tpu_torch.models import llama
+    from kserve_tpu_torch.ops import attention as A
+
+    mc16 = engine.model_config
+    mc32 = dataclasses.replace(mc16, dtype="float32")
+    kv_quant, ps = engine.config.kv_quant, engine.config.page_size
+    chunk = engine.config.prefill_buckets[-1]
+    cached = SHARED_PAGES * ps
+    N = cached + tail
+    W = -(-N // ps)
+    dev = engine.device
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(11)
+    ids = torch.randint(0, mc16.vocab_size, (N,), generator=gen, device=dev,
+                        dtype=torch.int32)
+    ints = lambda xs: torch.tensor(xs, dtype=torch.int32, device=dev)  # noqa: E731
+    table = torch.arange(1, W + 1, dtype=torch.int32, device=dev)[None]
+    worst = {}  # dtype -> (err, tol) of the paired call closest to its tol
+
+    def paired(q, pages, *args, **kw):
+        ref = A.ragged_paged_attention_plain(q, pages, *args, **kw)
+        got = A.ragged_paged_attention(q, pages, *args, **kw)
+        diff = float((got.float() - ref.float()).abs().max())
+        if ref.dtype == torch.float32:
+            err, tol = diff / max(1.0, float(ref.float().abs().max())), ATTN_F32_REL_TOL
+        else:
+            err, tol = diff, _bf16_tol(ref.float())
+        key = str(ref.dtype)
+        if key not in worst or err / tol > worst[key][0] / worst[key][1]:
+            worst[key] = (err, tol)
+        return ref
+
+    def forward(params, mc, pages, start, n, attention_fn=None):
+        """One lane's chunk of n tokens at kv_start `start`: its last
+        token's logits."""
+        logits, _ = llama.forward_ragged(
+            params, mc, ids[start:start + n], ints([0] * n),
+            torch.arange(start, start + n, dtype=torch.int32, device=dev),
+            ints([0]), ints([n]), ints([start]), pages, table, ps, ints([n - 1]),
+            attention_fn=attention_fn)
+        return logits
+
+    def prefill(params, mc, pages, end):
+        for start in range(0, end, chunk):
+            out = forward(params, mc, pages, start, min(chunk, end - start))
+        return out
+
+    def run(params, mc, cache_kind):
+        """(cold logits, hit logits) through the kernels; the hit chunk
+        then runs once more with every attention call paired."""
+        cold = prefill(params, mc, _fresh_cache(mc, ps, 1 + W, cache_kind, dev), N)
+        pages = _fresh_cache(mc, ps, 1 + W, cache_kind, dev)
+        prefill(params, mc, pages, cached)
+        hit = forward(params, mc, pages, cached, tail)
+        forward(params, mc, pages, cached, tail, attention_fn=paired)
+        return cold, hit
+
+    with torch.inference_mode():
+        params32 = {
+            k: ([{n: (t.float() if torch.is_tensor(t) else t)
+                  for n, t in layer.items()} for layer in v]
+                if k == "layers" else v.float())
+            for k, v in engine.params.items()}
+        cold32, hit32 = run(params32, mc32, kv_quant)
+        if kv_quant == "int8":
+            plain_cache32 = prefill(params32, mc32,
+                                    _fresh_cache(mc32, ps, 1 + W, "none", dev), N)
+        del params32
+        cold16, hit16 = run(engine.params, mc16, kv_quant)
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    scale = float(cold32.abs().max())
+    row = {
+        "prompt_tokens": N, "cached_tokens": cached,
+        "f32_max_abs_err": float((hit32 - cold32).abs().max()),
+        "f32_tol": F32_LOGITS_REL_TOL * scale, "max_abs_logit": scale,
+        "bf16_max_abs_err": float((hit16 - cold16).abs().max()),
+        "bf16_noise": float((cold16 - cold32).abs().max()),
+        "attn_f32_max_rel_err": worst["torch.float32"][0],
+        "attn_f32_tol": ATTN_F32_REL_TOL,
+        "attn_bf16_max_abs_err": worst["torch.bfloat16"][0],
+        "attn_bf16_tol": worst["torch.bfloat16"][1],
+        "bf16_argmax_agree": bool((hit16.argmax(-1) == cold16.argmax(-1)).all()),
+    }
+    row["bf16_tol"] = BF16_NOISE_FACTOR * row["bf16_noise"]
+    if kv_quant == "int8":
+        row["int8_noise_f32"] = float((cold32 - plain_cache32).abs().max())
+    finite = all(bool(torch.isfinite(t).all()) for t in (hit32, hit16))
+    if not (finite and row["f32_max_abs_err"] <= row["f32_tol"]
+            and row["bf16_max_abs_err"] <= row["bf16_tol"]
+            and all(e <= t for e, t in worst.values())):
+        raise AssertionError(f"prefix-hit logits disagree with a cold prefill: {row}")
+    return row
+
+
+def _prefix_run(torch, argv, phase: str) -> dict:
+    """The server built from `argv`: one completion with the shared prefix
+    (its 65 pages enter the cache), then PREFIX_TAILS completions and a
+    streamed chat with the same prefix, concurrently; the TTFT pairs and
+    the hit-vs-cold logits check.  Returns the kernel launch counts of the
+    served requests (zeroed before the first, read after the concurrent
+    ones)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from kserve_tpu_torch.ops import paged_attention_cuda as K
+
+    t_phase = time.perf_counter()
+    model, server, thread = _start_server(torch, argv, phase)
+    engine, port, name = model.engine, server.port, model.name
+    sfx = "_int8" if engine.config.kv_quant == "int8" else ""
+    if len(model.tokenizer.encode(SHARED_TEXT)) != SHARED_PAGES * engine.config.page_size:
+        raise AssertionError("the shared prefix is not 65 pages")
+    torch.cuda.synchronize()
+    K.reset_launch_counts()
+    status, body = _http(port, "POST", "/openai/v1/completions", {
+        "model": name, "prompt": SHARED_TEXT + "Z: warm the cache.",
+        "max_tokens": 8, "temperature": 0, "ignore_eos": True})
+    if status != 200:
+        raise AssertionError(f"{phase} warm-up answered {status}: {body[:300]!r}")
+    hits0 = engine.prefix_cache_hits
+    prompts = [(f"tail{n}", SHARED_TEXT + _prefix_tail(i, n), PREFIX_MAX_TOKENS)
+               for i, n in enumerate(PREFIX_TAILS)]
+    chat = {"model": name, "stream": True, "max_tokens": PREFIX_CHAT_TOKENS,
+            "temperature": 0, "ignore_eos": True,
+            "messages": [{"role": "system", "content": PREFIX_SYSTEM},
+                         {"role": "user", "content": "Answer in one long line."}]}
+    t_run = time.perf_counter()
+    with ThreadPoolExecutor(max_workers=len(prompts) + 1) as pool:
+        futs = {label: pool.submit(_http, port, "POST", "/openai/v1/completions", {
+            "model": name, "prompt": text, "max_tokens": n, "temperature": 0,
+            "ignore_eos": True}) for label, text, n in prompts}
+        chat_fut = pool.submit(_stream_chat, port, chat, [])
+        results = {label: f.result() for label, f in futs.items()}
+        chat_status, events, chat_ttft = chat_fut.result()
+    wall = time.perf_counter() - t_run
+    torch.cuda.synchronize()
+    counts = dict(K.LAUNCHES)
+    hits = engine.prefix_cache_hits - hits0
+    _completed(phase, results, [(label, text, n, None) for label, text, n in prompts])
+    if chat_status != 200 or events[-1] != "[DONE]" or len(events) != PREFIX_CHAT_TOKENS + 2:
+        raise AssertionError(f"{phase} chat answered {chat_status} with "
+                             f"{len(events)} events")
+    if hits < len(PREFIX_TAILS) * SHARED_PAGES:
+        raise AssertionError(f"{phase}: {hits} prefix-cache page hits, wanted at "
+                             f"least {len(PREFIX_TAILS)} x {SHARED_PAGES}")
+    _require_launches(phase, counts, ("ragged_paged_attention" + sfx,
+                                      "paged_decode_attention" + sfx))
+    summary = {
+        "phase": phase, "model": f"{name} (random weights, seed 1)",
+        "kv_quant": engine.config.kv_quant,
+        "shared_prefix_tokens": SHARED_PAGES * engine.config.page_size,
+        "tail_tokens": PREFIX_TAILS, "requests": len(prompts) + 2,
+        "prefix_cache_hits": hits, "wall_s": wall, "chat_ttft_s": chat_ttft,
+        "launches": counts,
+        "launches_per_dispatch": _launches_per_dispatch(phase, engine, counts),
+        "ttft": _ttft_pairs(model, port),
+        "hit_logits_check": _prefix_logits_check(torch, engine),
+    }
+    del engine
+    _stop_server(torch, model, server, thread)
+    emit(dict(summary, phase_wall_s=time.perf_counter() - t_phase))
+    return counts
+
+
+def phase_prefix(torch) -> dict:
+    """Shared-prefix traffic at Llama-3-8B full width and depth, over bf16
+    pages and then --kv_quant=int8: the prefix cache's hits, the ragged
+    kernel over cached pages, TTFT cold against hit, and hit-vs-cold
+    logits.  Returns the launch counts of both runs."""
+    return {"prefix": _prefix_run(torch, SERVE_ARGS, "prefix"),
+            "prefix_int8": _prefix_run(torch, SERVE_ARGS + ["--kv_quant=int8"],
+                                       "prefix_int8")}
+
+
+# ---------------------------------------------------------------- tiers
+
+TIERS_DIR = os.path.join(REPO, "build", "chip_smoke_kv")
+# the tiers phase's demote / page-in drill on PRESSURE_PAGES pages: a
+# 300-token prompt (18 full pages), a 400-token one that evicts them, and
+# the first again
+PAGEIN_TEXT = ("Page-in prefix. " + BASE_TEXT * 8)[:299]
+EVICT_TEXT = ("Eviction filler. " + BASE_TEXT * 12)[:399]
+
+
+def _inject_round_trip(torch, kv_quant: str) -> dict:
+    """SHARED_PAGES pages of a Llama-3-8B-shaped cache (32 layers, 8 KV
+    heads, head_dim 128, 16-token pages) filled at random, gathered
+    (compiled.gather_pages), read to the host, written to the disk tier
+    (.npz, bf16 as int16 bits), read back and injected into other page
+    ids (inject / inject_q: pages and scales).  Every injected page must
+    equal its source bit for bit, and the decode kernel over the injected
+    pages must give exactly its output over the originals.  Times each
+    leg on the host clock with the device synchronised."""
+    from kserve_tpu_torch.engine.compiled import gather_pages, inject, inject_q
+    from kserve_tpu_torch.kvstore import KVTierStore, TierConfig
+    from kserve_tpu_torch.ops import attention as A
+
+    L, nkv, d, ps, n = 32, 8, 128, 16, SHARED_PAGES
+    P = 2 * n + 1
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(3)
+    shape = (P, 2, nkv, ps, d)
+    if kv_quant == "int8":
+        cache = [(torch.randint(-127, 128, shape, generator=gen, device="cuda",
+                                dtype=torch.int8),
+                  torch.rand(shape[:-1], generator=gen, device="cuda") * 0.02)
+                 for _ in range(L)]
+    else:
+        cache = [torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
+                 for _ in range(L)]
+    src = list(range(1, n + 1))
+    dst = list(range(2 * n, n, -1))  # other ids, in reverse order
+    times = {}
+
+    def timed(name, fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        times[name] = (time.perf_counter() - t0) * 1e3
+        return out
+
+    host = timed("gather_fetch_ms", lambda: {
+        k: v.cpu() for k, v in gather_pages(cache, src).items()})
+    nbytes = sum(t.numel() * t.element_size() for t in host.values())
+    store = KVTierStore(TierConfig(host_bytes=1, disk_bytes=2 * nbytes,
+                                   disk_dir=TIERS_DIR))
+    try:
+        if not timed("disk_put_ms", lambda: store.put("spill", host)):
+            raise AssertionError("the disk tier refused the payload")
+        if store.tier_of("spill") != "disk":
+            raise AssertionError("the payload did not land on disk")
+        back = timed("disk_get_ms", lambda: store.get("spill"))
+    finally:
+        store.close()
+    if kv_quant == "int8":
+        timed("inject_ms", lambda: inject_q(cache, back["kv_q"], back["kv_s"], dst))
+    else:
+        timed("inject_ms", lambda: inject(cache, back["kv"], dst))
+    s, t = (torch.tensor(ix, device="cuda") for ix in (src, dst))
+    bits = (lambda x: x) if kv_quant == "int8" else (lambda x: x.view(torch.int16))
+    for layer in cache:
+        for part in (layer if kv_quant == "int8" else (layer,)):
+            if not torch.equal(bits(part[t]), bits(part[s])):
+                raise AssertionError(f"{kv_quant} inject round trip is not bit-exact")
+    q = torch.randn((4, 32, d), generator=gen, device="cuda").to(torch.bfloat16)
+    lens = torch.tensor([n * ps, 700, 33, 1], dtype=torch.int32, device="cuda")
+    with torch.inference_mode():
+        for layer in (cache[0], cache[-1]):
+            outs = [A.paged_attention(q, layer,
+                                      tab.to(torch.int32)[None].expand(4, -1).contiguous(),
+                                      lens) for tab in (s, t)]
+            if not torch.equal(outs[0], outs[1]):
+                raise AssertionError(f"{kv_quant} decode over injected pages differs")
+    del cache
+    torch.cuda.empty_cache()
+    return {"kv_quant": kv_quant, "pages": n, "layers": L, "bytes": nbytes,
+            **times, "inject_gb_per_s": nbytes / times["inject_ms"] / 1e6,
+            "bit_exact": True, "decode_equal": True}
+
+
+def _demote_page_in(model, port: int) -> dict:
+    """On the tiers server: PAGEIN_TEXT (its 18 full pages cached), then
+    EVICT_TEXT, whose admission evicts them (they demote to the host
+    tier), then PAGEIN_TEXT again, which pages them back in and is served
+    from them.  Demotions, page-ins and adopted hits must all grow."""
+    engine = model.engine
+    before = engine.prefix_store_stats()
+    for text in (PAGEIN_TEXT, EVICT_TEXT, PAGEIN_TEXT):
+        status, body = _http(port, "POST", "/openai/v1/completions", {
+            "model": model.name, "prompt": text, "max_tokens": 8,
+            "temperature": 0, "ignore_eos": True})
+        if status != 200 or json.loads(body)["usage"]["completion_tokens"] != 8:
+            raise AssertionError(f"page-in drill answered {status}: {body[:300]!r}")
+    after = engine.prefix_store_stats()
+    delta = {k: after[k] - before[k] for k in
+             ("demotions", "pageins", "pagein_tokens", "hits", "misses",
+              "adopted_hit_tokens")}
+    if min(delta["demotions"], delta["pageins"], delta["adopted_hit_tokens"]) <= 0:
+        raise AssertionError(f"page-in drill: {delta}")
+    return {"delta": delta, "pagein_seconds": list(engine.pagein_seconds),
+            "store_events": {f"{t}/{e}": n for (t, e), n in
+                             sorted(engine._kv_store.events.items())}}
+
+
+def phase_tiers(torch) -> None:
+    """The KV tiers on the card: (a) the inject round trip, bf16 and int8
+    pages; (b) the pressure phase's traffic with --kv_offload=host
+    --kv_offload_gib=1: preempted lanes spill and are injected back
+    (spills and resumes by inject > 0, every completion at max_tokens, no
+    spill left in the tiers); (c) on the same server, a prefix evicted,
+    demoted and paged back in."""
+    t_phase = time.perf_counter()
+    emit({"phase": "tiers", "part": "inject_round_trip", "cases": [
+        _inject_round_trip(torch, kind) for kind in ("none", "int8")]})
+    model, server, thread = _start_pressure_server(
+        torch, "tiers_pressure", ["--kv_offload=host", "--kv_offload_gib=1",
+                                  f"--kv_offload_dir={TIERS_DIR}"])
+    _pressure_run(torch, model, server, "tiers_pressure", time.perf_counter())
+    engine = model.engine
+    counts = dict(engine.kv_tier_counts)
+    spill_left = engine._kv_store.spill_bytes
+    if counts["spills"] <= 0 or counts["resume_injects"] <= 0 or spill_left:
+        raise AssertionError(f"tiers_pressure: {counts}, {spill_left} spill bytes "
+                             f"left in the tiers")
+    drill = _demote_page_in(model, server.port)
+    summary = {"phase": "tiers", "part": "offload",
+               "kv_tier_counts": counts, "spill_bytes_left": spill_left,
+               "offload_bytes_after": engine._offload_bytes,
+               "preemption_count": engine.preemption_count,
+               "demote_page_in": drill}
+    del engine
+    _stop_server(torch, model, server, thread)
+    emit(dict(summary, phase_wall_s=time.perf_counter() - t_phase))
 
 if __name__ == "__main__":
     sys.exit(main())

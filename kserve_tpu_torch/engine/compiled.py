@@ -1,10 +1,12 @@
 """The engine's device programs: the unified ragged `mixed` step, the
-speculative `mixed_decode` step and the legacy program set.
+speculative `mixed_decode` step, the legacy program set, and the page
+gather and injects (`gather_pages`, `inject`, `inject_q`) of the KV tiers.
 
 Ports of kserve_tpu/engine/compiled.py:_make_mixed (:465-529),
 :_make_mixed_decode (:531-697) and the legacy programs (`LegacyPrograms`:
 :_make_prefill, :_make_decode and its logprob and penalized forms,
-:_prefill_chunk and :_make_sample_first, :294-447 and :699).  Where the JAX package jits a program and
+:_prefill_chunk and :_make_sample_first, :294-447 and :699) and
+:_inject/:_inject_q (:420-446).  Where the JAX package jits a program and
 runs its loop as a `lax.scan`, these are plain functions whose loop is a
 Python loop: PyTorch runs eagerly.  Neither loop waits on the device: in
 `mixed` every per-step control value (positions, which lanes are live,
@@ -36,6 +38,50 @@ from .sampling import (
     compute_logprobs,
     sample_tokens,
 )
+
+
+def gather_pages(kv_pages: List[KVLayer], ids) -> dict:
+    """Enqueue a gather of whole pages into new tensors on the cache's
+    device, in the tier payload layout: {"kv": [L, P, 2, n_kv, ps, d]} of
+    a plain cache, {"kv_q", "kv_s"} (int8 pages, f32 scales) of an int8
+    one.  Nothing waits on the device (kserve_tpu/engine/engine.py:923,
+    `_gather_pages_device`)."""
+    idx = upload(ids, layer_pages(kv_pages[0]).device, torch.int64)
+    if isinstance(kv_pages[0], tuple):
+        return {
+            "kv_q": torch.stack([p.index_select(0, idx) for p, _ in kv_pages]),
+            "kv_s": torch.stack([s.index_select(0, idx) for _, s in kv_pages]),
+        }
+    return {"kv": torch.stack([layer.index_select(0, idx) for layer in kv_pages])}
+
+
+def inject(kv_pages: List[KVLayer], kv_data, ids) -> List[KVLayer]:
+    """Write whole pages into a plain cache in place: kv_data [L, P, 2,
+    n_kv, ps, d] (host or device) lands at page ids [P] of every layer.
+    Padded ids point at the null page 0 with zero data, whose contents are
+    never read unmasked.  A host payload goes up through pinned memory
+    without a stream sync, so the writes are only enqueued (port of
+    kserve_tpu/engine/compiled.py:420, an XLA scatter there)."""
+    device = layer_pages(kv_pages[0]).device
+    idx = upload(ids, device, torch.int64)
+    data = upload(kv_data, device, kv_pages[0].dtype)
+    for i, layer in enumerate(kv_pages):
+        layer.index_copy_(0, idx, data[i])
+    return kv_pages
+
+
+def inject_q(kv_pages: List[KVLayer], q, s, ids) -> List[KVLayer]:
+    """The int8 cache's inject: int8 pages q [L, P, 2, n_kv, ps, d] and
+    their f32 row scales s [L, P, 2, n_kv, ps] land together at page ids
+    [P] of every layer, in place (kserve_tpu/engine/compiled.py:435)."""
+    device = layer_pages(kv_pages[0]).device
+    idx = upload(ids, device, torch.int64)
+    q_dev = upload(q, device, torch.int8)
+    s_dev = upload(s, device, torch.float32)
+    for i, (pages, scales) in enumerate(kv_pages):
+        pages.index_copy_(0, idx, q_dev[i])
+        scales.index_copy_(0, idx, s_dev[i])
+    return kv_pages
 
 
 def make_mixed(model_config: llama.LlamaConfig, engine_config):

@@ -29,21 +29,43 @@ Port of the unified-ragged serving path of kserve_tpu/engine/engine.py:
   seated lane asks for logprobs or sampling penalties
   (`_needs_legacy_step`), which `mixed` does not compute.  Legacy decode
   dispatches chain depth 2 on the device tokens of the one in flight.
+- the prefix cache (engine/prefix_cache.py, on unless `prefix_cache=
+  False`): admission looks up the prompt's page-aligned digest chain,
+  shares the cached pages and prefills only the tail (a mixed lane's
+  first chunk starts at `kv_start` = the cached tokens; a legacy batch
+  with a hit row runs the batched `prefill_chunk` with per-row starts and
+  `sample_first`); prompt pages are registered chunk by chunk; cold
+  cached pages are evicted before admission fails or a lane is
+  preempted
+- the KV hierarchy (kvstore/, `kv_offload="host"` or `kv_persist_dir`):
+  a preempted lane's pages spill to host RAM (and disk) and are injected
+  back on resume (compiled.inject / inject_q) instead of re-prefilled;
+  evicted prefix pages demote into the same tiers, and a later prompt
+  with that prefix pages them back in before it is admitted (a worker
+  thread reads the tiers, one inject writes the pages); a prefix that is
+  hit again is written through to the persistent layer, which a
+  restarted engine pages in from
 
 The device calls and the fetches of their tokens run in worker threads
 (`asyncio.to_thread`), so the event loop keeps answering health probes and
-new requests while a step computes.  Every launch goes to one CUDA stream,
-so a finished lane's pages are freed at once even while a chained
-dispatch that still writes them is in flight (the JAX engine defers such
-frees): a later owner's writes land after the stale ones, and it reads no
-position it has not written.
+new requests while a step computes.  Every launch goes to one CUDA stream
+(the device's default stream, whichever thread enqueues it), so a finished
+lane's pages are freed at once even while a chained dispatch that still
+writes them is in flight (the JAX engine defers such frees): a later
+owner's writes, an inject included, land after the stale ones, and it
+reads no position it has not written.  That holds because pages are
+allocated only by the run loop between dispatches, never while a worker
+thread is still enqueueing one: a page-in reads and packs its pages on a
+worker thread, and the run loop allocates them, enqueues their inject and
+only then adopts them (`_land_page_ins`).  A persist write-through
+enqueues its gather when the prefix is hit and only reads it back on a
+worker thread.
 
-Not ported yet: the prefix cache, KV tiers and persistence (so a
-preempted lane always recomputes its KV: no spill to host memory and no
-re-inject, for bf16 or int8 caches), injected KV (`inject`, `inject_q`),
-the peer page fabric, data/tensor/pipeline/sequence parallelism, P/D
-disaggregation, drain/checkpoint/resume, the watchdog, metrics and the
-AOT cache.  Admission waits for free pages.
+Not ported yet: the peer page fabric, injected KV from a prefill peer
+(P/D: `kv_data`, `generate_injected`), frees deferred while a chained
+dispatch is in flight (not needed on one stream, above),
+data/tensor/pipeline/sequence parallelism, drain/checkpoint/resume, the
+watchdog, metrics and the AOT cache.  Admission waits for free pages.
 """
 
 from __future__ import annotations
@@ -61,7 +83,15 @@ from ..device import resolve_device, upload
 from ..models import llama
 from ..ops.attention import dense_stride_for
 from ..ops.paged_attention_cuda import RAGGED_BQ
-from .compiled import LegacyPrograms, make_mixed, make_mixed_decode
+from ..kvstore import HierarchicalKVStore, KVStoreConfig, payload_nbytes
+from .compiled import (
+    LegacyPrograms,
+    gather_pages,
+    inject,
+    inject_q,
+    make_mixed,
+    make_mixed_decode,
+)
 from .kvcache import (
     KVCacheConfig,
     PageAllocator,
@@ -69,6 +99,7 @@ from .kvcache import (
     init_kv_scales,
     pages_needed,
 )
+from .prefix_cache import PrefixCache
 from .sampling import SamplingParams, SamplingState
 from .tokenizer import BaseTokenizer, IncrementalDetokenizer
 from .types import EngineConfig, GenerationOutput, _QueuedRequest, _Slot
@@ -110,6 +141,15 @@ class LLMEngine:
             raise ValueError(
                 f"unknown kv_quant {engine_config.kv_quant!r}; supported: none, int8"
             )
+        if engine_config.kv_offload not in ("none", "host"):
+            raise ValueError(
+                f"unknown kv_offload {engine_config.kv_offload!r}; supported: "
+                "none, host")
+        # own copy: prefix_cache=None resolves below, and resolving it in
+        # the caller's dataclass would make a reused config look set
+        engine_config = dataclasses.replace(engine_config)
+        if engine_config.prefix_cache is None:
+            engine_config.prefix_cache = True
         unsupported = {
             "weight_quant": engine_config.weight_quant != "none",
             "tp": engine_config.tp != 1,
@@ -158,6 +198,36 @@ class LLMEngine:
         else:
             self.kv_pages = init_kv_pages(self.cache_config, self.device)
         self.allocator = PageAllocator(engine_config.num_pages)
+        # the KV hierarchy (kvstore/): host/disk tiers take preempted lanes'
+        # spills and demoted prefix pages; the persistent layer keeps
+        # reused prefix pages across restarts
+        self._kv_store: Optional[HierarchicalKVStore] = None
+        if engine_config.kv_offload == "host" or engine_config.kv_persist_dir:
+            self._kv_store = HierarchicalKVStore(KVStoreConfig(
+                host_bytes=int(engine_config.kv_offload_gib * (1 << 30)),
+                disk_bytes=int(engine_config.kv_offload_disk_gib * (1 << 30)),
+                disk_dir=engine_config.kv_offload_dir,
+                policy=engine_config.kv_offload_policy,
+                persist_dir=engine_config.kv_persist_dir))
+        # page-in and persist write-through tasks (cancelled on stop) and
+        # the digests being persisted now
+        self._pagein_tasks: set = set()
+        self._persisting: set = set()
+        # page-ins read and packed, waiting for the run loop to allocate,
+        # inject and adopt them: (request, entries, packed payload, t0)
+        self._pageins_ready: List[tuple] = []
+        # chained (depth-2) dispatch in flight: prefix demotion is skipped
+        # meanwhile, as in the JAX engine (its gather would wait for it)
+        self._pipeline_busy = False
+        # chained page key -> page, LRU-evicted under pressure, holding one
+        # allocator reference per page; evictions demote into the tiers
+        self._prefix_cache = PrefixCache(
+            engine_config.page_size, engine_config.prefix_cache,
+            self.allocator, demote_cb=self._demote_prefix_pages)
+        # spills of preempted lanes and their resumes by inject
+        self.kv_tier_counts = {"spills": 0, "spilled_bytes": 0,
+                               "resume_injects": 0, "injected_bytes": 0}
+        self.pagein_seconds: List[float] = []  # host wall of each page-in
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         self.startup_seconds = time.perf_counter() - t0
@@ -256,6 +326,14 @@ class LLMEngine:
                 slot.queue.put_nowait(RuntimeError("engine stopped"))
                 self.allocator.free(slot.pages)
                 slot.reset()
+        # page-in and persist tasks wait on worker threads: cancel them so
+        # none wakes into a stopped engine
+        for task in list(self._pagein_tasks):
+            task.cancel()
+        self._pagein_tasks.clear()
+        self._pageins_ready.clear()
+        if self._kv_store is not None:
+            self._kv_store.close()
 
     def generate(self, prompt_ids: List[int],
                  params: SamplingParams) -> AsyncIterator[GenerationOutput]:
@@ -292,8 +370,14 @@ class LLMEngine:
             self.cancel(req.request_id)
 
     def cancel(self, request_id: str) -> None:
-        self._waiting = [r for r in self._waiting if r.request_id != request_id]
-        if any(req.request_id == request_id for _, req, _, _ in self._admitting):
+        kept = []
+        for r in self._waiting:
+            if r.request_id != request_id:
+                kept.append(r)
+            else:
+                self._discard_resume_kv(r)
+        self._waiting = kept
+        if any(req.request_id == request_id for _, req, *_ in self._admitting):
             self._cancelled_admissions.add(request_id)
         for slot in self._slots:
             if slot.request_id == request_id:
@@ -304,17 +388,48 @@ class LLMEngine:
     def _fail_waiting(self, exc: Exception) -> None:
         pending, self._waiting = self._waiting, []
         for req in pending:
+            self._discard_resume_kv(req)
             req.queue.put_nowait(exc)
+
+    def _discard_resume_kv(self, req: _QueuedRequest) -> None:
+        """Release a queued request's spilled KV from the tier store."""
+        if (req.resume is not None and req.resume["kv"] is not None
+                and self._kv_store is not None):
+            self._kv_store.discard(req.resume["kv"])
+            req.resume["kv"] = None
+
+    @property
+    def prefix_cache_hits(self) -> int:
+        """Pages reused through the prefix cache."""
+        return self._prefix_cache.hits
+
+    @property
+    def _offload_bytes(self) -> int:
+        """Bytes parked in the host and disk tiers: back to 0 once every
+        spill was injected or discarded and no prefix page is demoted."""
+        if self._kv_store is None:
+            return 0
+        return int(self._kv_store.host_used + self._kv_store.disk_used)
+
+    def prefix_store_stats(self) -> Optional[dict]:
+        """The KV hierarchy's prefix-path counters (the JAX engine's
+        scheduler_state()["prefix_store"]), or None without a store."""
+        if self._kv_store is None:
+            return None
+        stats = self._kv_store.stats_dict()
+        stats["adopted_hit_tokens"] = (
+            self._prefix_cache.adopted_hits * self.config.page_size)
+        return stats
 
     # ---------------- run loop ----------------
 
     async def _run_loop(self):
         try:
             while not self._stopped:
-                did_work = False
+                did_work = self._land_page_ins()
                 while self._waiting and self._free_slot_index() is not None:
                     if self._use_mixed:
-                        admitted = self._admit_prefilling(self._waiting[0])
+                        admitted = self._admit_mixed()
                     else:
                         admitted = await self._admit_batch()
                     if not admitted:
@@ -323,13 +438,14 @@ class LLMEngine:
                 step = self._step_mixed if self._use_mixed else self._step_legacy
                 if await step():
                     did_work = True
-                if not did_work:
+                if not did_work and not self._pageins_ready:
                     self._wake.clear()
                     await self._wake.wait()
                 else:
                     await asyncio.sleep(0)
         except Exception as e:  # noqa: BLE001 — engine death must reach every stream
             logger.exception("engine loop crashed")
+            self._pipeline_busy = False
             for slot in self._slots:
                 if slot.request_id is not None:
                     slot.queue.put_nowait(e)
@@ -338,7 +454,7 @@ class LLMEngine:
             self._fail_waiting(e)
             # requests a failed _admit_batch took from the queue but never
             # seated
-            for _, req, pages, _ in self._admitting:
+            for _, req, pages, *_ in self._admitting:
                 self.allocator.free(pages)
                 req.queue.put_nowait(e)
             self._admitting = []
@@ -355,11 +471,25 @@ class LLMEngine:
                 return b
         return self.config.prefill_buckets[-1]
 
-    def _admit_prefilling(self, req: _QueuedRequest) -> bool:
-        """Seat the head of the queue as a prefilling slot once its pages
-        (plus decode headroom for a long prompt or a resume) are free.  A
-        preempted request re-prefills its prompt plus all but its last
-        generated token (kserve_tpu/engine/engine.py:2272-2273)."""
+    def _admit_mixed(self) -> bool:
+        """Admission on the mixed route: a resume whose KV is in the tier
+        store takes the inject path, everything else seats as a
+        prefilling slot (kserve_tpu/engine/engine.py:2228)."""
+        req = self._waiting[0]
+        if req.resume is not None and req.resume["kv"] is not None:
+            return self._admit_injected(req)
+        return self._admit_prefilling(req)
+
+    def _admit_prefilling(self, req: _QueuedRequest,
+                          hits: Optional[List[int]] = None,
+                          keys: Optional[List[bytes]] = None) -> bool:
+        """Seat a request as a prefilling slot once its pages (plus decode
+        headroom for a long tail or a resume) are free.  Its cached prefix
+        pages (`hits`, looked up here unless the caller did) are shared
+        and its chunks start after them; a prefix resident in the tiers
+        is paged in first (the request is held meanwhile).  A preempted
+        request re-prefills its prompt plus all but its last generated
+        token (kserve_tpu/engine/engine.py:2250-2328)."""
         idx = self._free_slot_index()
         if idx is None:
             return False
@@ -372,20 +502,33 @@ class LLMEngine:
                 f"prompt needs {need} pages > max_pages_per_seq "
                 f"{self.config.max_pages_per_seq}"))
             return True
-        required = self._admission_pages(
-            req, need, headroom=total > self.config.prefill_buckets[-1])
-        if not self.allocator.can_allocate(required):
+        seq = req.prompt_ids
+        if req.resume is not None:
+            seq = req.prompt_ids + req.resume["generated"][:-1]
+        if hits is None:
+            hits, keys = self._prefix_cache.lookup_run(seq)
+            if self._maybe_page_in(req, keys, len(hits)):
+                return False  # tier pages uploading; retried on wake
+        cached = list(hits)
+        # take this request's reference before eviction runs: eviction may
+        # drop these pages from the cache, but a live reference keeps them
+        # off the free list
+        self.allocator.share(cached)
+        fresh = need - len(cached)
+        headroom = total - len(cached) * ps > self.config.prefill_buckets[-1]
+        if not self._prefix_cache.ensure_allocatable(
+                self._admission_pages(req, fresh, headroom=headroom)):
+            self.allocator.free(cached)
             return False
-        pages = self.allocator.allocate(need)
+        pages = cached + self.allocator.allocate(fresh)
         self._waiting.remove(req)
+        self._count_prefix_hits(keys or [], cached)
         slot = self._slots[idx]
         slot.request_id = req.request_id
         slot.pages = pages
         slot.queue = req.queue
-        seq = req.prompt_ids
-        if req.resume is not None:
-            seq = req.prompt_ids + req.resume["generated"][:-1]
-        slot.prefilling = {"req": req, "seq": seq, "done": 0, "logits": None}
+        slot.prefilling = {"req": req, "seq": seq, "done": len(cached) * ps,
+                           "logits": None}
         return True
 
     def _admission_pages(self, req: _QueuedRequest, need: int,
@@ -412,10 +555,10 @@ class LLMEngine:
         While a lane is starved (no page for its next token), free pages:
         preempt a prefilling slot first (it has emitted nothing), else the
         newest decoding lane other than the oldest, which therefore always
-        finishes.  Only the oldest lane left alone and starved, one that
+        finishes.  Cold prefix-cache pages are evicted before anything is
+        preempted.  Only the oldest lane left alone and starved, one that
         exceeds the whole cache by itself, is truncated ("length").  Port
-        of kserve_tpu/engine/engine.py:2563-2641 without its prefix-cache
-        eviction and host spill, which the port lacks; every lane can be
+        of kserve_tpu/engine/engine.py:2563-2641; every lane can be
         preempted (its `_can_preempt` is always true), so the JAX branch
         where starved lanes pause for want of a victim cannot arise."""
         ps = self.config.page_size
@@ -433,6 +576,9 @@ class LLMEngine:
                     starved.append(slot)
             if not starved:
                 return
+            # cold cached pages go before anything is preempted
+            if self._prefix_cache.ensure_allocatable(1):
+                continue
             prefilling = [s for s in self._slots
                           if s.request_id is not None and s.prefilling is not None]
             if prefilling:
@@ -461,25 +607,286 @@ class LLMEngine:
 
     def _preempt(self, slot: _Slot) -> None:
         """Requeue a decoding slot at the front of the queue and free its
-        pages; its resume state re-prefills prompt + generated[:-1] when it
-        is admitted again.  Nothing is emitted: the client's stream only
-        pauses (kserve_tpu/engine/engine.py:2665, its recompute branch)."""
+        pages.  With a tier store that can hold them, its KV pages spill
+        there (a synchronous gather and fetch) and are injected back on
+        resume; otherwise its resume state re-prefills prompt +
+        generated[:-1].  Nothing is emitted: the client's stream only
+        pauses (kserve_tpu/engine/engine.py:2665-2726)."""
+        pos = slot.pos  # the device KV covers positions 0 .. pos-1
+        n_pages = pages_needed(pos, self.config.page_size)
+        kv_key = None
+        if self._kv_store is not None and self._kv_store.would_fit(
+                n_pages * self._page_bytes()):
+            payload = self._fetch_pages(slot.pages[:n_pages])
+            if self._kv_store.put(slot.request_id, payload):
+                kv_key = slot.request_id
+                self.kv_tier_counts["spills"] += 1
+                self.kv_tier_counts["spilled_bytes"] += payload_nbytes(payload)
         req = _QueuedRequest(slot.request_id, slot.prompt_ids, slot.params,
                              slot.queue)
         req.resume = {
             "generated": slot.generated,
             "detok": slot.detok,
             "stop_texts": slot.stop_texts,
-            "pos": slot.pos,  # the device KV covers positions 0 .. pos-1
+            "pos": pos,
             "admitted_at": slot.admitted_at,
+            # the spill's key in the tier store (None: re-prefill)
+            "kv": kv_key,
         }
         self.allocator.free(slot.pages)
         self._mark_penalty_dirty(self._slots.index(slot))
         slot.reset()
         self._waiting.insert(0, req)
         self.preemption_count += 1
-        logger.info("preempted request %s at position %d", req.request_id,
-                    req.resume["pos"])
+        logger.info("preempted request %s at position %d (%s)", req.request_id,
+                    pos, "KV spilled to the tier store" if kv_key is not None
+                    else "will re-prefill")
+
+    # ---------------- the KV hierarchy ----------------
+    # Port of kserve_tpu/engine/engine.py:905-1205 (spill bytes, the page
+    # gather `_gather_pages_device`, here compiled.gather_pages, demotion,
+    # hit counting, persist on reuse, page-in) and :2470-2548 (resume by
+    # inject), without the peer leg of the page-in.
+
+    def _page_bytes(self) -> int:
+        """Device bytes of one page over every layer (pages and scales)."""
+        return sum(t[0].numel() * t.element_size()
+                   for layer in self.kv_pages
+                   for t in (layer if isinstance(layer, tuple) else (layer,)))
+
+    def _fetch_pages(self, page_ids: List[int]) -> Dict[str, torch.Tensor]:
+        """Gather pages and read them back to the host (waits for the
+        device): the preemption spill and the prefix demotion, whose
+        pages are reused once the call returns."""
+        return {name: t.cpu() for name, t in
+                gather_pages(self.kv_pages, page_ids).items()}
+
+    def _inject_payload(self, payload: Dict[str, torch.Tensor],
+                        page_ids: List[int]) -> None:
+        """Enqueue the writes of a payload's pages into `page_ids`."""
+        if "kv_q" in payload:
+            inject_q(self.kv_pages, payload["kv_q"], payload["kv_s"], page_ids)
+        else:
+            inject(self.kv_pages, payload["kv"], page_ids)
+
+    def _demote_prefix_pages(self, evicted: List[tuple]) -> None:
+        """The prefix cache's eviction seam: gather the evicted pages (one
+        gather and a synchronous fetch: the allocator reuses them once
+        this returns) and demote them into the host/disk tiers under their
+        digest keys.  Tiers only: the persistent layer takes reused pages
+        alone, so one-time prompts never grow it.  Digests already
+        resident below the device skip the gather.  Skipped while a
+        chained dispatch is in flight (the fetch would wait for it): those
+        pages drop, which costs a prefill, never correctness."""
+        store = self._kv_store
+        if (store is None or not store.accepts_prefix_pages
+                or self._pipeline_busy or self._stopped):
+            return
+        pairs = [(k, p) for k, p in evicted if store.prefix_tier_of(k) is None]
+        if not pairs:
+            return
+        fetched = self._fetch_pages([p for _, p in pairs])
+        for i, (key, _) in enumerate(pairs):
+            # a copy, not a view: a view would keep the whole gather alive
+            # while the tier accounts for one page of it
+            store.put_prefix(key, {name: t[:, i:i + 1].clone()
+                                   for name, t in fetched.items()},
+                             persist=False)
+        store.record_demotion(len(pairs))
+
+    def _count_prefix_hits(self, keys: List[bytes], hits: List[int]) -> None:
+        """An admission served `hits` pages from the prefix cache: count
+        them (adopted ones too, once per admission) and write a reused
+        prefix through to the persistent layer."""
+        if not hits:
+            return
+        self._prefix_cache.hits += len(hits)
+        if keys:
+            self._prefix_cache.count_adopted_hits(keys[:len(hits)])
+        if self._kv_store is not None and keys:
+            self._maybe_persist_prefix(keys[:len(hits)], hits)
+
+    def _track_task(self, coro) -> None:
+        task = asyncio.get_running_loop().create_task(coro)
+        self._pagein_tasks.add(task)
+        task.add_done_callback(self._pagein_tasks.discard)
+
+    def _maybe_persist_prefix(self, keys: List[bytes], pages: List[int]) -> None:
+        """Persist on reuse: the gather of the hit pages not yet persisted
+        is enqueued now, while the pages are live and referenced; the read
+        back and the file writes run on a worker thread."""
+        if self._stopped:
+            return
+        need = [k for k in self._kv_store.needs_persist(keys)
+                if k not in self._persisting]
+        if not need:
+            return
+        page_of = dict(zip(keys, pages))
+        dev = gather_pages(self.kv_pages, [page_of[k] for k in need])
+        self._persisting.update(need)
+        self._track_task(self._persist_pages(need, dev))
+
+    async def _persist_pages(self, keys: List[bytes],
+                             dev: Dict[str, torch.Tensor]) -> None:
+        store = self._kv_store
+
+        def write():
+            fetched = {name: t.cpu() for name, t in dev.items()}
+            for i, key in enumerate(keys):
+                store.put_prefix(key, {name: t[:, i:i + 1].clone()
+                                       for name, t in fetched.items()})
+
+        try:
+            await asyncio.to_thread(write)
+        except asyncio.CancelledError:
+            raise
+        except Exception:  # noqa: BLE001 — persistence is an optimization:
+            # the pages stay on the device and serving goes on
+            logger.exception("prefix persist write-through failed")
+        finally:
+            for key in keys:
+                self._persisting.discard(key)
+
+    def _maybe_page_in(self, req: _QueuedRequest, keys: List[bytes],
+                       n_hbm: int) -> bool:
+        """When a request's digest chain goes on past its cached run into
+        pages resident in the tiers, start an asynchronous page-in (a
+        worker thread reads them, one inject writes them, the cache adopts
+        them) and hold the request; decoding goes on meanwhile, and the
+        retried admission prefills only what is still uncached.  True: a
+        page-in is pending, do not seat the request yet."""
+        if req.pagein == "pending":
+            return True
+        if (req.pagein == "done" or self._kv_store is None
+                or self._stopped or len(keys) <= n_hbm):
+            return False
+        run = self._kv_store.longest_prefix_run(keys[n_hbm:])
+        # room for the pages may come from evicting colder cached pages
+        # (which demote in turn); a cache full of hotter pages vetoes it
+        if not run or not self._prefix_cache.ensure_allocatable(len(run)):
+            req.pagein = "done"  # every retry of this admission is O(1)
+            return False
+        req.pagein = "pending"
+        self._track_task(self._page_in(req, run))
+        return True
+
+    async def _page_in(self, req: _QueuedRequest, run: List[tuple]) -> None:
+        """Read one tier-resident prefix run back for the device: the tier
+        and file reads and the packing run on a worker thread, and the
+        packed run waits in `_pageins_ready` for the run loop to land it.
+        This task allocates nothing: it runs while a dispatch may still be
+        enqueued from a worker thread, and pages a cancel() freed meanwhile
+        would be handed to the inject before that dispatch's stale writes."""
+        store = self._kv_store
+        t0 = time.perf_counter()
+        landing = False
+        try:
+            digests = [d for d, _ in run]
+
+            def read():
+                out = []
+                for digest in digests:
+                    got = store.get_prefix(digest)
+                    if got is None:
+                        break  # dropped or corrupt meanwhile: truncate
+                    out.append(got)
+                return out
+
+            payloads = await asyncio.to_thread(read)
+            if self._stopped:
+                return
+            entries = [(digest, payload, tier)
+                       for digest, (payload, tier) in zip(digests, payloads)
+                       if not self._prefix_cache.contains_key(digest)]
+            if not entries:
+                return
+
+            def pack():
+                names = entries[0][1].keys()
+                out = {n: torch.cat([p[n] for _, p, _ in entries], dim=1)
+                       for n in names}
+                if self.device.type == "cuda":
+                    out = {n: t.pin_memory() for n, t in out.items()}
+                return out
+
+            packed = await asyncio.to_thread(pack)
+            if self._stopped:
+                return
+            self._pageins_ready.append((req, entries, packed, t0))
+            landing = True
+        except asyncio.CancelledError:
+            raise
+        except Exception:  # noqa: BLE001 — page-in is an optimization: the
+            # held request prefills its whole tail instead
+            logger.exception("prefix page-in failed")
+        finally:
+            if not landing:
+                req.pagein = "done"
+            self._wake.set()
+
+    def _land_page_ins(self) -> bool:
+        """Run loop, between dispatches: allocate the pages of every page-in
+        whose reads finished, enqueue their inject (no wait on the device)
+        and only then adopt them into the cache, so the held requests'
+        retried admissions hit them.  True when one was landed."""
+        ready, self._pageins_ready = self._pageins_ready, []
+        ps = self.config.page_size
+        for req, entries, packed, t0 in ready:
+            req.pagein = "done"
+            if not self.allocator.can_allocate(len(entries)):
+                continue
+            pages = self.allocator.allocate(len(entries))
+            try:
+                self._inject_payload(packed, pages)
+            except Exception:  # noqa: BLE001 — as in _page_in
+                self.allocator.free(pages)
+                logger.exception("prefix page-in failed")
+                continue
+            # the cache takes over the new pages' references
+            self._prefix_cache.adopt(
+                [(digest, page) for (digest, _, _), page in zip(entries, pages)])
+            pages_by_tier: Dict[str, int] = {}
+            for _, _, tier in entries:
+                pages_by_tier[tier] = pages_by_tier.get(tier, 0) + 1
+            self._kv_store.record_pagein(
+                pages_by_tier, {t: c * ps for t, c in pages_by_tier.items()})
+            self.pagein_seconds.append(time.perf_counter() - t0)
+        return bool(ready)
+
+    def _admit_injected(self, req: _QueuedRequest) -> bool:
+        """Admit a preempted request whose KV is in the tier store: inject
+        its pages and seat it with its stream state, emitting nothing.  A
+        spill the store dropped under pressure falls back to the re-prefill
+        path (returns True: progress; the next pass takes that path)."""
+        idx = self._free_slot_index()
+        if idx is None:
+            return False
+        need = pages_needed(req.kv_len + 1, self.config.page_size)
+        if need > self.config.max_pages_per_seq:
+            return False
+        if not self._prefix_cache.ensure_allocatable(
+                self._admission_pages(req, need)):
+            return False
+        # get() consumes the spill: only after the capacity checks, so a
+        # request that has to wait keeps it
+        payload = (self._kv_store.get(req.resume["kv"])
+                   if self._kv_store is not None else None)
+        if payload is None:
+            req.resume["kv"] = None
+            return True
+        pages = self.allocator.allocate(need)
+        self._waiting.remove(req)
+        entry = (idx, req, pages, None)
+        self._admitting.append(entry)
+        n_kv = next(iter(payload.values())).shape[1]
+        self._inject_payload(payload, pages[:n_kv])
+        self.kv_tier_counts["resume_injects"] += 1
+        self.kv_tier_counts["injected_bytes"] += payload_nbytes(payload)
+        slot = self._slots[idx]
+        slot.request_id, slot.pages, slot.queue = req.request_id, pages, req.queue
+        self._seat_resumed(slot, req)
+        self._admitting.remove(entry)
+        return True
 
     def _prepare_chunk(self, prev: Optional[dict] = None) -> Optional[dict]:
         """Host-side state of a dispatch's decode lanes (port of
@@ -702,7 +1109,8 @@ class LLMEngine:
         }
 
     def _route_mixed(self, plan: dict, chunk_np: np.ndarray) -> None:
-        """Consume one dispatch's [steps, B] tokens: advance chunk cursors,
+        """Consume one dispatch's [steps, B] tokens: advance chunk cursors
+        (registering the prompt pages a fresh prompt's chunk completed),
         seat lanes whose prompt completed (a fresh one emits its first
         token, a resumed one its stream state and nothing), then stream
         each lane's decode window.  Lanes cancelled while the step ran are
@@ -713,6 +1121,8 @@ class LLMEngine:
                 continue
             pf = slot.prefilling
             pf["done"] += n
+            if pf["req"].resume is None:
+                self._register_chunk(slot, pf)
             if final:
                 self._complete_prefilling(slot, pf["req"], int(chunk_np[0, i]))
         for i in sorted(plan["consume"]):
@@ -755,72 +1165,124 @@ class LLMEngine:
         return did
 
     async def _admit_batch(self) -> bool:
-        """Prefill up to `prefill_batch` waiting requests in one `prefill`
-        call, the batch padded to a power of two and the prompts to the
-        bucket of the longest; False when none can be admitted (no slot or
-        no pages).  A prompt longer than the largest bucket is admitted
-        alone as a prefilling slot (`_admit_chunked`).  A resumed request
-        re-prefills prompt + generated[:-1] and its sample is discarded."""
+        """Prefill up to `prefill_batch` waiting requests in one call, the
+        batch padded to a power of two and the rows to the bucket of the
+        longest tail; False when none can be admitted (no slot or no
+        pages).  A row with prefix-cache hits prefills only its uncached
+        tail: a batch with such a row runs the batched `prefill_chunk`
+        with per-row starts, then `sample_first` (the in-prompt mask from
+        the whole sequence), a cold batch the fused `prefill`.  A resume
+        with spilled KV is injected (`_admit_injected`), a tail longer
+        than the largest bucket is admitted alone as a prefilling slot
+        (`_admit_chunked`), and a prefix resident in the tiers is paged in
+        first.  A resumed request re-prefills prompt + generated[:-1] and
+        its sample is discarded (kserve_tpu/engine/engine.py:1990-2175)."""
         ps = self.config.page_size
-        admitted: List[tuple] = []  # (slot index, request, pages, seq)
+        chunk_cap = self.config.prefill_buckets[-1]
+        # (slot index, request, pages, seq, cached pages)
+        admitted: List[tuple] = []
         self._admitting = admitted
         free = [i for i, s in enumerate(self._slots) if s.request_id is None]
         while (self._waiting and free
                and len(admitted) < self.config.prefill_batch):
             req = self._waiting[0]
-            if req.kv_len > self.config.prefill_buckets[-1]:
+            if req.resume is not None and req.resume["kv"] is not None:
                 if admitted:
                     break  # run the batch first
                 self._admitting = []
-                return self._admit_chunked(req)
-            need = pages_needed(req.kv_len + 1, ps)
-            if not self.allocator.can_allocate(self._admission_pages(req, need)):
-                break
-            pages = self.allocator.allocate(need)
-            self._waiting.pop(0)
+                return self._admit_injected(req)
             seq = req.prompt_ids
             if req.resume is not None:
                 seq = req.prompt_ids + req.resume["generated"][:-1]
-            admitted.append((free.pop(0), req, pages, seq))
+            hits, pkeys = self._prefix_cache.lookup_run(seq)
+            if self._maybe_page_in(req, pkeys, len(hits)):
+                # its prefix is uploading; hold it and run what we have
+                if admitted:
+                    break
+                self._admitting = []
+                return False
+            if req.kv_len - len(hits) * ps > chunk_cap:
+                if admitted:
+                    break  # run the batch first
+                self._admitting = []
+                return self._admit_chunked(req, hits, pkeys)
+            need = pages_needed(req.kv_len + 1, ps)
+            # pin the hits before eviction can free them
+            self.allocator.share(hits)
+            if not self._prefix_cache.ensure_allocatable(
+                    self._admission_pages(req, need - len(hits))):
+                self.allocator.free(hits)
+                break
+            pages = list(hits) + self.allocator.allocate(need - len(hits))
+            self._waiting.pop(0)
+            self._count_prefix_hits(pkeys, hits)
+            admitted.append((free.pop(0), req, pages, seq, len(hits)))
         if not admitted:
             return False
-        bucket = self._bucket_for(max(len(seq) for *_, seq in admitted))
+        bucket = self._bucket_for(max(len(seq) - c * ps
+                                      for *_, seq, c in admitted))
         Bp = 1
         while Bp < len(admitted):
             Bp *= 2
+        cold = all(c == 0 for *_, c in admitted)
+        width = (self.config.max_pages_per_seq if cold else
+                 self.config.page_bucket(max(len(p) for _, _, p, _, _ in admitted)))
         tokens = np.zeros((Bp, bucket), np.int32)
         valid = np.zeros((Bp,), np.int32)
-        page_ids = np.zeros((Bp, self.config.max_pages_per_seq), np.int32)
+        chunk_start = np.zeros((Bp,), np.int32)
+        page_ids = np.zeros((Bp, width), np.int32)
+        in_prompt = None if cold else np.zeros(
+            (Bp, self.model_config.vocab_size), bool)
         params_list = [SamplingParams()] * Bp
-        for j, (_, req, pages, seq) in enumerate(admitted):
-            tokens[j, :len(seq)] = seq
-            valid[j] = len(seq)
+        for j, (_, req, pages, seq, c) in enumerate(admitted):
+            tail = seq[c * ps:]
+            tokens[j, :len(tail)] = tail
+            valid[j] = len(tail)
+            chunk_start[j] = c * ps
             page_ids[j, :len(pages)] = pages
             params_list[j] = req.params
+            if in_prompt is not None:
+                in_prompt[j, np.asarray(seq, np.int64)] = True
         # the logprob variant only when a fresh row asked for logprobs
-        name = "prefill_lp" if any(
-            req.resume is None and req.params.logprobs is not None
-            for _, req, _, _ in admitted) else "prefill"
-        first, lp = await asyncio.to_thread(
-            self._run_prefill, name, tokens, valid, page_ids, params_list)
-        self.legacy_dispatches[name] += 1
-        for j, (idx, req, pages, _) in enumerate(admitted):
+        want_lp = any(req.resume is None and req.params.logprobs is not None
+                      for _, req, *_ in admitted)
+        if cold:
+            name = "prefill_lp" if want_lp else "prefill"
+            first, lp = await asyncio.to_thread(
+                self._run_prefill, name, tokens, valid, page_ids, params_list)
+            self.legacy_dispatches[name] += 1
+        else:
+            name = "sample_first_lp" if want_lp else "sample_first"
+            first, lp = await asyncio.to_thread(
+                self._run_prefill_hits, name, tokens, chunk_start, valid,
+                page_ids, params_list, in_prompt)
+            self.legacy_dispatches["prefill_chunk"] += 1
+            self.legacy_dispatches[name] += 1
+        for j, (idx, req, pages, _, _) in enumerate(admitted):
             if req.request_id in self._cancelled_admissions:
                 self.allocator.free(pages)  # its client went away meanwhile
                 continue
             slot = self._slots[idx]
             slot.request_id, slot.pages, slot.queue = req.request_id, pages, req.queue
+            if req.resume is not None:
+                self._seat_resumed(slot, req)  # the sample is discarded
+                continue
+            # registered before the first token is emitted, which may
+            # finish the request and free its pages
+            self._prefix_cache.register(req.prompt_ids, pages)
             self._complete_prefilling(slot, req, int(first[j]),
                                       self._lp_for(req.params, lp, j))
         self._admitting = []
         self._cancelled_admissions.clear()
         return True
 
-    def _admit_chunked(self, req: _QueuedRequest) -> bool:
-        """Admit one prompt longer than the largest bucket as a prefilling
-        slot, whose chunks `_advance_prefills` runs through prefill_chunk
-        (kserve_tpu/engine/engine.py:2241)."""
-        return self._admit_prefilling(req)
+    def _admit_chunked(self, req: _QueuedRequest,
+                       hits: Optional[List[int]] = None,
+                       keys: Optional[List[bytes]] = None) -> bool:
+        """Admit one request whose tail is longer than the largest bucket
+        as a prefilling slot, whose chunks `_advance_prefills` runs through
+        prefill_chunk (kserve_tpu/engine/engine.py:2241)."""
+        return self._admit_prefilling(req, hits, keys)
 
     def _run_prefill(self, name: str, tokens, valid, page_ids, params_list):
         """One batched prefill call and the fetch of its first tokens and
@@ -835,6 +1297,20 @@ class LLMEngine:
             if name == "prefill_lp":
                 lp = tuple(t.cpu().numpy() for t in out[1])
             return out[0].cpu().numpy(), lp
+
+    def _run_prefill_hits(self, name: str, tokens, chunk_start, valid,
+                          page_ids, params_list, in_prompt):
+        """A batch with prefix hits (worker thread): one batched
+        prefill_chunk over the rows' tails, then sample_first(_lp) of its
+        logits, and the fetch of the first tokens and logprobs."""
+        with torch.inference_mode():
+            logits, self.kv_pages = self._legacy.get("prefill_chunk")(
+                self.params, tokens, chunk_start, valid, self.kv_pages, page_ids)
+            state = SamplingState.from_params(params_list, self.device)
+            out = self._legacy.get(name)(logits, state, self._rng, in_prompt)
+            if name == "sample_first":
+                return out.cpu().numpy(), None
+            return out[0].cpu().numpy(), tuple(t.cpu().numpy() for t in out[1])
 
     async def _advance_prefills(self) -> bool:
         """One chunk of every prefilling slot through prefill_chunk; a slot
@@ -864,6 +1340,8 @@ class LLMEngine:
                 if slot.prefilling is not pf:
                     continue  # cancelled while the chunk ran
                 pf["logits"], pf["done"] = logits, done + n
+                if pf["req"].resume is None:
+                    self._register_chunk(slot, pf)
             if pf["done"] >= len(seq):
                 await self._finish_prefilling(slot, pf)
                 progressed = True
@@ -1054,6 +1532,7 @@ class LLMEngine:
                 meta2 = self._prepare_chunk(prev=meta)
             if meta2 is not None:
                 chunk2 = await self._launch_chunk(meta2, prev=chunk)
+                self._pipeline_busy = True
             finished_any = await self._route_chunk(meta, chunk)
             await asyncio.sleep(0)  # flush streams while N+1 runs
             if chunk2 is None:
@@ -1062,15 +1541,18 @@ class LLMEngine:
             if (finished_any or self._stopped
                     or (self._waiting and self._free_slot_index() is not None)):
                 # stale lanes, or admission can proceed: drain and re-plan
+                self._pipeline_busy = False
                 await self._route_chunk(meta, chunk)
                 break
+        self._pipeline_busy = False
 
     # ---------------- dense / speculative decode stepping ----------------
     # Port of kserve_tpu/engine/engine.py:3386-3623.  Unlike the JAX engine
     # this one frees a finished lane's pages at once even while a chained
     # dispatch that still writes them is in flight: every dispatch runs on
-    # one CUDA stream, so a later owner's writes land after the stale ones
-    # and it reads no position it has not written.
+    # one CUDA stream and pages are allocated only by the run loop between
+    # dispatches, so a later owner's writes land after the stale ones and
+    # it reads no position it has not written.
 
     def _dense_fits(self, meta: dict) -> bool:
         """Whether a pure-decode step can run the dense program: every
@@ -1284,6 +1766,7 @@ class LLMEngine:
                 chunk2 = await asyncio.to_thread(self._dispatch_dense, plan2, chunk)
                 self.dense_steps += 1
                 self.chained_dispatches += 1
+                self._pipeline_busy = True
             finished_any, routed_any = await self._route_dense(plan, chunk)
             await asyncio.sleep(0)  # flush streams while N+1 runs
             if chunk2 is None:
@@ -1293,8 +1776,10 @@ class LLMEngine:
                     or (self._waiting and self._free_slot_index() is not None)):
                 # stale lanes, admission can proceed, or every round was
                 # skipped for capacity: drain the pipeline and re-plan
+                self._pipeline_busy = False
                 await self._route_dense(plan, chunk)
                 break
+        self._pipeline_busy = False
 
     def _seat_fresh(self, slot: _Slot, req: _QueuedRequest, first_token: int) -> None:
         slot.prefilling = None
@@ -1325,6 +1810,16 @@ class LLMEngine:
         slot.admitted_at = r["admitted_at"]
         self._mark_penalty_dirty(self._slots.index(slot))
 
+    def _register_chunk(self, slot: _Slot, pf: dict) -> None:
+        """Register the prompt pages a fresh prompt's chunks have filled
+        so far, from the first one not yet registered (kserve_tpu/engine/
+        engine.py:2370-2382, :3355-3362)."""
+        req = pf["req"]
+        covered = min(pf["done"], len(req.prompt_ids))
+        self._prefix_cache.register(req.prompt_ids[:covered], slot.pages,
+                                    start_page=pf.get("registered", 0))
+        pf["registered"] = covered // self.config.page_size
+
     def _complete_prefilling(self, slot: _Slot, req: _QueuedRequest,
                              first_token: Optional[int],
                              lp: tuple = (None, None)) -> None:
@@ -1332,8 +1827,10 @@ class LLMEngine:
         request emits its first token.  Shared by the mixed route (the
         token is the dispatch's step-0 sample) and the legacy chunk loop
         (sample_first's), so the two cannot drift (kserve_tpu/engine/
-        engine.py:2393)."""
+        engine.py:2393).  A resumed request registers its prompt's pages
+        here, once (a fresh one registered them chunk by chunk)."""
         if req.resume is not None:
+            self._prefix_cache.register(req.prompt_ids, slot.pages)
             self._seat_resumed(slot, req)
             return
         self._seat_fresh(slot, req, first_token)

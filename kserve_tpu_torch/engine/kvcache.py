@@ -95,6 +95,9 @@ class PageAllocator:
     def free_pages(self) -> int:
         return len(self._free)
 
+    def refcount(self, page: int) -> int:
+        return self._refs[page]
+
     def can_allocate(self, n: int) -> bool:
         return len(self._free) >= n
 

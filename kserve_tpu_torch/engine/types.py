@@ -3,8 +3,8 @@ queue bookkeeping.
 
 Port of kserve_tpu/engine/types.py (EngineConfig :36 with the fields the
 port uses, spec_decode_k_from_env :210, GenerationOutput :317 with its
-logprobs, _Slot :331, _QueuedRequest :359 with its `resume` state and
-`kv_len`).  The knobs the port does not run yet
+logprobs, _Slot :331, _QueuedRequest :359 with its `resume` state, its
+`pagein` state and `kv_len`).  The knobs the port does not run yet
 (weight_quant, tp/dp/sp/pp) are kept so a configuration asking for them
 is rejected at engine construction instead of silently ignored.
 """
@@ -15,6 +15,8 @@ import logging
 import os
 from dataclasses import dataclass
 from typing import List, Optional, Tuple
+
+from ..kvstore.tiers import DEFAULT_DISK_DIR
 
 logger = logging.getLogger(__name__)
 
@@ -50,6 +52,27 @@ class EngineConfig:
     # with a lane that asks for logprobs or penalties still runs the
     # legacy programs.
     use_ragged: Optional[bool] = None
+    # prefix cache (engine/prefix_cache.py): full prompt pages are kept
+    # (refcounted, LRU-evicted under pressure) and shared by later
+    # requests with the same page-aligned prefix, which prefill only their
+    # uncached tail.  None = on (the engine resolves it on its own copy)
+    prefix_cache: Optional[bool] = None
+    # KV tiers (kvstore/): "none" re-prefills a preempted lane on resume;
+    # "host" spills its KV pages to host RAM (kv_offload_gib) over an
+    # optional disk tier (kv_offload_disk_gib > 0, files under
+    # kv_offload_dir) with lru/arc eviction between them, and injects
+    # them back on resume.  The same tiers take evicted prefix pages.
+    # An entry dropped under pressure is prefilled again.
+    kv_offload: str = "none"  # none | host
+    kv_offload_gib: float = 0.0
+    kv_offload_disk_gib: float = 0.0
+    kv_offload_dir: str = DEFAULT_DISK_DIR
+    kv_offload_policy: str = "lru"  # lru | arc
+    # persistent prefix store (kvstore/persist.py): reused prefix pages
+    # are written as digest-named files here, and a restarted engine pages
+    # them back in on first use.  None = off ($KSERVE_TPU_KV_PERSIST in
+    # the server)
+    kv_persist_dir: Optional[str] = None
     # not run by this port yet: any other value is rejected
     weight_quant: str = "none"
     tp: int = 1
@@ -138,8 +161,14 @@ class _QueuedRequest:
         self.params = params
         self.queue = queue
         # a preempted request's stream state, restored when it seats again:
-        # {"generated", "detok", "stop_texts", "pos", "admitted_at"}
+        # {"generated", "detok", "stop_texts", "pos", "admitted_at", "kv"};
+        # "kv" is its spill's key in the tier store (None: re-prefill)
         self.resume: Optional[dict] = None
+        # page-in of a tier-resident prefix (engine._maybe_page_in): None =
+        # not consulted yet, "pending" = an upload is in flight (admission
+        # waits, decoding goes on), "done" = consulted: admit on what the
+        # device prefix cache holds now
+        self.pagein: Optional[str] = None
 
     @property
     def kv_len(self) -> int:

@@ -1,0 +1,36 @@
+"""Hierarchical KV page store (port of kserve_tpu/kvstore/, without the
+peer page fabric of kvstore/peer.py).
+
+One store holds the two host-side KV paths:
+
+- the spill path: a preempted lane's device KV parks in host RAM or on
+  disk and is injected back when the lane resumes;
+- the prefix path: prefix-cache pages evicted from the device demote into
+  the same tiers instead of being dropped, keyed by the digest chains of
+  scheduler/prefix.py, above a persistent layer of digest-named files
+  that survive a restart.
+
+Tier order: device (engine/prefix_cache.py, outside this package) -> host
+RAM -> node-local disk -> persistent prefix files.  A page dropped
+anywhere is a performance event, never a correctness one: the engine
+prefills it again.  Payloads are dicts of CPU torch tensors; on disk a
+bfloat16 tensor is kept as its int16 bits with a dtype tag (payload.py),
+so the port needs no numpy bfloat16 type.
+"""
+
+from .payload import Payload, payload_nbytes
+from .persist import PersistentPrefixStore, kv_persist_dir_from_env
+from .store import HierarchicalKVStore, KVStoreConfig, PrefixStoreStats
+from .tiers import KVTierStore, TierConfig
+
+__all__ = [
+    "HierarchicalKVStore",
+    "KVStoreConfig",
+    "KVTierStore",
+    "Payload",
+    "PersistentPrefixStore",
+    "PrefixStoreStats",
+    "TierConfig",
+    "kv_persist_dir_from_env",
+    "payload_nbytes",
+]

@@ -11,7 +11,10 @@ made on the device.
 Entrypoint:
     python -m kserve_tpu_torch.runtimes.generative_server \\
         --model_name=llama3-8b --model_config=llama3-8b --random_weights \\
-        [--device cuda|cpu] [--spec_decode_k K] [--kv_quant int8]
+        [--device cuda|cpu] [--spec_decode_k K] [--kv_quant int8] \\
+        [--kv_offload host --kv_offload_gib G] [--kv_persist_dir DIR]
+
+The prefix cache is always on, as in the JAX server.
 """
 
 from __future__ import annotations
@@ -26,6 +29,8 @@ from ..engine.engine import EngineConfig, LLMEngine
 from ..engine.sampling import SamplingParams
 from ..engine.tokenizer import load_tokenizer
 from ..engine.types import spec_decode_k_from_env
+from ..kvstore import kv_persist_dir_from_env
+from ..kvstore.tiers import DEFAULT_DISK_DIR
 from ..errors import InvalidInput
 from ..model_server import ModelServer
 from ..models import llama
@@ -348,6 +353,26 @@ def build_arg_parser() -> argparse.ArgumentParser:
         "round of the dense mixed_decode program (0 = dense packing "
         "alone); defaults to $KSERVE_TPU_SPEC_DECODE_K (off).  Greedy and "
         "seeded streams stay token-identical to spec-off")
+    # the KV hierarchy (kvstore/); the prefix cache is always on
+    parser.add_argument(
+        "--kv_offload", default="none", choices=("none", "host"),
+        help="host: a preempted lane's KV pages spill to host RAM (and "
+        "disk) and are injected back on resume instead of re-prefilled; "
+        "evicted prefix pages demote there too")
+    parser.add_argument("--kv_offload_gib", default=0.0, type=float,
+                        help="host RAM tier budget (GiB)")
+    parser.add_argument(
+        "--kv_offload_disk_gib", default=0.0, type=float,
+        help="disk tier budget (GiB) under --kv_offload_dir; entries demote "
+        "host->disk per --kv_offload_policy")
+    parser.add_argument("--kv_offload_dir", default=DEFAULT_DISK_DIR)
+    parser.add_argument("--kv_offload_policy", default="lru",
+                        choices=("lru", "arc"))
+    parser.add_argument(
+        "--kv_persist_dir", default=None,
+        help="persistent prefix store directory: reused prefix pages are "
+        "written there and a restarted server pages them in; defaults to "
+        "$KSERVE_TPU_KV_PERSIST (off)")
     return parser
 
 
@@ -367,6 +392,12 @@ def build_model(args) -> TorchGenerativeModel:
         kv_quant=args.kv_quant,
         spec_decode_k=(args.spec_decode_k if args.spec_decode_k is not None
                        else spec_decode_k_from_env()),
+        kv_offload=args.kv_offload,
+        kv_offload_gib=args.kv_offload_gib,
+        kv_offload_disk_gib=args.kv_offload_disk_gib,
+        kv_offload_dir=args.kv_offload_dir,
+        kv_offload_policy=args.kv_offload_policy,
+        kv_persist_dir=args.kv_persist_dir or kv_persist_dir_from_env(),
     )
     return TorchGenerativeModel(
         args.model_name, model_config, engine_config,

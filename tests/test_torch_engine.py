@@ -137,7 +137,7 @@ def test_engine_greedy_streams_match_jax_engine():
     # 45 tokens > the largest prefill bucket (32): chunked over two steps
     prompts = [rng.randint(0, 256, n).tolist() for n in (5, 20, 45)]
     jengine = jeng.LLMEngine(
-        jcfg, jeng.EngineConfig(prefix_cache=False, **ENGINE),
+        jcfg, jeng.EngineConfig(**ENGINE),
         JaxByteTokenizer(512), params=jparams, rng_seed=0)
     tengine = LLMEngine(tcfg, EngineConfig(**ENGINE), ByteTokenizer(512),
                         params=tparams, rng_seed=0, device="cpu")
@@ -146,5 +146,8 @@ def test_engine_greedy_streams_match_jax_engine():
     got = asyncio.run(_streams(tengine, prompts, ts.SamplingParams))
     assert [len(s) for s in got] == [12, 12, 12]
     assert got == want
-    # every page went back to the allocator
-    assert tengine.allocator.free_pages == ENGINE["num_pages"] - 1
+    assert tengine.prefix_cache_hits == jengine.prefix_cache_hits
+    # every page went back to the allocator but those the prefix cache
+    # alone holds
+    assert (tengine.allocator.free_pages + tengine._prefix_cache.pages_held_alone()
+            == ENGINE["num_pages"] - 1)

@@ -1,6 +1,8 @@
 """The PyTorch port stands alone: importing it loads neither jax nor the
-JAX package, no source of it (or chip_smoke.py) imports them, and its
-entry points refuse to run without CUDA unless asked for the CPU."""
+JAX package, no source of it (or chip_smoke.py) imports them or
+ml_dtypes (the card machine has none: the port's KV payloads keep
+bfloat16 as int16 bits), and its entry points refuse to run without CUDA
+unless asked for the CPU."""
 
 import ast
 import os
@@ -13,7 +15,7 @@ import torch
 
 REPO = Path(__file__).resolve().parents[1]
 PKG = REPO / "kserve_tpu_torch"
-FORBIDDEN_ROOTS = {"jax", "jaxlib", "kserve_tpu"}
+FORBIDDEN_ROOTS = {"jax", "jaxlib", "kserve_tpu", "ml_dtypes"}
 
 
 def _port_modules():
@@ -33,7 +35,8 @@ def test_import_loads_no_jax_and_no_jax_package():
         f"for name in {_port_modules()!r}:\n"
         "    importlib.import_module(name)\n"
         "bad = sorted(m for m in sys.modules\n"
-        "             if m.split('.')[0] in ('jax', 'jaxlib', 'kserve_tpu'))\n"
+        "             if m.split('.')[0] in ('jax', 'jaxlib', 'kserve_tpu',\n"
+        "                                    'ml_dtypes'))\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n"
     )

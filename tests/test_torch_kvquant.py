@@ -406,7 +406,7 @@ def test_engine_int8_greedy_streams_match_jax_and_spec_on():
     with speculative decoding on (K = 2) they equal spec off."""
     jcfg, tcfg, jparams, tparams = _models()
     jengine = jeng.LLMEngine(
-        jcfg, jeng.EngineConfig(prefix_cache=False, kv_quant="int8", **ENGINE),
+        jcfg, jeng.EngineConfig(kv_quant="int8", **ENGINE),
         JaxByteTokenizer(512), params=jparams, rng_seed=0)
     want = asyncio.run(_streams(jengine, PROMPTS, js.SamplingParams))
     off = _engine(tcfg, tparams)

@@ -315,7 +315,7 @@ def _engines(models, use_ragged, **cfg):
     jcfg, tcfg, jparams, tparams = models
     config = dict(ENGINE, **cfg)
     jengine = jeng.LLMEngine(
-        jcfg, jeng.EngineConfig(prefix_cache=False, use_pallas=False,
+        jcfg, jeng.EngineConfig(use_pallas=False,
                                 use_ragged=use_ragged, **config),
         JaxByteTokenizer(512), params=jparams, rng_seed=0)
     tengine = LLMEngine(tcfg, EngineConfig(use_ragged=use_ragged, **config),
@@ -342,7 +342,8 @@ def test_whole_engine_legacy_route_matches_jax_engine(models, case):
     got = _collect(tengine, requests, ts.SamplingParams)
     assert [len(s) for s in got] == [12] * len(requests)
     _assert_streams_equal(got, want)
-    assert tengine.steps == 0 and tengine.allocator.free_pages == 63
+    assert tengine.steps == 0
+    assert tengine.allocator.free_pages + tengine._prefix_cache.pages_held_alone() == 63
     used = {k for k, n in tengine.legacy_dispatches.items() if n}
     if case == "penalized":
         assert used == {"prefill_lp", "decode_penalized_lp"}
@@ -439,10 +440,10 @@ def test_preemption_under_legacy_route(models):
     squeezed = port(8)
     got = _collect(squeezed, requests, ts.SamplingParams, max_tokens=44)
     assert squeezed.preemption_count > 0
-    assert squeezed.allocator.free_pages == 7
+    assert squeezed.allocator.free_pages + squeezed._prefix_cache.pages_held_alone() == 7
     _assert_streams_equal(got, roomy)
     jengine = jeng.LLMEngine(
-        jcfg, jeng.EngineConfig(prefix_cache=False, use_pallas=False,
+        jcfg, jeng.EngineConfig(use_pallas=False,
                                 use_ragged=False, **SQUEEZED),
         JaxByteTokenizer(512), params=jparams, rng_seed=0)
     want = _collect(jengine, requests, js.SamplingParams, max_tokens=44)

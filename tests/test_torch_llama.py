@@ -213,7 +213,7 @@ def test_gemma2_d256_greedy_streams_match_jax_engine():
             await eng.stop()
 
     want = asyncio.run(streams(jeng.LLMEngine(
-        jcfg, jeng.EngineConfig(prefix_cache=False, **engine),
+        jcfg, jeng.EngineConfig(**engine),
         JaxByteTokenizer(512), params=jparams, rng_seed=0), js.SamplingParams))
     got = asyncio.run(streams(LLMEngine(
         tcfg, EngineConfig(**engine), ByteTokenizer(512), params=tparams,

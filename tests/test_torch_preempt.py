@@ -104,7 +104,8 @@ def _assert_complete(engine, last, max_tokens=(MAX_TOKENS, MAX_TOKENS)):
         assert out.finished and out.finish_reason == "length"
         assert out.num_generated == n
     assert engine.preemption_count > 0, "the cache was supposed to saturate"
-    assert engine.allocator.free_pages == engine.config.num_pages - 1
+    assert (engine.allocator.free_pages + engine._prefix_cache.pages_held_alone()
+            == engine.config.num_pages - 1)
 
 
 @pytest.mark.parametrize("victim", ["decoding", "prefilling"])
@@ -133,7 +134,7 @@ def test_exhausted_cache_preempts_and_matches_roomy_and_jax(models, victim):
         assert not preempted["prefilling"]
     assert got == want
     jengine = jeng.LLMEngine(
-        jcfg, jeng.EngineConfig(prefix_cache=False, use_pallas=False, **SQUEEZED),
+        jcfg, jeng.EngineConfig(use_pallas=False, **SQUEEZED),
         JaxByteTokenizer(512), params=jparams, rng_seed=0)
     jgot, _ = _run(jengine, js.SamplingParams, greedy, requests)
     assert jengine.preemption_count > 0
@@ -152,7 +153,7 @@ def test_preempted_seeded_stream_is_unchanged(models):
     assert preempted["decoding"] and preempted["decoding"][0] == PROMPTS[1]
     assert got == want
     jengine = jeng.LLMEngine(
-        jcfg, jeng.EngineConfig(prefix_cache=False, use_pallas=False, **ROOMY),
+        jcfg, jeng.EngineConfig(use_pallas=False, **ROOMY),
         JaxByteTokenizer(512), params=jparams, rng_seed=0)
     assert _run(jengine, js.SamplingParams, sampling)[0][1] == got[1]
 

@@ -263,7 +263,7 @@ PROMPTS = ([5, 6, 7, 8], [9, 3, 4], [40] * 12)  # tests/test_spec_decode.py:138
 def test_engine_greedy_streams_match_spec_off_and_jax():
     jcfg, _, jparams, _ = _models()
     jengine = jeng.LLMEngine(
-        jcfg, jeng.EngineConfig(prefix_cache=False, use_pallas=False,
+        jcfg, jeng.EngineConfig(use_pallas=False,
                                 spec_decode_k=2, **ENGINE),
         JaxByteTokenizer(512), params=jparams, rng_seed=0)
     want = asyncio.run(_run(jengine, _serial(PROMPTS)))
@@ -302,7 +302,7 @@ def test_engine_concurrent_chained_streams_match_spec_off():
 def test_engine_seeded_stream_matches_spec_off_and_jax():
     jcfg, _, jparams, _ = _models()
     jengine = jeng.LLMEngine(
-        jcfg, jeng.EngineConfig(prefix_cache=False, use_pallas=False, **ENGINE),
+        jcfg, jeng.EngineConfig(use_pallas=False, **ENGINE),
         JaxByteTokenizer(512), params=jparams, rng_seed=0)
     seeded = dict(temperature=0.8, seed=42)
     want = asyncio.run(_run(jengine, _serial([[3, 4, 5]], 12, **seeded)))
