@@ -13,8 +13,9 @@ Phases, each printing JSON lines:
            Llama-3.2-1B's, and 256, Gemma-2-2B's), over bf16/f32 pages and
            over int8 pages with f32 row scales, timed warm and with a cold
            L2, each as the host enqueues it (ms) and on the device alone
-           (device_ms), with the host's own time per call (host_ms); a
-           head_dim no instance takes must raise
+           (device_ms), with the host's own time per call (host_ms),
+           beside SDPA and (the softcapped d=256 rows) a compiled
+           flex_attention; a head_dim no instance takes must raise
   serve    the port's OpenAI server (kserve_tpu_torch.runtimes.
            generative_server) with Llama-3-8B at full width and depth and
            seeded random weights: concurrent completions and one streamed
@@ -76,7 +77,8 @@ DIR imports kserve_tpu_torch from DIR instead of this checkout (e.g. an
 unpacked `git archive` of another commit under build/), so two trees'
 kernels are timed by the same cases and the same timing code.
 --decode-min-chunk N sets the decode kernel's least keys per split (the
-chunk sweep of PERF.md; the default is the package's own).
+chunk sweep of PERF.md; the default is the package's own).  --skip-flex
+leaves out the flex_attention yardstick and its compiles (an A/B).
 """
 
 from __future__ import annotations
@@ -188,17 +190,53 @@ def phase_device(torch) -> dict:
     return info
 
 
+def _ptxas_of(log: str, marker: str) -> dict:
+    """ptxas's registers and spill bytes of each kernel whose mangled name
+    holds `marker`, from nvcc's -Xptxas=-v log."""
+    import re
+
+    found, name = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            name = m.group(1) if marker in m.group(1) else None
+            continue
+        if name is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            found.setdefault(name, {}).update(
+                spill_stores=int(m.group(1)), spill_loads=int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            found.setdefault(name, {})["registers"] = int(m.group(1))
+            name = None
+    return found
+
+
 def phase_build() -> None:
     from kserve_tpu_torch.ops import _build
 
     t0 = time.perf_counter()
     _build.load_library()
     info = dict(_build.last_build)
-    # nvcc's output (-Xptxas=-v: registers, shared memory, spills per kernel)
+    info.pop("log", None)
+    # nvcc's output (-Xptxas=-v: registers, shared memory, spills per
+    # kernel), which the build writes beside the library; trees from
+    # before it did are written here
     log_path = _build.BUILD_DIR / "nvcc.log"
-    log_path.write_text(info.pop("log", ""))
+    if not log_path.exists():
+        log_path.write_text(_build.last_build.get("log", ""))
+    # the d=256 ragged instances (wgmma): registers at launch (setmaxnreg
+    # moves them between the warpgroups) and spills, which must be none
+    wgmma = {("int8" if "wgmmaIa" in k else "bf16"): v
+             for k, v in _ptxas_of(log_path.read_text(), "ragged_kernel_wgmma").items()}
     emit({"phase": "build", "wall_s": time.perf_counter() - t0,
-          "nvcc_log": str(log_path), **info})
+          "nvcc_log": str(log_path), "ragged_wgmma_ptxas": wgmma, **info})
+    has_wgmma = (_build.CSRC / "attention_wgmma.cuh").exists()  # not in older trees
+    if has_wgmma and (len(wgmma) != 2 or any(
+            v.get("spill_stores", 1) or v.get("spill_loads", 1) for v in wgmma.values())):
+        raise AssertionError(f"the d=256 ragged instances spill or are missing: {wgmma}")
 
 
 # ---------------------------------------------------------------- kernels
@@ -318,6 +356,12 @@ _RAGGED_D256 = {
     # the card
     "prefill_chunk_d256": dict(lanes=[(3700, 1024), (4500, 1), (57, 1), (4300, 1)],
                                plain_rows=512, **GEMMA),
+    # the first 1,024-token chunk of every Gemma-2 prompt: causal from
+    # position 0, no window (the layers without one)
+    "first_chunk_d256": dict(lanes=[(0, 1024)], plain_rows=512,
+                             **dict(GEMMA, window=0)),
+    # two 512-token chunks, the second one across the window's edge
+    "two_chunks_d256": dict(lanes=[(0, 512), (3900, 512)], plain_rows=256, **GEMMA),
     "f32_d256": dict(lanes=[(40, 9), (0, 30), (4200, 1)], dtype="float32", **GEMMA),
 }
 RAGGED_CASES.update(_RAGGED_D256)
@@ -333,6 +377,13 @@ for _d in (128, 64, 256):
         _name = f"tile_edges_d{_d}" + ("_window" if _w else "")
         RAGGED_CASES[_name] = _edge
         RAGGED_CASES[_name + "_int8"] = dict(_edge, kv_quant="int8")
+# the same at d=256 over 32-token pages: two pages per 64-key tile, one
+# TMA box per page
+for _w in (0, 40):
+    _edge = dict(lanes=_EDGES, window=_w, d=256, ps=32)
+    _name = "tile_edges_d256_ps32" + ("_window" if _w else "")
+    RAGGED_CASES[_name] = _edge
+    RAGGED_CASES[_name + "_int8"] = dict(_edge, kv_quant="int8")
 
 DECODE_CASES = {
     # 8 lanes at mixed lengths up to ~2k tokens, one inactive
@@ -477,9 +528,10 @@ def _plain_in_slices(plain, rows: int):
     return run
 
 
-def _ragged_inputs(torch, gen, case, ps=16):
+def _ragged_inputs(torch, gen, case):
     from kserve_tpu_torch.ops.paged_attention_cuda import RAGGED_BQ
 
+    ps = case.get("ps", 16)
     dtype = getattr(torch, case.get("dtype", "bfloat16"))
     d, lanes = case.get("d", 128), case["lanes"]
     nq, nkv = _heads(case)
@@ -611,6 +663,80 @@ def _sdpa_decode(torch, inp, case):
         qb, kb, vb, attn_mask=mask, scale=scale, enable_gqa=True)
 
 
+def _flex_call(torch, q, k, v, kv0, qlen, case):
+    """One compiled torch.nn.attention.flex_attention call: q [B, nq, Lq,
+    d] at positions kv0[b] + i (rows i >= qlen[b] are padding), k / v
+    [B, nkv, L, d], the softcap as a score_mod and the causal (+ window)
+    mask as a block mask.  It computes the softcapped function the d=256
+    kernels do, where SDPA takes no softcap; a yardstick, timed only."""
+    from torch.nn.attention.flex_attention import create_block_mask, flex_attention
+
+    cap, window = case["softcap"], case.get("window", 0)
+    B, _, Lq, d = q.shape
+    L = k.shape[2]
+
+    def score_mod(score, b, h, qi, ki):
+        return torch.tanh(score / cap) * cap
+
+    def mask_mod(b, h, qi, ki):
+        qp = kv0[b] + qi
+        keep = (ki <= qp) & (qi < qlen[b])
+        if window > 0:
+            keep = keep & (qp - ki < window)
+        return keep
+
+    mask = create_block_mask(mask_mod, B, None, Lq, L, device="cuda")
+    fn = torch.compile(flex_attention)
+    scale = case.get("scale") or 1.0 / d ** 0.5
+    return lambda: fn(q, k, v, score_mod=score_mod, block_mask=mask,
+                      scale=scale, enable_gqa=True)
+
+
+def _flex_ragged(torch, inp, case):
+    """flex_attention on the gathered KV of every lane (padded batch)."""
+    from kserve_tpu_torch.ops.attention import _gather_history
+
+    lanes = case["lanes"]
+    q = inp["q"]
+    k, v = _gather_history(inp["kv_pages"], inp["page_table"])
+    Lq = max(max(qn for _, qn in lanes), 1)
+    qb = torch.zeros((len(lanes), q.shape[1], Lq, q.shape[2]), dtype=q.dtype,
+                     device="cuda")
+    for i, (s, (_, qn)) in enumerate(zip(inp["q_start"].tolist(), lanes)):
+        qb[i, :, :qn] = q[s:s + qn].transpose(0, 1)
+    ints = lambda xs: torch.tensor(xs, dtype=torch.int32, device="cuda")  # noqa: E731
+    return _flex_call(torch, qb, k.to(q.dtype).transpose(1, 2).contiguous(),
+                      v.to(q.dtype).transpose(1, 2).contiguous(),
+                      ints([h for h, _ in lanes]), ints([qn for _, qn in lanes]), case)
+
+
+def _flex_decode(torch, inp, case):
+    """flex_attention for one decode token per lane."""
+    from kserve_tpu_torch.ops.attention import _gather_history
+
+    k, v = _gather_history(inp["kv_pages"], inp["page_table"])
+    qb = inp["q"][:, :, None, :]
+    lens = inp["seq_lens"]
+    return _flex_call(torch, qb, k.to(qb.dtype).transpose(1, 2).contiguous(),
+                      v.to(qb.dtype).transpose(1, 2).contiguous(),
+                      (lens - 1).clamp(min=0), (lens > 0).to(torch.int32), case)
+
+
+def _flex_times(torch, flex, inp, case) -> dict:
+    """library_ms / library_device_ms of the flex_attention yardstick, or
+    its error where it does not compile or run."""
+    try:
+        fn = flex(torch, inp, case)
+        fn()
+        torch.cuda.synchronize()
+        return {"library": "flex_attention", "library_ms": _time_ms(torch, fn),
+                "library_device_ms": _time_ms(torch, fn, device_only=True)}
+    except Exception as e:  # the yardstick's own failure is a finding, not a fault
+        return {"library": "flex_attention", "library_ms": None,
+                "library_device_ms": None,
+                "flex_error": f"{type(e).__name__}: {str(e)[:400]}"}
+
+
 def _row_of(kernel: str, case) -> str:
     """The summary row a case belongs to."""
     int8 = "_int8" if case.get("kv_quant") == "int8" else ""
@@ -623,9 +749,10 @@ def _row_of(kernel: str, case) -> str:
     return kernel
 
 
-def phase_kernels(torch) -> dict:
+def phase_kernels(torch, flex: bool = True) -> dict:
     """Each kernel instance against its plain version; returns the
-    per-row summaries (launches are filled in by the served phases)."""
+    per-row summaries (launches are filled in by the served phases).
+    flex: time the flex_attention yardstick of the softcapped rows."""
     from kserve_tpu_torch.ops import attention as A
     from kserve_tpu_torch.ops import paged_attention_cuda as K
 
@@ -636,12 +763,15 @@ def phase_kernels(torch) -> dict:
     specs = [
         # (kernel, cases, inputs, kernel wrapper, plain version, timed
         # cases (True: the case fills its row; False: timed and emitted
-        # only), library yardstick, work)
+        # only), library yardsticks (SDPA, and flex_attention where the
+        # function has a softcap), work)
         ("ragged_paged_attention", RAGGED_CASES, _ragged_inputs,
          K.ragged_paged_attention_cuda, A.ragged_paged_attention_plain,
          {"prefill_chunk": True, "prefill_chunk_int8": True,
           "prefill_chunk_d256": True, "prefill_chunk_d256_int8": True,
-          "pure_decode": False, "mixed": False}, _sdpa_ragged, _ragged_work),
+          "first_chunk_d256": False, "first_chunk_d256_int8": False,
+          "pure_decode": False, "mixed": False}, (_sdpa_ragged, _flex_ragged),
+         _ragged_work),
         # d=64 is the port of _packed_decode_kernel, timed for its own row
         ("paged_decode_attention", DECODE_CASES, _decode_inputs,
          K.paged_decode_attention_cuda, A.paged_attention_plain,
@@ -649,16 +779,16 @@ def phase_kernels(torch) -> dict:
           "d256": True, "d256_int8": True,
           "long_d128": False, "long_d128_int8": False, "long_d64": False,
           "long_d64_int8": False, "b160_d128": False, "b160_d128_int8": False},
-         _sdpa_decode, _decode_work),
+         (_sdpa_decode, _flex_decode), _decode_work),
         # the library yardstick of a verify round is the ragged one: SDPA
         # on the gathered KV with each lane's causal-offset mask
         ("dense_ragged_paged_attention", DENSE_CASES, _dense_inputs,
          _dense_kernel, _dense_plain,
          {"k3_sp4": True, "k3_sp4_int8": True, "k3_sp4_d256": True,
           "k3_sp4_d256_int8": True, "long_k3_sp4": False},
-         _sdpa_ragged, _ragged_work),
+         (_sdpa_ragged, _flex_ragged), _ragged_work),
     ]
-    for name, cases, make, kernel, plain, timed, library, work in specs:
+    for name, cases, make, kernel, plain, timed, (library, flex_lib), work in specs:
         for case_name, case in cases.items():
             row = _row_of(name, case)
             inp = make(torch, gen, case)
@@ -697,12 +827,13 @@ def phase_kernels(torch) -> dict:
                 sdpa_ms = _time_ms(torch, sdpa)
                 sdpa_dev = _time_ms(torch, sdpa, device_only=True)
                 if case.get("softcap", 0.0) > 0.0:
-                    # SDPA takes no softcap: no one PyTorch call computes
-                    # this function, so its time (same shapes and mask, no
-                    # tanh) is kept as a yardstick under its own names
-                    times.update(library_ms=None, library_device_ms=None,
-                                 sdpa_no_softcap_ms=sdpa_ms,
+                    # SDPA takes no softcap: its time (same shapes and mask,
+                    # no tanh) is kept under its own names, and the library
+                    # time is flex_attention's, which takes one
+                    times.update(sdpa_no_softcap_ms=sdpa_ms,
                                  sdpa_no_softcap_device_ms=sdpa_dev)
+                    times.update(_flex_times(torch, flex_lib, inp, case) if flex
+                                 else {"library_ms": None, "library_device_ms": None})
                 else:
                     times.update(library_ms=sdpa_ms, library_device_ms=sdpa_dev)
                 nbytes, flops = work(case)
@@ -716,8 +847,11 @@ def phase_kernels(torch) -> dict:
                 emit({"phase": "kernels", "kernel": name, "row": row,
                       "timed_case": case_name, **times, "bound_ms": bound_ms,
                       "bound_by": bound_by, "bytes": nbytes, "flops": flops,
-                      "x_library": times["ms"] / sdpa_ms,
-                      "x_library_device": times["device_ms"] / sdpa_dev})
+                      "x_sdpa": times["ms"] / sdpa_ms,
+                      "x_sdpa_device": times["device_ms"] / sdpa_dev,
+                      "x_library_device": (
+                          times["device_ms"] / times["library_device_ms"]
+                          if times.get("library_device_ms") else None)})
             del inp, got, ref
             torch.cuda.empty_cache()
     for row, summary in rows.items():
@@ -767,6 +901,9 @@ def main(argv=None) -> int:
                     help="device, build and kernel phases only")
     ap.add_argument("--package-root", default=None,
                     help="import kserve_tpu_torch from this directory")
+    ap.add_argument("--skip-flex", action="store_true",
+                    help="leave out the flex_attention yardstick (its "
+                         "compiles), e.g. in a kernels-only A/B")
     ap.add_argument("--decode-min-chunk", type=int, default=None,
                     help="keys per split of the decode kernel, at least "
                          "(a multiple of 64; default: the package's "
@@ -779,6 +916,10 @@ def main(argv=None) -> int:
         sys.path.insert(0, root)
     else:
         _require_package()
+    # flex_attention's compiles cache inside the checkout
+    os.environ.setdefault("TORCHINDUCTOR_CACHE_DIR",
+                          os.path.join(REPO, "build", "torchinductor"))
+    os.environ.setdefault("TRITON_CACHE_DIR", os.path.join(REPO, "build", "triton"))
     import torch
 
     if args.decode_min_chunk is not None:
@@ -792,7 +933,7 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     info = phase_device(torch)
     phase_build()
-    rows = phase_kernels(torch)
+    rows = phase_kernels(torch, flex=not args.skip_flex)
     if args.kernels_only:
         emit({"phase": "done", "wall_s": time.perf_counter() - t0})
         return 0

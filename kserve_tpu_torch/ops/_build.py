@@ -40,11 +40,12 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 _SIGNATURES = {
-    # q, pages, scales, page_table, q_start, q_len, kv_start, out, B, G,
-    # tq, tiles, slabs, nq, nkv, head_dim, page_size, W, scale, softcap,
-    # window, dtype, kv_dtype, stream
+    # q, pages, scales, page_table, q_start, q_len, kv_start, out,
+    # partials, tickets, B, G, tq, tiles, slabs, chunk, splits, nq, nkv,
+    # head_dim, page_size, W, num_pages, scale, softcap, window, dtype,
+    # kv_dtype, stream
     "kt_ragged_paged_attention": (
-        [_P] * 8 + [_I] * 10 + [_F, _F, _I, _I, _I, _P]),
+        [_P] * 10 + [_I] * 13 + [_F, _F, _I, _I, _I, _P]),
     # q, pages, scales, page_table, seq_lens, out, partials, tickets, B,
     # nq, nkv, head_dim, page_size, W, chunk, splits, slabs, scale,
     # softcap, window, dtype, kv_dtype, stream
@@ -114,6 +115,9 @@ def build() -> Path:
                 "linking the kernel library failed:\n"
                 + link.stdout.decode(errors="replace"))
         os.replace(out_lib, lib_path)
+        # nvcc's output beside the library it built (-Xptxas=-v: registers
+        # and spills per kernel), whichever caller built it
+        (BUILD_DIR / "nvcc.log").write_text("\n".join(logs))
         stamp.write_text(digest)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)

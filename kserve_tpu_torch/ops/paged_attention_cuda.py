@@ -16,26 +16,31 @@ kserve_tpu/ops/attention.py:paged_attention_xla's int8 branch).
 Every kernel takes head_dim 64, 128 and 256 (`HEAD_DIMS`; any other
 raises).  With bf16 q all three kernels run on the tensor cores (bf16
 MMA, f32 accumulation; int8 rows become exact bf16 and their scales are
-applied in f32 to the scores and to P), fed by cp.async double
-buffering; d=256 has a tiling of its own (32-key stages, `tc_kt`).  The
-dense and decode kernels split each lane's keys across CTAs and merge
-the splits in-kernel (csrc/attention_tc.cuh split_kv_slab; decode is the
-dense function at stride 1).  Their launch shapes come from
-`ragged_launch_plan`, `dense_launch_plan` and `decode_launch_plan`,
-host-side upper bounds computed from shapes alone (no host sync): the
-kernels' CTAs find their own lane and split from the lane metadata on
-the device and exit when they have none.  With f32 q each staged row is
-dequantized in f32 on CUDA cores (the first design).
+applied in f32 to the scores and to P).  The dense and decode kernels
+and the ragged kernel at d 64/128 use mma.sync fed by cp.async double
+buffering (the dense and decode kernels at d=256 with 32-key stages,
+`tc_kt`); the ragged kernel at d=256 uses wgmma fed by TMA through a
+warp-specialised ring (csrc/attention_wgmma.cuh; it builds a tensor map
+of the cache per pages pointer and shape).  The dense, decode and d=256
+ragged kernels split each lane's (or tile's) keys across CTAs and merge
+the splits in-kernel (decode is the dense function at stride 1).  Their
+launch shapes come from `ragged_launch_plan`, `dense_launch_plan` and
+`decode_launch_plan`, host-side upper bounds computed from shapes alone
+(no host sync): the kernels' CTAs find their own lane, tile and split
+from the lane metadata on the device and exit when they have none.
+With f32 q each staged row is dequantized in f32 on CUDA cores (the
+first design).
 
 Each wrapper takes CUDA tensors only: it checks device, dtype (q bf16 or
 f32), shape and contiguity, raises on anything its kernel does not take,
 allocates the output with torch.empty, launches on the current stream
 and raises if the launch failed.  The split kernels' f32 partials and
-merge tickets are one scratch per device, reused in stream order
-(`_split_scratch`).  A wrapper never falls back to the plain version;
-the dispatchers in ops/attention.py route CPU tensors to the plain
-versions before a wrapper is reached.  `LAUNCHES` counts launches, the
-int8 instances under their own `*_int8` keys.
+merge tickets (the d=256 ragged kernel's too) are one scratch per
+device, reused in stream order (`_split_scratch`).  A wrapper never
+falls back to the plain version; the dispatchers in ops/attention.py
+route CPU tensors to the plain versions before a wrapper is reached.
+`LAUNCHES` counts launches, the int8 instances under their own `*_int8`
+keys.
 """
 
 from __future__ import annotations
@@ -147,6 +152,15 @@ def _raise_on(err: int, name: str) -> None:
 
 # tensor-core tiles of the bf16-q kernels (csrc/attention_tc.cuh)
 TC_ROWS = 64  # query rows of a ragged CTA: 4 warps x one m16 slab
+# the ragged kernel's wgmma design at head_dim 256 (csrc/attention_wgmma.cuh)
+WGMMA_ROWS = 128  # query rows of a CTA: two consumer warpgroups
+WGMMA_WG_ROWS = 64  # query rows of one consumer warpgroup (wgmma M)
+WGMMA_KT = 64  # keys per staged K/V tile
+# keys per split: as many as fill CARD_SMS CTAs with the grid's (tile, kv
+# head) pairs at their longest, within these bounds
+RAGGED_MIN_CHUNK = 512
+RAGGED_MAX_CHUNK = 2048
+CARD_SMS = 132  # an H100 SXM's streaming multiprocessors
 SPLIT_ROWS = 16  # query rows of a split-KV (dense or decode) CTA: one m16 slab
 SPLIT_MAX_SPLITS = 32  # splits per (lane, kv head, slab), at most
 # keys per split of the dense and decode kernels, at least, at head_dim
@@ -172,27 +186,68 @@ def min_chunk(base: int, d: int) -> int:
 class RaggedPlan(NamedTuple):
     """Launch shape of the bf16-q ragged kernel: CTA x takes the x-th
     tile of `tq` tokens in a prefix count of ceil(q_len / tq) per lane;
-    grid (tiles, nkv, slabs), slab z the rows [64z, 64z+64) of a tile's
-    tq * group rows."""
+    grid (tiles, nkv, slabs * splits), slab z the rows [rows z, rows z +
+    rows) of a tile's tq * group rows.  At head_dim 256 (the wgmma design)
+    each tile's key range is split evenly into runs of at most `chunk` keys
+    across `splits` CTAs, merged in the kernel; at d <= 128 chunk is 0 and
+    one CTA walks a tile's keys."""
     tq: int
     tiles: int
     slabs: int
+    rows: int
+    chunk: int
+    splits: int
 
 
-def ragged_launch_plan(T: int, nq: int, nkv: int) -> RaggedPlan:
+@functools.lru_cache(maxsize=256)
+def ragged_launch_plan(T: int, B: int, nq: int, nkv: int, keys: int,
+                       d: int) -> RaggedPlan:
     """The ragged kernel's grid for a packed buffer of T tokens (slices at
-    RAGGED_BQ-aligned offsets): tq is the largest power of two with
-    tq * group <= TC_ROWS (16 at group 4), and `tiles` bounds
-    sum(ceil(q_len / tq)) for every packing of T, since each tile starts on
-    its own RAGGED_BQ block (tq >= 8) or each block holds RAGGED_BQ / tq
-    tiles (tq < 8)."""
+    RAGGED_BQ-aligned offsets) of B lanes whose page tables hold `keys` =
+    W * page_size positions, from these shapes alone.  tq is the largest
+    power of two with tq * group <= rows (16 at group 4 with d <= 128's 64
+    rows; 64 at group 2 with d=256's 128).  `tiles` bounds
+    sum(ceil(q_len / tq)) for every packing of T: each tile starts on its
+    own RAGGED_BQ block (tq >= 8), or each block holds RAGGED_BQ / tq tiles
+    (tq < 8); at d=256 also ceil(q_len / tq) <= 8 * blocks / tq + 1 per
+    lane, so B lanes need at most 8 G / tq + B.  At d=256 the CTAs x
+    < tiles zero the padding rows of blocks x, x + tiles, ..; at d <= 128
+    block x's (tiles >= G).  A tile's keys lie in [0, keys), so
+    ceil(keys / chunk) splits of a multiple of WGMMA_KT keys cover any
+    tile.  chunk is the key tiles of all (tile, kv head, slab) at their
+    longest shared out over CARD_SMS CTAs (one wave: a CTA's fixed cost,
+    its queries, pipeline fill and merge, is a few tiles' time), within
+    [RAGGED_MIN_CHUNK, RAGGED_MAX_CHUNK] and few enough splits for
+    SPLIT_MAX_SPLITS: 576 keys for a first 1,024-token chunk (its longest
+    tiles in two runs), 2,048 for a chunk at 4,000 cached tokens."""
     group = nq // nkv
+    rows = WGMMA_ROWS if d > 128 else TC_ROWS
     tq = 1
-    while 2 * tq * group <= TC_ROWS:
+    while 2 * tq * group <= rows:
         tq *= 2
     G = T // RAGGED_BQ
-    return RaggedPlan(tq=tq, tiles=G * max(1, RAGGED_BQ // tq),
-                      slabs=-(-tq * group // TC_ROWS))
+    slabs = -(-tq * group // rows)
+    if d <= 128:
+        return RaggedPlan(tq=tq, tiles=G * max(1, RAGGED_BQ // tq), slabs=slabs,
+                          rows=rows, chunk=0, splits=1)
+    tiles = (G * (RAGGED_BQ // tq) if tq < RAGGED_BQ
+             else min(G, RAGGED_BQ * G // tq + B))
+    key_tiles = -(-keys // WGMMA_KT)
+    chunk = -(-tiles * nkv * slabs * key_tiles // CARD_SMS) * WGMMA_KT
+    chunk = min(max(chunk, RAGGED_MIN_CHUNK), RAGGED_MAX_CHUNK)
+    chunk = max(chunk, -(-key_tiles // SPLIT_MAX_SPLITS) * WGMMA_KT)
+    chunk = -(-chunk // WGMMA_KT) * WGMMA_KT
+    return RaggedPlan(tq=tq, tiles=tiles, slabs=slabs, rows=rows, chunk=chunk,
+                      splits=max(1, -(-keys // chunk)))
+
+
+def ragged_scratch_shape(nkv: int, plan: RaggedPlan,
+                         d: int) -> Tuple[int, int, int, int]:
+    """f32 scratch of the d=256 ragged kernel's split partials: per
+    (tile, kv head, slab, consumer warpgroup) slot and split, WGMMA_WG_ROWS
+    rows of o [d], then the same rows' (m, l) pairs."""
+    return (plan.tiles * nkv * plan.slabs * WGMMA_ROWS // WGMMA_WG_ROWS,
+            plan.splits, WGMMA_WG_ROWS, d + 2)
 
 
 class SplitPlan(NamedTuple):
@@ -272,10 +327,11 @@ class _Scratch(NamedTuple):
 _SCRATCH: Dict[int, _Scratch] = {}
 
 
-def _split_scratch(q: torch.Tensor, B: int, nkv: int, plan: SplitPlan,
-                   d: int) -> Tuple[int, int]:
-    """(partials pointer, tickets pointer) for one split-KV call."""
-    slots, splits, rows, width = split_scratch_shape(B, nkv, plan, d)
+def _split_scratch(q: torch.Tensor,
+                   shape: Tuple[int, int, int, int]) -> Tuple[int, int]:
+    """(partials pointer, tickets pointer) for one split-KV call whose
+    scratch has `shape` (slots, splits, rows, width)."""
+    slots, splits, rows, width = shape
     floats = slots * splits * rows * width
     index = q.get_device()
     sc = _SCRATCH.get(index)
@@ -317,17 +373,22 @@ def ragged_paged_attention_cuda(
     B, W = page_table.shape
     _require(q_start.shape == (B,) and q_len.shape == (B,)
              and kv_start.shape == (B,), "lane metadata must be [B]")
-    plan = ragged_launch_plan(T, nq, c.nkv)
+    plan = ragged_launch_plan(T, B, nq, c.nkv, W * c.ps, d)
     if scale is None:
         scale = 1.0 / float(d) ** 0.5
     out = torch.empty_like(q)
+    partials_ptr = tickets_ptr = None
+    if plan.chunk and c.code == _BF16_CODE:
+        partials_ptr, tickets_ptr = _split_scratch(
+            q, ragged_scratch_shape(c.nkv, plan, d))
     lib = load_library()
     err = lib.kt_ragged_paged_attention(
         q.data_ptr(), c.pages.data_ptr(), _scales_ptr(c), page_table.data_ptr(),
         q_start.data_ptr(), q_len.data_ptr(), kv_start.data_ptr(),
-        out.data_ptr(), B, T // RAGGED_BQ, plan.tq, plan.tiles, plan.slabs,
-        nq, c.nkv, d, c.ps, W, float(scale), float(logit_softcap),
-        int(window), c.code, c.kv_code, _stream(q))
+        out.data_ptr(), partials_ptr, tickets_ptr, B, T // RAGGED_BQ, plan.tq,
+        plan.tiles, plan.slabs, plan.chunk, plan.splits, nq, c.nkv, d, c.ps, W,
+        c.pages.shape[0], float(scale), float(logit_softcap), int(window),
+        c.code, c.kv_code, _stream(q))
     _raise_on(err, "ragged_paged_attention")
     _count("ragged_paged_attention", c.scales)
     return out
@@ -357,7 +418,8 @@ def paged_decode_attention_cuda(
     plan = _NO_PLAN
     if c.code == _BF16_CODE:
         plan = decode_launch_plan(W, c.ps, nq, c.nkv, d)
-        partials_ptr, tickets_ptr = _split_scratch(q, B, c.nkv, plan, d)
+        partials_ptr, tickets_ptr = _split_scratch(
+            q, split_scratch_shape(B, c.nkv, plan, d))
     lib = load_library()
     err = lib.kt_paged_decode_attention(
         q.data_ptr(), c.pages.data_ptr(), _scales_ptr(c), page_table.data_ptr(),
@@ -397,7 +459,8 @@ def dense_ragged_paged_attention_cuda(
     plan = _NO_PLAN
     if c.code == _BF16_CODE:
         plan = dense_launch_plan(W, c.ps, sp, nq, c.nkv, d)
-        partials_ptr, tickets_ptr = _split_scratch(q, B, c.nkv, plan, d)
+        partials_ptr, tickets_ptr = _split_scratch(
+            q, split_scratch_shape(B, c.nkv, plan, d))
     lib = load_library()
     err = lib.kt_dense_ragged_paged_attention(
         q.data_ptr(), c.pages.data_ptr(), _scales_ptr(c), page_table.data_ptr(),

@@ -290,38 +290,209 @@ def _random_packing(rng, B):
     return T, np.asarray(q_start), lens
 
 
-@pytest.mark.parametrize("group", [1, 2, 3, 4, 8, 16, 128])
-def test_ragged_launch_plan_covers_every_tile(group):
+@pytest.mark.parametrize("group,d", [
+    pytest.param(g, d, id=f"{g}-d{d}") for d in (128, 256)
+    for g in (1, 2, 3, 4, 8, 16, 128, 256)])
+def test_ragged_launch_plan_covers_every_tile(group, d):
     """Brute force over random packings: the grid of `ragged_launch_plan`
     holds every (lane, tile) of the prefix count, its slabs cover every
-    (token, head) row of each tile exactly once, and x < T/8 reaches every
-    8-token block (the CTAs that zero padding rows).  The tile rule here is
-    the contract the CUDA tile_of implements, not that code: chip_smoke.py's
-    tile_edges_* cases hold the kernel to it on the card.  The plan does not
-    depend on head_dim (64 query rows per CTA at every d; at d=256 the
-    stages shrink, not the rows), so group 2 is gemma2-2b's d=256 plan."""
+    (token, head) row of each tile exactly once, and the CTAs x < tiles
+    reach every 8-token block to zero its padding rows (block x at d <= 128;
+    blocks x, x + tiles, .. at d=256).  The tile rule here is the contract
+    the CUDA tile_of implements, not that code: chip_smoke.py's
+    tile_edges_* cases hold the kernel to it on the card.  The plan depends
+    on head_dim: 64 query rows per CTA at d <= 128 (4 warps of mma.sync),
+    128 at d=256 (two wgmma warpgroups), whose tile count is also bounded
+    by the lanes (8 G / tq + B); group 2 at d=256 is gemma2-2b's plan."""
     nkv = 2
-    rng = np.random.RandomState(group)
-    for _ in range(80):
+    rng = np.random.RandomState(group + d)
+    for _ in range(60):
         T, q_start, q_len = _random_packing(rng, rng.randint(1, 10))
-        plan = K.ragged_launch_plan(T, group * nkv, nkv)
-        tq = plan.tq
+        B = len(q_len)
+        plan = K.ragged_launch_plan(T, B, group * nkv, nkv, 1024, d)
+        tq, rows = plan.tq, plan.rows
+        assert rows == (K.WGMMA_ROWS if d > 128 else K.TC_ROWS)
         assert tq & (tq - 1) == 0
-        assert tq * group <= K.TC_ROWS or tq == 1
-        assert (plan.slabs - 1) * K.TC_ROWS < tq * group <= plan.slabs * K.TC_ROWS
+        assert tq * group <= rows or tq == 1
+        assert (plan.slabs - 1) * rows < tq * group <= plan.slabs * rows
         tiles = [(i, t) for i, n in enumerate(q_len) for t in range(-(-n // tq))]
         assert len(tiles) <= plan.tiles
-        assert plan.tiles >= T // RAGGED_BQ
+        G = T // RAGGED_BQ
+        zeroers = [x for b in range(G) for x in range(plan.tiles)
+                   if (x == b if d <= 128 else x % plan.tiles == b % plan.tiles)]
+        assert len(zeroers) == G
         covered = []
         for i, t in tiles:
             for z in range(plan.slabs):
-                for rr in range(z * K.TC_ROWS, min((z + 1) * K.TC_ROWS, tq * group)):
+                for rr in range(z * rows, min((z + 1) * rows, tq * group)):
                     j = t * tq + rr // group
                     if j < q_len[i]:
                         covered.append((q_start[i] + j, rr % group))
         want = [(s + j, hh) for s, n in zip(q_start, q_len)
                 for j in range(n) for hh in range(group)]
         assert sorted(covered) == sorted(want)
+
+
+def _wgmma_ctas(plan, group, q_start, q_len, kv_start, window, keys):
+    """The d=256 ragged kernel's CTAs (x, z) for one kv head, restating the
+    arithmetic of csrc/ragged_paged_attention.cu (w256::ragged_kernel_wgmma):
+    tile x of the prefix count (the lane's last tiles first), slab and
+    split of z, the tile's key range from its first query's window to its
+    last query split evenly into runs of at most chunk keys, and the
+    consumer warpgroups with a query row.  CTAs that find no keys are left
+    out.  Pure Python: the kernel is held to it on the card by
+    chip_smoke.py's d=256 ragged cases."""
+    kt, tq = K.WGMMA_KT, plan.tq
+    tiles = [(i, t) for i, n in enumerate(q_len) for t in range(-(-n // tq))]
+    ctas = []
+    for x, (s, tix) in enumerate(tiles[:plan.tiles]):
+        qn, kv0 = int(q_len[s]), int(kv_start[s])
+        j0 = (-(-qn // tq) - 1 - tix) * tq
+        rows_tile = tq * group
+        for z in range(plan.slabs * plan.splits):
+            slab, split = z % plan.slabs, z // plan.slabs
+            r0 = slab * plan.rows
+            j_lo = j0 + r0 // group
+            if r0 >= rows_tile or j_lo >= qn:
+                continue
+            j_hi = min(j0 + (min(rows_tile, r0 + plan.rows) - 1) // group, qn - 1)
+            hi = min(kv0 + j_hi + 1, keys)
+            lo = (max(0, kv0 + j_lo - window + 1) if window > 0 else 0) // kt * kt
+            n_all = -(-(hi - lo) // kt)
+            nsp = -(-n_all // (plan.chunk // kt))
+            if split >= nsp:
+                continue
+            t0, t1 = split * n_all // nsp, (split + 1) * n_all // nsp
+            half = r0 + K.WGMMA_WG_ROWS
+            rows = [(int(q_start[s]) + j0 + rr // group, rr % group, kv0 + j0 + rr // group)
+                    for rr in range(r0, min(r0 + plan.rows, rows_tile))
+                    if j0 + rr // group < qn]
+            ctas.append(dict(
+                x=x, z=z, rows=rows, nsp=nsp,
+                key_tiles=[lo + kt * t for t in range(t0, t1)],
+                n_wg=2 if half < rows_tile and j0 + half // group < qn else 1,
+                wg1_rows=sum(1 for rr in range(half, min(r0 + plan.rows, rows_tile))
+                             if j0 + rr // group < qn)))
+    return ctas
+
+
+def _sees(pos, key, window):
+    return key <= pos and (window <= 0 or pos - key < window)
+
+
+@pytest.fixture
+def small_ragged_chunk():
+    """Splits of 128 keys (two tiles), so that short lanes split as the
+    4,000-key Gemma-2 lanes do at the defaults."""
+    saved = K.RAGGED_MIN_CHUNK, K.RAGGED_MAX_CHUNK
+    K.RAGGED_MIN_CHUNK = K.RAGGED_MAX_CHUNK = 128
+    K.ragged_launch_plan.cache_clear()
+    yield
+    K.RAGGED_MIN_CHUNK, K.RAGGED_MAX_CHUNK = saved
+    K.ragged_launch_plan.cache_clear()
+
+
+@pytest.mark.parametrize("group", [1, 2, 4])
+@pytest.mark.parametrize("window", [0, 40, 200])
+def test_ragged_wgmma_plan_covers_every_visible_key(group, window,
+                                                    small_ragged_chunk):
+    """Brute force over random packings at d=256 (lanes up to 1,100 cached
+    tokens, 16-token pages, splits of at least 128 keys): over the grid's
+    (tile, split) CTAs every (query row, visible key) pair is covered
+    exactly once; no CTA loads a key tile that none of its rows sees; a
+    CTA's second warpgroup is active exactly when it has a query row; every
+    8-token block's padding rows are zeroed by exactly one CTA per kv head
+    and no row is both zeroed and computed; and the plan reads shapes only
+    (T, B, heads, W * page_size, d), no per-lane lengths."""
+    import inspect
+
+    assert list(inspect.signature(K.ragged_launch_plan).parameters) == [
+        "T", "B", "nq", "nkv", "keys", "d"]
+    nkv, ps, kt = 2, 16, K.WGMMA_KT
+    rng = np.random.RandomState(10 * group + window)
+    split_seen = 0
+    for _ in range(12):
+        T, q_start, q_len = _random_packing(rng, rng.randint(1, 7))
+        kv_start = rng.randint(0, 1100, size=len(q_len))
+        W = max(-(-(int(h) + int(n)) // ps) for h, n in zip(kv_start, q_len)) + 1
+        B, keys = len(q_len), W * ps
+        plan = K.ragged_launch_plan(T, B, group * nkv, nkv, keys, 256)
+        assert plan.chunk % kt == 0 and plan.chunk >= K.RAGGED_MIN_CHUNK
+        assert plan.chunk <= max(K.RAGGED_MAX_CHUNK, -(-keys // K.SPLIT_MAX_SPLITS) + kt)
+        assert 1 <= plan.splits <= K.SPLIT_MAX_SPLITS
+        ctas = _wgmma_ctas(plan, group, q_start, q_len, kv_start, window, keys)
+        # per row: the key tiles of the CTAs holding it, disjoint, covering
+        # its visible keys [first, pos]
+        per_row = {}
+        for cta in ctas:
+            assert cta["nsp"] <= plan.splits and cta["key_tiles"]
+            split_seen += cta["nsp"] > 1
+            assert (cta["n_wg"] == 2) == (cta["wg1_rows"] > 0)
+            for k0 in cta["key_tiles"]:
+                assert 0 <= k0 < keys
+                assert any(_sees(pos, k, window) for _, _, pos in cta["rows"]
+                           for k in range(k0, k0 + kt)), "a wholly masked tile"
+            for p, hh, pos in cta["rows"]:
+                per_row.setdefault((p, hh, pos), []).extend(cta["key_tiles"])
+        want = {(int(s) + j, hh, int(h) + j) for s, n, h in zip(q_start, q_len, kv_start)
+                for j in range(n) for hh in range(group)}
+        assert set(per_row) == want
+        for (_, _, pos), k0s in per_row.items():
+            assert len(set(k0s)) == len(k0s), "a key tile walked twice for a row"
+            have = {k for k0 in k0s for k in range(k0, k0 + kt)}
+            first = max(0, pos - window + 1) if window else 0
+            assert set(range(first, pos + 1)) <= have
+        # padding rows: block b by CTA (b mod tiles, h, z = 0), per kv head
+        G = T // RAGGED_BQ
+        for b in range(G):
+            assert [x for x in range(plan.tiles) if x == b % plan.tiles] == [b % plan.tiles]
+        computed = {p for p, _, _ in want}
+        slices = {int(s) + j for s, n in zip(q_start, q_len) for j in range(n)}
+        zeroed = {r for r in range(T) if r not in slices}
+        assert computed == slices and not computed & zeroed
+        assert computed | zeroed == set(range(T))
+    if window == 0 or window > K.RAGGED_MIN_CHUNK:  # runs longer than a split
+        assert split_seen, "no tile was split: the test would not reach the merge"
+
+
+def test_ragged_wgmma_plan_fills_the_card():
+    """At chip_smoke.py's timed `prefill_chunk_d256` (Gemma-2-2B's 8 q /
+    4 kv heads at d=256, window 4,096, lanes (3700, 1024), (4500, 1),
+    (57, 1), (4300, 1), 16-token pages) at least 132 CTAs (an H100's SMs)
+    have keys to read, and none walks more than twice the mean work per
+    CTA, counted as key tiles and as key tiles times active warpgroups."""
+    lanes = [(3700, 1024), (4500, 1), (57, 1), (4300, 1)]
+    q_start, off = [], 0
+    for _, n in lanes:
+        q_start.append(off)
+        off += _align(n)
+    W = -(-max(h + n for h, n in lanes) // 16)
+    plan = K.ragged_launch_plan(off, len(lanes), 8, 4, W * 16, 256)
+    ctas = _wgmma_ctas(plan, 2, q_start, [n for _, n in lanes],
+                       [h for h, _ in lanes], 4096, W * 16)
+    assert plan.chunk == K.RAGGED_MAX_CHUNK  # 4,736 keys: the longest splits
+    assert 4 * len(ctas) >= 132
+    for work in ([len(c["key_tiles"]) for c in ctas],
+                 [len(c["key_tiles"]) * c["n_wg"] for c in ctas]):
+        assert max(work) <= 2 * sum(work) / len(work)
+
+
+def test_ragged_wgmma_plan_splits_by_the_work():
+    """The d=256 ragged plan's split length follows the grid's work at its
+    longest over an H100's 132 SMs, between RAGGED_MIN_CHUNK and
+    RAGGED_MAX_CHUNK: the first 1,024-token chunk of a Gemma-2 prompt (a
+    bound of 17 tiles x 4 kv heads of up to 16 key tiles) splits at 576
+    keys (its longest tiles in two runs of 8 key tiles), a chunk at
+    ~4,700 cached tokens at 2,048, and 8 decode lanes of up to 4,096 keys
+    at 1,024; a table of 128k keys keeps SPLIT_MAX_SPLITS."""
+    first = K.ragged_launch_plan(1024, 1, 8, 4, 1024, 256)
+    assert (first.tiles, first.chunk, first.splits) == (17, 576, 2)
+    chunk = K.ragged_launch_plan(1048, 4, 8, 4, 4736, 256)
+    assert (chunk.chunk, chunk.splits) == (2048, 3)
+    decode = K.ragged_launch_plan(64, 8, 8, 4, 4096, 256)
+    assert (decode.tiles, decode.chunk, decode.splits) == (8, 1024, 4)
+    long = K.ragged_launch_plan(1024, 8, 8, 4, 131072, 256)
+    assert long.splits <= K.SPLIT_MAX_SPLITS and long.chunk == 4096
 
 
 @pytest.mark.parametrize("sp,group,d", [
@@ -474,6 +645,8 @@ def test_profile_classes_the_decode_kernels():
          "(__nv_bfloat16 const*, ...)", "dense_attention"),
         ("void (anonymous namespace)::ragged_kernel_tc<__nv_bfloat16, 128>"
          "(__nv_bfloat16 const*, ...)", "ragged_attention"),
+        ("void (anonymous namespace)::w256::ragged_kernel_wgmma<signed char>"
+         "(CUtensorMap_st, ...)", "ragged_attention"),
     ]:
         assert prof._classify(name) == cls, name
 
