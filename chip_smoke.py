@@ -227,16 +227,25 @@ def phase_build() -> None:
     log_path = _build.BUILD_DIR / "nvcc.log"
     if not log_path.exists():
         log_path.write_text(_build.last_build.get("log", ""))
-    # the d=256 ragged instances (wgmma): registers at launch (setmaxnreg
-    # moves them between the warpgroups) and spills, which must be none
-    wgmma = {("int8" if "wgmmaIa" in k else "bf16"): v
-             for k, v in _ptxas_of(log_path.read_text(), "ragged_kernel_wgmma").items()}
+    # the d=256 instances, bf16 and int8 pages each: the ragged kernel's
+    # (wgmma; registers at launch, setmaxnreg moves them between the
+    # warpgroups) and the dense and decode kernels' (s256): no spills
+    log = log_path.read_text()
+    gated = [("ragged", "ragged_kernel_wgmma", "attention_wgmma.cuh"),
+             ("decode", "paged_decode_kernel_s256", "attention_split256.cuh"),
+             ("dense", "dense_ragged_kernel_s256", "attention_split256.cuh")]
+    d256, want = {}, 0
+    for kernel, marker, header in gated:
+        if not (_build.CSRC / header).exists():  # not in older trees
+            continue
+        want += 2
+        for k, v in _ptxas_of(log, marker).items():
+            d256[f"{kernel}_{'int8' if marker + 'Ia' in k else 'bf16'}"] = v
     emit({"phase": "build", "wall_s": time.perf_counter() - t0,
-          "nvcc_log": str(log_path), "ragged_wgmma_ptxas": wgmma, **info})
-    has_wgmma = (_build.CSRC / "attention_wgmma.cuh").exists()  # not in older trees
-    if has_wgmma and (len(wgmma) != 2 or any(
-            v.get("spill_stores", 1) or v.get("spill_loads", 1) for v in wgmma.values())):
-        raise AssertionError(f"the d=256 ragged instances spill or are missing: {wgmma}")
+          "nvcc_log": str(log_path), "d256_ptxas": d256, **info})
+    if len(d256) != want or any(
+            v.get("spill_stores", 1) or v.get("spill_loads", 1) for v in d256.values()):
+        raise AssertionError(f"d=256 instances spill or are missing: {d256}")
 
 
 # ---------------------------------------------------------------- kernels
@@ -398,12 +407,24 @@ _DECODE_D256 = {
     # one lane of 6,000 tokens and one of 4,500, both past the window
     "d256": dict(lens=[6000, 1, 17, 300, 4500, 0, 911, 64], **GEMMA),
     "f32_d256": dict(lens=[100, 0, 37, 4200], dtype="float32", **GEMMA),
+    # 32-token pages (two per 64-key stage); window edges (position - 99)
+    # inside pages and inside the CTAs' runs
+    "window_edge_d256_ps32": dict(lens=[1000, 333, 77, 4500, 0, 130, 2049, 65], ps=32,
+                                  **dict(GEMMA, window=100)),
+    # a 160-lane step (lanes of 25-64 tokens and one of 1,225): more lanes
+    # than CTAs, most runs across several (lane, kv head) pairs
+    "b160_d256_ps32": dict(lens=[25 + (7 * i) % 40 for i in range(159)] + [1225], ps=32,
+                           **GEMMA),
+    # 6-token pages: boxes of 2 rows, and int8 scales too unaligned for
+    # the bulk copy (the producer loads them itself)
+    "edges_d256_ps6": dict(lens=[1, 63, 64, 65, 300, 0, 1000, 2048], ps=6,
+                           **dict(GEMMA, window=100)),
 }
 DECODE_CASES.update(_DECODE_D256)
 DECODE_CASES.update(_int8(_DECODE_D256))
-# the split-KV kernel's edges (128-key chunks at these tables; 64 at d
-# 256), over bf16 and int8 pages at d 128, 64 and 256: every lane split
-# 8+ ways; one live lane
+# the split-KV kernels' edges (128-key chunks at these tables at d 64 and
+# 128; at d=256 runs of the persistent CTA), over bf16 and int8 pages at d
+# 128, 64 and 256: every lane split 8+ ways; one live lane
 # among inactive ones; lanes on both sides of a 64-key tile and a 128-key
 # chunk and one that fills its table (W * ps = 2048); a window whose lower
 # edge falls inside a lane's first split; and a long step of 8 lanes of
@@ -445,10 +466,20 @@ DENSE_CASES = {
     "k3_sp4_d256": dict(kp=4, sp=4, history=[310, 5000, 57, 0, 1999, 1500, 130, 4500],
                         **GEMMA),
     "k3_sp4_f32_d256": dict(kp=4, sp=4, dtype="float32", **GEMMA),
+    # over 32-token pages: a K = 1 round, and window edges (position - 99)
+    # inside pages and runs
+    "k1_sp2_d256": dict(kp=2, sp=2, history=[310, 5000, 57, 0, 1999, 1500, 130, 4500],
+                        ps=32, **GEMMA),
+    "k3_sp4_window_edge_d256_ps32": dict(
+        kp=4, sp=4, history=[1000, 333, 77, 0, 4500, 2000, 130, 2049], ps=32,
+        **dict(GEMMA, window=100)),
+    "k3_sp4_d256_ps6": dict(kp=4, sp=4, history=[1, 63, 64, 0, 300, 1000, 130, 2048],
+                            ps=6, **GEMMA),
 }
 DENSE_CASES.update(_int8({k: DENSE_CASES[k] for k in (
     "k1_sp2", "k3_sp4", "k3_sp4_window", "k3_sp4_f32", "k3_sp4_d64",
-    "k3_sp4_d256", "k3_sp4_f32_d256")}))
+    "k3_sp4_d256", "k3_sp4_f32_d256", "k1_sp2_d256", "k3_sp4_window_edge_d256_ps32",
+    "k3_sp4_d256_ps6")}))
 for _case in DENSE_CASES.values():
     _case["lanes"] = [(h, 0 if i in (3, 5) else _case["kp"])
                       for i, h in enumerate(_case.get("history", DENSE_HISTORY))]
@@ -475,7 +506,8 @@ def _heads(case):
     return case.get("nq", 32), case.get("nkv", 8)
 
 
-def _dense_inputs(torch, gen, case, ps=16):
+def _dense_inputs(torch, gen, case):
+    ps = case.get("ps", 16)
     dtype = getattr(torch, case.get("dtype", "bfloat16"))
     d, sp, lanes = case.get("d", 128), case["sp"], case["lanes"]
     nq, nkv = _heads(case)
@@ -552,7 +584,8 @@ def _ragged_inputs(torch, gen, case):
         window=case.get("window", 0))
 
 
-def _decode_inputs(torch, gen, case, ps=16):
+def _decode_inputs(torch, gen, case):
+    ps = case.get("ps", 16)
     dtype = getattr(torch, case.get("dtype", "bfloat16"))
     d = case["d"]
     nq, nkv = _heads(case)
@@ -778,7 +811,8 @@ def phase_kernels(torch, flex: bool = True) -> dict:
          {"d128": True, "d64_llama3_1b": True, "d128_int8": True,
           "d256": True, "d256_int8": True,
           "long_d128": False, "long_d128_int8": False, "long_d64": False,
-          "long_d64_int8": False, "b160_d128": False, "b160_d128_int8": False},
+          "long_d64_int8": False, "b160_d128": False, "b160_d128_int8": False,
+          "b160_d256_ps32": False, "b160_d256_ps32_int8": False},
          (_sdpa_decode, _flex_decode), _decode_work),
         # the library yardstick of a verify round is the ragged one: SDPA
         # on the gathered KV with each lane's causal-offset mask
@@ -925,9 +959,9 @@ def main(argv=None) -> int:
     if args.decode_min_chunk is not None:
         from kserve_tpu_torch.ops import paged_attention_cuda as K
 
-        if args.decode_min_chunk <= 0 or args.decode_min_chunk % K.tc_kt(128):
+        if args.decode_min_chunk <= 0 or args.decode_min_chunk % K.TC_KT:
             raise SystemExit(f"--decode-min-chunk must be a positive multiple "
-                             f"of {K.tc_kt(128)}")
+                             f"of {K.TC_KT}")
         K.DECODE_MIN_CHUNK = args.decode_min_chunk
         K.decode_launch_plan.cache_clear()
     t0 = time.perf_counter()

@@ -10,8 +10,7 @@
 //   - ldmatrix fragments and mma.sync.m16n8k16 (bf16 in, f32 accumulate);
 //   - one warp's online softmax over a 16-row slab in registers: row max
 //     and row sum by quad shuffles, P rounded to bf16 in registers as the
-//     A operand of P @ V, O accumulated in f32 registers (all D columns,
-//     or one half of them in the split CTA at d=256);
+//     A operand of P @ V, O accumulated in f32 registers;
 //   - the key loop all three kernels run over their staged tiles, the
 //     shared-memory size of a CTA, and a launcher's once-per-device opt-in
 //     to it;
@@ -28,12 +27,10 @@
 // Shared-memory rows are padded by 16 bytes, so the 8 rows an ldmatrix
 // phase reads fall on 8 distinct 16-byte bank groups (no conflicts).
 //
-// head_dim 256 (Gemma-2) has a tiling of its own, since d=128's budget
-// would double: stages of 32 keys instead of 64 (the stage bytes of
-// d=128), the queries' A fragments read from shared memory at every
-// k-step instead of held in 64 registers (QSmem), and in the split CTA
-// two warps along a tile's keys times two along the head dim, so each
-// warp accumulates 128 of O's 256 columns (64 registers, not 128).
+// These blocks serve head_dim 64 and 128.  head_dim 256 (Gemma-2) runs on
+// designs of its own: the ragged kernel's wgmma CTA (attention_wgmma.cuh,
+// ragged_paged_attention.cu) and the dense and decode kernels' persistent
+// CTA (attention_split256.cuh).
 // Cache layout (the JAX package's): pages [P, 2, nkv, ps, d], K at index 0
 // and V at 1 of the second axis; int8 scales [P, 2, nkv, ps].
 #pragma once
@@ -51,10 +48,12 @@ constexpr float MASKED = -1e30f;  // a masked score (log2 domain); weighs 0
 constexpr float LOG2E = 1.4426950408889634f;
 constexpr int NT = 128;  // threads per CTA: 4 warps
 
-// keys per staged K/V tile: 64, or 32 at head_dim 256, whose stage then
-// takes the bytes of a 64-key stage at d=128
+// keys per staged K/V tile
 template <int D>
-__host__ __device__ constexpr int tile_keys() { return D > 128 ? 32 : 64; }
+__host__ __device__ constexpr int tile_keys() {
+  static_assert(D <= 128, "head_dim 256 has designs of its own");
+  return 64;
+}
 
 template <typename P>
 __host__ __device__ constexpr bool is_int8() { return std::is_same<P, int8_t>::value; }
@@ -315,9 +314,7 @@ __device__ __forceinline__ uint32_t q_frag_addr(const char* q_s, int row0) {
 }
 
 // A warp's A fragments of its 16 query rows for the D/16 k-steps of
-// S = Q K^T, either held in registers, loaded once after the queries land
-// (QRegs), or read from shared memory by ldmatrix at every k-step (QSmem:
-// 64 registers fewer at d=256, where O alone takes 128 of a thread's 255).
+// S = Q K^T, held in registers, loaded once after the queries land.
 template <int D>
 struct QRegs {
   uint32_t f[D / 16][4];
@@ -332,25 +329,10 @@ struct QRegs {
   }
 };
 
-template <int D>
-struct QSmem {
-  uint32_t addr;
-  __device__ __forceinline__ void load(const char* q_s, int row0) {
-    addr = q_frag_addr<D>(q_s, row0);
-  }
-  __device__ __forceinline__ void frag(int kk, uint32_t (&a)[4]) const {
-    ldsm_x4(a, addr + 32 * kk);
-  }
-};
-
-template <int D>
-using QFrags = typename std::conditional<(D > 128), QSmem<D>, QRegs<D>>::type;
-
 // One online-softmax step of a warp's slab over KW keys staged as bf16
 // rows (stride bf16_stride<D>) at k_rows / v_rows, absolute positions
 // key0 .. key0+KW-1.  S takes all D dims of the queries (qf); O takes the
-// DO columns of V that v_rows points at (DO = D, or half of it in the
-// split CTA at d=256).  qpos[k] is the position of the lane's row g + 8k
+// DO columns of V that v_rows points at.  qpos[k] is the position of the lane's row g + 8k
 // (-1: the row is not a query and sees no key); a key is seen when
 // key <= qpos and, with window > 0, qpos - key < window.  I8: ksc / vsc
 // are the keys' f32 scales, folded into S's columns and P's columns.
@@ -515,7 +497,7 @@ __device__ __forceinline__ void key_loop(
   if (n > 0) issue_kv_tile<P, D>(pages, scales, pt, nkv, ps, psl, h, lo, hi, stages);
   cp_async_commit();  // the queries and tile 0
   st.init();
-  QFrags<D> qf;
+  QRegs<D> qf;
   for (int it = 0; it < n; ++it) {
     char* cur = stages + (it & 1) * SB;
     if (it + 1 < n)
@@ -552,16 +534,13 @@ constexpr int SLAB_ROWS = 16;   // query rows of a split-KV CTA: one m16 slab
 constexpr int SLAB_KW = 16;     // keys of a staged tile per warp
 constexpr int MAX_SPLITS = 32;  // splits per (lane, kv head, slab), at most
 
-// The split CTA's 4 warps: key_groups along a staged tile's keys (4, or 2
-// at d=256's 32-key tiles) times 4 / key_groups along the head dim, each
-// warp accumulating D / (4 / key_groups) of O's columns.
-template <int D>
-__host__ __device__ constexpr int key_groups() { return tile_keys<D>() / SLAB_KW; }
-
-// the key groups' partial states, folded in shared memory after the key loop
+// The split CTA's 4 warps each take SLAB_KW keys of a staged tile and
+// accumulate all D of O's columns; their partial states fold in shared
+// memory after the key loop.
+constexpr int KEY_GROUPS = NT / 32;
 template <int D>
 __host__ __device__ constexpr int fold_bytes() {
-  return key_groups<D>() * SLAB_ROWS * (D + 2) * 4;
+  return KEY_GROUPS * SLAB_ROWS * (D + 2) * 4;
 }
 
 // Whether a launcher's split plan and scratch are ones split_kv_slab<P, D>
@@ -580,10 +559,8 @@ inline bool split_plan_ok(const void* partials, const void* tickets, int chunk,
 // sp * group rows are (token rr / group, head h * group + rr % group), and
 // slab zs holds rows [16 zs, 16 zs + 16).  The lane's keys [lo, hi) split
 // into chunks of `chunk` keys (at most `splits`).  Split z runs key_loop
-// over its chunk and the key groups fold their (m, l, o) in shared memory
-// (at d=256 each of a group's two warps holds half of o's columns; both
-// compute the same S, so either's (m, l) serves); with one split that is
-// the output.  Otherwise each split writes its
+// over its chunk and the key groups fold their (m, l, o) in shared memory;
+// with one split that is the output.  Otherwise each split writes its
 // (m, l, o) in f32 to `partials` (o [slots, splits, 16, D], then (m, l)
 // [slots, splits, 16, 2]; slot (b * nkv + h) * slabs + zs), and the last
 // split to take the slot's ticket (after __threadfence) merges them and
@@ -604,9 +581,8 @@ __device__ __forceinline__ void split_kv_slab(
   constexpr int CS = bf16_stride<D>();
   constexpr int SB = stage_bytes<P, D>();
   constexpr int QCH = D / 8;
-  constexpr int KG = key_groups<D>();
-  constexpr int DO = D / (4 / KG);  // output columns per warp
-  static_assert(KG * SLAB_KW == KT && 4 % KG == 0, "4 warps tile keys x columns");
+  constexpr int KG = KEY_GROUPS;
+  static_assert(KG * SLAB_KW == KT, "the 4 warps tile a stage's keys");
   static_assert(fold_bytes<D>() <= 2 * SB, "the warps' partials reuse the stages");
   char* q_s = smem;                     // [16][CS]
   char* stages = q_s + SLAB_ROWS * CS;  // [2][SB]; then the warps' fold
@@ -624,8 +600,7 @@ __device__ __forceinline__ void split_kv_slab(
   const int nrows = min(SLAB_ROWS, rows_lane - zs * SLAB_ROWS);  // rows of the slab
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
-  const int kg = warp % KG;          // the warp's keys of a tile: [16 kg, 16 kg + 16)
-  const int col0 = (warp / KG) * DO;  // and its output columns: [col0, col0 + DO)
+  const int kg = warp;  // the warp's keys of a tile: [16 kg, 16 kg + 16)
   const int64_t row0 = (int64_t)b * sp;
   // global element offset of slab row r < nrows
   auto out_row = [&](int r) -> int64_t {
@@ -673,10 +648,10 @@ __device__ __forceinline__ void split_kv_slab(
   warp_span(qpos, qmin, qmax);
 
   // each warp takes SLAB_KW keys of every staged tile for the slab's rows
-  SlabState<DO> st;
-  key_loop<P, D, DO, SLAB_KW>(st, q_s, 0, pages, scales, pt, nkv, ps, h, s_lo,
-                              s_hi, n, stages, conv, kg * SLAB_KW, col0, qpos,
-                              qmin, qmax, window, scale, softcap);
+  SlabState<D> st;
+  key_loop<P, D, D, SLAB_KW>(st, q_s, 0, pages, scales, pt, nkv, ps, h, s_lo,
+                             s_hi, n, stages, conv, kg * SLAB_KW, 0, qpos,
+                             qmin, qmax, window, scale, softcap);
 
   // fold the key groups: each warp writes its rows' o columns into
   // [group][row][D], then a group's (m, l) as [group][row]
@@ -687,21 +662,21 @@ __device__ __forceinline__ void split_kv_slab(
   {
     const int g = lane >> 2;
     const int c = lane & 3;
-    float* p0 = wo + (kg * SLAB_ROWS + g) * D + col0;
+    float* p0 = wo + (kg * SLAB_ROWS + g) * D;
     float* p1 = p0 + 8 * D;
     if (g < nrows) {
 #pragma unroll
-      for (int nn = 0; nn < DO / 8; ++nn)
+      for (int nn = 0; nn < D / 8; ++nn)
         *reinterpret_cast<float2*>(p0 + 8 * nn + 2 * c) =
             make_float2(st.o[nn][0], st.o[nn][1]);
     }
     if (g + 8 < nrows) {
 #pragma unroll
-      for (int nn = 0; nn < DO / 8; ++nn)
+      for (int nn = 0; nn < D / 8; ++nn)
         *reinterpret_cast<float2*>(p1 + 8 * nn + 2 * c) =
             make_float2(st.o[nn][2], st.o[nn][3]);
     }
-    if (c == 0 && col0 == 0) {
+    if (c == 0) {
       wm[kg * SLAB_ROWS + g] = st.m[0];
       wl[kg * SLAB_ROWS + g] = st.l[0];
       wm[kg * SLAB_ROWS + g + 8] = st.m[1];

@@ -21,7 +21,7 @@
 // parallelism over the keys and loads that overlap the math, not faster
 // arithmetic.
 //
-// bf16 q (over bf16 or int8 pages):
+// bf16 q (over bf16 or int8 pages), head_dim 64 and 128:
 //   - Split-KV: each (lane, kv head, 16-row slab) splits its key range
 //     into chunks of `chunk` keys (128 at Llama-3-8B's 2,048-token tables:
 //     ~300 CTAs of 4 warps on the timed verify round, >= 2 per SM); the
@@ -34,9 +34,7 @@
 //     tensor cores are used because the 16 rows are exactly one MMA slab
 //     and the P @ V product then needs no per-thread loops; the kernel is
 //     held by its loads either way.  int8 stages become exact bf16 tiles,
-//     their scales folded into S and P in f32 (attention_tc.cuh).  At
-//     head_dim 256 a stage holds 32 keys and the 4 warps are 2 along the
-//     keys times 2 along the head dim (128 output columns each).
+//     their scales folded into S and P in f32 (attention_tc.cuh).
 //   - The 4 warps' (m, l, o) fold in shared memory; with one split that is
 //     the output.  Otherwise each split writes its (m, l, o) in f32 to
 //     scratch, and the last split to arrive (an atomic ticket per (lane,
@@ -45,12 +43,20 @@
 //     wrapper; calls that share it must run in stream order.
 //   - That CTA, from split bounds to merge, is tc::split_kv_slab
 //     (attention_tc.cuh); the decode kernel runs it at stride 1.
+// bf16 q, head_dim 256 (Gemma-2): s256::split_kv_cta (attention_split256.cuh),
+//   the decode kernel's CTA too: a persistent grid of one CTA per SM, each
+//   an equal run of the 64-key tiles of every live (lane, kv head, 8-row
+//   slab) (8 rows: a stride-4 slice at group 2); a producer warp lands
+//   them by TMA through an mbarrier ring, four consumer warps take
+//   disjoint keys of each stage on transposed mma.sync products, int8
+//   rows dequantized in registers; the runs of a slab merge in-kernel.
 // f32 q (f32 or int8 pages): the first, CUDA-core design in attention_common.cuh
 //   (TF32 tensor cores cannot meet the 1e-4 f32 gate): one CTA per (lane,
 //   kv head), 16-key tiles, f32 online softmax.
-// Still left: TMA loads with a producer warp, and a persistent grid that
-// balances splits across SMs instead of the upper-bound grid.
+// Still left: the d 64/128 instances on the d=256 design (TMA ring,
+// persistent grid) instead of the upper-bound grid.
 #include "attention_common.cuh"
+#include "attention_split256.cuh"
 #include "attention_tc.cuh"
 
 namespace {
@@ -204,6 +210,49 @@ cudaError_t launch_tc(const void* q, const void* pages, const float* scales,
   return cudaGetLastError();
 }
 
+// ---------------------------------------------------------------- bf16 q, d=256
+
+// grid (ctas): s256::split_kv_cta over the lanes' q_len / kv_start.
+template <typename P>
+__global__ void __launch_bounds__(s256::THREADS, 1) dense_ragged_kernel_s256(
+    const __grid_constant__ CUtensorMap kv_map,  // pages as (D, ps, nkv, 2P)
+    const __nv_bfloat16* __restrict__ q,  // [B*sp, nq, 256]
+    const float* __restrict__ scales,     // [P, 2, nkv, ps] (int8 pages only)
+    const int* __restrict__ page_table,   // [B, W]
+    const int* __restrict__ kv_start,     // [B]
+    const int* __restrict__ q_len,        // [B]
+    __nv_bfloat16* __restrict__ out,      // [B*sp, nq, 256]
+    float* __restrict__ partials,         // s256::PART floats per slot
+    int* __restrict__ tickets,            // one per (lane, kv head, slab), zero between calls
+    int B, int sp, int nq, int nkv, int ps, int W, int slabs, int pair_cost, float scale,
+    float softcap, int window) {
+  extern __shared__ uint4 smem_s256[];
+  s256::split_kv_cta<P>(&kv_map, q, scales, page_table, s256::DenseLanes{kv_start, q_len},
+                        out, partials, tickets, B, sp, nq, nkv, ps, W, slabs, pair_cost,
+                        scale, softcap, window, reinterpret_cast<char*>(smem_s256));
+}
+
+template <typename P>
+cudaError_t launch_s256(const void* q, const void* pages, const float* scales,
+                        const int* page_table, const int* kv_start, const int* q_len,
+                        void* out, float* partials, int* tickets, int B, int sp, int nq,
+                        int nkv, int ps, int W, int num_pages, int pair_cost, int ctas,
+                        int slabs, float scale, float softcap, int window,
+                        cudaStream_t stream) {
+  auto kernel = dense_ragged_kernel_s256<P>;
+  static tc::SmemOptIn opt_in;
+  CUtensorMap map;
+  const cudaError_t err = s256::prepare<P>(kernel, opt_in, pages, num_pages, nkv, ps, ctas,
+                                           slabs, sp * (nq / nkv), pair_cost, partials,
+                                           tickets, &map);
+  if (err != cudaSuccess) return err;
+  kernel<<<ctas, s256::THREADS, s256::Smem<P>::ALLOC, stream>>>(
+      map, static_cast<const __nv_bfloat16*>(q), scales, page_table, kv_start, q_len,
+      static_cast<__nv_bfloat16*>(out), partials, tickets, B, sp, nq, nkv, ps, W, slabs,
+      pair_cost, scale, softcap, window);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // dtype (q and out): 0 = float32, 1 = bfloat16.  kv_dtype (pages): the
@@ -216,8 +265,8 @@ extern "C" int kt_dense_ragged_paged_attention(
     const void* q, const void* pages, const void* scales,
     const void* page_table, const void* kv_start, const void* q_len,
     void* out, void* partials, void* tickets, int B, int sp, int nq, int nkv,
-    int head_dim, int page_size, int W, int chunk, int splits, int slabs,
-    float scale, float softcap, int window, int dtype, int kv_dtype,
+    int head_dim, int page_size, int W, int num_pages, int chunk, int splits,
+    int slabs, float scale, float softcap, int window, int dtype, int kv_dtype,
     void* stream) {
   if (B <= 0 || sp <= 0 || 8 % sp != 0 || nkv <= 0 || nq % nkv != 0)
     return (int)cudaErrorInvalidValue;
@@ -234,6 +283,12 @@ extern "C" int kt_dense_ragged_paged_attention(
   return (int)launch_tc<P, D>(q, pages, sc, pt, ks, ql, out, part, tk, B, sp,   \
                               nq, nkv, page_size, W, chunk, splits, slabs,      \
                               scale, softcap, window, st)
+#define KT_DENSE_S256(P)                                                      \
+  if (kt::is_instance<__nv_bfloat16, P>(dtype, kv_dtype, scales) &&           \
+      head_dim == s256::D)                                                    \
+  return (int)launch_s256<P>(q, pages, sc, pt, ks, ql, out, part, tk, B, sp,   \
+                             nq, nkv, page_size, W, num_pages, chunk, splits,  \
+                             slabs, scale, softcap, window, st)
 #define KT_DENSE(T, P, D)                                                    \
   if (kt::is_instance<T, P>(dtype, kv_dtype, scales) && head_dim == D)      \
   return (int)launch_f32<T, P, D>(q, pages, sc, pt, ks, ql, out, B, sp, nq,  \
@@ -241,10 +296,10 @@ extern "C" int kt_dense_ragged_paged_attention(
                                   st)
   KT_DENSE_TC(__nv_bfloat16, 128);
   KT_DENSE_TC(__nv_bfloat16, 64);
-  KT_DENSE_TC(__nv_bfloat16, 256);
+  KT_DENSE_S256(__nv_bfloat16);
   KT_DENSE_TC(int8_t, 128);
   KT_DENSE_TC(int8_t, 64);
-  KT_DENSE_TC(int8_t, 256);
+  KT_DENSE_S256(int8_t);
   KT_DENSE(float, float, 128);
   KT_DENSE(float, float, 64);
   KT_DENSE(float, float, 256);
@@ -252,6 +307,7 @@ extern "C" int kt_dense_ragged_paged_attention(
   KT_DENSE(float, int8_t, 64);
   KT_DENSE(float, int8_t, 256);
 #undef KT_DENSE
+#undef KT_DENSE_S256
 #undef KT_DENSE_TC
   return (int)cudaErrorInvalidValue;
 }

@@ -22,9 +22,9 @@
 // has 64 (lane, kv head) pairs for 132 SMs, so the keys are split across
 // CTAs and each CTA's loads overlap its math.
 //
-// bf16 q (over bf16 or int8 pages, d 64, 128 and 256): decode is the dense-
-// stride function at stride 1 (one query token at position seq_len - 1),
-// so the CTA is the dense kernel's, tc::split_kv_slab (attention_tc.cuh):
+// bf16 q (over bf16 or int8 pages): decode is the dense-stride function at
+// stride 1 (one query token at position seq_len - 1), so each CTA is the
+// dense kernel's.  At d 64 and 128, tc::split_kv_slab (attention_tc.cuh):
 //   - split-KV over (lane, kv head, split): the lane's keys split into
 //     chunks of `chunk` keys (ops/paged_attention_cuda.py
 //     decode_launch_plan); the grid's split axis is a host-side bound from
@@ -34,17 +34,24 @@
 //   - two cp.async stages of 64 keys, each warp 16 keys of a stage on
 //     mma.sync m16n8k16 (bf16 in, f32 accumulate): the group's 4 rows
 //     fill 4 of an m16 slab's 16, which costs nothing in a kernel held by
-//     its loads; int8 stages become exact bf16 tiles; at d=256 the stages
-//     hold 32 keys and two warps split each 16 keys' output columns;
+//     its loads; int8 stages become exact bf16 tiles;
 //   - the warps' (m, l, o) fold in shared memory, and the last split to
 //     take the (lane, kv head) ticket merges the f32 partials in-kernel.
+// At d=256 (Gemma-2), s256::split_kv_cta (attention_split256.cuh): one
+// persistent CTA per SM takes an equal run of the 64-key tiles of every
+// live (lane, kv head), landed by TMA from a producer warp through an
+// mbarrier ring; four consumer warps take disjoint keys of each stage on
+// transposed mma.sync products (the group's rows are the n of m16n8k16),
+// int8 rows dequantized in registers; the runs of a (lane, kv head) merge
+// in-kernel in run order.
 // f32 q (f32 or int8 pages): the first, CUDA-core design in
 // attention_common.cuh (TF32 tensor cores cannot meet the 1e-4 f32 gate):
 // one CTA per (lane, kv head), 32-key f32 tiles, f32 online softmax.
-// Still left: the bf16 instances reach 13-34% of the byte bound at a
-// 20 MB step (PERF.md); TMA loads with a producer warp and a persistent
-// grid are the next design.
+// Still left: the d 64/128 instances reach 13-34% of the byte bound at a
+// 20 MB step (PERF.md); the d=256 design (TMA ring, persistent grid) is
+// the candidate for them.
 #include "attention_common.cuh"
+#include "attention_split256.cuh"
 #include "attention_tc.cuh"
 
 namespace {
@@ -182,6 +189,48 @@ cudaError_t launch_tc(const void* q, const void* pages, const float* scales,
   return cudaGetLastError();
 }
 
+// ---------------------------------------------------------------- bf16 q, d=256
+
+// grid (ctas): s256::split_kv_cta at stride 1, lane b's one query token
+// (none when seq_len is 0) at position seq_len - 1.
+template <typename P>
+__global__ void __launch_bounds__(s256::THREADS, 1) paged_decode_kernel_s256(
+    const __grid_constant__ CUtensorMap kv_map,  // pages as (D, ps, nkv, 2P)
+    const __nv_bfloat16* __restrict__ q,  // [B, nq, 256]
+    const float* __restrict__ scales,     // [P, 2, nkv, ps] (int8 pages only)
+    const int* __restrict__ page_table,   // [B, W]
+    const int* __restrict__ seq_lens,     // [B]
+    __nv_bfloat16* __restrict__ out,      // [B, nq, 256]
+    float* __restrict__ partials,         // s256::PART floats per slot
+    int* __restrict__ tickets,            // one per (lane, kv head, slab), zero between calls
+    int B, int nq, int nkv, int ps, int W, int slabs, int pair_cost, float scale,
+    float softcap, int window) {
+  extern __shared__ uint4 smem_s256[];
+  s256::split_kv_cta<P>(&kv_map, q, scales, page_table, s256::DecodeLanes{seq_lens}, out,
+                        partials, tickets, B, 1, nq, nkv, ps, W, slabs, pair_cost, scale,
+                        softcap, window, reinterpret_cast<char*>(smem_s256));
+}
+
+template <typename P>
+cudaError_t launch_s256(const void* q, const void* pages, const float* scales,
+                        const int* page_table, const int* seq_lens, void* out,
+                        float* partials, int* tickets, int B, int nq, int nkv, int ps,
+                        int W, int num_pages, int pair_cost, int ctas, int slabs,
+                        float scale, float softcap, int window, cudaStream_t stream) {
+  auto kernel = paged_decode_kernel_s256<P>;
+  static tc::SmemOptIn opt_in;
+  CUtensorMap map;
+  const cudaError_t err = s256::prepare<P>(kernel, opt_in, pages, num_pages, nkv, ps, ctas,
+                                           slabs, nq / nkv, pair_cost, partials, tickets,
+                                           &map);
+  if (err != cudaSuccess) return err;
+  kernel<<<ctas, s256::THREADS, s256::Smem<P>::ALLOC, stream>>>(
+      map, static_cast<const __nv_bfloat16*>(q), scales, page_table, seq_lens,
+      static_cast<__nv_bfloat16*>(out), partials, tickets, B, nq, nkv, ps, W, slabs,
+      pair_cost, scale, softcap, window);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // dtype (q and out): 0 = float32, 1 = bfloat16.  kv_dtype (pages): the
@@ -194,8 +243,8 @@ extern "C" int kt_paged_decode_attention(
     const void* q, const void* pages, const void* scales,
     const void* page_table, const void* seq_lens, void* out, void* partials,
     void* tickets, int B, int nq, int nkv, int head_dim, int page_size, int W,
-    int chunk, int splits, int slabs, float scale, float softcap, int window,
-    int dtype, int kv_dtype, void* stream) {
+    int num_pages, int chunk, int splits, int slabs, float scale, float softcap,
+    int window, int dtype, int kv_dtype, void* stream) {
   if (B <= 0 || nkv <= 0 || nq % nkv != 0) return (int)cudaErrorInvalidValue;
   const float* sc = static_cast<const float*>(scales);
   const int* pt = static_cast<const int*>(page_table);
@@ -209,16 +258,22 @@ extern "C" int kt_paged_decode_attention(
   return (int)launch_tc<P, D>(q, pages, sc, pt, sl, out, part, tk, B, nq,    \
                               nkv, page_size, W, chunk, splits, slabs, scale, \
                               softcap, window, s)
+#define KT_DEC_S256(P)                                                         \
+  if (kt::is_instance<__nv_bfloat16, P>(dtype, kv_dtype, scales) &&            \
+      head_dim == s256::D)                                                     \
+  return (int)launch_s256<P>(q, pages, sc, pt, sl, out, part, tk, B, nq, nkv,   \
+                             page_size, W, num_pages, chunk, splits, slabs,     \
+                             scale, softcap, window, s)
 #define KT_DEC(T, P, D)                                                     \
   if (kt::is_instance<T, P>(dtype, kv_dtype, scales) && head_dim == D)     \
   return (int)launch_f32<T, P, D>(q, pages, sc, pt, sl, out, B, nq, nkv,    \
                                   page_size, W, scale, softcap, window, s)
   KT_DEC_TC(__nv_bfloat16, 128);
   KT_DEC_TC(__nv_bfloat16, 64);
-  KT_DEC_TC(__nv_bfloat16, 256);
+  KT_DEC_S256(__nv_bfloat16);
   KT_DEC_TC(int8_t, 128);
   KT_DEC_TC(int8_t, 64);
-  KT_DEC_TC(int8_t, 256);
+  KT_DEC_S256(int8_t);
   KT_DEC(float, float, 128);
   KT_DEC(float, float, 64);
   KT_DEC(float, float, 256);
@@ -226,6 +281,7 @@ extern "C" int kt_paged_decode_attention(
   KT_DEC(float, int8_t, 64);
   KT_DEC(float, int8_t, 256);
 #undef KT_DEC
+#undef KT_DEC_S256
 #undef KT_DEC_TC
   return (int)cudaErrorInvalidValue;
 }

@@ -47,15 +47,15 @@ _SIGNATURES = {
     "kt_ragged_paged_attention": (
         [_P] * 10 + [_I] * 13 + [_F, _F, _I, _I, _I, _P]),
     # q, pages, scales, page_table, seq_lens, out, partials, tickets, B,
-    # nq, nkv, head_dim, page_size, W, chunk, splits, slabs, scale,
-    # softcap, window, dtype, kv_dtype, stream
-    "kt_paged_decode_attention": (
-        [_P] * 8 + [_I] * 9 + [_F, _F, _I, _I, _I, _P]),
-    # q, pages, scales, page_table, kv_start, q_len, out, partials,
-    # tickets, B, sp, nq, nkv, head_dim, page_size, W, chunk, splits, slabs,
+    # nq, nkv, head_dim, page_size, W, num_pages, chunk, splits, slabs,
     # scale, softcap, window, dtype, kv_dtype, stream
+    "kt_paged_decode_attention": (
+        [_P] * 8 + [_I] * 10 + [_F, _F, _I, _I, _I, _P]),
+    # q, pages, scales, page_table, kv_start, q_len, out, partials,
+    # tickets, B, sp, nq, nkv, head_dim, page_size, W, num_pages, chunk,
+    # splits, slabs, scale, softcap, window, dtype, kv_dtype, stream
     "kt_dense_ragged_paged_attention": (
-        [_P] * 9 + [_I] * 10 + [_F, _F, _I, _I, _I, _P]),
+        [_P] * 9 + [_I] * 11 + [_F, _F, _I, _I, _I, _P]),
 }
 
 

@@ -16,18 +16,21 @@ kserve_tpu/ops/attention.py:paged_attention_xla's int8 branch).
 Every kernel takes head_dim 64, 128 and 256 (`HEAD_DIMS`; any other
 raises).  With bf16 q all three kernels run on the tensor cores (bf16
 MMA, f32 accumulation; int8 rows become exact bf16 and their scales are
-applied in f32 to the scores and to P).  The dense and decode kernels
-and the ragged kernel at d 64/128 use mma.sync fed by cp.async double
-buffering (the dense and decode kernels at d=256 with 32-key stages,
-`tc_kt`); the ragged kernel at d=256 uses wgmma fed by TMA through a
-warp-specialised ring (csrc/attention_wgmma.cuh; it builds a tensor map
-of the cache per pages pointer and shape).  The dense, decode and d=256
-ragged kernels split each lane's (or tile's) keys across CTAs and merge
-the splits in-kernel (decode is the dense function at stride 1).  Their
-launch shapes come from `ragged_launch_plan`, `dense_launch_plan` and
-`decode_launch_plan`, host-side upper bounds computed from shapes alone
-(no host sync): the kernels' CTAs find their own lane, tile and split
-from the lane metadata on the device and exit when they have none.
+applied in f32 to the scores and to P).  At d 64/128 the dense and decode
+kernels and the ragged kernel use mma.sync fed by cp.async double
+buffering; the dense and decode kernels split each lane's keys across
+CTAs (decode is the dense function at stride 1) and merge the splits
+in-kernel, their grids host-side upper bounds from shapes alone
+(`dense_launch_plan`, `decode_launch_plan`; the CTAs find their lane and
+split from the lane metadata on the device and exit when they have
+none).  At d=256 every kernel is fed by TMA through a warp-specialised
+mbarrier ring (csrc/attention_wgmma.cuh; each builds a tensor map of the
+cache per pages pointer and shape): the ragged kernel runs wgmma on
+128-row tiles split across CTAs (`ragged_launch_plan`); the dense and
+decode kernels run one persistent CTA per SM (csrc/attention_split256.cuh)
+that takes an equal-cost run of the key tiles of every live (lane, kv head,
+slab) on mma.sync, int8 rows dequantized in registers, the runs that share
+a (lane, kv head, slab) merged in-kernel.  None of them syncs the host.
 With f32 q each staged row is dequantized in f32 on CUDA cores (the
 first design).
 
@@ -35,8 +38,8 @@ Each wrapper takes CUDA tensors only: it checks device, dtype (q bf16 or
 f32), shape and contiguity, raises on anything its kernel does not take,
 allocates the output with torch.empty, launches on the current stream
 and raises if the launch failed.  The split kernels' f32 partials and
-merge tickets (the d=256 ragged kernel's too) are one scratch per
-device, reused in stream order (`_split_scratch`).  A wrapper never
+merge tickets are one scratch per device, reused in stream order
+(`_split_scratch`).  A wrapper never
 falls back to the plain version; the dispatchers in ops/attention.py
 route CPU tensors to the plain versions before a wrapper is reached.
 `LAUNCHES` counts launches, the int8 instances under their own `*_int8`
@@ -163,24 +166,17 @@ RAGGED_MAX_CHUNK = 2048
 CARD_SMS = 132  # an H100 SXM's streaming multiprocessors
 SPLIT_ROWS = 16  # query rows of a split-KV (dense or decode) CTA: one m16 slab
 SPLIT_MAX_SPLITS = 32  # splits per (lane, kv head, slab), at most
-# keys per split of the dense and decode kernels, at least, at head_dim
-# <= 128; min_chunk() keeps a split's bytes at larger head dims
+TC_KT = 64  # keys per staged K/V tile of the mma.sync kernels (tc::tile_keys)
+# keys per split of the dense and decode kernels at head_dim <= 128, at least
 DENSE_MIN_CHUNK = 128
 DECODE_MIN_CHUNK = 128
-
-
-def tc_kt(d: int) -> int:
-    """Keys per staged K/V tile of the tensor-core kernels (tc::tile_keys<D>): 64,
-    or 32 at head_dim 256, whose stage then takes d=128's bytes."""
-    return 32 if d > 128 else 64
-
-
-def min_chunk(base: int, d: int) -> int:
-    """Least keys per split at head_dim d for a least of `base` keys at
-    d <= 128: the same bytes per split (64 keys at d=256 for the default
-    128: two of its 32-key tiles, so a CTA still overlaps one tile's load
-    with the other's math)."""
-    return base * 128 // max(d, 128)
+# the dense and decode kernels at head_dim 256 (csrc/attention_split256.cuh)
+S256_ROWS = 8  # query rows of a (lane, kv head, slab): the n of m16n8k16
+S256_KT = 64  # keys per staged tile, the unit of the CTAs' equal runs
+S256_CTAS = CARD_SMS  # a persistent grid: one CTA per SM (its ring's shared memory)
+# what the partition charges a (lane, kv head, slab) for its epilogue, in
+# key tiles, beside its tiles
+S256_PAIR_COST = 2
 
 
 class RaggedPlan(NamedTuple):
@@ -251,10 +247,13 @@ def ragged_scratch_shape(nkv: int, plan: RaggedPlan,
 
 
 class SplitPlan(NamedTuple):
-    """Split-KV shape of the bf16-q dense and decode kernels
-    (tc::split_kv_slab): each (lane, kv head, slab of SPLIT_ROWS rows)
-    covers its keys in splits of `chunk` keys; grid (B, nkv * slabs,
-    splits)."""
+    """Split-KV shape of the bf16-q dense and decode kernels.  At head_dim
+    <= 128 (tc::split_kv_slab) each (lane, kv head, slab of SPLIT_ROWS
+    rows) covers its keys in splits of `chunk` keys; grid (B, nkv * slabs,
+    splits).  At d=256 (s256::split_kv_cta) `splits` CTAs share the
+    S256_KT-key tiles of every (lane, kv head, slab of S256_ROWS rows) in
+    runs of equal cost, a slab costing its tiles plus `chunk`
+    (S256_PAIR_COST); grid (splits)."""
     chunk: int
     splits: int
     slabs: int
@@ -262,14 +261,18 @@ class SplitPlan(NamedTuple):
 
 def _split_plan(W: int, page_size: int, rows: int, least: int,
                 d: int) -> SplitPlan:
-    """A lane's keys lie in [0, W * page_size), so ceil(W * page_size /
-    chunk) splits cover any lane.  chunk is a multiple of tc_kt(d), at
-    least `least`, and large enough for at most SPLIT_MAX_SPLITS; `rows`
-    query rows per lane and kv head take ceil(rows / SPLIT_ROWS) slabs."""
+    """At d <= 128: a lane's keys lie in [0, W * page_size), so ceil(W *
+    page_size / chunk) splits cover any lane; chunk is a multiple of
+    TC_KT, at least `least`, and large enough for at most
+    SPLIT_MAX_SPLITS.  At d=256: S256_CTAS CTAs, whatever the table.
+    `rows` query rows per lane and kv head take ceil(rows / slab rows)
+    slabs."""
+    if d > 128:
+        return SplitPlan(chunk=S256_PAIR_COST, splits=S256_CTAS,
+                         slabs=-(-rows // S256_ROWS))
     keys = W * page_size
-    kt = tc_kt(d)
     chunk = max(least, -(-keys // SPLIT_MAX_SPLITS))
-    chunk = -(-chunk // kt) * kt
+    chunk = -(-chunk // TC_KT) * TC_KT
     return SplitPlan(chunk=chunk, splits=max(1, -(-keys // chunk)),
                      slabs=-(-rows // SPLIT_ROWS))
 
@@ -278,22 +281,21 @@ def _split_plan(W: int, page_size: int, rows: int, least: int,
 def dense_launch_plan(W: int, page_size: int, sp: int, nq: int, nkv: int,
                       d: int) -> SplitPlan:
     """The dense kernel's grid for page tables of W pages, sp * group rows
-    per lane and kv head, head_dim d, splits of at least
-    min_chunk(DENSE_MIN_CHUNK, d) keys."""
-    return _split_plan(W, page_size, sp * (nq // nkv),
-                       min_chunk(DENSE_MIN_CHUNK, d), d)
+    per lane and kv head, head_dim d; splits of at least DENSE_MIN_CHUNK
+    keys at d <= 128."""
+    return _split_plan(W, page_size, sp * (nq // nkv), DENSE_MIN_CHUNK, d)
 
 
 @functools.lru_cache(maxsize=256)
 def decode_launch_plan(W: int, page_size: int, nq: int, nkv: int,
                        d: int) -> SplitPlan:
     """The decode kernel's grid for page tables of W pages: the dense
-    plan at stride 1 (group rows per lane and kv head), splits of at least
-    min_chunk(DECODE_MIN_CHUNK, d) keys.  The grid is a bound from the
-    table's width alone: each CTA finds its lane's key range from seq_lens
-    in the kernel, so no host sync and no launch is needed to plan."""
-    return _split_plan(W, page_size, nq // nkv,
-                       min_chunk(DECODE_MIN_CHUNK, d), d)
+    plan at stride 1 (group rows per lane and kv head); splits of at least
+    DECODE_MIN_CHUNK keys at d <= 128.  The grid is a bound from shapes
+    alone: each CTA finds its lane's key range from seq_lens in the kernel
+    (at d=256 every CTA its run of all lanes' key tiles), so no host sync
+    and no launch is needed to plan."""
+    return _split_plan(W, page_size, nq // nkv, DECODE_MIN_CHUNK, d)
 
 
 _NO_PLAN = SplitPlan(chunk=0, splits=0, slabs=0)  # the f32 designs have none
@@ -301,10 +303,17 @@ _NO_PLAN = SplitPlan(chunk=0, splits=0, slabs=0)  # the f32 designs have none
 
 def split_scratch_shape(B: int, nkv: int, plan: SplitPlan,
                         d: int) -> Tuple[int, int, int, int]:
-    """f32 scratch of the split partials of one call: per (lane, kv head,
-    slab) and split, SPLIT_ROWS rows of o [d], then the same rows' (m, l)
-    pairs (the kernel's layout: o [slots, splits, rows, d] followed by
-    (m, l) [slots, splits, rows, 2])."""
+    """f32 scratch of the split partials of one call, (slots, splits, rows,
+    width), bounded from shapes alone; there is a merge ticket per slot.
+    At d <= 128: per (lane, kv head, slab) and split, SPLIT_ROWS rows of o
+    [d], then the same rows' (m, l) pairs (the kernel's layout: o [slots,
+    splits, rows, d] followed by (m, l) [slots, splits, rows, 2]).  At
+    d=256: a partial of S256_ROWS rows of o [d] and their (m, l) per run
+    of a (lane, kv head, slab), the run of CTA i of pair p in slot p + i
+    (p + i is unique among the pairs a run touches, so B * nkv * slabs +
+    splits slots hold any call's)."""
+    if d > 128:
+        return (B * nkv * plan.slabs + plan.splits, 1, S256_ROWS, d + 2)
     return (B * nkv * plan.slabs, plan.splits, SPLIT_ROWS, d + 2)
 
 
@@ -424,7 +433,7 @@ def paged_decode_attention_cuda(
     err = lib.kt_paged_decode_attention(
         q.data_ptr(), c.pages.data_ptr(), _scales_ptr(c), page_table.data_ptr(),
         seq_lens.data_ptr(), out.data_ptr(), partials_ptr, tickets_ptr, B, nq,
-        c.nkv, d, c.ps, W, plan.chunk, plan.splits, plan.slabs, float(scale),
+        c.nkv, d, c.ps, W, c.pages.shape[0], plan.chunk, plan.splits, plan.slabs, float(scale),
         float(logit_softcap), int(window), c.code, c.kv_code, _stream(q))
     _raise_on(err, "paged_decode_attention")
     _count("paged_decode_attention", c.scales)
@@ -465,8 +474,8 @@ def dense_ragged_paged_attention_cuda(
     err = lib.kt_dense_ragged_paged_attention(
         q.data_ptr(), c.pages.data_ptr(), _scales_ptr(c), page_table.data_ptr(),
         kv_start.data_ptr(), q_len.data_ptr(), out.data_ptr(), partials_ptr,
-        tickets_ptr, B, sp, nq, c.nkv, d, c.ps, W, plan.chunk, plan.splits,
-        plan.slabs, float(scale), float(logit_softcap), int(window),
+        tickets_ptr, B, sp, nq, c.nkv, d, c.ps, W, c.pages.shape[0], plan.chunk,
+        plan.splits, plan.slabs, float(scale), float(logit_softcap), int(window),
         c.code, c.kv_code, _stream(q))
     _raise_on(err, "dense_ragged_paged_attention")
     _count("dense_ragged_paged_attention", c.scales)

@@ -495,40 +495,158 @@ def test_ragged_wgmma_plan_splits_by_the_work():
     assert long.splits <= K.SPLIT_MAX_SPLITS and long.chunk == 4096
 
 
+def _s256_lane(kv0, qn, W, ps, window):
+    """(lo, hi, n): a lane's key range and its n tiles of S256_KT keys
+    from lo, as s256::lane_range derives them (qn 0: no tile)."""
+    kt = K.S256_KT
+    hi = min(kv0 + qn, W * ps) if qn > 0 else 0
+    lo = (max(0, kv0 - window + 1) if window > 0 else 0) // kt * kt
+    return lo, hi, (-(-(hi - lo) // kt) if hi > lo else 0)
+
+
+def _s256_partition(plan, lanes, nkv, W, ps, window):
+    """The d=256 dense / decode CTA's partition, restated from
+    s256::split_kv_cta: on a cost axis every (lane, kv head, slab) pair in
+    pair order takes its n key tiles and then A = plan.chunk positions
+    for its epilogue; CTA i of R = min(G, C) (G = plan.splits, C the
+    positions in all) walks [i C / R, (i + 1) C / R) from the lane its
+    warp scan finds, one segment per pair whose tiles it covers (tiles
+    [ta, tb) of the pair's n), and owner(t) names the run that holds
+    position t.  lanes: (kv0, qn) each.  Returns (the lanes' ranges, the
+    tiles N in all, the positions C in all, per CTA its segments)."""
+    G, pp, A = plan.splits, nkv * plan.slabs, plan.chunk
+    ranges = [_s256_lane(kv0, qn, W, ps, window) for kv0, qn in lanes]
+    cost = [(n + A) * pp if n else 0 for _, _, n in ranges]
+    C = sum(cost)
+    R = min(G, C)
+
+    def owner(t):
+        return ((t + 1) * R - 1) // C
+
+    ctas = []
+    for i in range(G):
+        T0, T1 = (i * C // R, (i + 1) * C // R) if i < R else (C, C)
+        segs = []
+        b = c = 0
+        if T0 < T1:  # the scan: the lane whose positions hold T0
+            while not c <= T0 < c + cost[b]:
+                c += cost[b]
+                b += 1
+        t = T0
+        while t < T1:
+            while t >= c + cost[b]:
+                c += cost[b]
+                b += 1
+            n = ranges[b][2]
+            k = (t - c) // (n + A)
+            P0 = c + k * (n + A)
+            if t - P0 >= n:  # the pair's epilogue share
+                t = P0 + n + A
+                continue
+            h, zs = divmod(k, plan.slabs)
+            segs.append(dict(pair=(b * nkv + h) * plan.slabs + zs, b=b, ta=t - P0,
+                             tb=min(n, T1 - P0), first=owner(P0),
+                             runs=owner(P0 + n - 1) - owner(P0) + 1))
+            t = P0 + segs[-1]["tb"]
+        ctas.append(segs)
+    return ranges, sum(n for _, _, n in ranges) * pp, C, ctas
+
+
+def _check_s256_partition(plan, lanes, nkv, rows, W, ps, window):
+    """Every key of every live pair's range, which holds every key its
+    queries see, is in exactly one CTA's run; a pair's runs are the CTAs
+    first .. first + runs - 1 that its partials count; lanes with no
+    query have no pair; each partial's slot (pair + CTA) is unique and
+    inside the scratch, each ticket too; the slabs cover the rows; the
+    runs' work (tiles plus A per segment) stays within ceil(C / R) + A.
+    Returns the work per CTA."""
+    kt = K.S256_KT
+    ranges, N, C, ctas = _s256_partition(plan, lanes, nkv, W, ps, window)
+    slots, splits, srows, width = K.split_scratch_shape(len(lanes), nkv, plan, 256)
+    assert (splits, srows, width) == (1, K.S256_ROWS, 258)
+    assert (plan.slabs - 1) * K.S256_ROWS < rows <= plan.slabs * K.S256_ROWS
+    parts, ctas_of, used = {}, {}, set()
+    sizes = [sum(sg["tb"] - sg["ta"] for sg in segs) for segs in ctas]
+    assert sum(sizes) == N
+    # a run's work, its tiles plus A per segment, stays within its share of
+    # the positions and one pair's A
+    R = min(plan.splits, C)
+    for sz, segs in zip(sizes, ctas):
+        assert sz + plan.chunk * len(segs) <= -(-C // max(R, 1)) + plan.chunk
+    for i, segs in enumerate(ctas):
+        for sg in segs:
+            parts.setdefault(sg["pair"], []).append((sg["ta"], sg["tb"]))
+            ctas_of.setdefault(sg["pair"], []).append((i, sg["first"], sg["runs"]))
+            slot = sg["pair"] + i
+            assert slot < slots and slot not in used
+            used.add(slot)
+    for b, (kv0, qn) in enumerate(lanes):
+        lo, hi, n = ranges[b]
+        for j in range(qn):  # the keys query j sees lie in [lo, hi)
+            assert lo <= (max(0, kv0 + j - window + 1) if window else 0)
+            assert kv0 + j < hi or kv0 + j >= W * ps
+        assert n == 0 or lo + (n - 1) * kt < hi <= lo + n * kt
+        for p in range((b * nkv) * plan.slabs, (b * nkv + nkv) * plan.slabs):
+            if n == 0:
+                assert p not in parts
+                continue
+            # the tiles [0, n) back to back, each in one run
+            bounds = [0] + [tb for _, tb in parts[p]]
+            assert [ta for ta, _ in parts[p]] == bounds[:-1] and bounds[-1] == n
+            first, runs = ctas_of[p][0][1:]
+            assert [i for i, _, _ in ctas_of[p]] == list(range(first, first + runs))
+            assert all((f, r) == (first, runs) for _, f, r in ctas_of[p])
+            assert p < slots  # its ticket
+    return [sz + plan.chunk * len(segs) for sz, segs in zip(sizes, ctas)]
+
+
 @pytest.mark.parametrize("sp,group,d", [
     pytest.param(1, 4, 128, id="1-4"), pytest.param(2, 4, 128, id="2-4"),
     pytest.param(4, 4, 128, id="4-4"), pytest.param(4, 8, 128, id="4-8"),
     pytest.param(4, 2, 128, id="4-2"), pytest.param(2, 1, 128, id="2-1"),
     pytest.param(4, 2, 256, id="4-2-d256"), pytest.param(1, 2, 256, id="1-2-d256"),
+    pytest.param(2, 2, 256, id="2-2-d256"), pytest.param(4, 4, 256, id="4-4-d256"),
 ])
 def test_dense_launch_plan_covers_every_split(sp, group, d):
-    """Brute force over random lanes (inactive ones, long ones, windows):
-    the splits of every lane's key range fit the grid of
+    """Brute force over random lanes (inactive ones, long ones, windows).
+    At d <= 128: the splits of every lane's key range fit the grid of
     `dense_launch_plan` and cover the range once; the slabs cover the
     lane's sp * group rows; the scratch holds a partial per (lane, kv head,
     slab, split).  The key range and split bounds here restate the CUDA
-    split CTA's (lo, hi, nsp) arithmetic (tc::split_kv_slab); the kernel
-    itself is held to them on the card by chip_smoke.py's split8_* and
-    one_live_* dense cases.  At d=256 the tiles are 32 keys and the least
-    chunk 64."""
-    nkv, kt = 2, K.tc_kt(d)
+    split CTA's (lo, hi, nsp) arithmetic (tc::split_kv_slab).  At d=256:
+    batches of 1-160 lanes through the persistent CTA's partition
+    (_check_s256_partition).  The kernels are held to them on the card by
+    chip_smoke.py's split8_*, one_live_*, k1_sp2_d256 and window-edge
+    dense cases."""
+    nkv = 2
     rng = np.random.RandomState(sp * 10 + group + d)
     for W, ps in [(1, 16), (2, 8), (7, 16), (126, 16), (128, 16), (512, 16), (4096, 16)]:
         plan = K.dense_launch_plan(W, ps, sp, group * nkv, nkv, d)
         keys = W * ps
-        assert plan.chunk % kt == 0
-        assert plan.chunk >= K.min_chunk(K.DENSE_MIN_CHUNK, d)
+
+        def lane():
+            qn = int(rng.randint(0, sp + 1))
+            return int(rng.randint(0, max(keys - qn, 0) + 1)), qn
+
+        if d > 128:
+            assert (plan.chunk, plan.splits) == (K.S256_PAIR_COST, K.S256_CTAS)
+            for B in (1, 8, 37, 160):
+                lanes = [lane() for _ in range(B)]
+                for window in (0, 1, 96, 1000):
+                    _check_s256_partition(plan, lanes, nkv, sp * group, W, ps, window)
+            continue
+        assert plan.chunk % K.TC_KT == 0
+        assert plan.chunk >= K.DENSE_MIN_CHUNK
         assert 1 <= plan.splits <= K.SPLIT_MAX_SPLITS
         assert ((plan.slabs - 1) * K.SPLIT_ROWS < sp * group
                 <= plan.slabs * K.SPLIT_ROWS)
         assert K.split_scratch_shape(5, nkv, plan, d) == (
             5 * nkv * plan.slabs, plan.splits, K.SPLIT_ROWS, d + 2)
         for _ in range(100):
-            qn = int(rng.randint(0, sp + 1))
-            kv0 = int(rng.randint(0, max(keys - qn, 0) + 1))
+            kv0, qn = lane()
             window = int(rng.choice([0, 1, 96, 1000]))
             hi = min(kv0 + qn, keys) if qn else 0
-            lo = (max(0, kv0 - window + 1) if window else 0) // kt * kt
+            lo = (max(0, kv0 - window + 1) if window else 0) // K.TC_KT * K.TC_KT
             nsp = -(-(hi - lo) // plan.chunk) if hi > lo else 0
             assert nsp <= plan.splits
             got = [k for z in range(nsp)
@@ -552,14 +670,13 @@ def test_dense_launch_plan_fills_the_card_on_the_timed_round():
     assert ctas >= 2 * 132
 
 
-def _decode_splits(seq_len, window, W, ps, plan, d=128):
-    """The decode kernel's key range and splits for one lane, as
+def _decode_splits(seq_len, window, W, ps, plan):
+    """The d <= 128 decode kernel's key range and splits for one lane, as
     tc::split_kv_slab computes them at stride 1 (one query token at
     seq_len - 1, none when seq_len is 0): (lo, hi, [(s_lo, s_hi), ...])."""
     qn, kv0 = int(seq_len > 0), seq_len - 1
     hi = min(kv0 + qn, W * ps) if qn else 0
-    kt = K.tc_kt(d)
-    lo = (max(0, kv0 - window + 1) if window else 0) // kt * kt
+    lo = (max(0, kv0 - window + 1) if window else 0) // K.TC_KT * K.TC_KT
     nsp = -(-(hi - lo) // plan.chunk) if hi > lo else 0
     return lo, hi, [(lo + z * plan.chunk, min(lo + (z + 1) * plan.chunk, hi))
                     for z in range(min(nsp, plan.splits))], nsp
@@ -569,35 +686,45 @@ def _decode_splits(seq_len, window, W, ps, plan, d=128):
     pytest.param(1, 128, id="1"), pytest.param(4, 128, id="4"),
     pytest.param(8, 128, id="8"), pytest.param(16, 128, id="16"),
     pytest.param(32, 128, id="32"), pytest.param(2, 256, id="2-d256"),
+    pytest.param(16, 256, id="16-d256"),
 ])
 def test_decode_launch_plan_covers_every_split(group, d):
     """Brute force over random lengths (with 0, 1, chunk - 1, chunk,
-    chunk + 1 and W * ps) and windows (0, 1, 96, 1000): every lane's
-    splits fit the grid of `decode_launch_plan`, cover its key range once
-    and each hold at most one chunk; the range holds every key the query
-    sees; the slabs cover the group's rows; the scratch holds a partial
-    per (lane, kv head, slab, split).  The arithmetic restates the CUDA
-    split CTA's (tc::split_kv_slab at stride 1); the kernel is held to it
-    on the card by chip_smoke.py's split8, one_live, split_edges and
-    window_across_split decode cases (at d 128, 64 and 256)."""
+    chunk + 1 and W * ps) and windows (0, 1, 96, 1000).  At d <= 128:
+    every lane's splits fit the grid of `decode_launch_plan`, cover its
+    key range once and each hold at most one chunk; the range holds every
+    key the query sees; the slabs cover the group's rows; the scratch
+    holds a partial per (lane, kv head, slab, split).  The arithmetic
+    restates the CUDA split CTA's (tc::split_kv_slab at stride 1).  At
+    d=256: batches of those lengths, 1-160 lanes, through the persistent
+    CTA's partition (_check_s256_partition).  The kernels are held to
+    them on the card by chip_smoke.py's split8, one_live, split_edges,
+    window_across_split, window_edge and b160 decode cases."""
     nkv, ps = 2, 16
     rng = np.random.RandomState(group + d)
     for W in (1, 7, 128, 512, 4096):
         plan = K.decode_launch_plan(W, ps, group * nkv, nkv, d)
         keys = W * ps
-        assert plan.chunk % K.tc_kt(d) == 0
-        assert plan.chunk >= K.min_chunk(K.DECODE_MIN_CHUNK, d)
+        edges = [0, 1, plan.chunk - 1, plan.chunk, plan.chunk + 1, keys]
+        lens = [n for n in edges if n <= keys] + list(rng.randint(0, keys + 1, 60))
+        if d > 128:
+            assert (plan.chunk, plan.splits) == (K.S256_PAIR_COST, K.S256_CTAS)
+            for B in (1, 8, 66, 160):
+                batch = [int(n) for n in rng.choice(lens, B)]
+                for window in (0, 1, 96, 1000):
+                    _check_s256_partition(plan, [(n - 1, int(n > 0)) for n in batch], nkv,
+                                          group, W, ps, window)
+            continue
+        assert plan.chunk % K.TC_KT == 0
+        assert plan.chunk >= K.DECODE_MIN_CHUNK
         assert 1 <= plan.splits <= K.SPLIT_MAX_SPLITS
         assert plan.splits * plan.chunk >= keys
         assert (plan.slabs - 1) * K.SPLIT_ROWS < group <= plan.slabs * K.SPLIT_ROWS
         assert K.split_scratch_shape(3, nkv, plan, d) == (
             3 * nkv * plan.slabs, plan.splits, K.SPLIT_ROWS, d + 2)
-        edges = [0, 1, plan.chunk - 1, plan.chunk, plan.chunk + 1, keys]
-        lens = [n for n in edges if n <= keys] + list(rng.randint(0, keys + 1, 60))
         for seq_len in lens:
             for window in (0, 1, 96, 1000):
-                lo, hi, splits, nsp = _decode_splits(int(seq_len), window, W, ps,
-                                                     plan, d)
+                lo, hi, splits, nsp = _decode_splits(int(seq_len), window, W, ps, plan)
                 assert nsp <= plan.splits
                 assert (seq_len == 0) == (nsp == 0)
                 # back to back from lo to hi, each 1..chunk keys: every key
@@ -620,6 +747,53 @@ def test_decode_launch_plan_fills_the_card():
     plan = K.decode_launch_plan(W, 16, 32, 8, 128)
     ctas = 8 * plan.slabs * sum(_decode_splits(n, 0, W, 16, plan)[3] for n in lens)
     assert ctas >= 2 * 132
+
+
+@pytest.mark.parametrize("kernel", ["decode", "dense"])
+def test_s256_plan_spreads_the_timed_gemma2_shapes_evenly(kernel):
+    """On chip_smoke.py's timed Gemma-2-2B shapes (8 q / 4 kv heads,
+    window 4,096, 16-token pages) every one of the 132 CTAs has tiles and
+    none has more work (tiles plus S256_PAIR_COST per pair it holds) than
+    its share of the cost axis and one pair's cost: the decode step of lanes 6,000, 1,
+    17, 300, 4,500, 0, 911 and 64 (612 tiles), and the verify round
+    k3_sp4_d256 (K + 1 = 4 at stride 4, lanes 3 and 5 without queries; 684
+    tiles)."""
+    if kernel == "decode":
+        lens = [6000, 1, 17, 300, 4500, 0, 911, 64]
+        lanes = [(n - 1, int(n > 0)) for n in lens]
+        W = -(-max(lens) // 16)
+        plan = K.decode_launch_plan(W, 16, 8, 4, 256)
+        rows, tiles = 2, 612
+    else:
+        history = [310, 5000, 57, 0, 1999, 1500, 130, 4500]
+        lanes = [(h, 0 if i in (3, 5) else 4) for i, h in enumerate(history)]
+        W = -(-(max(history) + 4) // 16)
+        plan = K.dense_launch_plan(W, 16, 4, 8, 4, 256)
+        rows, tiles = 8, 684
+    work = _check_s256_partition(plan, lanes, 4, rows, W, 16, 4096)
+    _, N, C, ctas = _s256_partition(plan, lanes, 4, W, 16, 4096)
+    assert N == tiles and all(ctas)
+    assert max(work) <= -(-C // 132) + plan.chunk
+
+
+@pytest.mark.parametrize("args,plan", [
+    ((128, 16, 32, 8, 128), (128, 16, 1)), ((375, 16, 32, 8, 128), (192, 32, 1)),
+    ((128, 16, 16, 8, 64), (128, 16, 1)), ((4096, 16, 32, 8, 128), (2048, 32, 1)),
+    ((2, 8, 8, 8, 64), (128, 1, 1)),
+])
+def test_decode_plans_below_d256_unchanged(args, plan):
+    """The d 64/128 decode plans (tc::split_kv_slab) keep their values:
+    the d=256 CTA took nothing from them."""
+    assert tuple(K.decode_launch_plan(*args)) == plan
+
+
+@pytest.mark.parametrize("args,plan", [
+    ((128, 16, 4, 32, 8, 128), (128, 16, 1)), ((313, 16, 4, 32, 8, 128), (192, 27, 1)),
+    ((128, 16, 2, 16, 8, 64), (128, 16, 1)), ((4096, 16, 1, 32, 8, 128), (2048, 32, 1)),
+])
+def test_dense_plans_below_d256_unchanged(args, plan):
+    """The d 64/128 dense plans keep their values."""
+    assert tuple(K.dense_launch_plan(*args)) == plan
 
 
 def test_profile_classes_the_decode_kernels():
@@ -647,6 +821,10 @@ def test_profile_classes_the_decode_kernels():
          "(__nv_bfloat16 const*, ...)", "ragged_attention"),
         ("void (anonymous namespace)::w256::ragged_kernel_wgmma<signed char>"
          "(CUtensorMap_st, ...)", "ragged_attention"),
+        ("void (anonymous namespace)::paged_decode_kernel_s256<signed char>"
+         "(CUtensorMap_st, ...)", "decode_attention"),
+        ("void (anonymous namespace)::dense_ragged_kernel_s256<__nv_bfloat16>"
+         "(CUtensorMap_st, ...)", "dense_attention"),
     ]:
         assert prof._classify(name) == cls, name
 
