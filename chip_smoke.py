@@ -22,9 +22,24 @@ Phases, each printing JSON lines:
            chat over HTTP, launch counts of the ragged and decode kernels,
            step-0 logits through the kernels against the plain versions,
            every attention call paired with its plain version in f32
-           and in bf16, and one decode step under CUDA sync debugging
+           and in bf16, and one decode step under CUDA sync debugging;
+           then GET /admin/telemetry and /metrics: every request in the
+           engine's TTFT window and histogram, the decode-token counter
+           moved by the tokens served less each request's first, TTFT /
+           ITL / queue-wait percentiles from the engine's clock
   d64      the same server with --model_config=llama3-1b (head_dim 64, full
            depth): the served path of the decode kernel's d=64 instance
+  checkpoint  Llama-3.2-1B at full width and depth in bf16 served from a
+           checkpoint (--model_dir, no --random_weights): its seeded
+           weights written as two safetensors shards by the port's
+           writer, an HF config.json, a byte-level BPE tokenizer.json in
+           Llama-3's form and a tokenizer_config.json with a chat template;
+           every loaded tensor bit-equal to the written one, greedy
+           completions equal to a --random_weights server's over the same
+           directory, the chat prompt through the default template without
+           jinja2 (logged once), the ragged and d=64 decode kernels
+           launched; load GB/s, peak host staging and the tokenizer's
+           encode rate
   spec     the server with --spec_decode_k=3 (speculative decoding):
            concurrent greedy completions and a seeded sampled one, the
            dense kernel's launch count and the draft statistics, one verify
@@ -971,8 +986,9 @@ def main(argv=None) -> int:
     if args.kernels_only:
         emit({"phase": "done", "wall_s": time.perf_counter() - t0})
         return 0
-    counts = {"serve": phase_serve(torch), "d64": phase_d64(torch),
-              "spec": phase_spec(torch)}
+    counts = {"serve": phase_serve(torch), "d64": phase_d64(torch)}
+    phase_checkpoint(torch, info)
+    counts["spec"] = phase_spec(torch)
     counts.update(phase_kvq(torch))
     counts.update(phase_gemma2(torch))
     phase_pressure(torch)
@@ -1065,6 +1081,54 @@ def _stream_chat(port: int, body: dict, t_send: list,
         return resp.status, events, ttft
     finally:
         conn.close()
+
+
+def _scrape(port: int) -> dict:
+    """GET /metrics as {(sample name, sorted label pairs): value} (the text
+    format's sample lines; the card machine has no prometheus_client)."""
+    status, body = _http(port, "GET", "/metrics")
+    if status != 200:
+        raise AssertionError(f"/metrics answered {status}")
+    out = {}
+    for line in body.decode().splitlines():
+        if not line or line.startswith("#"):
+            continue
+        series, value = line.rsplit(" ", 1)
+        name, _, labels = series.partition("{")
+        pairs = tuple(sorted(
+            tuple(kv.split("=", 1)) for kv in labels.rstrip("}").split(",") if kv))
+        out[(name, tuple((k, v.strip('"')) for k, v in pairs))] = float(value)
+    return out
+
+
+def _telemetry_check(port: int, name: str, before: dict, requests: int,
+                     served: int) -> dict:
+    """After a wave of `requests` completions that served `served` tokens
+    in all: the engine's GET /admin/telemetry counts every one in its TTFT
+    window with a positive ITL median, and GET /metrics moved by the same
+    wave (engine_generated_tokens_total counts decode tokens, so each
+    request's first token, the prefill's sample, is not in it, as in the
+    JAX engine).  Returns TTFT / ITL / queue-wait percentiles from the
+    engine's clock."""
+    status, body = _http(port, "GET", "/admin/telemetry")
+    if status != 200:
+        raise AssertionError(f"/admin/telemetry answered {status}")
+    snap = json.loads(body)["models"][name]
+    after = _scrape(port)
+    label = (("model_name", name),)
+
+    def delta(sample):
+        return after.get((sample, label), 0.0) - before.get((sample, label), 0.0)
+
+    got = {"ttft_n": snap["ttft_s"]["n"], "finished": snap["counts"]["finished"],
+           "ttft_count": delta("request_ttft_seconds_count"),
+           "generated_total": delta("engine_generated_tokens_total")}
+    want = {"ttft_n": requests, "finished": requests, "ttft_count": requests,
+            "generated_total": served - requests}
+    if got != want or not snap["itl_s"].get("p50", 0) > 0:
+        raise AssertionError(f"telemetry {got} != {want} (itl {snap['itl_s']})")
+    return {key: {q: snap[key].get(q) for q in ("n", "p50", "p99")}
+            for key in ("ttft_s", "itl_s", "queue_wait_s", "e2e_s", "decode_step_s")}
 
 
 def _logits_check(torch, engine, verify_k=None, legacy=False) -> dict:
@@ -1376,6 +1440,7 @@ def _serve_run(torch, argv, phase: str, prompts, chat_tokens: int = 48) -> dict:
             "temperature": 0, "ignore_eos": True,
             "messages": [{"role": "user", "content": "Say something long."}]}
 
+    metrics_before = _scrape(port)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     K.reset_launch_counts()
@@ -1419,6 +1484,8 @@ def _serve_run(torch, argv, phase: str, prompts, chat_tokens: int = 48) -> dict:
     if len(token_events) != chat_tokens:
         raise AssertionError(f"streamed chat gave {len(token_events)} token events")
     generated += len(token_events)
+    telemetry = _telemetry_check(port, name, metrics_before, len(prompts) + 1,
+                                 generated)
 
     logits = _logits_check(torch, model.engine)
     decode_no_sync = _check_decode_has_no_sync(torch, model.engine)
@@ -1428,6 +1495,7 @@ def _serve_run(torch, argv, phase: str, prompts, chat_tokens: int = 48) -> dict:
         "kv_cache_gb": _kv_cache_gb(model.engine),
         "requests": len(prompts) + 1, "tokens_generated": generated,
         "wall_s": wall, "tok_per_s": generated / wall, "chat_ttft_s": ttft,
+        "engine_telemetry": telemetry,
         "engine_steps": model.engine.steps,
         "max_memory_allocated_gb": peak_gb,
         "launches": counts,
@@ -1603,6 +1671,333 @@ def phase_d64(torch) -> dict:
     _require_launches("d64", counts,
                       ("ragged_paged_attention", "paged_decode_attention"))
     return counts
+
+
+# ---------------------------------------------------------------- checkpoint
+
+# Llama-3's pre-tokenization regex (its tokenizer.json's Split pattern)
+LLAMA3_SPLIT = (r"(?i:'s|'t|'re|'ve|'m|'ll|'d)|[^\r\n\p{L}\p{N}]?\p{L}+|\p{N}{1,3}"
+                r"| ?[^\s\p{L}\p{N}]+[\r\n]*|\s*[\r\n]+|\s+(?!\S)|\s+")
+LLAMA3_SPECIAL = {128000: "<|begin_of_text|>", 128001: "<|end_of_text|>",
+                  128006: "<|start_header_id|>", 128007: "<|end_header_id|>",
+                  128009: "<|eot_id|>"}
+LLAMA3_TEMPLATE = (
+    "{{ bos_token }}{% for m in messages %}<|start_header_id|>{{ m['role'] }}"
+    "<|end_header_id|>\n\n{{ m['content'] | trim }}<|eot_id|>{% endfor %}"
+    "{% if add_generation_prompt %}<|start_header_id|>assistant<|end_header_id|>"
+    "\n\n{% endif %}")
+# the words whose left-to-right merges make the smoke tokenizer's merge list
+CKPT_WORDS = sorted(set((BASE_TEXT + " Tell me about the sea. Write a haiku "
+                         "about paged attention. Say something long. Pick a "
+                         "random word. The checkpoint is streamed").split()))
+CKPT_PROMPTS = [("short", "Tell me about the sea.", 24),
+                ("long", BASE_TEXT * 2, 24),
+                ("numbers", "It's 2026: 12345 pages², Ⅻ layers, café — 你好", 24)]
+# HF names of the Llama-3.2-1B layer tensors (Linear weights [out, in])
+HF_LAYER_NAMES = {
+    "attn_norm": ("input_layernorm.weight", False),
+    "wq": ("self_attn.q_proj.weight", True),
+    "wk": ("self_attn.k_proj.weight", True),
+    "wv": ("self_attn.v_proj.weight", True),
+    "wo": ("self_attn.o_proj.weight", True),
+    "mlp_norm": ("post_attention_layernorm.weight", False),
+    "w_gate": ("mlp.gate_proj.weight", True),
+    "w_up": ("mlp.up_proj.weight", True),
+    "w_down": ("mlp.down_proj.weight", True),
+}
+
+
+def _write_smoke_tokenizer(model_dir: str) -> int:
+    """A byte-level BPE tokenizer.json in Llama-3's form: the 256 byte
+    tokens, then the tokens of merging each of CKPT_WORDS (and its
+    space-prefixed form) left to right, Llama-3's Split regex and
+    ignore_merges, and its special tokens at their ids; plus a
+    tokenizer_config.json with a chat template.  Returns the merges."""
+    from kserve_tpu_torch.engine.tokenizer_json import bytes_to_unicode
+
+    b2u = bytes_to_unicode()
+    vocab = {b2u[b]: b for b in range(256)}
+    merges = []
+    for word in CKPT_WORDS + [" " + w for w in CKPT_WORDS]:
+        chars = [b2u[b] for b in word.encode("utf-8")]
+        cur = chars[0]
+        for c in chars[1:]:
+            if cur + c not in vocab:
+                vocab[cur + c] = len(vocab)
+                merges.append([cur, c])
+            cur += c
+    data = {
+        "version": "1.0", "truncation": None, "padding": None,
+        "added_tokens": [
+            {"id": i, "content": c, "single_word": False, "lstrip": False,
+             "rstrip": False, "normalized": False, "special": True}
+            for i, c in sorted(LLAMA3_SPECIAL.items())],
+        "normalizer": None,
+        "pre_tokenizer": {"type": "Sequence", "pretokenizers": [
+            {"type": "Split", "pattern": {"Regex": LLAMA3_SPLIT},
+             "behavior": "Isolated", "invert": False},
+            {"type": "ByteLevel", "add_prefix_space": False,
+             "trim_offsets": True, "use_regex": False}]},
+        "post_processor": None,
+        "decoder": {"type": "ByteLevel", "add_prefix_space": True,
+                    "trim_offsets": True, "use_regex": True},
+        "model": {"type": "BPE", "dropout": None, "unk_token": None,
+                  "continuing_subword_prefix": None, "end_of_word_suffix": None,
+                  "fuse_unk": False, "byte_fallback": False, "ignore_merges": True,
+                  "vocab": vocab, "merges": merges},
+    }
+    with open(os.path.join(model_dir, "tokenizer.json"), "w", encoding="utf-8") as f:
+        json.dump(data, f, ensure_ascii=False)
+    with open(os.path.join(model_dir, "tokenizer_config.json"), "w") as f:
+        json.dump({"bos_token": "<|begin_of_text|>", "eos_token": "<|eot_id|>",
+                   "chat_template": LLAMA3_TEMPLATE}, f)
+    return len(merges)
+
+
+def _write_checkpoint(torch, params, mc, model_dir: str) -> dict:
+    """`params` in HF form: config.json and two safetensors shards written
+    by the port's writer (models/safetensors_io.py)."""
+    from kserve_tpu_torch.models.safetensors_io import save_file
+
+    cfg = {"architectures": ["LlamaForCausalLM"], "model_type": "llama",
+           "vocab_size": mc.vocab_size, "hidden_size": mc.hidden_size,
+           "intermediate_size": mc.intermediate_size,
+           "num_hidden_layers": mc.n_layers, "num_attention_heads": mc.n_heads,
+           "num_key_value_heads": mc.n_kv_heads, "head_dim": mc.head_dim,
+           "rope_theta": mc.rope_theta, "rms_norm_eps": mc.rms_norm_eps,
+           "max_position_embeddings": mc.max_position_embeddings,
+           "tie_word_embeddings": mc.tie_word_embeddings, "hidden_act": "silu",
+           "torch_dtype": "bfloat16"}
+    with open(os.path.join(model_dir, "config.json"), "w") as f:
+        json.dump(cfg, f)
+    tensors = {"model.embed_tokens.weight": params["embed"],
+               "model.norm.weight": params["final_norm"]}
+    if "lm_head" in params:
+        tensors["lm_head.weight"] = params["lm_head"].t()
+    for i, layer in enumerate(params["layers"]):
+        for key, value in layer.items():
+            hf, transpose = HF_LAYER_NAMES[key]
+            tensors[f"model.layers.{i}.{hf}"] = value.t() if transpose else value
+    names = sorted(tensors)
+    nbytes = {n: tensors[n].numel() * tensors[n].element_size() for n in names}
+    half, acc, cut = sum(nbytes.values()) / 2, 0, len(names)
+    for k, n in enumerate(names):
+        acc += nbytes[n]
+        if acc >= half:
+            cut = k + 1
+            break
+    t0 = time.perf_counter()
+    for shard, part in enumerate((names[:cut], names[cut:])):
+        save_file({n: tensors[n] for n in part}, os.path.join(
+            model_dir, f"model-{shard + 1:05d}-of-00002.safetensors"))
+    return {"n_tensors": len(names), "bytes": sum(nbytes.values()),
+            "write_s": time.perf_counter() - t0}
+
+
+class _Records:
+    """A logging handler that keeps the records of one logger."""
+
+    def __init__(self, logger_name: str):
+        import logging
+
+        class Keep(logging.Handler):
+            def __init__(self):
+                super().__init__(logging.DEBUG)
+                self.records = []
+
+            def emit(self, record):
+                self.records.append(record)
+
+        self._logger = logging.getLogger(logger_name)
+        self.handler = Keep()
+
+    def __enter__(self):
+        self._logger.addHandler(self.handler)
+        return self.handler.records
+
+    def __exit__(self, *exc):
+        self._logger.removeHandler(self.handler)
+
+
+class _Blocked:
+    """`import <module>` raises ImportError inside the block (as on a
+    machine without the package)."""
+
+    def __init__(self, module: str):
+        self.module = module
+
+    def __enter__(self):
+        self.had, self.saved = (self.module in sys.modules,
+                                sys.modules.get(self.module))
+        sys.modules[self.module] = None
+
+    def __exit__(self, *exc):
+        if self.had:
+            sys.modules[self.module] = self.saved
+        else:
+            del sys.modules[self.module]
+
+
+CKPT_MESSAGES = [{"role": "user", "content": "Say something about the sea."}]
+
+
+def _chat_prompt_tokens(port: int, name: str) -> int:
+    status, body = _http(port, "POST", "/openai/v1/chat/completions", {
+        "model": name, "messages": CKPT_MESSAGES, "max_tokens": 8,
+        "temperature": 0, "ignore_eos": True})
+    if status != 200:
+        raise AssertionError(f"checkpoint chat answered {status}: {body[:300]!r}")
+    return json.loads(body)["usage"]["prompt_tokens"]
+
+
+def _sequential_texts(port: int, name: str) -> dict:
+    """CKPT_PROMPTS one after another (greedy, no eos stop): their texts."""
+    out = {}
+    for label, text, n in CKPT_PROMPTS:
+        status, body = _http(port, "POST", "/openai/v1/completions", {
+            "model": name, "prompt": text, "max_tokens": n, "temperature": 0,
+            "ignore_eos": True})
+        if status != 200:
+            raise AssertionError(f"checkpoint completion {label} answered "
+                                 f"{status}: {body[:300]!r}")
+        resp = json.loads(body)
+        if resp["usage"]["completion_tokens"] != n:
+            raise AssertionError(f"checkpoint completion {label}: {resp['usage']}")
+        out[label] = resp["choices"][0]["text"]
+    return out
+
+
+def phase_checkpoint(torch, info: dict) -> None:
+    """Llama-3.2-1B at full width and depth in bf16 served from a
+    checkpoint: its seeded init_params written as two safetensors shards
+    by the port's writer, an HF config.json, and a byte-level BPE
+    tokenizer.json with Llama-3's split regex and special tokens, served
+    with --model_dir (no --random_weights).  Gates: every loaded tensor
+    bit-equal to the one written; the greedy completions equal those of a
+    --model_dir --random_weights server (the same seed-1 weights drawn on
+    the device, the same tokenizer); its chat prompt rendered by the
+    tokenizer_config's template through jinja2 when jinja2 is installed,
+    and the checkpoint server's (built with jinja2 blocked, as on a
+    machine without it) by the default template, which it logs once, at
+    load; the ragged and the d=64 decode kernels launched.  Prints the
+    load rate, peak host staging, load wall and the tokenizer's encode
+    rate on this host."""
+    import dataclasses
+    import importlib.util
+    import shutil
+
+    from kserve_tpu_torch.engine.tokenizer import BaseTokenizer, HFTokenizer
+    from kserve_tpu_torch.models import llama
+    from kserve_tpu_torch.ops import paged_attention_cuda as K
+
+    t_phase = time.perf_counter()
+    emit({"phase": "checkpoint", "event": "start",
+          "model": "llama3-1b (seeded random weights, seed 1, bf16)"})
+    model_dir = os.path.join(REPO, "build", "checkpoint_smoke")
+    shutil.rmtree(model_dir, ignore_errors=True)
+    os.makedirs(model_dir)
+    try:
+        mc = dataclasses.replace(llama.LlamaConfig.llama3_1b(), dtype="bfloat16")
+        written = llama.init_params(mc, seed=1, device="cuda")
+        ckpt = _write_checkpoint(torch, written, mc, model_dir)
+        ckpt["merges"] = _write_smoke_tokenizer(model_dir)
+        args = ["--model_name=llama3-1b-ckpt", f"--model_dir={model_dir}",
+                "--http_port=0", "--device=cuda"]
+        jinja2 = importlib.util.find_spec("jinja2") is not None
+
+        # the reference: the same seed-1 weights drawn on the device
+        model, server, thread = _start_server(
+            torch, args + ["--random_weights"], "checkpoint")
+        want = _sequential_texts(server.port, model.name)
+        ref_tok = model.tokenizer
+        rendered = {"mode": ref_tok.chat_template_mode,
+                    "prompt_tokens": _chat_prompt_tokens(server.port, model.name)}
+        _stop_server(torch, model, server, thread)
+        del model
+        if jinja2:
+            import jinja2 as jinja2_mod
+
+            text = jinja2_mod.Environment().from_string(LLAMA3_TEMPLATE).render(
+                messages=CKPT_MESSAGES, add_generation_prompt=True,
+                bos_token="", eos_token="")
+        else:
+            text = BaseTokenizer.apply_chat_template(ref_tok, CKPT_MESSAGES)
+        if rendered != {"mode": "jinja2" if jinja2 else "default",
+                        "prompt_tokens": len(ref_tok.encode(text))}:
+            raise AssertionError(f"chat template with jinja2={jinja2}: {rendered}, "
+                                 f"expected {len(ref_tok.encode(text))} tokens")
+
+        with _Records("kserve_tpu_torch.engine.tokenizer") as records, \
+                _Blocked("jinja2"):
+            model, server, thread = _start_server(torch, args, "checkpoint")
+        template_logs = [r.getMessage() for r in records if "jinja2" in r.getMessage()]
+        port, name, tok = server.port, model.name, model.tokenizer
+        engine = model.engine
+        mismatched = [key for key, a, b in _param_pairs(written, engine.params)
+                      if a.dtype != b.dtype or not torch.equal(a, b)]
+        if mismatched:
+            raise AssertionError(f"loaded tensors differ from the written ones: "
+                                 f"{mismatched[:8]}")
+        del written
+        K.reset_launch_counts()
+        got = _sequential_texts(port, name)
+        chat_prompt = _chat_prompt_tokens(port, name)
+        torch.cuda.synchronize()
+        counts = dict(K.LAUNCHES)
+        if got != want:
+            raise AssertionError(f"checkpoint greedy texts {got} != the random-"
+                                 f"weights server's {want}")
+        default = tok.encode(BaseTokenizer.apply_chat_template(tok, CKPT_MESSAGES))
+        if (tok.chat_template_mode != "default" or chat_prompt != len(default)
+                or len(template_logs) != 1):
+            raise AssertionError(
+                f"without jinja2: mode {tok.chat_template_mode}, prompt "
+                f"{chat_prompt} tokens against the default template's "
+                f"{len(default)}, logged {template_logs}")
+        _require_launches("checkpoint", counts,
+                          ("ragged_paged_attention", "paged_decode_attention"))
+        stats = model.weights_stats
+        _stop_server(torch, model, server, thread)
+
+        text = " ".join(t for _, t, _ in CKPT_PROMPTS) * 400
+        encoder = HFTokenizer(model_dir)
+        t0 = time.perf_counter()
+        n_tokens = len(encoder.encode(text))
+        cold = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        encoder.encode(text)
+        warm = time.perf_counter() - t0
+        emit({
+            "phase": "checkpoint", "card": info["nvidia_smi"],
+            "checkpoint": ckpt, "tensors_bit_equal": ckpt["n_tensors"],
+            "load": {**stats, "gb_per_s": stats["read_bytes"] / stats["seconds"] / 1e9},
+            "greedy_equal_random_weights": sorted(got),
+            "jinja2_installed": jinja2, "chat_with_jinja2_as_installed": rendered,
+            "chat_without_jinja2": {"mode": tok.chat_template_mode,
+                                    "prompt_tokens": chat_prompt,
+                                    "logged": template_logs},
+            "launches": counts,
+            "bpe_encode": {"tokens": n_tokens, "chars": len(text),
+                           "cold_tok_per_s": n_tokens / cold,
+                           "warm_tok_per_s": n_tokens / warm},
+            "phase_wall_s": time.perf_counter() - t_phase,
+        })
+    finally:
+        shutil.rmtree(model_dir, ignore_errors=True)
+
+
+def _param_pairs(a: dict, b: dict):
+    """(key, a's tensor, b's tensor) over two parameter dicts; raises on
+    a key one of them lacks."""
+    if sorted(a) != sorted(b) or len(a["layers"]) != len(b["layers"]):
+        raise AssertionError(f"parameter keys differ: {sorted(a)} / {sorted(b)}")
+    for key in sorted(k for k in a if k != "layers"):
+        yield key, a[key], b[key]
+    for i, (la, lb) in enumerate(zip(a["layers"], b["layers"])):
+        if sorted(la) != sorted(lb):
+            raise AssertionError(f"layer {i} keys differ: {sorted(la)} / {sorted(lb)}")
+        for key in sorted(la):
+            yield f"layers.{i}.{key}", la[key], lb[key]
 
 
 SPEC_K = 3
@@ -1930,7 +2325,7 @@ def _spec_identity_f32(torch) -> dict:
     mc = dataclasses.replace(llama.LlamaConfig.llama3_8b(), n_layers=2,
                              dtype="float32")
     params = llama.init_params(mc, seed=1, device="cuda")
-    tok = load_tokenizer(mc.vocab_size)
+    tok = load_tokenizer(None, mc.vocab_size)
     ec = dict(max_batch_size=8, page_size=16, num_pages=512,
               max_pages_per_seq=128, max_prefill_len=1024, dtype="float32")
     prompts = [tok.encode(t) for t in (

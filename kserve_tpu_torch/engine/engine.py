@@ -61,11 +61,20 @@ only then adopts them (`_land_page_ins`).  A persist write-through
 enqueues its gather when the prefix is hit and only reads it back on a
 worker thread.
 
+Every request carries a RequestTimeline (observability/timeline.py),
+stamped from the engine's clock where the JAX engine stamps it: received
+at submit, admitted, prefill start and end, each emitted token, and its
+terminal state (finished, cancelled, error).  The `TimelineRecorder`
+behind `telemetry_snapshot()` (GET /admin/telemetry) keeps the finished
+ones and the step and prefill-chunk durations; metrics.py exports the
+same to GET /metrics.
+
 Not ported yet: the peer page fabric, injected KV from a prefill peer
 (P/D: `kv_data`, `generate_injected`), frees deferred while a chained
 dispatch is in flight (not needed on one stream, above),
 data/tensor/pipeline/sequence parallelism, drain/checkpoint/resume, the
-watchdog, metrics and the AOT cache.  Admission waits for free pages.
+watchdog, deadlines, load shedding and the AOT cache.  Admission waits
+for free pages.
 """
 
 from __future__ import annotations
@@ -80,7 +89,22 @@ import numpy as np
 import torch
 
 from ..device import resolve_device, upload
+from ..metrics import (
+    ENGINE_BATCH_OCCUPANCY,
+    ENGINE_KV_PAGES_FREE,
+    ENGINE_PREEMPTIONS,
+    ENGINE_PREFILL_CHUNK_DURATION,
+    ENGINE_QUEUE_DEPTH,
+    ENGINE_STEP_DURATION,
+    GENERATED_TOKENS,
+    PROMPT_TOKENS,
+    SPEC_TOKENS,
+    observe_request_timeline,
+    observe_startup_phase,
+)
 from ..models import llama
+from ..observability import RequestTimeline, TimelineRecorder
+from ..resilience.clock import MONOTONIC
 from ..ops.attention import dense_stride_for
 from ..ops.paged_attention_cuda import RAGGED_BQ
 from ..kvstore import HierarchicalKVStore, KVStoreConfig, payload_nbytes
@@ -135,7 +159,14 @@ class LLMEngine:
         params: Optional[dict] = None,
         rng_seed: int = 0,
         device=None,
+        metrics_label: str = "engine",
+        weights_seconds: float = 0.0,
     ):
+        """`params`: the model's parameters on `device` (None draws seeded
+        random ones).  `metrics_label` is the model_name label of the
+        engine's metrics; `weights_seconds` is the time the caller spent
+        reading and placing `params`, counted into the startup phases."""
+        self._construct_t0 = time.perf_counter()
         self.device = resolve_device(device)
         if engine_config.kv_quant not in ("none", "int8"):
             raise ValueError(
@@ -178,7 +209,19 @@ class LLMEngine:
         t0 = time.perf_counter()
         if params is None:
             params = llama.init_params(model_config, seed=1, device=self.device)
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
         self.params = params
+        # kserve_tpu/engine/engine.py:311-313, :733-747: exported at start()
+        self._weights_external_s = weights_seconds
+        self.startup_phases = {
+            "weights": time.perf_counter() - t0 + weights_seconds}
+        self._mlabel = metrics_label
+        # every timeline stamp goes through this clock
+        self._clock = MONOTONIC
+        # finished timelines and rolling percentile windows behind
+        # telemetry_snapshot()
+        self.telemetry = TimelineRecorder()
         self.cache_config = KVCacheConfig(
             n_layers=model_config.n_layers,
             n_kv_heads=model_config.n_kv_heads,
@@ -304,6 +347,12 @@ class LLMEngine:
 
     async def start(self):
         if self._task is None:
+            if "ready" not in self.startup_phases:
+                self.startup_phases["ready"] = (
+                    time.perf_counter() - self._construct_t0
+                    + self._weights_external_s)
+                for phase, seconds in self.startup_phases.items():
+                    observe_startup_phase(self._mlabel, phase, seconds)
             self._task = asyncio.create_task(self._run_loop())
             logger.info(
                 "LLM engine started on %s: slots=%d pages=%d page_size=%d",
@@ -324,6 +373,7 @@ class LLMEngine:
         for slot in self._slots:
             if slot.request_id is not None:
                 slot.queue.put_nowait(RuntimeError("engine stopped"))
+                self._record_terminal(slot.timeline, "error")
                 self.allocator.free(slot.pages)
                 slot.reset()
         # page-in and persist tasks wait on worker threads: cancel them so
@@ -350,12 +400,22 @@ class LLMEngine:
             raise ValueError("prompt token id outside the model vocabulary")
         if self._stopped:
             raise RuntimeError("engine is stopped")
-        req = _QueuedRequest(f"req-{time.monotonic_ns()}", list(prompt_ids),
-                             params, asyncio.Queue())
+        rid = f"req-{time.monotonic_ns()}"
+        req = _QueuedRequest(rid, list(prompt_ids), params, asyncio.Queue(),
+                             timeline=self._new_timeline(rid, len(prompt_ids)))
         return self._submit_and_stream(req)
+
+    def _new_timeline(self, rid: str, n_prompt: int) -> RequestTimeline:
+        """A request's timeline, stamped received now (kserve_tpu/engine/
+        engine.py:1391-1399)."""
+        tl = RequestTimeline(rid, model_name=self._mlabel)
+        tl.n_prompt_tokens = n_prompt
+        tl.mark_received(self._clock.now())
+        return tl
 
     async def _submit_and_stream(self, req: _QueuedRequest):
         self._waiting.append(req)
+        self._set_queue_gauge()
         self._wake.set()
         try:
             while True:
@@ -376,11 +436,16 @@ class LLMEngine:
                 kept.append(r)
             else:
                 self._discard_resume_kv(r)
+                self._record_terminal(r.timeline, "cancelled")
         self._waiting = kept
+        self._set_queue_gauge()
         if any(req.request_id == request_id for _, req, *_ in self._admitting):
             self._cancelled_admissions.add(request_id)
         for slot in self._slots:
             if slot.request_id == request_id:
+                # the client went away mid-generation: terminal for
+                # telemetry although nothing more was sent
+                self._record_terminal(slot.timeline, "cancelled")
                 self.allocator.free(slot.pages)
                 slot.reset()
                 self._wake.set()
@@ -390,6 +455,8 @@ class LLMEngine:
         for req in pending:
             self._discard_resume_kv(req)
             req.queue.put_nowait(exc)
+            self._record_terminal(req.timeline, "error")
+        self._set_queue_gauge()
 
     def _discard_resume_kv(self, req: _QueuedRequest) -> None:
         """Release a queued request's spilled KV from the tier store."""
@@ -402,6 +469,58 @@ class LLMEngine:
     def prefix_cache_hits(self) -> int:
         """Pages reused through the prefix cache."""
         return self._prefix_cache.hits
+
+    @property
+    def queue_depth(self) -> int:
+        """Requests waiting for admission."""
+        return len(self._waiting)
+
+    # ---------------- telemetry ----------------
+    # Port of kserve_tpu/engine/engine.py:1206-1253 (without the tracer).
+
+    def telemetry_snapshot(self) -> dict:
+        """Rolling latency percentiles and recent request timelines (the
+        GET /admin/telemetry payload of one model)."""
+        snap = self.telemetry.snapshot()
+        snap["queue_depth"] = self.queue_depth
+        snap["prefix_cache_hits"] = self.prefix_cache_hits
+        snap["preemptions"] = self.preemption_count
+        return snap
+
+    def _record_terminal(self, tl: Optional[RequestTimeline],
+                         reason: Optional[str]) -> None:
+        """A timeline reached a terminal state: stamp it, feed the
+        recorder and, for a finished generation, the request histograms.
+        Once per timeline, whichever teardown path comes first."""
+        if tl is None or tl.recorded:
+            return
+        tl.recorded = True
+        tl.mark_finished(self._clock.now(), reason)
+        self.telemetry.observe(tl)
+        if reason in ("stop", "length"):
+            observe_request_timeline(self._mlabel, tl)
+
+    def _set_queue_gauge(self) -> None:
+        ENGINE_QUEUE_DEPTH.labels(model_name=self._mlabel).set(len(self._waiting))
+
+    def _set_occupancy_gauges(self) -> None:
+        active = sum(1 for s in self._slots
+                     if s.request_id is not None and s.prefilling is None)
+        ENGINE_BATCH_OCCUPANCY.labels(model_name=self._mlabel).set(active)
+        ENGINE_KV_PAGES_FREE.labels(model_name=self._mlabel).set(
+            self.allocator.free_pages)
+
+    def _record_step(self, dispatched_at: float) -> float:
+        """One dispatch's wall time, enqueue to fetched tokens: the decode
+        step series.  Returns it."""
+        step_s = self._clock.now() - dispatched_at
+        ENGINE_STEP_DURATION.labels(model_name=self._mlabel).observe(step_s)
+        self.telemetry.record_step(step_s)
+        return step_s
+
+    def _record_prefill_chunk(self, seconds: float) -> None:
+        ENGINE_PREFILL_CHUNK_DURATION.labels(model_name=self._mlabel).observe(seconds)
+        self.telemetry.record_prefill_chunk(seconds)
 
     @property
     def _offload_bytes(self) -> int:
@@ -438,6 +557,7 @@ class LLMEngine:
                 step = self._step_mixed if self._use_mixed else self._step_legacy
                 if await step():
                     did_work = True
+                self._set_occupancy_gauges()
                 if not did_work and not self._pageins_ready:
                     self._wake.clear()
                     await self._wake.wait()
@@ -449,6 +569,7 @@ class LLMEngine:
             for slot in self._slots:
                 if slot.request_id is not None:
                     slot.queue.put_nowait(e)
+                    self._record_terminal(slot.timeline, "error")
                     self.allocator.free(slot.pages)
                     slot.reset()
             self._fail_waiting(e)
@@ -457,6 +578,7 @@ class LLMEngine:
             for _, req, pages, *_ in self._admitting:
                 self.allocator.free(pages)
                 req.queue.put_nowait(e)
+                self._record_terminal(req.timeline, "error")
             self._admitting = []
 
     def _free_slot_index(self) -> Optional[int]:
@@ -498,9 +620,11 @@ class LLMEngine:
         need = pages_needed(total + 1, ps)
         if need > self.config.max_pages_per_seq:
             self._waiting.remove(req)
+            self._set_queue_gauge()
             req.queue.put_nowait(ValueError(
                 f"prompt needs {need} pages > max_pages_per_seq "
                 f"{self.config.max_pages_per_seq}"))
+            self._record_terminal(req.timeline, "error")
             return True
         seq = req.prompt_ids
         if req.resume is not None:
@@ -522,11 +646,15 @@ class LLMEngine:
             return False
         pages = cached + self.allocator.allocate(fresh)
         self._waiting.remove(req)
+        self._set_queue_gauge()
+        if req.timeline is not None:
+            req.timeline.mark_admitted(self._clock.now())
         self._count_prefix_hits(keys or [], cached)
         slot = self._slots[idx]
         slot.request_id = req.request_id
         slot.pages = pages
         slot.queue = req.queue
+        slot.timeline = req.timeline
         slot.prefilling = {"req": req, "seq": seq, "done": len(cached) * ps,
                            "logits": None}
         return True
@@ -598,11 +726,15 @@ class LLMEngine:
         """Requeue a prefilling slot's request at the front and free its
         pages: it has emitted nothing, so only its chunks are lost."""
         req = slot.prefilling["req"]
+        if req.timeline is not None:
+            req.timeline.add_event(self._clock.now(), "preempt", phase="prefill")
         self.allocator.free(slot.pages)
         self._mark_penalty_dirty(self._slots.index(slot))
         slot.reset()
         self._waiting.insert(0, req)
+        self._set_queue_gauge()
         self.preemption_count += 1
+        ENGINE_PREEMPTIONS.labels(model_name=self._mlabel).inc()
         logger.info("preempted prefilling request %s", req.request_id)
 
     def _preempt(self, slot: _Slot) -> None:
@@ -623,7 +755,10 @@ class LLMEngine:
                 self.kv_tier_counts["spills"] += 1
                 self.kv_tier_counts["spilled_bytes"] += payload_nbytes(payload)
         req = _QueuedRequest(slot.request_id, slot.prompt_ids, slot.params,
-                             slot.queue)
+                             slot.queue, timeline=slot.timeline)
+        if slot.timeline is not None:
+            slot.timeline.add_event(self._clock.now(), "preempt", pos=pos,
+                                    spilled=kv_key is not None)
         req.resume = {
             "generated": slot.generated,
             "detok": slot.detok,
@@ -637,7 +772,9 @@ class LLMEngine:
         self._mark_penalty_dirty(self._slots.index(slot))
         slot.reset()
         self._waiting.insert(0, req)
+        self._set_queue_gauge()
         self.preemption_count += 1
+        ENGINE_PREEMPTIONS.labels(model_name=self._mlabel).inc()
         logger.info("preempted request %s at position %d (%s)", req.request_id,
                     pos, "KV spilled to the tier store" if kv_key is not None
                     else "will re-prefill")
@@ -876,6 +1013,9 @@ class LLMEngine:
             return True
         pages = self.allocator.allocate(need)
         self._waiting.remove(req)
+        self._set_queue_gauge()
+        if req.timeline is not None:
+            req.timeline.mark_admitted(self._clock.now())
         entry = (idx, req, pages, None)
         self._admitting.append(entry)
         n_kv = next(iter(payload.values())).shape[1]
@@ -961,9 +1101,10 @@ class LLMEngine:
             await self._step_dense(meta)
             return True
         plan = self._plan_ragged(meta, prefilling)
+        dispatched_at = self._clock.now()
         chunk_np = await asyncio.to_thread(self._dispatch, plan)
         self.steps += 1
-        self._route_mixed(plan, chunk_np)
+        self._route_mixed(plan, chunk_np, dispatched_at)
         return True
 
     def _dispatch(self, plan: dict) -> np.ndarray:
@@ -1108,23 +1249,35 @@ class LLMEngine:
             "decode_tokens": n_decode,
         }
 
-    def _route_mixed(self, plan: dict, chunk_np: np.ndarray) -> None:
+    def _route_mixed(self, plan: dict, chunk_np: np.ndarray,
+                     dispatched_at: float) -> None:
         """Consume one dispatch's [steps, B] tokens: advance chunk cursors
         (registering the prompt pages a fresh prompt's chunk completed),
         seat lanes whose prompt completed (a fresh one emits its first
         token, a resumed one its stream state and nothing), then stream
         each lane's decode window.  Lanes cancelled while the step ran are
         seen as empty and their tokens dropped."""
+        now = self._clock.now()
+        step_s = self._record_step(dispatched_at)
+        if plan["chunks"] and plan["decode_tokens"] == 0:
+            # a dispatch with decode lanes is dominated by its decode loop:
+            # only one without them times a prefill chunk (the JAX rule)
+            self._record_prefill_chunk(step_s)
         for i, n, final in plan["chunks"]:
             slot = self._slots[i]
             if slot.request_id is None or slot.prefilling is None:
                 continue
             pf = slot.prefilling
             pf["done"] += n
+            tl = pf["req"].timeline
+            if tl is not None:
+                tl.mark_prefill_start(dispatched_at)
+                tl.mark_prefill_end(now)
             if pf["req"].resume is None:
                 self._register_chunk(slot, pf)
             if final:
                 self._complete_prefilling(slot, pf["req"], int(chunk_np[0, i]))
+        routed = 0
         for i in sorted(plan["consume"]):
             first_row, n_rows = plan["consume"][i]
             slot = self._slots[i]
@@ -1135,6 +1288,8 @@ class LLMEngine:
                 slot.pos += 1
                 slot.generated.append(token)
                 self._emit(slot, token)
+                routed += 1
+        GENERATED_TOKENS.labels(model_name=self._mlabel).inc(routed)
 
     # ---------------- legacy programs ----------------
     # Port of kserve_tpu/engine/engine.py:1990-2437 (admission and chunked
@@ -1215,6 +1370,9 @@ class LLMEngine:
                 break
             pages = list(hits) + self.allocator.allocate(need - len(hits))
             self._waiting.pop(0)
+            self._set_queue_gauge()
+            if req.timeline is not None:
+                req.timeline.mark_admitted(self._clock.now())
             self._count_prefix_hits(pkeys, hits)
             admitted.append((free.pop(0), req, pages, seq, len(hits)))
         if not admitted:
@@ -1246,6 +1404,7 @@ class LLMEngine:
         # the logprob variant only when a fresh row asked for logprobs
         want_lp = any(req.resume is None and req.params.logprobs is not None
                       for _, req, *_ in admitted)
+        prefill_t0 = self._clock.now()
         if cold:
             name = "prefill_lp" if want_lp else "prefill"
             first, lp = await asyncio.to_thread(
@@ -1258,9 +1417,15 @@ class LLMEngine:
                 page_ids, params_list, in_prompt)
             self.legacy_dispatches["prefill_chunk"] += 1
             self.legacy_dispatches[name] += 1
+        prefill_t1 = self._clock.now()
+        self._record_prefill_chunk(prefill_t1 - prefill_t0)
         for j, (idx, req, pages, _, _) in enumerate(admitted):
+            if req.timeline is not None:
+                req.timeline.mark_prefill_start(prefill_t0)
+                req.timeline.mark_prefill_end(prefill_t1)
             if req.request_id in self._cancelled_admissions:
                 self.allocator.free(pages)  # its client went away meanwhile
+                self._record_terminal(req.timeline, "cancelled")
                 continue
             slot = self._slots[idx]
             slot.request_id, slot.pages, slot.queue = req.request_id, pages, req.queue
@@ -1333,9 +1498,17 @@ class LLMEngine:
                 page_ids = np.zeros((1, width), np.int32)
                 owned = slot.pages[:width]
                 page_ids[0, :len(owned)] = owned
+                chunk_t0 = self._clock.now()
+                tl = pf["req"].timeline
+                if tl is not None:
+                    tl.mark_prefill_start(chunk_t0)
                 logits = await asyncio.to_thread(
                     self._run_prefill_chunk, tokens, done, n, page_ids)
                 self.legacy_dispatches["prefill_chunk"] += 1
+                chunk_t1 = self._clock.now()
+                self._record_prefill_chunk(chunk_t1 - chunk_t0)
+                if tl is not None:
+                    tl.mark_prefill_end(chunk_t1)
                 progressed = True
                 if slot.prefilling is not pf:
                     continue  # cancelled while the chunk ran
@@ -1469,6 +1642,7 @@ class LLMEngine:
         """Dispatch a legacy decode (chained on `prev`'s device tokens) and
         record it."""
         tokens_dev = None if prev is None else prev["tokens"][-1]
+        meta["_dispatched_at"] = self._clock.now()
         chunk = await asyncio.to_thread(self._dispatch_chunk, meta, tokens_dev)
         self.legacy_dispatches[chunk["name"]] += 1
         if not meta["penalized"] and self._penalty_counts is not None:
@@ -1485,9 +1659,11 @@ class LLMEngine:
         tail after a finish.  True when a lane finished (a chained
         dispatch then has stale lanes)."""
         host = await asyncio.to_thread(self._wait_host, chunk)
+        self._record_step(meta["_dispatched_at"])
         toks, lp = host[0], (host[1:] if len(host) > 1 else None)
         steps = self.config.steps_per_sync
         finished_any = False
+        routed = 0
         for i, slot in enumerate(self._slots):
             if slot.request_id is None or not meta["active"][i]:
                 continue
@@ -1498,11 +1674,13 @@ class LLMEngine:
                 slot.pos += 1
                 slot.generated.append(token)
                 self._emit(slot, token, *self._lp_for(slot.params, lp, i, s))
+                routed += 1
             if slot.request_id is None:
                 finished_any = True
             elif slot.pos >= self.config.max_model_len:
                 self._finish(slot, "length")
                 finished_any = True
+        GENERATED_TOKENS.labels(model_name=self._mlabel).inc(routed)
         return finished_any
 
     async def _decode_once(self) -> None:
@@ -1704,6 +1882,7 @@ class LLMEngine:
         while the dispatch ran is discarded whole.  Returns (any lane
         finished, any token routed)."""
         toks_np, n_np = await asyncio.to_thread(self._wait_host, chunk)
+        self._record_step(plan["_dispatched_at"])
         k = self._spec_k
         routed = drafted = accepted = 0
         finished_any = False
@@ -1737,7 +1916,13 @@ class LLMEngine:
             if slot.request_id is not None and slot.pos >= self.config.max_model_len:
                 self._finish(slot, "length")
                 finished_any = True
+        GENERATED_TOKENS.labels(model_name=self._mlabel).inc(routed)
         if k > 0:
+            spec = SPEC_TOKENS
+            spec.labels(model_name=self._mlabel, outcome="drafted").inc(drafted)
+            spec.labels(model_name=self._mlabel, outcome="accepted").inc(accepted)
+            spec.labels(model_name=self._mlabel,
+                        outcome="rejected").inc(drafted - accepted)
             self.spec_stats["drafted"] += drafted
             self.spec_stats["accepted"] += accepted
             self.spec_stats["rejected"] += drafted - accepted
@@ -1748,6 +1933,7 @@ class LLMEngine:
         chained on N's device carry, is enqueued before N's tokens are
         routed, so routing N overlaps N+1 on the device."""
         plan = self._plan_dense(meta)
+        plan["_dispatched_at"] = self._clock.now()
         chunk = await asyncio.to_thread(self._dispatch_dense, plan)
         self.dense_steps += 1
         while True:
@@ -1763,6 +1949,7 @@ class LLMEngine:
             if admission_blocked and not predictable_finish and not self._stopped:
                 plan2 = self._plan_dense_chained(plan)
             if plan2 is not None:
+                plan2["_dispatched_at"] = self._clock.now()
                 chunk2 = await asyncio.to_thread(self._dispatch_dense, plan2, chunk)
                 self.dense_steps += 1
                 self.chained_dispatches += 1
@@ -1790,6 +1977,7 @@ class LLMEngine:
         slot.params = req.params
         slot.detok = IncrementalDetokenizer(self.tokenizer)
         slot.stop_texts = list(req.params.stop or [])
+        slot.timeline = req.timeline
         self._admission_seq += 1
         slot.admitted_at = self._admission_seq
         self._mark_penalty_dirty(self._slots.index(slot))
@@ -1808,6 +1996,7 @@ class LLMEngine:
         slot.detok = r["detok"]
         slot.stop_texts = r["stop_texts"]
         slot.admitted_at = r["admitted_at"]
+        slot.timeline = req.timeline
         self._mark_penalty_dirty(self._slots.index(slot))
 
     def _register_chunk(self, slot: _Slot, pf: dict) -> None:
@@ -1833,6 +2022,7 @@ class LLMEngine:
             self._prefix_cache.register(req.prompt_ids, slot.pages)
             self._seat_resumed(slot, req)
             return
+        PROMPT_TOKENS.labels(model_name=self._mlabel).inc(len(req.prompt_ids))
         self._seat_fresh(slot, req, first_token)
         self._emit(slot, first_token, *lp)
 
@@ -1840,6 +2030,8 @@ class LLMEngine:
               top_logprobs: Optional[list] = None) -> None:
         """Stream one token (with its logprobs, when asked for); apply stop
         conditions."""
+        if slot.timeline is not None:
+            slot.timeline.mark_token(self._clock.now())
         n_gen = len(slot.generated)
         params = slot.params
         finish_reason = None
@@ -1871,6 +2063,7 @@ class LLMEngine:
             top_logprobs=top_logprobs,
         ))
         if finish_reason is not None:
+            self._record_terminal(slot.timeline, finish_reason)
             self.allocator.free(slot.pages)
             self._mark_penalty_dirty(self._slots.index(slot))
             slot.reset()
@@ -1884,6 +2077,7 @@ class LLMEngine:
             finish_reason=reason,
             num_generated=len(slot.generated),
         ))
+        self._record_terminal(slot.timeline, reason)
         self.allocator.free(slot.pages)
         self._mark_penalty_dirty(self._slots.index(slot))
         slot.reset()

@@ -4,9 +4,10 @@ queue bookkeeping.
 Port of kserve_tpu/engine/types.py (EngineConfig :36 with the fields the
 port uses, spec_decode_k_from_env :210, GenerationOutput :317 with its
 logprobs, _Slot :331, _QueuedRequest :359 with its `resume` state, its
-`pagein` state and `kv_len`).  The knobs the port does not run yet
-(weight_quant, tp/dp/sp/pp) are kept so a configuration asking for them
-is rejected at engine construction instead of silently ignored.
+`pagein` state, its `timeline` and `kv_len`).  The knobs the port does
+not run yet (weight_quant, tp/dp/sp/pp) are kept so a configuration
+asking for them is rejected at engine construction instead of silently
+ignored.
 """
 
 from __future__ import annotations
@@ -139,6 +140,7 @@ class _Slot:
     __slots__ = (
         "request_id", "prompt_ids", "prompt_len", "pages", "pos", "generated",
         "params", "queue", "detok", "stop_texts", "prefilling", "admitted_at",
+        "timeline",
     )
 
     def __init__(self):
@@ -148,18 +150,23 @@ class _Slot:
         # lane's next chunk ("logits": the last legacy chunk's, which the
         # first token is sampled from)
         self.prefilling: Optional[dict] = None
+        # the occupant's observability.RequestTimeline
+        self.timeline = None
 
     def reset(self):
         self.request_id = None
         self.prefilling = None
+        self.timeline = None
 
 
 class _QueuedRequest:
-    def __init__(self, request_id, prompt_ids, params, queue):
+    def __init__(self, request_id, prompt_ids, params, queue, timeline=None):
         self.request_id = request_id
         self.prompt_ids: List[int] = prompt_ids
         self.params = params
         self.queue = queue
+        # observability.RequestTimeline, stamped received at submit
+        self.timeline = timeline
         # a preempted request's stream state, restored when it seats again:
         # {"generated", "detok", "stop_texts", "pos", "admitted_at", "kv"};
         # "kv" is its spill's key in the tier store (None: re-prefill)

@@ -1,0 +1,300 @@
+"""Prometheus metrics of the port's engine, in the text exposition format
+0.0.4, on the standard library (the card machine has no
+prometheus_client).
+
+Port of the series of kserve_tpu/metrics.py that the port's engine feeds,
+under the same names, help texts, labels and buckets: token counters,
+occupancy / queue / free-page gauges, the request-timeline histograms
+(TTFT, ITL, queue wait, e2e), decode-step and prefill-chunk durations,
+preemptions, speculative draft outcomes, and the startup phases.  The
+JAX package's other series come with their modules.  `GET /metrics`
+serves `generate_latest()`.
+
+As in prometheus_client, the series live in one process-wide registry.
+"""
+
+from __future__ import annotations
+
+import math
+import threading
+from typing import Dict, List, Sequence, Tuple
+
+CONTENT_TYPE_LATEST = "text/plain; version=0.0.4; charset=utf-8"
+
+_INF = float("inf")
+
+
+def _float_to_go_string(d: float) -> str:
+    """A sample value or bucket bound as prometheus_client writes it."""
+    d = float(d)
+    if d == _INF:
+        return "+Inf"
+    if d == -_INF:
+        return "-Inf"
+    if math.isnan(d):
+        return "NaN"
+    s = repr(d)
+    dot = s.find(".")
+    if d > 0 and dot > 6:
+        mantissa = f"{s[0]}.{s[1:dot]}{s[dot + 1:]}".rstrip("0.")
+        return f"{mantissa}e+0{dot - 1}"
+    return s
+
+
+def _escape(value: str) -> str:
+    return value.replace("\\", "\\\\").replace("\n", "\\n").replace('"', '\\"')
+
+
+def _labels(pairs: Sequence[Tuple[str, str]]) -> str:
+    if not pairs:
+        return ""
+    return "{" + ",".join(f'{k}="{_escape(v)}"' for k, v in pairs) + "}"
+
+
+class _Metric:
+    kind = ""
+
+    def __init__(self, name: str, documentation: str, labelnames: Sequence[str]):
+        self.name = name
+        self.documentation = documentation
+        self.labelnames = tuple(labelnames)
+        self._children: Dict[Tuple[str, ...], object] = {}
+        self._lock = threading.Lock()
+        _REGISTRY.append(self)
+
+    def labels(self, **labels):
+        if set(labels) != set(self.labelnames):
+            raise ValueError(f"{self.name} takes labels {self.labelnames}, "
+                             f"got {sorted(labels)}")
+        key = tuple(str(labels[n]) for n in self.labelnames)
+        with self._lock:
+            child = self._children.get(key)
+            if child is None:
+                child = self._children[key] = self._new_child()
+        return child
+
+    def _new_child(self):
+        raise NotImplementedError
+
+    def _items(self):
+        with self._lock:
+            return sorted(self._children.items())
+
+    def expose(self) -> List[str]:
+        lines = [f"# HELP {self.name} {self.documentation}",
+                 f"# TYPE {self.name} {self.kind}"]
+        for key, child in self._items():
+            lines.extend(child.samples(self.name, list(zip(self.labelnames, key))))
+        return lines
+
+
+class _Value:
+    def __init__(self):
+        self._value = 0.0
+        self._lock = threading.Lock()
+
+    def get(self) -> float:
+        return self._value
+
+    def samples(self, name, pairs):
+        return [f"{name}{_labels(pairs)} {_float_to_go_string(self._value)}"]
+
+
+class _CounterChild(_Value):
+    def inc(self, amount: float = 1.0) -> None:
+        if amount < 0:
+            raise ValueError("counters only go up")
+        with self._lock:
+            self._value += amount
+
+
+class _GaugeChild(_Value):
+    def set(self, value: float) -> None:
+        with self._lock:
+            self._value = float(value)
+
+
+class _HistogramChild:
+    def __init__(self, bounds: Tuple[float, ...]):
+        self._bounds = bounds
+        self._counts = [0] * len(bounds)
+        self._sum = 0.0
+        self._lock = threading.Lock()
+
+    def observe(self, value: float) -> None:
+        with self._lock:
+            self._sum += value
+            for i, bound in enumerate(self._bounds):
+                if value <= bound:
+                    self._counts[i] += 1
+                    break
+
+    def samples(self, name, pairs):
+        with self._lock:
+            counts, total = list(self._counts), self._sum
+        out, cum = [], 0
+        for bound, n in zip(self._bounds, counts):
+            cum += n
+            le = pairs + [("le", _float_to_go_string(bound))]
+            out.append(f"{name}_bucket{_labels(le)} {_float_to_go_string(cum)}")
+        out.append(f"{name}_count{_labels(pairs)} {_float_to_go_string(cum)}")
+        out.append(f"{name}_sum{_labels(pairs)} {_float_to_go_string(total)}")
+        return out
+
+
+class Counter(_Metric):
+    kind = "counter"
+
+    def _new_child(self):
+        return _CounterChild()
+
+
+class Gauge(_Metric):
+    kind = "gauge"
+
+    def _new_child(self):
+        return _GaugeChild()
+
+
+class Histogram(_Metric):
+    kind = "histogram"
+
+    def __init__(self, name, documentation, labelnames, buckets):
+        bounds = tuple(float(b) for b in buckets)
+        if bounds[-1] != _INF:
+            bounds += (_INF,)
+        self.buckets = bounds
+        super().__init__(name, documentation, labelnames)
+
+    def _new_child(self):
+        return _HistogramChild(self.buckets)
+
+
+# every series below, in definition order (filled at import)
+_REGISTRY: List[_Metric] = []
+
+
+def generate_latest() -> bytes:
+    """Every series in the text exposition format 0.0.4."""
+    lines: List[str] = []
+    for metric in _REGISTRY:
+        lines.extend(metric.expose())
+    return ("\n".join(lines) + "\n").encode("utf-8")
+
+
+# ---------------------------------------------------------------- series
+# kserve_tpu/metrics.py:27-41 (generative engine), :46-49 (preemptions)
+
+GENERATED_TOKENS = Counter(
+    "engine_generated_tokens_total", "decode tokens generated", ["model_name"]
+)
+PROMPT_TOKENS = Counter(
+    "engine_prompt_tokens_total", "prompt tokens prefill-processed", ["model_name"]
+)
+ENGINE_BATCH_OCCUPANCY = Gauge(
+    "engine_batch_occupancy", "active sequences in the decode batch", ["model_name"]
+)
+ENGINE_QUEUE_DEPTH = Gauge(
+    "engine_queue_depth", "requests waiting for admission", ["model_name"]
+)
+ENGINE_KV_PAGES_FREE = Gauge(
+    "engine_kv_pages_free", "free KV cache pages", ["model_name"]
+)
+ENGINE_PREEMPTIONS = Counter(
+    "engine_preemptions_total",
+    "sequences preempted back to the queue on KV pressure", ["model_name"],
+)
+
+# Request-lifecycle telemetry (kserve_tpu/metrics.py:221-266).
+# Sub-millisecond buckets on ITL because decode steps are ~1-10 ms;
+# TTFT/e2e reach minutes because long-prompt prefill + queueing
+# legitimately do.  All observations come from the engine's Clock.
+_TTFT_BUCKETS = (
+    0.001, 0.0025, 0.005, 0.01, 0.025, 0.05, 0.1, 0.25, 0.5,
+    1.0, 2.5, 5.0, 10.0, 30.0, 60.0, 120.0, float("inf"),
+)
+_ITL_BUCKETS = (
+    0.0005, 0.001, 0.0025, 0.005, 0.01, 0.025, 0.05, 0.1, 0.25,
+    0.5, 1.0, 2.5, float("inf"),
+)
+REQUEST_TTFT = Histogram(
+    "request_ttft_seconds",
+    "time to first token: request received by the engine -> first token "
+    "emitted (queue wait included — the client experiences it)",
+    ["model_name"], buckets=_TTFT_BUCKETS,
+)
+REQUEST_ITL = Histogram(
+    "request_inter_token_seconds",
+    "inter-token latency: gap between consecutive emitted tokens",
+    ["model_name"], buckets=_ITL_BUCKETS,
+)
+REQUEST_QUEUE_WAIT = Histogram(
+    "request_queue_wait_seconds",
+    "received -> admitted into a decode slot (first admission)",
+    ["model_name"], buckets=_TTFT_BUCKETS,
+)
+REQUEST_E2E = Histogram(
+    "request_e2e_seconds",
+    "received -> finished (full generation wall time)",
+    ["model_name"], buckets=_TTFT_BUCKETS,
+)
+ENGINE_STEP_DURATION = Histogram(
+    "engine_decode_step_seconds",
+    "wall time of one decode step: a steps_per_sync-token chunk dispatched "
+    "and its tokens fetched",
+    ["model_name"], buckets=_ITL_BUCKETS,
+)
+ENGINE_PREFILL_CHUNK_DURATION = Histogram(
+    "engine_prefill_chunk_seconds",
+    "wall time of one compiled prefill call (batched admission or one "
+    "long-prompt chunk)",
+    ["model_name"], buckets=_TTFT_BUCKETS,
+)
+# Speculative decoding (kserve_tpu/metrics.py:287-298)
+SPEC_TOKENS = Counter(
+    "engine_spec_tokens_total",
+    "speculative-decoding draft tokens by outcome (drafted | accepted | "
+    "rejected); bonus target samples are ordinary generated tokens and "
+    "are not counted here",
+    ["model_name", "outcome"],
+)
+
+# Replica startup phases (kserve_tpu/metrics.py:300-316); the port feeds
+# `weights` (checkpoint read or random init, and device placement) and
+# `ready` (construct -> serving).
+STARTUP_PHASES = ("trace", "compile", "aot_load", "weights", "ready")
+_STARTUP_BUCKETS = (
+    0.01, 0.025, 0.05, 0.1, 0.25, 0.5, 1.0, 2.5, 5.0, 10.0, 30.0,
+    60.0, 120.0, 300.0, float("inf"),
+)
+ENGINE_STARTUP = Histogram(
+    "engine_startup_seconds",
+    "replica startup wall time by phase: trace (jaxpr+lowering), compile "
+    "(XLA), aot_load (executable deserialization from the AOT cache), "
+    "weights (checkpoint read + device placement), ready (total "
+    "construct->serving)",
+    ["model_name", "phase"], buckets=_STARTUP_BUCKETS,
+)
+
+
+def observe_startup_phase(model_name: str, phase: str, seconds: float) -> None:
+    """Record one engine_startup_seconds observation (phase must be in
+    STARTUP_PHASES; anything else is a programming error worth raising)."""
+    if phase not in STARTUP_PHASES:
+        raise ValueError(f"unknown startup phase {phase!r}")
+    ENGINE_STARTUP.labels(model_name=model_name, phase=phase).observe(seconds)
+
+
+def observe_request_timeline(model_name: str, timeline) -> None:
+    """Export one finished RequestTimeline to the histograms
+    (observability/timeline.py keeps the ring-buffer/percentile view)."""
+    if timeline.queue_wait_s is not None:
+        REQUEST_QUEUE_WAIT.labels(model_name=model_name).observe(
+            timeline.queue_wait_s)
+    if timeline.ttft_s is not None:
+        REQUEST_TTFT.labels(model_name=model_name).observe(timeline.ttft_s)
+    if timeline.e2e_s is not None:
+        REQUEST_E2E.labels(model_name=model_name).observe(timeline.e2e_s)
+    itl = REQUEST_ITL.labels(model_name=model_name)
+    for gap in timeline.itls:
+        itl.observe(gap)

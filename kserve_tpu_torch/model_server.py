@@ -1,8 +1,9 @@
 """Model server: starts each model's engine, then serves them over the
 standard-library REST server until SIGINT/SIGTERM or `request_stop()`.
 
-Port of the generative part of kserve_tpu/model_server.py (no gRPC, no
-metrics, no lifecycle drain yet)."""
+Port of the generative part of kserve_tpu/model_server.py (no gRPC and
+no lifecycle drain yet; /metrics and /admin/telemetry are routes of the
+REST server)."""
 
 from __future__ import annotations
 

@@ -13,14 +13,17 @@ layout (`w` is [in, out], `y = x @ w`), so `params_from_jax` carries a JAX
 pytree across without a transpose.  The large matrix products are plain
 `@`; attention goes through ops/attention.py (the CUDA kernels on the
 card; the prefill attention is plain PyTorch, as it is XLA code in the
-JAX package).  Not ported yet: LoRA, MoE, int8 weights, pipeline
-parallelism, checkpoint loading.
+JAX package).  `load_hf_weights(_streamed)` read a HuggingFace
+safetensors checkpoint (models/safetensors_io.py) into that layout.  Not
+ported yet: LoRA, MoE, int8 weights, pipeline parallelism.
 """
 
 from __future__ import annotations
 
 import functools
 import json
+import os
+import re
 from dataclasses import dataclass
 from typing import Any, Dict, List, Optional, Tuple
 
@@ -339,6 +342,152 @@ def params_from_jax(params_np: Params, config: LlamaConfig, device=None) -> Para
         if key in params_np:
             params[key] = tensor(params_np[key])
     return params
+
+
+# ---------------- HF checkpoint loading ----------------
+# Port of kserve_tpu/models/llama.py:994-1265 (load_hf_weights_streamed,
+# load_hf_weights) on the port's own safetensors reader.
+
+_HF_LAYER_MAP = {
+    "input_layernorm.weight": "attn_norm",
+    "self_attn.q_proj.weight": "wq",
+    "self_attn.k_proj.weight": "wk",
+    "self_attn.v_proj.weight": "wv",
+    "self_attn.o_proj.weight": "wo",
+    "self_attn.q_proj.bias": "bq",
+    "self_attn.k_proj.bias": "bk",
+    "self_attn.v_proj.bias": "bv",
+    "self_attn.q_norm.weight": "q_norm",
+    "self_attn.k_norm.weight": "k_norm",
+    "post_attention_layernorm.weight": "mlp_norm",
+    # Gemma-2 sandwich norms: HF's post_attention_layernorm is the
+    # post-attention norm and pre_feedforward_layernorm the pre-MLP norm;
+    # _finish_layers remaps them when the config is sandwich
+    "pre_feedforward_layernorm.weight": "pre_ffn_norm_hf",
+    "post_feedforward_layernorm.weight": "post_mlp_norm",
+    "mlp.gate_proj.weight": "w_gate",
+    "mlp.up_proj.weight": "w_up",
+    "mlp.down_proj.weight": "w_down",
+}
+
+# HF Linear stores [out, in]; the port's layout is [in, out]
+_TRANSPOSED = {"wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down"}
+
+_LAYER_RE = re.compile(r"^model\.layers\.(\d+)\.(.+)$")
+
+
+def _checkpoint_files(model_dir: str) -> List[str]:
+    files = sorted(os.path.join(model_dir, f) for f in os.listdir(model_dir)
+                   if f.endswith(".safetensors"))
+    if not files:
+        raise FileNotFoundError(f"no .safetensors files under {model_dir}")
+    return files
+
+
+def _check_loadable(weight_quant: str) -> None:
+    if weight_quant != "none":
+        raise NotImplementedError(
+            f"weight_quant={weight_quant!r}: quantized weights are not ported yet")
+
+
+def _place(params: Params, name: str, t: torch.Tensor, config: LlamaConfig,
+           device: torch.device) -> None:
+    """Route one checkpoint tensor to its slot, on `device` in the
+    config's dtype (transposed to [in, out] for the linears).  Rotary
+    tables, layers past config.n_layers and unknown names are skipped;
+    MoE expert tensors raise."""
+    dtype = config.torch_dtype
+
+    def on_device(transpose: bool) -> torch.Tensor:
+        x = t.to(device=device).to(dtype)
+        return x.t().contiguous() if transpose else x
+
+    if name == "model.embed_tokens.weight":
+        params["embed"] = on_device(False)
+        return
+    if name == "model.norm.weight":
+        params["final_norm"] = on_device(False)
+        return
+    if name == "lm_head.weight":
+        if not config.tie_word_embeddings:
+            params["lm_head"] = on_device(True)
+        return
+    m = _LAYER_RE.match(name)
+    if m is None:
+        return  # rotary inv_freq etc.: derived, never loaded
+    i, suffix = int(m.group(1)), m.group(2)
+    if suffix.startswith("block_sparse_moe."):
+        raise NotImplementedError("MoE checkpoints are not ported yet")
+    ours = _HF_LAYER_MAP.get(suffix)
+    if ours is None or i >= config.n_layers:
+        return
+    params["layers"][i][ours] = on_device(ours in _TRANSPOSED)
+
+
+def _finish_layers(params: Params, config: LlamaConfig) -> Params:
+    """The Gemma-2 norm remap and the per-layer attention windows."""
+    for i, layer in enumerate(params["layers"]):
+        if config.sandwich_norms:
+            layer["post_attn_norm"] = layer.pop("mlp_norm")
+            layer["mlp_norm"] = layer.pop("pre_ffn_norm_hf")
+        else:
+            layer.pop("pre_ffn_norm_hf", None)
+            layer.pop("post_mlp_norm", None)
+        if config.sliding_window > 0:
+            layer["attn_window"] = config.layer_window(i)
+    return params
+
+
+def load_hf_weights_streamed(model_dir: str, config: LlamaConfig, device=None,
+                             stats: Optional[dict] = None,
+                             weight_quant: str = "none") -> Params:
+    """A local HF safetensors checkpoint as the port's parameters on
+    `device` (default CUDA; raises without a card), read one tensor at a
+    time and placed on the device at once, so host staging peaks at one
+    tensor.  The result equals `params_from_jax` of the JAX package's
+    loader's output.  `stats` is filled as the JAX loader fills it:
+    peak_host_bytes (the largest host staging alive at once),
+    read_bytes (every tensor's bytes) and n_tensors (every tensor read).
+    Raises on MoE checkpoints and on quantized weights (not ported)."""
+    from .safetensors_io import iter_tensors
+
+    _check_loadable(weight_quant)
+    device = resolve_device(device)
+    files = _checkpoint_files(model_dir)
+    acct = {"peak_host_bytes": 0, "read_bytes": 0, "n_tensors": 0}
+    params: Params = {"layers": [dict() for _ in range(config.n_layers)]}
+    for path in files:
+        for name, t in iter_tensors(path):
+            nbytes = t.numel() * t.element_size()
+            acct["read_bytes"] += nbytes
+            acct["n_tensors"] += 1
+            acct["peak_host_bytes"] = max(acct["peak_host_bytes"], nbytes)
+            _place(params, name, t, config, device)
+            del t
+    if stats is not None:
+        stats.update(acct)
+    return _finish_layers(params, config)
+
+
+def load_hf_weights(model_dir: str, config: LlamaConfig, device=None,
+                    weight_quant: str = "none") -> Params:
+    """The buffered form of `load_hf_weights_streamed`: every tensor of
+    every shard is read to the host first, then placed (the JAX package's
+    `load_hf_weights`, which requires the embedding and the final norm)."""
+    from .safetensors_io import iter_tensors
+
+    _check_loadable(weight_quant)
+    device = resolve_device(device)
+    tensors: Dict[str, torch.Tensor] = {}
+    for path in _checkpoint_files(model_dir):
+        tensors.update(iter_tensors(path))
+    for required in ("model.embed_tokens.weight", "model.norm.weight"):
+        if required not in tensors:
+            raise KeyError(f"checkpoint under {model_dir} has no {required}")
+    params: Params = {"layers": [dict() for _ in range(config.n_layers)]}
+    for name in sorted(tensors):
+        _place(params, name, tensors[name], config, device)
+    return _finish_layers(params, config)
 
 
 def _norm(x: torch.Tensor, weight: torch.Tensor, config: LlamaConfig) -> torch.Tensor:

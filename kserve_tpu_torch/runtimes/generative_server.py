@@ -4,15 +4,19 @@
 Port of kserve_tpu/runtimes/generative_server.py (`JAXGenerativeModel`
 becomes `TorchGenerativeModel`; the flags this slice uses keep their
 names).  Logprobs (`logprobs`, chat `top_logprobs`) and the sampling
-penalties are served through the engine's legacy programs.  Checkpoint
-loading is not ported yet: weights are seeded random (`--random_weights`),
-made on the device.
+penalties are served through the engine's legacy programs.  `--model_dir`
+serves a HuggingFace checkpoint: config.json (unless --model_config names
+a shape), tokenizer.json and tokenizer_config.json, and the safetensors
+shards, streamed onto the device one tensor at a time
+(models/llama.load_hf_weights_streamed).  `--random_weights` draws
+seeded random weights on the device instead.
 
 Entrypoint:
     python -m kserve_tpu_torch.runtimes.generative_server \\
-        --model_name=llama3-8b --model_config=llama3-8b --random_weights \\
+        --model_name=llm --model_dir=/mnt/models \\
         [--device cuda|cpu] [--spec_decode_k K] [--kv_quant int8] \\
         [--kv_offload host --kv_offload_gib G] [--kv_persist_dir DIR]
+    # no checkpoint: --model_config=tiny|llama3-1b|llama3-8b|... --random_weights
 
 The prefix cache is always on, as in the JAX server.
 """
@@ -22,7 +26,11 @@ from __future__ import annotations
 import argparse
 import asyncio
 import logging
+import os
+import time
 from typing import AsyncIterator, List, Optional
+
+import torch
 
 from ..device import resolve_device
 from ..engine.engine import EngineConfig, LLMEngine
@@ -68,28 +76,74 @@ class TorchGenerativeModel:
     def __init__(
         self,
         name: str,
-        model_config: llama.LlamaConfig,
+        model_config: Optional[llama.LlamaConfig] = None,
         engine_config: Optional[EngineConfig] = None,
         random_weights: bool = False,
         device=None,
+        model_dir: Optional[str] = None,
     ):
-        if not random_weights:
-            raise ValueError(
-                "checkpoint loading is not ported yet: pass --random_weights")
+        if not random_weights and not model_dir:
+            raise ValueError("pass --model_dir, or --random_weights with "
+                             "--model_config")
+        if model_config is None and not model_dir:
+            raise ValueError("pass --model_config (or a --model_dir with a "
+                             "config.json)")
         self.name = name
         self.device = resolve_device(device)
-        self.model_config = model_config
+        self.model_dir = model_dir
+        self.random_weights = random_weights
         self.engine_config = engine_config or EngineConfig()
-        self.tokenizer = load_tokenizer(model_config.vocab_size)
+        # the config and the tokenizer as kserve_tpu/runtimes/
+        # generative_server.py:104-113 resolve them
+        if model_config is None:
+            cfg_path = os.path.join(model_dir, "config.json")
+            if not os.path.exists(cfg_path):
+                raise FileNotFoundError(
+                    f"no config.json under {model_dir}; pass --model_config")
+            model_config = llama.LlamaConfig.from_hf_config(cfg_path)
+            model_config.dtype = self.engine_config.dtype
+        self.model_config = model_config
+        self.tokenizer = load_tokenizer(model_dir, model_config.vocab_size)
         self.engine: Optional[LLMEngine] = None
         self.ready = False
+        # the streamed checkpoint read: {"n_tensors", "read_bytes",
+        # "peak_host_bytes", "seconds"} (None with random weights)
+        self.weights_stats: Optional[dict] = None
+
+    def load(self):
+        """Stream the checkpoint's weights onto the device unless
+        --random_weights (kserve_tpu/runtimes/generative_server.py:
+        114-140).  Returns the parameters, or None for the engine to draw
+        random ones."""
+        if self.random_weights:
+            return None
+        t0 = time.perf_counter()
+        stats: dict = {}
+        params = llama.load_hf_weights_streamed(
+            self.model_dir, self.model_config, device=self.device, stats=stats,
+            weight_quant=self.engine_config.weight_quant)
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        stats["seconds"] = time.perf_counter() - t0
+        self.weights_stats = stats
+        logger.info(
+            "weights streamed: %d tensors, %.1f MiB read, peak host staging "
+            "%.1f MiB, %.2fs", stats["n_tensors"], stats["read_bytes"] / (1 << 20),
+            stats["peak_host_bytes"] / (1 << 20), stats["seconds"])
+        return params
+
+    def _build_engine(self) -> LLMEngine:
+        params = self.load()
+        load_s = 0.0 if params is None else self.weights_stats["seconds"]
+        return LLMEngine(self.model_config, self.engine_config, self.tokenizer,
+                         params=params, device=self.device,
+                         metrics_label=self.name, weights_seconds=load_s)
 
     async def start_engine(self) -> None:
-        """Build the engine (weights and KV cache on the device, off the
-        event loop) and start its run loop; the model then turns ready."""
-        self.engine = await asyncio.to_thread(
-            LLMEngine, self.model_config, self.engine_config, self.tokenizer,
-            device=self.device)
+        """Load the weights and build the engine (weights and KV cache on
+        the device, off the event loop), then start its run loop; the
+        model then turns ready."""
+        self.engine = await asyncio.to_thread(self._build_engine)
         await self.engine.start()
         self.ready = True
         logger.info("generative model %s ready on %s", self.name, self.device)
@@ -332,7 +386,12 @@ class TorchGenerativeModel:
 def build_arg_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(description="kserve_tpu_torch generative server")
     parser.add_argument("--model_name", default="model")
-    parser.add_argument("--model_config", required=True, choices=sorted(_NAMED_CONFIGS))
+    parser.add_argument(
+        "--model_dir", default=None,
+        help="a HuggingFace checkpoint directory: config.json, tokenizer.json "
+        "(+ tokenizer_config.json) and *.safetensors")
+    parser.add_argument("--model_config", default=None, choices=sorted(_NAMED_CONFIGS),
+                        help="a named shape (instead of --model_dir's config.json)")
     parser.add_argument("--random_weights", action="store_true")
     parser.add_argument("--http_port", default=8080, type=int)
     parser.add_argument("--max_batch_size", default=8, type=int)
@@ -380,8 +439,10 @@ def build_model(args) -> TorchGenerativeModel:
     """The served model for parsed `build_arg_parser()` arguments.  The
     model's activation dtype follows --kv_dtype (the kernels read pages in
     the activation dtype, or int8 pages with --kv_quant int8)."""
-    model_config = _NAMED_CONFIGS[args.model_config]()
-    model_config.dtype = args.kv_dtype
+    model_config = None
+    if args.model_config is not None:
+        model_config = _NAMED_CONFIGS[args.model_config]()
+        model_config.dtype = args.kv_dtype
     engine_config = EngineConfig(
         max_batch_size=args.max_batch_size,
         page_size=args.page_size,
@@ -401,7 +462,8 @@ def build_model(args) -> TorchGenerativeModel:
     )
     return TorchGenerativeModel(
         args.model_name, model_config, engine_config,
-        random_weights=args.random_weights, device=args.device)
+        random_weights=args.random_weights, device=args.device,
+        model_dir=args.model_dir)
 
 
 def main(argv=None) -> None:

@@ -101,3 +101,61 @@ def test_engine_rejects_what_the_slice_does_not_run():
         with pytest.raises(NotImplementedError):
             LLMEngine(cfg, EngineConfig(dtype="float32", **knob),
                       ByteTokenizer(512), device="cpu")
+
+
+# packages the card machine does not have: the port keeps its own
+# standard-library readers and writers instead (jinja2 is the one
+# optional import, for chat templates, and only where it is caught)
+CARD_MISSING = {"safetensors", "tokenizers", "regex", "prometheus_client",
+                "aiohttp", "pydantic", "jinja2"}
+OPTIONAL_IMPORTS = {("kserve_tpu_torch/engine/tokenizer.py", "jinja2"),
+                    ("chip_smoke.py", "jinja2")}
+
+
+@pytest.mark.parametrize("path", sorted(PKG.rglob("*.py")) + [REPO / "chip_smoke.py"],
+                         ids=lambda p: str(p.relative_to(REPO)))
+def test_source_imports_only_what_the_card_machine_has(path):
+    rel = str(path.relative_to(REPO))
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            mods = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            mods = [node.module or ""]
+        else:
+            continue
+        for mod in mods:
+            root = mod.split(".")[0]
+            assert root not in CARD_MISSING or (rel, root) in OPTIONAL_IMPORTS, (
+                f"{rel}:{node.lineno} imports {mod}")
+
+
+def test_checkpoint_server_needs_none_of_them(tmp_path):
+    """A --model_dir server's modules load, and a tokenizer.json and a
+    safetensors shard are read, with every package the card machine lacks
+    blocked."""
+    code = (
+        "import sys\n"
+        f"for name in {sorted(CARD_MISSING)!r}:\n"
+        "    sys.modules[name] = None\n"
+        "import torch\n"
+        "from kserve_tpu_torch.runtimes import generative_server\n"
+        "from kserve_tpu_torch.models import safetensors_io as sio\n"
+        "from kserve_tpu_torch.engine.tokenizer import HFTokenizer\n"
+        "from kserve_tpu_torch import metrics\n"
+        f"d = {str(tmp_path)!r}\n"
+        "sio.save_file({'w': torch.ones(2, dtype=torch.bfloat16)}, d + '/m.safetensors')\n"
+        "(_, w), = sio.iter_tensors(d + '/m.safetensors')\n"
+        "assert w.tolist() == [1.0, 1.0]\n"
+        "import json\n"
+        "json.dump({'model': {'type': 'BPE', 'vocab': {'a': 0, 'b': 1, 'ab': 2},\n"
+        "           'merges': ['a b']}}, open(d + '/tokenizer.json', 'w'))\n"
+        "json.dump({'chat_template': '{{ x }}'}, open(d + '/tokenizer_config.json', 'w'))\n"
+        "tok = HFTokenizer(d)\n"
+        "assert tok.encode('abab') == [2, 2] and tok.chat_template_mode == 'default'\n"
+        "assert metrics.generate_latest()\n"
+    )
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr

@@ -139,8 +139,8 @@ def test_client_disconnect_mid_stream_frees_the_slot(server):
 def test_expect_100_continue(server):
     body = json.dumps({"model": "tiny", "prompt": "x", "max_tokens": 2}).encode()
     sock = _raw(server, b"POST /openai/v1/completions HTTP/1.1\r\n"
-                + f"Content-Length: {len(body)}\r\nExpect: 100-continue\r\n\r\n"
-                .encode())
+                + f"Content-Length: {len(body)}\r\nExpect: 100-continue\r\n"
+                "Connection: close\r\n\r\n".encode())
     assert sock.recv(64).startswith(b"HTTP/1.1 100 Continue")
     sock.sendall(body)
     reply = b""
@@ -256,3 +256,114 @@ def test_sampling_penalties_are_served(server):
     plain = text()
     assert text(frequency_penalty=0.5, presence_penalty=0.3) is not None
     assert text(repetition_penalty=50.0) != plain
+
+
+def test_keep_alive_serves_requests_on_one_connection(server):
+    """Three requests, one of them streamed, over one HTTPConnection: the
+    server keeps the connection (the JAX server's aiohttp stack does)."""
+    conn = http.client.HTTPConnection("127.0.0.1", server.port, timeout=60)
+    try:
+        conn.request("GET", "/v2/health/live")
+        resp = conn.getresponse()
+        assert resp.status == 200 and resp.getheader("Connection") == "keep-alive"
+        assert json.loads(resp.read()) == {"live": True}
+        sock = conn.sock
+        conn.request("POST", "/openai/v1/chat/completions", body=json.dumps({
+            "model": "tiny", "stream": True, "max_tokens": 3, "temperature": 0,
+            "ignore_eos": True, "messages": [{"role": "user", "content": "hi"}]}))
+        resp = conn.getresponse()
+        assert resp.getheader("Transfer-Encoding") == "chunked"
+        events = [line for line in resp.read().decode().split("\n")
+                  if line.startswith("data: ")]
+        assert events[-1] == "data: [DONE]" and len(events) == 1 + 3 + 1
+        conn.request("POST", "/openai/v1/completions", body=json.dumps({
+            "model": "tiny", "prompt": "x", "max_tokens": 2, "ignore_eos": True}))
+        resp = conn.getresponse()
+        assert resp.status == 200
+        assert json.loads(resp.read())["usage"]["completion_tokens"] == 2
+        assert conn.sock is sock  # no reconnect
+    finally:
+        conn.close()
+
+
+def _read_response(sock) -> bytes:
+    """One response with a Content-Length, read off a raw socket."""
+    data = b""
+    while b"\r\n\r\n" not in data:
+        data += sock.recv(4096)
+    head, body = data.split(b"\r\n\r\n", 1)
+    length = int([line.split(b":")[1] for line in head.split(b"\r\n")
+                  if line.lower().startswith(b"content-length")][0])
+    while len(body) < length:
+        body += sock.recv(4096)
+    return head + b"\r\n\r\n" + body
+
+
+def test_chunked_request_body_and_connection_close(server):
+    body = json.dumps({"model": "tiny", "prompt": "hello world", "max_tokens": 3,
+                       "temperature": 0, "ignore_eos": True}).encode()
+    chunks = b"".join(b"%x;ext=1\r\n%s\r\n" % (len(body[i:i + 7]), body[i:i + 7])
+                      for i in range(0, len(body), 7))
+    sock = _raw(server, b"POST /openai/v1/completions HTTP/1.1\r\n"
+                b"Transfer-Encoding: chunked\r\n\r\n" + chunks
+                + b"0\r\nX-Trailer: 1\r\n\r\n")
+    try:
+        reply = _read_response(sock)
+        assert reply.startswith(b"HTTP/1.1 200 OK")
+        assert b"Connection: keep-alive" in reply
+        assert json.loads(reply.split(b"\r\n\r\n", 1)[1])["usage"] == {
+            "prompt_tokens": 12, "completion_tokens": 3, "total_tokens": 15}
+        # the same connection, then Connection: close is honoured
+        sock.sendall(b"GET /v2/health/ready HTTP/1.1\r\nConnection: close\r\n\r\n")
+        reply = _read_response(sock)
+        assert reply.startswith(b"HTTP/1.1 200 OK") and b"Connection: close" in reply
+        assert sock.recv(4096) == b""  # the server closed it
+    finally:
+        sock.close()
+
+
+@pytest.mark.parametrize("head,status", [
+    (b"POST /openai/v1/completions HTTP/1.1\r\n\r\n", 411),
+    (b"POST /openai/v1/completions HTTP/1.1\r\nTransfer-Encoding: gzip\r\n\r\n", 501),
+    (b"POST /openai/v1/completions HTTP/1.1\r\nTransfer-Encoding: chunked\r\n\r\n"
+     b"zz\r\n", 400),
+], ids=["no_length", "gzip", "bad_chunk"])
+def test_unreadable_body_answers_and_closes(server, head, status):
+    sock = _raw(server, head)
+    try:
+        reply = _read_response(sock)
+        assert reply.startswith(f"HTTP/1.1 {status}".encode())
+        assert b"Connection: close" in reply and sock.recv(4096) == b""
+    finally:
+        sock.close()
+
+
+def test_idle_connection_times_out():
+    import asyncio
+
+    from kserve_tpu_torch.protocol.rest.server import RESTServer
+
+    async def run():
+        rest = RESTServer({}, host="127.0.0.1", port=0, idle_timeout=0.2)
+        port = await rest.start()
+        try:
+            reader, writer = await asyncio.open_connection("127.0.0.1", port)
+            writer.write(b"GET /v2/health/live HTTP/1.1\r\n\r\n")
+            head = await reader.readuntil(b"\r\n\r\n")
+            assert head.startswith(b"HTTP/1.1 200") and b"keep-alive" in head
+            await reader.readexactly(len(b'{"live": true}'))
+            # idle past the timeout: the server closes the connection
+            assert await asyncio.wait_for(reader.read(), timeout=5) == b""
+            writer.close()
+        finally:
+            await rest.stop()
+        # an idle kept-alive connection does not hold up stop()
+        rest = RESTServer({}, host="127.0.0.1", port=0, idle_timeout=600)
+        port = await rest.start()
+        reader, idle = await asyncio.open_connection("127.0.0.1", port)
+        idle.write(b"GET /v2/health/live HTTP/1.1\r\n\r\n")
+        await reader.readuntil(b"\r\n\r\n")
+        await asyncio.wait_for(rest.stop(), timeout=5)
+        idle.close()
+
+    asyncio.run(run())
