@@ -82,6 +82,22 @@ Phases, each printing JSON lines:
            the decode kernel equal over injected and original pages; the
            pressure traffic with --kv_offload=host (spilled lanes are
            injected back); a prefix evicted, demoted and paged back in
+  lifecycle  drain, checkpoints and resume, deadlines, load shedding and
+           the scheduler state at Llama-3-8B full width and depth, bf16,
+           with the watchdog on: server A serves 8 streams of 256 tokens
+           (one of 1,201 prompt tokens, one seeded) and 2 queued, drained
+           mid-stream by POST /admin/drain (readiness 503, liveness 200,
+           new work 503 + Retry-After while it drains): all 10 end on
+           their checkpoints; server B resumes each through the
+           x-generation-checkpoint header to exactly 256 tokens, answers
+           504 to an expired deadline upfront and from the queue, takes
+           two bursts of 24 (all at once: its 429s are shown; spaced 25
+           ms apart: at least one 429) with 429s counted alike by the
+           client, the scheduler state and /metrics, and holds a greedy
+           lane's resumed logits to an uninterrupted lane's; a subprocess
+           starts Llama-3.2-1B over an empty build directory (the kernels
+           build before ready, the first request builds nothing, the
+           watchdog suspects nothing)
 The line before the last is {"kernels": [...]}, the last is
 {"ok": true, "device": {...}}.  Any failure raises and exits non-zero;
 nothing falls back to the CPU or to the plain versions.
@@ -94,6 +110,9 @@ kernels are timed by the same cases and the same timing code.
 --decode-min-chunk N sets the decode kernel's least keys per split (the
 chunk sweep of PERF.md; the default is the package's own).  --skip-flex
 leaves out the flex_attention yardstick and its compiles (an A/B).
+--only PHASE runs the device and build phases and one served phase (no
+kernel phase, no summary).  --cold-build-check is the lifecycle phase's
+subprocess.
 """
 
 from __future__ import annotations
@@ -953,6 +972,10 @@ def main(argv=None) -> int:
     ap.add_argument("--skip-flex", action="store_true",
                     help="leave out the flex_attention yardstick (its "
                          "compiles), e.g. in a kernels-only A/B")
+    ap.add_argument("--only", default=None, choices=sorted(SERVED_PHASES),
+                    help="device, build and this one served phase")
+    ap.add_argument("--cold-build-check", action="store_true",
+                    help=argparse.SUPPRESS)
     ap.add_argument("--decode-min-chunk", type=int, default=None,
                     help="keys per split of the decode kernel, at least "
                          "(a multiple of 64; default: the package's "
@@ -971,6 +994,11 @@ def main(argv=None) -> int:
     os.environ.setdefault("TRITON_CACHE_DIR", os.path.join(REPO, "build", "triton"))
     import torch
 
+    if args.cold_build_check:
+        if not torch.cuda.is_available():
+            raise SystemExit("no CUDA device: chip_smoke.py runs only on a GPU")
+        print(json.dumps(cold_build_check()), flush=True)
+        return 0
     if args.decode_min_chunk is not None:
         from kserve_tpu_torch.ops import paged_attention_cuda as K
 
@@ -982,6 +1010,10 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     info = phase_device(torch)
     phase_build()
+    if args.only:
+        SERVED_PHASES[args.only](torch)
+        emit({"phase": "done", "wall_s": time.perf_counter() - t0})
+        return 0
     rows = phase_kernels(torch, flex=not args.skip_flex)
     if args.kernels_only:
         emit({"phase": "done", "wall_s": time.perf_counter() - t0})
@@ -995,6 +1027,7 @@ def main(argv=None) -> int:
     phase_legacy(torch)
     counts.update(phase_prefix(torch))
     phase_tiers(torch)
+    counts["lifecycle"] = phase_lifecycle(torch)
     for name, row in rows.items():
         phase, key = KERNEL_PATH[name]
         row["launches"] = counts[phase].get(key, 0)
@@ -3091,6 +3124,642 @@ def phase_tiers(torch) -> None:
     del engine
     _stop_server(torch, model, server, thread)
     emit(dict(summary, phase_wall_s=time.perf_counter() - t_phase))
+
+
+# ---------------------------------------------------------------- lifecycle
+
+LIFECYCLE_MAX_TOKENS = 256
+# the drain budget of server A: every seated stream is past 16 tokens when
+# the drain starts and, at ~8 tokens a dispatch, far from 256 when it ends
+LIFECYCLE_GRACE_S = 1.0
+LIFECYCLE_MIN_SHOWN = 16
+LIFECYCLE_LONG = (BASE_TEXT * 40)[:1200]  # 1,201 tokens: crosses the 1,024 chunk
+# 8 seated streams (7 greedy, one seeded sampled, one of them the long
+# prompt), then 2 that must queue behind them
+LIFECYCLE_PROMPTS = (
+    [("long", LIFECYCLE_LONG)]
+    + [(f"g{i}", f"Lane {i}: " + BASE_TEXT * (1 + i)) for i in range(1, 7)]
+    + [("sampled", "Pick a random word and keep going.")]
+    + [("queued_a", "Queued first: " + BASE_TEXT), ("queued_b", "Queued second.")])
+# the deadline lanes outlast their seating (in threes, under the shed
+# watermark) and the queued request's 0.5 s budget several times over
+LIFECYCLE_DEADLINE_TOKENS = 128
+LIFECYCLE_SHED_BURST = 24
+LIFECYCLE_SHED_TOKENS = 32
+LIFECYCLE_SHED_WATERMARK = 4
+LIFECYCLE_SHED_SPACING_S = 0.025
+COLD_BUILD_DIR = os.path.join(REPO, "build", "lifecycle_cold_build")
+
+
+def _http_h(port: int, method: str, path: str, body=None, headers=None,
+            timeout=600):
+    """(status, lower-cased response headers, body bytes)."""
+    import http.client
+
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=timeout)
+    try:
+        conn.request(method, path,
+                     body=json.dumps(body) if body is not None else None,
+                     headers={"Content-Type": "application/json", **(headers or {})})
+        resp = conn.getresponse()
+        return (resp.status, {k.lower(): v for k, v in resp.getheaders()},
+                resp.read())
+    finally:
+        conn.close()
+
+
+class _Stream:
+    """One streamed completion read on its own thread: its SSE events as
+    they come, their arrival times and the first one's latency.  With
+    `stop_after`, the client goes away after that many events."""
+
+    def __init__(self, port: int, body: dict, headers=None, stop_after=None):
+        import threading
+
+        self.port, self.body, self.headers = port, body, headers or {}
+        self.stop_after = stop_after
+        self.status = None
+        self.events: list = []
+        self.ttft = None
+        self.t_end = None
+        self.error = None
+        self.thread = threading.Thread(target=self._run, daemon=True)
+
+    def start(self) -> "_Stream":
+        self.thread.start()
+        return self
+
+    def _run(self):
+        import http.client
+
+        conn = http.client.HTTPConnection("127.0.0.1", self.port, timeout=600)
+        try:
+            t0 = time.perf_counter()
+            conn.request("POST", "/openai/v1/completions",
+                         body=json.dumps(self.body),
+                         headers={"Content-Type": "application/json", **self.headers})
+            resp = conn.getresponse()
+            self.status = resp.status
+            while True:
+                line = resp.readline()
+                if not line:
+                    break
+                line = line.decode().strip()
+                if not line.startswith("data: "):
+                    continue
+                if self.ttft is None:
+                    self.ttft = time.perf_counter() - t0
+                self.events.append(line[len("data: "):])
+                if self.stop_after is not None and len(self.events) >= self.stop_after:
+                    break
+        except Exception as e:  # noqa: BLE001 — reported by the caller's checks
+            self.error = e
+        finally:
+            self.t_end = time.perf_counter()
+            conn.close()
+
+    def join(self, timeout=600) -> "_Stream":
+        self.thread.join(timeout)
+        if self.thread.is_alive():
+            raise AssertionError(f"stream {self.body.get('prompt', '')[:20]!r} hung")
+        if self.error is not None:
+            raise AssertionError(f"stream failed: {self.error!r}")
+        return self
+
+    @property
+    def token_events(self) -> list:
+        return [json.loads(e) for e in self.events
+                if e != "[DONE]" and "choices" in json.loads(e)]
+
+
+def _wait_for(cond, what: str, timeout: float = 300.0) -> None:
+    t_end = time.monotonic() + timeout
+    while time.monotonic() < t_end:
+        if cond():
+            return
+        time.sleep(0.005)
+    raise AssertionError(f"lifecycle: timed out waiting for {what}")
+
+
+def _seated(engine, what: str) -> None:
+    """Wait until the engine's queue is empty again: on server B requests
+    go in one at a time, so the queue never reaches the shed watermark
+    before the burst that is meant to."""
+    _wait_for(lambda: engine.queue_depth == 0, what)
+
+
+def _lc_body(name: str, prompt: str, label: str, max_tokens=LIFECYCLE_MAX_TOKENS,
+             stream=True) -> dict:
+    body = {"model": name, "prompt": prompt, "max_tokens": max_tokens,
+            "ignore_eos": True, **SAMPLED.get(label, {"temperature": 0})}
+    if stream:
+        body.update(stream=True, stream_options={"include_usage": True})
+    return body
+
+
+def _metric(scrape: dict, name: str, **labels) -> float:
+    return scrape.get((name, tuple(sorted(labels.items()))), 0.0)
+
+
+def _watchdog_ok(phase: str, engine) -> dict:
+    snap = engine.scheduler_state().get("watchdog")
+    if snap is None or snap["state"] != "ok" or snap["suspected_total"] != 0:
+        raise AssertionError(f"{phase}: watchdog {snap}, wanted state ok and no "
+                             f"suspicion")
+    return snap
+
+
+def _drain_wave(model, port: int) -> dict:
+    """Server A: 8 seated streams and 2 queued, a drain once every seated
+    stream has LIFECYCLE_MIN_SHOWN tokens, the gates while it drains, and
+    every stream ending on its checkpoint."""
+    engine, name = model.engine, model.name
+    before = _scrape(port)
+    seated = [_Stream(port, _lc_body(name, text, label)).start()
+              for label, text in LIFECYCLE_PROMPTS[:8]]
+    _wait_for(lambda: engine.scheduler_state()["inflight"] == 8, "8 seated lanes")
+    queued = [_Stream(port, _lc_body(name, text, label)).start()
+              for label, text in LIFECYCLE_PROMPTS[8:]]
+    _wait_for(lambda: engine.queue_depth == 2, "2 queued requests")
+    _wait_for(lambda: all(len(s.events) >= LIFECYCLE_MIN_SHOWN for s in seated),
+              f"{LIFECYCLE_MIN_SHOWN} tokens on every seated stream")
+    t_drain = time.perf_counter()
+    status, _, body = _http_h(port, "POST", "/admin/drain")
+    if status != 200:
+        raise AssertionError(f"POST /admin/drain answered {status}")
+    seen_state = json.loads(body)["lifecycle"]
+    ready = _http_h(port, "GET", "/v2/health/ready")
+    live = _http_h(port, "GET", "/v2/health/live")
+    refused = _http_h(port, "POST", "/openai/v1/completions",
+                      _lc_body(name, "late", "late", 8, stream=False))
+    gates = {"lifecycle_at_drain": seen_state, "ready": ready[0],
+             "ready_body": json.loads(ready[2]), "live": live[0],
+             "new_post": refused[0], "retry_after": refused[1].get("retry-after")}
+    if (ready[0] != 503 or live[0] != 200 or refused[0] != 503
+            or refused[1].get("retry-after") != "1"):
+        raise AssertionError(f"lifecycle gates while draining: {gates}")
+    checkpoints = {}
+    for (label, _), stream in zip(LIFECYCLE_PROMPTS, seated + queued):
+        stream.join()
+        last = json.loads(stream.events[-1]) if stream.events else {}
+        if (stream.status != 200 or "[DONE]" in stream.events
+                or last.get("error", {}).get("type") != "generation_preempted"):
+            raise AssertionError(f"lifecycle: stream {label} did not end on a "
+                                 f"checkpoint: {stream.events[-2:]}")
+        from kserve_tpu_torch.lifecycle import GenerationCheckpoint
+
+        ckpt = GenerationCheckpoint.from_header(last["checkpoint"])
+        shown = len(stream.events) - 1
+        if ckpt is None or len(ckpt.generated) != shown or ckpt.reason != "drain":
+            raise AssertionError(f"lifecycle: {label}'s checkpoint holds "
+                                 f"{None if ckpt is None else len(ckpt.generated)} "
+                                 f"tokens, the stream showed {shown}")
+        if label.startswith("queued") and shown != 0:
+            raise AssertionError(f"lifecycle: queued {label} streamed {shown} tokens")
+        checkpoints[label] = (last["checkpoint"], ckpt, stream.t_end)
+    drain_wall = max(t for _, _, t in checkpoints.values()) - t_drain
+    after = _scrape(port)
+    n_ckpt = (_metric(after, "generation_checkpoints_total", model_name=name,
+                      reason="drain")
+              - _metric(before, "generation_checkpoints_total", model_name=name,
+                        reason="drain"))
+    if n_ckpt != 10 or engine.checkpointed_count != 10:
+        raise AssertionError(f"lifecycle: {n_ckpt} drain checkpoints counted, "
+                             f"engine {engine.checkpointed_count}, wanted 10")
+    _wait_for(lambda: model.engine is not None and not engine._has_live_work(),
+              "the drained engine to go idle")
+    return {"checkpoints": checkpoints, "drain_wall_s": drain_wall, "gates": gates,
+            "salvaged": {label: len(c.generated)
+                         for label, (_, c, _) in checkpoints.items()},
+            "watchdog": _watchdog_ok("lifecycle_a", engine)}
+
+
+def _resume_wave(model, port: int, checkpoints: dict) -> dict:
+    """Server B: every checkpoint resumed through the header, streamed,
+    one at a time until 8 are seated (the last 2 queue behind them, so the
+    queue never reaches the shed watermark): each continuation plus what A
+    sent makes exactly LIFECYCLE_MAX_TOKENS, finished by length."""
+    engine, name = model.engine, model.name
+    before = _scrape(port)
+    resumes0 = engine.resume_count
+    streams = {}
+    for i, (label, text) in enumerate(LIFECYCLE_PROMPTS):
+        header = checkpoints[label][0]
+        streams[label] = _Stream(port, _lc_body(name, text, label),
+                                 {"x-generation-checkpoint": header}).start()
+        _wait_for(lambda: engine.resume_count > resumes0 + i, f"resume {label}")
+        if i < 8:
+            _seated(engine, f"resume {label} seated")
+    out = {}
+    for label, stream in streams.items():
+        stream.join()
+        salvaged = len(checkpoints[label][1].generated)
+        tokens = stream.token_events
+        usage = tokens[-1].get("usage") or {} if tokens else {}
+        finish = tokens[-1]["choices"][0]["finish_reason"] if tokens else None
+        if (stream.status != 200 or stream.events[-1] != "[DONE]"
+                or salvaged + len(tokens) != LIFECYCLE_MAX_TOKENS
+                or usage.get("completion_tokens") != LIFECYCLE_MAX_TOKENS
+                or finish != "length"):
+            raise AssertionError(
+                f"lifecycle: resumed {label}: status {stream.status}, {salvaged} "
+                f"salvaged + {len(tokens)} continued, usage {usage}, finish {finish}")
+        out[label] = {"salvaged": salvaged, "continued": len(tokens)}
+    after = _scrape(port)
+    resumes = (_metric(after, "generation_resumes_total", model_name=name)
+               - _metric(before, "generation_resumes_total", model_name=name))
+    salvaged_metric = (
+        _metric(after, "generation_tokens_salvaged_total", model_name=name)
+        - _metric(before, "generation_tokens_salvaged_total", model_name=name))
+    salvaged = sum(v["salvaged"] for v in out.values())
+    if resumes != 10 or salvaged_metric != salvaged:
+        raise AssertionError(f"lifecycle: {resumes} resumes counted (wanted 10), "
+                             f"{salvaged_metric} tokens salvaged counted (wanted "
+                             f"{salvaged})")
+    return {"streams": out, "tokens_salvaged": salvaged}
+
+
+def _deadline_and_state(model, port: int) -> dict:
+    """Server B: x-request-deadline 0 answers 504 before handling; with 8
+    lanes decoding, the scheduler state reads 8 in flight, the allocator's
+    free pages, READY and a quiet watchdog, and a 9th request with a 0.5 s
+    budget answers 504 from the queue while the 8 complete."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    engine, name = model.engine, model.name
+    before = _scrape(port)
+    upfront = _http_h(port, "POST", "/openai/v1/completions",
+                      _lc_body(name, "late", "late", 8, stream=False),
+                      {"x-request-deadline": "0"})
+    if upfront[0] != 504:
+        raise AssertionError(f"x-request-deadline: 0 answered {upfront[0]}")
+    prompts = [(f"d{i}", f"Deadline lane {i}. " + BASE_TEXT * i) for i in range(8)]
+    with ThreadPoolExecutor(max_workers=9) as pool:
+        futs = []
+        for group in (prompts[:3], prompts[3:6], prompts[6:]):
+            futs += [pool.submit(_http, port, "POST", "/openai/v1/completions",
+                                 _lc_body(name, text, label,
+                                          LIFECYCLE_DEADLINE_TOKENS, stream=False))
+                     for label, text in group]
+            _wait_for(lambda: engine.scheduler_state()["inflight"] == len(futs),
+                      f"{len(futs)} deadline lanes seated")
+        for _ in range(20):  # a read between two dispatches' page growth
+            free0 = engine.allocator.free_pages
+            state = json.loads(_http(port, "GET", "/v1/internal/scheduler/state")[1])
+            if engine.allocator.free_pages == free0:
+                break
+        t0 = time.perf_counter()
+        late = pool.submit(_http_h, port, "POST", "/openai/v1/completions",
+                           _lc_body(name, "Too late. " + BASE_TEXT, "late",
+                                    LIFECYCLE_DEADLINE_TOKENS, stream=False),
+                           {"x-request-deadline": "0.5"})
+        late_status = late.result()[0]
+        late_s = time.perf_counter() - t0
+        results = {label: f.result() for (label, _), f in zip(prompts, futs)}
+    _completed("lifecycle_deadline", results,
+               [(label, None, LIFECYCLE_DEADLINE_TOKENS, None) for label, _ in prompts])
+    after = _scrape(port)
+    rejected = {c: _metric(after, "resilience_deadline_rejected_total", component=c)
+                - _metric(before, "resilience_deadline_rejected_total", component=c)
+                for c in ("rest", "engine")}
+    wd = state["models"][name].get("watchdog", {})
+    checks = {"inflight": state["inflight"], "free_pages": state["free_pages"],
+              "allocator_free_pages": free0, "lifecycle": state["lifecycle"],
+              "watchdog": wd}
+    if (late_status != 504 or rejected != {"rest": 1.0, "engine": 1.0}
+            or state["inflight"] != 8 or state["free_pages"] != free0
+            or state["lifecycle"] != "READY" or wd.get("state") != "ok"
+            or wd.get("suspected_total") != 0):
+        raise AssertionError(f"lifecycle deadlines/state: late {late_status}, "
+                             f"rejected {rejected}, state {checks}")
+    return {"upfront_status": upfront[0], "queued_status": late_status,
+            "queued_504_after_s": late_s, "deadline_rejected": rejected,
+            "scheduler_state": checks}
+
+
+def _shed_burst(model, port: int) -> dict:
+    """Server B (KSERVE_TPU_SHED_WATERMARK=4): two bursts of
+    LIFECYCLE_SHED_BURST concurrent completions.  The first is sent all at
+    once: every request can pass the shed gate before any is queued (a
+    stream joins the engine's queue when it first asks for a token; the
+    JAX server's gate has the same hole, ROADMAP C13), so its 429 count is
+    shown, not required.  The second is sent LIFECYCLE_SHED_SPACING_S
+    apart: at least one answers 429.  In both, each 429 carries
+    Retry-After, every other request reaches its max_tokens, and the
+    client's 429 count equals the scheduler state's shed count and
+    shed_requests_total{rest}."""
+    import threading
+    from concurrent.futures import ThreadPoolExecutor
+
+    name = model.name
+
+    def burst(tag: str, spacing_s: float) -> dict:
+        state0 = json.loads(_http(port, "GET", "/v1/internal/scheduler/state")[1])
+        before = _scrape(port)
+        barrier = threading.Barrier(LIFECYCLE_SHED_BURST) if not spacing_s else None
+
+        def send(i: int):
+            if barrier is not None:
+                barrier.wait(60)
+            return _http_h(port, "POST", "/openai/v1/completions",
+                           _lc_body(name, f"Burst {tag}{i}. " + BASE_TEXT,
+                                    f"{tag}{i}", LIFECYCLE_SHED_TOKENS,
+                                    stream=False))
+
+        with ThreadPoolExecutor(max_workers=LIFECYCLE_SHED_BURST) as pool:
+            futs = []
+            for i in range(LIFECYCLE_SHED_BURST):
+                futs.append(pool.submit(send, i))
+                if spacing_s:
+                    # the later arrivals land while a dispatch runs and the
+                    # queue behind the 8 lanes has grown
+                    time.sleep(spacing_s)
+            answers = [f.result() for f in futs]
+        shed = [a for a in answers if a[0] == 429]
+        served = {f"{tag}{i}": (a[0], a[2]) for i, a in enumerate(answers)
+                  if a[0] != 429}
+        _completed(f"lifecycle_shed_{tag}", served,
+                   [(label, None, LIFECYCLE_SHED_TOKENS, None) for label in served])
+        state = json.loads(_http(port, "GET", "/v1/internal/scheduler/state")[1])
+        after = _scrape(port)
+        counted = (_metric(after, "resilience_shed_requests_total", component="rest")
+                   - _metric(before, "resilience_shed_requests_total",
+                             component="rest"))
+        by_state = state["shed"]["count"] - state0["shed"]["count"]
+        if (any(a[1].get("retry-after") != "1" for a in shed)
+                or by_state != len(shed) or counted != len(shed)):
+            raise AssertionError(f"lifecycle shedding ({tag}): {len(shed)} answered "
+                                 f"429, state {state['shed']} (was "
+                                 f"{state0['shed']}), counted {counted}")
+        return {"shed_429": len(shed), "served": len(served),
+                "state_shed": state["shed"]}
+
+    at_once = burst("a", 0.0)
+    _wait_for(lambda: not model.engine._has_live_work(), "B to go idle")
+    spaced = burst("s", LIFECYCLE_SHED_SPACING_S)
+    if not spaced["shed_429"]:
+        raise AssertionError(f"lifecycle shedding: the spaced burst shed nothing: "
+                             f"{spaced}")
+    return {"burst": LIFECYCLE_SHED_BURST, "spacing_s": LIFECYCLE_SHED_SPACING_S,
+            "shed_429": spaced["shed_429"], "served": spaced["served"],
+            "state_shed": spaced["state_shed"], "at_once": at_once}
+
+
+def _resume_logits_check(torch, engine, prompt_ids, generated) -> dict:
+    """The first logits of a resumed lane against an uninterrupted lane's at
+    the same position, through the kernels, on the served weights and an
+    f32 copy: the resume prefills prompt + generated[:-1] as ragged chunks
+    and decodes generated[-1]; the uninterrupted lane prefills the prompt
+    and decodes every generated token.  f32 within F32_LOGITS_REL_TOL of
+    the largest |logit|, bf16 within BF16_NOISE_FACTOR x the model's bf16
+    noise (the uninterrupted bf16 lane against the f32 one)."""
+    import dataclasses
+
+    from kserve_tpu_torch.models import llama
+    from kserve_tpu_torch.ops.paged_attention_cuda import RAGGED_BQ
+
+    mc16 = engine.model_config
+    mc32 = dataclasses.replace(mc16, dtype="float32")
+    ps, chunk = engine.config.page_size, engine.config.prefill_buckets[-1]
+    seq = list(prompt_ids) + list(generated)
+    N, P = len(seq), len(prompt_ids)
+    W = -(-N // ps)
+    dev = engine.device
+    ints = lambda xs: torch.tensor(xs, dtype=torch.int32, device=dev)  # noqa: E731
+    table = torch.arange(1, W + 1, dtype=torch.int32, device=dev)[None]
+
+    def prefill(params, mc, pages, end):
+        for start in range(0, end, chunk):
+            n = min(chunk, end - start)
+            pad = (-n) % RAGGED_BQ
+            llama.forward_ragged(
+                params, mc, ints(seq[start:start + n] + [0] * pad),
+                ints([0] * n + [-1] * pad),
+                ints(list(range(start, start + n)) + [0] * pad),
+                ints([0]), ints([n]), ints([start]), pages, table, ps,
+                ints([n - 1]))
+
+    def decode(params, mc, pages, pos):
+        logits, _ = llama.decode_step(
+            params, mc, ints([seq[pos]]), ints([pos]), pages, table,
+            torch.ones(1, dtype=torch.bool, device=dev), ps)
+        return logits
+
+    def run(params, mc):
+        pages = _fresh_cache(mc, ps, 1 + W, "none", dev)
+        prefill(params, mc, pages, P)
+        for pos in range(P, N):
+            straight = decode(params, mc, pages, pos)
+        pages = _fresh_cache(mc, ps, 1 + W, "none", dev)
+        prefill(params, mc, pages, N - 1)
+        return straight, decode(params, mc, pages, N - 1)
+
+    with torch.inference_mode():
+        params32 = {
+            k: ([{n: (t.float() if torch.is_tensor(t) else t)
+                  for n, t in layer.items()} for layer in v]
+                if k == "layers" else v.float())
+            for k, v in engine.params.items()}
+        straight32, resumed32 = run(params32, mc32)
+        del params32
+        straight16, resumed16 = run(engine.params, mc16)
+    torch.cuda.empty_cache()
+    scale = float(straight32.abs().max())
+    row = {"prompt_tokens": P, "generated_tokens": len(generated),
+           "f32_max_abs_err": float((resumed32 - straight32).abs().max()),
+           "f32_tol": F32_LOGITS_REL_TOL * scale, "max_abs_logit": scale,
+           "bf16_max_abs_err": float((resumed16.float() - straight16.float()).abs().max()),
+           "bf16_noise": float((straight16.float() - straight32).abs().max()),
+           "bf16_argmax_agree": bool((resumed16.argmax(-1)
+                                      == straight16.argmax(-1)).all())}
+    row["bf16_tol"] = BF16_NOISE_FACTOR * row["bf16_noise"]
+    finite = all(bool(torch.isfinite(t).all()) for t in (resumed32, resumed16))
+    if not (finite and row["f32_max_abs_err"] <= row["f32_tol"]
+            and row["bf16_max_abs_err"] <= row["bf16_tol"]):
+        raise AssertionError(f"resumed logits disagree with an uninterrupted lane: {row}")
+    return row
+
+
+def cold_build_check() -> dict:
+    """Run in a subprocess, with the kernel library's build directory
+    pointed at the empty COLD_BUILD_DIR: Llama-3.2-1B with the watchdog
+    on starts (the kernel library is built in start(), before ready: the
+    `compile` startup phase), then serves one request; the served
+    dispatches build nothing and the watchdog suspects nothing."""
+    import asyncio
+    from pathlib import Path
+
+    import torch
+
+    from kserve_tpu_torch.engine.engine import EngineConfig, LLMEngine
+    from kserve_tpu_torch.engine.sampling import SamplingParams
+    from kserve_tpu_torch.engine.tokenizer import ByteTokenizer
+    from kserve_tpu_torch.models import llama
+    from kserve_tpu_torch.ops import _build
+
+    _build.BUILD_DIR = Path(COLD_BUILD_DIR)
+    mc = llama.LlamaConfig.llama3_1b()
+    mc.dtype = "bfloat16"
+
+    async def main():
+        engine = LLMEngine(mc, EngineConfig(dtype="bfloat16", watchdog=True),
+                           ByteTokenizer(mc.vocab_size), device="cuda")
+        t0 = time.perf_counter()
+        await engine.start()
+        start_s = time.perf_counter() - t0
+        built = dict(_build.last_build)
+        built.pop("log", None)
+        t1 = time.perf_counter()
+        out = [o async for o in engine.generate(
+            list(range(1, 40)), SamplingParams(max_tokens=16, ignore_eos=True,
+                                               temperature=0.0))]
+        serve_s = time.perf_counter() - t1
+        after = dict(_build.last_build)
+        after.pop("log", None)
+        wd = engine.scheduler_state()["watchdog"]
+        phases = dict(engine.startup_phases)
+        await engine.stop()
+        return {"build_dir": str(_build.BUILD_DIR), "start_s": start_s,
+                "startup_phases": phases, "build": built,
+                "rebuilt_while_serving": after != built, "tokens": len(out),
+                "first_request_s": serve_s, "watchdog": wd}
+
+    res = asyncio.run(main())
+    torch.cuda.synchronize()
+    return res
+
+
+def _cold_build_subprocess() -> dict:
+    import shutil
+
+    shutil.rmtree(COLD_BUILD_DIR, ignore_errors=True)
+    proc = subprocess.run([sys.executable, os.path.abspath(__file__),
+                           "--cold-build-check"], capture_output=True,
+                          text=True, timeout=600)
+    try:
+        if proc.returncode != 0:
+            raise AssertionError(f"cold build check exited {proc.returncode}: "
+                                 f"{proc.stderr[-2000:]}")
+        res = json.loads(proc.stdout.strip().splitlines()[-1])
+        if (res["build"].get("cached") is not False or res["rebuilt_while_serving"]
+                or res["tokens"] != 16 or res["watchdog"]["suspected_total"] != 0
+                or res["startup_phases"].get("compile", 0) <= 0
+                or res["build_dir"] != COLD_BUILD_DIR):
+            raise AssertionError(f"cold build check: {res}")
+        return res
+    finally:
+        shutil.rmtree(COLD_BUILD_DIR, ignore_errors=True)
+
+
+def phase_lifecycle(torch) -> dict:
+    """Drain, checkpoints and resume, deadlines, shedding and the
+    scheduler state at Llama-3-8B full width and depth, bf16, every server
+    with KSERVE_TPU_WATCHDOG=1.  A (drain budget LIFECYCLE_GRACE_S): a cold
+    TTFT of the 1,201-token prompt, then 8 streams of 256 tokens (7 greedy,
+    one seeded) and 2 queued, drained mid-stream: all 10 end on their
+    checkpoints, the gates hold while it drains.  B (same weights, shed
+    watermark 4): the long lane's checkpoint resumed alone (resume TTFT),
+    then all 10 resumed through the header, each spliced to exactly 256
+    tokens; deadlines upfront and from the queue; a shed burst; a greedy
+    lane's resumed logits against an uninterrupted lane's.  Then a cold
+    kernel build in a subprocess.  Returns the launch counts of the served
+    traffic of A and B."""
+    from kserve_tpu_torch.ops import paged_attention_cuda as K
+
+    t_phase = time.perf_counter()
+    env0 = {k: os.environ.get(k) for k in (
+        "KSERVE_TPU_WATCHDOG", "KSERVE_TPU_DRAIN_GRACE", "KSERVE_TPU_SHED_WATERMARK")}
+    os.environ["KSERVE_TPU_WATCHDOG"] = "1"
+    try:
+        os.environ["KSERVE_TPU_DRAIN_GRACE"] = str(LIFECYCLE_GRACE_S)
+        model, server, thread = _start_server(torch, SERVE_ARGS, "lifecycle_a")
+        os.environ.pop("KSERVE_TPU_DRAIN_GRACE")
+        name = model.name
+        if len(model.tokenizer.encode(LIFECYCLE_LONG)) != 1201:
+            raise AssertionError("the long lifecycle prompt is not 1,201 tokens")
+        # a short request first, so the cold TTFT below is the prompt's and
+        # not a new engine's first dispatch
+        warm = _Stream(server.port, _lc_body(name, "Warm up.", "warm", 4)).start().join()
+        if warm.status != 200:
+            raise AssertionError(f"warm-up request: {warm.status}")
+        cold = _Stream(server.port, _lc_body(name, LIFECYCLE_LONG, "long", 4)).start()
+        cold.join()
+        if cold.status != 200 or cold.events[-1] != "[DONE]":
+            raise AssertionError(f"cold TTFT request: {cold.status}")
+        torch.cuda.synchronize()
+        K.reset_launch_counts()
+        drain = _drain_wave(model, server.port)
+        emit({"phase": "lifecycle", "part": "drain",
+              "drain_wall_s": drain["drain_wall_s"], "gates": drain["gates"],
+              "salvaged": drain["salvaged"], "cold_ttft_s": cold.ttft})
+        _stop_server(torch, model, server, thread)
+
+        os.environ["KSERVE_TPU_SHED_WATERMARK"] = str(LIFECYCLE_SHED_WATERMARK)
+        model, server, thread = _start_server(torch, SERVE_ARGS, "lifecycle_b")
+        os.environ.pop("KSERVE_TPU_SHED_WATERMARK")
+        port = server.port
+        ckpts = drain["checkpoints"]
+        warm = _Stream(port, _lc_body(name, "Warm up.", "warm", 4)).start().join()
+        if warm.status != 200:
+            raise AssertionError(f"warm-up request: {warm.status}")
+        first = _Stream(port, _lc_body(name, LIFECYCLE_LONG, "long"),
+                        {"x-generation-checkpoint": ckpts["long"][0]},
+                        stop_after=1).start().join()
+        if first.status != 200 or first.ttft is None:
+            raise AssertionError(f"resume TTFT request: {first.status}")
+        _wait_for(lambda: not model.engine._has_live_work(), "B to go idle")
+        resumed = _resume_wave(model, port, ckpts)
+        emit({"phase": "lifecycle", "part": "resume", "resume_ttft_s": first.ttft,
+              **resumed})
+        deadlines = _deadline_and_state(model, port)
+        emit({"phase": "lifecycle", "part": "deadlines", **deadlines})
+        shedding = _shed_burst(model, port)
+        emit({"phase": "lifecycle", "part": "shedding", **shedding})
+        torch.cuda.synchronize()
+        counts = dict(K.LAUNCHES)
+        _require_launches("lifecycle", counts,
+                          ("ragged_paged_attention", "paged_decode_attention"))
+        lane = max((lbl for lbl, _ in LIFECYCLE_PROMPTS[1:7]),
+                   key=lambda lbl: len(ckpts[lbl][1].generated))
+        logits = _resume_logits_check(torch, model.engine, ckpts[lane][1].prompt_ids,
+                                      ckpts[lane][1].generated)
+        emit({"phase": "lifecycle", "part": "resume_logits", "lane": lane, **logits})
+        watchdog_b = _watchdog_ok("lifecycle_b", model.engine)
+        _stop_server(torch, model, server, thread)
+    finally:
+        for k, v in env0.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    cold_build = _cold_build_subprocess()
+    emit({
+        "phase": "lifecycle", "model": f"{name} (random weights, seed 1)",
+        "drain_grace_s": LIFECYCLE_GRACE_S,
+        "drain_wall_s": drain["drain_wall_s"],
+        "gates_while_draining": drain["gates"],
+        "tokens_salvaged": resumed["tokens_salvaged"],
+        "salvaged_by_stream": drain["salvaged"],
+        "resumed": resumed["streams"],
+        "cold_ttft_s": cold.ttft, "resume_ttft_s": first.ttft,
+        "resume_ttft_prompt_tokens": 1201,
+        "resume_ttft_salvaged": len(ckpts["long"][1].generated),
+        "deadlines": deadlines, "shedding": shedding,
+        "watchdog": {"a": drain["watchdog"], "b": watchdog_b},
+        "launches": counts,
+        "resume_logits_check": dict(logits, lane=lane),
+        "cold_build": cold_build,
+        "phase_wall_s": time.perf_counter() - t_phase,
+    })
+    return counts
+
+
+# the served phases --only can run alone
+SERVED_PHASES = {"serve": phase_serve, "d64": phase_d64, "spec": phase_spec,
+                 "kvq": phase_kvq, "gemma2": phase_gemma2,
+                 "pressure": phase_pressure, "legacy": phase_legacy,
+                 "prefix": phase_prefix, "tiers": phase_tiers,
+                 "lifecycle": phase_lifecycle}
 
 if __name__ == "__main__":
     sys.exit(main())

@@ -46,9 +46,12 @@ Port of the unified-ragged serving path of kserve_tpu/engine/engine.py:
   hit again is written through to the persistent layer, which a
   restarted engine pages in from
 
-The device calls and the fetches of their tokens run in worker threads
-(`asyncio.to_thread`), so the event loop keeps answering health probes and
-new requests while a step computes.  Every launch goes to one CUDA stream
+The device calls and the fetches of their tokens run on one worker
+thread (`_fetch_async`, under the step deadline), so the event loop keeps
+answering health probes and new requests while a step computes; a drain
+or a cancel may therefore release a slot while its dispatch is being
+enqueued, and the dispatch's route drops that slot's tokens.  Every
+launch goes to one CUDA stream
 (the device's default stream, whichever thread enqueues it), so a finished
 lane's pages are freed at once even while a chained dispatch that still
 writes them is in flight (the JAX engine defers such frees): a later
@@ -69,12 +72,37 @@ behind `telemetry_snapshot()` (GET /admin/telemetry) keeps the finished
 ones and the step and prefill-chunk durations; metrics.py exports the
 same to GET /metrics.
 
+Lifecycle and operations (kserve_tpu/engine/engine.py:1257-1360,
+:1362-1423, :1660-1886, :1960-1977):
+
+- `generate` takes a request id and reads the propagated request
+  deadline (resilience/deadline.py): an expired one is refused at once,
+  and a queued request whose deadline dies before it is seated gets
+  DeadlineExceededError (`_drop_expired_waiting`); a draining or stopped
+  engine refuses new work with ReplicaDrainingError
+- `drain(deadline)` stops admission, lets seated work run until the
+  budget expires, then snapshots every queued and seated request into a
+  portable GenerationCheckpoint (lifecycle/checkpoint.py) raised into its
+  stream as GenerationPreempted; `resume_generation(checkpoint)` admits
+  one from any replica (or from the JAX package) through the preemption
+  resume: a re-prefill of prompt + generated[:-1], then decoding from the
+  next token, the detokenizer replayed
+- every device call (a dispatch and the fetch of its tokens) runs on one
+  daemon worker under `step_deadline_s`; one that outlasts it marks the
+  engine `wedged` (liveness red).  On CUDA the kernel library is loaded
+  in `start()`, before the engine is ready (the `compile` startup phase),
+  so no served dispatch waits for nvcc
+- the gray-failure watchdog (engine/watchdog.py, `watchdog=True`) reads
+  the progress stamps and, on a confirmed stall, self-drains with reason
+  "stall"; `scheduler_state()` is the endpoint picker's view of the
+  engine
+
 Not ported yet: the peer page fabric, injected KV from a prefill peer
 (P/D: `kv_data`, `generate_injected`), frees deferred while a chained
 dispatch is in flight (not needed on one stream, above),
-data/tensor/pipeline/sequence parallelism, drain/checkpoint/resume, the
-watchdog, deadlines, load shedding and the AOT cache.  Admission waits
-for free pages.
+data/tensor/pipeline/sequence parallelism, LoRA adapters (a checkpoint
+taken under one is refused) and the AOT cache.  Admission waits for free
+pages.
 """
 
 from __future__ import annotations
@@ -89,22 +117,34 @@ import numpy as np
 import torch
 
 from ..device import resolve_device, upload
+from ..lifecycle import GenerationCheckpoint, GenerationPreempted, ReplicaDrainingError
 from ..metrics import (
+    DEADLINE_REJECTED,
     ENGINE_BATCH_OCCUPANCY,
     ENGINE_KV_PAGES_FREE,
     ENGINE_PREEMPTIONS,
     ENGINE_PREFILL_CHUNK_DURATION,
     ENGINE_QUEUE_DEPTH,
     ENGINE_STEP_DURATION,
+    ENGINE_WEDGED,
     GENERATED_TOKENS,
+    GENERATION_CHECKPOINTS,
+    GENERATION_RESUMES,
     PROMPT_TOKENS,
     SPEC_TOKENS,
+    TOKENS_SALVAGED,
     observe_request_timeline,
     observe_startup_phase,
 )
 from ..models import llama
 from ..observability import RequestTimeline, TimelineRecorder
-from ..resilience.clock import MONOTONIC
+from ..resilience import (
+    MONOTONIC,
+    Deadline,
+    DeadlineExceededError,
+    ReplicaCrashError,
+    current_deadline,
+)
 from ..ops.attention import dense_stride_for
 from ..ops.paged_attention_cuda import RAGGED_BQ
 from ..kvstore import HierarchicalKVStore, KVStoreConfig, payload_nbytes
@@ -126,7 +166,15 @@ from .kvcache import (
 from .prefix_cache import PrefixCache
 from .sampling import SamplingParams, SamplingState
 from .tokenizer import BaseTokenizer, IncrementalDetokenizer
-from .types import EngineConfig, GenerationOutput, _QueuedRequest, _Slot
+from .types import (
+    EngineConfig,
+    EngineWedgedError,
+    GenerationOutput,
+    _DeadlineFetcher,
+    _QueuedRequest,
+    _Slot,
+)
+from .watchdog import EngineWatchdog, WatchdogConfig
 
 logger = logging.getLogger(__name__)
 
@@ -161,11 +209,18 @@ class LLMEngine:
         device=None,
         metrics_label: str = "engine",
         weights_seconds: float = 0.0,
+        checkpoint_label: Optional[str] = None,
+        clock=None,
     ):
         """`params`: the model's parameters on `device` (None draws seeded
         random ones).  `metrics_label` is the model_name label of the
         engine's metrics; `weights_seconds` is the time the caller spent
-        reading and placing `params`, counted into the startup phases."""
+        reading and placing `params`, counted into the startup phases.
+        `checkpoint_label` names the weights in the checkpoints this
+        engine writes, and only a checkpoint with that name (or none)
+        resumes here (default: `metrics_label`; the server passes the
+        served model's name).  `clock` stamps timelines, deadlines and the
+        watchdog (resilience.Clock; real monotonic time by default)."""
         self._construct_t0 = time.perf_counter()
         self.device = resolve_device(device)
         if engine_config.kv_quant not in ("none", "int8"):
@@ -217,8 +272,10 @@ class LLMEngine:
         self.startup_phases = {
             "weights": time.perf_counter() - t0 + weights_seconds}
         self._mlabel = metrics_label
-        # every timeline stamp goes through this clock
-        self._clock = MONOTONIC
+        self._ckpt_label = checkpoint_label or metrics_label
+        # every timeline stamp, deadline and watchdog reading goes through
+        # this clock
+        self._clock = clock or MONOTONIC
         # finished timelines and rolling percentile windows behind
         # telemetry_snapshot()
         self.telemetry = TimelineRecorder()
@@ -342,11 +399,50 @@ class LLMEngine:
         self._admission_seq = 0  # seating order of decoding lanes
         # legacy program -> dispatches so far
         self.legacy_dispatches = {name: 0 for name in LegacyPrograms.NAMES}
+        # lifecycle: once draining, admission is refused and drain()
+        # checkpoints what its budget cannot finish
+        self._draining = False
+        self.resume_count = 0
+        self.checkpointed_count = 0
+        # device calls run on one daemon worker under step_deadline_s; a
+        # call that outlasts it flips `wedged` (liveness)
+        self._fetcher = _DeadlineFetcher()
+        self._wedged = False
+        # fault seams (resilience/faults.py): "engine.fetch" (wedge,
+        # replica_crash) and "engine.preempt" (preempt)
+        self.fault_plan = None
+        # the gray-failure watchdog; the server hooks on_stall_confirmed
+        # to flip its ReplicaLifecycle
+        self._watchdog: Optional[EngineWatchdog] = None
+        self.on_stall_confirmed = None
+        if engine_config.watchdog:
+            self._watchdog = EngineWatchdog(
+                WatchdogConfig(
+                    interval_s=engine_config.watchdog_interval_s,
+                    suspect_after_s=engine_config.watchdog_suspect_s,
+                    confirm_after_s=engine_config.watchdog_confirm_s,
+                    task_stall_s=engine_config.watchdog_task_stall_s,
+                    salvage_grace_s=engine_config.watchdog_salvage_grace_s,
+                ),
+                clock=self._clock,
+                busy=self._has_live_work,
+                on_confirmed=self._stall_confirmed,
+                tasks=lambda: self._pagein_tasks,
+            )
 
     # ---------------- public API ----------------
 
     async def start(self):
         if self._task is None:
+            if self.device.type == "cuda" and "compile" not in self.startup_phases:
+                # build (or load) the kernel library now, before ready: a
+                # cold nvcc build inside the first served dispatch would
+                # blow the step deadline and read as a stall
+                from ..ops._build import load_library
+
+                t0 = time.perf_counter()
+                await asyncio.to_thread(load_library)
+                self.startup_phases["compile"] = time.perf_counter() - t0
             if "ready" not in self.startup_phases:
                 self.startup_phases["ready"] = (
                     time.perf_counter() - self._construct_t0
@@ -354,6 +450,11 @@ class LLMEngine:
                 for phase, seconds in self.startup_phases.items():
                     observe_startup_phase(self._mlabel, phase, seconds)
             self._task = asyncio.create_task(self._run_loop())
+            if self._watchdog is not None:
+                # a start is forward motion: the stall window opens here,
+                # not at construction (the kernel build sits in between)
+                self._watchdog.note_progress()
+                self._watchdog.start()
             logger.info(
                 "LLM engine started on %s: slots=%d pages=%d page_size=%d",
                 self.device, self.config.max_batch_size,
@@ -361,6 +462,7 @@ class LLMEngine:
 
     async def stop(self):
         self._stopped = True
+        self.stop_watchdog()
         self._wake.set()
         self._fail_waiting(RuntimeError("engine stopped"))
         if self._task is not None:
@@ -384,11 +486,14 @@ class LLMEngine:
         self._pageins_ready.clear()
         if self._kv_store is not None:
             self._kv_store.close()
+        self._fetcher.close()
 
-    def generate(self, prompt_ids: List[int],
-                 params: SamplingParams) -> AsyncIterator[GenerationOutput]:
+    def generate(self, prompt_ids: List[int], params: SamplingParams,
+                 request_id: Optional[str] = None) -> AsyncIterator[GenerationOutput]:
         """Submit a request; yields one GenerationOutput per emitted token.
-        Validation runs here, before the stream starts."""
+        Validation runs here, before the stream starts: a draining or
+        stopped engine raises ReplicaDrainingError, an expired propagated
+        deadline DeadlineExceededError (kserve_tpu/engine/engine.py:1362)."""
         if not prompt_ids:
             raise ValueError("empty prompt")
         if params.max_tokens < 1:
@@ -398,12 +503,33 @@ class LLMEngine:
                 f"prompt+max_tokens exceeds max_model_len {self.config.max_model_len}")
         if max(prompt_ids) >= self.model_config.vocab_size or min(prompt_ids) < 0:
             raise ValueError("prompt token id outside the model vocabulary")
-        if self._stopped:
-            raise RuntimeError("engine is stopped")
-        rid = f"req-{time.monotonic_ns()}"
+        self._check_accepting()
+        deadline = self._admission_deadline()
+        rid = request_id or f"req-{time.monotonic_ns()}"
         req = _QueuedRequest(rid, list(prompt_ids), params, asyncio.Queue(),
-                             timeline=self._new_timeline(rid, len(prompt_ids)))
+                             timeline=self._new_timeline(rid, len(prompt_ids)),
+                             deadline=deadline)
         return self._submit_and_stream(req)
+
+    def _check_accepting(self) -> None:
+        """A draining or stopped engine refuses new work at once (503 +
+        Retry-After upstream) instead of queueing it into a replica that
+        is going away."""
+        if self._stopped or self._draining:
+            raise ReplicaDrainingError(
+                "engine is " + ("stopped" if self._stopped else "draining")
+                + "; retry another replica")
+
+    def _admission_deadline(self) -> Optional[Deadline]:
+        """The propagated request deadline (a contextvar the REST server
+        binds), checked here so that a dead budget is refused before any
+        queue slot or prefill is committed."""
+        deadline = current_deadline()
+        if deadline is not None and deadline.expired:
+            DEADLINE_REJECTED.labels(component="engine").inc()
+            raise DeadlineExceededError(
+                "request deadline expired before engine admission")
+        return deadline
 
     def _new_timeline(self, rid: str, n_prompt: int) -> RequestTimeline:
         """A request's timeline, stamped received now (kserve_tpu/engine/
@@ -414,6 +540,9 @@ class LLMEngine:
         return tl
 
     async def _submit_and_stream(self, req: _QueuedRequest):
+        # again at enqueue time: the first __anext__ may come after a
+        # drain's last flush of the queue, and nothing would flush it again
+        self._check_accepting()
         self._waiting.append(req)
         self._set_queue_gauge()
         self._wake.set()
@@ -474,6 +603,45 @@ class LLMEngine:
     def queue_depth(self) -> int:
         """Requests waiting for admission."""
         return len(self._waiting)
+
+    @property
+    def running(self) -> bool:
+        return self._task is not None and not self._task.done()
+
+    @property
+    def wedged(self) -> bool:
+        """True once a device call outlasted the step deadline; liveness
+        reads it so the pod restarts."""
+        return self._wedged
+
+    @property
+    def draining(self) -> bool:
+        return self._draining
+
+    def scheduler_state(self, max_digests: int = 512) -> dict:
+        """The endpoint picker's view of this engine (kserve_tpu/engine/
+        engine.py:829-887): load, free pages, the hottest prefix digests
+        (hex, most recently used last), latency windows, and the spec,
+        watchdog and prefix-store blocks where they apply.  The peer page
+        fabric's keys (`peer_pages`, `peer`) come with that fabric."""
+        state = {
+            "queue_depth": self.queue_depth,
+            "inflight": sum(1 for s in self._slots if s.request_id is not None),
+            "free_pages": self.allocator.free_pages,
+            "page_size": self.config.page_size,
+            "running": self.running,
+            "wedged": self._wedged,
+            "prefix_digests": self._prefix_cache.hottest_digests(max_digests),
+            "telemetry": self.telemetry.signal_windows(),
+        }
+        if self._spec_k is not None and self._spec_k > 0:
+            state["spec"] = dict(self.spec_stats)
+        if self._watchdog is not None:
+            state["watchdog"] = self._watchdog.snapshot()
+        stats = self.prefix_store_stats()
+        if stats is not None:
+            state["prefix_store"] = stats
+        return state
 
     # ---------------- telemetry ----------------
     # Port of kserve_tpu/engine/engine.py:1206-1253 (without the tracer).
@@ -540,13 +708,302 @@ class LLMEngine:
             self._prefix_cache.adopted_hits * self.config.page_size)
         return stats
 
+    # ---------------- lifecycle: drain and resumable generation ----------------
+    # Port of kserve_tpu/engine/engine.py:1660-1886.
+
+    def _checkpoint(self, request_id, prompt_ids, generated, params,
+                    deadline, reason) -> GenerationCheckpoint:
+        ckpt = GenerationCheckpoint.capture(
+            request_id=request_id, prompt_ids=prompt_ids, generated=generated,
+            params=params, adapter=None, model_name=self._ckpt_label,
+            deadline=deadline, reason=reason)
+        self.checkpointed_count += 1
+        GENERATION_CHECKPOINTS.labels(model_name=self._mlabel, reason=reason).inc()
+        return ckpt
+
+    def _checkpoint_slot(self, slot: _Slot, reason: str) -> GenerationCheckpoint:
+        """Snapshot a seated slot.  A slot still prefilling has emitted
+        nothing new: its checkpoint carries the prompt and what an earlier
+        resume had generated, so resuming costs one prefill."""
+        if slot.prefilling is not None:
+            req = slot.prefilling["req"]
+            generated = req.resume["generated"] if req.resume is not None else []
+            return self._checkpoint(req.request_id, req.prompt_ids, generated,
+                                    req.params, req.deadline, reason)
+        return self._checkpoint(slot.request_id, slot.prompt_ids, slot.generated,
+                                slot.params, slot.deadline, reason)
+
+    def _evict_slot(self, slot: _Slot, exc: Exception) -> None:
+        """Raise `exc` into the slot's stream and release the slot, as
+        cancel() does: a dispatch in flight writes the freed pages before
+        any later owner's (one stream), and its route drops the tokens of
+        a slot whose request went away."""
+        slot.queue.put_nowait(exc)
+        if slot.timeline is not None:
+            if isinstance(exc, GenerationPreempted):
+                slot.timeline.add_event(self._clock.now(), "checkpoint")
+                self._record_terminal(slot.timeline, "preempted")
+            else:
+                self._record_terminal(slot.timeline, "error")
+        self.allocator.free(slot.pages)
+        self._mark_penalty_dirty(self._slots.index(slot))
+        slot.reset()
+
+    def _checkpoint_waiting(self, reason: str,
+                            out: List[GenerationCheckpoint]) -> None:
+        """Checkpoint every queued request (fresh arrivals and preempted
+        lanes alike) and raise GenerationPreempted into its stream; a
+        spilled resume's KV is released (a resume elsewhere re-prefills)."""
+        pending, self._waiting = self._waiting, []
+        for req in pending:
+            self._discard_resume_kv(req)
+            generated = list(req.resume["generated"]) if req.resume is not None else []
+            ckpt = self._checkpoint(req.request_id, req.prompt_ids, generated,
+                                    req.params, req.deadline, reason)
+            out.append(ckpt)
+            req.queue.put_nowait(GenerationPreempted(ckpt))
+            if req.timeline is not None:
+                req.timeline.add_event(self._clock.now(), "checkpoint", reason=reason)
+                self._record_terminal(req.timeline, "preempted")
+        self._set_queue_gauge()
+
+    async def drain(self, deadline: Optional[Deadline] = None, clock=None,
+                    poll_s: float = 0.01,
+                    reason: str = "drain") -> List[GenerationCheckpoint]:
+        """Graceful drain (SIGTERM, POST /admin/drain): stop admitting, let
+        seated generations run until `deadline` (the replica's drain budget)
+        expires, then snapshot what is left into portable checkpoints,
+        raised into each stream as GenerationPreempted.  Queued requests
+        are checkpointed at once.  `clock` paces the polls (a FakeClock
+        makes the wait virtual); a second signal expires `deadline` in
+        place, which the next poll sees.  `reason` labels the checkpoints
+        ("drain", or "stall" for the watchdog's self-drain).  Returns the
+        checkpoints, newest last (kserve_tpu/engine/engine.py:1741)."""
+        self._draining = True
+        clk = clock or MONOTONIC
+        checkpoints: List[GenerationCheckpoint] = []
+        while True:
+            # lanes preempted under KV pressure during the drain land back
+            # in the queue: each pass checkpoints them instead of re-seating
+            self._checkpoint_waiting(reason, checkpoints)
+            active = [s for s in self._slots if s.request_id is not None]
+            # a legacy batch being prefilled seats its rows when the call
+            # returns: wait for them rather than leave them running
+            if not active and not self._admitting:
+                break
+            if active and deadline is not None and deadline.expired:
+                for slot in active:
+                    ckpt = self._checkpoint_slot(slot, reason)
+                    checkpoints.append(ckpt)
+                    self._evict_slot(slot, GenerationPreempted(ckpt))
+                self._wake.set()
+                if not self._admitting:
+                    break
+            await clk.sleep(poll_s)
+        if checkpoints:
+            logger.info("drain: %d generation(s) checkpointed (%d tokens salvaged)",
+                        len(checkpoints),
+                        sum(c.tokens_salvaged for c in checkpoints))
+        return checkpoints
+
+    def resume_generation(self, checkpoint: GenerationCheckpoint,
+                          request_id: Optional[str] = None
+                          ) -> AsyncIterator[GenerationOutput]:
+        """Admit a generation checkpointed on another replica (or by the
+        JAX package).  It rides the preemption resume: a prefill of prompt
+        + generated[:-1] writes the KV, the detokenizer is replayed to the
+        checkpoint, and decoding goes on from the last generated token, so
+        the spliced stream repeats and drops nothing.  Validation runs
+        here, before the stream starts (kserve_tpu/engine/engine.py:1787)."""
+        if checkpoint.model_name and checkpoint.model_name != self._ckpt_label:
+            raise ValueError(
+                f"checkpoint was captured on model {checkpoint.model_name!r} "
+                f"but this engine serves {self._ckpt_label!r}; resume "
+                "requires identical weights")
+        # a header's checkpoint is untrusted: normalize it here, so that a
+        # bad value fails this request and not the shared run loop
+        checkpoint.validate(self.model_config.vocab_size)
+        params = checkpoint.sampling_params()
+        prompt_ids = list(checkpoint.prompt_ids)
+        if len(prompt_ids) + params.max_tokens > self.config.max_model_len:
+            raise ValueError(
+                f"prompt+max_tokens exceeds max_model_len {self.config.max_model_len}")
+        # max_tokens is the whole budget (tokens before the drain count),
+        # so with the bound above this also caps prompt + generated
+        if len(checkpoint.generated) >= params.max_tokens:
+            raise ValueError(
+                f"checkpoint already holds {len(checkpoint.generated)} "
+                f"generated tokens with max_tokens={params.max_tokens}; "
+                "nothing left to resume")
+        self._check_accepting()
+        # the budget is the lesser of the snapshot's remainder (anchored on
+        # this engine's clock) and the retry's own propagated deadline
+        deadline = self._admission_deadline()
+        if checkpoint.deadline_remaining_s is not None:
+            if checkpoint.deadline_remaining_s <= 0:
+                DEADLINE_REJECTED.labels(component="engine").inc()
+                raise DeadlineExceededError(
+                    "checkpoint deadline budget exhausted before resume")
+            snapshot = Deadline.after(checkpoint.deadline_remaining_s, self._clock)
+            if deadline is None or snapshot.remaining() < deadline.remaining():
+                deadline = snapshot
+        if checkpoint.adapter is not None:
+            # no LoRA adapter is served here yet: resuming on the base
+            # weights would splice another model's continuation
+            raise ValueError(
+                f"unknown LoRA adapter {checkpoint.adapter!r}; loaded: none")
+        generated = [int(t) for t in checkpoint.generated]
+        # unique even when the same checkpoint is replayed twice: cancel()
+        # tears down every slot of an id, so two resumes sharing one would
+        # have the first to finish evict its sibling
+        if request_id is not None:
+            rid = request_id
+        elif checkpoint.request_id:
+            rid = f"{checkpoint.request_id}~r{time.monotonic_ns()}"
+        else:
+            rid = f"req-{time.monotonic_ns()}"
+        tl = self._new_timeline(rid, len(prompt_ids))
+        tl.add_event(self._clock.now(), "resume", tokens_salvaged=len(generated))
+        req = _QueuedRequest(rid, prompt_ids, params, asyncio.Queue(),
+                             timeline=tl, deadline=deadline)
+        if generated:
+            # the continuation's text deltas pick up where the drained
+            # replica's stream stopped
+            detok = IncrementalDetokenizer(self.tokenizer)
+            for t in generated:
+                detok.push(t)
+            self._admission_seq += 1
+            req.resume = {
+                "generated": generated,
+                "detok": detok,
+                "stop_texts": list(params.stop or []),
+                "pos": len(prompt_ids) + len(generated) - 1,
+                "admitted_at": self._admission_seq,
+                "kv": None,  # across replicas: always re-prefill
+            }
+        self.resume_count += 1
+        GENERATION_RESUMES.labels(model_name=self._mlabel).inc()
+        TOKENS_SALVAGED.labels(model_name=self._mlabel).inc(len(generated))
+        return self._submit_and_stream(req)
+
+    def _drop_expired_waiting(self) -> None:
+        """Fail queued requests whose propagated deadline expired before a
+        slot freed (504 at the protocol layer); a spilled resume's KV goes
+        back to the tier store (kserve_tpu/engine/engine.py:1960)."""
+        kept: List[_QueuedRequest] = []
+        for req in self._waiting:
+            if req.deadline is None or not req.deadline.expired:
+                kept.append(req)
+                continue
+            self._discard_resume_kv(req)
+            DEADLINE_REJECTED.labels(component="engine").inc()
+            req.queue.put_nowait(DeadlineExceededError(
+                f"request {req.request_id} deadline expired while queued"))
+            self._record_terminal(req.timeline, "error")
+        if len(kept) != len(self._waiting):
+            self._waiting = kept
+            self._set_queue_gauge()
+
+    # ---------------- the watchdog and the step deadline ----------------
+    # Port of kserve_tpu/engine/engine.py:1257-1360.
+
+    def _has_live_work(self) -> bool:
+        """The watchdog's busy probe: seated or queued work."""
+        return bool(self._waiting) or any(
+            s.request_id is not None for s in self._slots)
+
+    def _note_progress(self) -> None:
+        if self._watchdog is not None:
+            self._watchdog.note_progress()
+
+    def stop_watchdog(self) -> None:
+        if self._watchdog is not None:
+            self._watchdog.stop()
+
+    def _stall_confirmed(self, reason: str) -> None:
+        """The watchdog confirmed a stall: tell the server (readiness) and
+        self-drain with checkpoints, so each stream can resume on a healthy
+        replica instead of hanging until its client gives up."""
+        if self.on_stall_confirmed is not None:
+            try:
+                self.on_stall_confirmed(reason)
+            except Exception:  # noqa: BLE001 — the salvage drain must still run
+                logger.exception("on_stall_confirmed hook failed")
+        # tracked for stop(), but not stamped for the watchdog's task
+        # reaper: it must never cancel its own salvage drain
+        task = asyncio.get_running_loop().create_task(self._stall_self_drain())
+        self._pagein_tasks.add(task)
+        task.add_done_callback(self._pagein_tasks.discard)
+
+    async def _stall_self_drain(self) -> None:
+        deadline = Deadline.after(self.config.watchdog_salvage_grace_s, self._clock)
+        try:
+            checkpoints = await self.drain(deadline=deadline, clock=self._clock,
+                                           reason="stall")
+            logger.error("watchdog self-drain complete: %d generation(s) "
+                         "checkpointed for migration", len(checkpoints))
+        except Exception:  # noqa: BLE001 — the stall state is already exported
+            logger.exception("watchdog self-drain failed")
+
+    def _fetch_fault_check(self) -> None:
+        """The "engine.fetch" fault seam, shared by both fetch paths."""
+        if self.fault_plan is not None:
+            spec = self.fault_plan.decide("engine.fetch")
+            if spec is not None and spec.kind == "wedge":
+                raise self._wedge("injected wedge (fault plan)")
+            if spec is not None and spec.kind == "replica_crash":
+                raise ReplicaCrashError("injected replica crash (fault plan)")
+
+    def _wedge(self, msg: str) -> EngineWedgedError:
+        self._wedged = True
+        ENGINE_WEDGED.labels(model_name=self._mlabel).set(1)
+        return EngineWedgedError(msg)
+
+    def _fetch_timeout(self) -> EngineWedgedError:
+        return self._wedge(
+            f"device call exceeded step_deadline_s={self.config.step_deadline_s}s"
+            " — device wedged?")
+
+    def _fetch(self, fn):
+        """Run device call `fn` (a gather and its read back) on the worker
+        and wait for it here, under the step deadline (the spill and the
+        demotion, whose pages are reused once this returns)."""
+        self._fetch_fault_check()
+        try:
+            return self._fetcher.fetch(fn, self.config.step_deadline_s)
+        except TimeoutError:
+            raise self._fetch_timeout() from None
+
+    async def _fetch_async(self, fn, *args):
+        """Run device call `fn(*args)` (a dispatch, the fetch of its tokens)
+        on the worker under the step deadline; the event loop keeps
+        answering probes, /admin/drain and admission meanwhile."""
+        self._fetch_fault_check()
+        wd = self._watchdog
+        if wd is not None:
+            wd.fetch_started()
+        try:
+            return await self._fetcher.fetch_async(
+                lambda: fn(*args), self.config.step_deadline_s)
+        except TimeoutError:
+            raise self._fetch_timeout() from None
+        finally:
+            if wd is not None:
+                wd.fetch_done()
+
     # ---------------- run loop ----------------
 
     async def _run_loop(self):
         try:
             while not self._stopped:
                 did_work = self._land_page_ins()
-                while self._waiting and self._free_slot_index() is not None:
+                # a queued request whose budget died is failed before it
+                # costs a prefill
+                self._drop_expired_waiting()
+                # paused while draining: the queue belongs to drain()'s
+                # checkpoints, not to a replica that is going away
+                while (not self._draining and self._waiting
+                       and self._free_slot_index() is not None):
                     if self._use_mixed:
                         admitted = self._admit_mixed()
                     else:
@@ -558,6 +1015,8 @@ class LLMEngine:
                 if await step():
                     did_work = True
                 self._set_occupancy_gauges()
+                if did_work:
+                    self._note_progress()
                 if not did_work and not self._pageins_ready:
                     self._wake.clear()
                     await self._wake.wait()
@@ -690,6 +1149,14 @@ class LLMEngine:
         preempted (its `_can_preempt` is always true), so the JAX branch
         where starved lanes pause for want of a victim cannot arise."""
         ps = self.config.page_size
+        # the "engine.preempt" fault seam: requeue the newest decoding lane
+        if self.fault_plan is not None:
+            spec = self.fault_plan.decide("engine.preempt")
+            if spec is not None and spec.kind == "preempt":
+                victims = [s for s in self._slots
+                           if s.request_id is not None and s.prefilling is None]
+                if victims:
+                    self._preempt(max(victims, key=lambda s: s.admitted_at))
         while True:
             active = [s for s in self._slots
                       if s.request_id is not None and s.prefilling is None]
@@ -720,7 +1187,13 @@ class LLMEngine:
             logger.warning("KV cache smaller than one sequence: truncating "
                            "%d lane(s)", len(starved))
             for slot in starved:
-                self._finish(slot, "length")
+                if self._draining:
+                    # a drain checkpoints it instead of a "length" that
+                    # would not be true: a healthy replica finishes it
+                    ckpt = self._checkpoint_slot(slot, "preempt")
+                    self._evict_slot(slot, GenerationPreempted(ckpt))
+                else:
+                    self._finish(slot, "length")
 
     def _preempt_prefilling(self, slot: _Slot) -> None:
         """Requeue a prefilling slot's request at the front and free its
@@ -747,15 +1220,18 @@ class LLMEngine:
         pos = slot.pos  # the device KV covers positions 0 .. pos-1
         n_pages = pages_needed(pos, self.config.page_size)
         kv_key = None
-        if self._kv_store is not None and self._kv_store.would_fit(
-                n_pages * self._page_bytes()):
+        # no spill mid-drain: the drain checkpoints the requeued request
+        # and a resume elsewhere re-prefills
+        if (self._kv_store is not None and not self._draining
+                and self._kv_store.would_fit(n_pages * self._page_bytes())):
             payload = self._fetch_pages(slot.pages[:n_pages])
             if self._kv_store.put(slot.request_id, payload):
                 kv_key = slot.request_id
                 self.kv_tier_counts["spills"] += 1
                 self.kv_tier_counts["spilled_bytes"] += payload_nbytes(payload)
         req = _QueuedRequest(slot.request_id, slot.prompt_ids, slot.params,
-                             slot.queue, timeline=slot.timeline)
+                             slot.queue, timeline=slot.timeline,
+                             deadline=slot.deadline)
         if slot.timeline is not None:
             slot.timeline.add_event(self._clock.now(), "preempt", pos=pos,
                                     spilled=kv_key is not None)
@@ -795,8 +1271,9 @@ class LLMEngine:
         """Gather pages and read them back to the host (waits for the
         device): the preemption spill and the prefix demotion, whose
         pages are reused once the call returns."""
-        return {name: t.cpu() for name, t in
-                gather_pages(self.kv_pages, page_ids).items()}
+        return self._fetch(lambda: {
+            name: t.cpu()
+            for name, t in gather_pages(self.kv_pages, page_ids).items()})
 
     def _inject_payload(self, payload: Dict[str, torch.Tensor],
                         page_ids: List[int]) -> None:
@@ -845,6 +1322,8 @@ class LLMEngine:
 
     def _track_task(self, coro) -> None:
         task = asyncio.get_running_loop().create_task(coro)
+        # the watchdog cancels a tracked task alive past its budget
+        task._wd_started_s = self._clock.now()
         self._pagein_tasks.add(task)
         task.add_done_callback(self._pagein_tasks.discard)
 
@@ -1102,7 +1581,7 @@ class LLMEngine:
             return True
         plan = self._plan_ragged(meta, prefilling)
         dispatched_at = self._clock.now()
-        chunk_np = await asyncio.to_thread(self._dispatch, plan)
+        chunk_np = await self._fetch_async(self._dispatch, plan)
         self.steps += 1
         self._route_mixed(plan, chunk_np, dispatched_at)
         return True
@@ -1290,6 +1769,8 @@ class LLMEngine:
                 self._emit(slot, token)
                 routed += 1
         GENERATED_TOKENS.labels(model_name=self._mlabel).inc(routed)
+        if routed or plan["chunks"]:
+            self._note_progress()
 
     # ---------------- legacy programs ----------------
     # Port of kserve_tpu/engine/engine.py:1990-2437 (admission and chunked
@@ -1407,12 +1888,12 @@ class LLMEngine:
         prefill_t0 = self._clock.now()
         if cold:
             name = "prefill_lp" if want_lp else "prefill"
-            first, lp = await asyncio.to_thread(
+            first, lp = await self._fetch_async(
                 self._run_prefill, name, tokens, valid, page_ids, params_list)
             self.legacy_dispatches[name] += 1
         else:
             name = "sample_first_lp" if want_lp else "sample_first"
-            first, lp = await asyncio.to_thread(
+            first, lp = await self._fetch_async(
                 self._run_prefill_hits, name, tokens, chunk_start, valid,
                 page_ids, params_list, in_prompt)
             self.legacy_dispatches["prefill_chunk"] += 1
@@ -1502,7 +1983,7 @@ class LLMEngine:
                 tl = pf["req"].timeline
                 if tl is not None:
                     tl.mark_prefill_start(chunk_t0)
-                logits = await asyncio.to_thread(
+                logits = await self._fetch_async(
                     self._run_prefill_chunk, tokens, done, n, page_ids)
                 self.legacy_dispatches["prefill_chunk"] += 1
                 chunk_t1 = self._clock.now()
@@ -1539,7 +2020,7 @@ class LLMEngine:
             in_prompt[0, np.asarray(pf["seq"], np.int64)] = True
             name = ("sample_first" if req.params.logprobs is None
                     else "sample_first_lp")
-            first, lp = await asyncio.to_thread(
+            first, lp = await self._fetch_async(
                 self._run_sample_first, name, pf["logits"], req.params, in_prompt)
             self.legacy_dispatches[name] += 1
             if slot.prefilling is not pf:
@@ -1643,7 +2124,7 @@ class LLMEngine:
         record it."""
         tokens_dev = None if prev is None else prev["tokens"][-1]
         meta["_dispatched_at"] = self._clock.now()
-        chunk = await asyncio.to_thread(self._dispatch_chunk, meta, tokens_dev)
+        chunk = await self._fetch_async(self._dispatch_chunk, meta, tokens_dev)
         self.legacy_dispatches[chunk["name"]] += 1
         if not meta["penalized"] and self._penalty_counts is not None:
             # lanes advanced without the device counts: every row is stale
@@ -1658,7 +2139,7 @@ class LLMEngine:
         active lane emits min(steps, capacity - pos) tokens, dropping the
         tail after a finish.  True when a lane finished (a chained
         dispatch then has stale lanes)."""
-        host = await asyncio.to_thread(self._wait_host, chunk)
+        host = await self._fetch_async(self._wait_host, chunk)
         self._record_step(meta["_dispatched_at"])
         toks, lp = host[0], (host[1:] if len(host) > 1 else None)
         steps = self.config.steps_per_sync
@@ -1681,6 +2162,9 @@ class LLMEngine:
                 self._finish(slot, "length")
                 finished_any = True
         GENERATED_TOKENS.labels(model_name=self._mlabel).inc(routed)
+        if routed or finished_any:
+            # a depth-2 chain can run long without returning to the loop
+            self._note_progress()
         return finished_any
 
     async def _decode_once(self) -> None:
@@ -1706,7 +2190,7 @@ class LLMEngine:
                 for i, s in enumerate(self._slots))
             if (admission_blocked and not prefill_pending
                     and not predictable_finish and not meta["penalized"]
-                    and not self._stopped):
+                    and not (self._stopped or self._draining)):
                 meta2 = self._prepare_chunk(prev=meta)
             if meta2 is not None:
                 chunk2 = await self._launch_chunk(meta2, prev=chunk)
@@ -1716,7 +2200,7 @@ class LLMEngine:
             if chunk2 is None:
                 break
             meta, chunk = meta2, chunk2
-            if (finished_any or self._stopped
+            if (finished_any or self._stopped or self._draining
                     or (self._waiting and self._free_slot_index() is not None)):
                 # stale lanes, or admission can proceed: drain and re-plan
                 self._pipeline_busy = False
@@ -1881,7 +2365,7 @@ class LLMEngine:
         round was skipped for capacity).  A lane whose request went away
         while the dispatch ran is discarded whole.  Returns (any lane
         finished, any token routed)."""
-        toks_np, n_np = await asyncio.to_thread(self._wait_host, chunk)
+        toks_np, n_np = await self._fetch_async(self._wait_host, chunk)
         self._record_step(plan["_dispatched_at"])
         k = self._spec_k
         routed = drafted = accepted = 0
@@ -1926,6 +2410,8 @@ class LLMEngine:
             self.spec_stats["drafted"] += drafted
             self.spec_stats["accepted"] += accepted
             self.spec_stats["rejected"] += drafted - accepted
+        if routed or finished_any:
+            self._note_progress()
         return finished_any, routed > 0
 
     async def _step_dense(self, meta: dict) -> None:
@@ -1934,7 +2420,7 @@ class LLMEngine:
         routed, so routing N overlaps N+1 on the device."""
         plan = self._plan_dense(meta)
         plan["_dispatched_at"] = self._clock.now()
-        chunk = await asyncio.to_thread(self._dispatch_dense, plan)
+        chunk = await self._fetch_async(self._dispatch_dense, plan)
         self.dense_steps += 1
         while True:
             plan2 = chunk2 = None
@@ -1946,11 +2432,12 @@ class LLMEngine:
                 s.request_id is not None and plan["live"][i]
                 and len(s.generated) + self._max_step_advance >= s.params.max_tokens
                 for i, s in enumerate(self._slots))
-            if admission_blocked and not predictable_finish and not self._stopped:
+            if (admission_blocked and not predictable_finish
+                    and not (self._stopped or self._draining)):
                 plan2 = self._plan_dense_chained(plan)
             if plan2 is not None:
                 plan2["_dispatched_at"] = self._clock.now()
-                chunk2 = await asyncio.to_thread(self._dispatch_dense, plan2, chunk)
+                chunk2 = await self._fetch_async(self._dispatch_dense, plan2, chunk)
                 self.dense_steps += 1
                 self.chained_dispatches += 1
                 self._pipeline_busy = True
@@ -1959,7 +2446,7 @@ class LLMEngine:
             if chunk2 is None:
                 break
             plan, chunk = plan2, chunk2
-            if (finished_any or not routed_any or self._stopped
+            if (finished_any or not routed_any or self._stopped or self._draining
                     or (self._waiting and self._free_slot_index() is not None)):
                 # stale lanes, admission can proceed, or every round was
                 # skipped for capacity: drain the pipeline and re-plan
@@ -1978,6 +2465,7 @@ class LLMEngine:
         slot.detok = IncrementalDetokenizer(self.tokenizer)
         slot.stop_texts = list(req.params.stop or [])
         slot.timeline = req.timeline
+        slot.deadline = req.deadline
         self._admission_seq += 1
         slot.admitted_at = self._admission_seq
         self._mark_penalty_dirty(self._slots.index(slot))
@@ -1997,6 +2485,7 @@ class LLMEngine:
         slot.stop_texts = r["stop_texts"]
         slot.admitted_at = r["admitted_at"]
         slot.timeline = req.timeline
+        slot.deadline = req.deadline
         self._mark_penalty_dirty(self._slots.index(slot))
 
     def _register_chunk(self, slot: _Slot, pf: dict) -> None:
@@ -2059,6 +2548,7 @@ class LLMEngine:
             finished=finish_reason is not None,
             finish_reason=finish_reason,
             num_generated=n_gen,
+            cumulative_text=text,
             logprob=logprob,
             top_logprobs=top_logprobs,
         ))
@@ -2076,6 +2566,7 @@ class LLMEngine:
             finished=True,
             finish_reason=reason,
             num_generated=len(slot.generated),
+            cumulative_text=slot.detok.text,
         ))
         self._record_terminal(slot.timeline, reason)
         self.allocator.free(slot.pages)

@@ -1,10 +1,12 @@
-"""Engine runtime types: configuration, the output record, and slot and
-queue bookkeeping.
+"""Engine runtime types: configuration, the output record, slot and
+queue bookkeeping, and the deadline-guarded device fetcher.
 
 Port of kserve_tpu/engine/types.py (EngineConfig :36 with the fields the
-port uses, spec_decode_k_from_env :210, GenerationOutput :317 with its
-logprobs, _Slot :331, _QueuedRequest :359 with its `resume` state, its
-`pagein` state, its `timeline` and `kv_len`).  The knobs the port does
+port uses, the step deadline :44 and the watchdog knobs :181-186 among
+them, spec_decode_k_from_env :210, EngineWedgedError :235, the fetcher
+_DeadlineFetcher :240, GenerationOutput :317 with its logprobs, _Slot
+:331 with its deadline, _QueuedRequest :359 with its deadline, its
+`resume` state, its `pagein` state, its `timeline` and `kv_len`).  The knobs the port does
 not run yet (weight_quant, tp/dp/sp/pp) are kept so a configuration
 asking for them is rejected at engine construction instead of silently
 ignored.
@@ -12,8 +14,11 @@ ignored.
 
 from __future__ import annotations
 
+import asyncio
 import logging
 import os
+import queue
+import threading
 from dataclasses import dataclass
 from typing import List, Optional, Tuple
 
@@ -27,6 +32,12 @@ class EngineConfig:
     max_batch_size: int = 8
     page_size: int = 16
     num_pages: int = 2048
+    # wedge detection: a device call (a dispatch and the fetch of its
+    # tokens) that outlasts this marks the engine wedged, and /v2/health/
+    # live goes red so the pod restarts instead of hanging.  On CUDA the
+    # kernel library is loaded before the engine reports ready, so no
+    # served call includes an nvcc build.
+    step_deadline_s: float = 300.0
     max_pages_per_seq: int = 128
     max_prefill_len: int = 1024
     prefill_buckets: Tuple[int, ...] = (32, 64, 128, 256, 512, 1024)
@@ -74,6 +85,16 @@ class EngineConfig:
     # them back in on first use.  None = off ($KSERVE_TPU_KV_PERSIST in
     # the server)
     kv_persist_dir: Optional[str] = None
+    # gray-failure watchdog (engine/watchdog.py): seated or queued work
+    # with no forward motion past suspect + confirm flips readiness and
+    # self-drains with checkpoints.  Off by default ($KSERVE_TPU_WATCHDOG
+    # in the server)
+    watchdog: bool = False
+    watchdog_interval_s: float = 0.5
+    watchdog_suspect_s: float = 5.0
+    watchdog_confirm_s: float = 5.0
+    watchdog_task_stall_s: float = 30.0
+    watchdog_salvage_grace_s: float = 0.0
     # not run by this port yet: any other value is rejected
     weight_quant: str = "none"
     tp: int = 1
@@ -121,6 +142,96 @@ def spec_decode_k_from_env() -> Optional[int]:
     return k
 
 
+class EngineWedgedError(RuntimeError):
+    """A device call outlasted step_deadline_s: the device is taken to be
+    wedged, and liveness fails until the pod restarts."""
+
+
+class _LoopNotify:
+    """threading.Event-shaped completion signal for fetch_async: the
+    worker's set() is marshalled onto the event loop."""
+
+    __slots__ = ("_loop", "_event")
+
+    def __init__(self, loop: asyncio.AbstractEventLoop, event: asyncio.Event):
+        self._loop = loop
+        self._event = event
+
+    def set(self) -> None:
+        try:
+            self._loop.call_soon_threadsafe(self._event.set)
+        except RuntimeError:
+            pass  # the loop closed during shutdown; nobody waits
+
+
+class _DeadlineFetcher:
+    """One daemon worker thread that runs the engine's device calls (a
+    dispatch and the fetch of its tokens) under a deadline.  A CUDA
+    synchronize cannot be cancelled, so a call that times out leaves the
+    worker stuck, and every later call waits behind it and times out too;
+    the thread is a daemon so that it never blocks interpreter exit.  The
+    event loop only awaits an asyncio event, so probes, /admin/drain and
+    admission answer while a call computes."""
+
+    def __init__(self):
+        self._q: "queue.Queue" = queue.Queue()
+        self._closed = False
+        self._thread = threading.Thread(target=self._run, daemon=True,
+                                        name="engine-fetch")
+        self._thread.start()
+
+    def _run(self):
+        while True:
+            item = self._q.get()
+            if item is None:
+                return
+            fn, box, done = item
+            try:
+                box.append(("ok", fn()))
+            except BaseException as exc:  # noqa: BLE001 — relayed to the waiting caller
+                box.append(("err", exc))
+            done.set()
+
+    def _check_open(self) -> None:
+        if self._closed:
+            # fail fast instead of waiting a whole deadline on a dead queue
+            raise RuntimeError("engine stopped")
+
+    @staticmethod
+    def _unbox(box: list):
+        kind, value = box[0]
+        if kind == "err":
+            raise value
+        return value
+
+    def fetch(self, fn, timeout_s: float):
+        """Run `fn` on the worker and wait for it (blocking)."""
+        self._check_open()
+        box: list = []
+        done = threading.Event()
+        self._q.put((fn, box, done))
+        if not done.wait(timeout_s):
+            raise TimeoutError(f"fetch exceeded {timeout_s}s")
+        return self._unbox(box)
+
+    async def fetch_async(self, fn, timeout_s: float):
+        """Run `fn` on the worker; the event loop keeps serving meanwhile."""
+        self._check_open()
+        loop = asyncio.get_running_loop()
+        event = asyncio.Event()
+        box: list = []
+        self._q.put((fn, box, _LoopNotify(loop, event)))
+        try:
+            await asyncio.wait_for(event.wait(), timeout_s)
+        except asyncio.TimeoutError:
+            raise TimeoutError(f"fetch exceeded {timeout_s}s") from None
+        return self._unbox(box)
+
+    def close(self):
+        self._closed = True
+        self._q.put(None)
+
+
 @dataclass
 class GenerationOutput:
     token_id: int
@@ -128,6 +239,9 @@ class GenerationOutput:
     finished: bool = False
     finish_reason: Optional[str] = None
     num_generated: int = 0
+    # the whole text so far (a resumed stream's includes the checkpointed
+    # tokens': the detokenizer was replayed through them)
+    cumulative_text: str = ""
     # the token's log-probability and the request's top alternatives as
     # (token id, logprob), best first; None unless it asked for logprobs
     logprob: Optional[float] = None
@@ -140,7 +254,7 @@ class _Slot:
     __slots__ = (
         "request_id", "prompt_ids", "prompt_len", "pages", "pos", "generated",
         "params", "queue", "detok", "stop_texts", "prefilling", "admitted_at",
-        "timeline",
+        "timeline", "deadline",
     )
 
     def __init__(self):
@@ -152,19 +266,27 @@ class _Slot:
         self.prefilling: Optional[dict] = None
         # the occupant's observability.RequestTimeline
         self.timeline = None
+        # the occupant's resilience.Deadline (None = unbounded): a drain's
+        # checkpoint carries what is left of it
+        self.deadline = None
 
     def reset(self):
         self.request_id = None
         self.prefilling = None
         self.timeline = None
+        self.deadline = None
 
 
 class _QueuedRequest:
-    def __init__(self, request_id, prompt_ids, params, queue, timeline=None):
+    def __init__(self, request_id, prompt_ids, params, queue, timeline=None,
+                 deadline=None):
         self.request_id = request_id
         self.prompt_ids: List[int] = prompt_ids
         self.params = params
         self.queue = queue
+        # resilience.Deadline captured at submit: a request whose budget
+        # dies while it waits is failed with DeadlineExceededError
+        self.deadline = deadline
         # observability.RequestTimeline, stamped received at submit
         self.timeline = timeline
         # a preempted request's stream state, restored when it seats again:

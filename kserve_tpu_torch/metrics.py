@@ -4,9 +4,11 @@ prometheus_client).
 
 Port of the series of kserve_tpu/metrics.py that the port's engine feeds,
 under the same names, help texts, labels and buckets: token counters,
-occupancy / queue / free-page gauges, the request-timeline histograms
-(TTFT, ITL, queue wait, e2e), decode-step and prefill-chunk durations,
-preemptions, speculative draft outcomes, and the startup phases.  The
+occupancy / queue / free-page gauges, the wedge gauge, the request-timeline
+histograms (TTFT, ITL, queue wait, e2e), decode-step and prefill-chunk
+durations, preemptions, speculative draft outcomes, the startup phases,
+load shedding and deadline rejections, and the lifecycle series (state,
+drain duration, checkpoints, resumes, tokens salvaged).  The
 JAX package's other series come with their modules.  `GET /metrics`
 serves `generate_latest()`.
 
@@ -61,6 +63,8 @@ class _Metric:
         self._children: Dict[Tuple[str, ...], object] = {}
         self._lock = threading.Lock()
         _REGISTRY.append(self)
+        if not self.labelnames:
+            self.labels()  # an unlabeled series is exposed from the start
 
     def labels(self, **labels):
         if set(labels) != set(self.labelnames):
@@ -148,12 +152,20 @@ class Counter(_Metric):
     def _new_child(self):
         return _CounterChild()
 
+    def inc(self, amount: float = 1.0) -> None:
+        """An unlabeled counter's increment."""
+        self.labels().inc(amount)
+
 
 class Gauge(_Metric):
     kind = "gauge"
 
     def _new_child(self):
         return _GaugeChild()
+
+    def set(self, value: float) -> None:
+        """An unlabeled gauge's value."""
+        self.labels().set(value)
 
 
 class Histogram(_Metric):
@@ -168,6 +180,10 @@ class Histogram(_Metric):
 
     def _new_child(self):
         return _HistogramChild(self.buckets)
+
+    def observe(self, value: float) -> None:
+        """An unlabeled histogram's observation."""
+        self.labels().observe(value)
 
 
 # every series below, in definition order (filled at import)
@@ -200,10 +216,65 @@ ENGINE_QUEUE_DEPTH = Gauge(
 ENGINE_KV_PAGES_FREE = Gauge(
     "engine_kv_pages_free", "free KV cache pages", ["model_name"]
 )
+ENGINE_WEDGED = Gauge(
+    "engine_wedged", "1 once a device fetch blew the step deadline "
+    "(liveness fails; pod restart expected)", ["model_name"]
+)
 ENGINE_PREEMPTIONS = Counter(
     "engine_preemptions_total",
     "sequences preempted back to the queue on KV pressure", ["model_name"],
 )
+
+# Resilience and lifecycle layers (kserve_tpu/metrics.py:131-180): load
+# shedding and deadline rejections by component (rest | engine), the
+# replica's one-hot lifecycle state, drain wall time, and the portable
+# checkpoints and resumes with the tokens they carried over.
+SHED_REQUESTS = Counter(
+    "resilience_shed_requests_total",
+    "requests bounced with 429 + Retry-After at admission",
+    ["component"],
+)
+DEADLINE_REJECTED = Counter(
+    "resilience_deadline_rejected_total",
+    "requests rejected because their propagated deadline had expired",
+    ["component"],
+)
+LIFECYCLE_STATE = Gauge(
+    "replica_lifecycle_state",
+    "1 for the replica's current lifecycle state "
+    "(STARTING/READY/DRAINING/TERMINATING), 0 otherwise",
+    ["state"],
+)
+DRAIN_DURATION = Histogram(
+    "lifecycle_drain_duration_seconds",
+    "wall time from drain start (SIGTERM / POST /admin/drain) until every "
+    "in-flight generation finished or was checkpointed",
+    [], buckets=(0.005, 0.01, 0.025, 0.05, 0.075, 0.1, 0.25, 0.5, 0.75,
+                 1.0, 2.5, 5.0, 7.5, 10.0, float("inf")),
+)
+GENERATION_CHECKPOINTS = Counter(
+    "generation_checkpoints_total",
+    "live generations snapshotted into portable checkpoints",
+    ["model_name", "reason"],
+)
+GENERATION_RESUMES = Counter(
+    "generation_resumes_total",
+    "generations resumed from a checkpoint on this replica",
+    ["model_name"],
+)
+TOKENS_SALVAGED = Counter(
+    "generation_tokens_salvaged_total",
+    "decoded tokens carried across a drain/preemption via checkpoint "
+    "instead of being re-decoded from scratch",
+    ["model_name"],
+)
+
+
+def set_lifecycle_state(state: str) -> None:
+    """One-hot replica_lifecycle_state (kserve_tpu/metrics.py:383)."""
+    for s in ("STARTING", "READY", "DRAINING", "TERMINATING"):
+        LIFECYCLE_STATE.labels(state=s).set(1.0 if s == state else 0.0)
+
 
 # Request-lifecycle telemetry (kserve_tpu/metrics.py:221-266).
 # Sub-millisecond buckets on ITL because decode steps are ~1-10 ms;
@@ -260,8 +331,10 @@ SPEC_TOKENS = Counter(
 )
 
 # Replica startup phases (kserve_tpu/metrics.py:300-316); the port feeds
-# `weights` (checkpoint read or random init, and device placement) and
-# `ready` (construct -> serving).
+# `weights` (checkpoint read or random init, and device placement),
+# `compile` (on CUDA: building or loading the kernel library, the
+# counterpart of the JAX engine's XLA compile) and `ready` (construct ->
+# serving).
 STARTUP_PHASES = ("trace", "compile", "aot_load", "weights", "ready")
 _STARTUP_BUCKETS = (
     0.01, 0.025, 0.05, 0.1, 0.25, 0.5, 1.0, 2.5, 5.0, 10.0, 30.0,

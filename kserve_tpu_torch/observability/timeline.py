@@ -1,11 +1,12 @@
 """Request-lifecycle timelines: the engine's per-request telemetry.
 
 Port of kserve_tpu/observability/timeline.py (the same classes, fields,
-payload keys and percentile rule; no trace context and no autoscaler
-signal view, which come with the tracer and the EPP).  Every generation
-is stamped with a `RequestTimeline` as it moves through the engine
-(received -> admitted -> prefill start/end -> first token -> per-token
--> finished), from the engine's monotonic clock.
+payload keys and percentile rule, the autoscaler's signal view
+`signal_windows()` included; no trace context, which comes with the
+tracer).  Every generation is stamped with a `RequestTimeline` as it
+moves through the engine (received -> admitted -> prefill start/end ->
+first token -> per-token -> finished, cancelled, error or preempted: a
+drain's checkpoint), from the engine's monotonic clock.
 
 The `TimelineRecorder` keeps a bounded ring of finished timelines plus
 rolling sample windows (TTFT, ITL, queue wait, e2e, decode-step and
@@ -220,6 +221,19 @@ class TimelineRecorder:
         if tl.e2e_s is not None:
             self._e2e.append(tl.e2e_s)
         self._itl.extend(tl.itls)
+
+    def signal_windows(self) -> Dict[str, Any]:
+        """The latency percentiles an endpoint picker or autoscaler reads
+        (the compact subset of snapshot() that scheduler_state() carries;
+        kserve_tpu/observability/timeline.py:235)."""
+        ttft = percentiles(self._ttft)
+        itl = percentiles(self._itl)
+        return {
+            "ttft_p50_s": ttft.get("p50"),
+            "ttft_p99_s": ttft.get("p99"),
+            "itl_p99_s": itl.get("p99"),
+            "finished": self.finished_count,
+        }
 
     def record_step(self, seconds: float) -> None:
         """One decode step: a multi-token dispatch+fetch chunk."""

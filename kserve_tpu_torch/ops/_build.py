@@ -6,6 +6,7 @@ plain C interface, loaded with ``ctypes``.  No source includes PyTorch's
 headers, so a cold build takes seconds.  The library lands in
 ``build/kserve_tpu_torch/`` at the root of the checkout, keyed by a hash
 of the sources and flags: an unchanged tree reuses it, any edit rebuilds.
+The engine loads it in ``start()`` on CUDA, before it reports ready.
 
 Nothing here runs at import: the CPU-only test machine has no ``nvcc``.
 """

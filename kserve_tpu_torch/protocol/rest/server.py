@@ -5,7 +5,8 @@ protocol/openai/endpoints.py that the generative slice serves; the JAX
 package's aiohttp stack is not available on the card machine.
 
 Routes:
-  GET  /v2/health/live, /v2/health/ready
+  GET  /v2/health/live   200, or 503 once a model's engine is wedged
+  GET  /v2/health/ready  503 with {"ready", "lifecycle"} unless READY
   GET  /openai/v1/models
   POST /openai/v1/completions, /openai/v1/chat/completions
        (JSON, or text/event-stream with `"stream": true`, ending
@@ -15,7 +16,27 @@ Routes:
        recent request timelines (kserve_tpu/observability/
        introspection.py:115-126; the port has no profiler, so
        "profiler" always reads inactive)
+  GET  /v1/internal/scheduler/state  the endpoint picker's view: summed
+       queue depth, inflight and free pages, each model's
+       engine.scheduler_state(), the lifecycle state, the shed counts and
+       the worst TTFT / ITL p99 (kserve_tpu/protocol/rest/server.py:249)
+  POST /admin/drain      start the replica's drain (with a lifecycle);
+  GET  /admin/drain      reads its state (`?source=prestop` starts it)
 The /openai/v1 routes also answer under /openai.
+
+Admission gates, in the JAX server's middleware order (kserve_tpu/
+protocol/rest/server.py:79-125, :164-257; lifecycle/middleware.py):
+lifecycle (an inference POST while draining: 503 + Retry-After), load
+shedding (an inference POST past the queue watermark: 429 + Retry-After),
+then the `x-request-deadline` budget (expired: 504, else bound for the
+engine's admission).  Errors map as there: DeadlineExceededError 504,
+ReplicaDrainingError 503 + Retry-After, GenerationPreempted 503 with the
+checkpoint in the body (and in `x-generation-checkpoint` while it fits
+CHECKPOINT_HEADER_SAFE_BYTES).  A streamed answer that is preempted ends
+on an event {"error": {"type": "generation_preempted", ...},
+"checkpoint": ...} without [DONE] (kserve_tpu/protocol/openai/
+endpoints.py:73-88).  The request head may carry a checkpoint header of
+up to CHECKPOINT_FIELD_SIZE_LIMIT bytes.
 
 Connections are kept alive (HTTP/1.1; HTTP/1.0 with `Connection:
 keep-alive`) until the client sends `Connection: close`, a request
@@ -29,10 +50,34 @@ from __future__ import annotations
 import asyncio
 import json
 import logging
-from typing import Dict, Optional, Tuple
+from typing import Callable, Dict, Optional, Tuple
+from urllib.parse import parse_qs
 
 from ...errors import InvalidInput, ModelNotFound
-from ...metrics import CONTENT_TYPE_LATEST, generate_latest
+from ...lifecycle import (
+    CHECKPOINT_FIELD_SIZE_LIMIT,
+    CHECKPOINT_HEADER,
+    CHECKPOINT_HEADER_SAFE_BYTES,
+    READY,
+    GenerationPreempted,
+    ReplicaDrainingError,
+    ReplicaLifecycle,
+)
+from ...metrics import (
+    CONTENT_TYPE_LATEST,
+    DEADLINE_REJECTED,
+    SHED_REQUESTS,
+    generate_latest,
+)
+from ...resilience import (
+    DEADLINE_HEADER,
+    Deadline,
+    DeadlineExceededError,
+    LoadShedder,
+    ShedConfig,
+    deadline_scope,
+    is_inference_path,
+)
 from ..openai.types import (
     ChatCompletionRequest,
     CompletionRequest,
@@ -47,10 +92,14 @@ MAX_BODY_BYTES = 16 << 20
 # seconds an idle kept-alive connection waits for its next request
 # (aiohttp's keepalive_timeout, the JAX server's)
 IDLE_TIMEOUT_S = 75.0
+# the request head: one checkpoint header field of up to
+# CHECKPOINT_FIELD_SIZE_LIMIT bytes, and 64 KiB for the rest
+MAX_HEAD_BYTES = CHECKPOINT_FIELD_SIZE_LIMIT + (1 << 16)
 _REASONS = {200: "OK", 400: "Bad Request", 404: "Not Found",
             405: "Method Not Allowed", 411: "Length Required",
-            413: "Payload Too Large", 500: "Internal Server Error",
-            501: "Not Implemented", 503: "Service Unavailable"}
+            413: "Payload Too Large", 429: "Too Many Requests",
+            500: "Internal Server Error", 501: "Not Implemented",
+            503: "Service Unavailable", 504: "Gateway Timeout"}
 
 
 class _HTTPError(Exception):
@@ -66,16 +115,32 @@ class _BadRequest(_HTTPError):
 
 class RESTServer:
     """Serves `models` ({name: model}) where each model has `name`,
-    `ready`, `async create_completion(req)` and `async
-    create_chat_completion(req)` (returning a response object or, for a
-    streamed request, an async iterator of chunks)."""
+    `ready`, `async create_completion(req, headers)` and `async
+    create_chat_completion(req, headers)` (returning a response object or,
+    for a streamed request, an async iterator of chunks), and optionally
+    `async live()` and an `engine`.  `lifecycle` (a ReplicaLifecycle)
+    turns on the drain gate and the /admin/drain routes, whose POST
+    starts `on_drain()` (an async callable) once.  `shed_config` sets the
+    load-shedding watermark (default: from the environment)."""
 
     def __init__(self, models: Dict[str, object], host: str = "0.0.0.0",
-                 port: int = 8080, idle_timeout: float = IDLE_TIMEOUT_S):
+                 port: int = 8080, idle_timeout: float = IDLE_TIMEOUT_S,
+                 lifecycle: Optional[ReplicaLifecycle] = None,
+                 on_drain: Optional[Callable] = None,
+                 shed_config: Optional[ShedConfig] = None):
         self.models = models
         self.host = host
         self.port = port
         self.idle_timeout = idle_timeout
+        self.lifecycle = lifecycle
+        self.on_drain = on_drain
+        # inference POSTs bounce 429 once the summed engine queue reaches
+        # the watermark (KSERVE_TPU_SHED_WATERMARK; <= 0 disables)
+        self.shedder = LoadShedder(
+            shed_config or ShedConfig.from_env(),
+            on_shed=lambda: SHED_REQUESTS.labels(component="rest").inc())
+        # the running drain task (a bare create_task is weakly held)
+        self._drain_tasks: list = []
         self._server: Optional[asyncio.base_events.Server] = None
         # open connections: stop() closes the idle kept-alive ones, which
         # the server's wait_closed() would otherwise wait for
@@ -86,7 +151,8 @@ class RESTServer:
         # a listen backlog above the largest batch a server seats (asyncio's
         # default is 100): every lane's client may connect at once
         self._server = await asyncio.start_server(
-            self._handle, self.host, self.port, limit=1 << 16, backlog=1024)
+            self._handle, self.host, self.port, limit=MAX_HEAD_BYTES,
+            backlog=1024)
         self.port = self._server.sockets[0].getsockname()[1]
         logger.info("REST server listening on %s:%d", self.host, self.port)
         return self.port
@@ -128,19 +194,40 @@ class RESTServer:
             return False
         keep_alive = False
         try:
-            method, path, version, headers = self._parse_head(head)
+            method, path, query, version, headers = self._parse_head(head)
             tokens = {t.strip().lower()
                       for t in headers.get("connection", "").split(",")}
             keep_alive = ("keep-alive" in tokens if version == "HTTP/1.0"
                           else "close" not in tokens)
             body = await self._read_body(method, headers, reader, writer)
-            await self._route(method, path, body, writer, keep_alive)
+            await self._gated(method, path, query, headers, body, writer,
+                              keep_alive)
         except _BadRequest as e:
             await self._send_json(writer, e.status, error_body(str(e)),
                                   keep_alive=False)
             return False
         except _HTTPError as e:
             await self._send_json(writer, e.status, error_body(str(e)), keep_alive)
+        except DeadlineExceededError as e:
+            await self._send_json(writer, 504, error_body(str(e), "deadline_exceeded"),
+                                  keep_alive)
+        except ReplicaDrainingError as e:
+            # this replica is going away: Retry-After sends the client's
+            # retry (or the EPP) to a healthy one
+            await self._send_json(writer, 503, error_body(str(e), "replica_draining"),
+                                  keep_alive,
+                                  headers={"Retry-After": f"{e.retry_after_s:g}"})
+        except GenerationPreempted as e:
+            # the drain budget expired mid-generation: the body carries the
+            # portable checkpoint, the header too while it fits the parsers
+            # of stock intermediaries
+            headers = {"Retry-After": "1"}
+            header_form = e.checkpoint.to_header()
+            if len(header_form) <= CHECKPOINT_HEADER_SAFE_BYTES:
+                headers[CHECKPOINT_HEADER] = header_form
+            await self._send_json(
+                writer, 503, {"error": str(e), "checkpoint": e.checkpoint.to_dict()},
+                keep_alive, headers=headers)
         except InvalidInput as e:
             await self._send_json(writer, 400, error_body(str(e)), keep_alive)
         except ModelNotFound as e:
@@ -155,8 +242,9 @@ class RESTServer:
         return keep_alive
 
     @staticmethod
-    def _parse_head(head: bytes) -> Tuple[str, str, str, Dict[str, str]]:
-        """(method, path, HTTP version, lower-cased headers)."""
+    def _parse_head(head: bytes) -> Tuple[str, str, str, str, Dict[str, str]]:
+        """(method, path, query string, HTTP version, lower-cased headers).
+        A header line longer than CHECKPOINT_FIELD_SIZE_LIMIT is refused."""
         lines = head.decode("latin-1").split("\r\n")
         parts = lines[0].split(" ")
         if len(parts) != 3 or not parts[2].startswith("HTTP/"):
@@ -164,10 +252,13 @@ class RESTServer:
         method, target, version = parts
         headers = {}
         for line in lines[1:]:
+            if len(line) > CHECKPOINT_FIELD_SIZE_LIMIT:
+                raise _BadRequest(400, "request header field too large")
             if ":" in line:
                 k, v = line.split(":", 1)
                 headers[k.strip().lower()] = v.strip()
-        return method, target.split("?", 1)[0], version, headers
+        path, _, query = target.partition("?")
+        return method, path, query, version, headers
 
     async def _read_body(self, method: str, headers: Dict[str, str],
                          reader, writer) -> bytes:
@@ -216,10 +307,11 @@ class RESTServer:
 
     @staticmethod
     def _head(status: int, content_type: str, length: Optional[int],
-              keep_alive: bool) -> bytes:
+              keep_alive: bool, headers: Optional[Dict[str, str]] = None) -> bytes:
         lines = [f"HTTP/1.1 {status} {_REASONS.get(status, 'Unknown')}",
                  f"Content-Type: {content_type}",
                  f"Connection: {'keep-alive' if keep_alive else 'close'}"]
+        lines += [f"{k}: {v}" for k, v in (headers or {}).items()]
         if length is not None:
             lines.append(f"Content-Length: {length}")
         else:
@@ -227,53 +319,116 @@ class RESTServer:
         return ("\r\n".join(lines) + "\r\n\r\n").encode("latin-1")
 
     async def _send(self, writer, status: int, content_type: str, data: bytes,
-                    keep_alive: bool) -> None:
-        writer.write(self._head(status, content_type, len(data), keep_alive) + data)
+                    keep_alive: bool, headers: Optional[Dict[str, str]] = None) -> None:
+        writer.write(self._head(status, content_type, len(data), keep_alive,
+                                headers) + data)
         await writer.drain()
 
-    async def _send_json(self, writer, status: int, obj, keep_alive: bool) -> None:
+    async def _send_json(self, writer, status: int, obj, keep_alive: bool,
+                         headers: Optional[Dict[str, str]] = None) -> None:
         await self._send(writer, status, "application/json",
-                         json.dumps(obj).encode("utf-8"), keep_alive)
+                         json.dumps(obj).encode("utf-8"), keep_alive, headers)
 
     @staticmethod
     def _chunk(data: bytes) -> bytes:
         return b"%x\r\n%s\r\n" % (len(data), data)
 
+    def _event(self, obj) -> bytes:
+        return self._chunk(f"data: {json.dumps(obj)}\n\n".encode("utf-8"))
+
     async def _send_sse(self, writer, chunks, keep_alive: bool) -> None:
         """Server-sent events in a chunked body: one chunk per event, then
-        `data: [DONE]` and the last chunk."""
+        `data: [DONE]` and the last chunk.  A stream that fails ends on an
+        error event instead of [DONE]: a preempted one's carries the
+        checkpoint the client resumes elsewhere (its header form), and it
+        splices the continuation after what it already has."""
         writer.write(self._head(200, "text/event-stream", None, keep_alive))
         await writer.drain()
         try:
             async for chunk in chunks:
-                writer.write(self._chunk(
-                    f"data: {json.dumps(chunk.to_dict())}\n\n".encode("utf-8")))
+                writer.write(self._event(chunk.to_dict()))
                 await writer.drain()
             writer.write(self._chunk(b"data: [DONE]\n\n"))
         except ConnectionError:
             raise
+        except GenerationPreempted as e:
+            writer.write(self._event({
+                "error": {"type": "generation_preempted", "message": str(e)},
+                "checkpoint": e.checkpoint.to_header()}))
+        except ReplicaDrainingError as e:
+            # a drain landed between admission and the first enqueue: the
+            # client retries from the start on a healthy replica
+            writer.write(self._event(
+                {"error": {"type": "replica_draining", "message": str(e)}}))
         except Exception as e:  # noqa: BLE001 — headers are sent: report in-band
             # a second response cannot follow the headers: the stream ends
             # with an error event and without [DONE]
             logger.exception("mid-stream failure")
-            writer.write(self._chunk(
-                f"data: {json.dumps(error_body(str(e), 'internal_error'))}\n\n"
-                .encode("utf-8")))
+            writer.write(self._event(error_body(str(e), "internal_error")))
         finally:
             # a client that went away releases its engine slot now, not at GC
             await chunks.aclose()
         writer.write(b"0\r\n\r\n")
         await writer.drain()
 
+    # ---------------- admission gates ----------------
+
+    async def _gated(self, method: str, path: str, query: str, headers,
+                     body: bytes, writer, keep_alive: bool) -> None:
+        """The lifecycle, shedding and deadline gates, then the route."""
+        lc = self.lifecycle
+        if lc is not None:
+            if path == "/v2/health/ready" and not lc.ready:
+                return await self._send_json(
+                    writer, 503, {"ready": lc.state == READY, "lifecycle": lc.state},
+                    keep_alive)
+            if method == "POST" and is_inference_path(path) and not lc.accepting:
+                return await self._send_json(
+                    writer, 503,
+                    {"error": "replica is draining; retry another replica",
+                     "lifecycle": lc.state},
+                    keep_alive, headers={"Retry-After": "1"})
+        if (method == "POST" and is_inference_path(path)
+                and self.shedder.should_shed(self._total_queue_depth())):
+            return await self._send_json(
+                writer, 429, {"error": "server overloaded, shedding load"},
+                keep_alive,
+                headers={"Retry-After": f"{self.shedder.retry_after_s:g}"})
+        deadline = Deadline.from_header(headers.get(DEADLINE_HEADER))
+        if deadline is None:
+            return await self._route(method, path, query, headers, body, writer,
+                                     keep_alive)
+        if deadline.expired:
+            DEADLINE_REJECTED.labels(component="rest").inc()
+            return await self._send_json(
+                writer, 504, {"error": "request deadline exceeded before handling"},
+                keep_alive)
+        with deadline_scope(deadline):
+            return await self._route(method, path, query, headers, body, writer,
+                                     keep_alive)
+
+    def _engines(self):
+        for name, model in self.models.items():
+            engine = getattr(model, "engine", None)
+            if engine is not None:
+                yield name, engine
+
+    def _total_queue_depth(self) -> int:
+        """The summed engine queue depth: the shedding watermark's signal."""
+        return sum(int(getattr(e, "queue_depth", 0) or 0) for _, e in self._engines())
+
     # ---------------- routes ----------------
 
-    async def _route(self, method: str, path: str, body: bytes, writer,
-                     keep_alive: bool) -> None:
+    async def _route(self, method: str, path: str, query: str, headers, body: bytes,
+                     writer, keep_alive: bool) -> None:
         if path.startswith("/openai/") and not path.startswith("/openai/v1/"):
             path = "/openai/v1/" + path[len("/openai/"):]
         if path == "/v2/health/live":
             self._expect(method, "GET")
-            return await self._send_json(writer, 200, {"live": True}, keep_alive)
+            live = await self._live()
+            # non-2xx once wedged: kubelet's probe reads the status code
+            return await self._send_json(writer, 200 if live else 503,
+                                         {"live": live}, keep_alive)
         if path == "/v2/health/ready":
             self._expect(method, "GET")
             ready = all(m.ready for m in self.models.values())
@@ -291,19 +446,87 @@ class RESTServer:
         if path == "/admin/telemetry":
             self._expect(method, "GET")
             return await self._send_json(writer, 200, self._telemetry(), keep_alive)
+        if path == "/v1/internal/scheduler/state":
+            self._expect(method, "GET")
+            return await self._send_json(writer, 200, self.scheduler_state(),
+                                         keep_alive)
+        if path == "/admin/drain" and self.lifecycle is not None:
+            return await self._send_json(writer, 200, self._drain_route(method, query),
+                                         keep_alive)
         if path == "/openai/v1/completions":
             self._expect(method, "POST")
             req = CompletionRequest.from_json(self._json(body))
-            result = await self._model(req.model).create_completion(req)
+            result = await self._model(req.model).create_completion(req, headers)
         elif path == "/openai/v1/chat/completions":
             self._expect(method, "POST")
             req = ChatCompletionRequest.from_json(self._json(body))
-            result = await self._model(req.model).create_chat_completion(req)
+            result = await self._model(req.model).create_chat_completion(req, headers)
         else:
             raise _HTTPError(404, f"no route for {path}")
         if req.stream:
             return await self._send_sse(writer, result, keep_alive)
         return await self._send_json(writer, 200, result.to_dict(), keep_alive)
+
+    async def _live(self) -> bool:
+        """False once some model reports its engine wedged (kserve_tpu/
+        protocol/dataplane.py:79)."""
+        for model in self.models.values():
+            live = getattr(model, "live", None)
+            if live is not None and not await live():
+                return False
+        return True
+
+    def scheduler_state(self) -> dict:
+        """The GET /v1/internal/scheduler/state payload (kserve_tpu/protocol/
+        rest/server.py:249-291)."""
+        models = {name: e.scheduler_state() for name, e in self._engines()
+                  if hasattr(e, "scheduler_state")}
+        telemetry = [m.get("telemetry") or {} for m in models.values()]
+
+        def worst(key: str):
+            vals = [t.get(key) for t in telemetry if t.get(key) is not None]
+            return max(vals) if vals else None
+
+        return {
+            "queue_depth": sum(m["queue_depth"] for m in models.values()),
+            "inflight": sum(m.get("inflight", 0) for m in models.values()),
+            "free_pages": sum(m["free_pages"] for m in models.values()),
+            "models": models,
+            "lifecycle": self.lifecycle.state if self.lifecycle is not None else READY,
+            "shed": {"count": self.shedder.shed_count,
+                     "shedding": self.shedder.shedding},
+            "telemetry": {"ttft_p99_s": worst("ttft_p99_s"),
+                          "itl_p99_s": worst("itl_p99_s")},
+        }
+
+    def _drain_route(self, method: str, query: str) -> dict:
+        """POST /admin/drain flips to DRAINING (idempotent) and starts
+        `on_drain` once; it answers at once with the state and the budget
+        left.  GET reads the drain's state: kubelet's preStop httpGet hook
+        drains only with `?source=prestop`, so a stray GET cannot retire a
+        healthy replica (kserve_tpu/lifecycle/middleware.py:58-102)."""
+        lc = self.lifecycle
+        if method == "POST" or (
+                method == "GET" and parse_qs(query).get("source") == ["prestop"]):
+            first = lc.drain_deadline is None
+            deadline = lc.begin_drain()
+            if self.on_drain is not None and first:
+                self._drain_tasks.append(
+                    asyncio.get_running_loop().create_task(self._run_drain()))
+            return {"lifecycle": lc.state,
+                    "drain_remaining_s": max(deadline.remaining(), 0.0)}
+        self._expect(method, "GET")
+        deadline = lc.drain_deadline
+        return {"lifecycle": lc.state,
+                "drain_remaining_s": (max(deadline.remaining(), 0.0)
+                                      if deadline is not None else None),
+                "hint": "GET is read-only; drain via POST or GET ?source=prestop"}
+
+    async def _run_drain(self) -> None:
+        try:
+            await self.on_drain()
+        except Exception:  # noqa: BLE001 — a failed drain must be loud, not lost
+            logger.exception("graceful drain failed")
 
     def _telemetry(self) -> dict:
         """The GET /admin/telemetry payload: each model's engine

@@ -1,8 +1,9 @@
 """Injectable monotonic clock.
 
-Port of kserve_tpu/resilience/clock.py.  The KV tier store stamps its
-entries from a `Clock`, so a test can advance a `FakeClock` instead of
-sleeping.
+Port of kserve_tpu/resilience/clock.py.  The KV tier store, request
+deadlines, the replica lifecycle's drain budget, the engine's timelines
+and its watchdog read a `Clock`, so a test can advance a `FakeClock`
+instead of sleeping.
 """
 
 from __future__ import annotations

@@ -11,6 +11,18 @@ shards, streamed onto the device one tensor at a time
 (models/llama.load_hf_weights_streamed).  `--random_weights` draws
 seeded random weights on the device instead.
 
+A request carrying the `x-generation-checkpoint` header (a checkpoint a
+draining replica returned, from either package) resumes that generation
+instead of starting one (kserve_tpu/runtimes/generative_server.py:
+306-436): single prompt and n=1 only, streamed or not (a non-streamed
+resume that asks for logprobs is refused: the checkpoint has no logprobs
+of its prefix); a malformed or mismatched checkpoint answers 400.  A
+streamed resume sends only the continuation, which the client splices
+after what it has; a non-streamed one answers with the whole text.
+`drain(deadline)` checkpoints what the drain budget cannot finish, and
+`live()` goes false once the engine is wedged.  `--watchdog on|off`
+(default $KSERVE_TPU_WATCHDOG) turns on the engine's stall watchdog.
+
 Entrypoint:
     python -m kserve_tpu_torch.runtimes.generative_server \\
         --model_name=llm --model_dir=/mnt/models \\
@@ -37,9 +49,16 @@ from ..engine.engine import EngineConfig, LLMEngine
 from ..engine.sampling import SamplingParams
 from ..engine.tokenizer import load_tokenizer
 from ..engine.types import spec_decode_k_from_env
+from ..engine.watchdog import watchdog_enabled_from_env
 from ..kvstore import kv_persist_dir_from_env
 from ..kvstore.tiers import DEFAULT_DISK_DIR
 from ..errors import InvalidInput
+from ..lifecycle import (
+    CHECKPOINT_HEADER,
+    GenerationCheckpoint,
+    GenerationPreempted,
+    ReplicaDrainingError,
+)
 from ..model_server import ModelServer
 from ..models import llama
 from ..protocol.openai.types import (
@@ -135,9 +154,13 @@ class TorchGenerativeModel:
     def _build_engine(self) -> LLMEngine:
         params = self.load()
         load_s = 0.0 if params is None else self.weights_stats["seconds"]
+        # checkpoints name the served model: one resumes only where the
+        # same model is served (kserve_tpu/runtimes/generative_server.py:
+        # 152-154)
         return LLMEngine(self.model_config, self.engine_config, self.tokenizer,
                          params=params, device=self.device,
-                         metrics_label=self.name, weights_seconds=load_s)
+                         metrics_label=self.name, weights_seconds=load_s,
+                         checkpoint_label=self.name)
 
     async def start_engine(self) -> None:
         """Load the weights and build the engine (weights and KV cache on
@@ -152,6 +175,18 @@ class TorchGenerativeModel:
         self.ready = False
         if self.engine is not None:
             await self.engine.stop()
+
+    async def drain(self, deadline=None) -> list:
+        """The lifecycle drain: checkpoint what the budget cannot finish
+        (kserve_tpu/runtimes/generative_server.py:210-215)."""
+        if self.engine is None or not self.engine.running:
+            return []
+        return await self.engine.drain(deadline)
+
+    async def live(self) -> bool:
+        """Liveness: false once the engine is wedged, so the pod restarts
+        instead of hanging behind a healthy-looking HTTP server."""
+        return self.engine is None or not self.engine.wedged
 
     # ---------------- helpers ----------------
 
@@ -210,6 +245,73 @@ class TorchGenerativeModel:
             return self.engine.generate(prompt_ids, params)
         except ValueError as e:
             raise InvalidInput(str(e)) from e
+
+    @staticmethod
+    def _raise_gathered(results: list) -> list:
+        """Errors of a gather of several generations (kserve_tpu/runtimes/
+        generative_server.py:378-401): a lone GenerationPreempted re-raises
+        (503 with its checkpoint); several cannot each carry one, so a
+        preemption among them becomes a plain retryable 503; any other
+        error wins."""
+        errors = [r for r in results if isinstance(r, BaseException)]
+        if not errors:
+            return results
+        for e in errors:
+            if not isinstance(e, GenerationPreempted):
+                raise e
+        if len(results) == 1:
+            raise errors[0]
+        raise ReplicaDrainingError(
+            "replica drained mid-request; multi-choice responses cannot "
+            "carry per-choice checkpoints — retry on another replica")
+
+    async def _gather(self, sources, with_logprobs: bool) -> list:
+        return self._raise_gathered(await asyncio.gather(
+            *[self._run_one(s, with_logprobs) for s in sources],
+            return_exceptions=True))
+
+    # ---------------- checkpoint resume ----------------
+
+    @staticmethod
+    def _checkpoint_from(headers) -> Optional[GenerationCheckpoint]:
+        """The checkpoint riding the request's x-generation-checkpoint
+        header.  A value that does not decode reads as none, as in the JAX
+        server (a checkpoint is a resume optimization); one that decodes
+        with bad fields is refused with 400 at admission."""
+        if not headers:
+            return None
+        return GenerationCheckpoint.from_header(headers.get(CHECKPOINT_HEADER))
+
+    def _resume_checks(self, request, ckpt) -> None:
+        """A checkpoint is one generation, and the prefix's logprobs are
+        not in it: a non-streamed resume cannot answer them."""
+        if not request.stream and self._logprobs_k(request) is not None:
+            raise InvalidInput(
+                "checkpoint resume cannot reconstruct logprobs for the "
+                "checkpointed prefix in a non-streaming response; retry the "
+                "request without the checkpoint")
+
+    def _resume_source(self, ckpt) -> AsyncIterator:
+        """Admit the checkpoint once (the engine counts each call); a
+        malformed or mismatched one is the client's error: 400."""
+        try:
+            return self.engine.resume_generation(ckpt)
+        except ValueError as e:
+            raise InvalidInput(f"cannot resume from checkpoint: {e}") from e
+
+    @staticmethod
+    async def _splice_resume(ckpt, source):
+        """Run a resumed generation to its end: (the whole text, the
+        checkpoint's tokens and the continuation's, the finish reason,
+        usage against the checkpoint's prompt)."""
+        n_gen, finish, last = 0, None, None
+        async for out in source:
+            last, n_gen, finish = out, out.num_generated, out.finish_reason
+        text = last.cumulative_text if last is not None else ""
+        usage = UsageInfo(prompt_tokens=len(ckpt.prompt_ids),
+                          completion_tokens=n_gen,
+                          total_tokens=len(ckpt.prompt_ids) + n_gen)
+        return text, finish or "stop", usage
 
     @staticmethod
     async def _run_one(source, with_logprobs: bool):
@@ -273,7 +375,23 @@ class TorchGenerativeModel:
 
     # ---------------- completions ----------------
 
-    async def create_completion(self, request: CompletionRequest):
+    async def create_completion(self, request: CompletionRequest, headers=None):
+        ckpt = self._checkpoint_from(headers)
+        if ckpt is not None:
+            prompt = request.prompt
+            if request.n > 1 or (isinstance(prompt, list) and len(prompt) > 1
+                                 and isinstance(prompt[0], (str, list))):
+                raise InvalidInput(
+                    "checkpoint resume supports a single prompt with n=1")
+            self._resume_checks(request, ckpt)
+            source = self._resume_source(ckpt)
+            params = ckpt.sampling_params()
+            if request.stream:
+                return self._stream_completion(
+                    request, list(ckpt.prompt_ids), params, source)
+            text, finish, usage = await self._splice_resume(ckpt, source)
+            return Completion(model=request.model, usage=usage, choices=[
+                CompletionChoice(index=0, text=text, finish_reason=finish)])
         prompts = self._encode_prompt(request.prompt)
         params = self._sampling_from(request, request.max_tokens)
         if request.stream:
@@ -284,8 +402,7 @@ class TorchGenerativeModel:
         runs = [p for p in prompts for _ in range(request.n)]
         sources = [self._generate(p, params) for p in runs]
         k = params.logprobs
-        results = await asyncio.gather(
-            *[self._run_one(s, k is not None) for s in sources])
+        results = await self._gather(sources, k is not None)
         usage = UsageInfo()
         choices = []
         for idx, (prompt_ids, (text, n_gen, finish, entries)) in enumerate(
@@ -331,7 +448,22 @@ class TorchGenerativeModel:
         text = self.tokenizer.apply_chat_template(messages, add_generation_prompt=True)
         return self.tokenizer.encode(text)
 
-    async def create_chat_completion(self, request: ChatCompletionRequest):
+    async def create_chat_completion(self, request: ChatCompletionRequest,
+                                     headers=None):
+        ckpt = self._checkpoint_from(headers)
+        if ckpt is not None:
+            if request.n > 1:
+                raise InvalidInput("checkpoint resume supports n=1")
+            self._resume_checks(request, ckpt)
+            source = self._resume_source(ckpt)
+            if request.stream:
+                return self._stream_chat(request, list(ckpt.prompt_ids),
+                                         ckpt.sampling_params(), source)
+            text, finish, usage = await self._splice_resume(ckpt, source)
+            return ChatCompletion(model=request.model, usage=usage, choices=[
+                ChatCompletionChoice(
+                    index=0, message=ChatCompletionResponseMessage(content=text),
+                    finish_reason=finish)])
         prompt_ids = self._chat_prompt(request)
         params = self._sampling_from(request, request.max_tokens or 256)
         if request.stream:
@@ -341,8 +473,7 @@ class TorchGenerativeModel:
                 request, prompt_ids, params, self._generate(prompt_ids, params))
         sources = [self._generate(prompt_ids, params) for _ in range(request.n)]
         k = params.logprobs
-        results = await asyncio.gather(
-            *[self._run_one(s, k is not None) for s in sources])
+        results = await self._gather(sources, k is not None)
         usage = UsageInfo(prompt_tokens=len(prompt_ids) * request.n)
         choices = []
         for i, (text, n_gen, finish, entries) in enumerate(results):
@@ -432,6 +563,11 @@ def build_arg_parser() -> argparse.ArgumentParser:
         help="persistent prefix store directory: reused prefix pages are "
         "written there and a restarted server pages them in; defaults to "
         "$KSERVE_TPU_KV_PERSIST (off)")
+    parser.add_argument(
+        "--watchdog", default=None, choices=("on", "off"),
+        help="gray-failure engine watchdog: a confirmed no-progress stall "
+        "flips readiness and self-drains with checkpoints; defaults to "
+        "$KSERVE_TPU_WATCHDOG (off)")
     return parser
 
 
@@ -459,6 +595,8 @@ def build_model(args) -> TorchGenerativeModel:
         kv_offload_dir=args.kv_offload_dir,
         kv_offload_policy=args.kv_offload_policy,
         kv_persist_dir=args.kv_persist_dir or kv_persist_dir_from_env(),
+        watchdog=(args.watchdog == "on" if args.watchdog is not None
+                  else watchdog_enabled_from_env()),
     )
     return TorchGenerativeModel(
         args.model_name, model_config, engine_config,

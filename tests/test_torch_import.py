@@ -1,8 +1,11 @@
 """The PyTorch port stands alone: importing it loads neither jax nor the
 JAX package, no source of it (or chip_smoke.py) imports them or
 ml_dtypes (the card machine has none: the port's KV payloads keep
-bfloat16 as int16 bits), and its entry points refuse to run without CUDA
-unless asked for the CPU."""
+bfloat16 as int16 bits), nor any package the card machine lacks
+(aiohttp, httpx, pydantic, prometheus_client, ...: the HTTP layer, the
+lifecycle and resilience layers and the metrics are standard library),
+and its entry points refuse to run without CUDA unless asked for the
+CPU."""
 
 import ast
 import os
@@ -107,7 +110,7 @@ def test_engine_rejects_what_the_slice_does_not_run():
 # standard-library readers and writers instead (jinja2 is the one
 # optional import, for chat templates, and only where it is caught)
 CARD_MISSING = {"safetensors", "tokenizers", "regex", "prometheus_client",
-                "aiohttp", "pydantic", "jinja2"}
+                "aiohttp", "httpx", "pydantic", "jinja2"}
 OPTIONAL_IMPORTS = {("kserve_tpu_torch/engine/tokenizer.py", "jinja2"),
                     ("chip_smoke.py", "jinja2")}
 
@@ -143,6 +146,11 @@ def test_checkpoint_server_needs_none_of_them(tmp_path):
         "from kserve_tpu_torch.models import safetensors_io as sio\n"
         "from kserve_tpu_torch.engine.tokenizer import HFTokenizer\n"
         "from kserve_tpu_torch import metrics\n"
+        "from kserve_tpu_torch import lifecycle, resilience, model_server\n"
+        "from kserve_tpu_torch.engine import watchdog\n"
+        "ck = lifecycle.GenerationCheckpoint('r', [1, 2], [3])\n"
+        "assert lifecycle.GenerationCheckpoint.from_header(ck.to_header()) == ck\n"
+        "assert resilience.Deadline.from_header('1.5').remaining() > 1\n"
         f"d = {str(tmp_path)!r}\n"
         "sio.save_file({'w': torch.ones(2, dtype=torch.bfloat16)}, d + '/m.safetensors')\n"
         "(_, w), = sio.iter_tensors(d + '/m.safetensors')\n"
