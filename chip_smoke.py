@@ -39,7 +39,11 @@ Phases, each printing JSON lines:
            directory, the chat prompt through the default template without
            jinja2 (logged once), the ragged and d=64 decode kernels
            launched; load GB/s, peak host staging and the tokenizer's
-           encode rate
+           encode rate; then the same checkpoint with --weight_quant int8
+           (quantized on the host as it streams in): every int8 leaf and
+           scale bit-equal to quantize_params of the written weights, and
+           greedy texts equal to a server given those
+
   spec     the server with --spec_decode_k=3 (speculative decoding):
            concurrent greedy completions and a seeded sampled one, the
            dense kernel's launch count and the draft statistics, one verify
@@ -98,6 +102,25 @@ Phases, each printing JSON lines:
            starts Llama-3.2-1B over an empty build directory (the kernels
            build before ready, the first request builds nothing, the
            watchdog suspects nothing)
+  lora     multi-adapter LoRA at Llama-3-8B full width and depth, bf16:
+           three seeded HF PEFT adapters written by the port's writer
+           (rank 8 on all seven projections, rank 16 on q/v, rank 16 on
+           the MLP) served with --lora_adapters; /openai/v1/models lists
+           4 models; 8 concurrent completions mix the base model and all
+           three adapters (one of 1,201 prompt tokens) beside a streamed
+           chat on an adapter, the OpenAI `model` field choosing; base
+           lanes' logits bit-equal to those of the same dispatch with
+           every lane on the base model; each adapter's lanes against a
+           merged-weight (W + A B) reference (f32 within 1e-3 x max|logit|,
+           bf16 within 2x the merged model's bf16 noise); one dispatch
+           profiled with and without adapters; then --spec_decode_k=3 with
+           adapter lanes (the dense kernel)
+  wq       int8 weights (--weight_quant=int8) at Llama-3-8B full width and
+           depth, then with --kv_quant=int8 as well: the serve phase's
+           wave and gates over int8 weights, the resident weights and KV
+           bytes, logits against the dequantized weights (f32 within 1e-3
+           x max|logit|, bf16 within 2x their bf16 noise), and one
+           dispatch's device time by kernel class (the int8 GEMMs')
 The line before the last is {"kernels": [...]}, the last is
 {"ok": true, "device": {...}}.  Any failure raises and exits non-zero;
 nothing falls back to the CPU or to the plain versions.
@@ -124,6 +147,7 @@ import statistics
 import subprocess
 import sys
 import time
+from typing import Optional
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 
@@ -1028,6 +1052,8 @@ def main(argv=None) -> int:
     counts.update(phase_prefix(torch))
     phase_tiers(torch)
     counts["lifecycle"] = phase_lifecycle(torch)
+    counts["lora"] = phase_lora(torch)
+    counts.update(phase_wq(torch))
     for name, row in rows.items():
         phase, key = KERNEL_PATH[name]
         row["launches"] = counts[phase].get(key, 0)
@@ -1231,10 +1257,7 @@ def _logits_check(torch, engine, verify_k=None, legacy=False) -> dict:
             v_seq += [i] * kp + [-1] * (sp - kp)
             v_pos += list(range(n + 1, n + 1 + kp)) + [0] * (sp - kp)
             v_at += [i * sp + j for j in range(kp)]
-    params32 = {
-        k: ([{n: (t.float() if torch.is_tensor(t) else t) for n, t in layer.items()}
-             for layer in v] if k == "layers" else v.float())
-        for k, v in engine.params.items()}
+    params32 = _f32_params(torch, engine.params)
     # (dtype, step name) -> (error, tolerance) of the paired call that came
     # closest to its tolerance: f32 relative to max(1, max|plain|), bf16
     # absolute against _bf16_tol of the call's plain output
@@ -1363,6 +1386,19 @@ def _logits_check(torch, engine, verify_k=None, legacy=False) -> dict:
     return out
 
 
+def _f32_params(torch, params):
+    """A float32 copy of model parameters for the f32 reference runs:
+    floating tensors (LoRA stacks and int8 scales among them) in float32,
+    int8 weights and Python values as they are."""
+    if isinstance(params, dict):
+        return {k: _f32_params(torch, v) for k, v in params.items()}
+    if isinstance(params, list):
+        return [_f32_params(torch, v) for v in params]
+    if torch.is_tensor(params) and params.is_floating_point():
+        return params.float()
+    return params
+
+
 def _fresh_cache(mc, page_size: int, num_pages: int, kv_quant: str,
                  device="cuda"):
     """An empty cache on the card for model config `mc`: pages in its
@@ -1391,10 +1427,11 @@ def _kv_cache_gb(engine) -> float:
     return sum(t.numel() * t.element_size() for t in tensors) / 1e9
 
 
-def _start_server(torch, argv, phase: str):
+def _start_server(torch, argv, phase: str, load=None):
     """The port's server built from command-line `argv` through
     build_arg_parser/build_model, listening on a free port in a thread and
-    ready; returns (model, server, thread)."""
+    ready; returns (model, server, thread).  `load` (a function returning
+    parameters) replaces the model's own weight load."""
     import threading
 
     from kserve_tpu_torch.model_server import ModelServer
@@ -1404,6 +1441,9 @@ def _start_server(torch, argv, phase: str):
     )
 
     model = build_model(build_arg_parser().parse_args(argv))
+    if load is not None:
+        model.load = load
+        model.weights_stats = {"seconds": 0.0}
     server = ModelServer(http_port=0, host="127.0.0.1")
     t0 = time.perf_counter()
     errors = []
@@ -1455,13 +1495,14 @@ SERVE_PROMPTS = [
 ]
 
 
-def _serve_run(torch, argv, phase: str, prompts, chat_tokens: int = 48) -> dict:
+def _serve_run(torch, argv, phase: str, prompts, chat_tokens: int = 48,
+               probe=None) -> dict:
     """The port's server built from `argv`: `prompts` ((name, text,
     max_tokens), all concurrent) plus one streamed chat of `chat_tokens`;
     checks every answer, then the logits through the kernels against the
-    plain versions.  Emits the phase summary and returns the kernel launch
-    counts of the served requests (zeroed just before them, read just
-    after)."""
+    plain versions, then `probe(torch, engine)` where given.  Emits the
+    phase summary and returns the kernel launch counts of the served
+    requests (zeroed just before them, read just after)."""
     from concurrent.futures import ThreadPoolExecutor
 
     from kserve_tpu_torch.ops import paged_attention_cuda as K
@@ -1522,6 +1563,8 @@ def _serve_run(torch, argv, phase: str, prompts, chat_tokens: int = 48) -> dict:
 
     logits = _logits_check(torch, model.engine)
     decode_no_sync = _check_decode_has_no_sync(torch, model.engine)
+    if probe is not None:
+        probe(torch, model.engine)
     emit({
         "phase": phase, "model": f"{name} (random weights, seed 1)",
         "kv_quant": model.engine.config.kv_quant,
@@ -1900,7 +1943,7 @@ def _sequential_texts(port: int, name: str) -> dict:
     return out
 
 
-def phase_checkpoint(torch, info: dict) -> None:
+def phase_checkpoint(torch, info: Optional[dict] = None) -> None:
     """Llama-3.2-1B at full width and depth in bf16 served from a
     checkpoint: its seeded init_params written as two safetensors shards
     by the port's writer, an HF config.json, and a byte-level BPE
@@ -1991,6 +2034,7 @@ def phase_checkpoint(torch, info: dict) -> None:
                           ("ragged_paged_attention", "paged_decode_attention"))
         stats = model.weights_stats
         _stop_server(torch, model, server, thread)
+        int8 = _checkpoint_int8(torch, mc, args)
 
         text = " ".join(t for _, t, _ in CKPT_PROMPTS) * 400
         encoder = HFTokenizer(model_dir)
@@ -2001,7 +2045,7 @@ def phase_checkpoint(torch, info: dict) -> None:
         encoder.encode(text)
         warm = time.perf_counter() - t0
         emit({
-            "phase": "checkpoint", "card": info["nvidia_smi"],
+            "phase": "checkpoint", "card": info and info["nvidia_smi"],
             "checkpoint": ckpt, "tensors_bit_equal": ckpt["n_tensors"],
             "load": {**stats, "gb_per_s": stats["read_bytes"] / stats["seconds"] / 1e9},
             "greedy_equal_random_weights": sorted(got),
@@ -2013,10 +2057,78 @@ def phase_checkpoint(torch, info: dict) -> None:
             "bpe_encode": {"tokens": n_tokens, "chars": len(text),
                            "cold_tok_per_s": n_tokens / cold,
                            "warm_tok_per_s": n_tokens / warm},
+            "int8": int8,
             "phase_wall_s": time.perf_counter() - t_phase,
         })
     finally:
         shutil.rmtree(model_dir, ignore_errors=True)
+
+
+def _checkpoint_int8(torch, mc, args) -> dict:
+    """The checkpoint served with --weight_quant int8: quantized on the
+    host tensor by tensor as it streams in (quantize_array_np), held to a
+    server whose engine quantizes the same seed-1 bf16 weights on the card
+    (quantize_params): every int8 leaf and scale bit-equal, the greedy
+    texts equal, the ragged and the d=64 decode kernels launched.  Returns
+    the load's accounting (peak host staging among it) and the resident
+    bytes."""
+    from kserve_tpu_torch.models import llama
+    from kserve_tpu_torch.models.quant import is_quantized, param_bytes
+    from kserve_tpu_torch.ops import paged_attention_cuda as K
+
+    wq = ["--weight_quant=int8"]
+    model, server, thread = _start_server(
+        torch, args + ["--random_weights"] + wq, "checkpoint_int8",
+        load=lambda: llama.init_params(mc, seed=1, device="cuda"))
+    want = _sequential_texts(server.port, model.name)
+    reference = model.engine.params
+    _stop_server(torch, model, server, thread)
+    model, server, thread = _start_server(torch, args + wq, "checkpoint_int8")
+    loaded = model.engine.params
+    mismatched, n_int8 = [], 0
+    for key, a, b in _param_pairs(reference, loaded):
+        if is_quantized(a):
+            n_int8 += 1
+            same = (is_quantized(b) and a["q"].dtype == b["q"].dtype == torch.int8
+                    and torch.equal(a["q"], b["q"]) and torch.equal(a["s"], b["s"]))
+        else:
+            same = not is_quantized(b) and a.dtype == b.dtype and torch.equal(a, b)
+        if not same:
+            mismatched.append(key)
+    del reference
+    K.reset_launch_counts()
+    got = _sequential_texts(server.port, model.name)
+    torch.cuda.synchronize()
+    counts = dict(K.LAUNCHES)
+    stats = dict(model.weights_stats)
+    resident = _tensor_bytes(torch, loaded)
+    del loaded
+    _stop_server(torch, model, server, thread)
+    if mismatched or n_int8 != 7 * mc.n_layers + 1:
+        raise AssertionError(f"int8 checkpoint load differs from quantize_params "
+                             f"in {mismatched[:8]} ({n_int8} int8 leaves)")
+    if got != want:
+        raise AssertionError(f"int8 checkpoint greedy texts {got} != those of "
+                             f"quantize_params of the same weights {want}")
+    _require_launches("checkpoint_int8", counts,
+                      ("ragged_paged_attention", "paged_decode_attention"))
+    return {"load": {**stats, "gb_per_s": stats["read_bytes"] / stats["seconds"] / 1e9},
+            "int8_leaves_bit_equal": n_int8,
+            "weights_gb": resident / 1e9,
+            "param_bytes_gb": {"bf16": param_bytes(mc) / 1e9,
+                               "int8": param_bytes(mc, "int8") / 1e9},
+            "greedy_equal_quantize_params": sorted(got), "launches": counts}
+
+
+def _tensor_bytes(torch, tree) -> int:
+    """Device bytes of every tensor in a parameter tree."""
+    if isinstance(tree, dict):
+        return sum(_tensor_bytes(torch, v) for v in tree.values())
+    if isinstance(tree, list):
+        return sum(_tensor_bytes(torch, v) for v in tree)
+    if torch.is_tensor(tree):
+        return tree.numel() * tree.element_size()
+    return 0
 
 
 def _param_pairs(a: dict, b: dict):
@@ -2292,6 +2404,7 @@ def _check_dispatch_has_no_sync(torch, engine) -> dict:
         "tokens": np.arange(B, dtype=np.int32) + 65, "pos": pos, "live": live,
         "capacity": np.where(live, per_lane * ps, 0).astype(np.int32),
         "counters": np.ones(B, np.int32), "page_table": table,
+        "adapters": np.full(B, -1, np.int32),
         "state": SamplingState.from_params(
             [SamplingParams(temperature=0.0)] * (B - 1)
             + [SamplingParams(temperature=0.8, top_k=50, seed=3)], "cuda"),
@@ -2868,11 +2981,7 @@ def _prefix_logits_check(torch, engine, tail: int = 64) -> dict:
         return cold, hit
 
     with torch.inference_mode():
-        params32 = {
-            k: ([{n: (t.float() if torch.is_tensor(t) else t)
-                  for n, t in layer.items()} for layer in v]
-                if k == "layers" else v.float())
-            for k, v in engine.params.items()}
+        params32 = _f32_params(torch, engine.params)
         cold32, hit32 = run(params32, mc32, kv_quant)
         if kv_quant == "int8":
             plain_cache32 = prefill(params32, mc32,
@@ -3555,11 +3664,7 @@ def _resume_logits_check(torch, engine, prompt_ids, generated) -> dict:
         return straight, decode(params, mc, pages, N - 1)
 
     with torch.inference_mode():
-        params32 = {
-            k: ([{n: (t.float() if torch.is_tensor(t) else t)
-                  for n, t in layer.items()} for layer in v]
-                if k == "layers" else v.float())
-            for k, v in engine.params.items()}
+        params32 = _f32_params(torch, engine.params)
         straight32, resumed32 = run(params32, mc32)
         del params32
         straight16, resumed16 = run(engine.params, mc16)
@@ -3754,12 +3859,467 @@ def phase_lifecycle(torch) -> dict:
     return counts
 
 
+# ---------------------------------------------------------------- lora
+
+LORA_DIR = os.path.join(REPO, "build", "lora_smoke")
+_PEFT_ALL = ("q_proj", "k_proj", "v_proj", "o_proj", "gate_proj", "up_proj",
+             "down_proj")
+# (name, rank, PEFT target modules): three seeded adapters, alpha = 2 x rank
+LORA_ADAPTERS = [("all-r8", 8, _PEFT_ALL), ("qv-r16", 16, ("q_proj", "v_proj")),
+                 ("mlp-r16", 16, ("gate_proj", "up_proj", "down_proj"))]
+# (label, prompt, max_tokens, model field: None = the base model)
+LORA_PROMPTS = [
+    ("base_short", "Tell me about the sea.", 32, None),
+    ("base_medium", BASE_TEXT * 6, 40, None),
+    ("all_long", (BASE_TEXT * 40)[:1200], 48, "all-r8"),  # 1,201 tokens
+    ("all_short", "Say something long.", 32, "all-r8"),
+    ("qv_repeat_a", "Write a haiku about paged attention.", 40, "qv-r16"),
+    ("qv_repeat_b", "Write a haiku about paged attention.", 40, "qv-r16"),
+    ("mlp_short", "Tell me about the sea.", 32, "mlp-r16"),
+    ("sampled", "Pick a random word.", 32, "mlp-r16"),
+]
+LORA_SPEC_TOKENS = 48
+
+
+def _write_peft(torch, mc, path: str, seed: int, rank: int, targets) -> int:
+    """A seeded HF PEFT adapter directory for `mc` (adapter_config.json and
+    adapter_model.safetensors, float32, written by the port's writer):
+    A ~ N(0, 0.02) [r, in], B ~ N(0, 0.02) [out, r], alpha = 2 x rank.
+    Returns its bytes."""
+    from kserve_tpu_torch.models.safetensors_io import save_file
+
+    h, f = mc.hidden_size, mc.intermediate_size
+    q, kv = mc.n_heads * mc.head_dim, mc.n_kv_heads * mc.head_dim
+    dims = {"q_proj": ("self_attn", h, q), "k_proj": ("self_attn", h, kv),
+            "v_proj": ("self_attn", h, kv), "o_proj": ("self_attn", q, h),
+            "gate_proj": ("mlp", h, f), "up_proj": ("mlp", h, f),
+            "down_proj": ("mlp", f, h)}
+    gen = torch.Generator()
+    gen.manual_seed(seed)
+    tensors = {}
+    for i in range(mc.n_layers):
+        for proj in targets:
+            module, d_in, d_out = dims[proj]
+            pre = f"base_model.model.model.layers.{i}.{module}.{proj}"
+            tensors[f"{pre}.lora_A.weight"] = torch.randn(rank, d_in, generator=gen) * 0.02
+            tensors[f"{pre}.lora_B.weight"] = torch.randn(d_out, rank, generator=gen) * 0.02
+    os.makedirs(path, exist_ok=True)
+    with open(os.path.join(path, "adapter_config.json"), "w") as fh:
+        json.dump({"r": rank, "lora_alpha": 2 * rank, "peft_type": "LORA",
+                   "target_modules": list(targets)}, fh)
+    save_file(tensors, os.path.join(path, "adapter_model.safetensors"))
+    return sum(t.numel() * 4 for t in tensors.values())
+
+
+def _packed_plan(torch, mc, lens, seed: int, ps: int):
+    """Lanes of `lens` prompt tokens (seeded ids) packed at multiples of
+    the ragged kernel's block, lane i on pages 1 + i W ..: the inputs of
+    llama.forward_ragged, plus W."""
+    from kserve_tpu_torch.ops.paged_attention_cuda import RAGGED_BQ
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    W = -(-(max(lens) + 2) // ps)
+    tokens, seq, pos, q_start, last = [], [], [], [], []
+    for i, n in enumerate(lens):
+        q_start.append(len(tokens))
+        pad = -(-n // RAGGED_BQ) * RAGGED_BQ - n
+        tokens += torch.randint(0, mc.vocab_size, (n,), generator=gen,
+                                device="cuda").tolist() + [0] * pad
+        seq += [i] * n + [-1] * pad
+        pos += list(range(n)) + [0] * pad
+        last.append(q_start[-1] + n - 1)
+    ints = lambda xs: torch.tensor(xs, dtype=torch.int32, device="cuda")  # noqa: E731
+    table = ints([[1 + i * W + j for j in range(W)] for i in range(len(lens))])
+    return ([ints(tokens), ints(seq), ints(pos), ints(q_start), ints(lens),
+             ints([0] * len(lens))], table, ints(last), W)
+
+
+def _lora_logits_check(torch, engine) -> dict:
+    """On the served Llama-3-8B (bf16, full depth, the adapters' stacks on
+    its layers), through the kernels:
+
+    - base lanes bit-equal: the step-0 logits of a base lane packed beside
+      lanes on all three adapters, and its next decode step's, equal bit
+      for bit those of the same dispatch with every lane on the base model
+      (the adapter lanes' must differ);
+    - each adapter against a merged-weight reference: its lanes' step-0
+      logits through the LoRA path (W x + B(A x)) against the weights with
+      W + A B merged in: in float32 within F32_LOGITS_REL_TOL of the
+      largest |logit|, and in bf16 within BF16_NOISE_FACTOR times the
+      merged model's own bf16 noise (merged bf16 against merged f32)."""
+    import dataclasses
+
+    from kserve_tpu_torch.models import llama
+
+    mc, ps = engine.model_config, engine.config.page_size
+    lens = [40, 100, 7, 64]
+    packed, table, last, W = _packed_plan(torch, mc, lens, seed=11, ps=ps)
+    ints = lambda xs: torch.tensor(xs, dtype=torch.int32, device="cuda")  # noqa: E731
+    active = torch.ones(len(lens), dtype=torch.bool, device="cuda")
+
+    def run(params, mcfg, ids, decode=False):
+        pages = _fresh_cache(mcfg, ps, 1 + len(lens) * W, engine.config.kv_quant)
+        ad = None if ids is None else ints(ids)
+        step0, _ = llama.forward_ragged(params, mcfg, *packed, pages, table, ps,
+                                        last, adapter_ids=ad)
+        if not decode:
+            return step0
+        picks = torch.argmax(step0, dim=-1).to(torch.int32)
+        step1, _ = llama.decode_step(params, mcfg, picks, ints(lens), pages, table,
+                                     active, ps, adapter_ids=ad)
+        return step0, step1
+
+    out = {}
+    with torch.inference_mode():
+        mixed = run(engine.params, mc, [0, -1, 2, 1], decode=True)
+        base = run(engine.params, mc, [-1, -1, -1, -1], decode=True)
+        bit_equal = all(torch.equal(m[1], b[1]) for m, b in zip(mixed, base))
+        adapted_differ = all(not torch.equal(m[i], b[i]) for m, b in zip(mixed, base)
+                             for i in (0, 2, 3))
+        out["base_lane"] = {"bit_equal": bit_equal, "adapter_lanes_differ": adapted_differ}
+        del mixed, base
+        mc32 = dataclasses.replace(mc, dtype="float32")
+        for name, k in sorted(engine.adapter_ids.items(), key=lambda kv: kv[1]):
+            ids = [k] * len(lens)
+            lora16 = run(engine.params, mc, ids)
+            params32 = _f32_params(torch, engine.params)
+            lora32 = run(params32, mc32, ids)
+            # merge W + A B into the f32 copy (in place) and into new bf16
+            # tensors of the adapted projections only
+            merged16 = dict(engine.params, layers=[])
+            for layer32, layer16 in zip(params32["layers"], engine.params["layers"]):
+                stack = layer32.pop("lora", {})
+                out16 = {key: v for key, v in layer16.items() if key != "lora"}
+                for proj, ab in stack.items():
+                    layer32[proj] += ab["A"][k] @ ab["B"][k]
+                    out16[proj] = layer32[proj].to(mc.torch_dtype)
+                merged16["layers"].append(out16)
+            m32 = run(params32, mc32, None)
+            del params32
+            m16 = run(merged16, mc, None)
+            del merged16
+            scale = float(m32.abs().max())
+            row = {"f32_max_abs_err": float((lora32 - m32).abs().max()),
+                   "f32_tol": F32_LOGITS_REL_TOL * scale,
+                   "bf16_max_abs_err": float((lora16.float() - m16).abs().max()),
+                   "bf16_noise": float((m16 - m32).abs().max()),
+                   "max_abs_logit": scale,
+                   "lora_vs_base_max_abs": float((lora16 - run(engine.params, mc, None)).abs().max())}
+            row["bf16_tol"] = BF16_NOISE_FACTOR * row["bf16_noise"]
+            out[name] = row
+            torch.cuda.empty_cache()
+    torch.cuda.empty_cache()
+    bad = [n for n, r in out.items() if n != "base_lane" and not (
+        r["f32_max_abs_err"] <= r["f32_tol"] and r["bf16_max_abs_err"] <= r["bf16_tol"]
+        and r["lora_vs_base_max_abs"] > 0)]
+    if bad or not (bit_equal and adapted_differ):
+        raise AssertionError(f"LoRA logits: {bad or 'base lanes'} failed: {out}")
+    return out
+
+
+def _dispatch_profile(torch, engine, params, adapters=None) -> dict:
+    """One `mixed` dispatch of the served engine's program at its batch
+    (every lane decoding at 512 cached tokens, steps_per_sync steps) on
+    `params`, warm, then under torch.profiler: wall, launches, the device
+    busy ms by kernel class (GEMM among them) and the idle share
+    (scripts/torch_profile_mixed.py's profile_step)."""
+    import importlib.util
+
+    import numpy as np
+
+    from kserve_tpu_torch.engine.sampling import SamplingParams, SamplingState
+    from kserve_tpu_torch.ops.paged_attention_cuda import RAGGED_BQ
+
+    spec = importlib.util.spec_from_file_location(
+        "torch_profile_mixed", os.path.join(REPO, "scripts", "torch_profile_mixed.py"))
+    prof = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(prof)
+    mc, ec = engine.model_config, engine.config
+    B, ps, steps, context = ec.max_batch_size, ec.page_size, ec.steps_per_sync, 512
+    W = -(-(context + steps + 1) // ps)
+    pages = _fresh_cache(mc, ps, 1 + B * W, ec.kv_quant)
+    plan = prof._plan({i: (context, 1) for i in range(B)}, B, W, ps, RAGGED_BQ)
+    state = SamplingState.from_params([SamplingParams(temperature=0.0)] * B, "cuda")
+    gen = torch.Generator(device="cuda")
+    ids = None if adapters is None else np.asarray(adapters, np.int32)
+
+    def run():
+        return engine._mixed(params, *plan[:7], pages, *plan[7:], state, gen,
+                             ids)[:1]
+
+    out = prof.profile_step(run, steps)
+    out.pop("top_kernels")
+    out.pop("launches_by_kernel")
+    out["gemm_ms"] = out["device_ms_by_class"].get("gemm", 0.0)
+    del pages
+    torch.cuda.empty_cache()
+    return out
+
+
+def _completions(port: int, name: str, prompts, chat=None) -> tuple:
+    """`prompts` ((label, text, max_tokens, model or None)) concurrently,
+    plus `chat` (a streamed chat body) beside them: ({label: (status,
+    body)}, chat result or None, wall s)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    t_send: list = []
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(max_workers=len(prompts) + 1) as pool:
+        futs = {label: pool.submit(_http, port, "POST", "/openai/v1/completions", {
+            "model": model or name, "prompt": text, "max_tokens": n,
+            "ignore_eos": True, **SAMPLED.get(label, {"temperature": 0})})
+            for label, text, n, model in prompts}
+        chat_fut = chat and pool.submit(_stream_chat, port, chat, t_send)
+        results = {label: f.result() for label, f in futs.items()}
+        chat_out = chat_fut.result() if chat else None
+    return results, chat_out, time.perf_counter() - t0
+
+
+def _check_completions(phase: str, prompts, results) -> tuple:
+    """Every completion answered 200 with its max_tokens: (tokens, texts)."""
+    generated, texts = 0, {}
+    for label, _, n, _ in prompts:
+        status, body = results[label]
+        if status != 200:
+            raise AssertionError(f"{phase} completion {label} answered {status}: "
+                                 f"{body[:300]!r}")
+        resp = json.loads(body)
+        if (resp["usage"]["completion_tokens"] != n
+                or resp["choices"][0]["finish_reason"] != "length"):
+            raise AssertionError(f"{phase} completion {label}: {resp['usage']}")
+        generated += n
+        texts[label] = resp["choices"][0]["text"]
+    return generated, texts
+
+
+def phase_lora(torch) -> dict:
+    """Multi-adapter LoRA at Llama-3-8B full width and depth, bf16: three
+    seeded PEFT adapters written by the port's writer (rank 8 on all seven
+    projections, rank 16 on q/v, rank 16 on the MLP), served with
+    --lora_adapters.  /openai/v1/models lists 4 models; 8 concurrent
+    completions mix the base model and all three adapters (one of 1,201
+    prompt tokens, chunked) beside a streamed chat on one adapter; the
+    ragged and decode kernels launched, the launches per dispatch as
+    without adapters; a repeated greedy prompt on one adapter gives one
+    text; the logits gates of _lora_logits_check; one dispatch profiled
+    with the adapters (lanes on all three and the base) and without; then
+    a short --spec_decode_k 3 run whose lanes carry adapters (the dense
+    kernel launched).  Returns the first wave's launch counts."""
+    import shutil
+
+    from kserve_tpu_torch.models import llama
+    from kserve_tpu_torch.ops import paged_attention_cuda as K
+
+    t_phase = time.perf_counter()
+    shutil.rmtree(LORA_DIR, ignore_errors=True)
+    mc = llama.LlamaConfig.llama3_8b()
+    written, flags = {}, []
+    for seed, (name, rank, targets) in enumerate(LORA_ADAPTERS, start=21):
+        path = os.path.join(LORA_DIR, name)
+        written[name] = _write_peft(torch, mc, path, seed, rank, targets)
+        flags.append(f"{name}={path}")
+    lora_arg = ["--lora_adapters=" + ",".join(flags)]
+    emit({"phase": "lora", "event": "adapters_written",
+          "bytes": written, "memory_allocated_gb": torch.cuda.memory_allocated() / 1e9})
+    try:
+        model, server, thread = _start_server(torch, SERVE_ARGS + lora_arg, "lora")
+        port, name, engine = server.port, model.name, model.engine
+        status, body = _http(port, "GET", "/openai/v1/models")
+        listed = [m["id"] for m in json.loads(body)["data"]]
+        if status != 200 or listed != [name] + sorted(written):
+            raise AssertionError(f"/openai/v1/models: {status} {listed}")
+        stacks = sum(t.numel() * t.element_size() for layer in engine.params["layers"]
+                     for ab in layer.get("lora", {}).values() for t in ab.values())
+        chat = {"model": "qv-r16", "stream": True, "max_tokens": 40,
+                "temperature": 0, "ignore_eos": True,
+                "messages": [{"role": "user", "content": "Say something long."}]}
+        torch.cuda.synchronize()
+        K.reset_launch_counts()
+        results, (chat_status, events, ttft), wall = _completions(
+            port, name, LORA_PROMPTS, chat)
+        torch.cuda.synchronize()
+        counts = dict(K.LAUNCHES)
+        generated, texts = _check_completions("lora", LORA_PROMPTS, results)
+        if texts["qv_repeat_a"] != texts["qv_repeat_b"]:
+            raise AssertionError("a repeated greedy prompt on one adapter gave "
+                                 "another text")
+        if chat_status != 200 or events[-1] != "[DONE]" or len(events) - 2 != 40:
+            raise AssertionError(f"adapter chat: {chat_status}, {len(events)} events")
+        generated += 40
+        _require_launches("lora", counts,
+                          ("ragged_paged_attention", "paged_decode_attention"))
+        per_dispatch = _launches_per_dispatch("lora", engine, counts)
+        logits = _lora_logits_check(torch, engine)
+        decode_no_sync = _check_decode_has_no_sync(torch, engine)
+        base_params = dict(engine.params, layers=[
+            {k: v for k, v in layer.items() if k != "lora"}
+            for layer in engine.params["layers"]])
+        B = engine.config.max_batch_size
+        profile = {"no_adapters": _dispatch_profile(torch, engine, base_params),
+                   "adapters": _dispatch_profile(
+                       torch, engine, engine.params, [i % 4 - 1 for i in range(B)])}
+        summary = {
+            "phase": "lora", "model": f"{name} (random weights, seed 1)",
+            "adapters": {n: {"rank": r, "targets": list(t)} for n, r, t in LORA_ADAPTERS},
+            "adapter_ids": engine.adapter_ids, "lora_stacks_gb": stacks / 1e9,
+            "models_listed": listed, "requests": len(LORA_PROMPTS) + 1,
+            "tokens_generated": generated, "wall_s": wall,
+            "tok_per_s": generated / wall, "chat_ttft_s": ttft,
+            "prompt_tokens": {label: len(model.tokenizer.encode(text))
+                              for label, text, _, _ in LORA_PROMPTS},
+            "launches": counts, "launches_per_dispatch": per_dispatch,
+            "logits_check": logits, "decode_no_sync": decode_no_sync,
+            "dispatch_profile": profile,
+        }
+        del engine, base_params
+        _stop_server(torch, model, server, thread)
+
+        # speculative decoding with adapter lanes
+        model, server, thread = _start_server(
+            torch, SERVE_ARGS + lora_arg + [f"--spec_decode_k={SPEC_K}"], "lora_spec")
+        spec_prompts = [(f"spec_{m or 'base'}", "ab " * 40, LORA_SPEC_TOKENS, m)
+                        for m in [None] + sorted(written)]
+        torch.cuda.synchronize()
+        K.reset_launch_counts()
+        results, _, spec_wall = _completions(server.port, model.name, spec_prompts)
+        torch.cuda.synchronize()
+        spec_counts = dict(K.LAUNCHES)
+        spec_generated, _ = _check_completions("lora_spec", spec_prompts, results)
+        stats = dict(model.engine.spec_stats)
+        _require_launches("lora_spec", spec_counts, ("dense_ragged_paged_attention",))
+        if not stats["drafted"] > 0:
+            raise AssertionError(f"lora_spec drafted nothing: {stats}")
+        summary["spec"] = {
+            "requests": len(spec_prompts), "tokens_generated": spec_generated,
+            "wall_s": spec_wall, "tok_per_s": spec_generated / spec_wall,
+            "spec_stats": stats, "launches": spec_counts,
+            "launches_per_dispatch": _launches_per_dispatch(
+                "lora_spec", model.engine, spec_counts)}
+        _stop_server(torch, model, server, thread)
+    finally:
+        shutil.rmtree(LORA_DIR, ignore_errors=True)
+    summary["phase_wall_s"] = time.perf_counter() - t_phase
+    emit(summary)
+    return counts
+
+
+# ---------------------------------------------------------------- wq
+
+WQ_ARGS = SERVE_ARGS + ["--weight_quant=int8"]
+
+
+def _dequant_check(torch, engine) -> dict:
+    """The served int8 Llama-3-8B against its dequantized weights (q x s):
+    step-0 and decode-step logits of the int8 path ((x @ q) x s, through
+    the kernels) against the same model with every int8 leaf replaced by
+    its dequantized form: in float32 within F32_LOGITS_REL_TOL of the
+    largest |logit| (the two differ in summation and rounding order only),
+    and in bf16 within BF16_NOISE_FACTOR times the dequantized model's own
+    bf16 noise (its bf16 run against its f32 run)."""
+    import dataclasses
+
+    from kserve_tpu_torch.models import llama
+    from kserve_tpu_torch.models.quant import is_quantized
+
+    mc, ps = engine.model_config, engine.config.page_size
+    lens = [40, 100, 7]
+    packed, table, last, W = _packed_plan(torch, mc, lens, seed=13, ps=ps)
+    ints = lambda xs: torch.tensor(xs, dtype=torch.int32, device="cuda")  # noqa: E731
+    active = torch.ones(len(lens), dtype=torch.bool, device="cuda")
+    mc32 = dataclasses.replace(mc, dtype="float32")
+
+    def run(params, mcfg, picks=None):
+        pages = _fresh_cache(mcfg, ps, 1 + len(lens) * W, engine.config.kv_quant)
+        step0, _ = llama.forward_ragged(params, mcfg, *packed, pages, table, ps, last)
+        if picks is None:
+            picks = torch.argmax(step0, dim=-1).to(torch.int32)
+        step1, _ = llama.decode_step(params, mcfg, picks, ints(lens), pages, table,
+                                     active, ps)
+        return (step0, step1), picks
+
+    def dequant(tree, dtype):
+        if is_quantized(tree):
+            return (tree["q"].float() * tree["s"].float()).to(dtype)
+        if isinstance(tree, dict):
+            return {k: dequant(v, dtype) for k, v in tree.items()}
+        if isinstance(tree, list):
+            return [dequant(v, dtype) for v in tree]
+        if torch.is_tensor(tree) and tree.is_floating_point():
+            return tree.to(dtype)
+        return tree
+
+    with torch.inference_mode():
+        (q32, picks) = run(_f32_params(torch, engine.params), mc32)
+        q16, _ = run(engine.params, mc, picks)
+        d32, _ = run(dequant(engine.params, torch.float32), mc32, picks)
+        torch.cuda.empty_cache()
+        d16, _ = run(dequant(engine.params, mc.torch_dtype), mc, picks)
+    torch.cuda.empty_cache()
+    out = {}
+    for i, step in enumerate(("forward_ragged", "decode_step")):
+        scale = float(d32[i].abs().max())
+        noise = float((d16[i] - d32[i]).abs().max())
+        row = {"f32_max_abs_err": float((q32[i] - d32[i]).abs().max()),
+               "f32_tol": F32_LOGITS_REL_TOL * scale,
+               "bf16_max_abs_err": float((q16[i] - d16[i]).abs().max()),
+               "bf16_noise": noise, "bf16_tol": BF16_NOISE_FACTOR * noise,
+               "max_abs_logit": scale}
+        out[step] = row
+        if not (row["f32_max_abs_err"] <= row["f32_tol"]
+                and row["bf16_max_abs_err"] <= row["bf16_tol"]
+                and all(bool(torch.isfinite(t[i]).all()) for t in (q16, q32))):
+            raise AssertionError(f"int8 weights' {step} logits stray from the "
+                                 f"dequantized reference: {row}")
+    return out
+
+
+def phase_wq(torch) -> dict:
+    """Int8 weights at Llama-3-8B full width and depth: --weight_quant int8
+    (drawn int8 on the card), then with --kv_quant int8 as well.  Each
+    serves the serve phase's wave (_serve_run: every completion and the
+    chat, telemetry, the kernels' launch counts and logits against their
+    plain versions over the int8 weights, a decode step under CUDA sync
+    debugging); prints the resident weights and KV bytes, tok/s and one
+    profiled dispatch's device time by class (the GEMMs'); the first also
+    gates on the dequantized reference (_dequant_check)."""
+    from kserve_tpu_torch.models import llama
+    from kserve_tpu_torch.models.quant import param_bytes
+
+    mc = llama.LlamaConfig.llama3_8b()
+    counts = {}
+    for phase, extra in (("wq", []), ("wq_kvq", ["--kv_quant=int8"])):
+        captured = {}
+
+        def probe(torch_, engine, captured=captured, kv_int8=bool(extra)):
+            captured["weights_gb"] = _tensor_bytes(torch_, engine.params) / 1e9
+            if not kv_int8:
+                # over int8 KV, K/V rows rounding to neighbouring int8 steps
+                # swamp this comparison; _serve_run's logits check holds
+                # that run's kernels to their plain versions instead
+                captured["dequant_check"] = _dequant_check(torch_, engine)
+            captured["dispatch_profile"] = _dispatch_profile(torch_, engine,
+                                                             engine.params)
+
+        counts[phase] = _serve_run(torch, WQ_ARGS + extra, phase, SERVE_PROMPTS,
+                                   probe=probe)
+        sfx = "_int8" if extra else ""
+        _require_launches(phase, counts[phase], ("ragged_paged_attention" + sfx,
+                                                 "paged_decode_attention" + sfx))
+        emit({"phase": phase, "event": "int8_weights",
+              "param_bytes_gb": {"bf16": param_bytes(mc) / 1e9,
+                                 "int8": param_bytes(mc, "int8") / 1e9},
+              **captured})
+    return counts
+
+
 # the served phases --only can run alone
 SERVED_PHASES = {"serve": phase_serve, "d64": phase_d64, "spec": phase_spec,
                  "kvq": phase_kvq, "gemma2": phase_gemma2,
                  "pressure": phase_pressure, "legacy": phase_legacy,
                  "prefix": phase_prefix, "tiers": phase_tiers,
-                 "lifecycle": phase_lifecycle}
+                 "lifecycle": phase_lifecycle, "lora": phase_lora,
+                 "wq": phase_wq, "checkpoint": phase_checkpoint}
 
 if __name__ == "__main__":
     sys.exit(main())

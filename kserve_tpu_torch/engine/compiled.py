@@ -17,7 +17,10 @@ to round.  Host data goes up through pinned memory without a stream
 sync (device.upload).  KV pages and the draft table are updated in place.
 A layer's cache is its pages or, with int8 KV, (int8 pages, scales): the
 programs only hand it on (the counterpart of the JAX package's `_kv_pin`
-tuple branch, compiled.py:189-215).
+tuple branch, compiled.py:189-215).  Every program that runs the model
+takes `adapter_ids`, one LoRA adapter id per lane or prompt row (-1 = the
+base model; None = every lane on the base model), and hands it to the
+model (kserve_tpu/engine/compiled.py:296, :358, :448, :487, :585).
 """
 
 from __future__ import annotations
@@ -84,6 +87,11 @@ def inject_q(kv_pages: List[KVLayer], q, s, ids) -> List[KVLayer]:
     return kv_pages
 
 
+def _on(adapter_ids, device: torch.device) -> Optional[torch.Tensor]:
+    """Host adapter ids as an int32 tensor on `device` (None stays None)."""
+    return None if adapter_ids is None else upload(adapter_ids, device)
+
+
 def make_mixed(model_config: llama.LlamaConfig, engine_config):
     """The `mixed` step for this model and engine configuration.
 
@@ -100,11 +108,13 @@ def make_mixed(model_config: llama.LlamaConfig, engine_config):
     def mixed(params, q_tokens, token_seq, token_pos, q_start, q_len,
               kv_start, last_idx, kv_pages: List[KVLayer], page_table,
               joins, scan_tok0, scan_pos0, step0_emits, capacity, counters,
-              state: SamplingState, rng: torch.Generator):
+              state: SamplingState, rng: torch.Generator, adapter_ids=None):
         device = layer_pages(kv_pages[0]).device
 
         def dev(x, dtype=torch.int32):
             return upload(x, device, dtype)
+
+        adapters = _on(adapter_ids, device)
 
         # host bookkeeping of the decode loop: positions advance and
         # counters count only on live steps, independent of the tokens
@@ -131,7 +141,7 @@ def make_mixed(model_config: llama.LlamaConfig, engine_config):
         logits, kv_pages = llama.forward_ragged(
             params, model_config, dev(q_tokens), dev(token_seq),
             dev(token_pos), dev(q_start), dev(q_len), dev(kv_start),
-            kv_pages, table, page_size, dev(last_idx))
+            kv_pages, table, page_size, dev(last_idx), adapter_ids=adapters)
         sampled0 = sample_tokens(logits, state, rng, counters_dev[0])
         tok0 = dev(scan_tok0)
         tokens = torch.where(tok0 >= 0, tok0, sampled0)
@@ -140,7 +150,7 @@ def make_mixed(model_config: llama.LlamaConfig, engine_config):
             live = live_dev[s]
             logits, kv_pages = llama.decode_step(
                 params, model_config, tokens, pos_dev[s], kv_pages, table,
-                live, page_size)
+                live, page_size, adapter_ids=adapters)
             nxt = sample_tokens(logits, state, rng, counters_dev[s + 1])
             tokens = torch.where(live, nxt, tokens)
             out.append(tokens)
@@ -185,11 +195,14 @@ def make_mixed_decode(model_config: llama.LlamaConfig, engine_config,
     def mixed_decode(params, tokens, pos, kv_pages: List[KVLayer],
                      page_table, live, capacity, counters,
                      draft_table: Optional[torch.Tensor],
-                     state: SamplingState, rng: torch.Generator):
+                     state: SamplingState, rng: torch.Generator,
+                     adapter_ids=None):
         device = layer_pages(kv_pages[0]).device
 
         def dev(x, dtype=torch.int32):
             return upload(x, device, dtype)
+
+        adapters = _on(adapter_ids, device)
 
         tok, p, cnt = dev(tokens), dev(pos), dev(counters)
         table = dev(page_table)
@@ -229,7 +242,8 @@ def make_mixed_decode(model_config: llama.LlamaConfig, engine_config,
             logits, kv_pages = llama.forward_ragged(
                 params, model_config, q_tokens, token_seq, token_pos,
                 q_start, q_len, p, kv_pages, table, page_size, q_start,
-                logits_at=logits_at, dense_stride=dense_stride)  # [B*Kp, V]
+                logits_at=logits_at, dense_stride=dense_stride,
+                adapter_ids=adapters)  # [B*Kp, V]
             row_counters = (cnt[:, None] + j[None, :]).reshape(-1)
             sampled = sample_tokens(logits, row_state, rng,
                                     row_counters).reshape(B, Kp)
@@ -333,18 +347,20 @@ class LegacyPrograms:
 
     def _make_prefill(self, with_logprobs: bool):
         """prefill(params, tokens [Bp, T], valid_len [Bp], pages, page_ids
-        [Bp, W], state, rng) -> (first [Bp] int32[, (lp, top_vals,
+        [Bp, W], state, rng[, adapter_ids [Bp]]) -> (first [Bp] int32[, (lp, top_vals,
         top_ids)], pages): whole prompts through llama.prefill, the
         in-prompt mask of the first token's repetition penalty made on the
         device (compiled.py:294-341)."""
         mc, ps = self.model_config, self.config.page_size
 
         def prefill(params, tokens, valid_len, kv_pages: List[KVLayer],
-                    page_ids, state: SamplingState, rng: torch.Generator):
+                    page_ids, state: SamplingState, rng: torch.Generator,
+                    adapter_ids=None):
             device = layer_pages(kv_pages[0]).device
             tok, valid = upload(tokens, device), upload(valid_len, device)
             logits, kv_pages = llama.prefill(
-                params, mc, tok, valid, kv_pages, upload(page_ids, device), ps)
+                params, mc, tok, valid, kv_pages, upload(page_ids, device), ps,
+                adapter_ids=_on(adapter_ids, device))
             Bp, T = tok.shape
             pos_valid = (torch.arange(T, dtype=torch.int32, device=device)[None, :]
                          < valid[:, None])
@@ -362,17 +378,17 @@ class LegacyPrograms:
 
     def _make_prefill_chunk(self):
         """prefill_chunk(params, tokens [B, C], chunk_start [B], valid_len
-        [B], pages, page_ids [B, W]) -> ([B, V] f32 logits at each chunk's
-        last valid token, pages) (compiled.py:447)."""
+        [B], pages, page_ids [B, W][, adapter_ids [B]]) -> ([B, V] f32
+        logits at each chunk's last valid token, pages) (compiled.py:447)."""
         mc, ps = self.model_config, self.config.page_size
 
         def prefill_chunk(params, tokens, chunk_start, valid_len,
-                          kv_pages: List[KVLayer], page_ids):
+                          kv_pages: List[KVLayer], page_ids, adapter_ids=None):
             device = layer_pages(kv_pages[0]).device
             return llama.prefill_chunk(
                 params, mc, upload(tokens, device), upload(chunk_start, device),
                 upload(valid_len, device), kv_pages, upload(page_ids, device),
-                ps)
+                ps, adapter_ids=_on(adapter_ids, device))
 
         return prefill_chunk
 
@@ -393,7 +409,8 @@ class LegacyPrograms:
     def _make_decode(self, with_penalties: bool, with_logprobs: bool):
         """decode(params, tokens [B], pos [B], pages, page_table [B, W],
         active [B], capacity [B], counters [B], state, rng[, prompt_mask
-        [B, V] bool, counts [B, V] int32]) -> (out, pages[, counts]):
+        [B, V] bool, counts [B, V] int32][, adapter_ids=[B]]) -> (out,
+        pages[, counts]):
         steps_per_sync steps of llama.decode_step (compiled.py:343-418).
 
         A lane steps while active and below its page capacity; past it
@@ -410,8 +427,10 @@ class LegacyPrograms:
 
         def decode(params, tokens, pos, kv_pages: List[KVLayer], page_table,
                    active, capacity, counters, state: SamplingState,
-                   rng: torch.Generator, prompt_mask=None, counts=None):
+                   rng: torch.Generator, prompt_mask=None, counts=None,
+                   adapter_ids=None):
             device = layer_pages(kv_pages[0]).device
+            adapters = _on(adapter_ids, device)
             pos_h = np.asarray(pos, np.int64).copy()
             cnt_h = np.asarray(counters, np.int64).copy()
             active_h = np.asarray(active, bool)
@@ -433,7 +452,8 @@ class LegacyPrograms:
             for s in range(steps):
                 live = live_d[s]
                 logits, kv_pages = llama.decode_step(
-                    params, mc, tok, pos_d[s], kv_pages, table, live, ps)
+                    params, mc, tok, pos_d[s], kv_pages, table, live, ps,
+                    adapter_ids=adapters)
                 if with_penalties:
                     logits = apply_penalties(
                         logits, counts, state.repetition_penalty,

@@ -45,6 +45,17 @@ Port of the unified-ragged serving path of kserve_tpu/engine/engine.py:
   thread reads the tiers, one inject writes the pages); a prefix that is
   hit again is written through to the persistent layer, which a
   restarted engine pages in from
+- int8 weights (`weight_quant="int8"`, models/quant.py): random weights
+  are drawn int8, passed-in ones quantized at construction
+  (kserve_tpu/engine/engine.py:207-222)
+- multi-adapter LoRA (`lora_adapters={name: PEFT dir}`, models/lora.py):
+  every adapter's stacks ride the layers, and a request names one
+  (`generate(..., adapter=name)`; None is the base model), which becomes
+  a per-lane id (-1: base) that every program takes, so base and adapter
+  lanes of any mix share each dispatch.  LoRA KV is adapter-specific: an adapter request
+  neither looks up nor registers prefix pages (so it pages nothing in
+  and persists nothing); a checkpoint carries the adapter's name and a
+  resume resolves it (kserve_tpu/engine/engine.py:223-310, :1367-1433)
 
 The device calls and the fetches of their tokens run on one worker
 thread (`_fetch_async`, under the step deadline), so the event loop keeps
@@ -100,9 +111,8 @@ Lifecycle and operations (kserve_tpu/engine/engine.py:1257-1360,
 Not ported yet: the peer page fabric, injected KV from a prefill peer
 (P/D: `kv_data`, `generate_injected`), frees deferred while a chained
 dispatch is in flight (not needed on one stream, above),
-data/tensor/pipeline/sequence parallelism, LoRA adapters (a checkpoint
-taken under one is refused) and the AOT cache.  Admission waits for free
-pages.
+data/tensor/pipeline/sequence parallelism, MoE and the AOT cache.
+Admission waits for free pages.
 """
 
 from __future__ import annotations
@@ -137,6 +147,8 @@ from ..metrics import (
     observe_startup_phase,
 )
 from ..models import llama
+from ..models.lora import stack_adapters
+from ..models.quant import is_quantized, quantize_params
 from ..observability import RequestTimeline, TimelineRecorder
 from ..resilience import (
     MONOTONIC,
@@ -211,11 +223,15 @@ class LLMEngine:
         weights_seconds: float = 0.0,
         checkpoint_label: Optional[str] = None,
         clock=None,
+        lora_adapters: Optional[Dict[str, str]] = None,
     ):
         """`params`: the model's parameters on `device` (None draws seeded
-        random ones).  `metrics_label` is the model_name label of the
-        engine's metrics; `weights_seconds` is the time the caller spent
-        reading and placing `params`, counted into the startup phases.
+        random ones; with weight_quant="int8" plain ones are quantized).
+        `lora_adapters` maps adapter names to HF PEFT directories, loaded
+        onto the device and selected per request by name.  `metrics_label`
+        is the model_name label of the engine's metrics; `weights_seconds`
+        is the time the caller spent reading and placing `params`, counted
+        into the startup phases.
         `checkpoint_label` names the weights in the checkpoints this
         engine writes, and only a checkpoint with that name (or none)
         resumes here (default: `metrics_label`; the server passes the
@@ -236,8 +252,9 @@ class LLMEngine:
         engine_config = dataclasses.replace(engine_config)
         if engine_config.prefix_cache is None:
             engine_config.prefix_cache = True
+        if engine_config.weight_quant not in ("none", "int8"):
+            raise ValueError(f"weight_quant={engine_config.weight_quant!r}")
         unsupported = {
-            "weight_quant": engine_config.weight_quant != "none",
             "tp": engine_config.tp != 1,
             "dp": engine_config.dp != 1,
             "sp": engine_config.sp != 1,
@@ -263,9 +280,28 @@ class LLMEngine:
         self.tokenizer = tokenizer
         t0 = time.perf_counter()
         if params is None:
-            params = llama.init_params(model_config, seed=1, device=self.device)
-            if self.device.type == "cuda":
-                torch.cuda.synchronize(self.device)
+            params = llama.init_params(model_config, seed=1, device=self.device,
+                                       weight_quant=engine_config.weight_quant)
+        elif engine_config.weight_quant == "int8" and not any(
+                is_quantized(v) for v in params["layers"][0].values()):
+            params = quantize_params(params, model_config)
+        # multi-adapter LoRA (kserve_tpu/engine/engine.py:223-238, :293-310):
+        # per-layer stacks [n_adapters, ...] on the device beside the
+        # weights; a per-lane id selects one at run time
+        self.adapter_ids: Dict[str, int] = {}
+        if lora_adapters:
+            if getattr(model_config, "n_experts", 0) > 0:
+                raise NotImplementedError("LoRA over MoE layers is not supported yet")
+            self.adapter_ids, stacks = stack_adapters(
+                lora_adapters, model_config.n_layers, dtype=model_config.dtype,
+                device=self.device)
+            # new layer dicts: the caller's parameters stay as they were
+            params = dict(params, layers=[
+                dict(layer, lora=stack) if stack else dict(layer)
+                for layer, stack in zip(params["layers"], stacks)])
+            logger.info("LoRA adapters loaded: %s", sorted(self.adapter_ids))
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
         self.params = params
         # kserve_tpu/engine/engine.py:311-313, :733-747: exported at start()
         self._weights_external_s = weights_seconds
@@ -489,11 +525,14 @@ class LLMEngine:
         self._fetcher.close()
 
     def generate(self, prompt_ids: List[int], params: SamplingParams,
-                 request_id: Optional[str] = None) -> AsyncIterator[GenerationOutput]:
+                 request_id: Optional[str] = None,
+                 adapter: Optional[str] = None) -> AsyncIterator[GenerationOutput]:
         """Submit a request; yields one GenerationOutput per emitted token.
+        `adapter` names a loaded LoRA adapter (None = the base model).
         Validation runs here, before the stream starts: a draining or
         stopped engine raises ReplicaDrainingError, an expired propagated
-        deadline DeadlineExceededError (kserve_tpu/engine/engine.py:1362)."""
+        deadline DeadlineExceededError, an unknown adapter ValueError
+        (kserve_tpu/engine/engine.py:1362)."""
         if not prompt_ids:
             raise ValueError("empty prompt")
         if params.max_tokens < 1:
@@ -508,8 +547,28 @@ class LLMEngine:
         rid = request_id or f"req-{time.monotonic_ns()}"
         req = _QueuedRequest(rid, list(prompt_ids), params, asyncio.Queue(),
                              timeline=self._new_timeline(rid, len(prompt_ids)),
-                             deadline=deadline)
+                             deadline=deadline,
+                             adapter_id=self._resolve_adapter(adapter))
         return self._submit_and_stream(req)
+
+    def _resolve_adapter(self, adapter: Optional[str]) -> int:
+        """A LoRA adapter's name -> its stack row; None -> -1, the base
+        model (kserve_tpu/engine/engine.py:1425)."""
+        if adapter is None:
+            return -1
+        if adapter not in self.adapter_ids:
+            raise ValueError(
+                f"unknown LoRA adapter {adapter!r}; loaded: "
+                f"{sorted(self.adapter_ids) or 'none'}")
+        return self.adapter_ids[adapter]
+
+    def _adapter_name(self, adapter_id: int) -> Optional[str]:
+        """A stack row's adapter name, which a checkpoint carries (None for
+        the base model; kserve_tpu/engine/engine.py:1666)."""
+        for name, i in self.adapter_ids.items():
+            if i == adapter_id:
+                return name
+        return None
 
     def _check_accepting(self) -> None:
         """A draining or stopped engine refuses new work at once (503 +
@@ -712,11 +771,11 @@ class LLMEngine:
     # Port of kserve_tpu/engine/engine.py:1660-1886.
 
     def _checkpoint(self, request_id, prompt_ids, generated, params,
-                    deadline, reason) -> GenerationCheckpoint:
+                    adapter_id, deadline, reason) -> GenerationCheckpoint:
         ckpt = GenerationCheckpoint.capture(
             request_id=request_id, prompt_ids=prompt_ids, generated=generated,
-            params=params, adapter=None, model_name=self._ckpt_label,
-            deadline=deadline, reason=reason)
+            params=params, adapter=self._adapter_name(adapter_id),
+            model_name=self._ckpt_label, deadline=deadline, reason=reason)
         self.checkpointed_count += 1
         GENERATION_CHECKPOINTS.labels(model_name=self._mlabel, reason=reason).inc()
         return ckpt
@@ -729,9 +788,11 @@ class LLMEngine:
             req = slot.prefilling["req"]
             generated = req.resume["generated"] if req.resume is not None else []
             return self._checkpoint(req.request_id, req.prompt_ids, generated,
-                                    req.params, req.deadline, reason)
+                                    req.params, req.adapter_id, req.deadline,
+                                    reason)
         return self._checkpoint(slot.request_id, slot.prompt_ids, slot.generated,
-                                slot.params, slot.deadline, reason)
+                                slot.params, slot.adapter_id, slot.deadline,
+                                reason)
 
     def _evict_slot(self, slot: _Slot, exc: Exception) -> None:
         """Raise `exc` into the slot's stream and release the slot, as
@@ -759,7 +820,8 @@ class LLMEngine:
             self._discard_resume_kv(req)
             generated = list(req.resume["generated"]) if req.resume is not None else []
             ckpt = self._checkpoint(req.request_id, req.prompt_ids, generated,
-                                    req.params, req.deadline, reason)
+                                    req.params, req.adapter_id, req.deadline,
+                                    reason)
             out.append(ckpt)
             req.queue.put_nowait(GenerationPreempted(ckpt))
             if req.timeline is not None:
@@ -847,11 +909,9 @@ class LLMEngine:
             snapshot = Deadline.after(checkpoint.deadline_remaining_s, self._clock)
             if deadline is None or snapshot.remaining() < deadline.remaining():
                 deadline = snapshot
-        if checkpoint.adapter is not None:
-            # no LoRA adapter is served here yet: resuming on the base
-            # weights would splice another model's continuation
-            raise ValueError(
-                f"unknown LoRA adapter {checkpoint.adapter!r}; loaded: none")
+        # the adapter it was generated under, by name (resuming on other
+        # weights would splice another model's continuation)
+        adapter_id = self._resolve_adapter(checkpoint.adapter)
         generated = [int(t) for t in checkpoint.generated]
         # unique even when the same checkpoint is replayed twice: cancel()
         # tears down every slot of an id, so two resumes sharing one would
@@ -865,7 +925,7 @@ class LLMEngine:
         tl = self._new_timeline(rid, len(prompt_ids))
         tl.add_event(self._clock.now(), "resume", tokens_salvaged=len(generated))
         req = _QueuedRequest(rid, prompt_ids, params, asyncio.Queue(),
-                             timeline=tl, deadline=deadline)
+                             timeline=tl, deadline=deadline, adapter_id=adapter_id)
         if generated:
             # the continuation's text deltas pick up where the drained
             # replica's stream stopped
@@ -1068,9 +1128,10 @@ class LLMEngine:
         headroom for a long tail or a resume) are free.  Its cached prefix
         pages (`hits`, looked up here unless the caller did) are shared
         and its chunks start after them; a prefix resident in the tiers
-        is paged in first (the request is held meanwhile).  A preempted
-        request re-prefills its prompt plus all but its last generated
-        token (kserve_tpu/engine/engine.py:2250-2328)."""
+        is paged in first (the request is held meanwhile).  An adapter
+        request's KV is its adapter's: it shares no cached pages.  A
+        preempted request re-prefills its prompt plus all but its last
+        generated token (kserve_tpu/engine/engine.py:2250-2328)."""
         idx = self._free_slot_index()
         if idx is None:
             return False
@@ -1089,9 +1150,12 @@ class LLMEngine:
         if req.resume is not None:
             seq = req.prompt_ids + req.resume["generated"][:-1]
         if hits is None:
-            hits, keys = self._prefix_cache.lookup_run(seq)
-            if self._maybe_page_in(req, keys, len(hits)):
-                return False  # tier pages uploading; retried on wake
+            if req.adapter_id < 0:
+                hits, keys = self._prefix_cache.lookup_run(seq)
+                if self._maybe_page_in(req, keys, len(hits)):
+                    return False  # tier pages uploading; retried on wake
+            else:
+                hits, keys = [], []
         cached = list(hits)
         # take this request's reference before eviction runs: eviction may
         # drop these pages from the cache, but a live reference keeps them
@@ -1231,7 +1295,7 @@ class LLMEngine:
                 self.kv_tier_counts["spilled_bytes"] += payload_nbytes(payload)
         req = _QueuedRequest(slot.request_id, slot.prompt_ids, slot.params,
                              slot.queue, timeline=slot.timeline,
-                             deadline=slot.deadline)
+                             deadline=slot.deadline, adapter_id=slot.adapter_id)
         if slot.timeline is not None:
             slot.timeline.add_event(self._clock.now(), "preempt", pos=pos,
                                     spilled=kv_key is not None)
@@ -1527,6 +1591,7 @@ class LLMEngine:
         active = np.zeros((B,), bool)
         capacity = np.zeros((B,), np.int32)
         counters = np.zeros((B,), np.int32)
+        adapters = np.full((B,), -1, np.int32)
         params_list = [SamplingParams()] * B
         for i, slot in enumerate(self._slots):
             if slot.request_id is None or slot.prefilling is not None:
@@ -1551,6 +1616,7 @@ class LLMEngine:
             active[i] = True
             capacity[i] = len(slot.pages) * ps
             counters[i] = base - slot.prompt_len + 1
+            adapters[i] = slot.adapter_id
             params_list[i] = slot.params
         if not active.any():
             return None
@@ -1559,7 +1625,7 @@ class LLMEngine:
         if penalized:
             self._refresh_penalty_state()
         return {"tokens": tokens, "pos": pos, "active": active,
-                "capacity": capacity, "counters": counters,
+                "capacity": capacity, "counters": counters, "adapters": adapters,
                 "page_table": self._page_table(active),
                 "params": params_list, "penalized": penalized,
                 "want_logprobs": any(p.logprobs is not None for p in lanes)}
@@ -1595,7 +1661,7 @@ class LLMEngine:
                 plan["kv_start"], plan["last_idx"], self.kv_pages,
                 plan["page_table"], plan["joins"], plan["scan_tok0"],
                 plan["scan_pos0"], plan["step0_emits"], plan["capacity"],
-                plan["counters"], plan["state"], self._rng)
+                plan["counters"], plan["state"], self._rng, plan["adapters"])
             return out.cpu().numpy()
 
     def _plan_ragged(self, meta: Optional[dict], prefilling) -> dict:
@@ -1623,6 +1689,7 @@ class LLMEngine:
         step0_emits = np.zeros((B,), np.int32)
         capacity = np.zeros((B,), np.int32)
         counters = np.zeros((B,), np.int32)
+        adapters = np.full((B,), -1, np.int32)
         params_list = [SamplingParams() for _ in range(B)]
         tok_list: List[int] = []
         seq_list: List[int] = []
@@ -1658,6 +1725,7 @@ class LLMEngine:
                 step0_emits[i] = 1
                 capacity[i] = cap
                 counters[i] = int(meta["counters"][i])
+                adapters[i] = slot.adapter_id
                 params_list[i] = slot.params
                 consume[i] = (0, min(steps, cap - pos))
                 n_decode += 1
@@ -1675,6 +1743,7 @@ class LLMEngine:
             kv_start[i] = done
             cap = len(slot.pages) * ps
             capacity[i] = cap
+            adapters[i] = req.adapter_id
             params_list[i] = req.params
             final = done + n >= total
             if final and req.resume is not None:
@@ -1721,6 +1790,7 @@ class LLMEngine:
             "step0_emits": step0_emits,
             "capacity": capacity,
             "counters": counters,
+            "adapters": adapters,
             "state": SamplingState.from_params(params_list, self.device),
             "consume": consume,
             "chunks": chunks,
@@ -1752,7 +1822,7 @@ class LLMEngine:
             if tl is not None:
                 tl.mark_prefill_start(dispatched_at)
                 tl.mark_prefill_end(now)
-            if pf["req"].resume is None:
+            if pf["req"].resume is None and pf["req"].adapter_id < 0:
                 self._register_chunk(slot, pf)
             if final:
                 self._complete_prefilling(slot, pf["req"], int(chunk_np[0, i]))
@@ -1830,7 +1900,10 @@ class LLMEngine:
             seq = req.prompt_ids
             if req.resume is not None:
                 seq = req.prompt_ids + req.resume["generated"][:-1]
-            hits, pkeys = self._prefix_cache.lookup_run(seq)
+            # LoRA KV is adapter-specific: only base requests share pages
+            hits, pkeys = [], []
+            if req.adapter_id < 0:
+                hits, pkeys = self._prefix_cache.lookup_run(seq)
             if self._maybe_page_in(req, pkeys, len(hits)):
                 # its prefix is uploading; hold it and run what we have
                 if admitted:
@@ -1873,6 +1946,7 @@ class LLMEngine:
         in_prompt = None if cold else np.zeros(
             (Bp, self.model_config.vocab_size), bool)
         params_list = [SamplingParams()] * Bp
+        adapters = np.full((Bp,), -1, np.int32)
         for j, (_, req, pages, seq, c) in enumerate(admitted):
             tail = seq[c * ps:]
             tokens[j, :len(tail)] = tail
@@ -1880,6 +1954,7 @@ class LLMEngine:
             chunk_start[j] = c * ps
             page_ids[j, :len(pages)] = pages
             params_list[j] = req.params
+            adapters[j] = req.adapter_id
             if in_prompt is not None:
                 in_prompt[j, np.asarray(seq, np.int64)] = True
         # the logprob variant only when a fresh row asked for logprobs
@@ -1889,13 +1964,14 @@ class LLMEngine:
         if cold:
             name = "prefill_lp" if want_lp else "prefill"
             first, lp = await self._fetch_async(
-                self._run_prefill, name, tokens, valid, page_ids, params_list)
+                self._run_prefill, name, tokens, valid, page_ids, params_list,
+                adapters)
             self.legacy_dispatches[name] += 1
         else:
             name = "sample_first_lp" if want_lp else "sample_first"
             first, lp = await self._fetch_async(
                 self._run_prefill_hits, name, tokens, chunk_start, valid,
-                page_ids, params_list, in_prompt)
+                page_ids, params_list, in_prompt, adapters)
             self.legacy_dispatches["prefill_chunk"] += 1
             self.legacy_dispatches[name] += 1
         prefill_t1 = self._clock.now()
@@ -1915,7 +1991,8 @@ class LLMEngine:
                 continue
             # registered before the first token is emitted, which may
             # finish the request and free its pages
-            self._prefix_cache.register(req.prompt_ids, pages)
+            if req.adapter_id < 0:
+                self._prefix_cache.register(req.prompt_ids, pages)
             self._complete_prefilling(slot, req, int(first[j]),
                                       self._lp_for(req.params, lp, j))
         self._admitting = []
@@ -1930,14 +2007,15 @@ class LLMEngine:
         prefill_chunk (kserve_tpu/engine/engine.py:2241)."""
         return self._admit_prefilling(req, hits, keys)
 
-    def _run_prefill(self, name: str, tokens, valid, page_ids, params_list):
+    def _run_prefill(self, name: str, tokens, valid, page_ids, params_list,
+                     adapters):
         """One batched prefill call and the fetch of its first tokens and
         logprobs (worker thread)."""
         with torch.inference_mode():
             state = SamplingState.from_params(params_list, self.device)
             out = self._legacy.get(name)(self.params, tokens, valid,
                                          self.kv_pages, page_ids, state,
-                                         self._rng)
+                                         self._rng, adapters)
             self.kv_pages = out[-1]
             lp = None
             if name == "prefill_lp":
@@ -1945,13 +2023,14 @@ class LLMEngine:
             return out[0].cpu().numpy(), lp
 
     def _run_prefill_hits(self, name: str, tokens, chunk_start, valid,
-                          page_ids, params_list, in_prompt):
+                          page_ids, params_list, in_prompt, adapters):
         """A batch with prefix hits (worker thread): one batched
         prefill_chunk over the rows' tails, then sample_first(_lp) of its
         logits, and the fetch of the first tokens and logprobs."""
         with torch.inference_mode():
             logits, self.kv_pages = self._legacy.get("prefill_chunk")(
-                self.params, tokens, chunk_start, valid, self.kv_pages, page_ids)
+                self.params, tokens, chunk_start, valid, self.kv_pages, page_ids,
+                adapters)
             state = SamplingState.from_params(params_list, self.device)
             out = self._legacy.get(name)(logits, state, self._rng, in_prompt)
             if name == "sample_first":
@@ -1984,7 +2063,8 @@ class LLMEngine:
                 if tl is not None:
                     tl.mark_prefill_start(chunk_t0)
                 logits = await self._fetch_async(
-                    self._run_prefill_chunk, tokens, done, n, page_ids)
+                    self._run_prefill_chunk, tokens, done, n, page_ids,
+                    pf["req"].adapter_id)
                 self.legacy_dispatches["prefill_chunk"] += 1
                 chunk_t1 = self._clock.now()
                 self._record_prefill_chunk(chunk_t1 - chunk_t0)
@@ -1994,18 +2074,20 @@ class LLMEngine:
                 if slot.prefilling is not pf:
                     continue  # cancelled while the chunk ran
                 pf["logits"], pf["done"] = logits, done + n
-                if pf["req"].resume is None:
+                if pf["req"].resume is None and pf["req"].adapter_id < 0:
                     self._register_chunk(slot, pf)
             if pf["done"] >= len(seq):
                 await self._finish_prefilling(slot, pf)
                 progressed = True
         return progressed
 
-    def _run_prefill_chunk(self, tokens, done: int, n: int, page_ids):
+    def _run_prefill_chunk(self, tokens, done: int, n: int, page_ids,
+                           adapter_id: int):
         """One prefill_chunk call (worker thread): its last logits."""
         with torch.inference_mode():
             logits, self.kv_pages = self._legacy.get("prefill_chunk")(
-                self.params, tokens, [done], [n], self.kv_pages, page_ids)
+                self.params, tokens, [done], [n], self.kv_pages, page_ids,
+                [adapter_id])
             return logits
 
     async def _finish_prefilling(self, slot: _Slot, pf: dict) -> None:
@@ -2113,9 +2195,10 @@ class LLMEngine:
             fn = self._legacy.get(name)
             if meta["penalized"]:
                 out, self.kv_pages, self._penalty_counts = fn(
-                    *args, self._penalty_prompt, self._penalty_counts)
+                    *args, self._penalty_prompt, self._penalty_counts,
+                    adapter_ids=meta["adapters"])
             else:
-                out, self.kv_pages = fn(*args)
+                out, self.kv_pages = fn(*args, adapter_ids=meta["adapters"])
             outs = out if isinstance(out, tuple) else (out,)
             return {"name": name, "tokens": outs[0], **self._copy_to_host(outs)}
 
@@ -2280,7 +2363,7 @@ class LLMEngine:
         return {
             "tokens": meta["tokens"], "pos": meta["pos"], "live": live,
             "capacity": meta["capacity"], "counters": meta["counters"],
-            "page_table": meta["page_table"],
+            "adapters": meta["adapters"], "page_table": meta["page_table"],
             "state": SamplingState.from_params(
                 [s.params if live[i] else SamplingParams()
                  for i, s in enumerate(self._slots)], self.device),
@@ -2332,7 +2415,7 @@ class LLMEngine:
                 self._mixed_decode(
                     self.params, tok, pos, self.kv_pages, plan["page_table"],
                     plan["live"], plan["capacity"], cnt, self._draft_table,
-                    plan["state"], self._rng))
+                    plan["state"], self._rng, plan["adapters"]))
             return {"carry": carry, **self._copy_to_host((toks, n_emit))}
 
     def _copy_to_host(self, tensors) -> dict:
@@ -2466,6 +2549,7 @@ class LLMEngine:
         slot.stop_texts = list(req.params.stop or [])
         slot.timeline = req.timeline
         slot.deadline = req.deadline
+        slot.adapter_id = req.adapter_id
         self._admission_seq += 1
         slot.admitted_at = self._admission_seq
         self._mark_penalty_dirty(self._slots.index(slot))
@@ -2486,6 +2570,7 @@ class LLMEngine:
         slot.admitted_at = r["admitted_at"]
         slot.timeline = req.timeline
         slot.deadline = req.deadline
+        slot.adapter_id = req.adapter_id
         self._mark_penalty_dirty(self._slots.index(slot))
 
     def _register_chunk(self, slot: _Slot, pf: dict) -> None:
@@ -2505,10 +2590,11 @@ class LLMEngine:
         request emits its first token.  Shared by the mixed route (the
         token is the dispatch's step-0 sample) and the legacy chunk loop
         (sample_first's), so the two cannot drift (kserve_tpu/engine/
-        engine.py:2393).  A resumed request registers its prompt's pages
-        here, once (a fresh one registered them chunk by chunk)."""
+        engine.py:2393).  A resumed base request registers its prompt's
+        pages here, once (a fresh one registered them chunk by chunk)."""
         if req.resume is not None:
-            self._prefix_cache.register(req.prompt_ids, slot.pages)
+            if req.adapter_id < 0:
+                self._prefix_cache.register(req.prompt_ids, slot.pages)
             self._seat_resumed(slot, req)
             return
         PROMPT_TOKENS.labels(model_name=self._mlabel).inc(len(req.prompt_ids))

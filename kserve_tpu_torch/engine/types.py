@@ -5,11 +5,11 @@ Port of kserve_tpu/engine/types.py (EngineConfig :36 with the fields the
 port uses, the step deadline :44 and the watchdog knobs :181-186 among
 them, spec_decode_k_from_env :210, EngineWedgedError :235, the fetcher
 _DeadlineFetcher :240, GenerationOutput :317 with its logprobs, _Slot
-:331 with its deadline, _QueuedRequest :359 with its deadline, its
-`resume` state, its `pagein` state, its `timeline` and `kv_len`).  The knobs the port does
-not run yet (weight_quant, tp/dp/sp/pp) are kept so a configuration
-asking for them is rejected at engine construction instead of silently
-ignored.
+:331 with its deadline and LoRA adapter id, _QueuedRequest :359 with its
+deadline, its adapter id, its `resume` state, its `pagein` state, its
+`timeline` and `kv_len`).  The knobs the port does not run yet
+(tp/dp/sp/pp) are kept so a configuration asking for them is rejected at
+engine construction instead of silently ignored.
 """
 
 from __future__ import annotations
@@ -95,8 +95,9 @@ class EngineConfig:
     watchdog_confirm_s: float = 5.0
     watchdog_task_stall_s: float = 30.0
     watchdog_salvage_grace_s: float = 0.0
-    # not run by this port yet: any other value is rejected
+    # "int8": int8 linears with f32 per-channel scales (models/quant.py)
     weight_quant: str = "none"
+    # not run by this port yet: any other value is rejected
     tp: int = 1
     dp: int = 1
     sp: int = 1
@@ -254,11 +255,13 @@ class _Slot:
     __slots__ = (
         "request_id", "prompt_ids", "prompt_len", "pages", "pos", "generated",
         "params", "queue", "detok", "stop_texts", "prefilling", "admitted_at",
-        "timeline", "deadline",
+        "timeline", "deadline", "adapter_id",
     )
 
     def __init__(self):
         self.request_id: Optional[str] = None
+        # the occupant's LoRA stack row (-1 = the base model)
+        self.adapter_id = -1
         # chunked prefill in progress: {"req", "seq", "done", "logits"};
         # each mixed step, or each legacy prefill_chunk call, carries the
         # lane's next chunk ("logits": the last legacy chunk's, which the
@@ -275,15 +278,19 @@ class _Slot:
         self.prefilling = None
         self.timeline = None
         self.deadline = None
+        self.adapter_id = -1
 
 
 class _QueuedRequest:
     def __init__(self, request_id, prompt_ids, params, queue, timeline=None,
-                 deadline=None):
+                 deadline=None, adapter_id: int = -1):
         self.request_id = request_id
         self.prompt_ids: List[int] = prompt_ids
         self.params = params
         self.queue = queue
+        # LoRA stack row (-1 = the base model); it survives preemption and
+        # a drain checkpoint carries its adapter's name
+        self.adapter_id = adapter_id
         # resilience.Deadline captured at submit: a request whose budget
         # dies while it waits is failed with DeadlineExceededError
         self.deadline = deadline

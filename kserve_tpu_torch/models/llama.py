@@ -10,12 +10,16 @@ Port of kserve_tpu/models/llama.py: the entry points the `mixed` and
 `prefill` (:542) and `prefill_chunk` (:625), and their helpers.
 Parameters are a plain dict with the JAX package's key names and
 layout (`w` is [in, out], `y = x @ w`), so `params_from_jax` carries a JAX
-pytree across without a transpose.  The large matrix products are plain
-`@`; attention goes through ops/attention.py (the CUDA kernels on the
-card; the prefill attention is plain PyTorch, as it is XLA code in the
-JAX package).  `load_hf_weights(_streamed)` read a HuggingFace
-safetensors checkpoint (models/safetensors_io.py) into that layout.  Not
-ported yet: LoRA, MoE, int8 weights, pipeline parallelism.
+pytree across without a transpose.  A linear may be int8
+({"q", "s"}, models/quant.py) and a layer may carry LoRA stacks under
+"lora" (models/lora.py); each entry point then takes `adapter_ids`, one
+per lane (-1 = the base model), and adds every adapted projection's
+delta per token.  The large matrix products are plain `torch` products
+(XLA in the JAX package); attention goes through ops/attention.py (the
+CUDA kernels on the card; the prefill attention is plain PyTorch, as it
+is XLA code in the JAX package).  `load_hf_weights(_streamed)` read a
+HuggingFace safetensors checkpoint (models/safetensors_io.py) into that
+layout, int8 if asked.  Not ported yet: MoE, pipeline parallelism.
 """
 
 from __future__ import annotations
@@ -47,6 +51,14 @@ from ..ops.attention import (
 )
 from ..ops.norms import rms_norm, rms_norm_plus_one
 from ..ops.rotary import rope_cos_sin, rope_frequencies, rotate
+from .lora import lora_delta
+from .quant import (
+    LINEAR_KEYS,
+    dense,
+    embed_lookup,
+    quantize_array_np,
+    tied_head_matmul,
+)
 
 Params = Dict[str, Any]
 
@@ -257,21 +269,35 @@ class LlamaConfig:
 
 
 def init_params(config: LlamaConfig, seed: int = 1, device=None,
-                scale: float = 0.02) -> Params:
+                scale: float = 0.02, weight_quant: str = "none") -> Params:
     """Random parameters made directly on `device` (default CUDA; raises
     without a card) from a seeded torch.Generator: N(0, scale) linears and
     embedding, the JAX package's norm and bias initial values and key
-    names."""
+    names.  weight_quant="int8" draws the int8 leaves and their scales
+    directly, as the JAX package's init does (uniform int8, whose std of
+    ~73 the constant scale maps back onto N(0, scale)); a tied embedding
+    is then int8 with row scales, an untied one stays in the model dtype.
+    No model-dtype tree of the model is ever made."""
     device = resolve_device(device)
     dtype = config.torch_dtype
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
     h, hd = config.hidden_size, config.head_dim
     nq, nkv, f = config.n_heads, config.n_kv_heads, config.intermediate_size
+    quant = weight_quant == "int8"
 
-    def dense(*shape):
+    def dense_f(*shape):
         w = torch.randn(shape, generator=gen, device=device, dtype=torch.float32)
         return w.mul_(scale).to(dtype)
+
+    def dense_q(*shape, channel_axis=-1):
+        q = torch.randint(-127, 128, shape, generator=gen, device=device,
+                          dtype=torch.int8)
+        s = torch.full((shape[channel_axis],), scale / 73.0,
+                       dtype=torch.float32, device=device)
+        return {"q": q, "s": s}
+
+    dense = dense_q if quant else dense_f
 
     def const(value, *shape):
         return torch.full(shape, value, dtype=dtype, device=device)
@@ -304,7 +330,9 @@ def init_params(config: LlamaConfig, seed: int = 1, device=None,
             layer["attn_window"] = config.layer_window(i)
         layers.append(layer)
     params: Params = {
-        "embed": dense(config.vocab_size, h),
+        "embed": (dense_q(config.vocab_size, h, channel_axis=0)
+                  if quant and config.tie_word_embeddings
+                  else dense_f(config.vocab_size, h)),
         "final_norm": const(norm_value, h),
         "layers": layers,
     }
@@ -316,16 +344,17 @@ def init_params(config: LlamaConfig, seed: int = 1, device=None,
 def params_from_jax(params_np: Params, config: LlamaConfig, device=None) -> Params:
     """The JAX package's params pytree, with numpy leaves, -> this port's
     parameters on `device` (default CUDA; raises without a card) in
-    config.dtype.  Same keys and layouts; the per-layer `attn_window`
-    becomes a Python int.  Raises on leaves this slice does not run (int8
-    weights, LoRA stacks, MoE routers)."""
+    config.dtype.  Same keys and layouts: an int8 leaf {"q", "s"} stays
+    int8 with f32 scales, a layer's LoRA stacks {proj: {"A", "B"}} come
+    across in config.dtype, and the per-layer `attn_window` becomes a
+    Python int.  Raises on MoE routers (not ported)."""
     device = resolve_device(device)
     dtype = config.torch_dtype
 
-    def tensor(x) -> torch.Tensor:
-        if isinstance(x, dict):
-            raise NotImplementedError(
-                "quantized (int8) weights are not ported yet")
+    def tensor(x):
+        if isinstance(x, dict) and set(x) == {"q", "s"}:
+            return {"q": torch.tensor(np.asarray(x["q"], dtype=np.int8)).to(device),
+                    "s": torch.tensor(np.asarray(x["s"], dtype=np.float32)).to(device)}
         return torch.tensor(np.asarray(x, dtype=np.float32)).to(
             device=device, dtype=dtype)
 
@@ -333,9 +362,15 @@ def params_from_jax(params_np: Params, config: LlamaConfig, device=None) -> Para
     for layer in params_np["layers"]:
         out = {}
         for key, value in layer.items():
-            if key in ("lora", "router"):
+            if key == "router":
                 raise NotImplementedError(f"layer key {key!r} is not ported yet")
-            out[key] = int(np.asarray(value)) if key == "attn_window" else tensor(value)
+            if key == "lora":
+                out[key] = {proj: {k: tensor(v) for k, v in ab.items()}
+                            for proj, ab in value.items()}
+            elif key == "attn_window":
+                out[key] = int(np.asarray(value))
+            else:
+                out[key] = tensor(value)
         layers.append(out)
     params: Params = {"layers": layers}
     for key in ("embed", "final_norm", "lm_head"):
@@ -384,33 +419,44 @@ def _checkpoint_files(model_dir: str) -> List[str]:
     return files
 
 
-def _check_loadable(weight_quant: str) -> None:
-    if weight_quant != "none":
-        raise NotImplementedError(
-            f"weight_quant={weight_quant!r}: quantized weights are not ported yet")
+def _check_quant(weight_quant: str) -> bool:
+    if weight_quant not in ("none", "int8"):
+        raise ValueError(f"weight_quant={weight_quant!r}")
+    return weight_quant == "int8"
 
 
 def _place(params: Params, name: str, t: torch.Tensor, config: LlamaConfig,
-           device: torch.device) -> None:
+           device: torch.device, quant: bool = False) -> None:
     """Route one checkpoint tensor to its slot, on `device` in the
-    config's dtype (transposed to [in, out] for the linears).  Rotary
-    tables, layers past config.n_layers and unknown names are skipped;
-    MoE expert tensors raise."""
+    config's dtype (transposed to [in, out] for the linears).  With
+    `quant` the linears and the lm_head (or a tied embedding, per row) are
+    quantized to int8 on the host first (quantize_array_np), so the device
+    only sees int8 and scales.  Rotary tables, layers past
+    config.n_layers and unknown names are skipped; MoE expert tensors
+    raise."""
     dtype = config.torch_dtype
 
     def on_device(transpose: bool) -> torch.Tensor:
         x = t.to(device=device).to(dtype)
         return x.t().contiguous() if transpose else x
 
+    def quantized(transpose: bool, axis: int = 0) -> dict:
+        arr = t.to(torch.float32).numpy()
+        qd = quantize_array_np(arr.T if transpose else arr, axis=axis)
+        return {"q": torch.from_numpy(qd["q"]).to(device),
+                "s": torch.from_numpy(qd["s"]).to(device)}
+
     if name == "model.embed_tokens.weight":
-        params["embed"] = on_device(False)
+        params["embed"] = (quantized(False, axis=1)
+                           if quant and config.tie_word_embeddings
+                           else on_device(False))
         return
     if name == "model.norm.weight":
         params["final_norm"] = on_device(False)
         return
     if name == "lm_head.weight":
         if not config.tie_word_embeddings:
-            params["lm_head"] = on_device(True)
+            params["lm_head"] = quantized(True) if quant else on_device(True)
         return
     m = _LAYER_RE.match(name)
     if m is None:
@@ -421,7 +467,8 @@ def _place(params: Params, name: str, t: torch.Tensor, config: LlamaConfig,
     ours = _HF_LAYER_MAP.get(suffix)
     if ours is None or i >= config.n_layers:
         return
-    params["layers"][i][ours] = on_device(ours in _TRANSPOSED)
+    params["layers"][i][ours] = (quantized(True) if quant and ours in LINEAR_KEYS
+                                 else on_device(ours in _TRANSPOSED))
 
 
 def _finish_layers(params: Params, config: LlamaConfig) -> Params:
@@ -448,10 +495,13 @@ def load_hf_weights_streamed(model_dir: str, config: LlamaConfig, device=None,
     loader's output.  `stats` is filled as the JAX loader fills it:
     peak_host_bytes (the largest host staging alive at once),
     read_bytes (every tensor's bytes) and n_tensors (every tensor read).
-    Raises on MoE checkpoints and on quantized weights (not ported)."""
+    weight_quant="int8" quantizes each linear on the host as it is read
+    (the JAX loader's int8 path, kserve_tpu/models/llama.py:1021-1080), so
+    host staging still peaks at about one tensor and the device holds no
+    model-dtype copy.  Raises on MoE checkpoints (not ported)."""
     from .safetensors_io import iter_tensors
 
-    _check_loadable(weight_quant)
+    quant = _check_quant(weight_quant)
     device = resolve_device(device)
     files = _checkpoint_files(model_dir)
     acct = {"peak_host_bytes": 0, "read_bytes": 0, "n_tensors": 0}
@@ -462,7 +512,7 @@ def load_hf_weights_streamed(model_dir: str, config: LlamaConfig, device=None,
             acct["read_bytes"] += nbytes
             acct["n_tensors"] += 1
             acct["peak_host_bytes"] = max(acct["peak_host_bytes"], nbytes)
-            _place(params, name, t, config, device)
+            _place(params, name, t, config, device, quant)
             del t
     if stats is not None:
         stats.update(acct)
@@ -473,10 +523,11 @@ def load_hf_weights(model_dir: str, config: LlamaConfig, device=None,
                     weight_quant: str = "none") -> Params:
     """The buffered form of `load_hf_weights_streamed`: every tensor of
     every shard is read to the host first, then placed (the JAX package's
-    `load_hf_weights`, which requires the embedding and the final norm)."""
+    `load_hf_weights`, which requires the embedding and the final norm).
+    weight_quant="int8" quantizes on the host as the streamed form does."""
     from .safetensors_io import iter_tensors
 
-    _check_loadable(weight_quant)
+    quant = _check_quant(weight_quant)
     device = resolve_device(device)
     tensors: Dict[str, torch.Tensor] = {}
     for path in _checkpoint_files(model_dir):
@@ -486,7 +537,7 @@ def load_hf_weights(model_dir: str, config: LlamaConfig, device=None,
             raise KeyError(f"checkpoint under {model_dir} has no {required}")
     params: Params = {"layers": [dict() for _ in range(config.n_layers)]}
     for name in sorted(tensors):
-        _place(params, name, tensors[name], config, device)
+        _place(params, name, tensors[name], config, device, quant)
     return _finish_layers(params, config)
 
 
@@ -503,19 +554,46 @@ def _act(x: torch.Tensor, config: LlamaConfig) -> torch.Tensor:
 
 
 def _embed(params: Params, tokens: torch.Tensor, config: LlamaConfig) -> torch.Tensor:
-    x = params["embed"][tokens.long()].to(config.torch_dtype)
+    x = embed_lookup(params["embed"], tokens.long(), config.torch_dtype)
     if config.embed_scale:
         # the normalizer is cast to the activation dtype first (HF parity)
         x = x * torch.tensor(config.hidden_size ** 0.5, dtype=x.dtype)
     return x
 
 
-def _qkv(layer: Params, x: torch.Tensor, config: LlamaConfig):
+def _maybe_add(y: torch.Tensor, delta: Optional[torch.Tensor]) -> torch.Tensor:
+    return y if delta is None else y + delta
+
+
+def _adapted(layer: Params, key: str, x: torch.Tensor, onehot) -> torch.Tensor:
+    """x @ layer[key] (plain or int8) plus the layer's LoRA delta of that
+    projection, where one applies."""
+    return _maybe_add(dense(x, layer[key]),
+                      lora_delta(layer.get("lora"), key, x, onehot))
+
+
+def _adapter_onehot(params: Params, adapter_ids: Optional[torch.Tensor],
+                    n_tokens: int, x: torch.Tensor) -> Optional[torch.Tensor]:
+    """[N, n_adapters] one-hot of per-token adapter ids (-1 = base) in the
+    activation dtype, or None when no layer carries LoRA stacks (then
+    nothing is added anywhere).  Port of kserve_tpu/models/llama.py:473."""
+    for layer in params["layers"]:
+        lora = layer.get("lora")
+        if lora:
+            n_a = next(iter(lora.values()))["A"].shape[0]
+            if adapter_ids is None:
+                return torch.zeros((n_tokens, n_a), dtype=x.dtype, device=x.device)
+            arange = torch.arange(n_a, device=adapter_ids.device)
+            return (adapter_ids.reshape(-1, 1) == arange).to(x.dtype)
+    return None
+
+
+def _qkv(layer: Params, x: torch.Tensor, config: LlamaConfig, onehot=None):
     """x [N, h] -> q [N, nq, d], k/v [N, nkv, d]."""
     N = x.shape[0]
-    q = x @ layer["wq"]
-    k = x @ layer["wk"]
-    v = x @ layer["wv"]
+    q = _adapted(layer, "wq", x, onehot)
+    k = _adapted(layer, "wk", x, onehot)
+    v = _adapted(layer, "wv", x, onehot)
     if config.attention_bias:
         q = q + layer["bq"]
         k = k + layer["bk"]
@@ -529,37 +607,40 @@ def _qkv(layer: Params, x: torch.Tensor, config: LlamaConfig):
     return q, k, v
 
 
-def _mlp(layer: Params, x: torch.Tensor, config: LlamaConfig) -> torch.Tensor:
-    gate = _act(x @ layer["w_gate"], config)
-    up = x @ layer["w_up"]
-    return (gate * up) @ layer["w_down"]
+def _mlp(layer: Params, x: torch.Tensor, config: LlamaConfig,
+         onehot=None) -> torch.Tensor:
+    gate = _act(_adapted(layer, "w_gate", x, onehot), config)
+    up = _adapted(layer, "w_up", x, onehot)
+    return _adapted(layer, "w_down", gate * up, onehot)
 
 
 def _logits(params: Params, x: torch.Tensor, config: LlamaConfig) -> torch.Tensor:
     x = _norm(x, params["final_norm"], config)
     head = params.get("lm_head")
-    logits = (x @ params["embed"].T if head is None else x @ head).float()
+    logits = (tied_head_matmul(x, params["embed"]) if head is None
+              else dense(x, head)).float()
     if config.logit_softcap > 0.0:
         logits = torch.tanh(logits / config.logit_softcap) * config.logit_softcap
     return logits
 
 
 def _block(layer: Params, x: torch.Tensor, cos, sin, config: LlamaConfig,
-           attend) -> torch.Tensor:
+           attend, onehot=None) -> torch.Tensor:
     """One transformer block over N tokens x [N, h]; `attend(q, k, v,
-    window)` writes K/V to the cache and returns attention [N, nq, d]."""
+    window)` writes K/V to the cache and returns attention [N, nq, d].
+    `onehot` [N, n_adapters] selects each token's LoRA adapter."""
     residual = x
     h = _norm(x, layer["attn_norm"], config)
-    q, k, v = _qkv(layer, h, config)
+    q, k, v = _qkv(layer, h, config, onehot)
     q = rotate(q, cos, sin)
     k = rotate(k, cos, sin)
     attn = attend(q, k, v, layer.get("attn_window", 0))
-    attn = attn.reshape(x.shape[0], -1) @ layer["wo"]
+    attn = _adapted(layer, "wo", attn.reshape(x.shape[0], -1), onehot)
     if config.sandwich_norms:
         attn = _norm(attn, layer["post_attn_norm"], config)
     x = residual + attn
     residual = x
-    out = _mlp(layer, _norm(x, layer["mlp_norm"], config), config)
+    out = _mlp(layer, _norm(x, layer["mlp_norm"], config), config, onehot)
     if config.sandwich_norms:
         out = _norm(out, layer["post_mlp_norm"], config)
     return residual + out
@@ -571,6 +652,7 @@ def transformer_block(
     positions: torch.Tensor,  # [B, T] int
     valid_len: torch.Tensor,  # [B]
     config: LlamaConfig,
+    onehot: Optional[torch.Tensor] = None,  # [B*T, n_adapters] per token
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """One block over padded prompts, reading no cache (prefill form):
     returns (x_out [B, T, h], k, v [B, T, nkv, d]) for the caller to
@@ -588,8 +670,17 @@ def transformer_block(
             config.attn_logit_softcap, scale=config.attn_scale, window=window)
         return out.reshape(B * T, *out.shape[2:])
 
-    out = _block(layer, x.reshape(B * T, h), cos, sin, config, attend)
+    out = _block(layer, x.reshape(B * T, h), cos, sin, config, attend, onehot)
     return out.reshape(B, T, h), kv[0], kv[1]
+
+
+def _row_onehot(params: Params, adapter_ids, B: int, T: int,
+                x: torch.Tensor) -> Optional[torch.Tensor]:
+    """The per-token one-hot of [B, T] rows whose adapter is one per row."""
+    ids = None
+    if adapter_ids is not None:
+        ids = adapter_ids.to(x.device).repeat_interleave(T)
+    return _adapter_onehot(params, ids, B * T, x)
 
 
 def _last_logits(params: Params, x: torch.Tensor, valid_len: torch.Tensor,
@@ -608,6 +699,7 @@ def prefill(
     kv_pages: List[KVLayer],  # per layer: pages, or (int8 pages, scales)
     page_ids: torch.Tensor,  # [B, W] int32, each row's pages
     page_size: int,
+    adapter_ids: Optional[torch.Tensor] = None,  # [B] LoRA ids (-1 = base)
 ) -> Tuple[torch.Tensor, List[KVLayer]]:
     """Whole prompts from position 0: each layer attends causally within
     the prompt and writes its K/V into the pages (int8 caches take
@@ -618,8 +710,10 @@ def prefill(
     positions = torch.arange(T, dtype=torch.int32,
                              device=tokens.device)[None, :].expand(B, T)
     x = _embed(params, tokens.reshape(-1), config).reshape(B, T, -1)
+    onehot = _row_onehot(params, adapter_ids, B, T, x)
     for layer, pages in zip(params["layers"], kv_pages):
-        x, k, v = transformer_block(layer, x, positions, valid_len, config)
+        x, k, v = transformer_block(layer, x, positions, valid_len, config,
+                                    onehot)
         write_prompt_kv_batch(pages, k, v, page_ids, valid_len, page_size)
     return _last_logits(params, x, valid_len, config), kv_pages
 
@@ -633,6 +727,7 @@ def chunk_transformer_block(
     page_ids: torch.Tensor,  # [B, W]
     page_size: int,
     config: LlamaConfig,
+    onehot: Optional[torch.Tensor] = None,  # [B*C, n_adapters] per token
 ) -> Tuple[torch.Tensor, KVLayer]:
     """One chunked-prefill block: attend to the cached history and the
     chunk's causal prefix, then write the chunk's K/V.  Port of
@@ -653,7 +748,7 @@ def chunk_transformer_block(
                              page_size)
         return out.reshape(B * C, *out.shape[2:])
 
-    out = _block(layer, x.reshape(B * C, h), cos, sin, config, attend)
+    out = _block(layer, x.reshape(B * C, h), cos, sin, config, attend, onehot)
     return out.reshape(B, C, h), pages
 
 
@@ -666,15 +761,17 @@ def prefill_chunk(
     kv_pages: List[KVLayer],  # per layer: pages, or (int8 pages, scales)
     page_ids: torch.Tensor,  # [B, W] int32, the sequences' pages
     page_size: int,
+    adapter_ids: Optional[torch.Tensor] = None,  # [B] LoRA ids (-1 = base)
 ) -> Tuple[torch.Tensor, List[KVLayer]]:
     """One chunk of a chunked prefill: returns ([B, vocab] f32 logits at
     the chunk's last valid token, pages).  chunk_start 0 is the plain
     prefill of the chunk.  Port of kserve_tpu/models/llama.py:625."""
     B, C = tokens.shape
     x = _embed(params, tokens.reshape(-1), config).reshape(B, C, -1)
+    onehot = _row_onehot(params, adapter_ids, B, C, x)
     for layer, pages in zip(params["layers"], kv_pages):
         x, _ = chunk_transformer_block(layer, pages, x, chunk_start, valid_len,
-                                       page_ids, page_size, config)
+                                       page_ids, page_size, config, onehot)
     return _last_logits(params, x, valid_len, config), kv_pages
 
 
@@ -688,11 +785,13 @@ def decode_step(
     active: torch.Tensor,  # [B] bool
     page_size: int,
     attention_fn=None,  # replaces ops.attention.paged_attention (same signature)
+    adapter_ids: Optional[torch.Tensor] = None,  # [B] LoRA ids (-1 = base)
 ) -> Tuple[torch.Tensor, List[KVLayer]]:
     """One decode token per lane; returns ([B, vocab] f32 logits, pages).
     Pages (and, for an int8 cache, their scales) are written in place."""
     attention = attention_fn or paged_attention
     x = _embed(params, tokens, config)  # [B, h]
+    onehot = _adapter_onehot(params, adapter_ids, x.shape[0], x)
     cos, sin = rope_cos_sin(pos, config.head_dim, config.rope_theta,
                             config.rope_scaling)
     seq_lens = torch.where(active, pos + 1, torch.zeros_like(pos)).to(torch.int32)
@@ -702,7 +801,7 @@ def decode_step(
             return attention(q, pages, page_table, seq_lens,
                              logit_softcap=config.attn_logit_softcap,
                              scale=config.attn_scale, window=window)
-        x = _block(layer, x, cos, sin, config, attend)
+        x = _block(layer, x, cos, sin, config, attend, onehot)
     return _logits(params, x, config), kv_pages
 
 
@@ -723,6 +822,7 @@ def forward_ragged(
     logits_at: Optional[torch.Tensor] = None,  # [N] packed indices
     dense_stride: Optional[int] = None,  # dense packing stride (< 8: the
     # speculative-verify layout, lanes sharing kernel blocks)
+    adapter_ids: Optional[torch.Tensor] = None,  # [B] LoRA ids (-1 = base)
 ) -> Tuple[torch.Tensor, List[KVLayer]]:
     """The unified mixed-batch forward: every lane's slice (a prompt, a
     prompt chunk or one decode token) sits in one packed buffer.  Each
@@ -731,13 +831,21 @@ def forward_ragged(
     Returns ([B, vocab] f32 logits at each lane's last token, pages), or
     with `logits_at` the [N, vocab] logits at every listed token (the
     speculative-verify surface: each slice position needs its own
-    next-token distribution)."""
+    next-token distribution).  Adapters are selected per token (a token
+    takes its lane's id; padding is base), so lanes of different adapters
+    share the dispatch (kserve_tpu/models/llama.py:754-761)."""
     if attention_fn is not None:
         attention = attention_fn
     else:
         attention = functools.partial(ragged_paged_attention,
                                       dense_stride=dense_stride)
     x = _embed(params, tokens, config)  # [T, h]
+    token_adapters = None
+    if adapter_ids is not None:
+        lane = token_seq.long().clamp(min=0)
+        token_adapters = torch.where(token_seq >= 0, adapter_ids.to(x.device)[lane],
+                                     torch.full_like(token_seq, -1))
+    onehot = _adapter_onehot(params, token_adapters, x.shape[0], x)
     cos, sin = rope_cos_sin(token_pos, config.head_dim, config.rope_theta,
                             config.rope_scaling)
     for layer, pages in zip(params["layers"], kv_pages):
@@ -747,6 +855,6 @@ def forward_ragged(
             return attention(q, pages, page_table, q_start, q_len, kv_start,
                              logit_softcap=config.attn_logit_softcap,
                              scale=config.attn_scale, window=window)
-        x = _block(layer, x, cos, sin, config, attend)
+        x = _block(layer, x, cos, sin, config, attend, onehot)
     rows = last_idx if logits_at is None else logits_at
     return _logits(params, x[rows.long()], config), kv_pages

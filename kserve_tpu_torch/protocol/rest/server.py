@@ -436,7 +436,10 @@ class RESTServer:
                                          {"ready": ready}, keep_alive)
         if path == "/openai/v1/models":
             self._expect(method, "GET")
-            cards = [ModelCard(id=name) for name in self.models]
+            # a model's LoRA adapters list as models of their own (vLLM's
+            # semantics; kserve_tpu/protocol/openai/dataplane.py:66-75)
+            cards = [ModelCard(id=card) for name, model in self.models.items()
+                     for card in (name, *getattr(model, "aliases", ()))]
             return await self._send_json(writer, 200, ModelList(data=cards).to_dict(),
                                          keep_alive)
         if path == "/metrics":
@@ -551,7 +554,13 @@ class RESTServer:
             raise InvalidInput(f"invalid JSON body: {e}") from None
 
     def _model(self, name: str):
+        """The served model of `name`, directly or through an alias (a
+        LoRA adapter selects its model by the OpenAI `model` field;
+        kserve_tpu/model_repository.py:25-36)."""
         model = self.models.get(name)
+        if model is None:
+            model = next((m for m in self.models.values()
+                          if name in getattr(m, "aliases", ())), None)
         if model is None:
             raise ModelNotFound(f"model {name!r} is not served here")
         if not model.ready:

@@ -23,11 +23,20 @@ after what it has; a non-streamed one answers with the whole text.
 `live()` goes false once the engine is wedged.  `--watchdog on|off`
 (default $KSERVE_TPU_WATCHDOG) turns on the engine's stall watchdog.
 
+`--weight_quant int8` serves int8 weights (random ones drawn int8, a
+checkpoint quantized tensor by tensor as it streams in).
+`--lora_adapters name=dir,...` loads HF PEFT adapters; the OpenAI `model`
+field naming one selects it on completions and chat, JSON and SSE (vLLM's
+semantics; `aliases` lists them, so the server routes those names here
+and GET /openai/v1/models lists each as a model), and any other value
+serves the base model (kserve_tpu/runtimes/generative_server.py:450).
+
 Entrypoint:
     python -m kserve_tpu_torch.runtimes.generative_server \\
         --model_name=llm --model_dir=/mnt/models \\
         [--device cuda|cpu] [--spec_decode_k K] [--kv_quant int8] \\
-        [--kv_offload host --kv_offload_gib G] [--kv_persist_dir DIR]
+        [--kv_offload host --kv_offload_gib G] [--kv_persist_dir DIR] \\
+        [--weight_quant int8] [--lora_adapters name=/adapter/dir,...]
     # no checkpoint: --model_config=tiny|llama3-1b|llama3-8b|... --random_weights
 
 The prefix cache is always on, as in the JAX server.
@@ -40,7 +49,7 @@ import asyncio
 import logging
 import os
 import time
-from typing import AsyncIterator, List, Optional
+from typing import AsyncIterator, Dict, List, Optional
 
 import torch
 
@@ -100,6 +109,7 @@ class TorchGenerativeModel:
         random_weights: bool = False,
         device=None,
         model_dir: Optional[str] = None,
+        lora_adapters: Optional[Dict[str, str]] = None,
     ):
         if not random_weights and not model_dir:
             raise ValueError("pass --model_dir, or --random_weights with "
@@ -109,6 +119,10 @@ class TorchGenerativeModel:
                              "config.json)")
         self.name = name
         self.device = resolve_device(device)
+        # adapter name -> HF PEFT directory; the names are this model's
+        # aliases: the OpenAI `model` field selects one
+        self.lora_adapters = dict(lora_adapters or {})
+        self.aliases = tuple(sorted(self.lora_adapters))
         self.model_dir = model_dir
         self.random_weights = random_weights
         self.engine_config = engine_config or EngineConfig()
@@ -160,7 +174,8 @@ class TorchGenerativeModel:
         return LLMEngine(self.model_config, self.engine_config, self.tokenizer,
                          params=params, device=self.device,
                          metrics_label=self.name, weights_seconds=load_s,
-                         checkpoint_label=self.name)
+                         checkpoint_label=self.name,
+                         lora_adapters=self.lora_adapters or None)
 
     async def start_engine(self) -> None:
         """Load the weights and build the engine (weights and KV cache on
@@ -238,11 +253,18 @@ class TorchGenerativeModel:
             return [self.tokenizer.encode(p) for p in prompt]
         return [list(p) for p in prompt]
 
-    def _generate(self, prompt_ids, params) -> AsyncIterator:
-        """engine.generate with its validation errors as 400s (raised here,
-        before any response bytes are sent)."""
+    def _adapter_for(self, request) -> Optional[str]:
+        """The OpenAI `model` field naming a loaded LoRA adapter selects it
+        (vLLM's semantics); any other value serves the base model."""
+        name = getattr(request, "model", None)
+        return name if name in self.lora_adapters else None
+
+    def _generate(self, prompt_ids, params, adapter=None) -> AsyncIterator:
+        """engine.generate with its validation errors (an unknown adapter
+        among them) as 400s, raised here, before any response bytes are
+        sent."""
         try:
-            return self.engine.generate(prompt_ids, params)
+            return self.engine.generate(prompt_ids, params, adapter=adapter)
         except ValueError as e:
             raise InvalidInput(str(e)) from e
 
@@ -394,13 +416,15 @@ class TorchGenerativeModel:
                 CompletionChoice(index=0, text=text, finish_reason=finish)])
         prompts = self._encode_prompt(request.prompt)
         params = self._sampling_from(request, request.max_tokens)
+        adapter = self._adapter_for(request)
         if request.stream:
             if len(prompts) > 1 or request.n > 1:
                 raise InvalidInput("streaming supports a single prompt with n=1")
             return self._stream_completion(
-                request, prompts[0], params, self._generate(prompts[0], params))
+                request, prompts[0], params,
+                self._generate(prompts[0], params, adapter))
         runs = [p for p in prompts for _ in range(request.n)]
-        sources = [self._generate(p, params) for p in runs]
+        sources = [self._generate(p, params, adapter) for p in runs]
         k = params.logprobs
         results = await self._gather(sources, k is not None)
         usage = UsageInfo()
@@ -466,12 +490,15 @@ class TorchGenerativeModel:
                     finish_reason=finish)])
         prompt_ids = self._chat_prompt(request)
         params = self._sampling_from(request, request.max_tokens or 256)
+        adapter = self._adapter_for(request)
         if request.stream:
             if request.n > 1:
                 raise InvalidInput("streaming supports n=1")
             return self._stream_chat(
-                request, prompt_ids, params, self._generate(prompt_ids, params))
-        sources = [self._generate(prompt_ids, params) for _ in range(request.n)]
+                request, prompt_ids, params,
+                self._generate(prompt_ids, params, adapter))
+        sources = [self._generate(prompt_ids, params, adapter)
+                   for _ in range(request.n)]
         k = params.logprobs
         results = await self._gather(sources, k is not None)
         usage = UsageInfo(prompt_tokens=len(prompt_ids) * request.n)
@@ -564,6 +591,15 @@ def build_arg_parser() -> argparse.ArgumentParser:
         "written there and a restarted server pages them in; defaults to "
         "$KSERVE_TPU_KV_PERSIST (off)")
     parser.add_argument(
+        "--weight_quant", default="none", choices=("none", "int8"),
+        help="int8: int8 linears with per-channel f32 scales (about half "
+        "the weight bytes of bfloat16); random weights are drawn int8, a "
+        "checkpoint is quantized tensor by tensor as it is read")
+    parser.add_argument(
+        "--lora_adapters", default=None,
+        help="comma-separated name=/local/adapter/dir (HF PEFT format); the "
+        "OpenAI `model` field naming an adapter selects it")
+    parser.add_argument(
         "--watchdog", default=None, choices=("on", "off"),
         help="gray-failure engine watchdog: a confirmed no-progress stall "
         "flips readiness and self-drains with checkpoints; defaults to "
@@ -597,11 +633,16 @@ def build_model(args) -> TorchGenerativeModel:
         kv_persist_dir=args.kv_persist_dir or kv_persist_dir_from_env(),
         watchdog=(args.watchdog == "on" if args.watchdog is not None
                   else watchdog_enabled_from_env()),
+        weight_quant=args.weight_quant,
     )
+    lora_adapters = None
+    if args.lora_adapters:
+        lora_adapters = dict(
+            pair.split("=", 1) for pair in args.lora_adapters.split(",") if pair)
     return TorchGenerativeModel(
         args.model_name, model_config, engine_config,
         random_weights=args.random_weights, device=args.device,
-        model_dir=args.model_dir)
+        model_dir=args.model_dir, lora_adapters=lora_adapters)
 
 
 def main(argv=None) -> None:

@@ -2,7 +2,8 @@
 on one GPU: where a step's time goes at Llama-3-8B shape.
 
     python3 scripts/torch_profile_mixed.py [--batch 8] [--context 512] [--spec_k 3]
-        [--kv_quant int8] [--package-root DIR]
+        [--kv_quant int8] [--weight_quant int8] [--lora N]
+        [--plans decode,prefill_mix,spec_greedy,spec_sampled] [--package-root DIR]
 
 Two plans run through kserve_tpu_torch.engine.compiled.make_mixed with
 seeded random weights (greedy sampling, steps_per_sync decode steps):
@@ -17,7 +18,13 @@ drafts per lane per round, steps_per_sync rounds, every lane at
                 the others greedy: the sampler's sort and threefry run
 With `--kv_quant int8` the cache is (int8 pages, f32 row scales), as the
 engine keeps it with --kv_quant int8, and attention runs the kernels'
-int8 instances.  For each: wall time of the step (host clock around the
+int8 instances.  With `--weight_quant int8` the weights are int8 with
+f32 per-channel scales (drawn int8, as the engine's --weight_quant int8
+draws them).  With `--lora N` every layer carries N random rank-16 LoRA
+adapters on all seven projections (stacked as the engine stacks PEFT
+adapters) and lane i runs adapter i mod (N + 1) - 1 (-1: the base
+model), so base and adapter lanes share each dispatch.  `--plans` picks
+plans.  For each: wall time of the step (host clock around the
 call and the token fetch), the host's enqueue time, and from
 torch.profiler the device time by kernel class and the device idle share
 (1 - busy / wall), with the launches of each kernel by name.  JSON lines
@@ -59,6 +66,76 @@ def _classify(name: str) -> str:
     return "elementwise_other"
 
 
+def lora_stacks(mc, n: int, rank: int = 16, seed: int = 3):
+    """n random rank-`rank` adapters on all seven projections of every
+    layer of `mc`, as models/lora.stack_adapters lays them out on the card:
+    {proj: {"A": [n, in, r], "B": [n, r, out]}} in the model dtype."""
+    h, f = mc.hidden_size, mc.intermediate_size
+    q, kv = mc.n_heads * mc.head_dim, mc.n_kv_heads * mc.head_dim
+    dims = {"wq": (h, q), "wk": (h, kv), "wv": (h, kv), "wo": (q, h),
+            "w_gate": (h, f), "w_up": (h, f), "w_down": (f, h)}
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+
+    def rand(*shape):
+        return (torch.randn(shape, generator=gen, device="cuda") * 0.02).to(
+            mc.torch_dtype)
+
+    return [{proj: {"A": rand(n, d_in, rank), "B": rand(n, rank, d_out)}
+             for proj, (d_in, d_out) in dims.items()}
+            for _ in range(mc.n_layers)]
+
+
+def profile_step(run, steps: int, iters: int = 3) -> dict:
+    """Time `run` (a dispatch returning device tensors) warm: the wall of
+    its best of `iters` runs to the fetched tokens and the host's enqueue,
+    then one run under torch.profiler: device time by kernel class, the
+    device idle share (1 - busy / wall) and the launches of each kernel."""
+    def step():
+        t0 = time.perf_counter()
+        out = run()
+        t1 = time.perf_counter()
+        for t in out:
+            t.cpu()
+        return t1 - t0, time.perf_counter() - t0
+
+    with torch.inference_mode():
+        step()  # warm-up: cuBLAS heuristics, kernel library build
+        runs = [step() for _ in range(iters)]
+        with torch.profiler.profile(activities=[
+                torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            prof_host, prof_wall = step()
+    by_class, top, launches, by_name = {}, [], 0, {}
+    for ev in prof.key_averages():
+        # kernels only: CPU-side ops (aten::mm, ...) also report the
+        # device time of the kernels they launched
+        if ev.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        dev_us = ev.self_device_time_total
+        if dev_us <= 0:
+            continue
+        cls = _classify(ev.key)
+        by_class[cls] = by_class.get(cls, 0.0) + dev_us / 1e3
+        launches += ev.count
+        by_name[ev.key] = by_name.get(ev.key, 0) + ev.count
+        top.append((dev_us / 1e3, ev.count, ev.key[:90]))
+    top.sort(reverse=True)
+    busy = sum(by_class.values())
+    wall = min(r[1] for r in runs) * 1e3
+    return {
+        "wall_ms": wall, "wall_ms_per_step": wall / steps,
+        "host_enqueue_ms": min(r[0] for r in runs) * 1e3,
+        "profiled_wall_ms": prof_wall * 1e3,
+        "device_busy_ms": busy, "kernel_launches": launches,
+        "launches_per_step": launches / steps,
+        "device_idle_share": max(0.0, 1 - busy / (prof_wall * 1e3)),
+        "device_ms_by_class": by_class,
+        "top_kernels": [{"ms": t, "calls": c, "name": n} for t, c, n in top[:12]],
+        "launches_by_kernel": by_name,
+    }
+
+
 def _plan(lanes, B, W, ps, bq):
     """lanes {i: (kv_start, n_tokens)} packed at multiples of bq tokens;
     every lane joins the decode loop."""
@@ -92,6 +169,10 @@ def main(argv=None) -> int:
     p.add_argument("--iters", type=int, default=3)
     p.add_argument("--spec_k", type=int, default=3)
     p.add_argument("--kv_quant", default="none", choices=("none", "int8"))
+    p.add_argument("--weight_quant", default="none", choices=("none", "int8"))
+    p.add_argument("--lora", type=int, default=0,
+                   help="random rank-16 adapters on every projection")
+    p.add_argument("--plans", default="decode,prefill_mix,spec_greedy,spec_sampled")
     p.add_argument("--package-root", default=REPO,
                    help="import kserve_tpu_torch from this directory")
     args = p.parse_args(argv)
@@ -119,7 +200,15 @@ def main(argv=None) -> int:
     max_advance = args.steps_per_sync * (args.spec_k + 1)
     W = -(-(max(args.context, args.chunk) + max_advance + 1) // ps)
     ec = EngineConfig(max_batch_size=B, page_size=ps, steps_per_sync=args.steps_per_sync)
-    params = llama.init_params(mc, seed=1, device="cuda")
+    params = llama.init_params(mc, seed=1, device="cuda",
+                               **({"weight_quant": args.weight_quant}
+                                  if args.weight_quant != "none" else {}))
+    adapters = {}
+    if args.lora:
+        params["layers"] = [dict(layer, lora=stack) for layer, stack in zip(
+            params["layers"], lora_stacks(mc, args.lora))]
+        adapters = {"adapter_ids": np.asarray(
+            [i % (args.lora + 1) - 1 for i in range(B)], np.int32)}
     kv_config = KVCacheConfig(
         n_layers=mc.n_layers, n_kv_heads=mc.n_kv_heads, head_dim=mc.head_dim,
         page_size=ps, num_pages=1 + B * W,
@@ -142,7 +231,10 @@ def main(argv=None) -> int:
         "spec_greedy": greedy,
         "spec_sampled": sampled,
     }
+    wanted = args.plans.split(",")
     for name, lanes in plans.items():
+        if name not in wanted:
+            continue
         if name.startswith("spec"):
             state = lanes
             drafts = torch.full((B + 1, mc.vocab_size), -1, dtype=torch.int32,
@@ -153,60 +245,23 @@ def main(argv=None) -> int:
                 return mixed_decode(
                     params, np.ones(B, np.int32), np.full(B, args.context, np.int32),
                     pages, table, np.ones(B, bool), np.full(B, W * ps, np.int32),
-                    np.zeros(B, np.int32), drafts, state, gen)[:2]
+                    np.zeros(B, np.int32), drafts, state, gen, **adapters)[:2]
         else:
             plan = _plan(lanes, B, W, ps, RAGGED_BQ)
             state = greedy
 
             def run():
-                return mixed(params, *plan[:7], pages, *plan[7:], state, gen)[:1]
+                return mixed(params, *plan[:7], pages, *plan[7:], state, gen,
+                             **adapters)[:1]
 
-        def step():
-            t0 = time.perf_counter()
-            out = run()
-            t1 = time.perf_counter()
-            for t in out:
-                t.cpu()
-            return t1 - t0, time.perf_counter() - t0
-
-        with torch.inference_mode():
-            step()  # warm-up: cuBLAS heuristics, kernel library build
-            runs = [step() for _ in range(args.iters)]
-            with torch.profiler.profile(activities=[
-                    torch.profiler.ProfilerActivity.CPU,
-                    torch.profiler.ProfilerActivity.CUDA]) as prof:
-                prof_host, prof_wall = step()
-        by_class, top, launches, by_name = {}, [], 0, {}
-        for ev in prof.key_averages():
-            # kernels only: CPU-side ops (aten::mm, ...) also report the
-            # device time of the kernels they launched
-            if ev.device_type != torch.autograd.DeviceType.CUDA:
-                continue
-            dev_us = ev.self_device_time_total
-            if dev_us <= 0:
-                continue
-            cls = _classify(ev.key)
-            by_class[cls] = by_class.get(cls, 0.0) + dev_us / 1e3
-            launches += ev.count
-            by_name[ev.key] = by_name.get(ev.key, 0) + ev.count
-            top.append((dev_us / 1e3, ev.count, ev.key[:90]))
-        top.sort(reverse=True)
-        busy = sum(by_class.values())
-        wall = min(r[1] for r in runs) * 1e3
         print(json.dumps({
-            "plan": name, "kv_quant": args.kv_quant, "batch": B,
-            "context": args.context,
+            "plan": name, "kv_quant": args.kv_quant,
+            "weight_quant": args.weight_quant, "lora_adapters": args.lora,
+            "batch": B, "context": args.context,
             "chunk": args.chunk if name == "prefill_mix" else 0,
             "spec_k": args.spec_k if name.startswith("spec") else None,
             "steps_per_sync": args.steps_per_sync,
-            "wall_ms": wall, "wall_ms_per_step": wall / args.steps_per_sync,
-            "host_enqueue_ms": min(r[0] for r in runs) * 1e3,
-            "profiled_wall_ms": prof_wall * 1e3,
-            "device_busy_ms": busy, "kernel_launches": launches,
-            "device_idle_share": max(0.0, 1 - busy / (prof_wall * 1e3)),
-            "device_ms_by_class": by_class,
-            "top_kernels": [{"ms": t, "calls": c, "name": n} for t, c, n in top[:12]],
-            "launches_by_kernel": by_name,
+            **profile_step(run, args.steps_per_sync, args.iters),
         }), flush=True)
     return 0
 

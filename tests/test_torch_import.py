@@ -99,11 +99,15 @@ def test_engine_rejects_what_the_slice_does_not_run():
     from kserve_tpu_torch.models.llama import LlamaConfig
 
     cfg = LlamaConfig.tiny(dtype="float32")
-    for knob in (dict(weight_quant="int8"), dict(tp=2), dict(pp=2), dict(sp=2),
-                 dict(dp=2)):
+    for knob in (dict(tp=2), dict(pp=2), dict(sp=2), dict(dp=2)):
         with pytest.raises(NotImplementedError):
             LLMEngine(cfg, EngineConfig(dtype="float32", **knob),
                       ByteTokenizer(512), device="cpu")
+    # int8 weights are served (tests/test_torch_quant.py); another
+    # weight_quant is refused as the JAX engine refuses it
+    with pytest.raises(ValueError, match="weight_quant"):
+        LLMEngine(cfg, EngineConfig(dtype="float32", weight_quant="int4"),
+                  ByteTokenizer(512), device="cpu")
 
 
 # packages the card machine does not have: the port keeps its own

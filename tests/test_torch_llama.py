@@ -164,10 +164,20 @@ def test_params_from_jax_keeps_keys_and_layout():
         for k in a:
             if torch.is_tensor(a[k]):
                 assert a[k].shape == b[k].shape, k
+    # an int8 leaf comes across as int8 with f32 scales; a MoE router is
+    # still refused
+    q = np.ones((4, 3), np.int8)
+    s = np.full((3,), 0.5, np.float32)
+    carried = tl.params_from_jax(
+        {**jparams, "layers": [{**jparams["layers"][0], "wq": {"q": q, "s": s}}]},
+        tcfg, device="cpu")["layers"][0]["wq"]
+    assert carried["q"].dtype == torch.int8 and carried["s"].dtype == torch.float32
+    np.testing.assert_array_equal(carried["q"].numpy(), q)
     with pytest.raises(NotImplementedError):
         tl.params_from_jax(
             {**jparams, "layers": [{**jparams["layers"][0],
-                                    "wq": {"q": 1, "s": 1}}]}, tcfg, device="cpu")
+                                    "router": np.zeros((4, 2), np.float32)}]},
+            tcfg, device="cpu")
 
 
 def test_named_configs_match_jax():
