@@ -121,6 +121,22 @@ Phases, each printing JSON lines:
            bytes, logits against the dequantized weights (f32 within 1e-3
            x max|logit|, bf16 within 2x their bf16 noise), and one
            dispatch's device time by kernel class (the int8 GEMMs')
+  moe      Mixture-of-Experts: Mixtral-8x7B (LlamaConfig.from_hf_config
+           of its published config, written by the smoke: 8 experts of
+           width 14,336, top 2, GQA 32/8, untied head) at full width and
+           16 of its 32 layers (reduced: depth only), bf16, seeded random
+           weights drawn once: the serve phase's wave and gates, one
+           logprobs and one penalty request on the legacy route, then a
+           second engine over the same tensors with --spec_decode_k=3
+           --kv_quant=int8; logits through the kernels against the plain
+           versions at full width and 2 layers, with the routings that
+           flip between the two paths; resident weights and peak
+           allocated bytes; then a Mixtral-form checkpoint at full width
+           and 2 layers (two shards, layer 1's experts split across them
+           out of order, a Mixtral-form tokenizer.json) served with
+           --model_dir: every tensor bit-equal to the written one, greedy
+           texts equal to a server holding the written tensors, one
+           tensor of host staging, --weight_quant int8 refused
 The line before the last is {"kernels": [...]}, the last is
 {"ok": true, "device": {...}}.  Any failure raises and exits non-zero;
 nothing falls back to the CPU or to the plain versions.
@@ -1054,6 +1070,7 @@ def main(argv=None) -> int:
     counts["lifecycle"] = phase_lifecycle(torch)
     counts["lora"] = phase_lora(torch)
     counts.update(phase_wq(torch))
+    counts.update(phase_moe(torch))
     for name, row in rows.items():
         phase, key = KERNEL_PATH[name]
         row["launches"] = counts[phase].get(key, 0)
@@ -1496,19 +1513,21 @@ SERVE_PROMPTS = [
 
 
 def _serve_run(torch, argv, phase: str, prompts, chat_tokens: int = 48,
-               probe=None) -> dict:
-    """The port's server built from `argv`: `prompts` ((name, text,
+               probe=None, load=None, logits_check=None) -> dict:
+    """The port's server built from `argv` (its weights from `load` where
+    given, as _start_server takes it): `prompts` ((name, text,
     max_tokens), all concurrent) plus one streamed chat of `chat_tokens`;
     checks every answer, then the logits through the kernels against the
-    plain versions, then `probe(torch, engine)` where given.  Emits the
-    phase summary and returns the kernel launch counts of the served
-    requests (zeroed just before them, read just after)."""
+    plain versions (`logits_check(torch, engine)`, default _logits_check),
+    then `probe(torch, engine, server)` where given.  Emits the phase
+    summary and returns the kernel launch counts of the served requests
+    (zeroed just before them, read just after)."""
     from concurrent.futures import ThreadPoolExecutor
 
     from kserve_tpu_torch.ops import paged_attention_cuda as K
 
     t_phase = time.perf_counter()
-    model, server, thread = _start_server(torch, argv, phase)
+    model, server, thread = _start_server(torch, argv, phase, load=load)
     port, name = server.port, model.name
     chat = {"model": name, "stream": True, "max_tokens": chat_tokens,
             "temperature": 0, "ignore_eos": True,
@@ -1560,11 +1579,13 @@ def _serve_run(torch, argv, phase: str, prompts, chat_tokens: int = 48,
     generated += len(token_events)
     telemetry = _telemetry_check(port, name, metrics_before, len(prompts) + 1,
                                  generated)
+    # before the probe, which may dispatch more
+    per_dispatch = _launches_per_dispatch(phase, model.engine, counts)
 
-    logits = _logits_check(torch, model.engine)
+    logits = (logits_check or _logits_check)(torch, model.engine)
     decode_no_sync = _check_decode_has_no_sync(torch, model.engine)
     if probe is not None:
-        probe(torch, model.engine)
+        probe(torch, model.engine, server)
     emit({
         "phase": phase, "model": f"{name} (random weights, seed 1)",
         "kv_quant": model.engine.config.kv_quant,
@@ -1575,7 +1596,7 @@ def _serve_run(torch, argv, phase: str, prompts, chat_tokens: int = 48,
         "engine_steps": model.engine.steps,
         "max_memory_allocated_gb": peak_gb,
         "launches": counts,
-        "launches_per_dispatch": _launches_per_dispatch(phase, model.engine, counts),
+        "launches_per_dispatch": per_dispatch,
         "logits_check": logits,
         "decode_no_sync": decode_no_sync,
         "prompt_tokens": {label: len(model.tokenizer.encode(text))
@@ -2158,14 +2179,16 @@ SPEC_PROMPTS = [
 
 
 def _spec_run(torch, argv, phase: str, check_no_sync: bool = False,
-              prompts=SPEC_PROMPTS, decode_no_sync: bool = False) -> dict:
+              prompts=SPEC_PROMPTS, decode_no_sync: bool = False, load=None,
+              logits_check=None) -> dict:
     """A --spec_decode_k=SPEC_K server built from `argv` (a model at full
-    width and depth): `prompts` concurrently, the draft statistics, one
-    verify round's logits through the kernels against the plain versions,
-    with `decode_no_sync` one decode step under CUDA sync debugging and,
-    with `check_no_sync`, two chained dispatches on the served engine
-    under CUDA sync debugging.  Returns the kernel launch counts of the
-    served requests."""
+    width and depth; its weights from `load` where given): `prompts`
+    concurrently, the draft statistics, one verify round's logits through
+    the kernels against the plain versions (`logits_check`, default
+    _logits_check), with `decode_no_sync` one decode step under CUDA sync
+    debugging and, with `check_no_sync`, two chained dispatches on the
+    served engine under CUDA sync debugging.  Returns the kernel launch
+    counts of the served requests."""
     from concurrent.futures import ThreadPoolExecutor
 
     from kserve_tpu_torch.ops import paged_attention_cuda as K
@@ -2173,7 +2196,7 @@ def _spec_run(torch, argv, phase: str, check_no_sync: bool = False,
     t_phase = time.perf_counter()
     emit({"phase": phase, "event": "start",
           "memory_allocated_gb": torch.cuda.memory_allocated() / 1e9})
-    model, server, thread = _start_server(torch, argv, phase)
+    model, server, thread = _start_server(torch, argv, phase, load=load)
     engine = model.engine
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -2210,7 +2233,7 @@ def _spec_run(torch, argv, phase: str, check_no_sync: bool = False,
     if not (stats["drafted"] > 0
             and stats["drafted"] == stats["accepted"] + stats["rejected"]):
         raise AssertionError(f"draft statistics do not add up: {stats}")
-    logits = _logits_check(torch, engine, verify_k=SPEC_K)
+    logits = (logits_check or _logits_check)(torch, engine, verify_k=SPEC_K)
     summary = {
         "phase": phase, "model": f"{model.name} (random weights, seed 1)",
         "kv_quant": engine.config.kv_quant, "kv_cache_gb": _kv_cache_gb(engine),
@@ -4291,7 +4314,7 @@ def phase_wq(torch) -> dict:
     for phase, extra in (("wq", []), ("wq_kvq", ["--kv_quant=int8"])):
         captured = {}
 
-        def probe(torch_, engine, captured=captured, kv_int8=bool(extra)):
+        def probe(torch_, engine, _server, captured=captured, kv_int8=bool(extra)):
             captured["weights_gb"] = _tensor_bytes(torch_, engine.params) / 1e9
             if not kv_int8:
                 # over int8 KV, K/V rows rounding to neighbouring int8 steps
@@ -4313,13 +4336,358 @@ def phase_wq(torch) -> dict:
     return counts
 
 
+# ---------------------------------------------------------------- moe
+
+# Mixtral-8x7B's published config.json (mistralai/Mixtral-8x7B-v0.1), the
+# smoke's own copy: 8 experts of SwiGLU width 14,336, top 2, 32 layers
+MIXTRAL_8X7B = {
+    "architectures": ["MixtralForCausalLM"], "model_type": "mixtral",
+    "vocab_size": 32000, "hidden_size": 4096, "intermediate_size": 14336,
+    "num_hidden_layers": 32, "num_attention_heads": 32, "num_key_value_heads": 8,
+    "max_position_embeddings": 32768, "rms_norm_eps": 1e-05,
+    "rope_theta": 1e6, "sliding_window": None, "tie_word_embeddings": False,
+    "hidden_act": "silu", "num_local_experts": 8, "num_experts_per_tok": 2,
+    "torch_dtype": "bfloat16"}
+# reduced, depth only: 16 full-width layers hold 46.97 GB of bf16 weights
+# beside the KV cache on one 80 GB card; all 32 (93.4 GB) do not fit
+MOE_LAYERS = 16
+# the logits checks hold an f32 copy of the weights they run: the served
+# weights' first 2 layers, at full width; the checkpoint is 2 layers too
+MOE_CHECK_LAYERS = 2
+MOE_NAME = "mixtral-8x7b"
+MOE_DIR = os.path.join(REPO, "build", "moe_smoke")
+MOE_CKPT_DIR = os.path.join(REPO, "build", "moe_checkpoint_smoke")
+MOE_ARGS = [f"--model_name={MOE_NAME}", f"--model_dir={MOE_DIR}",
+            "--random_weights", "--http_port=0", "--device=cuda"]
+
+
+def _write_mixtral_config(model_dir: str, n_layers: int) -> None:
+    with open(os.path.join(model_dir, "config.json"), "w") as f:
+        json.dump(dict(MIXTRAL_8X7B, num_hidden_layers=n_layers), f)
+
+
+class _Routings:
+    """Inside the block, the experts each moe_mlp call selected ([N, E]
+    bool on the card, one per call in call order): models/moe.py's
+    combine_weights wrapped for the block."""
+
+    def __enter__(self):
+        from kserve_tpu_torch.models import moe
+
+        self._moe, self._plain = moe, moe.combine_weights
+        self.calls = []
+
+        def recording(logits, top_k):
+            weights = self._plain(logits, top_k)
+            self.calls.append(weights > 0)
+            return weights
+
+        moe.combine_weights = recording
+        return self.calls
+
+    def __exit__(self, *exc):
+        self._moe.combine_weights = self._plain
+
+
+def _moe_logits_check(torch, engine, **kw) -> dict:
+    """_logits_check of the served MoE engine's first MOE_CHECK_LAYERS
+    layers at full width (an f32 copy of all 16 would not fit beside
+    them): f32 within F32_LOGITS_REL_TOL x max|logit|, bf16 within
+    BF16_NOISE_FACTOR x this model's bf16 noise.  Adds the routing flips:
+    the (token, layer) routings (padding rows included) whose selected
+    experts differ between the kernel path and the plain path, f32 and
+    bf16; a near-tie of two router logits can flip one."""
+    import dataclasses
+    from types import SimpleNamespace
+
+    view = SimpleNamespace(
+        model_config=dataclasses.replace(engine.model_config,
+                                         n_layers=MOE_CHECK_LAYERS),
+        config=engine.config,
+        params=dict(engine.params, layers=engine.params["layers"][:MOE_CHECK_LAYERS]))
+    with _Routings() as calls:
+        out = _logits_check(torch, view, **kw)
+    # _logits_check's runs in order: plain and kernel f32 (and over an
+    # int8 cache the unquantized plain f32), then plain and kernel bf16
+    runs = ["plain_f32", "kernel_f32"] + (
+        ["unquantized_f32"] if engine.config.kv_quant == "int8" else []) + [
+        "plain_bf16", "kernel_bf16"]
+    per = len(calls) // len(runs)
+    if per == 0 or per * len(runs) != len(calls):
+        raise AssertionError(f"{len(calls)} moe_mlp calls over {len(runs)} runs")
+    by_run = {name: calls[i * per:(i + 1) * per] for i, name in enumerate(runs)}
+
+    def flips(a: str, b: str) -> int:
+        return sum(int((x != y).any(-1).sum()) for x, y in zip(by_run[a], by_run[b]))
+
+    out["routing_flips"] = {
+        "f32": flips("plain_f32", "kernel_f32"),
+        "bf16": flips("plain_bf16", "kernel_bf16"),
+        "routings": sum(int(x.shape[0]) for x in by_run["plain_f32"]),
+        "layers": MOE_CHECK_LAYERS}
+    return out
+
+
+def _moe_legacy(torch, engine, server) -> dict:
+    """LEGACY_PROMPTS' logprobs and penalty requests on the served MoE
+    engine, concurrently: both reach max_tokens, the logprobs block holds
+    its gates, the engine runs legacy decode dispatches, and the kernels
+    launch as many times as its dispatches say (the legacy prefills'
+    attention is plain PyTorch)."""
+    prompts = LEGACY_PROMPTS[:2]
+
+    def legacy_decodes():
+        return sum(n for k, n in engine.legacy_dispatches.items()
+                   if k.startswith("decode"))
+
+    mixed0, legacy0 = engine.steps, legacy_decodes()
+    results, _, wall, counts = _legacy_requests(torch, server, MOE_NAME, prompts)
+    resps = _completed("moe_legacy", results, prompts)
+    _check_completion_logprobs("logprobs", resps["logprobs"], 32)
+    mixed, legacy = engine.steps - mixed0, legacy_decodes() - legacy0
+    layers, steps = engine.model_config.n_layers, engine.config.steps_per_sync
+    want = {"ragged_paged_attention": layers * mixed,
+            "paged_decode_attention": layers * ((steps - 1) * mixed + steps * legacy)}
+    got = {k: counts.get(k, 0) for k in want}
+    if legacy <= 0 or got != want:
+        raise AssertionError(f"moe legacy: launches {got} != {want} for {mixed} "
+                             f"mixed and {legacy} legacy decode dispatches")
+    return {"requests": [label for label, *_ in prompts], "wall_s": wall,
+            "mixed_dispatches": mixed, "legacy_decode_dispatches": legacy,
+            "legacy_dispatches": dict(engine.legacy_dispatches),
+            "launches": counts}
+
+
+def _write_mixtral_tokenizer(model_dir: str, vocab_size: int) -> None:
+    """A tokenizer.json in Mixtral's form (Llama-2's sentencepiece BPE:
+    Prepend/Replace normalizer, byte fallback, <s> and </s>) over
+    `vocab_size` ids, each decoding to its own text, so equal completion
+    texts are equal token ids; plus the tokenizer_config.json naming
+    <s> and </s>."""
+    vocab = {"<unk>": 0, "<s>": 1, "</s>": 2}
+    vocab.update({f"<0x{b:02X}>": 3 + b for b in range(256)})
+    vocab["▁"] = len(vocab)
+    vocab.update({f"▁t{i}": i for i in range(len(vocab), vocab_size)})
+    special = [{"id": i, "content": c, "single_word": False, "lstrip": False,
+                "rstrip": False, "normalized": False, "special": True}
+               for i, c in enumerate(["<unk>", "<s>", "</s>"])]
+    data = {
+        "version": "1.0", "truncation": None, "padding": None,
+        "added_tokens": special,
+        "normalizer": {"type": "Sequence", "normalizers": [
+            {"type": "Prepend", "prepend": "▁"},
+            {"type": "Replace", "pattern": {"String": " "}, "content": "▁"}]},
+        "pre_tokenizer": None, "post_processor": None,
+        "decoder": {"type": "Sequence", "decoders": [
+            {"type": "Replace", "pattern": {"String": "▁"}, "content": " "},
+            {"type": "ByteFallback"}, {"type": "Fuse"},
+            {"type": "Strip", "content": " ", "start": 1, "stop": 0}]},
+        "model": {"type": "BPE", "dropout": None, "unk_token": "<unk>",
+                  "continuing_subword_prefix": None, "end_of_word_suffix": None,
+                  "fuse_unk": True, "byte_fallback": True, "vocab": vocab,
+                  "merges": []}}
+    with open(os.path.join(model_dir, "tokenizer.json"), "w") as f:
+        json.dump(data, f)
+    with open(os.path.join(model_dir, "tokenizer_config.json"), "w") as f:
+        json.dump({"bos_token": "<s>", "eos_token": "</s>"}, f)
+
+
+def _write_mixtral_shards(torch, params, model_dir: str) -> dict:
+    """`params` (an MoE model of two or more layers) in Mixtral's HF form,
+    by the port's writer, as two shards: the second holds layer 1's router
+    and its experts 0 .. E/2-1, so that layer's stacks take experts E/2 ..
+    E-1 from the first shard before 0 .. from the second."""
+    from kserve_tpu_torch.models.safetensors_io import save_file
+
+    def hf(t):  # [in, out] -> HF Linear's [out, in]
+        return t.t().contiguous()
+
+    tensors = {"model.embed_tokens.weight": params["embed"],
+               "model.norm.weight": params["final_norm"],
+               "lm_head.weight": hf(params["lm_head"])}
+    for i, layer in enumerate(params["layers"]):
+        for key in ("attn_norm", "wq", "wk", "wv", "wo", "mlp_norm"):
+            name, transpose = HF_LAYER_NAMES[key]
+            tensors[f"model.layers.{i}.{name}"] = (hf(layer[key]) if transpose
+                                                   else layer[key])
+        moe = f"model.layers.{i}.block_sparse_moe."
+        tensors[moe + "gate.weight"] = hf(layer["router"])
+        for e in range(layer["w_gate"].shape[0]):
+            for w, key in (("w1", "w_gate"), ("w3", "w_up"), ("w2", "w_down")):
+                tensors[f"{moe}experts.{e}.{w}.weight"] = hf(layer[key][e])
+    n_experts = params["layers"][1]["w_gate"].shape[0]
+    late = {"model.layers.1.block_sparse_moe.gate.weight"} | {
+        n for n in tensors for e in range(n_experts // 2)
+        if n.startswith(f"model.layers.1.block_sparse_moe.experts.{e}.")}
+    t0 = time.perf_counter()
+    for shard, part in enumerate((sorted(set(tensors) - late), sorted(late))):
+        save_file({n: tensors[n] for n in part}, os.path.join(
+            model_dir, f"model-{shard + 1:05d}-of-00002.safetensors"))
+    nbytes = [t.numel() * t.element_size() for t in tensors.values()]
+    return {"n_tensors": len(tensors), "bytes": sum(nbytes),
+            "largest_tensor_bytes": max(nbytes), "second_shard": len(late),
+            "write_s": time.perf_counter() - t0}
+
+
+def _moe_checkpoint(torch, mc16) -> dict:
+    """Mixtral at full width and MOE_CHECK_LAYERS layers served from a
+    Mixtral-form checkpoint (--model_dir): seed-1 weights written as two
+    shards with layer 1's experts split across them and out of order, a
+    Mixtral-form tokenizer.json.  Gates: every loaded tensor bit-equal to
+    the one written; greedy completions equal to a --random_weights
+    server's holding the written tensors; the streamed load's host staging
+    one tensor (the largest); the ragged and decode kernels launched;
+    --weight_quant int8 over the experts refused.  Returns the load's
+    accounting and rate."""
+    import dataclasses
+    import shutil
+
+    from kserve_tpu_torch.models import llama
+    from kserve_tpu_torch.ops import paged_attention_cuda as K
+    from kserve_tpu_torch.runtimes.generative_server import (
+        build_arg_parser,
+        build_model,
+    )
+
+    mc = dataclasses.replace(mc16, n_layers=MOE_CHECK_LAYERS)
+    shutil.rmtree(MOE_CKPT_DIR, ignore_errors=True)
+    os.makedirs(MOE_CKPT_DIR)
+    try:
+        written = llama.init_params(mc, seed=1, device="cuda")
+        _write_mixtral_config(MOE_CKPT_DIR, mc.n_layers)
+        _write_mixtral_tokenizer(MOE_CKPT_DIR, mc.vocab_size)
+        ckpt = _write_mixtral_shards(torch, written, MOE_CKPT_DIR)
+        args = ["--model_name=mixtral-ckpt", f"--model_dir={MOE_CKPT_DIR}",
+                "--http_port=0", "--device=cuda"]
+        model, server, thread = _start_server(
+            torch, args + ["--random_weights"], "moe_checkpoint",
+            load=lambda: written)
+        want = _sequential_texts(server.port, model.name)
+        _stop_server(torch, model, server, thread)
+        model, server, thread = _start_server(torch, args, "moe_checkpoint")
+        mismatched = [key for key, a, b in _param_pairs(written, model.engine.params)
+                      if a.dtype != b.dtype or not torch.equal(a, b)]
+        K.reset_launch_counts()
+        got = _sequential_texts(server.port, model.name)
+        torch.cuda.synchronize()
+        counts = dict(K.LAUNCHES)
+        stats = dict(model.weights_stats)
+        _stop_server(torch, model, server, thread)
+        del written
+        if mismatched:
+            raise AssertionError(f"loaded Mixtral tensors differ from the written "
+                                 f"ones: {mismatched[:8]}")
+        if got != want:
+            raise AssertionError(f"Mixtral checkpoint greedy texts {got} != the "
+                                 f"random-weights server's {want}")
+        if (stats["peak_host_bytes"] != ckpt["largest_tensor_bytes"]
+                or stats["n_tensors"] != ckpt["n_tensors"]):
+            raise AssertionError(f"Mixtral load staging {stats} against {ckpt}")
+        _require_launches("moe_checkpoint", counts,
+                          ("ragged_paged_attention", "paged_decode_attention"))
+        quant = build_model(build_arg_parser().parse_args(args + ["--weight_quant=int8"]))
+        try:
+            quant.load()
+        except NotImplementedError as e:
+            refused = str(e)
+        else:
+            raise AssertionError("--weight_quant int8 over MoE experts loaded")
+        return {"checkpoint": ckpt, "tensors_bit_equal": ckpt["n_tensors"],
+                "load": {**stats, "gb_per_s": stats["read_bytes"] / stats["seconds"] / 1e9},
+                "greedy_equal_random_weights": sorted(got),
+                "int8_refused": refused, "launches": counts}
+    finally:
+        shutil.rmtree(MOE_CKPT_DIR, ignore_errors=True)
+
+
+def phase_moe(torch) -> dict:
+    """Mixtral-8x7B (LlamaConfig.from_hf_config of its published config:
+    8 experts of width 14,336, top 2, GQA 32/8 at head_dim 128, untied
+    head, bf16) at full width and MOE_LAYERS of its 32 layers, seeded
+    random weights drawn once on the card and served twice:
+
+    (a) the serve phase's wave through the OpenAI server (six
+        completions, one of 1,201 prompt tokens, and a streamed chat)
+        with its gates, then LEGACY_PROMPTS' logprobs and penalty
+        requests on the legacy route (_moe_legacy);
+    (b) a second engine over the same tensors with --spec_decode_k=3
+        --kv_quant=int8: the spec phase's prompts and gates and two
+        chained dispatches under CUDA sync debugging.
+
+    Logits through the kernels against the plain versions at full width
+    and MOE_CHECK_LAYERS layers, with the routing flips
+    (_moe_logits_check).  (a) launches the ragged and decode kernels'
+    bf16-page d=128 instances, (b) the int8-page ragged, decode and dense
+    ones.  Then the Mixtral-form checkpoint (_moe_checkpoint).  Prints the
+    resident weights, the card's peak allocated bytes of each part, and
+    returns {"moe": counts, "moe_spec_int8": counts}."""
+    import functools
+    import gc
+    import shutil
+
+    from kserve_tpu_torch.models import llama
+
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    emit({"phase": "moe", "event": "start",
+          "memory_allocated_gb": torch.cuda.memory_allocated() / 1e9})
+    shutil.rmtree(MOE_DIR, ignore_errors=True)
+    os.makedirs(MOE_DIR)
+    int8_keys = tuple(k + "_int8" for k in _ATTENTION_KEYS)
+    try:
+        _write_mixtral_config(MOE_DIR, MOE_LAYERS)
+        mc = llama.LlamaConfig.from_hf_config(os.path.join(MOE_DIR, "config.json"))
+        t0 = time.perf_counter()
+        params = llama.init_params(mc, seed=1, device="cuda")
+        torch.cuda.synchronize()
+        total = _tensor_bytes(torch, params)
+        per_layer = _tensor_bytes(torch, params["layers"][0])
+        weights = {"weights_gb": total / 1e9, "layer_gb": per_layer / 1e9,
+                   "full_depth_gb": (total + (32 - MOE_LAYERS) * per_layer) / 1e9,
+                   "draw_s": time.perf_counter() - t0}
+        emit({"phase": "moe", "event": "weights", **weights})
+        peaks, legacy = {}, {}
+
+        def probe(torch_, engine, server):
+            legacy.update(_moe_legacy(torch_, engine, server))
+            peaks["moe"] = torch_.cuda.max_memory_allocated() / 1e9
+
+        counts = {"moe": _serve_run(
+            torch, MOE_ARGS, "moe", SERVE_PROMPTS, probe=probe, load=lambda: params,
+            logits_check=functools.partial(_moe_logits_check, legacy=True))}
+        _require_launches("moe", counts["moe"], _ATTENTION_KEYS[:2],
+                          (_ATTENTION_KEYS[2],) + int8_keys)
+        counts["moe_spec_int8"] = _spec_run(
+            torch, MOE_ARGS + [f"--spec_decode_k={SPEC_K}", "--kv_quant=int8"],
+            "moe_spec_int8", check_no_sync=True, load=lambda: params,
+            logits_check=_moe_logits_check)
+        peaks["moe_spec_int8"] = torch.cuda.max_memory_allocated() / 1e9
+        _require_launches("moe_spec_int8", counts["moe_spec_int8"], int8_keys,
+                          _ATTENTION_KEYS)
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        checkpoint = _moe_checkpoint(torch, mc)
+        peaks["moe_checkpoint"] = torch.cuda.max_memory_allocated() / 1e9
+    finally:
+        shutil.rmtree(MOE_DIR, ignore_errors=True)
+    emit({"phase": "moe", "model": f"{MOE_NAME} (random weights, seed 1, bf16)",
+          "reduced": f"depth only: {MOE_LAYERS} of 32 layers",
+          **weights, "max_memory_allocated_gb": peaks, "legacy": legacy,
+          "checkpoint": checkpoint, "phase_wall_s": time.perf_counter() - t_phase})
+    return counts
+
+
 # the served phases --only can run alone
 SERVED_PHASES = {"serve": phase_serve, "d64": phase_d64, "spec": phase_spec,
                  "kvq": phase_kvq, "gemma2": phase_gemma2,
                  "pressure": phase_pressure, "legacy": phase_legacy,
                  "prefix": phase_prefix, "tiers": phase_tiers,
                  "lifecycle": phase_lifecycle, "lora": phase_lora,
-                 "wq": phase_wq, "checkpoint": phase_checkpoint}
+                 "wq": phase_wq, "checkpoint": phase_checkpoint,
+                 "moe": phase_moe}
 
 if __name__ == "__main__":
     sys.exit(main())

@@ -100,9 +100,10 @@ Lifecycle and operations (kserve_tpu/engine/engine.py:1257-1360,
   next token, the detokenizer replayed
 - every device call (a dispatch and the fetch of its tokens) runs on one
   daemon worker under `step_deadline_s`; one that outlasts it marks the
-  engine `wedged` (liveness red).  On CUDA the kernel library is loaded
-  in `start()`, before the engine is ready (the `compile` startup phase),
-  so no served dispatch waits for nvcc
+  engine `wedged` (liveness red).  On CUDA `start()` loads the kernel
+  library and drives one warm-up generation (`aot_warmup`) before the
+  engine is ready (the `compile` startup phase), so no served dispatch
+  waits for nvcc or for the lazy loading of a process's first dispatch
 - the gray-failure watchdog (engine/watchdog.py, `watchdog=True`) reads
   the progress stamps and, on a confirmed stall, self-drains with reason
   "stall"; `scheduler_state()` is the endpoint picker's view of the
@@ -111,7 +112,9 @@ Lifecycle and operations (kserve_tpu/engine/engine.py:1257-1360,
 Not ported yet: the peer page fabric, injected KV from a prefill peer
 (P/D: `kv_data`, `generate_injected`), frees deferred while a chained
 dispatch is in flight (not needed on one stream, above),
-data/tensor/pipeline/sequence parallelism, MoE and the AOT cache.
+data/tensor/pipeline/sequence/expert parallelism and the AOT cache.  An
+MoE model (models/moe.py) runs on every route; LoRA over it is refused,
+as in the JAX engine.
 Admission waits for free pages.
 """
 
@@ -470,22 +473,29 @@ class LLMEngine:
 
     async def start(self):
         if self._task is None:
-            if self.device.type == "cuda" and "compile" not in self.startup_phases:
+            first = "ready" not in self.startup_phases
+            t0 = time.perf_counter()
+            if self.device.type == "cuda" and first:
                 # build (or load) the kernel library now, before ready: a
                 # cold nvcc build inside the first served dispatch would
                 # blow the step deadline and read as a stall
                 from ..ops._build import load_library
 
-                t0 = time.perf_counter()
                 await asyncio.to_thread(load_library)
                 self.startup_phases["compile"] = time.perf_counter() - t0
-            if "ready" not in self.startup_phases:
+            self._task = asyncio.create_task(self._run_loop())
+            warmup = self.config.aot_warmup
+            if warmup is None:
+                warmup = self.device.type == "cuda"
+            if warmup and first and not self._stopped:
+                await self._aot_warmup()
+                self.startup_phases["compile"] = time.perf_counter() - t0
+            if first:
                 self.startup_phases["ready"] = (
                     time.perf_counter() - self._construct_t0
                     + self._weights_external_s)
                 for phase, seconds in self.startup_phases.items():
                     observe_startup_phase(self._mlabel, phase, seconds)
-            self._task = asyncio.create_task(self._run_loop())
             if self._watchdog is not None:
                 # a start is forward motion: the stall window opens here,
                 # not at construction (the kernel build sits in between)
@@ -495,6 +505,30 @@ class LLMEngine:
                 "LLM engine started on %s: slots=%d pages=%d page_size=%d",
                 self.device, self.config.max_batch_size,
                 self.config.num_pages, self.config.page_size)
+
+    async def _aot_warmup(self):
+        """Drive one tiny greedy generation through the serving loop before
+        the engine reports ready (kserve_tpu/engine/engine.py:703-731), so
+        the kernels its dispatches reach are loaded ahead of the first
+        real request.  One generation, not one per prefill bucket: the
+        port compiles no program per shape.  Prompt and output stay inside
+        one page, so the prefix cache keeps nothing of it; its timelines
+        and dispatch counters are not traffic and start again at zero (the
+        Prometheus series keep its observations, as in the JAX engine)."""
+        params = SamplingParams(
+            max_tokens=min(4, max(1, self.config.steps_per_sync)),
+            temperature=0.0, ignore_eos=True)
+        n = max(1, min(4, self.config.page_size - params.max_tokens - 1))
+        try:
+            async for _ in self.generate([1] * n, params, request_id="aot-warmup"):
+                pass
+        except Exception:  # noqa: BLE001 — warmup is an optimization; a
+            # failure here must surface in the logs, not block serving
+            logger.exception("aot warmup failed")
+        self.telemetry = TimelineRecorder()
+        self.steps = self.dense_steps = self.chained_dispatches = 0
+        self.legacy_dispatches = dict.fromkeys(self.legacy_dispatches, 0)
+        self.spec_stats = dict.fromkeys(self.spec_stats, 0)
 
     async def stop(self):
         self._stopped = True

@@ -97,6 +97,13 @@ class EngineConfig:
     watchdog_salvage_grace_s: float = 0.0
     # "int8": int8 linears with f32 per-channel scales (models/quant.py)
     weight_quant: str = "none"
+    # drive one tiny generation through the serving loop in start(),
+    # BEFORE the engine reports ready: the first dispatch of a process
+    # loads torch's and cuBLAS's kernels lazily (seconds on the card),
+    # which would otherwise land in the first served request and read as
+    # a stall to the watchdog.  None = auto (on when the engine runs on
+    # CUDA); the JAX package's knob, whose auto follows its AOT cache
+    aot_warmup: Optional[bool] = None
     # not run by this port yet: any other value is rejected
     tp: int = 1
     dp: int = 1

@@ -26,8 +26,8 @@ to the endpoint picker.
 
 Off by default (``KSERVE_TPU_WATCHDOG``): a cold start may pause longer
 than any useful stall budget.  On CUDA the engine loads the kernel
-library before it reports ready, so the first served dispatch builds
-nothing.
+library and drives one warm-up generation before it reports ready, so the
+first served dispatch neither builds nor loads kernels.
 """
 
 from __future__ import annotations

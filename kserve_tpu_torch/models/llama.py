@@ -2,7 +2,8 @@
 Gemma-2-style variants through config knobs: GQA, RoPE theta and llama3
 scaling, qkv bias, per-head qk-norm, tied embeddings, sandwich norms,
 attention and final logit softcaps, attention-scale override, per-layer
-sliding windows, GeGLU).
+sliding windows, GeGLU; and Mixtral's Mixture-of-Experts MLP, models/moe.py,
+when n_experts > 0).
 
 Port of kserve_tpu/models/llama.py: the entry points the `mixed` and
 `mixed_decode` programs run, `forward_ragged` (:720, with `logits_at` and
@@ -19,7 +20,8 @@ delta per token.  The large matrix products are plain `torch` products
 CUDA kernels on the card; the prefill attention is plain PyTorch, as it
 is XLA code in the JAX package).  `load_hf_weights(_streamed)` read a
 HuggingFace safetensors checkpoint (models/safetensors_io.py) into that
-layout, int8 if asked.  Not ported yet: MoE, pipeline parallelism.
+layout, int8 if asked (MoE expert stacks excepted, as in the JAX
+package).  Not ported yet: pipeline and expert parallelism.
 """
 
 from __future__ import annotations
@@ -52,6 +54,7 @@ from ..ops.attention import (
 from ..ops.norms import rms_norm, rms_norm_plus_one
 from ..ops.rotary import rope_cos_sin, rope_frequencies, rotate
 from .lora import lora_delta
+from .moe import MoEConfig, init_moe_params, moe_mlp
 from .quant import (
     LINEAR_KEYS,
     dense,
@@ -96,6 +99,9 @@ class LlamaConfig:
     sliding_window: int = 0  # > 0: window on layers marked sliding
     layer_types: Optional[Tuple[str, ...]] = None
     logit_softcap: float = 0.0  # tanh cap on the final logits
+    # Mixture-of-Experts (Mixtral-style): n_experts == 0 => dense MLP
+    n_experts: int = 0
+    n_experts_per_tok: int = 2
     dtype: str = "bfloat16"
 
     def __post_init__(self):
@@ -122,6 +128,12 @@ class LlamaConfig:
     @property
     def torch_dtype(self) -> torch.dtype:
         return getattr(torch, self.dtype)
+
+    @property
+    def moe(self) -> MoEConfig:
+        return MoEConfig(n_experts=self.n_experts, top_k=self.n_experts_per_tok,
+                         hidden_size=self.hidden_size,
+                         intermediate_size=self.intermediate_size)
 
     @staticmethod
     def tiny(**overrides) -> "LlamaConfig":
@@ -212,15 +224,13 @@ class LlamaConfig:
 
     @staticmethod
     def from_hf_config(path_or_dict) -> "LlamaConfig":
-        """Map a HuggingFace config.json (Llama/Mistral/Qwen2/Qwen3/Gemma-2)
-        onto LlamaConfig; raises on what this port does not run (MoE)."""
+        """Map a HuggingFace config.json (Llama/Mistral/Qwen2/Qwen3/Gemma-2/
+        Mixtral) onto LlamaConfig."""
         if isinstance(path_or_dict, str):
             with open(path_or_dict) as f:
                 cfg = json.load(f)
         else:
             cfg = dict(path_or_dict)
-        if cfg.get("num_local_experts"):
-            raise NotImplementedError("MoE checkpoints are not ported yet")
         rope_scaling = cfg.get("rope_scaling")
         if rope_scaling is not None:
             # validate eagerly: an unsupported variant must not load
@@ -265,6 +275,9 @@ class LlamaConfig:
                     for i in range(cfg["num_hidden_layers"]))
                 if gemma2 and (cfg.get("sliding_window") or 0) > 0
                 else None),
+            # MixtralForCausalLM fields
+            n_experts=cfg.get("num_local_experts", 0),
+            n_experts_per_tok=cfg.get("num_experts_per_tok", 2),
         )
 
 
@@ -277,14 +290,18 @@ def init_params(config: LlamaConfig, seed: int = 1, device=None,
     directly, as the JAX package's init does (uniform int8, whose std of
     ~73 the constant scale maps back onto N(0, scale)); a tied embedding
     is then int8 with row scales, an untied one stays in the model dtype.
-    No model-dtype tree of the model is ever made."""
+    No model-dtype tree of the model is ever made.  With n_experts > 0 a
+    layer's MLP is a router [h, E] and expert stacks [E, h, f] / [E, f, h]
+    (models/moe.py), which int8 refuses, as the JAX package does."""
     device = resolve_device(device)
     dtype = config.torch_dtype
-    gen = torch.Generator(device=device)
-    gen.manual_seed(seed)
     h, hd = config.hidden_size, config.head_dim
     nq, nkv, f = config.n_heads, config.n_kv_heads, config.intermediate_size
     quant = weight_quant == "int8"
+    if quant and config.n_experts > 0:
+        raise NotImplementedError("weight_quant over MoE experts")
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
 
     def dense_f(*shape):
         w = torch.randn(shape, generator=gen, device=device, dtype=torch.float32)
@@ -312,10 +329,11 @@ def init_params(config: LlamaConfig, seed: int = 1, device=None,
             "wv": dense(h, nkv * hd),
             "wo": dense(nq * hd, h),
             "mlp_norm": const(norm_value, h),
-            "w_gate": dense(h, f),
-            "w_up": dense(h, f),
-            "w_down": dense(f, h),
         }
+        if config.n_experts > 0:
+            layer.update(init_moe_params(config.moe, gen, device, scale, dtype))
+        else:
+            layer.update(w_gate=dense(h, f), w_up=dense(h, f), w_down=dense(f, h))
         if config.attention_bias:
             layer["bq"] = const(0.0, nq * hd)
             layer["bk"] = const(0.0, nkv * hd)
@@ -347,7 +365,8 @@ def params_from_jax(params_np: Params, config: LlamaConfig, device=None) -> Para
     config.dtype.  Same keys and layouts: an int8 leaf {"q", "s"} stays
     int8 with f32 scales, a layer's LoRA stacks {proj: {"A", "B"}} come
     across in config.dtype, and the per-layer `attn_window` becomes a
-    Python int.  Raises on MoE routers (not ported)."""
+    Python int.  An MoE layer's router and expert stacks come across as
+    they are."""
     device = resolve_device(device)
     dtype = config.torch_dtype
 
@@ -362,8 +381,6 @@ def params_from_jax(params_np: Params, config: LlamaConfig, device=None) -> Para
     for layer in params_np["layers"]:
         out = {}
         for key, value in layer.items():
-            if key == "router":
-                raise NotImplementedError(f"layer key {key!r} is not ported yet")
             if key == "lora":
                 out[key] = {proj: {k: tensor(v) for k, v in ab.items()}
                             for proj, ab in value.items()}
@@ -409,6 +426,10 @@ _HF_LAYER_MAP = {
 _TRANSPOSED = {"wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down"}
 
 _LAYER_RE = re.compile(r"^model\.layers\.(\d+)\.(.+)$")
+# MixtralForCausalLM: block_sparse_moe.gate is the router, and each
+# expert's w1 / w3 / w2 its gate / up / down projection
+_EXPERT_RE = re.compile(r"^block_sparse_moe\.experts\.(\d+)\.(w[123])\.weight$")
+_MOE_PROJ = {"w1": "w_gate", "w3": "w_up", "w2": "w_down"}
 
 
 def _checkpoint_files(model_dir: str) -> List[str]:
@@ -419,21 +440,25 @@ def _checkpoint_files(model_dir: str) -> List[str]:
     return files
 
 
-def _check_quant(weight_quant: str) -> bool:
+def _check_quant(weight_quant: str, config: LlamaConfig) -> bool:
     if weight_quant not in ("none", "int8"):
         raise ValueError(f"weight_quant={weight_quant!r}")
+    if weight_quant == "int8" and config.n_experts > 0:
+        raise NotImplementedError("weight_quant over MoE experts")
     return weight_quant == "int8"
 
 
 def _place(params: Params, name: str, t: torch.Tensor, config: LlamaConfig,
-           device: torch.device, quant: bool = False) -> None:
+           device: torch.device, quant: bool, experts: dict) -> None:
     """Route one checkpoint tensor to its slot, on `device` in the
     config's dtype (transposed to [in, out] for the linears).  With
     `quant` the linears and the lm_head (or a tied embedding, per row) are
     quantized to int8 on the host first (quantize_array_np), so the device
-    only sees int8 and scales.  Rotary tables, layers past
-    config.n_layers and unknown names are skipped; MoE expert tensors
-    raise."""
+    only sees int8 and scales.  An MoE expert's projection is copied into
+    its slot of the layer's [E, in, out] stack, made on the device when
+    the first expert of that stack arrives; `experts` maps (layer, proj)
+    to the experts placed so far.  Rotary tables, layers past
+    config.n_layers and unknown names are skipped."""
     dtype = config.torch_dtype
 
     def on_device(transpose: bool) -> torch.Tensor:
@@ -462,17 +487,39 @@ def _place(params: Params, name: str, t: torch.Tensor, config: LlamaConfig,
     if m is None:
         return  # rotary inv_freq etc.: derived, never loaded
     i, suffix = int(m.group(1)), m.group(2)
-    if suffix.startswith("block_sparse_moe."):
-        raise NotImplementedError("MoE checkpoints are not ported yet")
-    ours = _HF_LAYER_MAP.get(suffix)
-    if ours is None or i >= config.n_layers:
+    if i >= config.n_layers:
         return
-    params["layers"][i][ours] = (quantized(True) if quant and ours in LINEAR_KEYS
-                                 else on_device(ours in _TRANSPOSED))
+    layer = params["layers"][i]
+    if config.n_experts > 0:
+        if suffix == "block_sparse_moe.gate.weight":
+            layer["router"] = on_device(True)
+            return
+        em = _EXPERT_RE.match(suffix)
+        if em is not None:
+            e, proj = int(em.group(1)), _MOE_PROJ[em.group(2)]
+            if proj not in layer:
+                n_out, n_in = t.shape
+                layer[proj] = torch.empty((config.n_experts, n_in, n_out),
+                                          dtype=dtype, device=device)
+            layer[proj][e].copy_(on_device(True))
+            experts.setdefault((i, proj), set()).add(e)
+            return
+    ours = _HF_LAYER_MAP.get(suffix)
+    if ours is None:
+        return
+    layer[ours] = (quantized(True) if quant and ours in LINEAR_KEYS
+                   else on_device(ours in _TRANSPOSED))
 
 
-def _finish_layers(params: Params, config: LlamaConfig) -> Params:
-    """The Gemma-2 norm remap and the per-layer attention windows."""
+def _finish_layers(params: Params, config: LlamaConfig,
+                   experts: dict) -> Params:
+    """The Gemma-2 norm remap and the per-layer attention windows;
+    raises ValueError on an expert stack that is not whole."""
+    missing = sorted(key for key, seen in experts.items()
+                     if len(seen) < config.n_experts)
+    if missing:
+        raise ValueError(
+            f"checkpoint is missing MoE experts for (layer, proj): {missing[:4]}")
     for i, layer in enumerate(params["layers"]):
         if config.sandwich_norms:
             layer["post_attn_norm"] = layer.pop("mlp_norm")
@@ -498,47 +545,61 @@ def load_hf_weights_streamed(model_dir: str, config: LlamaConfig, device=None,
     weight_quant="int8" quantizes each linear on the host as it is read
     (the JAX loader's int8 path, kserve_tpu/models/llama.py:1021-1080), so
     host staging still peaks at about one tensor and the device holds no
-    model-dtype copy.  Raises on MoE checkpoints (not ported)."""
+    model-dtype copy; over MoE experts it raises, as the JAX loader does.
+    A Mixtral checkpoint's experts go into their device stacks one by one,
+    in any order and across shards, so host staging stays at one tensor
+    there too (the JAX loader holds a layer's experts on the host until
+    its stack is whole: its peak_host_bytes differ).  A stack still
+    missing an expert at the end raises ValueError."""
     from .safetensors_io import iter_tensors
 
-    quant = _check_quant(weight_quant)
+    quant = _check_quant(weight_quant, config)
     device = resolve_device(device)
     files = _checkpoint_files(model_dir)
     acct = {"peak_host_bytes": 0, "read_bytes": 0, "n_tensors": 0}
     params: Params = {"layers": [dict() for _ in range(config.n_layers)]}
+    experts: dict = {}
     for path in files:
         for name, t in iter_tensors(path):
             nbytes = t.numel() * t.element_size()
             acct["read_bytes"] += nbytes
             acct["n_tensors"] += 1
             acct["peak_host_bytes"] = max(acct["peak_host_bytes"], nbytes)
-            _place(params, name, t, config, device, quant)
+            _place(params, name, t, config, device, quant, experts)
             del t
     if stats is not None:
         stats.update(acct)
-    return _finish_layers(params, config)
+    return _finish_layers(params, config, experts)
 
 
 def load_hf_weights(model_dir: str, config: LlamaConfig, device=None,
                     weight_quant: str = "none") -> Params:
     """The buffered form of `load_hf_weights_streamed`: every tensor of
     every shard is read to the host first, then placed (the JAX package's
-    `load_hf_weights`, which requires the embedding and the final norm).
+    `load_hf_weights`, which requires the embedding and the final norm,
+    and of an MoE config every router and expert of the layers it loads).
     weight_quant="int8" quantizes on the host as the streamed form does."""
     from .safetensors_io import iter_tensors
 
-    quant = _check_quant(weight_quant)
+    quant = _check_quant(weight_quant, config)
     device = resolve_device(device)
     tensors: Dict[str, torch.Tensor] = {}
     for path in _checkpoint_files(model_dir):
         tensors.update(iter_tensors(path))
-    for required in ("model.embed_tokens.weight", "model.norm.weight"):
-        if required not in tensors:
-            raise KeyError(f"checkpoint under {model_dir} has no {required}")
+    required = ["model.embed_tokens.weight", "model.norm.weight"]
+    for i in range(config.n_layers if config.n_experts > 0 else 0):
+        moe = f"model.layers.{i}.block_sparse_moe."
+        required += [moe + "gate.weight"] + [
+            f"{moe}experts.{e}.{w}.weight"
+            for w in ("w1", "w3", "w2") for e in range(config.n_experts)]
+    for name in required:
+        if name not in tensors:
+            raise KeyError(f"checkpoint under {model_dir} has no {name}")
     params: Params = {"layers": [dict() for _ in range(config.n_layers)]}
+    experts: dict = {}
     for name in sorted(tensors):
-        _place(params, name, tensors[name], config, device, quant)
-    return _finish_layers(params, config)
+        _place(params, name, tensors[name], config, device, quant, experts)
+    return _finish_layers(params, config, experts)
 
 
 def _norm(x: torch.Tensor, weight: torch.Tensor, config: LlamaConfig) -> torch.Tensor:
@@ -609,6 +670,8 @@ def _qkv(layer: Params, x: torch.Tensor, config: LlamaConfig, onehot=None):
 
 def _mlp(layer: Params, x: torch.Tensor, config: LlamaConfig,
          onehot=None) -> torch.Tensor:
+    if config.n_experts > 0:
+        return moe_mlp(layer, x, config.moe)
     gate = _act(_adapted(layer, "w_gate", x, onehot), config)
     up = _adapted(layer, "w_up", x, onehot)
     return _adapted(layer, "w_down", gate * up, onehot)

@@ -1,8 +1,9 @@
 """Profile one `mixed` engine step of the PyTorch port (kserve_tpu_torch)
-on one GPU: where a step's time goes at Llama-3-8B shape.
+on one GPU: where a step's time goes at Llama-3-8B shape, or with --moe at
+Mixtral-8x7B's.
 
     python3 scripts/torch_profile_mixed.py [--batch 8] [--context 512] [--spec_k 3]
-        [--kv_quant int8] [--weight_quant int8] [--lora N]
+        [--kv_quant int8] [--weight_quant int8] [--lora N] [--moe]
         [--plans decode,prefill_mix,spec_greedy,spec_sampled] [--package-root DIR]
 
 Two plans run through kserve_tpu_torch.engine.compiled.make_mixed with
@@ -23,8 +24,12 @@ f32 per-channel scales (drawn int8, as the engine's --weight_quant int8
 draws them).  With `--lora N` every layer carries N random rank-16 LoRA
 adapters on all seven projections (stacked as the engine stacks PEFT
 adapters) and lane i runs adapter i mod (N + 1) - 1 (-1: the base
-model), so base and adapter lanes share each dispatch.  `--plans` picks
-plans.  For each: wall time of the step (host clock around the
+model), so base and adapter lanes share each dispatch.  With `--moe` the
+model is Mixtral-8x7B at full width and 16 of its 32 layers (8 experts,
+top 2, the dense-masked MoE MLP of models/moe.py; decode and prefill_mix
+by default), and the profiled run also splits out the device time of the
+MoE MLP's four parts (router product, top-k, expert products, combine)
+under record_function ranges.  `--plans` picks plans.  For each: wall time of the step (host clock around the
 call and the token fetch), the host's enqueue time, and from
 torch.profiler the device time by kernel class and the device idle share
 (1 - busy / wall), with the launches of each kernel by name.  JSON lines
@@ -86,11 +91,42 @@ def lora_stacks(mc, n: int, rank: int = 16, seed: int = 3):
             for _ in range(mc.n_layers)]
 
 
-def profile_step(run, steps: int, iters: int = 3) -> dict:
+# the MoE MLP's parts (models/moe.py), each under a record_function range
+# of the same name in the profiled run of --moe
+MOE_PARTS = {"router": "router_logits", "top_k": "combine_weights",
+             "experts": "expert_outputs", "combine": "combine"}
+
+
+class moe_ranges:
+    """Inside the block, each MoE part runs under a record_function range
+    named "moe.<part>" (models/moe.py's functions wrapped for the block)."""
+
+    def __enter__(self):
+        from kserve_tpu_torch.models import moe
+
+        self._moe, self._plain = moe, {fn: getattr(moe, fn) for fn in MOE_PARTS.values()}
+        for part, fn in MOE_PARTS.items():
+            setattr(moe, fn, self._wrap(f"moe.{part}", self._plain[fn]))
+
+    @staticmethod
+    def _wrap(name, fn):
+        def ranged(*args):
+            with torch.profiler.record_function(name):
+                return fn(*args)
+        return ranged
+
+    def __exit__(self, *exc):
+        for fn, plain in self._plain.items():
+            setattr(self._moe, fn, plain)
+
+
+def profile_step(run, steps: int, iters: int = 3, moe: bool = False) -> dict:
     """Time `run` (a dispatch returning device tensors) warm: the wall of
     its best of `iters` runs to the fetched tokens and the host's enqueue,
     then one run under torch.profiler: device time by kernel class, the
-    device idle share (1 - busy / wall) and the launches of each kernel."""
+    device idle share (1 - busy / wall) and the launches of each kernel;
+    with `moe`, that run's MoE parts under moe_ranges and their kernels'
+    device time."""
     def step():
         t0 = time.perf_counter()
         out = run()
@@ -105,9 +141,19 @@ def profile_step(run, steps: int, iters: int = 3) -> dict:
         with torch.profiler.profile(activities=[
                 torch.profiler.ProfilerActivity.CPU,
                 torch.profiler.ProfilerActivity.CUDA]) as prof:
-            prof_host, prof_wall = step()
-    by_class, top, launches, by_name = {}, [], 0, {}
+            if moe:
+                with moe_ranges():
+                    prof_host, prof_wall = step()
+            else:
+                prof_host, prof_wall = step()
+    by_class, top, launches, by_name, moe_ms = {}, [], 0, {}, {}
     for ev in prof.key_averages():
+        if ev.key.startswith("moe."):
+            # a range: its CPU side sums the device time of the kernels
+            # launched inside it (its GPU-side twin spans idle gaps too)
+            if ev.device_type == torch.autograd.DeviceType.CPU:
+                moe_ms[ev.key[4:]] = ev.device_time_total / 1e3
+            continue
         # kernels only: CPU-side ops (aten::mm, ...) also report the
         # device time of the kernels they launched
         if ev.device_type != torch.autograd.DeviceType.CUDA:
@@ -123,6 +169,7 @@ def profile_step(run, steps: int, iters: int = 3) -> dict:
     top.sort(reverse=True)
     busy = sum(by_class.values())
     wall = min(r[1] for r in runs) * 1e3
+    extra = {"moe_device_ms": moe_ms} if moe else {}
     return {
         "wall_ms": wall, "wall_ms_per_step": wall / steps,
         "host_enqueue_ms": min(r[0] for r in runs) * 1e3,
@@ -133,6 +180,7 @@ def profile_step(run, steps: int, iters: int = 3) -> dict:
         "device_ms_by_class": by_class,
         "top_kernels": [{"ms": t, "calls": c, "name": n} for t, c, n in top[:12]],
         "launches_by_kernel": by_name,
+        **extra,
     }
 
 
@@ -172,12 +220,22 @@ def main(argv=None) -> int:
     p.add_argument("--weight_quant", default="none", choices=("none", "int8"))
     p.add_argument("--lora", type=int, default=0,
                    help="random rank-16 adapters on every projection")
-    p.add_argument("--plans", default="decode,prefill_mix,spec_greedy,spec_sampled")
+    p.add_argument("--moe", action="store_true",
+                   help="Mixtral-8x7B's width at 16 layers (8 experts, top 2)")
+    p.add_argument("--plans", default=None,
+                   help="default: decode,prefill_mix,spec_greedy,spec_sampled "
+                        "(with --moe: decode,prefill_mix)")
     p.add_argument("--package-root", default=REPO,
                    help="import kserve_tpu_torch from this directory")
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("needs a CUDA device")
+    if args.moe and (args.lora or args.weight_quant != "none"):
+        # the engine refuses both over MoE layers, as the JAX engine does
+        raise SystemExit("--moe takes neither --lora nor --weight_quant")
+    if args.plans is None:
+        args.plans = ("decode,prefill_mix" if args.moe
+                      else "decode,prefill_mix,spec_greedy,spec_sampled")
     sys.path.insert(0, os.path.abspath(args.package_root))
     from kserve_tpu_torch.engine.compiled import make_mixed, make_mixed_decode
     from kserve_tpu_torch.engine.kvcache import (
@@ -195,7 +253,14 @@ def main(argv=None) -> int:
     print(json.dumps({"device": smi, "torch": torch.__version__,
                       "package": os.path.dirname(llama.__file__)}), flush=True)
 
-    mc = llama.LlamaConfig.llama3_8b()
+    if args.moe:
+        # Mixtral-8x7B's published widths, 16 of its 32 layers
+        mc = llama.LlamaConfig(
+            vocab_size=32000, hidden_size=4096, intermediate_size=14336,
+            n_layers=16, n_heads=32, n_kv_heads=8, rope_theta=1e6,
+            max_position_embeddings=32768, n_experts=8, n_experts_per_tok=2)
+    else:
+        mc = llama.LlamaConfig.llama3_8b()
     ps, B = 16, args.batch
     max_advance = args.steps_per_sync * (args.spec_k + 1)
     W = -(-(max(args.context, args.chunk) + max_advance + 1) // ps)
@@ -255,13 +320,14 @@ def main(argv=None) -> int:
                              **adapters)[:1]
 
         print(json.dumps({
-            "plan": name, "kv_quant": args.kv_quant,
+            "plan": name, "moe": args.moe, "n_layers": mc.n_layers,
+            "kv_quant": args.kv_quant,
             "weight_quant": args.weight_quant, "lora_adapters": args.lora,
             "batch": B, "context": args.context,
             "chunk": args.chunk if name == "prefill_mix" else 0,
             "spec_k": args.spec_k if name.startswith("spec") else None,
             "steps_per_sync": args.steps_per_sync,
-            **profile_step(run, args.steps_per_sync, args.iters),
+            **profile_step(run, args.steps_per_sync, args.iters, moe=args.moe),
         }), flush=True)
     return 0
 

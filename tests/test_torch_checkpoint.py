@@ -214,19 +214,35 @@ def test_unsupported_dtype_is_named(tmp_path):
 
 
 def test_moe_and_int8_weights_raise(tmp_path):
-    with pytest.raises(NotImplementedError, match="MoE"):
-        tl.LlamaConfig.from_hf_config({
-            "vocab_size": 512, "hidden_size": 64, "intermediate_size": 128,
-            "num_hidden_layers": 2, "num_attention_heads": 4,
-            "num_local_experts": 4})
-    tensors = _hf_tensors("llama", np.float32)
-    tensors["model.layers.0.block_sparse_moe.gate.weight"] = np.zeros((4, 64), np.float32)
+    """An MoE checkpoint loads (tests/test_torch_moe_checkpoint.py holds it
+    to the JAX loaders), and int8 weights over its experts are refused, as
+    in the JAX package."""
+    hf = {"vocab_size": 512, "hidden_size": 64, "intermediate_size": 128,
+          "num_hidden_layers": 2, "num_attention_heads": 4,
+          "num_local_experts": 4}
+    jcfg, tcfg = jl.LlamaConfig.from_hf_config(hf), tl.LlamaConfig.from_hf_config(hf)
+    assert (tcfg.n_experts, tcfg.n_experts_per_tok) == (4, 2)
+    assert (jcfg.n_experts, jcfg.n_experts_per_tok) == (4, 2)
+    tensors = {n: t for n, t in _hf_tensors("llama", np.float32).items()
+               if ".mlp." not in n}
+    rng = np.random.RandomState(1)
+    for i in range(2):
+        moe = f"model.layers.{i}.block_sparse_moe."
+        tensors[moe + "gate.weight"] = rng.standard_normal((4, 64)).astype(np.float32)
+        for e in range(4):
+            for w, shape in (("w1", (128, 64)), ("w3", (128, 64)), ("w2", (64, 128))):
+                tensors[f"{moe}experts.{e}.{w}.weight"] = (
+                    rng.standard_normal(shape).astype(np.float32))
     _write_shards(str(tmp_path), tensors, shards=1)
-    _, tcfg = _configs("llama", "float32")
+    tcfg.dtype = "float32"
     for load in (tl.load_hf_weights, tl.load_hf_weights_streamed):
-        with pytest.raises(NotImplementedError, match="MoE"):
-            load(str(tmp_path), tcfg, device="cpu")
-        # int8 weights load (tests/test_torch_quant.py); MoE stays refused
+        layer = load(str(tmp_path), tcfg, device="cpu")["layers"][1]
+        assert tuple(layer["router"].shape) == (64, 4)
+        np.testing.assert_array_equal(
+            layer["w_down"][3].numpy(),
+            tensors["model.layers.1.block_sparse_moe.experts.3.w2.weight"].T)
+        # int8 weights load (tests/test_torch_quant.py); over MoE experts
+        # they stay refused
         with pytest.raises(NotImplementedError, match="MoE"):
             load(str(tmp_path), tcfg, device="cpu", weight_quant="int8")
 

@@ -33,6 +33,7 @@ def _port_modules():
 
 
 def test_import_loads_no_jax_and_no_jax_package():
+    assert "kserve_tpu_torch.models.moe" in _port_modules()
     code = (
         "import importlib, sys\n"
         f"for name in {_port_modules()!r}:\n"

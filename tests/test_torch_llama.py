@@ -164,8 +164,8 @@ def test_params_from_jax_keeps_keys_and_layout():
         for k in a:
             if torch.is_tensor(a[k]):
                 assert a[k].shape == b[k].shape, k
-    # an int8 leaf comes across as int8 with f32 scales; a MoE router is
-    # still refused
+    # an int8 leaf comes across as int8 with f32 scales; an MoE router
+    # and expert stacks come across as they are
     q = np.ones((4, 3), np.int8)
     s = np.full((3,), 0.5, np.float32)
     carried = tl.params_from_jax(
@@ -173,11 +173,15 @@ def test_params_from_jax_keeps_keys_and_layout():
         tcfg, device="cpu")["layers"][0]["wq"]
     assert carried["q"].dtype == torch.int8 and carried["s"].dtype == torch.float32
     np.testing.assert_array_equal(carried["q"].numpy(), q)
-    with pytest.raises(NotImplementedError):
-        tl.params_from_jax(
-            {**jparams, "layers": [{**jparams["layers"][0],
-                                    "router": np.zeros((4, 2), np.float32)}]},
-            tcfg, device="cpu")
+    router = np.arange(8, dtype=np.float32).reshape(4, 2)
+    stack = np.ones((2, 4, 3), np.float32)
+    moe = tl.params_from_jax(
+        {**jparams, "layers": [{**jparams["layers"][0], "router": router,
+                                "w_gate": stack}]},
+        tcfg, device="cpu")["layers"][0]
+    np.testing.assert_array_equal(moe["router"].numpy(), router)
+    assert moe["router"].dtype == torch.float32
+    np.testing.assert_array_equal(moe["w_gate"].numpy(), stack)
 
 
 def test_named_configs_match_jax():

@@ -445,3 +445,33 @@ def test_watchdog_window_opens_at_start(models):
             await engine.stop()
 
     assert asyncio.run(main())["suspected_total"] == 0
+
+
+def test_aot_warmup_runs_before_ready_and_is_not_traffic(models):
+    """aot_warmup (auto on CUDA, asked for here) drives one generation
+    through the loop inside start(): it leaves no dispatch count, timeline,
+    held page or prefix entry behind, the watchdog's window opens after it,
+    and the first request's greedy stream is the JAX engine's."""
+    engine = _port(models, label="warm", aot_warmup=True, watchdog=True)
+    free0 = engine.allocator.free_pages
+
+    async def stream(eng, params):
+        await eng.start()
+        try:
+            left = (eng.steps, eng.dense_steps, sum(eng.legacy_dispatches.values()),
+                    eng.telemetry_snapshot()["counts"], len(eng._prefix_cache),
+                    eng.allocator.free_pages) if eng is engine else None
+            return left, [o.token_id async for o in eng.generate([60, 61, 62], params)]
+        finally:
+            await eng.stop()
+
+    left, got = asyncio.run(stream(engine, ts.SamplingParams(
+        max_tokens=6, temperature=0.0, ignore_eos=True)))
+    steps, dense, legacy, counts, prefix_entries, free = left
+    assert (steps, dense, legacy, prefix_entries, free) == (0, 0, 0, 0, free0)
+    assert not any(counts.values()), counts
+    assert {"compile", "ready"} <= set(engine.startup_phases)
+    assert engine.scheduler_state()["watchdog"]["suspected_total"] == 0
+    _, want = asyncio.run(stream(_jax(models), js.SamplingParams(
+        max_tokens=6, temperature=0.0, ignore_eos=True)))
+    assert got == want and len(got) == 6
