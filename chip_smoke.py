@@ -137,6 +137,30 @@ Phases, each printing JSON lines:
            --model_dir: every tensor bit-equal to the written one, greedy
            texts equal to a server holding the written tensors, one
            tensor of host staging, --weight_quant int8 refused
+  pd       prefill/decode disaggregation at Llama-3-8B full width and
+           depth, bf16: a --role prefill server and a --role decode
+           server over it, in this process on one set of weights; the
+           serve wave's prompts of <= 1,024 tokens plus one of 1,000 and
+           a streamed chat through the pair, each prompt's KV over POST
+           /v1/prefill; the pages the decode server holds after an inject
+           bit-equal to the bytes the prefill server sent; the ragged and
+           decode kernels launched by the decode server's dispatches;
+           logprobs and a prompt over the prefill server's max_prefill_len
+           answer 400; logits over injected KV against a monolithic
+           prefill (f32 at 2 layers, greedy tokens equal; bf16 at full
+           depth within 2x the bf16 noise); the KV round trip's ms and
+           GB/s, inject ms, chat TTFT through the pair and through the
+           prefill server alone
+  peer     the cross-replica page fabric at the same width and depth: A
+           persists a 65-page prefix (a reused 1,040-token prompt), B
+           pages it in from A over GET /v1/internal/kv/pages through a
+           PeerPageClient fed from A's scheduler state (65 verified hits,
+           pages bit-equal to A's files, B's greedy tokens equal to A's
+           hit answer, the pages written through to B's own dir), and C
+           fetches through FaultInjectingTransport with the first page
+           corrupted (counted, never adopted, C's tokens equal to A's
+           cold answer); page-in wall, ms per page, TTFT cold / peer /
+           local hit
 The line before the last is {"kernels": [...]}, the last is
 {"ok": true, "device": {...}}.  Any failure raises and exits non-zero;
 nothing falls back to the CPU or to the plain versions.
@@ -1071,6 +1095,8 @@ def main(argv=None) -> int:
     counts["lora"] = phase_lora(torch)
     counts.update(phase_wq(torch))
     counts.update(phase_moe(torch))
+    counts.update(phase_pd(torch))
+    counts.update(phase_peer(torch))
     for name, row in rows.items():
         phase, key = KERNEL_PATH[name]
         row["launches"] = counts[phase].get(key, 0)
@@ -4680,6 +4706,519 @@ def phase_moe(torch) -> dict:
     return counts
 
 
+# ---------------------------------------------------------------- pd
+
+# the serve wave's prompts that fit the prefill role's max_prefill_len,
+# plus one of 1,000 tokens (BOS + 999 bytes: 63 pages)
+PD_LONG = (BASE_TEXT * 20)[:999]
+PD_PROMPTS = [p for p in SERVE_PROMPTS if p[0] != "long"] + [("thousand", PD_LONG, 48)]
+PD_ROUND_TRIPS = 3
+PD_CHECK_LAYERS = 2
+
+
+def _llama3_8b_params(torch):
+    """Llama-3-8B's seeded random weights (seed 1, bf16), drawn once on the
+    card: the weights every server of a phase shares through `load`."""
+    from kserve_tpu_torch.models import llama
+
+    mc = llama.LlamaConfig.llama3_8b()
+    mc.dtype = "bfloat16"
+    params = llama.init_params(mc, seed=1, device="cuda")
+    torch.cuda.synchronize()
+    return mc, params
+
+
+def _on_loop(server, coro, timeout: float = 600.0):
+    """Run `coro` on a server's own event loop (its engine's) and wait."""
+    import asyncio
+
+    return asyncio.run_coroutine_threadsafe(coro, server._loop).result(timeout)
+
+
+def _engine_tokens(server, engine, ids, max_tokens: int):
+    """(token ids, seconds to the first token) of one greedy generation,
+    driven through engine.generate on the server's loop."""
+    from kserve_tpu_torch.engine.sampling import SamplingParams
+
+    async def run():
+        params = SamplingParams(max_tokens=max_tokens, temperature=0.0,
+                                ignore_eos=True)
+        t0, first, toks = time.perf_counter(), None, []
+        async for out in engine.generate(list(ids), params):
+            if first is None:
+                first = time.perf_counter() - t0
+            toks.append(out.token_id)
+        return toks, first
+
+    return _on_loop(server, run())
+
+
+def _prefill_round_trip(port: int, name: str, ids) -> tuple:
+    """One POST /v1/prefill/{model} from this thread: (seconds, payload
+    bytes, the KV and first token as the decode role reads them)."""
+    import http.client
+
+    from kserve_tpu_torch.protocol import pd
+
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=600)
+    try:
+        t0 = time.perf_counter()
+        conn.request("POST", f"/v1/prefill/{name}", body=json.dumps({
+            "prompt_ids": list(ids), "params": {"temperature": 0.0, "max_tokens": 1}}),
+            headers={"Content-Type": "application/json"})
+        resp = conn.getresponse()
+        data = resp.read()
+        seconds = time.perf_counter() - t0
+        if resp.status != 200:
+            raise AssertionError(f"/v1/prefill answered {resp.status}: {data[:300]!r}")
+        kv, first = pd.deserialize_kv(resp.getheader(pd.KV_META_HEADER), bytearray(data))
+    finally:
+        conn.close()
+    return seconds, len(data), kv, first
+
+
+def _pd_logits_check(torch, engine) -> dict:
+    """Logits over injected KV against a monolithic prefill, on the served
+    weights: a 1,000-token prompt prefilled the prefill role's way (the
+    legacy `prefill` model call, plain attention), its pages gathered to
+    the host and injected into a second cache (bit for bit), then one
+    decode step over them through the decode kernel; against the same
+    prompt prefilled through the ragged kernel (the mixed route) and the
+    same decode step over that cache.  Both decode steps take the P/D
+    path's first token.
+
+    - float32 at PD_CHECK_LAYERS layers: first-token and decode logits
+      within F32_LOGITS_REL_TOL x max|logit|, greedy tokens equal;
+    - bfloat16 at full depth: within BF16_NOISE_FACTOR x the model's bf16
+      noise (the monolithic bf16 path against an f32 copy of it)."""
+    import dataclasses
+
+    from kserve_tpu_torch.engine.compiled import gather_pages, inject
+    from kserve_tpu_torch.engine.kvcache import pages_needed
+    from kserve_tpu_torch.models import llama
+
+    mc16 = engine.model_config
+    ps = engine.config.page_size
+    N = 1000
+    P = pages_needed(N, ps)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(13)
+    ids = torch.randint(0, mc16.vocab_size, (N,), generator=gen, device="cuda",
+                        dtype=torch.int32)
+    ints = lambda xs: torch.tensor(xs, dtype=torch.int32, device="cuda")  # noqa: E731
+    table = torch.arange(1, P + 2, dtype=torch.int32, device="cuda")[None]
+    active = torch.ones(1, dtype=torch.bool, device="cuda")
+    inject_exact = []
+
+    def decode(params, mc, pages, token):
+        logits, _ = llama.decode_step(params, mc, token, ints([N]), pages, table,
+                                      active, ps)
+        return logits
+
+    def pd_path(params, mc):
+        pages_p = _fresh_cache(mc, ps, P + 2, "none")
+        first, _ = llama.prefill(params, mc, ids[None], ints([N]), pages_p,
+                                 table[:, :P], ps)
+        payload = gather_pages(pages_p, list(range(1, P + 1)))["kv"].cpu()
+        del pages_p
+        pages_d = _fresh_cache(mc, ps, P + 2, "none")
+        inject(pages_d, payload, list(range(1, P + 1)))
+        back = gather_pages(pages_d, list(range(1, P + 1)))["kv"].cpu()
+        inject_exact.append(torch.equal(back.view(torch.uint8), payload.view(torch.uint8)))
+        token = torch.argmax(first, dim=-1).to(torch.int32)
+        return first, decode(params, mc, pages_d, token), token
+
+    def mono_path(params, mc, token):
+        pages = _fresh_cache(mc, ps, P + 2, "none")
+        first, _ = llama.forward_ragged(
+            params, mc, ids, ints([0] * N),
+            torch.arange(N, dtype=torch.int32, device="cuda"), ints([0]),
+            ints([N]), ints([0]), pages, table, ps, ints([N - 1]))
+        return first, decode(params, mc, pages, token)
+
+    with torch.inference_mode():
+        mc2 = dataclasses.replace(mc16, n_layers=PD_CHECK_LAYERS, dtype="float32")
+        p2 = _f32_params(torch, dict(engine.params,
+                                     layers=engine.params["layers"][:PD_CHECK_LAYERS]))
+        pd32 = pd_path(p2, mc2)
+        mono32 = mono_path(p2, mc2, pd32[2])
+        del p2
+        pd16 = pd_path(engine.params, mc16)
+        mono16 = mono_path(engine.params, mc16, pd16[2])
+        params32 = _f32_params(torch, engine.params)
+        ref32 = mono_path(params32, dataclasses.replace(mc16, dtype="float32"),
+                          pd16[2])
+        del params32
+    torch.cuda.empty_cache()
+    out = {"prompt_tokens": N, "pages": P, "inject_bit_exact": all(inject_exact)}
+    ok = all(inject_exact)
+    for i, name in enumerate(("first_token", "decode_step")):
+        scale = float(mono32[i].abs().max())
+        row = {
+            "f32_layers": PD_CHECK_LAYERS,
+            "f32_max_abs_err": float((pd32[i] - mono32[i]).abs().max()),
+            "f32_tol": F32_LOGITS_REL_TOL * scale, "f32_max_abs_logit": scale,
+            "f32_argmax_equal": bool((pd32[i].argmax(-1) == mono32[i].argmax(-1)).all()),
+            "bf16_max_abs_err": float((pd16[i].float() - mono16[i].float()).abs().max()),
+            "bf16_noise": float((mono16[i].float() - ref32[i]).abs().max()),
+            "bf16_argmax_equal": bool((pd16[i].argmax(-1) == mono16[i].argmax(-1)).all()),
+        }
+        row["bf16_tol"] = BF16_NOISE_FACTOR * row["bf16_noise"]
+        finite = all(bool(torch.isfinite(t[i]).all()) for t in (pd32, pd16))
+        ok = ok and finite and row["f32_argmax_equal"] and (
+            row["f32_max_abs_err"] <= row["f32_tol"]
+            and row["bf16_max_abs_err"] <= row["bf16_tol"])
+        out[name] = row
+    if not ok:
+        raise AssertionError(f"logits over injected KV disagree with a monolithic "
+                             f"prefill: {out}")
+    return out
+
+
+def phase_pd(torch) -> dict:
+    """Prefill/decode disaggregation at Llama-3-8B full width and depth,
+    bf16: server P (--role prefill) and server D (--role decode
+    --prefill_url P) in this process, sharing one set of seeded weights
+    (two caches of 2,048 pages).  D serves PD_PROMPTS as completions and a
+    streamed chat, each prompt's KV fetched from P; P then serves the same
+    wave itself (the monolithic reference: its chat TTFT, texts).  Gates:
+    every completion reaches its max_tokens; P's pages all come back; D's
+    dispatches launched the ragged and decode kernels, exactly as many as
+    its dispatches make; the pages D holds after one inject equal the bytes
+    P sent, bit for bit; a logprobs request and the 1,201-token serve
+    prompt (over P's max_prefill_len) answer 400 at D; the logits over
+    injected KV (_pd_logits_check).  Prints the KV bytes per request, the
+    /v1/prefill round trip (ms, GB/s), inject ms, the chat's TTFT through
+    P/D and through P alone, the wave's tok/s and memory allocated.
+    Returns {"pd": D's launch counts}."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from kserve_tpu_torch.engine.compiled import gather_pages, inject
+    from kserve_tpu_torch.engine.kvcache import pages_needed
+    from kserve_tpu_torch.engine.sampling import SamplingParams
+    from kserve_tpu_torch.ops import paged_attention_cuda as K
+
+    t_phase = time.perf_counter()
+    mc, params = _llama3_8b_params(torch)
+    p_model, p_srv, p_thread = _start_server(
+        torch, SERVE_ARGS + ["--role=prefill"], "pd", load=lambda: params)
+    d_model, d_srv, d_thread = _start_server(
+        torch, SERVE_ARGS + ["--role=decode",
+                             f"--prefill_url=http://127.0.0.1:{p_srv.port}"],
+        "pd", load=lambda: params)
+    pe, de, name = p_model.engine, d_model.engine, d_model.name
+    ps = de.config.page_size
+    page_bytes = de._page_bytes()
+    chat = {"model": name, "stream": True, "max_tokens": 48, "temperature": 0,
+            "ignore_eos": True,
+            "messages": [{"role": "user", "content": "Say something long."}]}
+
+    def wave(port):
+        with ThreadPoolExecutor(max_workers=len(PD_PROMPTS) + 1) as pool:
+            futs = {label: pool.submit(_http, port, "POST", "/openai/v1/completions", {
+                "model": name, "prompt": text, "max_tokens": n, "ignore_eos": True,
+                **SAMPLED.get(label, {"temperature": 0})})
+                for label, text, n in PD_PROMPTS}
+            chat_fut = pool.submit(_stream_chat, port, chat, [])
+            results = {label: f.result() for label, f in futs.items()}
+            chat_status, events, ttft = chat_fut.result()
+        bodies = _completed(
+            "pd", results, [(label, text, n, None) for label, text, n in PD_PROMPTS])
+        if chat_status != 200 or events[-1] != "[DONE]" or len(events) != 48 + 2:
+            raise AssertionError(f"pd chat answered {chat_status} with "
+                                 f"{len(events)} events")
+        return bodies, ttft
+
+    try:
+        p_free0 = pe.allocator.free_pages
+        prefill_calls0 = pe.legacy_dispatches["prefill"]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        K.reset_launch_counts()
+        t_run = time.perf_counter()
+        pd_bodies, pd_ttft = wave(d_srv.port)
+        wall = time.perf_counter() - t_run
+        torch.cuda.synchronize()
+        counts = dict(K.LAUNCHES)
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        _require_launches("pd", counts, _ATTENTION_KEYS[:2],
+                          (_ATTENTION_KEYS[2],) + tuple(k + "_int8" for k in _ATTENTION_KEYS))
+        per_dispatch = _launches_per_dispatch("pd", de, counts)
+        prefill_calls = pe.legacy_dispatches["prefill"] - prefill_calls0
+        if not 1 <= prefill_calls <= len(PD_PROMPTS) + 1:
+            raise AssertionError(f"pd: {prefill_calls} detached prefill calls")
+        if pe.allocator.free_pages != p_free0:
+            raise AssertionError(f"pd: P's free pages {pe.allocator.free_pages} "
+                                 f"!= {p_free0} before the wave")
+        generated = sum(b["usage"]["completion_tokens"] for b in pd_bodies.values()) + 48
+        # the monolithic reference: P serves the same wave itself
+        mono_bodies, mono_ttft = wave(p_srv.port)
+        greedy = [label for label, _, _ in PD_PROMPTS if label not in SAMPLED]
+        texts_equal = sum(pd_bodies[k]["choices"][0]["text"]
+                          == mono_bodies[k]["choices"][0]["text"] for k in greedy)
+        if (pd_bodies["repeat_a"]["choices"][0]["text"]
+                != pd_bodies["repeat_b"]["choices"][0]["text"]):
+            raise AssertionError("pd: a repeated greedy prompt gave another text")
+        # refusals at D
+        status, body = _http(d_srv.port, "POST", "/openai/v1/completions", {
+            "model": name, "prompt": "Tell me about the sea.", "max_tokens": 4,
+            "logprobs": 2})
+        status_long, body_long = _http(d_srv.port, "POST", "/openai/v1/completions", {
+            "model": name, "prompt": SERVE_PROMPTS[2][1], "max_tokens": 4})
+        if status != 400 or status_long != 400 or b"max_prefill_len" not in body_long:
+            raise AssertionError(f"pd refusals: logprobs {status} {body[:200]!r}, "
+                                 f"1,201 tokens {status_long} {body_long[:200]!r}")
+        # one inject, recorded: the pages D holds right after it against
+        # the bytes P sent
+        ids = d_model.tokenizer.encode(PD_LONG)
+        sent, held = [], []
+        handle_prefill = p_model.handle_prefill
+
+        async def spy_prefill(*a, **kw):
+            meta, payload = await handle_prefill(*a, **kw)
+            sent.append(bytes(payload))
+            return meta, payload
+
+        inject_payload = de._inject_payload
+
+        def spy_inject(payload, page_ids):
+            inject_payload(payload, page_ids)
+            held.append(gather_pages(de.kv_pages, page_ids[:payload["kv"].shape[1]])["kv"])
+
+        p_model.handle_prefill, de._inject_payload = spy_prefill, spy_inject
+        try:
+            status, body = _http(d_srv.port, "POST", "/openai/v1/completions", {
+                "model": name, "prompt": PD_LONG, "max_tokens": 4,
+                "temperature": 0, "ignore_eos": True})
+        finally:
+            p_model.handle_prefill, de._inject_payload = handle_prefill, inject_payload
+        if status != 200 or len(sent) != 1 or len(held) != 1:
+            raise AssertionError(f"pd probe: {status}, {len(sent)} sent, {len(held)} held")
+        held_bytes = held[0].cpu().contiguous().view(torch.uint8).numpy().tobytes()
+        if held_bytes != sent[0]:
+            raise AssertionError("pd: the pages D holds after the inject differ "
+                                 "from the bytes P sent")
+        # the round trip and the inject, timed from this thread, and P's
+        # detached prefill alone (prefill, gather, copy to the host)
+        trips = [_prefill_round_trip(p_srv.port, name, ids)
+                 for _ in range(PD_ROUND_TRIPS)]
+        detached_ms = []
+        for _ in range(PD_ROUND_TRIPS):
+            t0 = time.perf_counter()
+            _on_loop(p_srv, pe.prefill_detached(ids, SamplingParams(
+                max_tokens=1, temperature=0.0)))
+            detached_ms.append((time.perf_counter() - t0) * 1e3)
+        kv = trips[-1][2]
+        n_pages = pages_needed(len(ids), ps)
+        injects = []
+        for _ in range(PD_ROUND_TRIPS):
+            cache = _fresh_cache(mc, ps, n_pages + 1, "none")
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            inject(cache, kv, list(range(1, n_pages + 1)))
+            torch.cuda.synchronize()
+            injects.append((time.perf_counter() - t0) * 1e3)
+            del cache
+        nbytes = trips[-1][1]
+        round_trip = {
+            "prompt_tokens": len(ids), "kv_bytes": nbytes,
+            "ms": [t[0] * 1e3 for t in trips],
+            "gbps": [nbytes / t[0] / 1e9 for t in trips],
+            "detached_prefill_ms": detached_ms, "inject_ms": injects}
+        memory_gb = torch.cuda.memory_allocated() / 1e9
+        pe = None  # P's cache goes with its server
+        _stop_server(torch, p_model, p_srv, p_thread)
+        logits = _pd_logits_check(torch, de)
+    finally:
+        for m, s, t in ((d_model, d_srv, d_thread), (p_model, p_srv, p_thread)):
+            if t.is_alive():
+                _stop_server(torch, m, s, t)
+    emit({
+        "phase": "pd", "model": f"{name} (random weights, seed 1, bf16)",
+        "kv_bytes_per_request": {
+            label: pages_needed(len(d_model.tokenizer.encode(text)), ps) * page_bytes
+            for label, text, _ in PD_PROMPTS},
+        "prefill_round_trip": round_trip,
+        "requests": len(PD_PROMPTS) + 1, "tokens_generated": generated,
+        "wall_s": wall, "tok_per_s": generated / wall,
+        "chat_ttft_s": {"pd": pd_ttft, "prefill_role_alone": mono_ttft},
+        "detached_prefill_calls": prefill_calls,
+        "greedy_texts_equal_to_monolithic": f"{texts_equal} of {len(greedy)}",
+        "launches": counts, "launches_per_dispatch": per_dispatch,
+        "memory_allocated_gb": memory_gb, "max_memory_allocated_gb": peak_gb,
+        "logits_check": logits, "phase_wall_s": time.perf_counter() - t_phase,
+    })
+    del params
+    return {"pd": counts}
+
+
+# ---------------------------------------------------------------- peer
+
+PEER_DIR = os.path.join(REPO, "build", "peer_smoke")
+# SHARED_TEXT (1,040 tokens, 65 pages) and a 9-byte tail: 1,049 tokens,
+# whose lookup covers exactly the 65 shared pages
+PEER_TEXT = SHARED_TEXT + "Q: go on."
+PEER_TOKENS = 16
+
+
+def _peer_client(torch, a_port: int, wire: dict, transport=None):
+    """A PeerPageClient over the port's HTTP client whose index holds A's
+    advertised digest set."""
+    from kserve_tpu_torch.kvstore import PeerPageClient, PeerPageIndex
+    from kserve_tpu_torch.protocol.http_client import AsyncHTTPClient
+
+    index = PeerPageIndex()
+    if not index.update(f"http://127.0.0.1:{a_port}", wire):
+        raise AssertionError(f"A's peer_pages did not parse: {wire}")
+    return PeerPageClient(AsyncHTTPClient(transport=transport), index=index)
+
+
+def phase_peer(torch) -> dict:
+    """The cross-replica page fabric at Llama-3-8B full width and depth,
+    bf16, one set of seeded weights shared by three servers:
+
+    - A (--kv_persist_dir A) answers PEER_TEXT twice: the second request
+      hits its 65 cached pages, which writes them through to A's persist
+      layer; A's GET /v1/internal/scheduler/state then advertises them
+      (`peer_pages`);
+    - B (its own empty persist dir), with a PeerPageClient over the port's
+      HTTP client whose index is fed from A's state, answers the same
+      prompt: it pages the 65 pages in from tier `peer` over A's page
+      route.  Gates: 65 fetch hits and 1,040 peer tokens; the adopted
+      pages equal A's persisted payloads bit for bit; B's greedy tokens
+      equal A's second answer's (the same tail chunk alone in its batch
+      over bit-equal pages); B wrote the pages through to its own dir;
+    - C (empty dir) fetches through FaultInjectingTransport with
+      `peer_corrupt` on its first page: that page is counted under
+      bad_pages and never adopted, nothing of the run lands, and C's
+      tokens equal A's first, cold answer's (the same computation).
+
+    Prints the 65-page page-in wall, ms per page fetched, and time to the
+    first token cold (A), through the peer page-in (B) and on a local hit
+    (A's second, beside its persist write-through, and a third once that
+    has landed).  Returns {"peer": B's launch counts}."""
+    import shutil
+
+    from kserve_tpu_torch.engine.compiled import gather_pages
+    from kserve_tpu_torch.ops import paged_attention_cuda as K
+    from kserve_tpu_torch.protocol.http_client import SocketTransport
+    from kserve_tpu_torch.resilience import FaultInjectingTransport, FaultPlan, FaultSpec
+    from kserve_tpu_torch.scheduler.prefix import token_prefix_digests
+
+    t_phase = time.perf_counter()
+    shutil.rmtree(PEER_DIR, ignore_errors=True)
+    _, params = _llama3_8b_params(torch)
+    servers = []
+
+    def start(label):
+        argv = SERVE_ARGS + [f"--kv_persist_dir={os.path.join(PEER_DIR, label)}"]
+        servers.append(_start_server(torch, argv, "peer", load=lambda: params))
+        return servers[-1]
+
+    try:
+        a_model, a_srv, _ = start("a")
+        ae, name = a_model.engine, a_model.name
+        ps = ae.config.page_size
+        ids = a_model.tokenizer.encode(PEER_TEXT)
+        keys = token_prefix_digests(ids, ps, True)
+        if len(keys) != SHARED_PAGES:
+            raise AssertionError(f"peer prompt looks up {len(keys)} pages")
+        a_cold, ttft_cold = _engine_tokens(a_srv, ae, ids, PEER_TOKENS)
+        a_hit, ttft_hit = _engine_tokens(a_srv, ae, ids, PEER_TOKENS)
+        t0 = time.perf_counter()
+        while True:
+            state = json.loads(_http(a_srv.port, "GET", "/v1/internal/scheduler/state")[1])
+            wire = state["models"][name].get("peer_pages") or {}
+            if set(k.hex() for k in keys) <= set(wire.get("digests", ())):
+                break
+            if time.perf_counter() - t0 > 120:
+                raise AssertionError(f"A did not persist the prefix: {state}")
+            time.sleep(0.05)
+        # a local hit again, with no persist write-through beside it
+        a_hit2, ttft_hit2 = _engine_tokens(a_srv, ae, ids, PEER_TOKENS)
+        if a_hit2 != a_hit:
+            raise AssertionError(f"peer: A's hits disagree: {a_hit} {a_hit2}")
+        served0 = _scrape(a_srv.port).get(("kv_peer_pages_served_total", ()), 0.0)
+
+        b_model, b_srv, _ = start("b")
+        be = b_model.engine
+        page_bytes = be._page_bytes()
+        b_client = _peer_client(torch, a_srv.port, wire)
+        be.set_peer_client(b_client)
+        fetch_key = ("kv_peer_fetch_seconds_sum", ())
+        fetch0 = _scrape(a_srv.port).get(fetch_key, 0.0)
+        torch.cuda.synchronize()
+        K.reset_launch_counts()
+        b_toks, ttft_peer = _engine_tokens(b_srv, be, ids, PEER_TOKENS)
+        torch.cuda.synchronize()
+        counts = dict(K.LAUNCHES)
+        # the 65 verified fetches' own seconds (metrics are process-wide)
+        fetch_s = _scrape(a_srv.port).get(fetch_key, 0.0) - fetch0
+        _require_launches("peer", counts, _ATTENTION_KEYS[:2])
+        stats = be.prefix_store_stats()
+        b_peer = be.scheduler_state()["peer"]
+        if (b_client.stats["hit"] != SHARED_PAGES
+                or stats["pagein_tokens_by_tier"].get("peer") != SHARED_PAGES * ps):
+            raise AssertionError(f"peer: B fetched {b_client.stats}, paged in {stats}")
+        if b_toks != a_hit:
+            raise AssertionError(f"peer: B's tokens {b_toks} != A's {a_hit}")
+        mismatched = []
+        for key in keys:
+            page = be._prefix_cache._pages[key]
+            got = gather_pages(be.kv_pages, [page])["kv"].cpu()
+            want = ae._kv_store.persist.load(key)["kv"]
+            if not torch.equal(got.view(torch.int16), want.view(torch.int16)):
+                mismatched.append(key.hex())
+        if mismatched:
+            raise AssertionError(f"peer: {len(mismatched)} adopted pages differ "
+                                 "from A's persisted payloads")
+        t0 = time.perf_counter()
+        while be._pagein_tasks or len(be._kv_store.persist) < SHARED_PAGES:
+            if time.perf_counter() - t0 > 120:
+                raise AssertionError("peer: B did not write the pages through")
+            time.sleep(0.05)
+        if not all(k in be._kv_store.persist for k in keys):
+            raise AssertionError("peer: B's persist dir lacks a fetched page")
+        pagein_s = be.pagein_seconds[-1]
+        served = _scrape(a_srv.port).get(("kv_peer_pages_served_total", ()), 0.0) - served0
+        if served != SHARED_PAGES:
+            raise AssertionError(f"peer: A served {served} pages")
+
+        c_model, c_srv, _ = start("c")
+        ce = c_model.engine
+        plan = FaultPlan([FaultSpec(target="127.0.0.1", kind="peer_corrupt", count=1)])
+        c_client = _peer_client(torch, a_srv.port, wire, transport=FaultInjectingTransport(
+            plan, inner=SocketTransport()))
+        ce.set_peer_client(c_client)
+        c_toks, ttft_corrupt = _engine_tokens(c_srv, ce, ids, PEER_TOKENS)
+        c_stats = ce.prefix_store_stats()
+        if (c_client.stats["corrupt"] != 1 or c_client.stats["hit"] != 0
+                or c_client.bad_pages != {f"http://127.0.0.1:{a_srv.port}": 1}
+                or ce._prefix_cache.adopted or "peer" in c_stats["pagein_tokens_by_tier"]):
+            raise AssertionError(f"peer: the corrupt page: {c_client.snapshot()} {c_stats}")
+        if c_toks != a_cold:
+            raise AssertionError(f"peer: C's tokens {c_toks} != A's cold {a_cold}")
+    finally:
+        ae = be = ce = None
+        for model, server, thread in reversed(servers):
+            _stop_server(torch, model, server, thread)
+        shutil.rmtree(PEER_DIR, ignore_errors=True)
+    del params
+    emit({
+        "phase": "peer", "model": f"{name} (random weights, seed 1, bf16)",
+        "pages": SHARED_PAGES, "prompt_tokens": len(ids),
+        "page_bytes": page_bytes,
+        "pagein_wall_s": pagein_s, "ms_per_page": pagein_s * 1e3 / SHARED_PAGES,
+        "fetch_ms_per_page": fetch_s * 1e3 / SHARED_PAGES,
+        "ttft_s": {"cold": ttft_cold, "peer_pagein": ttft_peer,
+                   "local_hit_persisting": ttft_hit, "local_hit": ttft_hit2,
+                   "corrupt_first_page": ttft_corrupt},
+        "b_peer": b_peer, "b_prefix_store": stats, "c_peer": c_client.snapshot(),
+        "launches": counts, "phase_wall_s": time.perf_counter() - t_phase,
+    })
+    return {"peer": counts}
+
+
 # the served phases --only can run alone
 SERVED_PHASES = {"serve": phase_serve, "d64": phase_d64, "spec": phase_spec,
                  "kvq": phase_kvq, "gemma2": phase_gemma2,
@@ -4687,7 +5226,7 @@ SERVED_PHASES = {"serve": phase_serve, "d64": phase_d64, "spec": phase_spec,
                  "prefix": phase_prefix, "tiers": phase_tiers,
                  "lifecycle": phase_lifecycle, "lora": phase_lora,
                  "wq": phase_wq, "checkpoint": phase_checkpoint,
-                 "moe": phase_moe}
+                 "moe": phase_moe, "pd": phase_pd, "peer": phase_peer}
 
 if __name__ == "__main__":
     sys.exit(main())

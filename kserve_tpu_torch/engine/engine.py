@@ -109,12 +109,37 @@ Lifecycle and operations (kserve_tpu/engine/engine.py:1257-1360,
   "stall"; `scheduler_state()` is the endpoint picker's view of the
   engine
 
-Not ported yet: the peer page fabric, injected KV from a prefill peer
-(P/D: `kv_data`, `generate_injected`), frees deferred while a chained
-dispatch is in flight (not needed on one stream, above),
-data/tensor/pipeline/sequence/expert parallelism and the AOT cache.  An
-MoE model (models/moe.py) runs on every route; LoRA over it is refused,
-as in the JAX engine.
+Prefill/decode disaggregation (kserve_tpu/engine/engine.py:1435-1626,
+:2470-2548):
+
+- prefill side: `prefill_detached` queues a prompt; the run loop, between
+  dispatches, micro-batches up to `prefill_batch` queued prompts into one
+  legacy `prefill` call on the device worker, gathers each row's pages
+  to the host there (under the step deadline: the engine's largest
+  device-to-host copy) and frees them once the copy has landed.  int8
+  KV, logprobs and a prompt over max_prefill_len are refused
+- decode side: `generate_injected` admits a prompt whose KV and first
+  token came from a prefill peer (`kv_data`, `first_token`): admission
+  injects the pages, seats the lane at len(prompt) and emits the peer's
+  first token as a seated lane's first sample.  Its checks (length, int8
+  KV, the expected shape) run before the stream starts, so a skewed peer
+  fails its request and not the run loop; a preempted injected lane
+  re-prefills as any other
+
+The cross-replica page fabric (kvstore/peer.py; kserve_tpu/engine/
+engine.py:873-902, :1064-1186): with a PeerPageClient attached
+(`set_peer_client`), a page-in's search goes on past the local tiers into
+digests a peer advertises; those pages are fetched and verified one by
+one (the run truncated at the first failure), landed like tier pages and
+written through to the local tiers and the persistent layer afterwards.
+`read_peer_page` serves this engine's persisted pages to peers, and
+`scheduler_state()` carries `peer_pages` (the digest set served) and
+`peer` (fetch outcomes, bad pages per peer, breakers).
+
+Not ported yet: frees deferred while a chained dispatch is in flight (not
+needed on one stream, above), data/tensor/pipeline/sequence/expert
+parallelism and the AOT cache.  An MoE model (models/moe.py) runs on
+every route; LoRA over it is refused, as in the JAX engine.
 Admission waits for free pages.
 """
 
@@ -143,6 +168,8 @@ from ..metrics import (
     GENERATED_TOKENS,
     GENERATION_CHECKPOINTS,
     GENERATION_RESUMES,
+    KV_PAGEIN_SECONDS,
+    KV_PREFIX_HIT_TOKENS,
     PROMPT_TOKENS,
     SPEC_TOKENS,
     TOKENS_SALVAGED,
@@ -367,6 +394,12 @@ class LLMEngine:
         self.kv_tier_counts = {"spills": 0, "spilled_bytes": 0,
                                "resume_injects": 0, "injected_bytes": 0}
         self.pagein_seconds: List[float] = []  # host wall of each page-in
+        # the cross-replica page fabric's client (set_peer_client)
+        self._peer_client = None
+        # P/D prefill side: queued detached prefills (prompt, params,
+        # future, adapter id) and the batch the run loop is running
+        self._detached_queue: List[tuple] = []
+        self._detached_inflight: List[tuple] = []
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         self.startup_seconds = time.perf_counter() - t0
@@ -535,6 +568,9 @@ class LLMEngine:
         self.stop_watchdog()
         self._wake.set()
         self._fail_waiting(RuntimeError("engine stopped"))
+        # the prefill role's waiters would otherwise hang until their
+        # client gives up (kserve_tpu/engine/engine.py:759-769)
+        self._fail_detached(RuntimeError("engine stopped"))
         if self._task is not None:
             try:
                 await asyncio.wait_for(self._task, timeout=30)
@@ -542,6 +578,7 @@ class LLMEngine:
                 self._task.cancel()
             self._task = None
         self._fail_waiting(RuntimeError("engine stopped"))
+        self._fail_detached(RuntimeError("engine stopped"))
         for slot in self._slots:
             if slot.request_id is not None:
                 slot.queue.put_nowait(RuntimeError("engine stopped"))
@@ -584,6 +621,164 @@ class LLMEngine:
                              deadline=deadline,
                              adapter_id=self._resolve_adapter(adapter))
         return self._submit_and_stream(req)
+
+    # ---------------- prefill/decode disaggregation ----------------
+    # Port of kserve_tpu/engine/engine.py:1435-1626.
+
+    def generate_injected(self, prompt_ids: List[int], params: SamplingParams,
+                          kv_data, first_token: int,
+                          request_id: Optional[str] = None,
+                          adapter: Optional[str] = None
+                          ) -> AsyncIterator[GenerationOutput]:
+        """P/D, decode side: admit a request whose prompt KV (`kv_data`
+        [L, P, 2, n_kv, ps, d], a CPU tensor or a numpy array, as
+        prefill_detached returns it) and first sampled token came from a
+        prefill-role server.  Its pages are injected into this engine's
+        cache and decoding starts at len(prompt_ids).  Validation runs
+        here, before the stream starts: a version-skewed peer's KV fails
+        this request, never the run loop."""
+        if not prompt_ids:
+            raise ValueError("empty prompt")
+        if params.max_tokens < 1:
+            raise ValueError("max_tokens must be at least 1")
+        if len(prompt_ids) + params.max_tokens > self.config.max_model_len:
+            raise ValueError(
+                f"prompt+max_tokens exceeds max_model_len {self.config.max_model_len}")
+        if self.config.kv_quant != "none":
+            raise NotImplementedError(
+                "KV injection over a quantized cache is not supported yet")
+        vocab = self.model_config.vocab_size
+        if (max(prompt_ids) >= vocab or min(prompt_ids) < 0
+                or not 0 <= int(first_token) < vocab):
+            raise ValueError("prompt or first token outside the model vocabulary")
+        if not torch.is_tensor(kv_data):
+            kv_data = torch.from_numpy(np.ascontiguousarray(kv_data))
+        cc = self.cache_config
+        expect = (cc.n_layers, pages_needed(len(prompt_ids), cc.page_size), 2,
+                  cc.n_kv_heads, cc.page_size, cc.head_dim)
+        if tuple(kv_data.shape) != expect or not kv_data.is_floating_point():
+            raise ValueError(
+                f"injected KV shape {tuple(kv_data.shape)} ({kv_data.dtype}) "
+                f"incompatible with this engine's cache (expected {expect}); "
+                "prefill peer and decode server must share model + page_size "
+                "configuration")
+        self._check_accepting()
+        deadline = self._admission_deadline()
+        rid = request_id or f"req-{time.monotonic_ns()}"
+        req = _QueuedRequest(rid, list(prompt_ids), params, asyncio.Queue(),
+                             timeline=self._new_timeline(rid, len(prompt_ids)),
+                             deadline=deadline,
+                             adapter_id=self._resolve_adapter(adapter),
+                             kv_data=kv_data, first_token=int(first_token))
+        return self._submit_and_stream(req)
+
+    async def prefill_detached(self, prompt_ids: List[int], params: SamplingParams,
+                               adapter: Optional[str] = None):
+        """P/D, prefill side: the prompt's first sampled token and its KV
+        pages on the host, (first_token, kv [L, P, 2, n_kv, ps, d] CPU
+        tensor in the cache dtype); its device pages are free again when
+        this returns.  Concurrent callers are micro-batched by the run
+        loop, up to `prefill_batch` prompts per legacy `prefill` call.
+        Refused: an int8 cache (NotImplementedError), logprobs (the wire
+        carries none) and a prompt over max_prefill_len (ValueError)."""
+        if self.config.kv_quant != "none":
+            raise NotImplementedError(
+                "detached prefill (P/D transfer) over a quantized KV cache is "
+                "not supported yet")
+        if params.logprobs is not None:
+            raise ValueError(
+                "logprobs is not supported with prefill/decode disaggregation")
+        n = len(prompt_ids)
+        if n == 0:
+            raise ValueError("empty prompt")
+        if n > self.config.max_prefill_len:
+            raise ValueError(f"prompt length {n} exceeds max_prefill_len "
+                             f"{self.config.max_prefill_len}")
+        if max(prompt_ids) >= self.model_config.vocab_size or min(prompt_ids) < 0:
+            raise ValueError("prompt token id outside the model vocabulary")
+        adapter_id = self._resolve_adapter(adapter)
+        self._check_accepting()
+        if not self.running:
+            raise RuntimeError("engine is not started: detached prefills run "
+                               "in its loop")
+        fut = asyncio.get_running_loop().create_future()
+        self._detached_queue.append((list(prompt_ids), params, fut, adapter_id))
+        self._wake.set()
+        return await fut
+
+    def _fail_detached(self, exc: Exception) -> None:
+        """Fail every queued and running detached prefill's waiter."""
+        pending = self._detached_queue + self._detached_inflight
+        self._detached_queue, self._detached_inflight = [], []
+        for _, _, fut, _ in pending:
+            if not fut.done():
+                fut.set_exception(exc)
+
+    async def _run_detached(self) -> None:
+        """Run loop, between dispatches: one legacy `prefill` call over up
+        to `prefill_batch` queued detached prompts (their pages allocated
+        here, as admission allocates), then each row's pages gathered and
+        copied to the host on the device worker, then freed
+        (kserve_tpu/engine/engine.py:1578-1636)."""
+        batch = self._detached_queue[:self.config.prefill_batch]
+        del self._detached_queue[:len(batch)]
+        ps = self.config.page_size
+        runnable = []
+        for prompt_ids, params, fut, adapter_id in batch:
+            if fut.done():
+                continue  # its caller went away
+            n_pages = pages_needed(len(prompt_ids), ps)
+            if not self._prefix_cache.ensure_allocatable(n_pages):
+                fut.set_exception(MemoryError(
+                    "KV pages exhausted for detached prefill"))
+                continue
+            runnable.append((prompt_ids, params, fut, adapter_id,
+                             self.allocator.allocate(n_pages)))
+        if not runnable:
+            return
+        self._detached_inflight = [r[:4] for r in runnable]
+        try:
+            bucket = self._bucket_for(max(len(r[0]) for r in runnable))
+            Bp = 1
+            while Bp < len(runnable):
+                Bp *= 2
+            tokens = np.zeros((Bp, bucket), np.int32)
+            valid = np.zeros((Bp,), np.int32)
+            page_ids = np.zeros((Bp, self.config.max_pages_per_seq), np.int32)
+            adapters = np.full((Bp,), -1, np.int32)
+            params_list = [SamplingParams()] * Bp
+            for j, (prompt_ids, params, _, adapter_id, pages) in enumerate(runnable):
+                tokens[j, :len(prompt_ids)] = prompt_ids
+                valid[j] = len(prompt_ids)
+                page_ids[j, :len(pages)] = pages
+                adapters[j] = adapter_id
+                params_list[j] = params
+            first, _ = await self._fetch_async(
+                self._run_prefill, "prefill", tokens, valid, page_ids,
+                params_list, adapters)
+            self.legacy_dispatches["prefill"] += 1
+            kvs = await self._fetch_async(
+                self._extract_detached, [r[4] for r in runnable])
+            for j, (_, _, fut, _, _) in enumerate(runnable):
+                if not fut.done():
+                    fut.set_result((int(first[j]), kvs[j]))
+        except Exception as e:  # noqa: BLE001 — fail these waiters, not the engine
+            for _, _, fut, _, _ in runnable:
+                if not fut.done():
+                    fut.set_exception(e)
+            if isinstance(e, (EngineWedgedError, ReplicaCrashError)):
+                raise  # the device is gone: as a dispatch's would, it ends the loop
+        finally:
+            self._detached_inflight = []
+            for *_, pages in runnable:
+                self.allocator.free(pages)
+
+    def _extract_detached(self, page_lists: List[List[int]]) -> List[torch.Tensor]:
+        """Worker thread: each row's pages as a contiguous CPU tensor [L,
+        P, 2, n_kv, ps, d] (the copies wait for the prefill)."""
+        with torch.inference_mode():
+            return [gather_pages(self.kv_pages, pages)["kv"].cpu()
+                    for pages in page_lists]
 
     def _resolve_adapter(self, adapter: Optional[str]) -> int:
         """A LoRA adapter's name -> its stack row; None -> -1, the base
@@ -715,8 +910,10 @@ class LLMEngine:
         """The endpoint picker's view of this engine (kserve_tpu/engine/
         engine.py:829-887): load, free pages, the hottest prefix digests
         (hex, most recently used last), latency windows, and the spec,
-        watchdog and prefix-store blocks where they apply.  The peer page
-        fabric's keys (`peer_pages`, `peer`) come with that fabric."""
+        watchdog and prefix-store blocks where they apply; with the
+        persistent layer `peer_pages`, the digest set this replica serves
+        to peers, and with a peer client attached `peer`, its fetch
+        outcomes, bad pages per peer, breakers and index."""
         state = {
             "queue_depth": self.queue_depth,
             "inflight": sum(1 for s in self._slots if s.request_id is not None),
@@ -734,7 +931,29 @@ class LLMEngine:
         stats = self.prefix_store_stats()
         if stats is not None:
             state["prefix_store"] = stats
+            # a key of its own: the picker's merge of prefix_store blocks
+            # sums numbers and would mangle a digest list
+            wire = self._kv_store.resident_digest_wire()
+            if wire is not None:
+                state["peer_pages"] = wire
+        if self._peer_client is not None:
+            state["peer"] = self._peer_client.snapshot()
         return state
+
+    # ---------------- the cross-replica page fabric ----------------
+
+    def set_peer_client(self, client) -> None:
+        """Attach a kvstore.PeerPageClient: a page-in then searches past
+        the local tiers into the digests peers advertise, and fetches and
+        verifies those pages (kserve_tpu/engine/engine.py:891-895)."""
+        self._peer_client = client
+
+    def read_peer_page(self, digest: bytes) -> Optional[bytes]:
+        """One persisted page in its wire form for the REST page server,
+        or None.  A store read alone: it never touches the run loop."""
+        if self._kv_store is None:
+            return None
+        return self._kv_store.read_peer_page(digest)
 
     # ---------------- telemetry ----------------
     # Port of kserve_tpu/engine/engine.py:1206-1253 (without the tracer).
@@ -1003,7 +1222,7 @@ class LLMEngine:
 
     def _has_live_work(self) -> bool:
         """The watchdog's busy probe: seated or queued work."""
-        return bool(self._waiting) or any(
+        return bool(self._waiting or self._detached_queue) or any(
             s.request_id is not None for s in self._slots)
 
     def _note_progress(self) -> None:
@@ -1091,6 +1310,9 @@ class LLMEngine:
         try:
             while not self._stopped:
                 did_work = self._land_page_ins()
+                if self._detached_queue:
+                    await self._run_detached()
+                    did_work = True
                 # a queued request whose budget died is failed before it
                 # costs a prefill
                 self._drop_expired_waiting()
@@ -1126,6 +1348,7 @@ class LLMEngine:
                     self.allocator.free(slot.pages)
                     slot.reset()
             self._fail_waiting(e)
+            self._fail_detached(e)
             # requests a failed _admit_batch took from the queue but never
             # seated
             for _, req, pages, *_ in self._admitting:
@@ -1151,7 +1374,8 @@ class LLMEngine:
         store takes the inject path, everything else seats as a
         prefilling slot (kserve_tpu/engine/engine.py:2228)."""
         req = self._waiting[0]
-        if req.resume is not None and req.resume["kv"] is not None:
+        if req.kv_data is not None or (
+                req.resume is not None and req.resume["kv"] is not None):
             return self._admit_injected(req)
         return self._admit_prefilling(req)
 
@@ -1415,6 +1639,8 @@ class LLMEngine:
         self._prefix_cache.hits += len(hits)
         if keys:
             self._prefix_cache.count_adopted_hits(keys[:len(hits)])
+        KV_PREFIX_HIT_TOKENS.labels(model_name=self._mlabel, tier="hbm").inc(
+            len(hits) * self.config.page_size)
         if self._kv_store is not None and keys:
             self._maybe_persist_prefix(keys[:len(hits)], hits)
 
@@ -1464,17 +1690,26 @@ class LLMEngine:
     def _maybe_page_in(self, req: _QueuedRequest, keys: List[bytes],
                        n_hbm: int) -> bool:
         """When a request's digest chain goes on past its cached run into
-        pages resident in the tiers, start an asynchronous page-in (a
-        worker thread reads them, one inject writes them, the cache adopts
-        them) and hold the request; decoding goes on meanwhile, and the
-        retried admission prefills only what is still uncached.  True: a
-        page-in is pending, do not seat the request yet."""
+        pages resident in the tiers, or advertised by a peer, start an
+        asynchronous page-in (a worker thread reads them, the peer client
+        fetches and verifies them, one inject writes them, the cache
+        adopts them) and hold the request; decoding goes on meanwhile,
+        and the retried admission prefills only what is still uncached.
+        True: a page-in is pending, do not seat the request yet."""
         if req.pagein == "pending":
             return True
         if (req.pagein == "done" or self._kv_store is None
                 or self._stopped or len(keys) <= n_hbm):
             return False
         run = self._kv_store.longest_prefix_run(keys[n_hbm:])
+        # the peer leg: the run goes on into digests another replica
+        # advertises; peer entries only ever extend the local run's tail
+        peer = self._peer_client
+        if peer is not None:
+            for digest in keys[n_hbm + len(run):]:
+                if not any(u != peer.self_url for u in peer.index.peers_for(digest)):
+                    break
+                run.append((digest, "peer"))
         # room for the pages may come from evicting colder cached pages
         # (which demote in turn); a cache full of hotter pages vetoes it
         if not run or not self._prefix_cache.ensure_allocatable(len(run)):
@@ -1495,7 +1730,11 @@ class LLMEngine:
         t0 = time.perf_counter()
         landing = False
         try:
-            digests = [d for d, _ in run]
+            # the local head reads on a worker thread, the peer tail is
+            # fetched over the verified fabric
+            n_local = sum(1 for _, tier in run if tier != "peer")
+            digests = [d for d, _ in run[:n_local]]
+            peer_digests = [d for d, _ in run[n_local:]]
 
             def read():
                 out = []
@@ -1512,7 +1751,22 @@ class LLMEngine:
             entries = [(digest, payload, tier)
                        for digest, (payload, tier) in zip(digests, payloads)
                        if not self._prefix_cache.contains_key(digest)]
-            if not entries:
+            # a truncated local run leaves the peer tail extending nothing
+            # verified: it is dropped; otherwise fetched page by page, the
+            # run truncated at the first failure (kserve_tpu/engine/
+            # engine.py:1129-1146)
+            if (peer_digests and self._peer_client is not None
+                    and len(payloads) == len(digests)):
+                for digest in peer_digests:
+                    if self._stopped or self._draining:
+                        return
+                    if self._prefix_cache.contains_key(digest):
+                        continue
+                    payload = await self._peer_client.fetch_page(digest)
+                    if payload is None:
+                        break  # verification, partition or deadline
+                    entries.append((digest, payload, "peer"))
+            if self._stopped or not entries:
                 return
 
             def pack():
@@ -1562,16 +1816,48 @@ class LLMEngine:
             pages_by_tier: Dict[str, int] = {}
             for _, _, tier in entries:
                 pages_by_tier[tier] = pages_by_tier.get(tier, 0) + 1
-            self._kv_store.record_pagein(
-                pages_by_tier, {t: c * ps for t, c in pages_by_tier.items()})
-            self.pagein_seconds.append(time.perf_counter() - t0)
+            tokens_by_tier = {t: c * ps for t, c in pages_by_tier.items()}
+            self._kv_store.record_pagein(pages_by_tier, tokens_by_tier)
+            for tier, tokens in tokens_by_tier.items():
+                KV_PREFIX_HIT_TOKENS.labels(model_name=self._mlabel,
+                                            tier=tier).inc(tokens)
+            seconds = time.perf_counter() - t0
+            self.pagein_seconds.append(seconds)
+            KV_PAGEIN_SECONDS.labels(model_name=self._mlabel).observe(seconds)
+            from_peer = [(d, p) for d, p, tier in entries if tier == "peer"]
+            if from_peer:
+                # a peer's page becomes local (tiers and persistent layer),
+                # so the next use does not cross the fabric and this replica
+                # advertises it in turn; off the run loop, after the landing
+                self._track_task(self._write_through(from_peer))
         return bool(ready)
 
+    async def _write_through(self, pages: List[tuple]) -> None:
+        """Write verified peer pages [(digest, payload)] through to the
+        local tiers and the persistent layer, on a worker thread."""
+        store = self._kv_store
+
+        def write():
+            for digest, payload in pages:
+                store.put_prefix(digest, payload)
+
+        try:
+            await asyncio.to_thread(write)
+        except asyncio.CancelledError:
+            raise
+        except Exception:  # noqa: BLE001 — an optimization: the pages
+            # stay on the device
+            logger.exception("peer page write-through failed")
+
     def _admit_injected(self, req: _QueuedRequest) -> bool:
-        """Admit a preempted request whose KV is in the tier store: inject
-        its pages and seat it with its stream state, emitting nothing.  A
-        spill the store dropped under pressure falls back to the re-prefill
-        path (returns True: progress; the next pass takes that path)."""
+        """Admit a request whose KV is already on the host (kserve_tpu/
+        engine/engine.py:2470-2548): a P/D transfer from a prefill peer
+        (seated at len(prompt), emitting the peer's first token) or a
+        preempted request's spill in the tier store (seated with its
+        stream state, emitting nothing).  A spill the store dropped under
+        pressure falls back to the re-prefill path (returns True:
+        progress; the next pass takes that path).  The inject stands for
+        the request's prefill in its timeline."""
         idx = self._free_slot_index()
         if idx is None:
             return False
@@ -1581,28 +1867,41 @@ class LLMEngine:
         if not self._prefix_cache.ensure_allocatable(
                 self._admission_pages(req, need)):
             return False
-        # get() consumes the spill: only after the capacity checks, so a
-        # request that has to wait keeps it
-        payload = (self._kv_store.get(req.resume["kv"])
-                   if self._kv_store is not None else None)
-        if payload is None:
-            req.resume["kv"] = None
-            return True
+        if req.resume is not None:
+            # get() consumes the spill: only after the capacity checks, so
+            # a request that has to wait keeps it
+            payload = (self._kv_store.get(req.resume["kv"])
+                       if self._kv_store is not None else None)
+            if payload is None:
+                req.resume["kv"] = None
+                return True
+        else:
+            payload = {"kv": req.kv_data}
         pages = self.allocator.allocate(need)
         self._waiting.remove(req)
         self._set_queue_gauge()
         if req.timeline is not None:
             req.timeline.mark_admitted(self._clock.now())
+            req.timeline.mark_prefill_start(self._clock.now())
         entry = (idx, req, pages, None)
         self._admitting.append(entry)
         n_kv = next(iter(payload.values())).shape[1]
         self._inject_payload(payload, pages[:n_kv])
-        self.kv_tier_counts["resume_injects"] += 1
-        self.kv_tier_counts["injected_bytes"] += payload_nbytes(payload)
+        if req.timeline is not None:
+            req.timeline.mark_prefill_end(self._clock.now())
         slot = self._slots[idx]
         slot.request_id, slot.pages, slot.queue = req.request_id, pages, req.queue
-        self._seat_resumed(slot, req)
         self._admitting.remove(entry)
+        if req.resume is not None:
+            self.kv_tier_counts["resume_injects"] += 1
+            self.kv_tier_counts["injected_bytes"] += payload_nbytes(payload)
+            self._seat_resumed(slot, req)
+            return True
+        # the host KV is in the cache's queue now: drop this reference
+        req.kv_data = None
+        PROMPT_TOKENS.labels(model_name=self._mlabel).inc(len(req.prompt_ids))
+        self._seat_fresh(slot, req, req.first_token)
+        self._emit(slot, req.first_token)
         return True
 
     def _prepare_chunk(self, prev: Optional[dict] = None) -> Optional[dict]:
@@ -1926,7 +2225,8 @@ class LLMEngine:
         while (self._waiting and free
                and len(admitted) < self.config.prefill_batch):
             req = self._waiting[0]
-            if req.resume is not None and req.resume["kv"] is not None:
+            if req.kv_data is not None or (
+                    req.resume is not None and req.resume["kv"] is not None):
                 if admitted:
                     break  # run the batch first
                 self._admitting = []

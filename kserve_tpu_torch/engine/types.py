@@ -290,7 +290,8 @@ class _Slot:
 
 class _QueuedRequest:
     def __init__(self, request_id, prompt_ids, params, queue, timeline=None,
-                 deadline=None, adapter_id: int = -1):
+                 deadline=None, adapter_id: int = -1, kv_data=None,
+                 first_token: Optional[int] = None):
         self.request_id = request_id
         self.prompt_ids: List[int] = prompt_ids
         self.params = params
@@ -303,6 +304,11 @@ class _QueuedRequest:
         self.deadline = deadline
         # observability.RequestTimeline, stamped received at submit
         self.timeline = timeline
+        # P/D disaggregation: the prompt's KV computed by a prefill-role
+        # server (a CPU tensor [L, P, 2, n_kv, ps, d]) and its sampled
+        # first token; admission injects the pages instead of prefilling
+        self.kv_data = kv_data
+        self.first_token = first_token
         # a preempted request's stream state, restored when it seats again:
         # {"generated", "detok", "stop_texts", "pos", "admitted_at", "kv"};
         # "kv" is its spill's key in the tier store (None: re-prefill)

@@ -19,8 +19,9 @@ import torch
 Payload = Dict[str, torch.Tensor]
 
 DTYPES_KEY = "__dtypes__"
-# stored dtypes whose bits numpy holds as another integer type
-_BITS = {torch.bfloat16: torch.int16}
+# dtypes whose bits numpy holds as another integer type (numpy has no
+# bfloat16 here); the P/D wire (protocol/pd.py) writes them so too
+BITS = {torch.bfloat16: torch.int16}
 
 
 def payload_nbytes(payload: Payload) -> int:
@@ -36,7 +37,7 @@ def payload_arrays(payload: Payload) -> Dict[str, np.ndarray]:
             raise ValueError(f"payload name {name!r} is reserved")
         t = t.detach().cpu().contiguous()
         tags[name] = str(t.dtype).replace("torch.", "")
-        arrays[name] = t.view(_BITS.get(t.dtype, t.dtype)).numpy()
+        arrays[name] = t.view(BITS.get(t.dtype, t.dtype)).numpy()
     arrays[DTYPES_KEY] = np.asarray(json.dumps(tags, sort_keys=True))
     return arrays
 
@@ -51,7 +52,7 @@ def payload_from_arrays(data) -> Payload:
         if not isinstance(dtype, torch.dtype):
             raise ValueError(f"unknown dtype tag {tag!r}")
         t = torch.from_numpy(np.array(data[name]))  # a copy the tensor owns
-        if t.dtype != _BITS.get(dtype, dtype):
+        if t.dtype != BITS.get(dtype, dtype):
             raise ValueError(f"{name}: stored {t.dtype} for {tag}")
         out[name] = t.view(dtype)
     return out

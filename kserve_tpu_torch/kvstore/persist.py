@@ -1,13 +1,14 @@
 """Content-addressed persistent prefix store: digest-named KV page files
 that survive a restart.
 
-Port of kserve_tpu/kvstore/persist.py (without `read_page_bytes`, which
-serves the peer page fabric).  Each file holds the device KV of one
+Port of kserve_tpu/kvstore/persist.py.  Each file holds the device KV of one
 page-aligned prefix page, named by the prefix cache's blake2b chain key.
 The key commits to every token of the prefix and to the page size, so a
 file cannot be replayed against another prompt.  A restarted server
 indexes the directory at construction and pages hot prefixes back in on
-first use.
+first use.  `read_page_bytes` hands an entry's file bytes to the peer
+page server (kvstore/peer.py), and `generation` stamps the digest set
+that peers learn of.
 
 Failure semantics:
 
@@ -60,6 +61,9 @@ class PersistentPrefixStore:
         self._on_event = on_event
         self._digests: Set[bytes] = set()
         self.writable = True
+        # bumped on every change of the digest set (a store, a corrupt
+        # entry dropped), so that peers' indexes age out stale snapshots
+        self.generation = 0
         try:
             os.makedirs(root, exist_ok=True)
         except OSError as exc:
@@ -99,6 +103,19 @@ class PersistentPrefixStore:
     def digests(self) -> List[bytes]:
         return sorted(self._digests)
 
+    def read_page_bytes(self, digest: bytes) -> Optional[bytes]:
+        """One entry's file bytes, as they are on disk, for the peer page
+        server: the fetching peer verifies them before it adopts them, so
+        nothing is checked here.  None on a miss or a filesystem error
+        (the peer reads a 404 and prefills the page)."""
+        if digest not in self._digests:
+            return None
+        try:
+            with open(self._path(digest), "rb") as f:
+                return f.read()
+        except OSError:
+            return None
+
     def store(self, digest: bytes, payload: Payload) -> bool:
         """Persist one page payload (atomic).  Content addressed: an
         existing entry is never rewritten.  A full or read-only volume
@@ -116,6 +133,7 @@ class PersistentPrefixStore:
             os.replace(tmp_name, self._path(digest))
             tmp_name = None
             self._digests.add(digest)
+            self.generation += 1
             self._event("store")
             return True
         except (OSError, ValueError) as exc:
@@ -150,6 +168,7 @@ class PersistentPrefixStore:
                 "will be prefilled again", digest.hex(), path,
                 f"{type(exc).__name__}: {exc}")
             self._digests.discard(digest)
+            self.generation += 1
             # best-effort, and skipped on a volume known to be read-only:
             # the discard above already makes the entry a miss
             if self.writable:

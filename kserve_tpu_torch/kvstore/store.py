@@ -1,9 +1,8 @@
 """The hierarchical KV page store: the spill and prefix paths over one
 host/disk tier pair, above the persistent prefix layer.
 
-Port of kserve_tpu/kvstore/store.py without the peer page fabric
-(`read_peer_page`, `resident_digest_wire`).  The engine holds one when
-host offload or the persistent layer is configured.  Two key namespaces
+Port of kserve_tpu/kvstore/store.py.  The engine holds one when host
+offload or the persistent layer is configured.  Two key namespaces
 share the tiers:
 
 - spill entries (request-id keys, consumed on get): a preempted lane's
@@ -14,8 +13,10 @@ share the tiers:
 
 The persistent layer (persist.py) takes prefix pages only: reused pages
 are written through as digest-named files, which a new process indexes
-at construction.  The tier events the JAX package exports as
-``kv_tier_events_total`` are counted in `events` ((tier, event) -> n).
+at construction, and serves to peers (`read_peer_page`, whose digest
+set `resident_digest_wire` advertises; kvstore/peer.py).  Tier events
+are counted in `events` ((tier, event) -> n) and exported as
+``kv_tier_events_total``.
 """
 
 from __future__ import annotations
@@ -25,8 +26,10 @@ import threading
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Sequence, Tuple
 
+from ..metrics import KV_TIER_EVENTS
 from ..resilience import MONOTONIC, Clock
 from .payload import Payload, payload_nbytes
+from .peer import digest_set_wire, encode_page
 from .persist import PersistentPrefixStore
 from .tiers import DEFAULT_DISK_DIR, KVTierStore, TierConfig
 
@@ -103,6 +106,7 @@ class HierarchicalKVStore:
     def _count(self, tier: str, event: str, n: int = 1) -> None:
         with self._lock:
             self.events[(tier, event)] = self.events.get((tier, event), 0) + n
+        KV_TIER_EVENTS.labels(tier=tier, event=event).inc(n)
 
     def _on_tier_event(self, tier: str, event: str) -> None:
         self._count(tier, event)
@@ -257,6 +261,29 @@ class HierarchicalKVStore:
                 self.stats.pagein_tokens += t
                 self.stats.pagein_tokens_by_tier[tier] = (
                     self.stats.pagein_tokens_by_tier.get(tier, 0) + t)
+
+    # ---------------- the peer page fabric (kvstore/peer.py) ----------------
+
+    def read_peer_page(self, digest: bytes) -> Optional[bytes]:
+        """The wire form of one persisted page for the peer page server, or
+        None when the digest is not in the persistent layer.  Only that
+        layer is served: its files are the bytes the wire's trailer binds
+        to the digest, and the only tier a peer's index learns of."""
+        if self.persist is None:
+            return None
+        raw = self.persist.read_page_bytes(digest)
+        if raw is None:
+            return None
+        return encode_page(digest, raw)
+
+    def resident_digest_wire(self) -> Optional[Dict]:
+        """The bounded, generation-stamped digest set this replica serves
+        (its scheduler state's ``peer_pages``), or None without the
+        persistent layer."""
+        if self.persist is None:
+            return None
+        with self._lock:
+            return digest_set_wire(self.persist.generation, self.persist.digests())
 
     def needs_persist(self, digests: Sequence[bytes]) -> List[bytes]:
         """The digests not yet in the persistent layer (persist on reuse:

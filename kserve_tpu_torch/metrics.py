@@ -7,9 +7,11 @@ under the same names, help texts, labels and buckets: token counters,
 occupancy / queue / free-page gauges, the wedge gauge, the request-timeline
 histograms (TTFT, ITL, queue wait, e2e), decode-step and prefill-chunk
 durations, preemptions, speculative draft outcomes, the startup phases,
-load shedding and deadline rejections, and the lifecycle series (state,
-drain duration, checkpoints, resumes, tokens salvaged).  The
-JAX package's other series come with their modules.  `GET /metrics`
+load shedding and deadline rejections, the lifecycle series (state,
+drain duration, checkpoints, resumes, tokens salvaged), and the KV
+hierarchy's and the peer page fabric's (tier events, prefix hit tokens by
+tier, page-in seconds, peer fetches and pages served).  The JAX package's
+other series come with their modules.  `GET /metrics`
 serves `generate_latest()`.
 
 As in prometheus_client, the series live in one process-wide registry.
@@ -371,3 +373,53 @@ def observe_request_timeline(model_name: str, timeline) -> None:
     itl = REQUEST_ITL.labels(model_name=model_name)
     for gap in timeline.itls:
         itl.observe(gap)
+
+
+# Hierarchical KV store and the cross-replica page fabric
+# (kserve_tpu/metrics.py:64-120).  `tier` and `event` / `outcome` are
+# closed sets; peer identity lives in the scheduler state's peer block,
+# never in a label.
+KV_TIER_EVENTS = Counter(
+    "kv_tier_events_total",
+    "hierarchical KV store page movements (demote | pagein | drop | "
+    "store | corrupt), by tier",
+    ["tier", "event"],
+)
+KV_PREFIX_HIT_TOKENS = Counter(
+    "kv_prefix_hit_tokens_total",
+    "prompt tokens served from cached prefix pages instead of being "
+    "prefilled, by the tier that held them "
+    "(hbm | host | disk | persist | peer)",
+    ["model_name", "tier"],
+)
+_PAGE_BUCKETS = (
+    0.0005, 0.001, 0.0025, 0.005, 0.01, 0.025, 0.05, 0.1, 0.25,
+    0.5, 1.0, 2.5, 5.0, float("inf"),
+)
+KV_PAGEIN_SECONDS = Histogram(
+    "kv_pagein_seconds",
+    "wall time of one async prefix page-in: tier read scheduled -> pages "
+    "uploaded and adopted into the HBM prefix cache",
+    ["model_name"], buckets=_PAGE_BUCKETS,
+)
+KV_PEER_FETCH_TOTAL = Counter(
+    "kv_peer_fetch_total",
+    "cross-replica KV page fetch attempts by outcome: hit = verified and "
+    "adopted, miss = peer answered 404, corrupt = payload failed digest "
+    "verification (lying peer — also health evidence), timeout = "
+    "transport failure / deadline / retries exhausted, breaker_open = "
+    "skipped because the peer's circuit was open",
+    ["outcome"],
+)
+KV_PEER_FETCH_SECONDS = Histogram(
+    "kv_peer_fetch_seconds",
+    "wall time of one peer page fetch: request issued -> payload "
+    "digest-verified (successful fetches only)",
+    [], buckets=_PAGE_BUCKETS,
+)
+KV_PEER_PAGES_SERVED = Counter(
+    "kv_peer_pages_served_total",
+    "persisted px- pages this replica served to peers over "
+    "GET /v1/internal/kv/pages/{digest}",
+    [],
+)

@@ -22,6 +22,16 @@ Routes:
        the worst TTFT / ITL p99 (kserve_tpu/protocol/rest/server.py:249)
   POST /admin/drain      start the replica's drain (with a lifecycle);
   GET  /admin/drain      reads its state (`?source=prestop` starts it)
+  POST /v1/prefill/{model}  a prefill-role model's detached prefill
+       (protocol/pd.py): the KV as application/octet-stream with the
+       X-KV-Meta header and a Content-Length (kserve_tpu/protocol/pd.py:
+       82-102); a model without `handle_prefill` answers 400
+  GET  /v1/internal/kv/pages/{digest}  one persisted prefix page in the
+       peer fabric's verifiable wire form (kvstore/peer.py), read on a
+       worker thread, at most PEER_PAGE_CONCURRENCY at once; 404 for a
+       page not held or a digest that is not hex; counts
+       kv_peer_pages_served_total (kserve_tpu/protocol/rest/server.py:
+       317-345)
 The /openai/v1 routes also answer under /openai.
 
 Admission gates, in the JAX server's middleware order (kserve_tpu/
@@ -63,9 +73,11 @@ from ...lifecycle import (
     ReplicaDrainingError,
     ReplicaLifecycle,
 )
+from ...kvstore.peer import PAGE_ROUTE
 from ...metrics import (
     CONTENT_TYPE_LATEST,
     DEADLINE_REJECTED,
+    KV_PEER_PAGES_SERVED,
     SHED_REQUESTS,
     generate_latest,
 )
@@ -85,6 +97,7 @@ from ..openai.types import (
     ModelList,
     error_body,
 )
+from ..pd import KV_META_HEADER, PREFILL_ROUTE, parse_prefill_body
 
 logger = logging.getLogger(__name__)
 
@@ -95,6 +108,9 @@ IDLE_TIMEOUT_S = 75.0
 # the request head: one checkpoint header field of up to
 # CHECKPOINT_FIELD_SIZE_LIMIT bytes, and 64 KiB for the rest
 MAX_HEAD_BYTES = CHECKPOINT_FIELD_SIZE_LIMIT + (1 << 16)
+# peer page reads at once, so that cold peers cannot starve local decoding
+# of disk bandwidth and worker threads
+PEER_PAGE_CONCURRENCY = 4
 _REASONS = {200: "OK", 400: "Bad Request", 404: "Not Found",
             405: "Method Not Allowed", 411: "Length Required",
             413: "Payload Too Large", 429: "Too Many Requests",
@@ -145,6 +161,7 @@ class RESTServer:
         # open connections: stop() closes the idle kept-alive ones, which
         # the server's wait_closed() would otherwise wait for
         self._writers: set = set()
+        self._peer_page_sem: Optional[asyncio.Semaphore] = None
 
     async def start(self) -> int:
         """Listen; returns the bound port (port 0 picks a free one)."""
@@ -318,10 +335,13 @@ class RESTServer:
             lines += ["Transfer-Encoding: chunked", "Cache-Control: no-cache"]
         return ("\r\n".join(lines) + "\r\n\r\n").encode("latin-1")
 
-    async def _send(self, writer, status: int, content_type: str, data: bytes,
+    async def _send(self, writer, status: int, content_type: str, data,
                     keep_alive: bool, headers: Optional[Dict[str, str]] = None) -> None:
+        """One whole answer; `data` is bytes-like (a P/D KV payload is a
+        view of a tensor's memory, written without joining it first)."""
         writer.write(self._head(status, content_type, len(data), keep_alive,
-                                headers) + data)
+                                headers))
+        writer.write(data)
         await writer.drain()
 
     async def _send_json(self, writer, status: int, obj, keep_alive: bool,
@@ -456,6 +476,14 @@ class RESTServer:
         if path == "/admin/drain" and self.lifecycle is not None:
             return await self._send_json(writer, 200, self._drain_route(method, query),
                                          keep_alive)
+        if path.startswith(PREFILL_ROUTE):
+            self._expect(method, "POST")
+            return await self._prefill(path[len(PREFILL_ROUTE):], body, writer,
+                                       keep_alive)
+        if path.startswith(PAGE_ROUTE + "/"):
+            self._expect(method, "GET")
+            return await self._peer_page(path[len(PAGE_ROUTE) + 1:], writer,
+                                         keep_alive)
         if path == "/openai/v1/completions":
             self._expect(method, "POST")
             req = CompletionRequest.from_json(self._json(body))
@@ -469,6 +497,42 @@ class RESTServer:
         if req.stream:
             return await self._send_sse(writer, result, keep_alive)
         return await self._send_json(writer, 200, result.to_dict(), keep_alive)
+
+    async def _prefill(self, name: str, body: bytes, writer, keep_alive: bool) -> None:
+        """POST /v1/prefill/{model}: one detached prefill's KV."""
+        model = self.models.get(name)
+        if model is None or not hasattr(model, "handle_prefill"):
+            raise InvalidInput(f"model {name!r} does not serve prefill")
+        if not model.ready:
+            raise _HTTPError(503, f"model {name!r} is not ready")
+        prompt_ids, params, adapter = parse_prefill_body(self._json(body))
+        meta_json, payload = await model.handle_prefill(prompt_ids, params,
+                                                        adapter=adapter)
+        await self._send(writer, 200, "application/octet-stream", payload,
+                         keep_alive, headers={KV_META_HEADER: meta_json})
+
+    async def _peer_page(self, digest_hex: str, writer, keep_alive: bool) -> None:
+        """GET /v1/internal/kv/pages/{digest}: the first engine holding the
+        page serves its wire form, read on a worker thread."""
+        try:
+            digest = bytes.fromhex(digest_hex)
+        except ValueError:
+            return await self._send_json(writer, 404, error_body(
+                "not a page digest", "not_found"), keep_alive)
+        if self._peer_page_sem is None:
+            self._peer_page_sem = asyncio.Semaphore(PEER_PAGE_CONCURRENCY)
+        async with self._peer_page_sem:
+            for _, engine in self._engines():
+                reader = getattr(engine, "read_peer_page", None)
+                if reader is None:
+                    continue
+                wire = await asyncio.to_thread(reader, digest)
+                if wire is not None:
+                    KV_PEER_PAGES_SERVED.inc()
+                    return await self._send(writer, 200, "application/octet-stream",
+                                             wire, keep_alive)
+        await self._send_json(writer, 404, error_body("page not resident", "not_found"),
+                              keep_alive)
 
     async def _live(self) -> bool:
         """False once some model reports its engine wedged (kserve_tpu/

@@ -31,12 +31,24 @@ semantics; `aliases` lists them, so the server routes those names here
 and GET /openai/v1/models lists each as a model), and any other value
 serves the base model (kserve_tpu/runtimes/generative_server.py:450).
 
+Prefill/decode disaggregation (kserve_tpu/runtimes/generative_server.py:
+78-94, :464-494): `--role prefill` answers POST /v1/prefill/{model} (the
+prompt's KV and first token, protocol/pd.py) beside its completions;
+`--role decode --prefill_url URL` (default $PREFILL_URL) fetches each
+prompt's KV from that peer and decodes on from the injected pages, and
+refuses logprobs (400: the wire carries none); a 400 from the peer (a
+prompt over its max_prefill_len) answers 400 here too.  LoRA adapters
+pass through both roles.  The parallelism flags the control plane
+synthesizes (--tensor_parallel_size, ...) parse; the engine refuses any
+of them above 1.
+
 Entrypoint:
     python -m kserve_tpu_torch.runtimes.generative_server \\
         --model_name=llm --model_dir=/mnt/models \\
         [--device cuda|cpu] [--spec_decode_k K] [--kv_quant int8] \\
         [--kv_offload host --kv_offload_gib G] [--kv_persist_dir DIR] \\
-        [--weight_quant int8] [--lora_adapters name=/adapter/dir,...]
+        [--weight_quant int8] [--lora_adapters name=/adapter/dir,...] \\
+        [--role prefill | --role decode --prefill_url http://peer:8080]
     # no checkpoint: --model_config=tiny|llama3-1b|llama3-8b|... --random_weights
 
 The prefix cache is always on, as in the JAX server.
@@ -70,6 +82,7 @@ from ..lifecycle import (
 )
 from ..model_server import ModelServer
 from ..models import llama
+from ..protocol.pd import PrefillClient, serialize_kv
 from ..protocol.openai.types import (
     ChatCompletion,
     ChatCompletionChoice,
@@ -110,7 +123,15 @@ class TorchGenerativeModel:
         device=None,
         model_dir: Optional[str] = None,
         lora_adapters: Optional[Dict[str, str]] = None,
+        role: str = "both",
+        prefill_url: Optional[str] = None,
     ):
+        if role not in ("both", "prefill", "decode"):
+            raise ValueError(f"unknown role {role!r}")
+        if role == "decode" and not prefill_url:
+            # serving monolithically would hide that the disaggregated
+            # topology is not in effect
+            raise ValueError("role=decode requires --prefill_url (or $PREFILL_URL)")
         if not random_weights and not model_dir:
             raise ValueError("pass --model_dir, or --random_weights with "
                              "--model_config")
@@ -118,6 +139,9 @@ class TorchGenerativeModel:
             raise ValueError("pass --model_config (or a --model_dir with a "
                              "config.json)")
         self.name = name
+        self.role = role
+        self.prefill_url = prefill_url
+        self._prefill_client: Optional[PrefillClient] = None
         self.device = resolve_device(device)
         # adapter name -> HF PEFT directory; the names are this model's
         # aliases: the OpenAI `model` field selects one
@@ -190,6 +214,9 @@ class TorchGenerativeModel:
         self.ready = False
         if self.engine is not None:
             await self.engine.stop()
+        if self._prefill_client is not None:
+            await self._prefill_client.close()
+            self._prefill_client = None
 
     async def drain(self, deadline=None) -> list:
         """The lifecycle drain: checkpoint what the budget cannot finish
@@ -224,6 +251,10 @@ class TorchGenerativeModel:
         max_k = self.engine_config.max_logprobs
         if not 0 <= k <= max_k:
             raise InvalidInput(f"logprobs must be between 0 and {max_k}")
+        if self.role == "decode":
+            # the P/D wire carries (kv, first_token) only
+            raise InvalidInput(
+                "logprobs is not supported with prefill/decode disaggregation")
         return k
 
     def _sampling_from(self, req, max_tokens: int) -> SamplingParams:
@@ -262,11 +293,51 @@ class TorchGenerativeModel:
     def _generate(self, prompt_ids, params, adapter=None) -> AsyncIterator:
         """engine.generate with its validation errors (an unknown adapter
         among them) as 400s, raised here, before any response bytes are
-        sent."""
+        sent.  The decode role takes the prompt's KV from its prefill peer
+        instead."""
+        if self.role == "decode":
+            if len(prompt_ids) + params.max_tokens > self.engine.config.max_model_len:
+                raise InvalidInput(
+                    "prompt+max_tokens exceeds max_model_len "
+                    f"{self.engine.config.max_model_len}")
+            try:
+                self.engine._resolve_adapter(adapter)
+            except ValueError as e:
+                raise InvalidInput(str(e)) from e
+            return self._generate_disaggregated(prompt_ids, params, adapter)
         try:
             return self.engine.generate(prompt_ids, params, adapter=adapter)
         except ValueError as e:
             raise InvalidInput(str(e)) from e
+
+    async def _generate_disaggregated(self, prompt_ids, params, adapter=None):
+        """Decode role: the prompt's KV and first token from the prefill
+        peer, then decoding on from the injected pages."""
+        if self._prefill_client is None:
+            self._prefill_client = PrefillClient(self.prefill_url)
+        kv, first_token = await self._prefill_client.prefill(
+            self.name, prompt_ids, params, adapter=adapter)
+        if self.device.type == "cuda":
+            # the pinned copy the inject uploads from, made off the event
+            # loop (upload() takes an already pinned tensor as it is)
+            kv = await asyncio.to_thread(kv.pin_memory)
+        source = self.engine.generate_injected(prompt_ids, params, kv,
+                                               first_token, adapter=adapter)
+        try:
+            async for out in source:
+                yield out
+        finally:
+            await source.aclose()
+
+    async def handle_prefill(self, prompt_ids, params, adapter=None):
+        """The prefill route (protocol/pd.py): one detached prefill's
+        (meta JSON, payload bytes); a refused request is a 400."""
+        try:
+            first_token, kv = await self.engine.prefill_detached(
+                prompt_ids, params, adapter=adapter)
+        except ValueError as e:
+            raise InvalidInput(str(e)) from e
+        return serialize_kv(kv, first_token)
 
     @staticmethod
     def _raise_gathered(results: list) -> list:
@@ -552,6 +623,18 @@ def build_arg_parser() -> argparse.ArgumentParser:
                         help="a named shape (instead of --model_dir's config.json)")
     parser.add_argument("--random_weights", action="store_true")
     parser.add_argument("--http_port", default=8080, type=int)
+    parser.add_argument(
+        "--role", default="both", choices=("both", "prefill", "decode"),
+        help="P/D disaggregation role; decode needs --prefill_url")
+    parser.add_argument(
+        "--prefill_url", default=os.getenv("PREFILL_URL") or None,
+        help="base URL of the prefill-role peer (decode role)")
+    # the control plane's parallelism flags (kserve_tpu/controlplane/
+    # llmisvc.py); the engine refuses any above 1
+    parser.add_argument("--tensor_parallel_size", "--tp", default=1, type=int)
+    parser.add_argument("--data_parallel_size", "--dp", default=1, type=int)
+    parser.add_argument("--sequence_parallel_size", "--sp", default=1, type=int)
+    parser.add_argument("--pipeline_parallel_size", "--pp", default=1, type=int)
     parser.add_argument("--max_batch_size", default=8, type=int)
     parser.add_argument("--kv_pages", default=2048, type=int)
     parser.add_argument("--page_size", default=16, type=int)
@@ -634,6 +717,10 @@ def build_model(args) -> TorchGenerativeModel:
         watchdog=(args.watchdog == "on" if args.watchdog is not None
                   else watchdog_enabled_from_env()),
         weight_quant=args.weight_quant,
+        tp=args.tensor_parallel_size,
+        dp=args.data_parallel_size,
+        sp=args.sequence_parallel_size,
+        pp=args.pipeline_parallel_size,
     )
     lora_adapters = None
     if args.lora_adapters:
@@ -642,7 +729,8 @@ def build_model(args) -> TorchGenerativeModel:
     return TorchGenerativeModel(
         args.model_name, model_config, engine_config,
         random_weights=args.random_weights, device=args.device,
-        model_dir=args.model_dir, lora_adapters=lora_adapters)
+        model_dir=args.model_dir, lora_adapters=lora_adapters,
+        role=args.role, prefill_url=args.prefill_url)
 
 
 def main(argv=None) -> None:

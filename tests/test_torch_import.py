@@ -33,7 +33,10 @@ def _port_modules():
 
 
 def test_import_loads_no_jax_and_no_jax_package():
-    assert "kserve_tpu_torch.models.moe" in _port_modules()
+    assert {"kserve_tpu_torch.models.moe", "kserve_tpu_torch.protocol.pd",
+            "kserve_tpu_torch.protocol.http_client", "kserve_tpu_torch.kvstore.peer",
+            "kserve_tpu_torch.resilience.retry",
+            "kserve_tpu_torch.resilience.breaker"} <= set(_port_modules())
     code = (
         "import importlib, sys\n"
         f"for name in {_port_modules()!r}:\n"
@@ -153,6 +156,14 @@ def test_checkpoint_server_needs_none_of_them(tmp_path):
         "from kserve_tpu_torch import metrics\n"
         "from kserve_tpu_torch import lifecycle, resilience, model_server\n"
         "from kserve_tpu_torch.engine import watchdog\n"
+        "from kserve_tpu_torch.protocol import pd, http_client\n"
+        "from kserve_tpu_torch.kvstore import peer\n"
+        "from kserve_tpu_torch.resilience import FaultInjectingTransport, RetryPolicy\n"
+        "kv = torch.arange(8, dtype=torch.float32).to(torch.bfloat16).reshape(1, 1, 2, 1, 2, 2)\n"
+        "meta, payload = pd.serialize_kv(kv, 3)\n"
+        "back, first = pd.deserialize_kv(meta, bytes(payload))\n"
+        "assert first == 3 and torch.equal(back, kv)\n"
+        "assert bytes(peer.decode_page(peer.encode_page(b'x' * 16, b'abc'), b'x' * 16)) == b'abc'\n"
         "ck = lifecycle.GenerationCheckpoint('r', [1, 2], [3])\n"
         "assert lifecycle.GenerationCheckpoint.from_header(ck.to_header()) == ck\n"
         "assert resilience.Deadline.from_header('1.5').remaining() > 1\n"
