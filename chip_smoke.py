@@ -161,6 +161,27 @@ Phases, each printing JSON lines:
            corrupted (counted, never adopted, C's tokens equal to A's
            cold answer); page-in wall, ms per page, TTFT cold / peer /
            local hit
+  predictive  the V1/V2 dataplane and the predictive runtimes: from
+           --seed, an XGBoost binary:logistic dump (HIGGS's 28 features,
+           500 trees of depth 8), a LightGBM "binary sigmoid:1" dump (500
+           trees of 255 leaves grown leaf-wise at random: LightGBM's Higgs
+           setting), a 3-class multi:softprob XGBoost dump, and a pickled
+           SVC stand-in of the iris SVC's shapes (4 features, 3 classes,
+           RBF, 45 support vectors; the card machine has no sklearn), each
+           served by `python -m kserve_tpu_torch.runtimes.predictive_server`
+           in a process of its own (cuda by default, started together, TF32
+           forced on by $TORCH_ALLOW_TF32_CUBLAS_OVERRIDE); 1, 64 and 1,024
+           rows through V1 :predict, V2 JSON and V2 binary (equal answers),
+           held to a float64 walk of each dump's own thresholds (classes
+           equal, probabilities within 1e-5) and to the port on the CPU
+           (1e-6); in this process each forest's tensors on cuda and the
+           leaves its traversal reaches equal to the walk's, and the SVC,
+           a StandardScaler + LogisticRegression Pipeline and a
+           RandomForestClassifier stand-in converted on cuda and on the
+           CPU against float64 (labels equal; probabilities within 1e-5 of
+           float64, the SVC's decisions within 1e-4; both within 1e-6 of
+           the CPU); then v2/infer p50 / p99 (binary form, 200
+           requests per framework and batch, 50 for the softprob dump)
 The line before the last is {"kernels": [...]}, the last is
 {"ok": true, "device": {...}}.  Any failure raises and exits non-zero;
 nothing falls back to the CPU or to the plain versions.
@@ -174,12 +195,14 @@ kernels are timed by the same cases and the same timing code.
 chunk sweep of PERF.md; the default is the package's own).  --skip-flex
 leaves out the flex_attention yardstick and its compiles (an A/B).
 --only PHASE runs the device and build phases and one served phase (no
-kernel phase, no summary).  --cold-build-check is the lifecycle phase's
+kernel phase, no summary).  --seed N seeds the predictive phase's models
+and rows (default 0).  --cold-build-check is the lifecycle phase's
 subprocess.
 """
 
 from __future__ import annotations
 
+import functools
 import json
 import math
 import os
@@ -1040,6 +1063,8 @@ def main(argv=None) -> int:
                     help="device, build and this one served phase")
     ap.add_argument("--cold-build-check", action="store_true",
                     help=argparse.SUPPRESS)
+    ap.add_argument("--seed", type=int, default=0,
+                    help="seed of the predictive phase's models and rows")
     ap.add_argument("--decode-min-chunk", type=int, default=None,
                     help="keys per split of the decode kernel, at least "
                          "(a multiple of 64; default: the package's "
@@ -1074,8 +1099,10 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     info = phase_device(torch)
     phase_build()
+    phases = dict(SERVED_PHASES,
+                  predictive=functools.partial(phase_predictive, seed=args.seed))
     if args.only:
-        SERVED_PHASES[args.only](torch)
+        phases[args.only](torch)
         emit({"phase": "done", "wall_s": time.perf_counter() - t0})
         return 0
     rows = phase_kernels(torch, flex=not args.skip_flex)
@@ -1097,6 +1124,7 @@ def main(argv=None) -> int:
     counts.update(phase_moe(torch))
     counts.update(phase_pd(torch))
     counts.update(phase_peer(torch))
+    phases["predictive"](torch)
     for name, row in rows.items():
         phase, key = KERNEL_PATH[name]
         row["launches"] = counts[phase].get(key, 0)
@@ -1258,7 +1286,6 @@ def _logits_check(torch, engine, verify_k=None, legacy=False) -> dict:
       times that noise.
     """
     import dataclasses
-    import functools
 
     from kserve_tpu_torch.models import llama
     from kserve_tpu_torch.ops import attention as A
@@ -5219,6 +5246,689 @@ def phase_peer(torch) -> dict:
     return {"peer": counts}
 
 
+# ---------------------------------------------------------------- predictive
+
+# HIGGS's 28 features (UCI HIGGS); LightGBM's Higgs experiment (docs,
+# Experiments): num_leaves 255, 500 iterations; XGBoost at max_depth 8
+HIGGS_FEATURES = 28
+PREDICTIVE_TREES = 500
+XGB_DEPTH = 8
+LGB_LEAVES = 255
+PREDICTIVE_BATCHES = (1, 64, 1024)
+# timed v2/infer requests per framework and batch (the multiclass dump,
+# an extra XGBoost model for the class_of_tree path: PREDICTIVE_TIMED_EXTRA)
+PREDICTIVE_TIMED = 200
+PREDICTIVE_TIMED_EXTRA = 50
+# served probabilities against the float64 walk (f32 leaf sums of 500
+# trees), and against the port on the CPU (the same f32 arithmetic)
+PROBA_TOL = 1e-5
+CPU_TOL = 1e-6
+# the SVC's pair decisions against float64: sums of ~45 RBF values, each
+# rounded to f32 before its exp (the JAX package's tolerance for them)
+DECISION_TOL = 1e-4
+
+
+def xgb_dump(rng, n_trees: int, depth: int, n_features: int,
+             objective: str = "binary:logistic", num_class: int = 0,
+             base_score: float = 0.3) -> dict:
+    """An XGBoost JSON model of `n_trees` complete trees of `depth`: random
+    split features, float64 thresholds (no float32 holds them) and leaf
+    values, in the format kserve_tpu_torch's xgb_parse reads."""
+    import numpy as np
+
+    nodes, internal = 2 ** (depth + 1) - 1, 2 ** depth - 1
+    idx = np.arange(nodes)
+    left = np.where(idx < internal, 2 * idx + 1, -1).tolist()
+    right = np.where(idx < internal, 2 * idx + 2, -1).tolist()
+    trees = []
+    for _ in range(n_trees):
+        cond = np.where(idx < internal, rng.normal(size=nodes),
+                        rng.normal(scale=0.05, size=nodes))
+        trees.append({"left_children": left, "right_children": right,
+                      "split_indices": rng.integers(0, n_features, nodes).tolist(),
+                      "split_conditions": cond.tolist()})
+    return {"learner": {
+        "learner_model_param": {"base_score": repr(base_score),
+                                "num_class": str(num_class),
+                                "num_feature": str(n_features)},
+        "objective": {"name": objective},
+        "gradient_booster": {"name": "gbtree", "model": {
+            "tree_info": [t % max(num_class, 1) for t in range(n_trees)],
+            "trees": trees}}}}
+
+
+def lgb_dump(rng, n_trees: int, num_leaves: int, n_features: int,
+             objective: str = "binary sigmoid:1") -> str:
+    """A LightGBM text model of `n_trees` trees of `num_leaves` leaves,
+    each grown leaf-wise by splitting a leaf drawn at random (so depths
+    vary, as LightGBM's do); float64 thresholds and leaf values."""
+    import numpy as np
+
+    lines = ["tree", "version=v4", "num_class=1", "num_tree_per_iteration=1",
+             "label_index=0", f"max_feature_idx={n_features - 1}",
+             f"objective={objective}",
+             "feature_names=" + " ".join(f"f{i}" for i in range(n_features)),
+             "feature_infos=" + " ".join("none" for _ in range(n_features)), ""]
+    for t in range(n_trees):
+        # split j turns leaf pick[j] (uniform over the j + 1 leaves so far)
+        # into internal node j with children: that leaf, and new leaf j + 1
+        pick = (rng.random(num_leaves - 1) * np.arange(1, num_leaves)).astype(int).tolist()
+        feature = rng.integers(0, n_features, num_leaves - 1).tolist()
+        threshold = rng.normal(size=num_leaves - 1).tolist()
+        left, right = [], []
+        parent = {0: None}  # leaf -> (internal node, 0 left | 1 right)
+        for j, leaf in enumerate(pick):
+            left.append(-leaf - 1)
+            right.append(-(j + 1) - 1)
+            if parent[leaf] is not None:
+                node, side = parent[leaf]
+                (left if side == 0 else right)[node] = j
+            parent[leaf], parent[j + 1] = (j, 0), (j, 1)
+        values = rng.normal(scale=0.05, size=num_leaves)
+        lines += [f"Tree={t}", f"num_leaves={num_leaves}", "num_cat=0",
+                  "split_feature=" + " ".join(map(str, feature)),
+                  "threshold=" + " ".join(map(repr, threshold)),
+                  "decision_type=" + " ".join("2" for _ in feature),
+                  "left_child=" + " ".join(map(str, left)),
+                  "right_child=" + " ".join(map(str, right)),
+                  "leaf_value=" + " ".join(map(repr, values.tolist())),
+                  "shrinkage=1", ""]
+    return "\n".join(lines + ["end of trees", ""])
+
+
+def walk_xgb(doc: dict, X):
+    """The float64 reference of an XGBoost dump, node by node on its own
+    thresholds (x < threshold goes left): (leaf node ids [B, T], margins
+    [B, max(num_class, 1)] with the base score's margin)."""
+    import numpy as np
+
+    learner = doc["learner"]
+    params = learner["learner_model_param"]
+    num_class = int(params["num_class"])
+    model = learner["gradient_booster"]["model"]
+    X = np.asarray(X, dtype=np.float64)
+    rows = np.arange(len(X))
+    leaves = np.zeros((len(X), len(model["trees"])), dtype=np.int64)
+    margin = np.zeros((len(X), max(num_class, 1)))
+    for t, (tree, cls) in enumerate(zip(model["trees"], model["tree_info"])):
+        left = np.asarray(tree["left_children"])
+        right = np.asarray(tree["right_children"])
+        feat = np.asarray(tree["split_indices"])
+        cond = np.asarray(tree["split_conditions"], dtype=np.float64)
+        node = np.zeros(len(X), dtype=np.int64)
+        while True:
+            inner = left[node] >= 0
+            if not inner.any():
+                break
+            go = X[rows, feat[node]] < cond[node]
+            node = np.where(inner, np.where(go, left[node], right[node]), node)
+        leaves[:, t] = node
+        margin[:, cls if num_class > 1 else 0] += cond[node]
+    base = float(params["base_score"])
+    if learner["objective"]["name"].startswith("binary:"):
+        base = math.log(base / (1.0 - base))
+    return leaves, margin + base
+
+
+def walk_lgb(text: str, X):
+    """The float64 reference of a one-class LightGBM text model, node by
+    node on its own thresholds (x <= threshold goes left): (leaf ids [B, T]
+    numbered as the parser numbers them, internal nodes first, and raw
+    margins [B])."""
+    import numpy as np
+
+    X = np.asarray(X, dtype=np.float64)
+    trees, cur = [], None
+    for line in text.splitlines():
+        if line.startswith("Tree="):
+            cur = {}
+            trees.append(cur)
+        elif cur is not None and "=" in line:
+            key, _, val = line.partition("=")
+            cur[key] = val
+    leaves = np.zeros((len(X), len(trees)), dtype=np.int64)
+    margin = np.zeros(len(X))
+    for t, tree in enumerate(trees):
+        feat = np.asarray(tree["split_feature"].split(), dtype=np.int64)
+        thr = np.asarray(tree["threshold"].split(), dtype=np.float64)
+        lc = np.asarray(tree["left_child"].split(), dtype=np.int64)
+        rc = np.asarray(tree["right_child"].split(), dtype=np.int64)
+        values = np.asarray(tree["leaf_value"].split(), dtype=np.float64)
+        child = np.zeros(len(X), dtype=np.int64)  # >= 0 internal, < 0 leaf
+        while (child >= 0).any():
+            at = np.nonzero(child >= 0)[0]
+            j = child[at]
+            go = X[at, feat[j]] <= thr[j]
+            child[at] = np.where(go, lc[j], rc[j])
+        leaf = -child - 1
+        leaves[:, t] = len(feat) + leaf
+        margin += values[leaf]
+    return leaves, margin
+
+
+def _sigmoid(np, z):
+    return 1.0 / (1.0 + np.exp(-z))
+
+
+def _softmax(np, z):
+    e = np.exp(z - z.max(axis=-1, keepdims=True))
+    return e / e.sum(axis=-1, keepdims=True)
+
+
+# stand-ins for the fitted sklearn estimators the converter reads (the card
+# machine has no sklearn): the class names and fitted attributes only.
+# Written beside the pickled model so that the server's process unpickles
+# them from its PYTHONPATH.
+STANDINS_MODULE = "smoke_sklearn_standins"
+STANDINS_SOURCE = '''"""Stand-ins of fitted sklearn estimators: attributes only."""
+
+
+class _Fitted:
+    def __init__(self, **attrs):
+        self.__dict__.update(attrs)
+
+
+class SVC(_Fitted):
+    pass
+
+
+class StandardScaler(_Fitted):
+    pass
+
+
+class LogisticRegression(_Fitted):
+    pass
+
+
+class Pipeline(_Fitted):
+    pass
+
+
+class RandomForestClassifier(_Fitted):
+    pass
+
+
+class DecisionTreeClassifier(_Fitted):
+    def get_depth(self):
+        return self.depth
+
+
+class Tree(_Fitted):
+    pass
+'''
+# iris's class means and spread (Fisher's iris: setosa, versicolor,
+# virginica over sepal/petal length and width)
+IRIS_MEANS = ((5.0, 3.4, 1.5, 0.2), (5.9, 2.8, 4.3, 1.3), (6.6, 3.0, 5.6, 2.0))
+IRIS_STD = (0.4, 0.35, 0.45, 0.2)
+
+
+def _iris_rows(np, rng, n: int):
+    cls = rng.integers(0, 3, n)
+    rows = np.asarray(IRIS_MEANS)[cls] + rng.normal(size=(n, 4)) * IRIS_STD
+    return rows.astype(np.float32)
+
+
+def _standins(np, rng, S):
+    """Seeded stand-ins: an SVC of the iris SVC's shapes (4 features, 3
+    classes, RBF, 15 support vectors per class), a StandardScaler +
+    LogisticRegression Pipeline, and a RandomForestClassifier of 20 trees
+    of depth 6; each with its float64 reference decision."""
+    classes = np.arange(3)
+    sv = np.concatenate([np.asarray(m) + rng.normal(size=(15, 4)) * IRIS_STD
+                         for m in IRIS_MEANS])
+    n_support = np.array([15, 15, 15], dtype=np.int32)
+    dual = rng.uniform(-1.0, 1.0, size=(2, 45))
+    intercept = rng.normal(scale=0.1, size=3)
+    gamma = 1.0 / (4 * 0.8)
+    svc = S.SVC(classes_=classes, n_support_=n_support, dual_coef_=dual,
+                intercept_=intercept, support_vectors_=sv, kernel="rbf",
+                _gamma=gamma, gamma="scale", coef0=0.0, degree=3,
+                n_features_in_=4)
+    starts = [0, 15, 30, 45]
+    pairs = [(0, 1), (0, 2), (1, 2)]
+
+    def svc_ref(X):
+        X = np.asarray(X, dtype=np.float64)
+        k = np.exp(-gamma * ((X[:, None, :] - sv[None]) ** 2).sum(-1))
+        votes = np.zeros((len(X), 3))
+        dec = np.zeros((len(X), 3))
+        for p, (i, j) in enumerate(pairs):
+            si, sj = slice(starts[i], starts[i + 1]), slice(starts[j], starts[j + 1])
+            dec[:, p] = (k[:, si] @ dual[j - 1, si] + k[:, sj] @ dual[i, sj]
+                         + intercept[p])
+            votes[:, i] += dec[:, p] > 0
+            votes[:, j] += dec[:, p] <= 0
+        return np.argmax(votes, axis=-1), dec
+
+    mean, scale = np.asarray(IRIS_MEANS).mean(0), np.asarray(IRIS_STD) * 2.0
+    coef, bias = rng.normal(size=(3, 4)) * 2.0, rng.normal(size=3)
+    pipe = S.Pipeline(steps=[
+        ("scaler", S.StandardScaler(mean_=mean, scale_=scale, with_mean=True,
+                                    with_std=True)),
+        ("clf", S.LogisticRegression(coef_=coef, intercept_=bias, classes_=classes,
+                                     n_features_in_=4))], n_features_in_=4)
+
+    def pipe_ref(X):
+        z = ((np.asarray(X, dtype=np.float64) - mean) / scale) @ coef.T + bias
+        p = _softmax(np, z)
+        return np.argmax(p, axis=-1), p
+
+    trees = []
+    for _ in range(20):
+        depth = 6
+        nodes, internal = 2 ** (depth + 1) - 1, 2 ** depth - 1
+        idx = np.arange(nodes)
+        left = np.where(idx < internal, 2 * idx + 1, -1)
+        right = np.where(idx < internal, 2 * idx + 2, -1)
+        feat = np.where(idx < internal, rng.integers(0, 4, nodes), -2)
+        thr = np.where(idx < internal, np.asarray(IRIS_MEANS)[1][np.maximum(feat, 0)]
+                       + rng.normal(size=nodes), -2.0)
+        value = rng.uniform(0.5, 20.0, size=(nodes, 1, 3))
+        trees.append(S.DecisionTreeClassifier(
+            tree_=S.Tree(children_left=left, children_right=right, feature=feat,
+                         threshold=thr, value=value), depth=depth))
+    forest = S.RandomForestClassifier(estimators_=trees, classes_=classes,
+                                      n_features_in_=4)
+
+    def forest_ref(X):
+        X = np.asarray(X, dtype=np.float64)
+        rows = np.arange(len(X))
+        proba = np.zeros((len(X), 3))
+        for tree in trees:
+            t = tree.tree_
+            node = np.zeros(len(X), dtype=np.int64)
+            for _ in range(tree.depth):
+                inner = t.children_left[node] >= 0
+                go = X[rows, np.maximum(t.feature[node], 0)] <= t.threshold[node]
+                node = np.where(inner, np.where(go, t.children_left[node],
+                                                t.children_right[node]), node)
+            v = t.value[node, 0]
+            proba += v / v.sum(axis=1, keepdims=True)
+        proba /= len(trees)
+        return np.argmax(proba, axis=-1), proba
+
+    return {"svc": (svc, svc_ref), "pipeline": (pipe, pipe_ref),
+            "random_forest": (forest, forest_ref)}
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+class _PredictiveServer:
+    """`python -m kserve_tpu_torch.runtimes.predictive_server` in a process
+    of its own (the normal CLI, on cuda by default), its log in a file."""
+
+    def __init__(self, root: str, framework: str, name: str, model_dir: str,
+                 env: dict, log_dir: str):
+        self.name, self.framework = name, framework
+        self.port = _free_port()
+        self.log_path = os.path.join(log_dir, f"{name}.log")
+        self._log = open(self.log_path, "w")
+        self.proc = subprocess.Popen(
+            [sys.executable, "-m", "kserve_tpu_torch.runtimes.predictive_server",
+             f"--framework={framework}", f"--model_name={name}",
+             f"--model_dir={model_dir}", f"--http_port={self.port}"],
+            cwd=root, env=env, stdout=self._log, stderr=subprocess.STDOUT)
+
+    def log(self) -> str:
+        with open(self.log_path) as f:
+            return f.read()
+
+    def wait_ready(self, timeout: float = 240.0) -> float:
+        t0 = time.perf_counter()
+        while time.perf_counter() - t0 < timeout:
+            if self.proc.poll() is not None:
+                raise AssertionError(f"predictive server {self.name} exited "
+                                     f"{self.proc.returncode}: {self.log()[-3000:]}")
+            try:
+                if _http(self.port, "GET", "/v2/health/ready", timeout=5)[0] == 200:
+                    return time.perf_counter() - t0
+            except OSError:
+                pass
+            time.sleep(0.1)
+        raise AssertionError(f"predictive server {self.name} not ready in {timeout} s")
+
+    def stop(self) -> None:
+        import signal
+
+        if self.proc.poll() is None:
+            self.proc.send_signal(signal.SIGTERM)
+            try:
+                self.proc.wait(30)
+            except subprocess.TimeoutExpired:
+                self.proc.kill()
+                self.proc.wait(30)
+        self._log.close()
+
+
+class _Client:
+    """One kept-alive connection to a predictive server."""
+
+    def __init__(self, port: int):
+        import http.client
+
+        self.conn = http.client.HTTPConnection("127.0.0.1", port, timeout=120)
+
+    def post(self, path: str, body: bytes, headers: dict):
+        self.conn.request("POST", path, body=body, headers=headers)
+        resp = self.conn.getresponse()
+        return resp.status, dict((k.lower(), v) for k, v in resp.getheaders()), resp.read()
+
+    def close(self) -> None:
+        self.conn.close()
+
+
+def _v2_bodies(np, name: str, X):
+    """The V2 request for rows X in JSON and in the binary-tensor form."""
+    X = np.ascontiguousarray(X, dtype=np.float32)
+    inp = {"name": "input-0", "shape": list(X.shape), "datatype": "FP32"}
+    js = json.dumps({"id": "smoke", "inputs": [dict(inp, data=X.ravel().tolist())]})
+    head = json.dumps({"id": "smoke", "inputs": [dict(
+        inp, parameters={"binary_data_size": X.nbytes})]}).encode()
+    return (js.encode(), {"Content-Type": "application/json"}), (
+        head + X.tobytes(), {"Content-Type": "application/octet-stream",
+                             "Inference-Header-Content-Length": str(len(head))})
+
+
+def _v2_output(np, status: int, headers: dict, raw: bytes):
+    """The first output of a V2 response as numpy (JSON or binary)."""
+    if status != 200:
+        raise AssertionError(f"v2 infer answered {status}: {raw[:500]!r}")
+    n = headers.get("inference-header-content-length")
+    if n is None:
+        out = json.loads(raw)["outputs"][0]
+        return np.asarray(out["data"]).reshape(out["shape"])
+    head = json.loads(raw[:int(n)])
+    out = head["outputs"][0]
+    dtype = {"FP32": np.float32, "FP64": np.float64, "INT64": np.int64,
+             "INT32": np.int32}[out["datatype"]]
+    return np.frombuffer(raw[int(n):], dtype=dtype).reshape(out["shape"])
+
+
+def _served(np, server: _PredictiveServer, X) -> dict:
+    """The same rows through V1 :predict, V2 JSON and V2 binary; the three
+    answers must be equal."""
+    client = _Client(server.port)
+    try:
+        status, _, raw = client.post(
+            f"/v1/models/{server.name}:predict",
+            json.dumps({"instances": np.asarray(X, dtype=np.float32).tolist()}).encode(),
+            {"Content-Type": "application/json"})
+        if status != 200:
+            raise AssertionError(f"{server.name} :predict answered {status}: {raw[:500]!r}")
+        v1 = np.asarray(json.loads(raw)["predictions"])
+        (jb, jh), (bb, bh) = _v2_bodies(np, server.name, X)
+        v2_json = _v2_output(np, *client.post(f"/v2/models/{server.name}/infer", jb, jh))
+        v2_bin = _v2_output(np, *client.post(f"/v2/models/{server.name}/infer", bb, bh))
+    finally:
+        client.close()
+    if not (np.array_equal(v1, v2_json) and np.array_equal(v1, v2_bin)):
+        raise AssertionError(f"{server.name}: V1, V2 JSON and V2 binary answers differ")
+    return v1
+
+
+def _latency(np, server: _PredictiveServer, X, n: int) -> dict:
+    """p50 / p99 of v2/infer (binary-tensor form, one kept-alive
+    connection, one request at a time), request sent to response read."""
+    client = _Client(server.port)
+    (_, _), (body, headers) = _v2_bodies(np, server.name, X)
+    path = f"/v2/models/{server.name}/infer"
+    ms = []
+    try:
+        for _ in range(5):
+            client.post(path, body, headers)
+        for _ in range(n):
+            t0 = time.perf_counter()
+            status, _, _ = client.post(path, body, headers)
+            ms.append((time.perf_counter() - t0) * 1e3)
+            if status != 200:
+                raise AssertionError(f"{server.name} v2/infer answered {status}")
+    finally:
+        client.close()
+    ms.sort()
+    return {"n": n, "p50_ms": statistics.median(ms),
+            "p99_ms": ms[max(0, math.ceil(0.99 * n) - 1)], "max_ms": ms[-1]}
+
+
+def _forest_on_card(np, forest, X, ref_leaves) -> None:
+    """The parsed forest on the card: every tensor on cuda, and the leaf of
+    each row in each tree, read from the traversal, equal to the walk's."""
+    from kserve_tpu_torch.runtimes.tensorize.trees import forest_apply
+
+    fa = forest_apply(forest, "cuda")
+    off = [t.device.type for t in fa.tensors() if t.device.type != "cuda"]
+    if off:
+        raise AssertionError(f"forest tensors off the card: {off}")
+    leaves = fa.leaves(X).cpu().numpy()
+    bad = int((leaves != ref_leaves).sum())
+    if bad:
+        raise AssertionError(f"{bad} of {leaves.size} leaves differ from the walk")
+
+
+def _tf32_evidence(torch, np, svc, X) -> dict:
+    """What TF32 would do to the RBF expansion here: the SVC's pair
+    decisions through torch.matmul with TF32 on, against the float64
+    reference (reported, not gated: the port does not take this path)."""
+    sv = torch.as_tensor(svc.support_vectors_, dtype=torch.float32, device="cuda")
+    x = torch.as_tensor(X, dtype=torch.float32, device="cuda")
+    saved = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        d2 = (x * x).sum(1, keepdim=True) - 2.0 * (x @ sv.T) + (sv * sv).sum(1)[None]
+        torch.cuda.synchronize()
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = saved
+    k = torch.exp(-svc._gamma * d2).double().cpu().numpy()
+    X64 = np.asarray(X, dtype=np.float64)
+    k64 = np.exp(-svc._gamma * ((X64[:, None] - svc.support_vectors_[None]) ** 2).sum(-1))
+    return {"tf32_rbf_max_abs_err": float(np.abs(k - k64).max())}
+
+
+def phase_predictive(torch, seed: int = 0) -> dict:
+    """The predictive runtimes on the card: XGBoost, LightGBM and sklearn
+    served by `python -m kserve_tpu_torch.runtimes.predictive_server`
+    subprocesses over V1 and V2, held to float64 walks and to the port on
+    the CPU, with v2/infer p50 / p99 per framework and batch."""
+    import importlib
+    import pickle
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    import kserve_tpu_torch
+    from kserve_tpu_torch.runtimes.gbdt_server import LightGBMModel, XGBoostModel
+    from kserve_tpu_torch.runtimes.tensorize.sklearn_convert import (
+        convert_estimator,
+        map_classes,
+    )
+
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(seed)
+    root = os.path.dirname(os.path.dirname(os.path.abspath(kserve_tpu_torch.__file__)))
+    os.makedirs(os.path.join(REPO, "build"), exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="predictive_smoke_", dir=os.path.join(REPO, "build"))
+    servers = []
+    try:
+        # the model files, from the seed
+        dumps = {
+            "xgboost": ("xgb-higgs", xgb_dump(rng, PREDICTIVE_TREES, XGB_DEPTH,
+                                              HIGGS_FEATURES)),
+            "lightgbm": ("lgb-higgs", lgb_dump(rng, PREDICTIVE_TREES, LGB_LEAVES,
+                                               HIGGS_FEATURES)),
+            "xgboost_multi": ("xgb-softprob", xgb_dump(
+                rng, 60, 6, HIGGS_FEATURES, objective="multi:softprob",
+                num_class=3, base_score=0.5)),
+        }
+        paths = {}
+        for key, (name, dump) in dumps.items():
+            d = os.path.join(tmp, name)
+            os.makedirs(d)
+            if isinstance(dump, dict):
+                paths[key] = os.path.join(d, "model.json")
+                with open(paths[key], "w") as f:
+                    json.dump(dump, f, separators=(",", ":"))
+            else:
+                paths[key] = os.path.join(d, "model.txt")
+                with open(paths[key], "w") as f:
+                    f.write(dump)
+        with open(os.path.join(tmp, STANDINS_MODULE + ".py"), "w") as f:
+            f.write(STANDINS_SOURCE)
+        sys.path.insert(0, tmp)
+        try:
+            S = importlib.import_module(STANDINS_MODULE)
+        finally:
+            sys.path.remove(tmp)
+        standins = _standins(np, rng, S)
+        svc_dir = os.path.join(tmp, "iris-svc")
+        os.makedirs(svc_dir)
+        with open(os.path.join(svc_dir, "model.pkl"), "wb") as f:
+            pickle.dump(standins["svc"][0], f)
+
+        # the servers, started together; TF32 forced on in their
+        # processes, so their answers show that the port's products do not
+        # depend on the process's matmul settings
+        env = dict(os.environ, PYTHONPATH=os.pathsep.join([root, tmp]),
+                   TORCH_ALLOW_TF32_CUBLAS_OVERRIDE="1")
+        launch = [("xgboost", "xgb-higgs", os.path.dirname(paths["xgboost"])),
+                  ("lightgbm", "lgb-higgs", os.path.dirname(paths["lightgbm"])),
+                  ("xgboost", "xgb-softprob", os.path.dirname(paths["xgboost_multi"])),
+                  ("sklearn", "iris-svc", svc_dir)]
+        t_start = time.perf_counter()
+        for framework, name, d in launch:
+            servers.append(_PredictiveServer(root, framework, name, d, env, tmp))
+
+        # meanwhile, in this process: the port on the CPU (the servers'
+        # second reference), the float64 walks, the leaves on the card, and
+        # the sklearn stand-ins converted on cuda and on the CPU
+        rows = {b: rng.normal(size=(b, HIGGS_FEATURES)).astype(np.float32)
+                for b in PREDICTIVE_BATCHES}
+        cpu_models = {
+            "xgboost": XGBoostModel("xgb-higgs", paths["xgboost"], device="cpu"),
+            "lightgbm": LightGBMModel("lgb-higgs", paths["lightgbm"], device="cpu"),
+            "xgboost_multi": XGBoostModel("xgb-softprob", paths["xgboost_multi"],
+                                          device="cpu")}
+        refs = {}
+        for key, walk in (("xgboost", walk_xgb), ("lightgbm", walk_lgb),
+                          ("xgboost_multi", walk_xgb)):
+            cpu_models[key].load()
+            refs[key] = {b: walk(dumps[key][1], X) for b, X in rows.items()}
+            _forest_on_card(np, cpu_models[key]._forest, rows[1024],
+                            refs[key][1024][0])
+        iris = {b: _iris_rows(np, rng, b) for b in PREDICTIVE_BATCHES}
+        sk = {}
+        for name, (est, ref) in standins.items():
+            on_card = convert_estimator(est, "cuda")
+            on_cpu = convert_estimator(est, "cpu")
+            X = iris[1024]
+            labels_card = map_classes(on_card.predict(X), on_card.classes)
+            labels_cpu = map_classes(on_cpu.predict(X), on_cpu.classes)
+            want, score = ref(X)
+            if not np.array_equal(labels_card, labels_cpu):
+                raise AssertionError(f"sklearn {name}: cuda and cpu labels differ")
+            if name == "svc":
+                # rows within 1e-4 of a pair's boundary in float64 may
+                # round either way in float32; counted, and none expected
+                near = np.abs(score).min(axis=1) < 1e-4
+            else:
+                near = np.zeros(len(X), dtype=bool)
+            wrong = int(((labels_card != want) & ~near).sum())
+            if wrong:
+                raise AssertionError(f"sklearn {name}: {wrong} labels differ from float64")
+            entry = {"rows": len(X), "near_boundary_rows": int(near.sum())}
+            if on_card.predict_proba is not None:
+                p_card = on_card.predict_proba(X).cpu().numpy()
+                p_cpu = on_cpu.predict_proba(X).cpu().numpy()
+                entry["proba_vs_f64"] = float(np.abs(p_card - score).max())
+                entry["proba_vs_cpu"] = float(np.abs(p_card - p_cpu).max())
+                if entry["proba_vs_f64"] > PROBA_TOL or entry["proba_vs_cpu"] > CPU_TOL:
+                    raise AssertionError(f"sklearn {name} probabilities: {entry}")
+            else:
+                d_card = on_card.decision_function(X).cpu().numpy()
+                d_cpu = on_cpu.decision_function(X).cpu().numpy()
+                entry["decision_vs_f64"] = float(np.abs(d_card - score).max())
+                entry["decision_vs_cpu"] = float(np.abs(d_card - d_cpu).max())
+                if (entry["decision_vs_f64"] > DECISION_TOL
+                        or entry["decision_vs_cpu"] > CPU_TOL):
+                    raise AssertionError(f"sklearn {name} decisions: {entry}")
+            sk[name] = entry
+        sk["tf32"] = _tf32_evidence(torch, np, standins["svc"][0], iris[1024])
+        ready_s = {s.name: round(s.wait_ready(), 3) for s in servers}
+        start_wall = time.perf_counter() - t_start
+
+        # served answers against the walks and the port on the CPU
+        cpu_svc = convert_estimator(standins["svc"][0], "cpu")
+        checks = {}
+        for server in servers:
+            if "on cuda" not in server.log():
+                raise AssertionError(f"{server.name} did not place its model on cuda: "
+                                     f"{server.log()[-2000:]}")
+            got = {}
+            for b in PREDICTIVE_BATCHES:
+                if server.framework == "sklearn":
+                    X = iris[b]
+                    served = _served(np, server, X)
+                    want, score = standins["svc"][1](X)
+                    near = np.abs(score).min(axis=1) < 1e-4
+                    if not np.array_equal(served, map_classes(cpu_svc.predict(X),
+                                                              cpu_svc.classes)):
+                        raise AssertionError("iris-svc labels differ from the CPU port")
+                    if ((served != want) & ~near).any():
+                        raise AssertionError("iris-svc labels differ from float64")
+                    got[b] = {"labels": len(X), "near_boundary_rows": int(near.sum())}
+                    continue
+                X = rows[b]
+                served = _served(np, server, X)
+                key = {"xgb-higgs": "xgboost", "lgb-higgs": "lightgbm",
+                       "xgb-softprob": "xgboost_multi"}[server.name]
+                _, margin = refs[key][b]
+                if key == "xgboost_multi":
+                    proba = _softmax(np, margin)
+                    want_cls, got_cls = proba.argmax(-1), served.argmax(-1)
+                else:
+                    proba = _sigmoid(np, margin[:, 0] if margin.ndim == 2 else margin)
+                    want_cls, got_cls = proba > 0.5, served > 0.5
+                cpu = np.asarray(cpu_models[key].predict(
+                    {"instances": X.tolist()})["predictions"])
+                err, cpu_err = float(np.abs(served - proba).max()), float(
+                    np.abs(served - cpu).max())
+                if not np.array_equal(want_cls, got_cls):
+                    raise AssertionError(f"{server.name}: classes differ from the walk")
+                if err > PROBA_TOL or cpu_err > CPU_TOL:
+                    raise AssertionError(f"{server.name} batch {b}: vs walk {err}, "
+                                         f"vs cpu {cpu_err}")
+                got[b] = {"proba_vs_f64": err, "proba_vs_cpu": cpu_err}
+            checks[server.name] = got
+
+        latency = {}
+        for server in servers:
+            n = PREDICTIVE_TIMED_EXTRA if server.name == "xgb-softprob" else PREDICTIVE_TIMED
+            data = iris if server.framework == "sklearn" else rows
+            latency[server.name] = {b: _latency(np, server, data[b], n)
+                                    for b in PREDICTIVE_BATCHES}
+        forests = {
+            s.name: next((line.split(": ", 1)[-1] for line in s.log().splitlines()
+                          if "forest on" in line or "converted on" in line), None)
+            for s in servers}
+    finally:
+        for server in servers:
+            server.stop()
+        shutil.rmtree(tmp, ignore_errors=True)
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True).stdout.strip()
+    emit({"phase": "predictive", "nvidia_smi": smi, "ready_s": ready_s,
+          "servers_start_wall_s": start_wall, "models": forests,
+          "served_checks": checks, "sklearn": sk, "v2_infer_binary": latency,
+          "phase_wall_s": time.perf_counter() - t_phase})
+    return latency
+
+
 # the served phases --only can run alone
 SERVED_PHASES = {"serve": phase_serve, "d64": phase_d64, "spec": phase_spec,
                  "kvq": phase_kvq, "gemma2": phase_gemma2,
@@ -5226,7 +5936,8 @@ SERVED_PHASES = {"serve": phase_serve, "d64": phase_d64, "spec": phase_spec,
                  "prefix": phase_prefix, "tiers": phase_tiers,
                  "lifecycle": phase_lifecycle, "lora": phase_lora,
                  "wq": phase_wq, "checkpoint": phase_checkpoint,
-                 "moe": phase_moe, "pd": phase_pd, "peer": phase_peer}
+                 "moe": phase_moe, "pd": phase_pd, "peer": phase_peer,
+                 "predictive": phase_predictive}
 
 if __name__ == "__main__":
     sys.exit(main())

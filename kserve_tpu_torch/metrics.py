@@ -2,8 +2,9 @@
 0.0.4, on the standard library (the card machine has no
 prometheus_client).
 
-Port of the series of kserve_tpu/metrics.py that the port's engine feeds,
-under the same names, help texts, labels and buckets: token counters,
+Port of the series of kserve_tpu/metrics.py that the port feeds, under
+the same names, help texts, labels and buckets: the request stages of
+`Model.__call__` (preprocess, predict, postprocess, explain), token counters,
 occupancy / queue / free-page gauges, the wedge gauge, the request-timeline
 histograms (TTFT, ITL, queue wait, e2e), decode-step and prefill-chunk
 durations, preemptions, speculative draft outcomes, the startup phases,
@@ -201,6 +202,29 @@ def generate_latest() -> bytes:
 
 
 # ---------------------------------------------------------------- series
+# kserve_tpu/metrics.py:13-24: the stages of Model.__call__, in
+# prometheus_client's default buckets
+
+_DEFAULT_BUCKETS = (.005, .01, .025, .05, .075, .1, .25, .5, .75, 1.0, 2.5,
+                    5.0, 7.5, 10.0)
+PRE_HIST_TIME = Histogram(
+    "request_preprocess_seconds", "pre-process request latency", ["model_name"],
+    _DEFAULT_BUCKETS)
+POST_HIST_TIME = Histogram(
+    "request_postprocess_seconds", "post-process request latency", ["model_name"],
+    _DEFAULT_BUCKETS)
+PREDICT_HIST_TIME = Histogram(
+    "request_predict_seconds", "predict request latency", ["model_name"],
+    _DEFAULT_BUCKETS)
+EXPLAIN_HIST_TIME = Histogram(
+    "request_explain_seconds", "explain request latency", ["model_name"],
+    _DEFAULT_BUCKETS)
+
+
+def get_labels(model_name: str) -> dict:
+    return {"model_name": model_name}
+
+
 # kserve_tpu/metrics.py:27-41 (generative engine), :46-49 (preemptions)
 
 GENERATED_TOKENS = Counter(

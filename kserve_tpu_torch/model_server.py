@@ -1,9 +1,13 @@
-"""Model server: starts each model's engine, then serves them over the
-standard-library REST server until a shutdown signal or `request_stop()`.
+"""Model server: registers the models in a `ModelRepository`, starts each
+model's engine, then serves them over the standard-library REST server
+until a shutdown signal or `request_stop()`.
 
-Port of the generative part of kserve_tpu/model_server.py (no gRPC;
-/metrics, /admin/telemetry and /v1/internal/scheduler/state are routes
-of the REST server).  The server owns the replica's `ReplicaLifecycle`
+Port of kserve_tpu/model_server.py (no gRPC; /metrics, /admin/telemetry
+and /v1/internal/scheduler/state are routes of the REST server).  Models
+with an engine (the generative ones) become ready once it has started; a
+predictive `Model` is loaded before the server starts, and the server
+refuses to start if no model is ready and none starts an engine
+(NoModelReady).  The server owns the replica's `ReplicaLifecycle`
 (lifecycle/state.py): STARTING until every engine has started, then
 READY.  The first SIGTERM or SIGINT, or a POST /admin/drain, runs
 `drain_async`: readiness goes red, new inference is refused with 503,
@@ -23,10 +27,19 @@ import signal
 import threading
 from typing import List, Optional
 
+from .errors import NoModelReady
 from .lifecycle import GenerationCheckpoint, ReplicaLifecycle
+from .model import BaseModel, _maybe_await
+from .model_repository import ModelRepository
 from .protocol.rest.server import RESTServer
 
 logger = logging.getLogger(__name__)
+
+
+def _has_engine(model) -> bool:
+    """Whether `model` starts an engine (overrides BaseModel.start_engine)."""
+    return getattr(type(model), "start_engine", None) not in (
+        None, BaseModel.start_engine)
 
 
 class ModelServer:
@@ -49,19 +62,23 @@ class ModelServer:
         asyncio.run(self.serve(models))
 
     async def serve(self, models: List) -> None:
+        self.models = list(models)
+        if not any(getattr(m, "ready", False) or _has_engine(m) for m in models) and models:
+            raise NoModelReady(self.models)
         self._loop = asyncio.get_running_loop()
         self._stop = asyncio.Event()
-        self.models = list(models)
         if threading.current_thread() is threading.main_thread():
             for sig in (signal.SIGINT, signal.SIGTERM):
                 self._loop.add_signal_handler(sig, self._on_signal)
+        repository = ModelRepository(models={m.name: m for m in models})
         rest = self.rest = RESTServer(
-            {m.name: m for m in models}, self.host, self.http_port,
+            repository, self.host, self.http_port,
             lifecycle=self.lifecycle, on_drain=self.drain_async)
         try:
             for model in models:
-                await model.start_engine()
-                self._wire_stall_hook(model)
+                if _has_engine(model):
+                    await model.start_engine()
+                    self._wire_stall_hook(model)
             self.port = await rest.start()
             self.lifecycle.mark_ready()
             self.listening.set()
@@ -71,7 +88,7 @@ class ModelServer:
         finally:
             await rest.stop()
             for model in models:
-                await model.stop()
+                await _maybe_await(model.stop())
             logger.info("model server stopped")
 
     def _wire_stall_hook(self, model) -> None:

@@ -1,12 +1,20 @@
 """HTTP/1.1 REST server on `asyncio.start_server` (standard library only).
 
-Port of the routes of kserve_tpu/protocol/rest/server.py and
-protocol/openai/endpoints.py that the generative slice serves; the JAX
-package's aiohttp stack is not available on the card machine.
+Port of kserve_tpu/protocol/rest/server.py with its V1, V2 and OpenAI
+heads (v1_endpoints.py, v2_endpoints.py, protocol/openai/endpoints.py);
+the JAX package's aiohttp stack is not available on the card machine.
+The models live in a `ModelRepository`; the V1 and V2 routes go through
+its `DataPlane` (protocol/dataplane.py).
 
 Routes:
+  GET  /                 {"status": "alive"}
+  GET  /v1/models, /v1/models/{m}; POST /v1/models/{m}:predict, :explain
+  GET  /v2, /v2/models/{m}, /v2/models/{m}/ready; POST
+       /v2/models/{m}[/versions/{v}]/infer (JSON or the binary-tensor
+       extension), /v2/repository/models/{m}/load and /unload
   GET  /v2/health/live   200, or 503 once a model's engine is wedged
-  GET  /v2/health/ready  503 with {"ready", "lifecycle"} unless READY
+  GET  /v2/health/ready  503 with {"ready", "lifecycle"} unless READY, else
+       503 {"ready": false} unless every model is healthy
   GET  /openai/v1/models
   POST /openai/v1/completions, /openai/v1/chat/completions
        (JSON, or text/event-stream with `"stream": true`, ending
@@ -39,14 +47,18 @@ protocol/rest/server.py:79-125, :164-257; lifecycle/middleware.py):
 lifecycle (an inference POST while draining: 503 + Retry-After), load
 shedding (an inference POST past the queue watermark: 429 + Retry-After),
 then the `x-request-deadline` budget (expired: 504, else bound for the
-engine's admission).  Errors map as there: DeadlineExceededError 504,
-ReplicaDrainingError 503 + Retry-After, GenerationPreempted 503 with the
-checkpoint in the body (and in `x-generation-checkpoint` while it fits
-CHECKPOINT_HEADER_SAFE_BYTES).  A streamed answer that is preempted ends
+engine's admission).  Errors map as there: InvalidInput and
+UnsupportedProtocol 400, ModelNotFound 404, ModelNotReady /
+ServerNotReady / ServerNotLive 503, NotImplementedError 501,
+InferenceError 500, DeadlineExceededError 504, ReplicaDrainingError 503 +
+Retry-After, GenerationPreempted 503 with the checkpoint in the body (and
+in `x-generation-checkpoint` while it fits CHECKPOINT_HEADER_SAFE_BYTES).  A streamed answer that is preempted ends
 on an event {"error": {"type": "generation_preempted", ...},
 "checkpoint": ...} without [DONE] (kserve_tpu/protocol/openai/
 endpoints.py:73-88).  The request head may carry a checkpoint header of
-up to CHECKPOINT_FIELD_SIZE_LIMIT bytes.
+up to CHECKPOINT_FIELD_SIZE_LIMIT bytes.  On `/`, `/v1/models...` and
+`/v2...` an error's body is the JAX server's {"error": reason}; on the
+other routes it is the OpenAI form {"error": {"message", "type"}}.
 
 Connections are kept alive (HTTP/1.1; HTTP/1.0 with `Connection:
 keep-alive`) until the client sends `Connection: close`, a request
@@ -61,9 +73,17 @@ import asyncio
 import json
 import logging
 from typing import Callable, Dict, Optional, Tuple
-from urllib.parse import parse_qs
+from urllib.parse import parse_qs, unquote
 
-from ...errors import InvalidInput, ModelNotFound
+from ...errors import (
+    InferenceError,
+    InvalidInput,
+    ModelNotFound,
+    ModelNotReady,
+    ServerNotLive,
+    ServerNotReady,
+    UnsupportedProtocol,
+)
 from ...lifecycle import (
     CHECKPOINT_FIELD_SIZE_LIMIT,
     CHECKPOINT_HEADER,
@@ -74,6 +94,7 @@ from ...lifecycle import (
     ReplicaLifecycle,
 )
 from ...kvstore.peer import PAGE_ROUTE
+from ...model_repository import ModelRepository
 from ...metrics import (
     CONTENT_TYPE_LATEST,
     DEADLINE_REJECTED,
@@ -90,6 +111,8 @@ from ...resilience import (
     deadline_scope,
     is_inference_path,
 )
+from ..dataplane import DataPlane
+from ..model_repository_extension import ModelRepositoryExtension
 from ..openai.types import (
     ChatCompletionRequest,
     CompletionRequest,
@@ -98,6 +121,8 @@ from ..openai.types import (
     error_body,
 )
 from ..pd import KV_META_HEADER, PREFILL_ROUTE, parse_prefill_body
+from .v1_endpoints import V1Endpoints
+from .v2_endpoints import V2Endpoints
 
 logger = logging.getLogger(__name__)
 
@@ -129,22 +154,35 @@ class _BadRequest(_HTTPError):
     connection closes, since the next request's start is unknown."""
 
 
+def _jax_error_form(path: str) -> bool:
+    """The routes whose error bodies are the JAX server's {"error": reason}."""
+    return path == "/" or path == "/v2" or path.startswith(("/v1/models", "/v2/"))
+
+
 class RESTServer:
-    """Serves `models` ({name: model}) where each model has `name`,
-    `ready`, `async create_completion(req, headers)` and `async
+    """Serves the models of `repository`.  A generative model has `name`, `ready`, `async
+    create_completion(req, headers)` and `async
     create_chat_completion(req, headers)` (returning a response object or,
     for a streamed request, an async iterator of chunks), and optionally
-    `async live()` and an `engine`.  `lifecycle` (a ReplicaLifecycle)
-    turns on the drain gate and the /admin/drain routes, whose POST
-    starts `on_drain()` (an async callable) once.  `shed_config` sets the
+    `async live()`, `async healthy()` and an `engine`; a predictive model
+    is a `Model` (model.py) answering the V1 and V2 routes.  `lifecycle`
+    (a ReplicaLifecycle) turns on the drain gate and the /admin/drain
+    routes, whose POST starts `on_drain()` (an async callable) once.  `shed_config` sets the
     load-shedding watermark (default: from the environment)."""
 
-    def __init__(self, models: Dict[str, object], host: str = "0.0.0.0",
+    def __init__(self, repository: ModelRepository,
+                 host: str = "0.0.0.0",
                  port: int = 8080, idle_timeout: float = IDLE_TIMEOUT_S,
                  lifecycle: Optional[ReplicaLifecycle] = None,
                  on_drain: Optional[Callable] = None,
                  shed_config: Optional[ShedConfig] = None):
-        self.models = models
+        self.repository = repository
+        self.dataplane = DataPlane(self.repository)
+        # (method, path pattern, handler) of the V1 and V2 heads
+        self._dataplane_routes = (
+            V1Endpoints(self.dataplane).routes
+            + V2Endpoints(self.dataplane,
+                          ModelRepositoryExtension(self.repository)).routes)
         self.host = host
         self.port = port
         self.idle_timeout = idle_timeout
@@ -162,6 +200,10 @@ class RESTServer:
         # the server's wait_closed() would otherwise wait for
         self._writers: set = set()
         self._peer_page_sem: Optional[asyncio.Semaphore] = None
+
+    @property
+    def models(self) -> Dict[str, object]:
+        return self.repository.models
 
     async def start(self) -> int:
         """Listen; returns the bound port (port 0 picks a free one)."""
@@ -210,6 +252,7 @@ class RESTServer:
                                   keep_alive=False)
             return False
         keep_alive = False
+        path = ""
         try:
             method, path, query, version, headers = self._parse_head(head)
             tokens = {t.strip().lower()
@@ -245,18 +288,36 @@ class RESTServer:
             await self._send_json(
                 writer, 503, {"error": str(e), "checkpoint": e.checkpoint.to_dict()},
                 keep_alive, headers=headers)
-        except InvalidInput as e:
-            await self._send_json(writer, 400, error_body(str(e)), keep_alive)
+        except (InvalidInput, UnsupportedProtocol) as e:
+            await self._send_error(writer, path, 400, str(e), "invalid_request_error",
+                                   keep_alive)
         except ModelNotFound as e:
-            await self._send_json(writer, 404, error_body(str(e), "not_found"),
-                                  keep_alive)
+            message = (e.reason if _jax_error_form(path)
+                       else f"model {e.model_name!r} is not served here")
+            await self._send_error(writer, path, 404, message, "not_found", keep_alive)
+        except (ModelNotReady, ServerNotReady, ServerNotLive) as e:
+            await self._send_error(writer, path, 503, str(e), "not_ready", keep_alive)
+        except NotImplementedError as e:
+            await self._send_error(writer, path, 501, str(e) or "Not implemented",
+                                   "not_implemented", keep_alive)
+        except InferenceError as e:
+            await self._send_error(writer, path, 500, str(e), "internal_error",
+                                   keep_alive)
         except (ConnectionError, asyncio.IncompleteReadError):
             return False
         except Exception as e:  # noqa: BLE001 — one request's failure must not stop the server
             logger.exception("request failed")
-            await self._send_json(writer, 500, error_body(str(e), "internal_error"),
-                                  keep_alive)
+            message = (f"{type(e).__name__}: {e}" if _jax_error_form(path)
+                       else str(e))
+            await self._send_error(writer, path, 500, message, "internal_error",
+                                   keep_alive)
         return keep_alive
+
+    async def _send_error(self, writer, path: str, status: int, message: str,
+                          err_type: str, keep_alive: bool) -> None:
+        body = ({"error": message} if _jax_error_form(path)
+                else error_body(message, err_type))
+        await self._send_json(writer, status, body, keep_alive)
 
     @staticmethod
     def _parse_head(head: bytes) -> Tuple[str, str, str, str, Dict[str, str]]:
@@ -443,17 +504,23 @@ class RESTServer:
                      writer, keep_alive: bool) -> None:
         if path.startswith("/openai/") and not path.startswith("/openai/v1/"):
             path = "/openai/v1/" + path[len("/openai/"):]
+        if path == "/":
+            self._expect(method, "GET")
+            return await self._send_json(writer, 200, {"status": "alive"}, keep_alive)
         if path == "/v2/health/live":
             self._expect(method, "GET")
-            live = await self._live()
+            live = (await self.dataplane.live())["status"] == "alive"
             # non-2xx once wedged: kubelet's probe reads the status code
             return await self._send_json(writer, 200 if live else 503,
                                          {"live": live}, keep_alive)
         if path == "/v2/health/ready":
             self._expect(method, "GET")
-            ready = all(m.ready for m in self.models.values())
+            ready = await self.dataplane.ready()
             return await self._send_json(writer, 200 if ready else 503,
                                          {"ready": ready}, keep_alive)
+        if _jax_error_form(path):
+            return await self._dataplane_route(method, path, headers, body, writer,
+                                               keep_alive)
         if path == "/openai/v1/models":
             self._expect(method, "GET")
             # a model's LoRA adapters list as models of their own (vLLM's
@@ -498,6 +565,30 @@ class RESTServer:
             return await self._send_sse(writer, result, keep_alive)
         return await self._send_json(writer, 200, result.to_dict(), keep_alive)
 
+    async def _dataplane_route(self, method: str, path: str, headers, body: bytes,
+                               writer, keep_alive: bool) -> None:
+        """A V1 or V2 route: the first pattern that matches the whole path
+        (405 if only another method's does)."""
+        allowed = None
+        for route_method, pattern, handler in self._dataplane_routes:
+            m = pattern.fullmatch(path)
+            if m is None:
+                continue
+            if route_method != method:
+                allowed = route_method
+                continue
+            status, obj, extra = await handler(
+                headers, body, *(unquote(g) for g in m.groups()))
+            if isinstance(obj, (bytes, bytearray)):
+                ctype = extra.pop("content-type", "application/octet-stream")
+                return await self._send(writer, status, ctype, obj, keep_alive, extra)
+            ctype = extra.pop("content-type", None) or "application/json"
+            return await self._send(writer, status, ctype,
+                                    json.dumps(obj).encode("utf-8"), keep_alive, extra)
+        if allowed is not None:
+            raise _HTTPError(405, f"method {method} not allowed")
+        raise _HTTPError(404, f"no route for {path}")
+
     async def _prefill(self, name: str, body: bytes, writer, keep_alive: bool) -> None:
         """POST /v1/prefill/{model}: one detached prefill's KV."""
         model = self.models.get(name)
@@ -533,15 +624,6 @@ class RESTServer:
                                              wire, keep_alive)
         await self._send_json(writer, 404, error_body("page not resident", "not_found"),
                               keep_alive)
-
-    async def _live(self) -> bool:
-        """False once some model reports its engine wedged (kserve_tpu/
-        protocol/dataplane.py:79)."""
-        for model in self.models.values():
-            live = getattr(model, "live", None)
-            if live is not None and not await live():
-                return False
-        return True
 
     def scheduler_state(self) -> dict:
         """The GET /v1/internal/scheduler/state payload (kserve_tpu/protocol/
@@ -619,14 +701,10 @@ class RESTServer:
 
     def _model(self, name: str):
         """The served model of `name`, directly or through an alias (a
-        LoRA adapter selects its model by the OpenAI `model` field;
-        kserve_tpu/model_repository.py:25-36)."""
-        model = self.models.get(name)
+        LoRA adapter selects its model by the OpenAI `model` field)."""
+        model = self.repository.get_model(name)
         if model is None:
-            model = next((m for m in self.models.values()
-                          if name in getattr(m, "aliases", ())), None)
-        if model is None:
-            raise ModelNotFound(f"model {name!r} is not served here")
+            raise ModelNotFound(name)
         if not model.ready:
             raise _HTTPError(503, f"model {name!r} is not ready")
         return model

@@ -225,6 +225,11 @@ class TorchGenerativeModel:
             return []
         return await self.engine.drain(deadline)
 
+    async def healthy(self) -> bool:
+        """Readiness: ready and the engine's loop running (kserve_tpu/
+        runtimes/generative_server.py:217-218)."""
+        return self.ready and self.engine is not None and self.engine.running
+
     async def live(self) -> bool:
         """Liveness: false once the engine is wedged, so the pod restarts
         instead of hanging behind a healthy-looking HTTP server."""

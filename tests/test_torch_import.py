@@ -1,7 +1,9 @@
 """The PyTorch port stands alone: importing it loads neither jax nor the
 JAX package, no source of it (or chip_smoke.py) imports them or
 ml_dtypes (the card machine has none: the port's KV payloads keep
-bfloat16 as int16 bits), nor any package the card machine lacks
+bfloat16 as int16 bits; the V2 codec alone looks ml_dtypes up, inside a
+function, for the optional BF16 datatype, as the JAX codec does), nor
+any package the card machine lacks
 (aiohttp, httpx, pydantic, prometheus_client, ...: the HTTP layer, the
 lifecycle and resilience layers and the metrics are standard library),
 and its entry points refuse to run without CUDA unless asked for the
@@ -19,6 +21,8 @@ import torch
 REPO = Path(__file__).resolve().parents[1]
 PKG = REPO / "kserve_tpu_torch"
 FORBIDDEN_ROOTS = {"jax", "jaxlib", "kserve_tpu", "ml_dtypes"}
+# (file, root) pairs allowed as a lazy, optional import
+OPTIONAL_FORBIDDEN = {("kserve_tpu_torch/utils/numpy_codec.py", "ml_dtypes")}
 
 
 def _port_modules():
@@ -36,7 +40,20 @@ def test_import_loads_no_jax_and_no_jax_package():
     assert {"kserve_tpu_torch.models.moe", "kserve_tpu_torch.protocol.pd",
             "kserve_tpu_torch.protocol.http_client", "kserve_tpu_torch.kvstore.peer",
             "kserve_tpu_torch.resilience.retry",
-            "kserve_tpu_torch.resilience.breaker"} <= set(_port_modules())
+            "kserve_tpu_torch.resilience.breaker",
+            "kserve_tpu_torch.model", "kserve_tpu_torch.model_repository",
+            "kserve_tpu_torch.infer_type", "kserve_tpu_torch.utils.numpy_codec",
+            "kserve_tpu_torch.utils.inference", "kserve_tpu_torch.protocol.dataplane",
+            "kserve_tpu_torch.protocol.model_repository_extension",
+            "kserve_tpu_torch.protocol.rest.v1_endpoints",
+            "kserve_tpu_torch.protocol.rest.v2_endpoints",
+            "kserve_tpu_torch.runtimes.artifact", "kserve_tpu_torch.runtimes.gbdt_server",
+            "kserve_tpu_torch.runtimes.sklearn_server",
+            "kserve_tpu_torch.runtimes.predictive_server",
+            "kserve_tpu_torch.runtimes.tensorize.trees",
+            "kserve_tpu_torch.runtimes.tensorize.xgb_parse",
+            "kserve_tpu_torch.runtimes.tensorize.lgb_parse",
+            "kserve_tpu_torch.runtimes.tensorize.sklearn_convert"} <= set(_port_modules())
     code = (
         "import importlib, sys\n"
         f"for name in {_port_modules()!r}:\n"
@@ -56,6 +73,7 @@ def test_import_loads_no_jax_and_no_jax_package():
 @pytest.mark.parametrize("path", sorted(PKG.rglob("*.py")) + [REPO / "chip_smoke.py"],
                          ids=lambda p: str(p.relative_to(REPO)))
 def test_source_imports_no_jax(path):
+    rel = str(path.relative_to(REPO))
     tree = ast.parse(path.read_text(), filename=str(path))
     for node in ast.walk(tree):
         if isinstance(node, ast.Import):
@@ -65,8 +83,9 @@ def test_source_imports_no_jax(path):
         else:
             continue
         for mod in mods:
-            assert mod.split(".")[0] not in FORBIDDEN_ROOTS, (
-                f"{path.relative_to(REPO)}:{node.lineno} imports {mod}")
+            root = mod.split(".")[0]
+            assert root not in FORBIDDEN_ROOTS or (rel, root) in OPTIONAL_FORBIDDEN, (
+                f"{rel}:{node.lineno} imports {mod}")
 
 
 def test_entry_points_raise_without_cuda(monkeypatch):
@@ -178,6 +197,49 @@ def test_checkpoint_server_needs_none_of_them(tmp_path):
         "tok = HFTokenizer(d)\n"
         "assert tok.encode('abab') == [2, 2] and tok.chat_template_mode == 'default'\n"
         "assert metrics.generate_latest()\n"
+    )
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_predictive_server_needs_none_of_them(tmp_path):
+    """The predictive runtimes' modules load, and an XGBoost dump and a
+    plainly pickled estimator are served on the CPU, with every package
+    the card machine lacks blocked, sklearn, joblib, pandas and ml_dtypes
+    with them."""
+    code = (
+        "import json, pickle, sys\n"
+        f"for name in {sorted(CARD_MISSING | {'sklearn', 'joblib', 'pandas', 'ml_dtypes'})!r}:\n"
+        "    sys.modules[name] = None\n"
+        "import asyncio, numpy as np\n"
+        "from kserve_tpu_torch.runtimes import predictive_server\n"
+        "from kserve_tpu_torch.utils import numpy_codec\n"
+        "from kserve_tpu_torch.protocol.rest import server\n"
+        "assert numpy_codec.to_np_dtype('BF16') is None\n"
+        f"d = {str(tmp_path)!r}\n"
+        "tree = {'left_children': [1, -1, -1], 'right_children': [2, -1, -1],\n"
+        "        'split_indices': [0, 0, 0], 'split_conditions': [0.5, 0.2, -0.1]}\n"
+        "doc = {'learner': {'learner_model_param': {'base_score': '0.5', 'num_class': '0',\n"
+        "       'num_feature': '1'}, 'objective': {'name': 'binary:logistic'},\n"
+        "       'gradient_booster': {'name': 'gbtree', 'model': {'tree_info': [0],\n"
+        "       'trees': [tree]}}}}\n"
+        "json.dump(doc, open(d + '/model.json', 'w'))\n"
+        "m = predictive_server.build_model('xgboost', 'x', d, device='cpu')\n"
+        "assert m.load()\n"
+        "p = asyncio.run(m({'instances': [[0.0], [1.0]]}))['predictions']\n"
+        "assert np.allclose(p, 1 / (1 + np.exp(-np.array([0.2, -0.1])))), p\n"
+        "class LinearRegression:\n"
+        "    pass\n"
+        "est = LinearRegression()\n"
+        "est.coef_, est.intercept_, est.n_features_in_ = np.array([2.0]), 1.0, 1\n"
+        "import os; os.makedirs(d + '/lin')\n"
+        "pickle.dump(est, open(d + '/lin/model.pkl', 'wb'))\n"
+        "sys.modules['__main__'].LinearRegression = LinearRegression\n"
+        "m = predictive_server.build_model('sklearn', 'l', d + '/lin', device='cpu')\n"
+        "assert m.load() and m._tensorized is not None\n"
+        "assert asyncio.run(m({'instances': [[3.0]]}))['predictions'] == [7.0]\n"
     )
     env = dict(os.environ, PYTHONPATH=str(REPO))
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,

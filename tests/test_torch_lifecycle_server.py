@@ -37,6 +37,7 @@ from kserve_tpu_torch.engine.tokenizer import ByteTokenizer
 from kserve_tpu_torch.metrics import SHED_REQUESTS
 from kserve_tpu_torch.model_server import ModelServer
 from kserve_tpu_torch.models import llama as tl
+from kserve_tpu_torch.model_repository import ModelRepository as PortRepository
 from kserve_tpu_torch.protocol.rest.server import MAX_HEAD_BYTES, RESTServer
 from kserve_tpu_torch.runtimes.generative_server import build_arg_parser, build_model
 
@@ -124,7 +125,7 @@ async def _port_gate(state, depth, method, path, headers):
 
     stub = SimpleNamespace(name="dummy", ready=True,
                            engine=SimpleNamespace(queue_depth=depth))
-    server = RESTServer({"dummy": stub}, "127.0.0.1", 0, lifecycle=lc,
+    server = RESTServer(PortRepository({"dummy": stub}), "127.0.0.1", 0, lifecycle=lc,
                         on_drain=on_drain,
                         shed_config=tres.ShedConfig(queue_watermark=4))
     port = await server.start()
@@ -192,7 +193,7 @@ def test_preempted_503_carries_the_checkpoint():
                            create_completion=create_completion)
 
     async def main():
-        server = RESTServer({"dummy": stub}, "127.0.0.1", 0)
+        server = RESTServer(PortRepository({"dummy": stub}), "127.0.0.1", 0)
         port = await server.start()
         out = []
         try:

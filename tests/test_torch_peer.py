@@ -512,10 +512,11 @@ def test_http_client_keeps_alive_reads_chunked_and_maps_errors():
     """The port's client against its own server (one connection for
     several requests, a 404 body) and a raw one (a chunked body, a body
     cut short), and a refused connect."""
+    from kserve_tpu_torch.model_repository import ModelRepository
     from kserve_tpu_torch.protocol.rest.server import RESTServer
 
     async def main():
-        server = RESTServer({}, host="127.0.0.1", port=0)
+        server = RESTServer(ModelRepository(), host="127.0.0.1", port=0)
         port = await server.start()
         transport = hc.SocketTransport(timeout_s=10)
         client = hc.AsyncHTTPClient(transport=transport)

@@ -341,10 +341,11 @@ def test_unreadable_body_answers_and_closes(server, head, status):
 def test_idle_connection_times_out():
     import asyncio
 
+    from kserve_tpu_torch.model_repository import ModelRepository
     from kserve_tpu_torch.protocol.rest.server import RESTServer
 
     async def run():
-        rest = RESTServer({}, host="127.0.0.1", port=0, idle_timeout=0.2)
+        rest = RESTServer(ModelRepository(), host="127.0.0.1", port=0, idle_timeout=0.2)
         port = await rest.start()
         try:
             reader, writer = await asyncio.open_connection("127.0.0.1", port)
@@ -358,7 +359,7 @@ def test_idle_connection_times_out():
         finally:
             await rest.stop()
         # an idle kept-alive connection does not hold up stop()
-        rest = RESTServer({}, host="127.0.0.1", port=0, idle_timeout=600)
+        rest = RESTServer(ModelRepository(), host="127.0.0.1", port=0, idle_timeout=600)
         port = await rest.start()
         reader, idle = await asyncio.open_connection("127.0.0.1", port)
         idle.write(b"GET /v2/health/live HTTP/1.1\r\n\r\n")
