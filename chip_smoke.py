@@ -182,6 +182,34 @@ Phases, each printing JSON lines:
            float64, the SVC's decisions within 1e-4; both within 1e-6 of
            the CPU); then v2/infer p50 / p99 (binary form, 200
            requests per framework and batch, 50 for the softprob dump)
+  encoder  the BERT encoder runtime at BERT-base (768 wide, 12 layers, 12
+           heads, vocabulary 30,522, 512 positions; ~110 M parameters,
+           f32, TF32 off) from seeded random weights on cuda, served in
+           this process: embeddings of 1, 8 and 32 texts of ~16, ~128 and
+           ~500 tokens in float and base64 form (p50 / p99 of 30 requests
+           each), a rerank of one query over 32 documents, classification
+           and fill-mask over V1 and V2, each held to the same weights on
+           the CPU (hidden states 1e-4, embeddings 1e-5, scores 1e-4;
+           labels, order and argmax equal wherever the CPU's top-2 margin
+           exceeds 1e-4, the rows under it counted); then the same weights
+           written as a BERT safetensors checkpoint with a WordPiece
+           tokenizer.json of the full vocabulary and served with
+           --model_dir (parameters bit-equal to the draw, WordPiece ids,
+           embeddings against the CPU); TF32 turned on for one batch must
+           fail the embedding gate (build/encoder_smoke, removed after)
+  graph    an InferenceGraph (BASELINE config 5): `python -m
+           kserve_tpu_torch.graph.router` in a process of its own, a
+           Switch in front of (a) a tokenizer-transformer Model that turns
+           {"instances": [text]} into a completion body of token ids and
+           the Llama-3-8B server's /openai/v1/completions ($response),
+           held token for token (a tokenizer.json whose ids all decode
+           apart) to the same completion sent directly, (b) a BERT-base
+           encoder; transformers with a predictor_host forward V1 and V2
+           to it and answer as the direct calls do; the ms each hop adds
+           (router, forwarding; pairs alternating); a dead step answers
+           502 naming it, then the breaker's instant 503 "circuit open";
+           x-request-deadline 0 answers 504 before any call, echoing
+           x-request-id
 The line before the last is {"kernels": [...]}, the last is
 {"ok": true, "device": {...}}.  Any failure raises and exits non-zero;
 nothing falls back to the CPU or to the plain versions.
@@ -1125,6 +1153,8 @@ def main(argv=None) -> int:
     counts.update(phase_pd(torch))
     counts.update(phase_peer(torch))
     phases["predictive"](torch)
+    phase_encoder(torch)
+    phase_graph(torch)
     for name, row in rows.items():
         phase, key = KERNEL_PATH[name]
         row["launches"] = counts[phase].get(key, 0)
@@ -5929,6 +5959,648 @@ def phase_predictive(torch, seed: int = 0) -> dict:
     return latency
 
 
+# ---------------------------------------------------------------- encoder
+
+ENCODER_DIR = os.path.join(REPO, "build", "encoder_smoke")
+# served answers against the port on the CPU with the same weights (f32
+# both; the card's GEMMs sum in another order): hidden states, then the
+# unit-norm embeddings, then the classifier and MLM logits
+HIDDEN_TOL = 1e-4
+EMB_TOL = 1e-5
+LOGIT_TOL = 1e-4
+# labels, rerank order and fill-mask argmax must be equal wherever the
+# CPU's top-2 margin exceeds this; the rows under it are counted
+MARGIN = 1e-4
+ENCODER_BATCHES = (1, 8, 32)
+# (name, text length in bytes): the byte tokenizer gives one token a byte,
+# so buckets 16, 128 and 512
+ENCODER_LENGTHS = (("~16", 12, 16), ("~128", 100, 128), ("~500", 470, 500))
+ENCODER_TIMED = 30
+RERANK_DOCS = 32
+ENCODER_WORDS = (
+    "the port of a serving stack from one accelerator to another keeps its "
+    "answers while the kernels change underneath search engines embed every "
+    "document once and every query at request time rerankers score each pair "
+    "of query and passage classifiers label reviews tickets and messages the "
+    "masked model fills a blank in a sentence token by token across languages "
+    "café naïve résumé straße").split()
+
+
+def _encoder_text(rng, lo: int, hi: int) -> str:
+    """ASCII words from ENCODER_WORDS, `lo`..`hi` bytes long."""
+    n = rng.randint(lo, hi)
+    words = []
+    while len(" ".join(words).encode()) < n:
+        words.append(rng.choice(ENCODER_WORDS))
+    return " ".join(words).encode()[:n].decode("utf-8", errors="ignore").rstrip()
+
+
+def _write_bert_tokenizer(model_dir: str, vocab_size: int) -> dict:
+    """A WordPiece tokenizer.json in bert-base-uncased's form over
+    `vocab_size` ids: [PAD], [unused*], [UNK] 100, [CLS] 101, [SEP] 102,
+    [MASK] 103, single characters, ENCODER_WORDS, `##` pieces, filler
+    words; BertNormalizer, BertPreTokenizer, the WordPiece decoder and the
+    [CLS] / [SEP] template (which encoding does not apply)."""
+    tokens = ["[PAD]"] + [f"[unused{i}]" for i in range(99)]
+    tokens += ["[UNK]", "[CLS]", "[SEP]", "[MASK]"]
+    tokens += [f"[unused{i}]" for i in range(99, 994)]
+    chars = [chr(c) for c in range(33, 127) if not chr(c).isupper()] + list("éïüßàç")
+    tokens += chars
+    for w in sorted({w.lower() for w in ENCODER_WORDS}):
+        if w not in tokens:
+            tokens.append(w)
+    tokens += ["##" + c for c in chars] + ["##s", "##ing", "##ed", "##ly", "##er"]
+    tokens += [f"filler{i}" for i in range(vocab_size - len(tokens))]
+    vocab = {t: i for i, t in enumerate(tokens)}
+    special = ["[PAD]", "[UNK]", "[CLS]", "[SEP]", "[MASK]"]
+    data = {
+        "version": "1.0", "truncation": None, "padding": None,
+        "added_tokens": [{"id": vocab[t], "content": t, "single_word": False,
+                          "lstrip": False, "rstrip": False, "normalized": False,
+                          "special": True} for t in special],
+        "normalizer": {"type": "BertNormalizer", "clean_text": True,
+                       "handle_chinese_chars": True, "strip_accents": None,
+                       "lowercase": True},
+        "pre_tokenizer": {"type": "BertPreTokenizer"},
+        "post_processor": {
+            "type": "TemplateProcessing",
+            "single": [{"SpecialToken": {"id": "[CLS]", "type_id": 0}},
+                       {"Sequence": {"id": "A", "type_id": 0}},
+                       {"SpecialToken": {"id": "[SEP]", "type_id": 0}}],
+            "pair": [{"Sequence": {"id": "A", "type_id": 0}},
+                     {"Sequence": {"id": "B", "type_id": 1}}],
+            "special_tokens": {t: {"id": t, "ids": [vocab[t]], "tokens": [t]}
+                               for t in ("[CLS]", "[SEP]")}},
+        "decoder": {"type": "WordPiece", "prefix": "##", "cleanup": True},
+        "model": {"type": "WordPiece", "unk_token": "[UNK]",
+                  "continuing_subword_prefix": "##", "max_input_chars_per_word": 100,
+                  "vocab": vocab},
+    }
+    with open(os.path.join(model_dir, "tokenizer.json"), "w", encoding="utf-8") as f:
+        json.dump(data, f, ensure_ascii=False)
+    with open(os.path.join(model_dir, "tokenizer_config.json"), "w") as f:
+        json.dump({"do_lower_case": True, "cls_token": "[CLS]", "sep_token": "[SEP]",
+                   "unk_token": "[UNK]", "mask_token": "[MASK]"}, f)
+    return vocab
+
+
+def _write_bert_checkpoint(torch, params, cfg, model_dir: str) -> dict:
+    """config.json, model.safetensors (HF names, `bert.` prefix) and a
+    WordPiece tokenizer.json of the full vocabulary; returns what was
+    written."""
+    from kserve_tpu_torch.models import bert
+    from kserve_tpu_torch.models.safetensors_io import save_file
+
+    os.makedirs(model_dir, exist_ok=True)
+    with open(os.path.join(model_dir, "config.json"), "w") as f:
+        json.dump({"architectures": ["BertForMaskedLM"], "model_type": "bert",
+                   "vocab_size": cfg.vocab_size, "hidden_size": cfg.hidden_size,
+                   "num_hidden_layers": cfg.num_hidden_layers,
+                   "num_attention_heads": cfg.num_attention_heads,
+                   "intermediate_size": cfg.intermediate_size,
+                   "max_position_embeddings": cfg.max_position_embeddings,
+                   "type_vocab_size": cfg.type_vocab_size,
+                   "layer_norm_eps": cfg.layer_norm_eps, "hidden_act": "gelu"}, f)
+    tensors = bert.hf_tensors(params)
+    path = os.path.join(model_dir, "model.safetensors")
+    t0 = time.perf_counter()
+    save_file(tensors, path)
+    vocab = _write_bert_tokenizer(model_dir, cfg.vocab_size)
+    return {"tensors": len(tensors), "bytes": os.path.getsize(path),
+            "write_s": time.perf_counter() - t0, "vocab": len(vocab)}
+
+
+def _serve_models(models, phase: str):
+    """A ModelServer over already-loaded `models` in a thread, listening on
+    a free port and ready; returns (server, thread)."""
+    import threading
+
+    from kserve_tpu_torch.model_server import ModelServer
+
+    server = ModelServer(http_port=0, host="127.0.0.1")
+    errors = []
+
+    def run():
+        try:
+            server.start(models)
+        except BaseException as e:  # noqa: BLE001 — re-raised in the main thread
+            errors.append(e)
+            server.listening.set()
+
+    thread = threading.Thread(target=run, name=f"{phase}-server", daemon=True)
+    thread.start()
+    server.listening.wait(300)
+    if errors:
+        raise errors[0]
+    if not server.listening.is_set():
+        raise TimeoutError(f"{phase} server did not start listening")
+    status, _ = _http(server.port, "GET", "/v2/health/ready")
+    if status != 200:
+        raise AssertionError(f"{phase}: ready probe answered {status}")
+    return server, thread
+
+
+def _stop_models(server, thread) -> None:
+    server.request_stop()
+    thread.join(120)
+    if thread.is_alive():
+        raise RuntimeError("model server thread did not stop")
+
+
+def _post_json(client, path: str, body) -> dict:
+    status, _, raw = client.post(path, json.dumps(body).encode(),
+                                 {"Content-Type": "application/json"})
+    if status != 200:
+        raise AssertionError(f"{path} answered {status}: {raw[:300]!r}")
+    return json.loads(raw)
+
+
+def _pct(values, q: float) -> float:
+    vals = sorted(values)
+    return vals[min(len(vals) - 1, int(round(q * (len(vals) - 1))))]
+
+
+def _vectors(np, body: dict):
+    """The embeddings of a response, float or base64, as [n, d] f32."""
+    import base64
+
+    rows = []
+    for item in body["data"]:
+        e = item["embedding"]
+        rows.append(np.frombuffer(base64.b64decode(e), np.float32) if isinstance(e, str)
+                    else np.asarray(e, np.float32))
+    return np.stack(rows)
+
+
+def _margins(np, logits):
+    """The top-2 margin along the last axis."""
+    top2 = np.sort(logits, axis=-1)[..., -2:]
+    return top2[..., 1] - top2[..., 0]
+
+
+def _labels_check(np, name: str, served, cpu_logits) -> dict:
+    """Served argmax against the CPU's, wherever the CPU's top-2 margin
+    exceeds MARGIN; the rows under it are counted."""
+    served = np.asarray(served)
+    want = cpu_logits.argmax(-1)
+    clear = _margins(np, cpu_logits) > MARGIN
+    bad = int(((served != want) & clear).sum())
+    if served.shape != want.shape or bad:
+        raise AssertionError(f"encoder {name}: {bad} labels differ from the CPU's "
+                             f"beyond the margin (shapes {served.shape} {want.shape})")
+    return {"rows": int(want.size), "under_margin": int((~clear).sum()),
+            "equal": int((served == want).sum())}
+
+
+def phase_encoder(torch) -> None:
+    """The encoder runtime at BERT-base (768 wide, 12 layers, 12 heads,
+    vocabulary 30,522, 512 positions; ~110 M parameters, f32) from seeded
+    random weights on cuda, held to the same model on the CPU."""
+    import asyncio
+    import random
+
+    import numpy as np
+
+    from kserve_tpu_torch.models import bert
+    from kserve_tpu_torch.runtimes.encoder_server import TorchEncoderModel
+
+    t_phase = time.perf_counter()
+    if torch.backends.cuda.matmul.allow_tf32 or torch.get_float32_matmul_precision() != "highest":
+        raise AssertionError("encoder: TF32 is on; the f32 gates assume it off")
+    cfg = bert.BertConfig()
+    gpu = TorchEncoderModel("bert", config=cfg, task="classification",
+                            random_weights=True, device="cuda")
+    gpu.load()
+    cpu = TorchEncoderModel("bert", config=cfg, task="classification",
+                            random_weights=True, device="cpu")
+    cpu.load()
+    leaves = list(zip(bert.hf_tensors(gpu.params).items(), bert.hf_tensors(cpu.params).values()))
+    n_params = sum(t.numel() for (_, t), _ in leaves)
+    if not all(torch.equal(g, c) for (_, g), c in leaves):
+        raise AssertionError("encoder: the seeded draw differs between cuda and the CPU")
+    mlm = TorchEncoderModel("bert-mlm", config=cfg, task="fill_mask", device="cuda")
+    mlm.tokenizer, mlm.params, mlm.ready = gpu.tokenizer, gpu.params, True
+    # the checkpoint leg: the same draw written as a BERT checkpoint with a
+    # WordPiece tokenizer.json, loaded back bit-equal
+    written = _write_bert_checkpoint(torch, cpu.params, cfg, ENCODER_DIR)
+    t0 = time.perf_counter()
+    ckpt = TorchEncoderModel("bert-ckpt", model_dir=ENCODER_DIR, device="cuda")
+    ckpt.load()
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    if ckpt.config != cfg or not all(
+            torch.equal(a.cpu(), b) for a, b in zip(
+                bert.hf_tensors(ckpt.params).values(), bert.hf_tensors(cpu.params).values())):
+        raise AssertionError("encoder: checkpoint parameters differ from the draw")
+    cpu_ckpt = TorchEncoderModel("bert-ckpt", model_dir=ENCODER_DIR, device="cpu")
+    cpu_ckpt.load()
+    server, thread = _serve_models([gpu, mlm, ckpt], "encoder")
+    client = _Client(server.port)
+    rng = random.Random(0)
+    out = {"phase": "encoder", "parameters": n_params,
+           "weights_gb": n_params * 4 / 1e9, "checkpoint": dict(written, load_s=load_s)}
+    try:
+        # hidden states, cuda against the CPU, one batch of 8 x 128
+        ids, mask, types = cpu._batch_encode([_encoder_text(rng, 100, 128) for _ in range(8)])
+        with torch.inference_mode():
+            h_gpu = bert.encode(gpu.params, cfg, *(torch.tensor(a).cuda() for a in (ids, mask, types))).cpu()
+            h_cpu = bert.encode(cpu.params, cfg, *(torch.tensor(a) for a in (ids, mask, types)))
+        hidden_err = float((h_gpu - h_cpu).abs().max())
+        if not hidden_err <= HIDDEN_TOL:
+            raise AssertionError(f"encoder: hidden states {hidden_err:.3g} from the CPU's")
+        out["hidden_max_abs_err"] = hidden_err
+        # embeddings: every batch x length, float and base64, then timed
+        emb, latency, cpu_s = {}, {}, 0.0
+        for B in ENCODER_BATCHES:
+            for label, lo, hi in ENCODER_LENGTHS:
+                texts = [_encoder_text(rng, lo, hi) for _ in range(B)]
+                t0 = time.perf_counter()
+                want = _vectors(np, asyncio.run(cpu.create_embedding(_emb_req(texts, "float"))).to_dict())
+                cpu_s += time.perf_counter() - t0
+                errs = []
+                for fmt in ("float", "base64"):
+                    body = _post_json(client, "/openai/v1/embeddings",
+                                      {"model": "bert", "input": texts, "encoding_format": fmt})
+                    got = _vectors(np, body)
+                    if got.shape != (B, cfg.hidden_size) or not np.isfinite(got).all():
+                        raise AssertionError(f"encoder: embeddings {got.shape}")
+                    errs.append(float(np.abs(got - want).max()))
+                if max(errs) > EMB_TOL:
+                    raise AssertionError(f"encoder: embeddings {B} x {label} {errs} "
+                                         f"from the CPU's (gate {EMB_TOL})")
+                dims = cfg.hidden_size // 12
+                cut = _post_json(client, "/openai/v1/embeddings",
+                                 {"model": "bert", "input": texts[:1], "dimensions": dims})
+                if len(cut["data"][0]["embedding"]) != dims:
+                    raise AssertionError("encoder: dimensions not applied")
+                body = {"model": "bert", "input": texts, "encoding_format": "base64"}
+                walls = []
+                for _ in range(ENCODER_TIMED):
+                    t0 = time.perf_counter()
+                    _post_json(client, "/openai/v1/embeddings", body)
+                    walls.append((time.perf_counter() - t0) * 1e3)
+                key = f"{B}x{label}"
+                emb[key] = {"max_abs_err": max(errs), "tokens": int(cpu._batch_encode(texts)[1].sum())}
+                latency[key] = {"p50_ms": _pct(walls, 0.5), "p99_ms": _pct(walls, 0.99),
+                                "min_ms": min(walls)}
+        out.update(embeddings=emb, embeddings_ms=latency, cpu_reference_s=cpu_s)
+        # rerank: one query over 32 documents
+        query = _encoder_text(rng, 30, 40)
+        docs = [_encoder_text(rng, 40, 120) for _ in range(RERANK_DOCS)]
+        served = _post_json(client, "/openai/v1/rerank",
+                            {"model": "bert", "query": query, "documents": docs})
+        ids, mask, types = cpu._batch_encode([query] * RERANK_DOCS, docs)
+        with torch.inference_mode():
+            scores = bert.classify(cpu.params, cfg, *(torch.tensor(a) for a in (ids, mask, types)))[:, -1].numpy()
+        order = [r["index"] for r in served["results"]]
+        score_err = max(abs(r["relevance_score"] - float(scores[r["index"]]))
+                        for r in served["results"])
+        inversions = sum(scores[order[i]] < scores[order[j]] - MARGIN
+                         for i in range(len(order)) for j in range(i + 1, len(order)))
+        close = int(sum(abs(scores[order[i]] - scores[order[i + 1]]) <= MARGIN
+                        for i in range(len(order) - 1)))
+        if sorted(order) != list(range(RERANK_DOCS)) or inversions or score_err > LOGIT_TOL:
+            raise AssertionError(f"encoder rerank: {inversions} inversions beyond the "
+                                 f"margin, scores {score_err:.3g} from the CPU's")
+        top = _post_json(client, "/openai/v1/rerank", {
+            "model": "bert", "query": query, "documents": docs, "top_n": 5,
+            "return_documents": False})
+        if [r["index"] for r in top["results"]] != order[:5] or "document" in top["results"][0]:
+            raise AssertionError("encoder rerank: top_n / return_documents")
+        out["rerank"] = {"documents": RERANK_DOCS, "score_max_abs_err": score_err,
+                         "adjacent_under_margin": close, "equal_order": order == list(
+                             np.argsort(-scores))}
+        # classification and fill-mask over V1 and V2
+        texts = [_encoder_text(rng, 20, 120) for _ in range(8)]
+        ids, mask, types = cpu._batch_encode(texts)
+        with torch.inference_mode():
+            t = [torch.tensor(a) for a in (ids, mask, types)]
+            cls_logits = bert.classify(cpu.params, cfg, *t).numpy()
+            mlm_logits = bert.fill_mask_logits(cpu.params, cfg, t[0], t[1]).numpy()
+        v2 = {"id": "s", "inputs": [{"name": "text", "shape": [len(texts)],
+                                     "datatype": "BYTES", "data": texts}]}
+        checks = {}
+        for model, logits in (("bert", cls_logits), ("bert-mlm", mlm_logits)):
+            v1 = _post_json(client, f"/v1/models/{model}:predict", {"instances": texts})
+            checks[f"{model}_v1"] = _labels_check(np, model, v1["predictions"], logits)
+            got = _post_json(client, f"/v2/models/{model}/infer", v2)["outputs"][0]
+            checks[f"{model}_v2"] = _labels_check(
+                np, model, np.asarray(got["data"]).reshape(got["shape"]), logits)
+        out["predict"] = checks
+        out["classify_logit_margin_min"] = float(_margins(np, cls_logits).min())
+        # the checkpoint's WordPiece path: ids and embeddings
+        texts = [" ".join(rng.choice(ENCODER_WORDS) for _ in range(12)).capitalize() + "!"
+                 for _ in range(4)]
+        wp_ids = ckpt.tokenizer.encode(texts[0], add_bos=False)
+        unk = ckpt.tokenizer._tok.token_to_id("[UNK]")
+        if unk in wp_ids or min(wp_ids) < 999:
+            raise AssertionError(f"encoder: WordPiece ids {wp_ids}")
+        got = _vectors(np, _post_json(client, "/openai/v1/embeddings",
+                                      {"model": "bert-ckpt", "input": texts}))
+        want = _vectors(np, asyncio.run(
+            cpu_ckpt.create_embedding(_emb_req(texts, "float"))).to_dict())
+        ckpt_err = float(np.abs(got - want).max())
+        if ckpt_err > EMB_TOL:
+            raise AssertionError(f"encoder checkpoint: embeddings {ckpt_err:.3g} off")
+        out["checkpoint"].update(wordpiece_ids=wp_ids[:8], embeddings_max_abs_err=ckpt_err)
+        status, raw = _http(server.port, "POST", "/openai/v1/completions",
+                            {"model": "bert", "prompt": "x"})
+        if status != 400 or b"does not support this endpoint" not in raw:
+            raise AssertionError(f"encoder: completions on an encoder answered {status}")
+        # TF32, reported and shown caught: the same embeddings with TF32 on
+        ids, mask, _ = cpu._batch_encode(texts)
+        want = bert.embed(cpu.params, cfg, torch.tensor(ids), torch.tensor(mask)).numpy()
+        torch.backends.cuda.matmul.allow_tf32 = True
+        try:
+            with torch.inference_mode():
+                tf32 = bert.embed(gpu.params, cfg, torch.tensor(ids).cuda(),
+                                  torch.tensor(mask).cuda()).cpu().numpy()
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = False
+        tf32_err = float(np.abs(tf32 - want).max())
+        if tf32_err <= EMB_TOL:
+            raise AssertionError(f"encoder: TF32 embeddings {tf32_err:.3g} pass the gate")
+        out["tf32_embeddings_max_abs_err"] = tf32_err
+    finally:
+        client.close()
+        _stop_models(server, thread)
+        import shutil
+
+        shutil.rmtree(ENCODER_DIR, ignore_errors=True)
+    out["memory_allocated_gb"] = torch.cuda.memory_allocated() / 1e9
+    out["phase_wall_s"] = time.perf_counter() - t_phase
+    emit(out)
+    del gpu, mlm, ckpt
+    torch.cuda.empty_cache()
+
+
+def _emb_req(texts, fmt: str):
+    from kserve_tpu_torch.protocol.openai.types import EmbeddingRequest
+
+    return EmbeddingRequest(model="bert", input=list(texts), encoding_format=fmt)
+
+
+# ---------------------------------------------------------------- graph
+
+GRAPH_DIR = os.path.join(REPO, "build", "graph_smoke")
+GRAPH_PROMPTS = [("short", "Tell me about the sea.", 32),
+                 ("medium", BASE_TEXT * 6, 32),
+                 ("long", (BASE_TEXT * 20)[:999], 16)]
+GRAPH_TIMED = 30
+GRAPH_DEAD_TRIES = 8
+
+
+def _timed_posts(port: int, path: str, body, n: int):
+    """(answers, ms per request) of `n` POSTs on one kept-alive connection."""
+    client = _Client(port)
+    answers, walls = [], []
+    try:
+        for _ in range(n):
+            t0 = time.perf_counter()
+            status, _, raw = client.post(path, json.dumps(body).encode(),
+                                         {"Content-Type": "application/json"})
+            walls.append((time.perf_counter() - t0) * 1e3)
+            if status != 200:
+                raise AssertionError(f"{path} answered {status}: {raw[:300]!r}")
+            answers.append(json.loads(raw))
+    finally:
+        client.close()
+    return answers, walls
+
+
+def _paired_posts(direct, via, body, n: int):
+    """`n` pairs of POSTs of `body`, alternating which of `direct` and `via`
+    ((port, path) each, one kept-alive connection each) goes first; returns
+    (first direct answer, first via answer, direct ms, via ms, via - direct
+    ms per pair)."""
+    clients = [_Client(direct[0]), _Client(via[0])]
+    raw = json.dumps(body).encode()
+    walls, answers = ([], []), ([], [])
+    try:
+        for i in range(n):
+            for k in ((0, 1) if i % 2 == 0 else (1, 0)):
+                path = (direct, via)[k][1]
+                t0 = time.perf_counter()
+                status, _, out = clients[k].post(path, raw, {"Content-Type": "application/json"})
+                walls[k].append((time.perf_counter() - t0) * 1e3)
+                if status != 200:
+                    raise AssertionError(f"{path} answered {status}: {out[:300]!r}")
+                answers[k].append(json.loads(out))
+    finally:
+        for c in clients:
+            c.close()
+    if any(a != answers[0][0] for a in answers[0]) or any(a != answers[1][0] for a in answers[1]):
+        raise AssertionError(f"{direct[1]}: repeated requests answered differently")
+    return (answers[0][0], answers[1][0], walls[0], walls[1],
+            [b - a for a, b in zip(*walls)])
+
+
+class _RouterProcess:
+    """`python -m kserve_tpu_torch.graph.router` over `spec`, its log in a
+    file under build/."""
+
+    def __init__(self, spec: dict, log_path: str):
+        self.port = _free_port()
+        self.log_path = log_path
+        self._log = open(log_path, "w")
+        self.proc = subprocess.Popen(
+            [sys.executable, "-m", "kserve_tpu_torch.graph.router",
+             "--graph-json", json.dumps(spec), f"--port={self.port}", "--timeout=120"],
+            cwd=REPO, stdout=self._log, stderr=subprocess.STDOUT)
+
+    def wait_ready(self, timeout: float = 120.0) -> float:
+        t0 = time.perf_counter()
+        while time.perf_counter() - t0 < timeout:
+            if self.proc.poll() is not None:
+                with open(self.log_path) as f:
+                    raise AssertionError(f"router exited {self.proc.returncode}: "
+                                         f"{f.read()[-3000:]}")
+            try:
+                if _http(self.port, "GET", "/healthz", timeout=5)[0] == 200:
+                    return time.perf_counter() - t0
+            except OSError:
+                pass
+            time.sleep(0.05)
+        raise AssertionError(f"router not ready in {timeout} s")
+
+    def stop(self) -> None:
+        import signal
+
+        if self.proc.poll() is None:
+            self.proc.send_signal(signal.SIGTERM)
+            try:
+                self.proc.wait(30)
+            except subprocess.TimeoutExpired:
+                self.proc.kill()
+                self.proc.wait(30)
+        self._log.close()
+
+
+def phase_graph(torch) -> None:
+    """An InferenceGraph (BASELINE config 5): the graph router in front of
+    a tokenizer-transformer and the Llama-3-8B server, plus transformers
+    forwarding V1 and V2 to a BERT-base encoder server."""
+    import numpy as np
+
+    from kserve_tpu_torch.engine.tokenizer import load_tokenizer
+    from kserve_tpu_torch.model import Model, PredictorConfig
+    from kserve_tpu_torch.models import bert
+    from kserve_tpu_torch.runtimes.encoder_server import TorchEncoderModel
+
+    t_phase = time.perf_counter()
+    os.makedirs(GRAPH_DIR, exist_ok=True)
+    mc, params = _llama3_8b_params(torch)
+    # every id decodes to its own text: equal completion texts are equal
+    # token ids
+    _write_mixtral_tokenizer(GRAPH_DIR, mc.vocab_size)
+    tok = load_tokenizer(GRAPH_DIR, mc.vocab_size)
+
+    class TokenizerTransformer(Model):
+        """{"instances": [text], "max_tokens": n} -> the generative
+        server's completion body of the text's token ids (greedy)."""
+
+        def __init__(self, model_name: str):
+            super().__init__("tokenize")
+            self.model_name = model_name
+            self.calls = 0
+
+        async def predict(self, payload, headers=None):
+            self.calls += 1
+            return {"model": self.model_name, "prompt": tok.encode(payload["instances"][0]),
+                    "max_tokens": payload.get("max_tokens", 16), "temperature": 0,
+                    "ignore_eos": True}
+
+    llama, l_srv, l_thread = _start_server(
+        torch, SERVE_ARGS + [f"--model_dir={GRAPH_DIR}"], "graph", load=lambda: params)
+    enc = TorchEncoderModel("bert", config=bert.BertConfig(), task="classification",
+                            random_weights=True, device="cuda")
+    enc.load()
+    enc2 = TorchEncoderModel("bert2", config=enc.config, task="classification",
+                             device="cuda")
+    enc2.tokenizer, enc2.params, enc2.ready = enc.tokenizer, enc.params, True
+    servers = [_serve_models([enc, enc2], "graph")]
+    host = f"127.0.0.1:{servers[0][0].port}"
+    transformer = TokenizerTransformer(llama.name)
+    forwarders = [Model(name, PredictorConfig(predictor_host=host, predictor_protocol=proto))
+                  for name, proto in (("bert", "v1"), ("bert2", "v2"))]
+    for m in (transformer, *forwarders):
+        m.load()
+    servers.append(_serve_models([transformer, *forwarders], "graph"))
+    e_port, t_port = servers[0][0].port, servers[1][0].port
+    dead_port = _free_port()
+    step = {"tokenize": f"http://127.0.0.1:{t_port}/v1/models/tokenize:predict",
+            "generate": f"http://127.0.0.1:{l_srv.port}/openai/v1/completions",
+            "classify": f"http://127.0.0.1:{e_port}/v1/models/bert:predict",
+            "dead-step": f"http://127.0.0.1:{dead_port}/v1/models/x:predict"}
+    spec = {"nodes": {
+        "root": {"routerType": "Switch", "steps": [
+            {"condition": "route==generate", "nodeName": "pipeline"},
+            {"condition": "route==classify", "nodeName": "classify"},
+            {"condition": "route==tokenize", "nodeName": "tokenize"},
+            {"condition": "route==dead", "nodeName": "dead"}]},
+        "pipeline": {"routerType": "Sequence", "steps": [
+            {"serviceUrl": step["tokenize"], "name": "tokenize"},
+            {"serviceUrl": step["generate"], "name": "generate", "data": "$response"}]},
+        "classify": {"routerType": "Sequence", "steps": [
+            {"serviceUrl": step["classify"], "name": "classify"}]},
+        "tokenize": {"routerType": "Sequence", "steps": [
+            {"serviceUrl": step["tokenize"], "name": "tokenize"}]},
+        "dead": {"routerType": "Sequence", "steps": [
+            {"serviceUrl": step["dead-step"], "name": "dead-step"}]}}}
+    router = _RouterProcess(spec, os.path.join(GRAPH_DIR, "router.log"))
+    out = {"phase": "graph", "model": f"{llama.name} (random weights, seed 1, bf16)"}
+    try:
+        out["router_ready_s"] = router.wait_ready()
+        # the pipeline: text -> tokenizer-transformer -> completions, token
+        # for token the direct completion of the same text.  A first direct
+        # call caches the prompt's full pages, so that the two compared
+        # calls take one numeric path (a prefix hit); a cold and a hit
+        # prefill differ in bf16 rounding, which random weights amplify
+        pipeline = {}
+        for label, text, n in GRAPH_PROMPTS:
+            body = {"model": llama.name, "prompt": text, "max_tokens": n,
+                    "temperature": 0, "ignore_eos": True}
+            _timed_posts(l_srv.port, "/openai/v1/completions", body, 1)
+            (via,), via_ms = _timed_posts(router.port, "/", {
+                "route": "generate", "instances": [text], "max_tokens": n}, 1)
+            (direct,), direct_ms = _timed_posts(l_srv.port, "/openai/v1/completions",
+                                                body, 1)
+            if (via["choices"][0]["text"] != direct["choices"][0]["text"]
+                    or via["usage"] != direct["usage"]
+                    or direct["usage"]["completion_tokens"] != n):
+                raise AssertionError(f"graph {label}: through the graph "
+                                     f"{via['usage']} {via['choices'][0]['text'][:80]!r}, "
+                                     f"direct {direct['usage']} "
+                                     f"{direct['choices'][0]['text'][:80]!r}")
+            pipeline[label] = {"prompt_tokens": direct["usage"]["prompt_tokens"],
+                               "completion_tokens": n, "via_graph_ms": via_ms[0],
+                               "direct_ms": direct_ms[0]}
+        out["pipeline"] = pipeline
+        # forwarding: a transformer with predictor_host, V1 and V2, against
+        # the encoder called directly; the router's hop to the encoder and
+        # to the (cheap) tokenizer-transformer; requests alternate in pairs
+        texts = ["a fine review of the port", "the worst kernel", "tokens per second"]
+        v2 = {"id": "g", "inputs": [{"name": "text", "shape": [3], "datatype": "BYTES",
+                                     "data": texts}]}
+        v1_path, v2_path = "/v1/models/bert:predict", "/v2/models/bert2/infer"
+        hops = {}
+        for name, direct, via, body in (
+                ("forward_v1", (e_port, v1_path), (t_port, v1_path), {"instances": texts}),
+                ("forward_v2", (e_port, v2_path), (t_port, v2_path), v2),
+                ("router_classify", (e_port, v1_path), (router.port, "/"),
+                 {"route": "classify", "instances": texts}),
+                ("router_tokenize", (t_port, "/v1/models/tokenize:predict"),
+                 (router.port, "/"), {"route": "tokenize", "instances": [texts[0]]})):
+            want, got, d_ms, v_ms, added = _paired_posts(direct, via, body, GRAPH_TIMED)
+            if name == "forward_v2":
+                want = [o["data"] for o in want["outputs"]]
+                got = [o["data"] for o in got["outputs"]]
+            if got != want:
+                raise AssertionError(f"graph {name}: {got} != direct {want}")
+            hops[name] = {"direct_p50_ms": _pct(d_ms, 0.5), "via_p50_ms": _pct(v_ms, 0.5),
+                          "via_p99_ms": _pct(v_ms, 0.99),
+                          "added_ms_per_hop_p50": _pct(added, 0.5)}
+        out["hops"] = hops
+        # faults: a dead step 502 naming it, then the breaker's instant 503
+        seen = []
+        for _ in range(GRAPH_DEAD_TRIES):
+            t0 = time.perf_counter()
+            status, raw = _http(router.port, "POST", "/", {"route": "dead"})
+            seen.append((status, (time.perf_counter() - t0) * 1e3,
+                         json.loads(raw).get("error", "")))
+        if seen[0][0] != 502 or "dead-step" not in seen[0][2]:
+            raise AssertionError(f"graph: a dead step answered {seen[0]}")
+        opened = [s for s in seen if s[0] == 503 and "circuit open" in s[2]]
+        if not opened or seen[-1][0] != 503:
+            raise AssertionError(f"graph: the breaker never opened: {seen}")
+        # an expired deadline: 504 before any step is called
+        calls = transformer.calls
+        status, headers, raw = _http_h(router.port, "POST", "/", {
+            "route": "generate", "instances": ["never sent"]},
+            headers={"x-request-id": "graph-rid", "x-request-deadline": "0"})
+        if (status != 504 or headers.get("x-request-id") != "graph-rid"
+                or transformer.calls != calls):
+            raise AssertionError(f"graph: an expired deadline answered {status} "
+                                 f"{raw[:200]!r}, {transformer.calls - calls} calls")
+        out["faults"] = {"statuses": [s[0] for s in seen],
+                         "first_502": seen[0][2][:120],
+                         "open_503_ms": [s[1] for s in opened],
+                         "deadline_504": json.loads(raw)["error"]}
+        out["memory_allocated_gb"] = torch.cuda.memory_allocated() / 1e9
+    finally:
+        router.stop()
+        for srv, thread in servers:
+            _stop_models(srv, thread)
+        _stop_server(torch, llama, l_srv, l_thread)
+        import shutil
+
+        shutil.rmtree(GRAPH_DIR, ignore_errors=True)
+    out["phase_wall_s"] = time.perf_counter() - t_phase
+    emit(out)
+    del params, enc, enc2
+    torch.cuda.empty_cache()
+
+
 # the served phases --only can run alone
 SERVED_PHASES = {"serve": phase_serve, "d64": phase_d64, "spec": phase_spec,
                  "kvq": phase_kvq, "gemma2": phase_gemma2,
@@ -5937,7 +6609,8 @@ SERVED_PHASES = {"serve": phase_serve, "d64": phase_d64, "spec": phase_spec,
                  "lifecycle": phase_lifecycle, "lora": phase_lora,
                  "wq": phase_wq, "checkpoint": phase_checkpoint,
                  "moe": phase_moe, "pd": phase_pd, "peer": phase_peer,
-                 "predictive": phase_predictive}
+                 "predictive": phase_predictive, "encoder": phase_encoder,
+                 "graph": phase_graph}
 
 if __name__ == "__main__":
     sys.exit(main())

@@ -2,21 +2,25 @@
 (the card machine has neither `tokenizers` nor `regex`).
 
 It runs what `tokenizers.Tokenizer.encode(text, add_special_tokens=False)`
-and `.decode(ids, skip_special_tokens=True)` run for BPE tokenizers:
+and `.decode(ids, skip_special_tokens=True)` run for BPE and WordPiece
+tokenizers:
 
 - added tokens are split out of the text first (leftmost-longest, with
   `single_word`, `lstrip` and `rstrip`), the raw-text ones before the
   normalizer and the `normalized` ones after it, so a chat template's
   `<|eot_id|>` is one id;
-- normalizers `Replace`, `Prepend`, `NFC`, `Sequence`;
+- normalizers `Replace`, `Prepend`, `NFC`, `BertNormalizer`
+  (`clean_text`, `handle_chinese_chars`, `strip_accents`, `lowercase`),
+  `Sequence`;
 - pre-tokenizers `Split` (regex or string, every `behavior`, `invert`),
   `ByteLevel` (GPT-2's bytes_to_unicode, `add_prefix_space`,
-  `use_regex`), `Metaspace`, `Sequence`;
+  `use_regex`), `Metaspace`, `BertPreTokenizer`, `Sequence`;
 - the BPE model (`merges` as "a b" strings or ["a", "b"] pairs,
   `ignore_merges`, `byte_fallback`, `unk_token`, `fuse_unk`), its result
-  cached per pre-token;
+  cached per pre-token; the WordPiece model (greedy longest match first,
+  `continuing_subword_prefix`, `unk_token`, `max_input_chars_per_word`);
 - decoders `ByteLevel`, `Replace`, `ByteFallback`, `Fuse`, `Strip`,
-  `Sequence`.
+  `WordPiece` (`prefix`, `cleanup`), `Sequence`.
 
 Any other component type, a BPE dropout, subword prefix or word suffix,
 or a truncation or padding setting raises NotImplementedError naming it: nothing is tokenized with a
@@ -28,7 +32,10 @@ The regexes of tokenizer.json are Oniguruma's.  Python's `re` has no
 `\\p{..}` classes and its `\\s` differs from Oniguruma's, so
 `translate_regex` rewrites those into explicit classes built from
 `unicodedata` (a letter is a code point of category L*, a number one of
-N*, whitespace the Unicode White_Space set).
+N*, whitespace the Unicode White_Space set).  The BERT components'
+character classes (control, punctuation, nonspacing mark) come from
+`unicodedata` too; tokenizers takes them from an older Unicode table, so
+a code point assigned since may be classed differently.
 """
 
 from __future__ import annotations
@@ -316,7 +323,76 @@ def _normalizer(cfg: Optional[dict]):
         return lambda text: prepend + text if text else text
     if kind == "NFC":
         return lambda text: unicodedata.normalize("NFC", text)
+    if kind == "BertNormalizer":
+        return functools.partial(
+            _bert_normalize, clean_text=bool(cfg.get("clean_text", True)),
+            chinese=bool(cfg.get("handle_chinese_chars", True)),
+            strip_accents=cfg.get("strip_accents"),
+            lowercase=bool(cfg.get("lowercase", True)))
     raise NotImplementedError(f"normalizer {kind!r} is not supported")
+
+
+# ---------------------------------------------------------------- BERT
+# tokenizers' normalizers/bert.rs and pre_tokenizers/bert.rs
+
+# CJK ideograph blocks that BertNormalizer isolates with spaces
+_CJK = ((0x4E00, 0x9FFF), (0x3400, 0x4DBF), (0x20000, 0x2A6DF),
+        (0x2A700, 0x2B73F), (0x2B740, 0x2B81F), (0x2B920, 0x2CEAF),
+        (0xF900, 0xFAFF), (0x2F800, 0x2FA1F))
+
+
+def _bert_whitespace(c: str) -> bool:
+    return c in "\t\n\r" or _is_white_space(c)
+
+
+def _bert_control(c: str) -> bool:
+    """Categories C* (Cc, Cf, Cn, Co, Cs) except tab, newline and return."""
+    return c not in "\t\n\r" and unicodedata.category(c)[0] == "C"
+
+
+def _bert_punctuation(c: str) -> bool:
+    """ASCII punctuation (symbols such as $ + < = > ^ ` | ~ included) or a
+    code point of category P*."""
+    return (c.isascii() and not c.isalnum() and 0x21 <= ord(c) <= 0x7E) or (
+        unicodedata.category(c)[0] == "P")
+
+
+def _bert_normalize(text: str, clean_text: bool, chinese: bool,
+                    strip_accents: Optional[bool], lowercase: bool) -> str:
+    if clean_text:
+        text = "".join(" " if _bert_whitespace(c) else c for c in text
+                       if c not in "\0\ufffd" and not _bert_control(c))
+    if chinese:
+        text = "".join(f" {c} " if any(lo <= ord(c) <= hi for lo, hi in _CJK) else c
+                       for c in text)
+    if lowercase if strip_accents is None else strip_accents:
+        text = "".join(c for c in unicodedata.normalize("NFD", text)
+                       if unicodedata.category(c) != "Mn")
+    if lowercase:
+        # char by char, as tokenizers lowercases (no final-sigma rule)
+        text = "".join(c.lower() for c in text)
+    return text
+
+
+def _bert_pre_tokenize(pieces):
+    """Split on whitespace (dropped), then isolate every punctuation
+    character."""
+    out = []
+    for text, at_start in pieces:
+        word, start = [], 0
+        for i, c in enumerate(text):
+            if _is_white_space(c) or _bert_punctuation(c):
+                if word:
+                    out.append(("".join(word), at_start and start == 0))
+                    word = []
+                if not _is_white_space(c):
+                    out.append((c, at_start and i == 0))
+                start = i + 1
+            else:
+                word.append(c)
+        if word:
+            out.append(("".join(word), at_start and start == 0))
+    return out
 
 
 def _pre_tokenizer(cfg: Optional[dict]):
@@ -387,6 +463,8 @@ def _pre_tokenizer(cfg: Optional[dict]):
                 out.extend((sub, at_start and a == 0) for a, sub in subs)
             return out
         return metaspace
+    if kind == "BertPreTokenizer":
+        return _bert_pre_tokenize
     raise NotImplementedError(f"pre-tokenizer {kind!r} is not supported")
 
 
@@ -465,7 +543,31 @@ def _decoder(cfg: Optional[dict]):
                 out.append(t[a:b])
             return out
         return strip
+    if kind == "WordPiece":
+        prefix = cfg.get("prefix", "##")
+        cleanup = bool(cfg.get("cleanup", True))
+
+        def wordpiece(tokens):
+            out = []
+            for i, t in enumerate(tokens):
+                if i:
+                    t = t.replace(prefix, "", 1) if t.startswith(prefix) else " " + t
+                out.append(_cleanup(t) if cleanup else t)
+            return out
+        return wordpiece
     raise NotImplementedError(f"decoder {kind!r} is not supported")
+
+
+_CLEANUP = ((" .", "."), (" ?", "?"), (" !", "!"), (" ,", ","), (" ' ", "'"),
+            (" n't", "n't"), (" 'm", "'m"), (" do not", " don't"), (" 's", "'s"),
+            (" 've", "'ve"), (" 're", "'re"))
+
+
+def _cleanup(text: str) -> str:
+    """tokenizers' decoders::wordpiece::cleanup."""
+    for a, b in _CLEANUP:
+        text = text.replace(a, b)
+    return text
 
 
 # ---------------------------------------------------------------- BPE model
@@ -600,6 +702,56 @@ class BPE:
         return [sym[i] for i in range(n) if alive[i]]
 
 
+# ---------------------------------------------------------------- WordPiece
+
+
+class WordPiece:
+    """The WordPiece model of a tokenizer.json ("model": {"type":
+    "WordPiece", ...}): pre-token -> ids by greedy longest match first,
+    every piece after the first looked up with the continuation prefix; a
+    word with a part no piece matches, or longer than
+    max_input_chars_per_word characters, is the unk token alone
+    (tokenizers' WordPiece::tokenize)."""
+
+    def __init__(self, cfg: dict):
+        self.vocab: Dict[str, int] = dict(cfg["vocab"])
+        self.unk_token: str = cfg.get("unk_token", "[UNK]")
+        self.prefix: str = cfg.get("continuing_subword_prefix", "##")
+        self.max_chars = int(cfg.get("max_input_chars_per_word", 100))
+
+    def _unk(self) -> List[int]:
+        tid = self.vocab.get(self.unk_token)
+        if tid is None:
+            raise ValueError(f"unk_token {self.unk_token!r} is not in the vocabulary")
+        return [tid]
+
+    def tokenize(self, piece: str) -> List[int]:
+        if len(piece) > self.max_chars:
+            return self._unk()
+        ids: List[int] = []
+        start = 0
+        while start < len(piece):
+            end = len(piece)
+            while start < end:
+                sub = piece[start:end]
+                tid = self.vocab.get(self.prefix + sub if start else sub)
+                if tid is not None:
+                    ids.append(tid)
+                    break
+                end -= 1
+            else:
+                return self._unk()
+            start = end
+        return ids
+
+
+def _model(cfg: dict):
+    kind = cfg.get("type", "BPE")
+    if kind == "WordPiece":
+        return WordPiece(cfg)
+    return BPE(cfg)
+
+
 # ---------------------------------------------------------------- tokenizer
 
 
@@ -686,7 +838,7 @@ class TokenizerJSON:
         for key in ("truncation", "padding"):
             if data.get(key) is not None:
                 raise NotImplementedError(f"tokenizer.json {key} is not supported")
-        self.model = BPE(data["model"])
+        self.model = _model(data["model"])
         self._normalize = _normalizer(data.get("normalizer"))
         self._pre_tokenize = _pre_tokenizer(data.get("pre_tokenizer"))
         self._decode_chain = _decoder(data.get("decoder"))

@@ -8,7 +8,8 @@ the same names, help texts, labels and buckets: the request stages of
 occupancy / queue / free-page gauges, the wedge gauge, the request-timeline
 histograms (TTFT, ITL, queue wait, e2e), decode-step and prefill-chunk
 durations, preemptions, speculative draft outcomes, the startup phases,
-load shedding and deadline rejections, the lifecycle series (state,
+load shedding, deadline rejections, breaker transitions and client
+retries, the lifecycle series (state,
 drain duration, checkpoints, resumes, tokens salvaged), and the KV
 hierarchy's and the peer page fabric's (tier events, prefix hit tokens by
 tier, page-in seconds, peer fetches and pages served).  The JAX package's
@@ -265,6 +266,20 @@ DEADLINE_REJECTED = Counter(
     "requests rejected because their propagated deadline had expired",
     ["component"],
 )
+# per-backend circuit breakers (the graph router's), labelled by state
+# only: a backend is a pod ip:port, an unbounded label under churn
+BREAKER_TRANSITIONS = Counter(
+    "resilience_breaker_transitions_total",
+    "circuit breaker state transitions",
+    ["state"],
+)
+# retries beyond a request's first try, per client loop: rest (the
+# inference client) and graph (the router's steps)
+RETRY_ATTEMPTS = Counter(
+    "request_retry_attempts_total",
+    "retry attempts issued beyond a request's first try, per client loop",
+    ["component"],
+)
 LIFECYCLE_STATE = Gauge(
     "replica_lifecycle_state",
     "1 for the replica's current lifecycle state "
@@ -294,6 +309,12 @@ TOKENS_SALVAGED = Counter(
     "instead of being re-decoded from scratch",
     ["model_name"],
 )
+
+
+def record_breaker_transition(backend: str, state: str) -> None:
+    """The BreakerRegistry on_transition hook (kserve_tpu/metrics.py:389);
+    `backend` is part of the hook's signature but not a label."""
+    BREAKER_TRANSITIONS.labels(state=state).inc()
 
 
 def set_lifecycle_state(state: str) -> None:

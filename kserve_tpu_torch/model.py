@@ -4,10 +4,13 @@
 `predict()` (and optionally `preprocess` / `postprocess` / `explain`), and
 serve it with a `ModelServer`.  `__call__` runs the stages in turn, each
 timed into its `request_*_seconds` histogram.  A model with a
-`predictor_config.predictor_host` would act as a transformer and forward
-`predict` to that host; the port has no inference client yet, so such a
-model answers 501, and one without a host raises as the JAX package's
-does ("Could not find predictor_host.").
+`predictor_config.predictor_host` is a transformer: its default `predict`
+forwards to `/v1/models/{name}:predict` or `/v2/models/{name}/infer` of
+that host, and `explain` to `:explain`, through the REST inference client
+(inference_client.py), passing on `x-request-id` and `x-b3-traceid` and
+sending a CloudEvents body as JSON (kserve_tpu/model.py:215-262).  One
+without a host raises as the JAX package's does ("Could not find
+predictor_host."); the gRPC protocol is not served yet.
 """
 
 from __future__ import annotations
@@ -93,6 +96,7 @@ class Model(BaseModel):
     def __init__(self, name: str, predictor_config: Optional[PredictorConfig] = None):
         super().__init__(name)
         self.predictor_config = predictor_config
+        self._rest_client = None
 
     @property
     def predictor_host(self) -> str:
@@ -169,20 +173,57 @@ class Model(BaseModel):
                       response_headers=None):
         """Default behaviour: transformer mode (forward to predictor_host)."""
         self._require_forwarding()
+        predict_headers = dict(self.predictor_config.extra_headers)
+        if headers:
+            for h in ("x-request-id", "x-b3-traceid"):
+                if h in headers:
+                    predict_headers[h] = headers[h]
+            if headers.get("content-type", "").startswith("application/cloudevents+json"):
+                predict_headers["content-type"] = "application/json"
+        return await self._client().infer(
+            self._predict_url(), data=payload, headers=predict_headers,
+            model_name=self.name)
 
     async def explain(self, payload, headers: Optional[Dict[str, str]] = None):
         self._require_forwarding()
+        return await self._client().explain(self._explain_url(), data=payload,
+                                            headers=headers)
 
     async def postprocess(self, result, headers: Optional[Dict[str, str]] = None,
                           response_headers=None):
         return result
 
+    # ---------- transformer forwarding ----------
+
     def _require_forwarding(self) -> None:
         if not self.predictor_host:
             raise NotImplementedError("Could not find predictor_host.")
-        raise NotImplementedError(
-            f"forwarding to predictor_host {self.predictor_host} is not "
-            "supported by this server yet")
+        if self.protocol == PredictorProtocol.GRPC_V2.value:
+            raise NotImplementedError(
+                "forwarding over gRPC is not supported yet; use v1 or v2")
+
+    def _client(self):
+        from .inference_client import InferenceRESTClient, RESTConfig
+
+        if self._rest_client is None:
+            self._rest_client = InferenceRESTClient(RESTConfig(
+                protocol=self.protocol,
+                timeout=self.predictor_config.predictor_request_timeout_seconds,
+                retries=self.predictor_config.predictor_request_retries))
+        return self._rest_client
+
+    def _base_url(self) -> str:
+        if self.predictor_config.predictor_use_ssl:
+            raise NotImplementedError("forwarding over TLS is not supported")
+        return f"http://{self.predictor_config.predictor_host}"
+
+    def _predict_url(self) -> str:
+        if self.protocol == PredictorProtocol.REST_V1.value:
+            return f"{self._base_url()}/v1/models/{self.name}:predict"
+        return f"{self._base_url()}/v2/models/{self.name}/infer"
+
+    def _explain_url(self) -> str:
+        return f"{self._base_url()}/v1/models/{self.name}:explain"
 
     def get_input_types(self) -> list:
         return []

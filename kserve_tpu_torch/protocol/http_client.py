@@ -12,8 +12,10 @@ speaks HTTP/1.1 over TCP and keeps idle connections alive per host and
 event loop.  A test passes its own handler instead (the counterpart of
 httpx.MockTransport), and resilience.faults.FaultInjectingTransport wraps
 either one.  Transport failures raise HTTPError subclasses: ConnectError
-(nothing listening, or refused), ReadTimeout (no answer in time) and
-ReadError (the connection died mid-answer).
+(nothing listening, or refused), ConnectTimeout (the timeout ran out
+before the request was sent: replaying it cannot duplicate work),
+ReadTimeout (no answer in time after it was sent) and ReadError (the
+connection died mid-answer).
 
 A response body with a Content-Length is read into one buffer of that
 size, chunk by chunk from the stream: a P/D KV transfer (134 MB for a
@@ -47,8 +49,12 @@ class ConnectError(HTTPError):
     """The connection could not be opened (refused, unreachable)."""
 
 
+class ConnectTimeout(HTTPError):
+    """The client's timeout ran out before the request was sent."""
+
+
 class ReadTimeout(HTTPError):
-    """No complete response within the client's timeout."""
+    """No complete response within the client's timeout, the request sent."""
 
 
 class ReadError(HTTPError):
@@ -106,14 +112,18 @@ class SocketTransport:
         head += [f"{k}: {v}" for k, v in headers.items()
                  if k.lower() not in ("host", "content-length")]
         request_head = ("\r\n".join(head) + "\r\n\r\n").encode("latin-1")
+        sent = []  # set once the request is on the wire
         try:
             return await asyncio.wait_for(
-                self._exchange(key, host, port, request_head, body, method),
+                self._exchange(key, host, port, request_head, body, method, sent),
                 self.timeout_s)
         except asyncio.TimeoutError:
+            if not sent:
+                raise ConnectTimeout(
+                    f"{method} {url}: not connected in {self.timeout_s}s") from None
             raise ReadTimeout(f"{method} {url}: no answer in {self.timeout_s}s") from None
 
-    async def _exchange(self, key, host, port, request_head, body, method):
+    async def _exchange(self, key, host, port, request_head, body, method, sent):
         while True:
             pooled = self._idle.get(key)
             conn = pooled.pop() if pooled else None
@@ -125,6 +135,7 @@ class SocketTransport:
                 except OSError as e:
                     raise ConnectError(f"connect to {host}:{port}: {e}") from None
                 conn = _Conn(reader, writer)
+            sent.append(True)
             try:
                 conn.writer.write(request_head)
                 if body:
@@ -222,7 +233,8 @@ class AsyncHTTPClient:
         headers = dict(headers or {})
         if json is not None:
             body = _json.dumps(json).encode("utf-8")
-            headers.setdefault("Content-Type", "application/json")
+            if not any(k.lower() == "content-type" for k in headers):
+                headers["Content-Type"] = "application/json"
         result = self.transport(method, url, headers, body)
         if inspect.isawaitable(result):
             result = await result

@@ -1,4 +1,5 @@
-"""OpenAI completion and chat types as standard-library dataclasses.
+"""OpenAI completion, chat, embedding and rerank types as standard-library
+dataclasses.
 
 Port of kserve_tpu/protocol/openai/types.py (the fields the port serves,
 logprobs and sampling penalties among them, and the logprob blocks of
@@ -6,7 +7,9 @@ the responses) with hand validation in place of pydantic, which the card
 machine does not have.  `CompletionRequest.from_json` /
 `ChatCompletionRequest.from_json` raise InvalidInput (HTTP 400) on a
 malformed body, and on what the port refuses: `logit_bias`, `echo`,
-`best_of`, `suffix`.  Responses serialize with `to_dict()`, dropping None
+`best_of`, `suffix`.  `EmbeddingRequest.from_json` and
+`RerankRequest.from_json` take the pydantic models' fields and defaults
+(:259-304) and raise InvalidInput where those fail validation.  Responses serialize with `to_dict()`, dropping None
 fields as the JAX package's `model_dump(exclude_none=True)` does.
 """
 
@@ -331,6 +334,99 @@ class ChatCompletionChunk(_Serializable):
     model: str = ""
     choices: List[ChatCompletionChunkChoice] = field(default_factory=list)
     usage: Optional[UsageInfo] = None
+
+
+# ---------------- embeddings / rerank ----------------
+
+
+def _is_ids(value) -> bool:
+    return isinstance(value, list) and all(
+        isinstance(t, int) and not isinstance(t, bool) for t in value)
+
+
+@dataclass
+class EmbeddingRequest:
+    model: str
+    input: Union[str, List[str], List[int], List[List[int]]]
+    encoding_format: str = "float"
+    dimensions: Optional[int] = None
+    user: Optional[str] = None
+
+    @staticmethod
+    def from_json(body: Any) -> "EmbeddingRequest":
+        if not isinstance(body, dict):
+            raise InvalidInput("request body must be a JSON object")
+        value = body.get("input")
+        if not (isinstance(value, str) or (isinstance(value, list) and (
+                all(isinstance(v, str) for v in value) or _is_ids(value)
+                or all(_is_ids(v) for v in value)))):
+            raise InvalidInput(
+                "field 'input' must be a string, a list of strings, a list of "
+                "token ids or a list of token-id lists")
+        fmt = _get(body, "encoding_format", str, "float")
+        if fmt not in ("float", "base64"):
+            raise InvalidInput("field 'encoding_format' must be 'float' or 'base64'")
+        return EmbeddingRequest(
+            model=_get(body, "model", str, required=True), input=value,
+            encoding_format=fmt, dimensions=_get(body, "dimensions", int),
+            user=_get(body, "user", str))
+
+
+@dataclass
+class EmbeddingObject(_Serializable):
+    index: int
+    embedding: Union[List[float], str]
+    object: str = "embedding"
+
+
+@dataclass
+class Embedding(_Serializable):
+    object: str = "list"
+    data: List[EmbeddingObject] = field(default_factory=list)
+    model: str = ""
+    usage: UsageInfo = field(default_factory=UsageInfo)
+
+
+@dataclass
+class RerankRequest:
+    model: str
+    query: str
+    documents: List[str]
+    top_n: Optional[int] = None
+    return_documents: bool = True
+
+    @staticmethod
+    def from_json(body: Any) -> "RerankRequest":
+        if not isinstance(body, dict):
+            raise InvalidInput("request body must be a JSON object")
+        docs = body.get("documents")
+        if not isinstance(docs, list) or not all(isinstance(d, str) for d in docs):
+            raise InvalidInput("field 'documents' must be a list of strings")
+        return RerankRequest(
+            model=_get(body, "model", str, required=True),
+            query=_get(body, "query", str, required=True), documents=docs,
+            top_n=_get(body, "top_n", int),
+            return_documents=_get(body, "return_documents", bool, True))
+
+
+@dataclass
+class RerankResultDocument(_Serializable):
+    text: str
+
+
+@dataclass
+class RerankResult(_Serializable):
+    index: int
+    relevance_score: float
+    document: Optional[RerankResultDocument] = None
+
+
+@dataclass
+class Rerank(_Serializable):
+    id: str = field(default_factory=lambda: random_uuid("rerank-"))
+    results: List[RerankResult] = field(default_factory=list)
+    model: str = ""
+    usage: UsageInfo = field(default_factory=UsageInfo)
 
 
 def error_body(message: str, err_type: str = "invalid_request_error") -> dict:

@@ -18,7 +18,11 @@ Routes:
   GET  /openai/v1/models
   POST /openai/v1/completions, /openai/v1/chat/completions
        (JSON, or text/event-stream with `"stream": true`, ending
-       `data: [DONE]`)
+       `data: [DONE]`), /openai/v1/embeddings, /openai/v1/rerank
+       (kserve_tpu/protocol/openai/endpoints.py:140-162); a model is
+       looked up as the JAX OpenAI data plane does (dataplane.py:31-39):
+       404 unknown, 503 not ready, 400 "does not support this endpoint"
+       when it has no method of the route's verb
   GET  /metrics          the engine's series (metrics.py), text format 0.0.4
   GET  /admin/telemetry  per model: TTFT / ITL / queue-wait percentiles and
        recent request timelines (kserve_tpu/observability/
@@ -60,11 +64,8 @@ up to CHECKPOINT_FIELD_SIZE_LIMIT bytes.  On `/`, `/v1/models...` and
 `/v2...` an error's body is the JAX server's {"error": reason}; on the
 other routes it is the OpenAI form {"error": {"message", "type"}}.
 
-Connections are kept alive (HTTP/1.1; HTTP/1.0 with `Connection:
-keep-alive`) until the client sends `Connection: close`, a request
-cannot be read to its end, or the connection idles `idle_timeout`
-seconds.  A request body comes with a Content-Length or
-`Transfer-Encoding: chunked`; a streamed answer is sent chunked.
+The wire (keep-alive, bodies, the request's trace context and the
+`x-request-id` echo) is http_server.HTTPServer's.
 """
 
 from __future__ import annotations
@@ -72,7 +73,7 @@ from __future__ import annotations
 import asyncio
 import json
 import logging
-from typing import Callable, Dict, Optional, Tuple
+from typing import Callable, Dict, Optional
 from urllib.parse import parse_qs, unquote
 
 from ...errors import (
@@ -85,7 +86,6 @@ from ...errors import (
     UnsupportedProtocol,
 )
 from ...lifecycle import (
-    CHECKPOINT_FIELD_SIZE_LIMIT,
     CHECKPOINT_HEADER,
     CHECKPOINT_HEADER_SAFE_BYTES,
     READY,
@@ -116,42 +116,35 @@ from ..model_repository_extension import ModelRepositoryExtension
 from ..openai.types import (
     ChatCompletionRequest,
     CompletionRequest,
+    EmbeddingRequest,
     ModelCard,
     ModelList,
+    RerankRequest,
     error_body,
 )
 from ..pd import KV_META_HEADER, PREFILL_ROUTE, parse_prefill_body
+from .http_server import (  # noqa: F401 — MAX_HEAD_BYTES: tests read it here
+    IDLE_TIMEOUT_S,
+    MAX_HEAD_BYTES,
+    HTTPError as _HTTPError,
+    HTTPServer,
+)
 from .v1_endpoints import V1Endpoints
 from .v2_endpoints import V2Endpoints
 
 logger = logging.getLogger(__name__)
 
-MAX_BODY_BYTES = 16 << 20
-# seconds an idle kept-alive connection waits for its next request
-# (aiohttp's keepalive_timeout, the JAX server's)
-IDLE_TIMEOUT_S = 75.0
-# the request head: one checkpoint header field of up to
-# CHECKPOINT_FIELD_SIZE_LIMIT bytes, and 64 KiB for the rest
-MAX_HEAD_BYTES = CHECKPOINT_FIELD_SIZE_LIMIT + (1 << 16)
 # peer page reads at once, so that cold peers cannot starve local decoding
 # of disk bandwidth and worker threads
 PEER_PAGE_CONCURRENCY = 4
-_REASONS = {200: "OK", 400: "Bad Request", 404: "Not Found",
-            405: "Method Not Allowed", 411: "Length Required",
-            413: "Payload Too Large", 429: "Too Many Requests",
-            500: "Internal Server Error", 501: "Not Implemented",
-            503: "Service Unavailable", 504: "Gateway Timeout"}
 
-
-class _HTTPError(Exception):
-    def __init__(self, status: int, message: str):
-        super().__init__(message)
-        self.status = status
-
-
-class _BadRequest(_HTTPError):
-    """A request that could not be read to its end: after the answer the
-    connection closes, since the next request's start is unknown."""
+# OpenAI route -> (request type, the model's verb)
+_OPENAI_ROUTES = {
+    "/openai/v1/completions": (CompletionRequest, "create_completion"),
+    "/openai/v1/chat/completions": (ChatCompletionRequest, "create_chat_completion"),
+    "/openai/v1/embeddings": (EmbeddingRequest, "create_embedding"),
+    "/openai/v1/rerank": (RerankRequest, "create_rerank"),
+}
 
 
 def _jax_error_form(path: str) -> bool:
@@ -159,12 +152,14 @@ def _jax_error_form(path: str) -> bool:
     return path == "/" or path == "/v2" or path.startswith(("/v1/models", "/v2/"))
 
 
-class RESTServer:
+class RESTServer(HTTPServer):
     """Serves the models of `repository`.  A generative model has `name`, `ready`, `async
     create_completion(req, headers)` and `async
     create_chat_completion(req, headers)` (returning a response object or,
     for a streamed request, an async iterator of chunks), and optionally
-    `async live()`, `async healthy()` and an `engine`; a predictive model
+    `async live()`, `async healthy()` and an `engine`; an encoder model has
+    `async create_embedding(req, headers)` and `async create_rerank(req,
+    headers)`; a predictive model
     is a `Model` (model.py) answering the V1 and V2 routes.  `lifecycle`
     (a ReplicaLifecycle) turns on the drain gate and the /admin/drain
     routes, whose POST starts `on_drain()` (an async callable) once.  `shed_config` sets the
@@ -176,6 +171,7 @@ class RESTServer:
                  lifecycle: Optional[ReplicaLifecycle] = None,
                  on_drain: Optional[Callable] = None,
                  shed_config: Optional[ShedConfig] = None):
+        super().__init__(host, port, idle_timeout)
         self.repository = repository
         self.dataplane = DataPlane(self.repository)
         # (method, path pattern, handler) of the V1 and V2 heads
@@ -183,9 +179,6 @@ class RESTServer:
             V1Endpoints(self.dataplane).routes
             + V2Endpoints(self.dataplane,
                           ModelRepositoryExtension(self.repository)).routes)
-        self.host = host
-        self.port = port
-        self.idle_timeout = idle_timeout
         self.lifecycle = lifecycle
         self.on_drain = on_drain
         # inference POSTs bounce 429 once the summed engine queue reaches
@@ -195,79 +188,19 @@ class RESTServer:
             on_shed=lambda: SHED_REQUESTS.labels(component="rest").inc())
         # the running drain task (a bare create_task is weakly held)
         self._drain_tasks: list = []
-        self._server: Optional[asyncio.base_events.Server] = None
-        # open connections: stop() closes the idle kept-alive ones, which
-        # the server's wait_closed() would otherwise wait for
-        self._writers: set = set()
         self._peer_page_sem: Optional[asyncio.Semaphore] = None
 
     @property
     def models(self) -> Dict[str, object]:
         return self.repository.models
 
-    async def start(self) -> int:
-        """Listen; returns the bound port (port 0 picks a free one)."""
-        # a listen backlog above the largest batch a server seats (asyncio's
-        # default is 100): every lane's client may connect at once
-        self._server = await asyncio.start_server(
-            self._handle, self.host, self.port, limit=MAX_HEAD_BYTES,
-            backlog=1024)
-        self.port = self._server.sockets[0].getsockname()[1]
-        logger.info("REST server listening on %s:%d", self.host, self.port)
-        return self.port
-
-    async def stop(self) -> None:
-        if self._server is not None:
-            self._server.close()
-            for writer in list(self._writers):
-                writer.close()
-            await self._server.wait_closed()
-            self._server = None
-
-    # ---------------- wire ----------------
-
-    async def _handle(self, reader: asyncio.StreamReader,
-                      writer: asyncio.StreamWriter) -> None:
-        """One connection: requests in turn until it closes."""
-        self._writers.add(writer)
+    async def _respond(self, method: str, path: str, query: str, headers,
+                       body: bytes, writer, keep_alive: bool) -> None:
+        """The gates and the route, with the JAX server's error mapping."""
         try:
-            while await self._serve_one(reader, writer):
-                pass
-        except (ConnectionError, asyncio.IncompleteReadError):
-            pass
-        finally:
-            self._writers.discard(writer)
-            writer.close()
-
-    async def _serve_one(self, reader, writer) -> bool:
-        """Read and answer one request; True when the connection stays
-        open for the next."""
-        try:
-            head = await asyncio.wait_for(reader.readuntil(b"\r\n\r\n"),
-                                          self.idle_timeout)
-        except (asyncio.TimeoutError, asyncio.IncompleteReadError):
-            return False  # idle too long, or the client closed
-        except asyncio.LimitOverrunError:
-            await self._send_json(writer, 400, error_body("request head too large"),
-                                  keep_alive=False)
-            return False
-        keep_alive = False
-        path = ""
-        try:
-            method, path, query, version, headers = self._parse_head(head)
-            tokens = {t.strip().lower()
-                      for t in headers.get("connection", "").split(",")}
-            keep_alive = ("keep-alive" in tokens if version == "HTTP/1.0"
-                          else "close" not in tokens)
-            body = await self._read_body(method, headers, reader, writer)
-            await self._gated(method, path, query, headers, body, writer,
-                              keep_alive)
-        except _BadRequest as e:
-            await self._send_json(writer, e.status, error_body(str(e)),
-                                  keep_alive=False)
-            return False
-        except _HTTPError as e:
-            await self._send_json(writer, e.status, error_body(str(e)), keep_alive)
+            await self._gated(method, path, query, headers, body, writer, keep_alive)
+        except (_HTTPError, ConnectionError, asyncio.IncompleteReadError):
+            raise  # the wire's to answer
         except DeadlineExceededError as e:
             await self._send_json(writer, 504, error_body(str(e), "deadline_exceeded"),
                                   keep_alive)
@@ -281,13 +214,13 @@ class RESTServer:
             # the drain budget expired mid-generation: the body carries the
             # portable checkpoint, the header too while it fits the parsers
             # of stock intermediaries
-            headers = {"Retry-After": "1"}
+            out_headers = {"Retry-After": "1"}
             header_form = e.checkpoint.to_header()
             if len(header_form) <= CHECKPOINT_HEADER_SAFE_BYTES:
-                headers[CHECKPOINT_HEADER] = header_form
+                out_headers[CHECKPOINT_HEADER] = header_form
             await self._send_json(
                 writer, 503, {"error": str(e), "checkpoint": e.checkpoint.to_dict()},
-                keep_alive, headers=headers)
+                keep_alive, headers=out_headers)
         except (InvalidInput, UnsupportedProtocol) as e:
             await self._send_error(writer, path, 400, str(e), "invalid_request_error",
                                    keep_alive)
@@ -303,116 +236,18 @@ class RESTServer:
         except InferenceError as e:
             await self._send_error(writer, path, 500, str(e), "internal_error",
                                    keep_alive)
-        except (ConnectionError, asyncio.IncompleteReadError):
-            return False
-        except Exception as e:  # noqa: BLE001 — one request's failure must not stop the server
-            logger.exception("request failed")
-            message = (f"{type(e).__name__}: {e}" if _jax_error_form(path)
-                       else str(e))
-            await self._send_error(writer, path, 500, message, "internal_error",
-                                   keep_alive)
-        return keep_alive
+
+    async def _on_error(self, exc: Exception, path: str, writer,
+                        keep_alive: bool) -> None:
+        logger.error("request failed", exc_info=exc)
+        message = f"{type(exc).__name__}: {exc}" if _jax_error_form(path) else str(exc)
+        await self._send_error(writer, path, 500, message, "internal_error", keep_alive)
 
     async def _send_error(self, writer, path: str, status: int, message: str,
                           err_type: str, keep_alive: bool) -> None:
         body = ({"error": message} if _jax_error_form(path)
                 else error_body(message, err_type))
         await self._send_json(writer, status, body, keep_alive)
-
-    @staticmethod
-    def _parse_head(head: bytes) -> Tuple[str, str, str, str, Dict[str, str]]:
-        """(method, path, query string, HTTP version, lower-cased headers).
-        A header line longer than CHECKPOINT_FIELD_SIZE_LIMIT is refused."""
-        lines = head.decode("latin-1").split("\r\n")
-        parts = lines[0].split(" ")
-        if len(parts) != 3 or not parts[2].startswith("HTTP/"):
-            raise _BadRequest(400, "malformed request line")
-        method, target, version = parts
-        headers = {}
-        for line in lines[1:]:
-            if len(line) > CHECKPOINT_FIELD_SIZE_LIMIT:
-                raise _BadRequest(400, "request header field too large")
-            if ":" in line:
-                k, v = line.split(":", 1)
-                headers[k.strip().lower()] = v.strip()
-        path, _, query = target.partition("?")
-        return method, path, query, version, headers
-
-    async def _read_body(self, method: str, headers: Dict[str, str],
-                         reader, writer) -> bytes:
-        """The request body: Content-Length bytes, or the chunks of a
-        `Transfer-Encoding: chunked` body (its trailers dropped).  A POST
-        without either is refused (411)."""
-        te = headers.get("transfer-encoding", "").lower()
-        chunked = te == "chunked"
-        if te and not chunked:
-            raise _BadRequest(501, f"transfer-encoding {te!r} is not supported")
-        if not chunked and "content-length" not in headers:
-            if method == "POST":
-                raise _BadRequest(
-                    411, "a Content-Length or Transfer-Encoding: chunked "
-                    "header is required")
-            return b""
-        n = 0
-        if not chunked:
-            try:
-                n = int(headers["content-length"])
-            except ValueError:
-                raise _BadRequest(400, "bad Content-Length") from None
-            if n < 0 or n > MAX_BODY_BYTES:
-                raise _BadRequest(413, "request body too large")
-        if headers.get("expect", "").lower() == "100-continue":
-            writer.write(b"HTTP/1.1 100 Continue\r\n\r\n")
-            await writer.drain()
-        if not chunked:
-            return await reader.readexactly(n)
-        body = bytearray()
-        while True:
-            line = await reader.readuntil(b"\r\n")
-            try:
-                size = int(line.split(b";", 1)[0].strip(), 16)
-            except ValueError:
-                raise _BadRequest(400, "bad chunk size") from None
-            if size < 0 or len(body) + size > MAX_BODY_BYTES:
-                raise _BadRequest(413, "request body too large")
-            if size == 0:
-                while await reader.readuntil(b"\r\n") != b"\r\n":
-                    pass  # trailer fields
-                return bytes(body)
-            body += await reader.readexactly(size)
-            if await reader.readexactly(2) != b"\r\n":
-                raise _BadRequest(400, "malformed chunk")
-
-    @staticmethod
-    def _head(status: int, content_type: str, length: Optional[int],
-              keep_alive: bool, headers: Optional[Dict[str, str]] = None) -> bytes:
-        lines = [f"HTTP/1.1 {status} {_REASONS.get(status, 'Unknown')}",
-                 f"Content-Type: {content_type}",
-                 f"Connection: {'keep-alive' if keep_alive else 'close'}"]
-        lines += [f"{k}: {v}" for k, v in (headers or {}).items()]
-        if length is not None:
-            lines.append(f"Content-Length: {length}")
-        else:
-            lines += ["Transfer-Encoding: chunked", "Cache-Control: no-cache"]
-        return ("\r\n".join(lines) + "\r\n\r\n").encode("latin-1")
-
-    async def _send(self, writer, status: int, content_type: str, data,
-                    keep_alive: bool, headers: Optional[Dict[str, str]] = None) -> None:
-        """One whole answer; `data` is bytes-like (a P/D KV payload is a
-        view of a tensor's memory, written without joining it first)."""
-        writer.write(self._head(status, content_type, len(data), keep_alive,
-                                headers))
-        writer.write(data)
-        await writer.drain()
-
-    async def _send_json(self, writer, status: int, obj, keep_alive: bool,
-                         headers: Optional[Dict[str, str]] = None) -> None:
-        await self._send(writer, status, "application/json",
-                         json.dumps(obj).encode("utf-8"), keep_alive, headers)
-
-    @staticmethod
-    def _chunk(data: bytes) -> bytes:
-        return b"%x\r\n%s\r\n" % (len(data), data)
 
     def _event(self, obj) -> bytes:
         return self._chunk(f"data: {json.dumps(obj)}\n\n".encode("utf-8"))
@@ -551,17 +386,13 @@ class RESTServer:
             self._expect(method, "GET")
             return await self._peer_page(path[len(PAGE_ROUTE) + 1:], writer,
                                          keep_alive)
-        if path == "/openai/v1/completions":
-            self._expect(method, "POST")
-            req = CompletionRequest.from_json(self._json(body))
-            result = await self._model(req.model).create_completion(req, headers)
-        elif path == "/openai/v1/chat/completions":
-            self._expect(method, "POST")
-            req = ChatCompletionRequest.from_json(self._json(body))
-            result = await self._model(req.model).create_chat_completion(req, headers)
-        else:
+        if path not in _OPENAI_ROUTES:
             raise _HTTPError(404, f"no route for {path}")
-        if req.stream:
+        self._expect(method, "POST")
+        request_type, verb = _OPENAI_ROUTES[path]
+        req = request_type.from_json(self._json(body))
+        result = await getattr(self._openai_model(req.model, verb), verb)(req, headers)
+        if getattr(req, "stream", False):
             return await self._send_sse(writer, result, keep_alive)
         return await self._send_json(writer, 200, result.to_dict(), keep_alive)
 
@@ -688,23 +519,21 @@ class RESTServer:
         return {"models": models, "profiler": {"active": False, "capture": None}}
 
     @staticmethod
-    def _expect(method: str, allowed: str) -> None:
-        if method != allowed:
-            raise _HTTPError(405, f"method {method} not allowed")
-
-    @staticmethod
     def _json(body: bytes):
         try:
             return json.loads(body)
         except (ValueError, UnicodeDecodeError) as e:
             raise InvalidInput(f"invalid JSON body: {e}") from None
 
-    def _model(self, name: str):
+    def _openai_model(self, name: str, verb: str):
         """The served model of `name`, directly or through an alias (a
-        LoRA adapter selects its model by the OpenAI `model` field)."""
+        LoRA adapter selects its model by the OpenAI `model` field), that
+        has the method `verb`."""
         model = self.repository.get_model(name)
         if model is None:
             raise ModelNotFound(name)
         if not model.ready:
             raise _HTTPError(503, f"model {name!r} is not ready")
+        if not callable(getattr(model, verb, None)):
+            raise InvalidInput(f"Model {name} does not support this endpoint")
         return model

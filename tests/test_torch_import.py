@@ -53,7 +53,12 @@ def test_import_loads_no_jax_and_no_jax_package():
             "kserve_tpu_torch.runtimes.tensorize.trees",
             "kserve_tpu_torch.runtimes.tensorize.xgb_parse",
             "kserve_tpu_torch.runtimes.tensorize.lgb_parse",
-            "kserve_tpu_torch.runtimes.tensorize.sklearn_convert"} <= set(_port_modules())
+            "kserve_tpu_torch.runtimes.tensorize.sklearn_convert",
+            "kserve_tpu_torch.models.bert", "kserve_tpu_torch.runtimes.encoder_server",
+            "kserve_tpu_torch.protocol.openai.openai_model",
+            "kserve_tpu_torch.protocol.rest.http_server", "kserve_tpu_torch.tracing",
+            "kserve_tpu_torch.inference_client", "kserve_tpu_torch.graph.router",
+            } <= set(_port_modules())
     code = (
         "import importlib, sys\n"
         f"for name in {_port_modules()!r}:\n"
@@ -240,6 +245,46 @@ def test_predictive_server_needs_none_of_them(tmp_path):
         "m = predictive_server.build_model('sklearn', 'l', d + '/lin', device='cpu')\n"
         "assert m.load() and m._tensorized is not None\n"
         "assert asyncio.run(m({'instances': [[3.0]]}))['predictions'] == [7.0]\n"
+    )
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_encoder_and_router_need_none_of_them(tmp_path):
+    """The encoder runtime, the graph router and the inference client load,
+    and a BERT checkpoint with a WordPiece tokenizer.json is served on the
+    CPU, with every package the card machine lacks blocked."""
+    code = (
+        "import asyncio, json, sys\n"
+        f"for name in {sorted(CARD_MISSING)!r}:\n"
+        "    sys.modules[name] = None\n"
+        "from kserve_tpu_torch.runtimes import encoder_server\n"
+        "from kserve_tpu_torch.graph import router\n"
+        "from kserve_tpu_torch import inference_client, tracing\n"
+        "from kserve_tpu_torch.models import bert, safetensors_io as sio\n"
+        "from kserve_tpu_torch.protocol.openai.types import EmbeddingRequest\n"
+        f"d = {str(tmp_path)!r}\n"
+        "cfg = bert.BertConfig.tiny()\n"
+        "params = bert.init_params(cfg, seed=2, device='cpu')\n"
+        "sio.save_file(bert.hf_tensors(params), d + '/model.safetensors')\n"
+        "json.dump({'vocab_size': 128, 'hidden_size': 32, 'num_hidden_layers': 2,\n"
+        "           'num_attention_heads': 4, 'intermediate_size': 64,\n"
+        "           'max_position_embeddings': 64}, open(d + '/config.json', 'w'))\n"
+        "vocab = {t: i for i, t in enumerate(['[PAD]', '[UNK]', 'hello', '##s', ','])}\n"
+        "json.dump({'normalizer': {'type': 'BertNormalizer'},\n"
+        "           'pre_tokenizer': {'type': 'BertPreTokenizer'},\n"
+        "           'decoder': {'type': 'WordPiece'},\n"
+        "           'model': {'type': 'WordPiece', 'vocab': vocab}}, open(d + '/tokenizer.json', 'w'))\n"
+        "m = encoder_server.TorchEncoderModel('e', model_dir=d, device='cpu')\n"
+        "assert m.load() and m.tokenizer.encode('Hellos, x', add_bos=False) == [2, 3, 4, 1]\n"
+        "assert all(bool((a == b).all()) for a, b in zip(\n"
+        "    bert.hf_tensors(m.params).values(), bert.hf_tensors(params).values()))\n"
+        "out = asyncio.run(m.create_embedding(EmbeddingRequest.from_json(\n"
+        "    {'model': 'e', 'input': 'hello'})))\n"
+        "assert len(out.data[0].embedding) == 32\n"
+        "assert router.GraphRouter({'nodes': {}}).retry_policy.max_attempts == 2\n"
     )
     env = dict(os.environ, PYTHONPATH=str(REPO))
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,

@@ -263,7 +263,7 @@ def test_split_behaviors(behavior, invert):
     ({"normalizer": {"type": "NFKC"}}, "NFKC"),
     ({"pre_tokenizer": {"type": "Whitespace"}}, "Whitespace"),
     ({"decoder": {"type": "Metaspace"}}, "Metaspace"),
-    ({"model": {"type": "WordPiece", "vocab": {}}}, "WordPiece"),
+    ({"model": {"type": "Unigram", "vocab": []}}, "Unigram"),
     ({"model": {"type": "BPE", "vocab": {}, "merges": [], "dropout": 0.1}}, "dropout"),
     ({"truncation": {"max_length": 8}}, "truncation"),
     ({"pre_tokenizer": {"type": "Split", "pattern": {"Regex": r"\p{Greek}"},
