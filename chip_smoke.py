@@ -210,6 +210,30 @@ Phases, each printing JSON lines:
            502 naming it, then the breaker's instant 503 "circuit open";
            x-request-deadline 0 answers 504 before any call, echoing
            x-request-id
+  epp      the EPP endpoint picker (`python -m kserve_tpu_torch.scheduler.
+           epp --poll-interval 0.2`, a process of its own) in front of two
+           Llama-3-8B replicas at full width and depth, bf16, one set of
+           seeded weights, 1,024 KV pages each, in this process; the EPP and
+           the replicas export spans (OTLP/HTTP JSON) to a standard-library
+           collector here.  4 prefixes of ~1,000 tokens with 6 requests each
+           (streamed chats and completions, ~50-token tails, 32 tokens), the
+           first of each alone, the rest 8 at a time: all 200, each stream's
+           first event before its last; >= 90% of each prefix's later
+           requests on the replica of its first, both replicas serving a
+           prefix; the ragged and decode kernels launched on both, exactly
+           as their dispatches make; a greedy completion through the EPP
+           equal to the same prompt sent to its replica; one streamed chat's
+           linked trace (epp.proxy -> the replica's request span ->
+           engine.queue / prefill / decode); POST /admin/profile on replica A
+           during waves: 202, then 409, its Chrome trace naming the ragged,
+           decode and GEMM kernels, with the device's busy ms and idle
+           share, and the longest wait of a liveness probe of A meanwhile;
+           the ms the EPP adds (p50 of 10 alternating pairs of a short
+           completion, and of 30 of GET /openai/v1/models, and the EPP's
+           request span less the replica's); B
+           stopped mid-wave: only 502 / 503 while its breaker opens, then
+           every request on A; both stopped: 503 "no healthy replica"; no
+           span dropped or lost by any exporter
 The line before the last is {"kernels": [...]}, the last is
 {"ok": true, "device": {...}}.  Any failure raises and exits non-zero;
 nothing falls back to the CPU or to the plain versions.
@@ -1155,6 +1179,7 @@ def main(argv=None) -> int:
     phases["predictive"](torch)
     phase_encoder(torch)
     phase_graph(torch)
+    counts["epp"] = phase_epp(torch)
     for name, row in rows.items():
         phase, key = KERNEL_PATH[name]
         row["launches"] = counts[phase].get(key, 0)
@@ -5645,7 +5670,10 @@ class _Client:
         self.conn = http.client.HTTPConnection("127.0.0.1", port, timeout=120)
 
     def post(self, path: str, body: bytes, headers: dict):
-        self.conn.request("POST", path, body=body, headers=headers)
+        return self.request("POST", path, body, headers)
+
+    def request(self, method: str, path: str, body, headers: dict):
+        self.conn.request(method, path, body=body, headers=headers)
         resp = self.conn.getresponse()
         return resp.status, dict((k.lower(), v) for k, v in resp.getheaders()), resp.read()
 
@@ -6601,6 +6629,655 @@ def phase_graph(torch) -> None:
     torch.cuda.empty_cache()
 
 
+EPP_DIR = os.path.join(REPO, "build", "epp_smoke")
+EPP_KV_PAGES = 1024
+EPP_PREFIXES = 4
+EPP_PER_PREFIX = 6
+EPP_MAX_TOKENS = 32
+EPP_CONCURRENCY = 8
+# hop pairs: a short completion costs one whole dispatch (~360 ms, whose
+# jitter hides the hop: its spans resolve it), GET /openai/v1/models ~1 ms
+EPP_TIMED = {"completion": 10, "models": 30}
+# of each prefix's requests after its first, the share that must land on
+# the replica that served the first
+EPP_AFFINITY_MIN = 0.9
+EPP_PROFILE_S = 2.0
+EPP_WORDS = ("cache", "page", "kernel", "replica", "router", "token", "prefix",
+             "decode", "tensor", "latency", "stream", "batch", "queue", "engine")
+
+
+def _epp_texts(tok) -> tuple:
+    """EPP_PREFIXES seeded ~1,000-token prefixes (a system prompt or a
+    retrieved context each) and, per prefix, EPP_PER_PREFIX distinct
+    ~50-token tails."""
+    import random
+
+    rng = random.Random(18)
+    prefixes, tails = [], []
+    for k in range(EPP_PREFIXES):
+        words = [f"Context {k}:"]
+        while len(tok.encode(" ".join(words))) < 1000:
+            words.append(rng.choice(EPP_WORDS))
+        prefixes.append(" ".join(words) + "\n")
+        tails.append([f"Q{k}.{j}: " + " ".join(rng.choice(EPP_WORDS) for _ in range(7))
+                      for j in range(EPP_PER_PREFIX)])
+    return prefixes, tails
+
+
+def _epp_body(name: str, prefix: str, tail: str, chat: bool,
+              max_tokens: int = EPP_MAX_TOKENS) -> dict:
+    """A streamed chat (the prefix as its system message) or a completion
+    (the prefix then the tail), greedy."""
+    if chat:
+        return {"model": name, "stream": True, "max_tokens": max_tokens,
+                "temperature": 0, "ignore_eos": True,
+                "messages": [{"role": "system", "content": prefix},
+                             {"role": "user", "content": tail}]}
+    return {"model": name, "prompt": prefix + tail, "max_tokens": max_tokens,
+            "temperature": 0, "ignore_eos": True}
+
+
+def _epp_call(port: int, body: dict, trace_id: str) -> dict:
+    """One request through `port` with a traceparent of `trace_id`: its
+    status, and for a stream its events with their arrival times, else
+    its JSON answer."""
+    import http.client
+
+    headers = {"Content-Type": "application/json",
+               "traceparent": f"00-{trace_id}-{os.urandom(8).hex()}-01"}
+    chat = "messages" in body
+    path = "/openai/v1/chat/completions" if chat else "/openai/v1/completions"
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=600)
+    out = {"trace_id": trace_id, "chat": chat}
+    try:
+        t0 = time.perf_counter()
+        conn.request("POST", path, body=json.dumps(body), headers=headers)
+        resp = conn.getresponse()
+        out["status"] = resp.status
+        if not chat or resp.status != 200:
+            raw = resp.read()
+            out["body"] = json.loads(raw) if raw else None
+        else:
+            events, times = [], []
+            while True:
+                line = resp.readline()
+                if not line:
+                    break
+                line = line.decode().strip()
+                if line.startswith("data: "):
+                    events.append(line[len("data: "):])
+                    times.append(time.perf_counter() - t0)
+            out["events"], out["times"] = events, times
+    except (OSError, http.client.HTTPException) as e:
+        out["status"], out["error"] = None, repr(e)
+    finally:
+        conn.close()
+    out["wall_s"] = time.perf_counter() - t0
+    return out
+
+
+def _epp_wave(port: int, calls) -> list:
+    """`calls` ((body, trace id) pairs) through `port`, EPP_CONCURRENCY at
+    a time."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    with ThreadPoolExecutor(max_workers=EPP_CONCURRENCY) as pool:
+        return list(pool.map(lambda c: _epp_call(port, *c), calls))
+
+
+def _epp_check_ok(label: str, results) -> None:
+    """Every answer 200 with EPP_MAX_TOKENS tokens; each stream's first event
+    before its last (the proxy streams, it does not buffer)."""
+    for r in results:
+        if r["status"] != 200:
+            raise AssertionError(f"epp {label}: answered {r['status']} "
+                                 f"{r.get('body') or r.get('error')}")
+        if r["chat"]:
+            events = r["events"]
+            if events[-1] != "[DONE]" or len(events) != EPP_MAX_TOKENS + 2:
+                raise AssertionError(f"epp {label}: a stream of {len(events)} events")
+            if not r["times"][1] < r["times"][-2]:
+                raise AssertionError(f"epp {label}: the first token came with the "
+                                     f"last ({r['times'][1]} s, {r['times'][-2]} s)")
+        elif r["body"]["usage"]["completion_tokens"] != EPP_MAX_TOKENS:
+            raise AssertionError(f"epp {label}: {r['body']['usage']}")
+
+
+def _served_by(engines, trace_ids) -> dict:
+    """{trace id: index of the engine whose finished timelines hold it}."""
+    out = {}
+    for i, engine in enumerate(engines):
+        for tl in engine.telemetry.timelines:
+            if tl.trace is not None and tl.trace.trace_id in trace_ids:
+                if out.setdefault(tl.trace.trace_id, i) != i:
+                    raise AssertionError(f"trace {tl.trace.trace_id} on two replicas")
+    return out
+
+
+class _OTLPCollector:
+    """The OTLP/HTTP JSON receiver of the smoke: POST /v1/traces on the
+    standard library, every span kept."""
+
+    def __init__(self):
+        import http.server
+        import threading
+
+        spans = self.spans = []
+        self.posts = 0
+        collector = self
+
+        class Handler(http.server.BaseHTTPRequestHandler):
+            def do_POST(self):
+                raw = self.rfile.read(int(self.headers["Content-Length"]))
+                doc = json.loads(raw)
+                for rs in doc["resourceSpans"]:
+                    service = {a["key"]: a["value"].get("stringValue")
+                               for a in rs["resource"]["attributes"]}.get("service.name")
+                    for ss in rs["scopeSpans"]:
+                        for sp in ss["spans"]:
+                            sp["service"] = service
+                            spans.append(sp)
+                collector.posts += 1
+                self.send_response(200)
+                self.send_header("Content-Length", "2")
+                self.end_headers()
+                self.wfile.write(b"{}")
+
+            def log_message(self, *args):
+                pass
+
+        self.httpd = http.server.ThreadingHTTPServer(("127.0.0.1", 0), Handler)
+        self.port = self.httpd.server_address[1]
+        self.thread = threading.Thread(target=self.httpd.serve_forever, daemon=True)
+        self.thread.start()
+
+    def trace(self, trace_id: str) -> list:
+        return [s for s in self.spans if s["traceId"] == trace_id]
+
+    def close(self) -> None:
+        self.httpd.shutdown()
+        self.httpd.server_close()
+        self.thread.join(10)
+
+
+class _EPPProcess:
+    """`python -m kserve_tpu_torch.scheduler.epp` over `urls`, exporting
+    spans to `otlp`, its log in a file under build/."""
+
+    def __init__(self, urls, otlp: str, log_path: str):
+        self.port = _free_port()
+        self.log_path = log_path
+        self._log = open(log_path, "w")
+        self.proc = subprocess.Popen(
+            [sys.executable, "-m", "kserve_tpu_torch.scheduler.epp",
+             "--replicas", ",".join(urls), "--poll-interval", "0.2",
+             "--port", str(self.port)],
+            cwd=REPO, stdout=self._log, stderr=subprocess.STDOUT,
+            env=dict(os.environ, OTEL_EXPORTER_OTLP_ENDPOINT=otlp))
+
+    def wait_ready(self, timeout: float = 120.0) -> float:
+        t0 = time.perf_counter()
+        while time.perf_counter() - t0 < timeout:
+            if self.proc.poll() is not None:
+                with open(self.log_path) as f:
+                    raise AssertionError(f"EPP exited {self.proc.returncode}: "
+                                         f"{f.read()[-3000:]}")
+            try:
+                if _http(self.port, "GET", "/healthz", timeout=5)[0] == 200:
+                    return time.perf_counter() - t0
+            except OSError:
+                pass
+            time.sleep(0.05)
+        raise AssertionError(f"EPP not ready in {timeout} s")
+
+    def state(self) -> dict:
+        status, raw = _http(self.port, "GET", "/state")
+        if status != 200:
+            raise AssertionError(f"EPP /state answered {status}")
+        return json.loads(raw)
+
+    def stop(self) -> None:
+        import signal
+
+        if self.proc.poll() is None:
+            self.proc.send_signal(signal.SIGTERM)
+            try:
+                self.proc.wait(30)
+            except subprocess.TimeoutExpired:
+                self.proc.kill()
+                self.proc.wait(30)
+        self._log.close()
+
+
+def _profile_summary(path: str, window_s: float) -> dict:
+    """Kernel names and the device's busy ms and idle share of a torch.
+    profiler Chrome trace (the union of its kernels' intervals over the
+    capture's span)."""
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = [e for e in events if e.get("cat") == "kernel" and e.get("ph") == "X"]
+    if not kernels:
+        raise AssertionError(f"the capture {path} holds no CUDA kernel")
+    spans = sorted((float(e["ts"]), float(e["ts"]) + float(e.get("dur", 0)))
+                   for e in kernels)
+    busy_us, end = 0.0, -1.0
+    for a, b in spans:
+        if b > end:
+            busy_us += b - max(a, end)
+            end = b
+    ts = [float(e["ts"]) for e in events if "ts" in e and e.get("ph") == "X"]
+    span_us = max(ts) - min(ts) if ts else 0.0
+    names = {e["name"] for e in kernels}
+    lower = [n.lower() for n in names]
+    return {
+        "kernels": len(kernels), "kernel_names": len(names),
+        "ragged": sorted(n for n in names if "ragged_kernel" in n
+                         and "dense_ragged" not in n)[:2],
+        "decode": sorted(n for n in names if "paged_decode_kernel" in n)[:2],
+        "gemm_kernels": sum(any(k in n for k in ("gemm", "nvjet", "xmma", "cutlass"))
+                            for n in lower),
+        "busy_ms": busy_us / 1e3, "trace_span_ms": span_us / 1e3,
+        "idle_share": 1.0 - busy_us / span_us if span_us > 0 else None,
+        "idle_share_of_window": 1.0 - busy_us / (window_s * 1e6),
+        "trace_mb": os.path.getsize(path) / 1e6,
+    }
+
+
+def _hop_pairs(direct: int, via: int, method: str, path: str, body, n: int):
+    """`n` pairs of one request to port `direct` and through port `via`
+    (one kept-alive connection each), alternating which goes first; the
+    `via` ones carry fresh traceparents.  Returns ((direct ms, via ms),
+    every answer's (text, usage) or model ids, the via trace ids)."""
+    clients = [_Client(direct), _Client(via)]
+    raw = json.dumps(body).encode() if body is not None else None
+    walls, answers, traces = ([], []), [], []
+    try:
+        for i in range(n):
+            for side in ((0, 1) if i % 2 == 0 else (1, 0)):
+                headers = {"Content-Type": "application/json"}
+                if side == 1:
+                    traces.append(os.urandom(16).hex())
+                    headers["traceparent"] = f"00-{traces[-1]}-{os.urandom(8).hex()}-01"
+                t0 = time.perf_counter()
+                status, _, out = clients[side].request(method, path, raw, headers)
+                walls[side].append((time.perf_counter() - t0) * 1e3)
+                if status != 200:
+                    raise AssertionError(f"epp hop {path}: answered {status}: {out[:200]!r}")
+                answer = json.loads(out)
+                # what must agree: a completion's text and usage, a model
+                # list's ids (its `created` stamps move with the clock)
+                answers.append((answer["choices"][0]["text"], answer["usage"])
+                               if "choices" in answer
+                               else [m["id"] for m in answer["data"]])
+    finally:
+        for c in clients:
+            c.close()
+    return walls, answers, traces
+
+
+def _span_gaps(collector, traces, timeout: float = 20.0) -> list:
+    """Per trace: the EPP's request span less the replica's, in ms (the
+    time the EPP spends beyond the replica's own answer)."""
+    deadline = time.monotonic() + timeout
+    while True:
+        gaps = []
+        for t in traces:
+            spans = collector.trace(t)
+            epp = [s for s in spans if s["service"] == "kserve-tpu-torch-epp"
+                   and s["name"] != "epp.proxy"]
+            rep = [s for s in spans if s["service"] != "kserve-tpu-torch-epp"
+                   and not s["name"].startswith("engine.")]
+            if len(epp) == 1 and len(rep) == 1:
+                gaps.append(sum((int(s["endTimeUnixNano"]) - int(s["startTimeUnixNano"]))
+                                * sign / 1e6 for s, sign in ((epp[0], 1), (rep[0], -1))))
+        if len(gaps) == len(traces):
+            return gaps
+        if time.monotonic() > deadline:
+            raise AssertionError(f"epp hop: spans of {len(traces) - len(gaps)} "
+                                 f"traces missing")
+        time.sleep(0.1)
+
+
+def _check_capture(capture: dict) -> dict:
+    """The summary of a served /admin/profile capture, which must hold
+    CUDA activity naming the ragged, decode and GEMM kernels."""
+    if "CUDA" not in capture["activities"]:
+        raise AssertionError(f"epp: the capture has no CUDA activity: {capture}")
+    summary = _profile_summary(capture["trace"], capture["seconds"])
+    if not summary["ragged"] or not summary["decode"] or not summary["gemm_kernels"]:
+        raise AssertionError(f"epp: the capture lacks a kernel of the path: {summary}")
+    return summary
+
+
+def phase_epp(torch) -> dict:
+    """The EPP endpoint picker in front of two Llama-3-8B replicas (full
+    width and depth, bf16, one set of seeded weights, 1,024 KV pages of 16
+    tokens each, in this process), the EPP a subprocess of its own
+    (`python -m kserve_tpu_torch.scheduler.epp --poll-interval 0.2`), all
+    three exporting spans to a standard-library OTLP collector.  Traffic:
+    EPP_PREFIXES prefixes of ~1,000 tokens, EPP_PER_PREFIX requests each
+    (streamed chats and completions, distinct ~50-token tails), the first
+    of each prefix alone, then EPP_CONCURRENCY at a time.  Gates: every
+    answer 200 with its tokens, each stream's first event before its last;
+    affinity (EPP_AFFINITY_MIN of each prefix's later requests on the
+    replica of its first; both replicas serve a prefix); the ragged and
+    decode kernels launched, on both replicas, exactly as their dispatches
+    make; a greedy completion through the EPP equal to the same prompt
+    sent to its replica (its pages cached first); one streamed chat's
+    linked trace (epp.proxy -> the replica's request span -> engine.queue /
+    prefill / decode, engine.decode's tokens the chat's); POST
+    /admin/profile during waves 202, 409 during the capture, the trace naming the
+    ragged, decode and GEMM kernels; the ms the EPP adds (p50 of
+    alternating pairs, EPP_TIMED); after B stops, B's breaker open, later requests all
+    on A, failures only 502 / 503; both down: 503 "no healthy replica";
+    no span lost by any exporter.  Returns {"epp": launch counts}."""
+    import shutil
+
+    from kserve_tpu_torch import tracing
+    from kserve_tpu_torch.engine.tokenizer import load_tokenizer
+    from kserve_tpu_torch.ops import paged_attention_cuda as K
+
+    t_phase = time.perf_counter()
+    shutil.rmtree(EPP_DIR, ignore_errors=True)
+    os.makedirs(EPP_DIR)
+    mc, params = _llama3_8b_params(torch)
+    # every id decodes to its own text: equal completion texts are equal ids
+    _write_mixtral_tokenizer(EPP_DIR, mc.vocab_size)
+    tok = load_tokenizer(EPP_DIR, mc.vocab_size)
+    prefixes, tails = _epp_texts(tok)
+    collector = _OTLPCollector()
+    otlp = f"http://127.0.0.1:{collector.port}"
+    # the replicas in this process export through its tracer, set up anew
+    os.environ[tracing.ENDPOINT_ENV] = otlp
+    tracing.shutdown_tracing()
+    tracing.setup_tracing("kserve-tpu-torch-replica")
+    argv = SERVE_ARGS + [f"--model_dir={EPP_DIR}", f"--kv_pages={EPP_KV_PAGES}"]
+    replicas, epp = [], None
+    out = {"phase": "epp", "model": "llama3-8b (random weights, seed 1, bf16), 2 replicas"}
+    steps, t_step = {}, [t_phase]
+
+    def lap(label: str) -> None:
+        now = time.perf_counter()
+        steps[label] = now - t_step[0]
+        t_step[0] = now
+
+    try:
+        for _ in range(2):
+            replicas.append(_start_server(torch, argv, "epp", load=lambda: params))
+        engines = [m.engine for m, _, _ in replicas]
+        name = replicas[0][0].name
+        urls = [f"http://127.0.0.1:{srv.port}" for _, srv, _ in replicas]
+        epp = _EPPProcess(urls, otlp, os.path.join(EPP_DIR, "epp.log"))
+        out["epp_ready_s"] = epp.wait_ready()
+        out["kv_cache_gb"] = [_kv_cache_gb(e) for e in engines]
+        out["prompt_tokens"] = [len(tok.encode(p)) for p in prefixes]
+        lap("start")
+
+        # -- affinity: each prefix's first request alone, the rest 8 at a time
+        calls = {(k, j): (_epp_body(name, prefixes[k], tails[k][j], chat=j % 2 == 0),
+                          os.urandom(16).hex())
+                 for k in range(EPP_PREFIXES) for j in range(EPP_PER_PREFIX)}
+        steps0 = [e.steps for e in engines]
+        torch.cuda.synchronize()
+        K.reset_launch_counts()
+        t_run = time.perf_counter()
+        first = []
+        for k in range(EPP_PREFIXES):
+            first += _epp_wave(epp.port, [calls[(k, 0)]])
+            time.sleep(0.3)  # the next poll sees this replica's load
+        rest = _epp_wave(epp.port, [calls[(k, j)] for j in range(1, EPP_PER_PREFIX)
+                                    for k in range(EPP_PREFIXES)])
+        wall = time.perf_counter() - t_run
+        torch.cuda.synchronize()
+        counts = dict(K.LAUNCHES)
+        _epp_check_ok("wave", first + rest)
+        where = _served_by(engines, {t for _, t in calls.values()})
+        if len(where) != len(calls):
+            raise AssertionError(f"epp: {len(calls) - len(where)} requests on no replica")
+        affinity = {}
+        for k in range(EPP_PREFIXES):
+            home = where[calls[(k, 0)][1]]
+            later = [where[calls[(k, j)][1]] for j in range(1, EPP_PER_PREFIX)]
+            affinity[k] = {"replica": home,
+                           "share": sum(r == home for r in later) / len(later)}
+        out["affinity"] = affinity
+        if min(a["share"] for a in affinity.values()) < EPP_AFFINITY_MIN:
+            raise AssertionError(f"epp: affinity {affinity}")
+        if {a["replica"] for a in affinity.values()} != {0, 1}:
+            raise AssertionError(f"epp: one replica served every prefix: {affinity}")
+        # -- the kernels, on both replicas, exactly as their dispatches make
+        layers, spd = mc.n_layers, engines[0].config.steps_per_sync
+        mixed = [e.steps - s for e, s in zip(engines, steps0)]
+        want = {"ragged_paged_attention": layers * sum(mixed),
+                "paged_decode_attention": layers * (spd - 1) * sum(mixed)}
+        got = {k: counts.get(k, 0) for k in want}
+        if min(mixed) <= 0 or got != want:
+            raise AssertionError(f"epp: launches {got} != {want} for mixed dispatches "
+                                 f"{mixed} of the two replicas")
+        _require_launches("epp", counts, tuple(want))
+        generated = sum(EPP_MAX_TOKENS for _ in calls)
+        out.update({"requests": len(calls), "tokens_generated": generated, "wall_s": wall,
+                    "tok_per_s": generated / wall, "mixed_dispatches": mixed,
+                    "launches": counts,
+                    "stream_first_event_s": statistics.median(
+                        r["times"][1] for r in first + rest if r["chat"]),
+                    "stream_last_event_s": statistics.median(
+                        r["times"][-2] for r in first + rest if r["chat"])})
+        lap("wave")
+
+        # -- tokens: through the EPP against the replica that served it
+        probe = _epp_body(name, prefixes[2], "Q2.x: say it once more", chat=False)
+        warm = _epp_call(epp.port, probe, os.urandom(16).hex())
+        home = _served_by(engines, {warm["trace_id"]})[warm["trace_id"]]
+        via = _epp_call(epp.port, probe, os.urandom(16).hex())
+        direct = _epp_call(replicas[home][1].port, probe, os.urandom(16).hex())
+        _epp_check_ok("tokens", [warm, via, direct])
+        if _served_by(engines, {via["trace_id"]}) != {via["trace_id"]: home}:
+            raise AssertionError("epp: the repeated prompt left its replica")
+        if (via["body"]["choices"][0]["text"] != direct["body"]["choices"][0]["text"]
+                or via["body"]["usage"] != direct["body"]["usage"]):
+            raise AssertionError(f"epp: through the EPP {via['body']['usage']} "
+                                 f"{via['body']['choices'][0]['text'][:80]!r}, direct "
+                                 f"{direct['body']['usage']} "
+                                 f"{direct['body']['choices'][0]['text'][:80]!r}")
+        out["tokens_equal"] = {"replica": home, "prompt_tokens":
+                               via["body"]["usage"]["prompt_tokens"]}
+        lap("tokens")
+
+        # -- one linked trace, from the EPP hop down to the engine
+        chat = _epp_call(epp.port, _epp_body(name, prefixes[1], "Q1.t: trace me",
+                                             chat=True), os.urandom(16).hex())
+        _epp_check_ok("trace", [chat])
+        # each process exports on its own clock, and a request span ends
+        # once its answer is written, which may be after the client read it
+        want = {"epp.proxy", "POST /{tail}", "POST /openai/v1/chat/completions",
+                "engine.queue", "engine.prefill", "engine.decode"}
+        deadline = time.monotonic() + 20
+        while time.monotonic() < deadline:
+            tracing.get_tracer().exporter.force_flush()
+            spans = {s["name"]: s for s in collector.trace(chat["trace_id"])}
+            if want <= set(spans):
+                break
+            time.sleep(0.1)
+        proxy = spans.get("epp.proxy")
+        req = spans.get("POST /openai/v1/chat/completions")
+        if proxy is None or req is None or req["parentSpanId"] != proxy["spanId"]:
+            raise AssertionError(f"epp: no linked proxy -> replica spans: {spans}")
+        for span in ("engine.queue", "engine.prefill", "engine.decode"):
+            if spans.get(span, {}).get("parentSpanId") != req["spanId"]:
+                raise AssertionError(f"epp: {span} is not below the request span: {spans}")
+        decode_attrs = {a["key"]: a["value"] for a in spans["engine.decode"]["attributes"]}
+        if int(decode_attrs["tokens"]["intValue"]) != len(chat["events"]) - 2:
+            raise AssertionError(f"epp: engine.decode tokens {decode_attrs['tokens']} "
+                                 f"for {len(chat['events']) - 2} streamed")
+        out["trace"] = {"spans": len(spans), "names": sorted(spans),
+                        "services": sorted({s["service"] for s in spans.values()}),
+                        "ms": {n: (int(s["endTimeUnixNano"]) - int(s["startTimeUnixNano"]))
+                               / 1e6 for n, s in spans.items()}}
+        lap("trace")
+
+        # -- profile replica A during waves (no timing, no affinity here),
+        # while a probe of A's loop shows what the capture holds it
+        import threading
+        from concurrent.futures import ThreadPoolExecutor
+
+        a_port = replicas[0][1].port
+        stop = threading.Event()
+        probe_ms = []
+
+        def waves() -> list:
+            done = []
+            while not stop.is_set():
+                done += _epp_wave(epp.port, [
+                    (_epp_body(name, prefixes[k % EPP_PREFIXES], f"P{len(done) + k}: "
+                               "profile", chat=k % 2 == 0), os.urandom(16).hex())
+                    for k in range(EPP_CONCURRENCY)])
+            return done
+
+        def probe() -> None:
+            while not stop.is_set():
+                t0 = time.perf_counter()
+                if _http(a_port, "GET", "/v2/health/live")[0] != 200:
+                    raise AssertionError("epp: replica A not live while profiled")
+                probe_ms.append((time.perf_counter() - t0) * 1e3)
+                time.sleep(0.05)
+
+        with ThreadPoolExecutor(max_workers=2) as pool:
+            fut_waves = pool.submit(waves)
+            time.sleep(0.5)
+            fut_probe = pool.submit(probe)
+            try:
+                t_prof = time.perf_counter()
+                s1, raw1 = _http(a_port, "POST", "/admin/profile",
+                                 {"seconds": EPP_PROFILE_S,
+                                  "dir": os.path.join(EPP_DIR, "prof")})
+                start_ms = (time.perf_counter() - t_prof) * 1e3
+                s2, raw2 = _http(a_port, "POST", "/admin/profile",
+                                 {"seconds": EPP_PROFILE_S})
+                deadline = time.monotonic() + 120
+                while time.monotonic() < deadline:
+                    prof = json.loads(_http(a_port, "GET", "/admin/telemetry")[1])[
+                        "profiler"]
+                    if not prof["active"]:
+                        break
+                    time.sleep(0.2)
+            finally:
+                stop.set()
+            profiled = fut_waves.result()
+            fut_probe.result()
+        if s1 != 202 or s2 != 409:
+            raise AssertionError(f"epp: /admin/profile answered {s1} {raw1[:200]!r}, "
+                                 f"then {s2} {raw2[:200]!r}")
+        _epp_check_ok("profile wave", profiled)
+        capture = json.loads(raw1)
+        if not prof["capture"].get("done"):
+            raise AssertionError(f"epp: the capture was not written: {prof}")
+        # what the capture costs: its start and stop on a thread of their
+        # own, and the longest a liveness probe of A waited meanwhile
+        out["profile"] = dict(_check_capture(capture), answer_ms=start_ms,
+                              start_s=prof["capture"]["start_s"],
+                              stop_s=prof["capture"]["stop_s"],
+                              export_s=prof["capture"]["export_s"],
+                              requests=len(profiled),
+                              loop_probe_ms={"n": len(probe_ms),
+                                             "p50": _pct(probe_ms, 0.5),
+                                             "max": max(probe_ms)})
+        lap("profile")
+
+        # -- the hop: what the EPP adds, from the client (pairs alternating)
+        # and from its own spans (its request span less the replica's)
+        # two text chunks long: its text affinity holds it to one replica
+        short = {"model": name, "prompt": "Tell me about the sea. " * 6, "max_tokens": 4,
+                 "temperature": 0, "ignore_eos": True}
+        warm = _epp_call(epp.port, short, os.urandom(16).hex())
+        home = _served_by(engines, {warm["trace_id"]})[warm["trace_id"]]
+        hop = {}
+        for label, method, path, body in (
+                ("completion", "POST", "/openai/v1/completions", short),
+                ("models", "GET", "/openai/v1/models", None)):
+            walls, answers, traces = _hop_pairs(replicas[home][1].port, epp.port, method,
+                                                path, body, EPP_TIMED[label])
+            if len(set(map(json.dumps, answers))) != 1:
+                raise AssertionError(f"epp hop {label}: the answers differ")
+            hop[label] = {"direct_p50_ms": _pct(walls[0], 0.5),
+                          "via_p50_ms": _pct(walls[1], 0.5),
+                          "via_p99_ms": _pct(walls[1], 0.99),
+                          "added_ms_per_hop_p50": _pct(
+                              [b - a for a, b in zip(*walls)], 0.5),
+                          "epp_span_less_replica_span_ms_p50": _pct(
+                              _span_gaps(collector, traces), 0.5)}
+        out["hop"] = hop
+        lap("hop")
+
+        # -- failover: B stops mid-wave
+        b_prefixes = [k for k, a in affinity.items() if a["replica"] == 1]
+        mid = [(_epp_body(name, prefixes[k], f"F{i}: failover", chat=False),
+                os.urandom(16).hex()) for i, k in enumerate(b_prefixes * 4 + [0] * 4)]
+        with ThreadPoolExecutor(max_workers=1) as pool:
+            fut = pool.submit(_epp_wave, epp.port, mid)
+            time.sleep(0.3)
+            _stop_server(torch, *replicas[1])
+            during = fut.result()
+        bad = [r["status"] for r in during if r["status"] not in (200, 502, 503)]
+        if bad:
+            raise AssertionError(f"epp failover: statuses {bad}")
+        deadline = time.monotonic() + 30
+        while time.monotonic() < deadline:
+            rep_b = [r for r in epp.state()["replicas"] if r["url"] == urls[1]][0]
+            if rep_b["breaker"] == "open" and not rep_b["healthy"]:
+                break
+            time.sleep(0.1)
+        else:
+            raise AssertionError(f"epp failover: B still available: {rep_b}")
+        after = _epp_wave(epp.port, [(_epp_body(name, prefixes[k], f"A{i}: after",
+                                                chat=False), os.urandom(16).hex())
+                                     for i, k in enumerate(b_prefixes * 2)])
+        _epp_check_ok("after failover", after)
+        if set(_served_by(engines[:1], {r["trace_id"] for r in after}).values()) != {0}:
+            raise AssertionError("epp failover: a request after B stopped was not on A")
+        out["failover"] = {"during": [r["status"] for r in during],
+                           "after": [r["status"] for r in after],
+                           "b_breaker": rep_b["breaker"]}
+        lap("failover")
+        epp_tracing = epp.state().get("tracing")
+        _stop_server(torch, *replicas[0])
+        replicas = []
+        deadline = time.monotonic() + 30
+        while time.monotonic() < deadline:
+            status, raw = _http(epp.port, "POST", "/openai/v1/completions", short)
+            if status == 503:
+                break
+            time.sleep(0.2)
+        if status != 503 or json.loads(raw) != {"error": "no healthy replica"}:
+            raise AssertionError(f"epp: both down answered {status} {raw[:200]!r}")
+        out["all_down"] = json.loads(raw)
+        lap("all_down")
+        # -- no span lost, here or at the EPP
+        tracing.get_tracer().exporter.force_flush()
+        replica_tracing = tracing.tracer_stats()
+        out["exporters"] = {"replicas": replica_tracing, "epp": epp_tracing,
+                            "collector_spans": len(collector.spans),
+                            "collector_posts": collector.posts}
+        for side, stats in (("replicas", replica_tracing), ("epp", epp_tracing)):
+            if not stats or stats["failed"] or stats["dropped"] or not stats["exported"]:
+                raise AssertionError(f"epp: the {side}' exporter lost spans: {stats}")
+    finally:
+        if epp is not None:
+            epp.stop()
+        for rep in replicas:
+            _stop_server(torch, *rep)
+        tracing.shutdown_tracing()
+        os.environ.pop(tracing.ENDPOINT_ENV, None)
+        collector.close()
+        shutil.rmtree(EPP_DIR, ignore_errors=True)
+    out["steps_s"] = steps
+    out["phase_wall_s"] = time.perf_counter() - t_phase
+    emit(out)
+    del params
+    torch.cuda.empty_cache()
+    return counts
+
+
 # the served phases --only can run alone
 SERVED_PHASES = {"serve": phase_serve, "d64": phase_d64, "spec": phase_spec,
                  "kvq": phase_kvq, "gemma2": phase_gemma2,
@@ -6610,7 +7287,7 @@ SERVED_PHASES = {"serve": phase_serve, "d64": phase_d64, "spec": phase_spec,
                  "wq": phase_wq, "checkpoint": phase_checkpoint,
                  "moe": phase_moe, "pd": phase_pd, "peer": phase_peer,
                  "predictive": phase_predictive, "encoder": phase_encoder,
-                 "graph": phase_graph}
+                 "graph": phase_graph, "epp": phase_epp}
 
 if __name__ == "__main__":
     sys.exit(main())

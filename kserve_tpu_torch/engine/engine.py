@@ -179,7 +179,7 @@ from ..metrics import (
 from ..models import llama
 from ..models.lora import stack_adapters
 from ..models.quant import is_quantized, quantize_params
-from ..observability import RequestTimeline, TimelineRecorder
+from ..observability import RequestTimeline, TimelineRecorder, emit_timeline_spans
 from ..resilience import (
     MONOTONIC,
     Deadline,
@@ -187,6 +187,7 @@ from ..resilience import (
     ReplicaCrashError,
     current_deadline,
 )
+from ..tracing import current_trace_context, get_tracer
 from ..ops.attention import dense_stride_for
 from ..ops.paged_attention_cuda import RAGGED_BQ
 from ..kvstore import HierarchicalKVStore, KVStoreConfig, payload_nbytes
@@ -820,9 +821,11 @@ class LLMEngine:
         return deadline
 
     def _new_timeline(self, rid: str, n_prompt: int) -> RequestTimeline:
-        """A request's timeline, stamped received now (kserve_tpu/engine/
-        engine.py:1391-1399)."""
-        tl = RequestTimeline(rid, model_name=self._mlabel)
+        """A request's timeline, stamped received now, with the caller's
+        trace context so that its engine spans join the request's trace
+        (kserve_tpu/engine/engine.py:1391-1399)."""
+        tl = RequestTimeline(rid, model_name=self._mlabel,
+                             trace=current_trace_context())
         tl.n_prompt_tokens = n_prompt
         tl.mark_received(self._clock.now())
         return tl
@@ -956,7 +959,7 @@ class LLMEngine:
         return self._kv_store.read_peer_page(digest)
 
     # ---------------- telemetry ----------------
-    # Port of kserve_tpu/engine/engine.py:1206-1253 (without the tracer).
+    # Port of kserve_tpu/engine/engine.py:1206-1255.
 
     def telemetry_snapshot(self) -> dict:
         """Rolling latency percentiles and recent request timelines (the
@@ -970,8 +973,9 @@ class LLMEngine:
     def _record_terminal(self, tl: Optional[RequestTimeline],
                          reason: Optional[str]) -> None:
         """A timeline reached a terminal state: stamp it, feed the
-        recorder and, for a finished generation, the request histograms.
-        Once per timeline, whichever teardown path comes first."""
+        recorder and, for a finished generation, the request histograms,
+        and emit its engine spans when a tracer is configured.  Once per
+        timeline, whichever teardown path comes first."""
         if tl is None or tl.recorded:
             return
         tl.recorded = True
@@ -979,6 +983,16 @@ class LLMEngine:
         self.telemetry.observe(tl)
         if reason in ("stop", "length"):
             observe_request_timeline(self._mlabel, tl)
+        tracer = get_tracer()
+        if tracer is not None:
+            try:
+                emit_timeline_spans(tracer, tl, self._wall_ns)
+            except Exception:  # noqa: BLE001 — telemetry must never kill the loop
+                logger.exception("engine span emission failed")
+
+    def _wall_ns(self, t: float) -> int:
+        """Wall-clock nanoseconds of the engine clock's time `t`."""
+        return time.time_ns() - int((self._clock.now() - t) * 1e9)
 
     def _set_queue_gauge(self) -> None:
         ENGINE_QUEUE_DEPTH.labels(model_name=self._mlabel).set(len(self._waiting))

@@ -22,13 +22,12 @@ import operator
 from dataclasses import dataclass, field
 from typing import Any, Dict, List, Optional
 
+from ..protocol.limits import (  # noqa: F401 — re-exported by lifecycle
+    CHECKPOINT_FIELD_SIZE_LIMIT,
+    CHECKPOINT_HEADER_MAX_BYTES,
+)
+
 CHECKPOINT_HEADER = "x-generation-checkpoint"
-# the header form grows with prompt + generated (~8 base64 bytes a token);
-# a server accepts a request head up to this much, and a client drops a
-# larger checkpoint from its retry (restarting beats a 400)
-CHECKPOINT_HEADER_MAX_BYTES = 1 << 20
-# the header-field limit of every hop that carries the checkpoint header
-CHECKPOINT_FIELD_SIZE_LIMIT = CHECKPOINT_HEADER_MAX_BYTES + 8190
 # RESPONSE headers cross parsers this server does not control (a stock
 # aiohttp client stops at 8190 bytes a field): above this size a 503
 # carries the checkpoint in its JSON body only

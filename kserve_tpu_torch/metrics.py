@@ -468,3 +468,35 @@ KV_PEER_PAGES_SERVED = Counter(
     "GET /v1/internal/kv/pages/{digest}",
     [],
 )
+
+# Gray-failure fleet health (kserve_tpu/metrics.py:192-216): the endpoint
+# picker's health-score distribution and quarantine transitions.  `stat`
+# and `transition` are closed sets; replica identity stays out of the
+# labels (it rides the picker snapshot and the EPP's /state).
+REPLICA_HEALTH_SCORE = Gauge(
+    "replica_health_score",
+    "fleet health-score distribution at the latest poll (min | median | "
+    "max over replicas; per-replica scores live in the EPP /state)",
+    ["stat"],
+)
+QUARANTINE_TRANSITIONS = Counter(
+    "replica_quarantine_transitions_total",
+    "gray-failure health state transitions "
+    "(quarantine | reintroduce | degrade | restore)",
+    ["transition"],
+)
+
+
+def record_quarantine_transition(transition: str) -> None:
+    """FleetHealth's transition hook; replica identity stays in /state."""
+    QUARANTINE_TRANSITIONS.labels(transition=transition).inc()
+
+
+# The span exporter (tracing.py; the port's own series): spans sent to the
+# collector, dropped because the export queue was full, and lost with a
+# failed export.
+TRACING_SPANS = Counter(
+    "tracing_spans_total",
+    "finished spans by export outcome (exported | dropped | failed)",
+    ["outcome"],
+)

@@ -2,8 +2,10 @@
 
 Port of kserve_tpu/observability/timeline.py (the same classes, fields,
 payload keys and percentile rule, the autoscaler's signal view
-`signal_windows()` included; no trace context, which comes with the
-tracer).  Every generation is stamped with a `RequestTimeline` as it
+`signal_windows()` included).  Each timeline carries the TraceContext its
+request was bound to (`trace`): the engine's queue / prefill / decode
+spans (observability/spans.py) hang below the request's span through it,
+and its `trace_id` is in the timeline's payload.  Every generation is stamped with a `RequestTimeline` as it
 moves through the engine (received -> admitted -> prefill start/end ->
 first token -> per-token -> finished, cancelled, error or preempted: a
 drain's checkpoint), from the engine's monotonic clock.
@@ -33,16 +35,19 @@ class RequestTimeline:
     monotonic seconds; only differences are meaningful."""
 
     __slots__ = (
-        "request_id", "model_name", "received", "admitted",
+        "request_id", "model_name", "trace", "received", "admitted",
         "prefill_start", "prefill_end", "first_token_at", "finished_at",
         "finish_reason", "n_prompt_tokens", "n_generated", "itls",
         "itl_overflow_n", "itl_overflow_sum", "events", "_last_token_at",
         "recorded",
     )
 
-    def __init__(self, request_id: str, model_name: str = ""):
+    def __init__(self, request_id: str, model_name: str = "",
+                 trace: Any = None):
         self.request_id = request_id
         self.model_name = model_name
+        # the tracing.TraceContext bound when the request entered, or None
+        self.trace = trace
         self.received: Optional[float] = None
         self.admitted: Optional[float] = None
         self.prefill_start: Optional[float] = None
@@ -141,7 +146,7 @@ class RequestTimeline:
         return (sum(self.itls) + self.itl_overflow_sum) / n
 
     def to_dict(self, max_events: int = 16) -> Dict[str, Any]:
-        return {
+        d: Dict[str, Any] = {
             "request_id": self.request_id,
             "model_name": self.model_name,
             "received": self.received,
@@ -160,6 +165,9 @@ class RequestTimeline:
             "mean_itl_s": self.mean_itl_s,
             "events": self.events[:max_events],
         }
+        if self.trace is not None:
+            d["trace_id"] = getattr(self.trace, "trace_id", None)
+        return d
 
 
 def percentiles(samples) -> Dict[str, Any]:

@@ -5,10 +5,21 @@ bodies read, answers written whole or as chunked server-sent events.
 `HTTPServer` serves one connection's requests in turn and hands each to
 `_respond(method, path, query, headers, body, writer, keep_alive)`, which
 a server subclasses: the model server (server.py) and the graph router
-(graph/router.py) share this wire.  Every request runs bound to its
-trace context and request id (tracing.request_scope: a child of the
-caller's `traceparent` or a new root; its `x-request-id` or a new one),
-and every answer echoes `x-request-id` (kserve_tpu/tracing.py:223-238).
+(graph/router.py) and the EPP (scheduler/epp.py) share this wire.  Every
+request runs bound to its trace context and request id
+(tracing.request_scope: a child of the caller's `traceparent` or a new
+root; its `x-request-id` or a new one), and every answer echoes
+`x-request-id` (kserve_tpu/tracing.py:223-238).
+
+With a tracer (tracing.get_tracer() is not None, i.e.
+$OTEL_EXPORTER_OTLP_ENDPOINT set) each request is one span, the
+counterpart of kserve_tpu/tracing.py:241-287: its ids are the bound
+context's (its parent is the caller's span), its name is "{method}
+{route template}" (`_route_template`; never the raw path, so N models are
+not N span names), with the attributes http.method, http.target,
+http.status_code (the answer's, from its head), kserve.model, trace_id and
+span_id.  An exception that escapes `_respond` marks it as an error; a
+mapped status (an HTTPError, a 4xx) leaves it clean.
 
 Connections are kept alive (HTTP/1.1; HTTP/1.0 with `Connection:
 keep-alive`) until the client sends `Connection: close`, a request
@@ -20,12 +31,21 @@ seconds.  A request body comes with a Content-Length or
 from __future__ import annotations
 
 import asyncio
+import contextvars
 import json
 import logging
 from typing import Dict, Optional, Tuple
 
-from ...lifecycle import CHECKPOINT_FIELD_SIZE_LIMIT
-from ...tracing import REQUEST_ID_HEADER, current_request_id, request_scope
+from ..limits import CHECKPOINT_FIELD_SIZE_LIMIT, MAX_HEAD_BYTES
+from ...tracing import (
+    REQUEST_ID_HEADER,
+    SPAN_KIND_SERVER,
+    TraceContext,
+    current_request_id,
+    get_tracer,
+    mark_span_error,
+    request_scope,
+)
 from ..openai.types import error_body
 
 logger = logging.getLogger(__name__)
@@ -34,15 +54,24 @@ MAX_BODY_BYTES = 16 << 20
 # seconds an idle kept-alive connection waits for its next request
 # (aiohttp's keepalive_timeout, the JAX server's)
 IDLE_TIMEOUT_S = 75.0
-# the request head: one checkpoint header field of up to
-# CHECKPOINT_FIELD_SIZE_LIMIT bytes, and 64 KiB for the rest
-MAX_HEAD_BYTES = CHECKPOINT_FIELD_SIZE_LIMIT + (1 << 16)
-_REASONS = {200: "OK", 400: "Bad Request", 404: "Not Found",
-            405: "Method Not Allowed", 411: "Length Required",
+_REASONS = {200: "OK", 201: "Created", 202: "Accepted", 204: "No Content",
+            400: "Bad Request", 401: "Unauthorized", 403: "Forbidden",
+            404: "Not Found", 405: "Method Not Allowed", 409: "Conflict",
+            411: "Length Required",
             413: "Payload Too Large", 422: "Unprocessable Entity",
             429: "Too Many Requests", 500: "Internal Server Error",
             501: "Not Implemented", 502: "Bad Gateway",
             503: "Service Unavailable", 504: "Gateway Timeout"}
+
+
+# the span of the request being answered, when a tracer is configured
+_request_span: contextvars.ContextVar = contextvars.ContextVar(
+    "kserve_tpu_torch_request_span", default=None)
+
+
+def request_span():
+    """The span of the request being answered, or None."""
+    return _request_span.get()
 
 
 class HTTPError(Exception):
@@ -96,6 +125,11 @@ class HTTPServer:
                        keep_alive: bool) -> None:
         raise NotImplementedError
 
+    def _route_template(self, method: str, path: str) -> Tuple[str, Optional[str]]:
+        """(route template, model name or None) of a request: its span's
+        name.  A server whose paths carry names overrides it."""
+        return path, None
+
     async def _on_error(self, exc: Exception, path: str, writer,
                         keep_alive: bool) -> None:
         """The answer to an unexpected exception of `_respond`."""
@@ -138,7 +172,9 @@ class HTTPServer:
         tokens = {t.strip().lower() for t in headers.get("connection", "").split(",")}
         keep_alive = ("keep-alive" in tokens if version == "HTTP/1.0"
                       else "close" not in tokens)
-        with request_scope(headers):
+        with request_scope(headers) as (ctx, _):
+            span = self._start_request_span(method, path, headers, ctx)
+            token = _request_span.set(span)
             try:
                 body = await self._read_body(method, headers, reader, writer)
                 await self._respond(method, path, query, headers, body, writer,
@@ -149,11 +185,37 @@ class HTTPServer:
                 return False
             except HTTPError as e:
                 await self._send_json(writer, e.status, error_body(str(e)), keep_alive)
-            except (ConnectionError, asyncio.IncompleteReadError):
+            except (ConnectionError, asyncio.IncompleteReadError) as e:
+                if span is not None:
+                    mark_span_error(span, e)
                 return False
             except Exception as e:  # noqa: BLE001 — one request's failure must not stop the server
+                if span is not None:
+                    mark_span_error(span, e)
                 await self._on_error(e, path, writer, keep_alive)
+            finally:
+                _request_span.reset(token)
+                if span is not None:
+                    span.end()
         return keep_alive
+
+    def _start_request_span(self, method: str, path: str,
+                            headers: Dict[str, str], ctx: TraceContext):
+        """The request's span (None without a tracer): the bound context's
+        ids, a child of the caller's span."""
+        tracer = get_tracer()
+        if tracer is None:
+            return None
+        template, model = self._route_template(method, path)
+        attributes = {"http.method": method, "http.target": path,
+                      "trace_id": ctx.trace_id, "span_id": ctx.span_id}
+        if model:
+            attributes["kserve.model"] = model
+        caller = TraceContext.from_headers(headers)
+        return tracer.start_span(
+            f"{method} {template}", attributes=attributes, context=ctx,
+            parent_span_id=caller.span_id if caller is not None else None,
+            kind=SPAN_KIND_SERVER)
 
     @staticmethod
     def _parse_head(head: bytes) -> Tuple[str, str, str, str, Dict[str, str]]:
@@ -225,9 +287,13 @@ class HTTPServer:
         """The answer's head; it echoes the bound request id unless
         `headers` carry one."""
         headers = dict(headers or {})
+        names = {k.lower() for k in headers}
         rid = current_request_id()
-        if rid and REQUEST_ID_HEADER not in {k.lower() for k in headers}:
+        if rid and REQUEST_ID_HEADER not in names:
             headers[REQUEST_ID_HEADER] = rid
+        span = _request_span.get()
+        if span is not None:
+            span.set_attribute("http.status_code", status)
         lines = [f"HTTP/1.1 {status} {_REASONS.get(status, 'Unknown')}",
                  f"Content-Type: {content_type}",
                  f"Connection: {'keep-alive' if keep_alive else 'close'}"]
@@ -235,7 +301,9 @@ class HTTPServer:
         if length is not None:
             lines.append(f"Content-Length: {length}")
         else:
-            lines += ["Transfer-Encoding: chunked", "Cache-Control: no-cache"]
+            lines.append("Transfer-Encoding: chunked")
+            if "cache-control" not in names:
+                lines.append("Cache-Control: no-cache")
         return ("\r\n".join(lines) + "\r\n\r\n").encode("latin-1")
 
     async def _send(self, writer, status: int, content_type: str, data,

@@ -25,9 +25,13 @@ Routes:
        when it has no method of the route's verb
   GET  /metrics          the engine's series (metrics.py), text format 0.0.4
   GET  /admin/telemetry  per model: TTFT / ITL / queue-wait percentiles and
-       recent request timelines (kserve_tpu/observability/
-       introspection.py:115-126; the port has no profiler, so
-       "profiler" always reads inactive)
+       recent request timelines, and the profiler's status
+       (kserve_tpu/observability/introspection.py:115-126)
+  POST /admin/profile    a torch.profiler capture of {"seconds": s} (2 by
+       default) into {"dir": d} or $KSERVE_TPU_PROFILE_DIR as a Chrome
+       trace, CUDA activity included when an engine is on a CUDA device:
+       202 with the target, 409 while one runs, 400 for seconds outside
+       (0, 300], 501 without a profiler (observability/introspection.py)
   GET  /v1/internal/scheduler/state  the endpoint picker's view: summed
        queue depth, inflight and free pages, each model's
        engine.scheduler_state(), the lifecycle state, the shed counts and
@@ -64,8 +68,10 @@ up to CHECKPOINT_FIELD_SIZE_LIMIT bytes.  On `/`, `/v1/models...` and
 `/v2...` an error's body is the JAX server's {"error": reason}; on the
 other routes it is the OpenAI form {"error": {"message", "type"}}.
 
-The wire (keep-alive, bodies, the request's trace context and the
-`x-request-id` echo) is http_server.HTTPServer's.
+The wire (keep-alive, bodies, the request's trace context and span and
+the `x-request-id` echo) is http_server.HTTPServer's; `_route_template`
+names a request's span by the JAX server's route templates
+("/v2/models/{model_name}/infer", ...).
 """
 
 from __future__ import annotations
@@ -73,7 +79,8 @@ from __future__ import annotations
 import asyncio
 import json
 import logging
-from typing import Callable, Dict, Optional
+import re
+from typing import Callable, Dict, Optional, Tuple
 from urllib.parse import parse_qs, unquote
 
 from ...errors import (
@@ -111,6 +118,7 @@ from ...resilience import (
     deadline_scope,
     is_inference_path,
 )
+from ...observability.introspection import ProfilerSession, profile_route
 from ..dataplane import DataPlane
 from ..model_repository_extension import ModelRepositoryExtension
 from ..openai.types import (
@@ -128,6 +136,7 @@ from .http_server import (  # noqa: F401 — MAX_HEAD_BYTES: tests read it here
     MAX_HEAD_BYTES,
     HTTPError as _HTTPError,
     HTTPServer,
+    request_span,
 )
 from .v1_endpoints import V1Endpoints
 from .v2_endpoints import V2Endpoints
@@ -145,6 +154,21 @@ _OPENAI_ROUTES = {
     "/openai/v1/embeddings": (EmbeddingRequest, "create_embedding"),
     "/openai/v1/rerank": (RerankRequest, "create_rerank"),
 }
+
+
+# routes whose path is its own template
+_FIXED_ROUTES = frozenset({
+    "/", "/v2/health/live", "/v2/health/ready", "/openai/v1/models", "/metrics",
+    "/admin/telemetry", "/admin/profile", "/admin/drain",
+    "/v1/internal/scheduler/state", *_OPENAI_ROUTES})
+# a V1 / V2 pattern's name groups, in order
+_GROUP_NAMES = ("{model_name}", "{model_version}")
+
+
+def _template_of(pattern: "re.Pattern") -> str:
+    """The aiohttp-style template of a V1 / V2 route pattern."""
+    names = iter(_GROUP_NAMES)
+    return re.sub(r"\([^)]*\)", lambda _: next(names), pattern.pattern)
 
 
 def _jax_error_form(path: str) -> bool:
@@ -189,6 +213,33 @@ class RESTServer(HTTPServer):
         # the running drain task (a bare create_task is weakly held)
         self._drain_tasks: list = []
         self._peer_page_sem: Optional[asyncio.Semaphore] = None
+        self.profiler = ProfilerSession(cuda=self._on_cuda)
+        # (compiled pattern, template) of the V1 / V2 routes
+        self._templates = [(p, _template_of(p)) for _, p, _ in self._dataplane_routes]
+
+    def _on_cuda(self) -> bool:
+        """Whether a model's engine, or the model, is on a CUDA device."""
+        for model in self.models.values():
+            device = getattr(getattr(model, "engine", None), "device", None)
+            device = device if device is not None else getattr(model, "device", None)
+            if getattr(device, "type", device) == "cuda":
+                return True
+        return False
+
+    def _route_template(self, method: str, path: str) -> Tuple[str, Optional[str]]:
+        if path.startswith("/openai/") and not path.startswith("/openai/v1/"):
+            path = "/openai/v1/" + path[len("/openai/"):]
+        if path in _FIXED_ROUTES:
+            return path, None
+        if path.startswith(PREFILL_ROUTE):
+            return PREFILL_ROUTE + "{model_name}", path[len(PREFILL_ROUTE):]
+        if path.startswith(PAGE_ROUTE + "/"):
+            return PAGE_ROUTE + "/{digest}", None
+        for pattern, template in self._templates:
+            m = pattern.fullmatch(path)
+            if m is not None:
+                return template, unquote(m.group(1)) if m.groups() else None
+        return path, None
 
     @property
     def models(self) -> Dict[str, object]:
@@ -371,6 +422,10 @@ class RESTServer(HTTPServer):
         if path == "/admin/telemetry":
             self._expect(method, "GET")
             return await self._send_json(writer, 200, self._telemetry(), keep_alive)
+        if path == "/admin/profile":
+            self._expect(method, "POST")
+            status, payload = await profile_route(self.profiler, body)
+            return await self._send_json(writer, status, payload, keep_alive)
         if path == "/v1/internal/scheduler/state":
             self._expect(method, "GET")
             return await self._send_json(writer, 200, self.scheduler_state(),
@@ -391,6 +446,9 @@ class RESTServer(HTTPServer):
         self._expect(method, "POST")
         request_type, verb = _OPENAI_ROUTES[path]
         req = request_type.from_json(self._json(body))
+        span = request_span()
+        if span is not None and req.model:
+            span.set_attribute("kserve.model", req.model)
         result = await getattr(self._openai_model(req.model, verb), verb)(req, headers)
         if getattr(req, "stream", False):
             return await self._send_sse(writer, result, keep_alive)
@@ -516,7 +574,7 @@ class RESTServer(HTTPServer):
             snap = getattr(getattr(model, "engine", None), "telemetry_snapshot", None)
             if callable(snap):
                 models[name] = snap()
-        return {"models": models, "profiler": {"active": False, "capture": None}}
+        return {"models": models, "profiler": self.profiler.status()}
 
     @staticmethod
     def _json(body: bytes):

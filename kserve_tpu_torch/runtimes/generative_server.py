@@ -74,6 +74,7 @@ from ..engine.watchdog import watchdog_enabled_from_env
 from ..kvstore import kv_persist_dir_from_env
 from ..kvstore.tiers import DEFAULT_DISK_DIR
 from ..errors import InvalidInput
+from ..logging import configure_logging
 from ..lifecycle import (
     CHECKPOINT_HEADER,
     GenerationCheckpoint,
@@ -739,8 +740,8 @@ def build_model(args) -> TorchGenerativeModel:
 
 
 def main(argv=None) -> None:
-    logging.basicConfig(level=logging.INFO,
-                        format="%(asctime)s %(levelname)s %(name)s: %(message)s")
+    # every record carries its request and trace ids (logging.py)
+    configure_logging()
     args = build_arg_parser().parse_args(argv)
     model = build_model(args)
     ModelServer(http_port=args.http_port).start([model])

@@ -1,10 +1,14 @@
-"""Page-aligned prefix digests: the keys of the engine's prefix cache.
+"""Page-aligned prefix digests: the keys of the engine's prefix cache,
+and the endpoint picker's affinity keys.
 
-Port of kserve_tpu/scheduler/prefix.py:25-47.  A key is a blake2b chain
-over page-sized runs of token ids (blake2b(prev_digest || page tokens as
+Port of kserve_tpu/scheduler/prefix.py.  A key is a blake2b chain over
+page-sized runs of token ids (blake2b(prev_digest || page tokens as
 little-endian int64)), stable across processes.  The bytes are the JAX
-package's exactly: its EPP endpoint picker scores replicas by these
-digests, and persisted prefix pages are named by them.
+package's exactly: the EPP's picker scores replicas by these digests,
+and persisted prefix pages are named by them.  Text affinity (OpenAI
+requests, where the picker has no tokenizer) chains the same way over
+fixed-size byte chunks of the UTF-8 prompt: two prompts that share a
+byte prefix almost always share a token prefix.
 """
 
 from __future__ import annotations
@@ -13,6 +17,8 @@ import hashlib
 from typing import List, Sequence
 
 import numpy as np
+
+TEXT_CHUNK_BYTES = 64  # ~16 tokens of typical English text
 
 
 def token_prefix_digests(
@@ -35,3 +41,17 @@ def token_prefix_digests(
 
 def _tokens_bytes(tokens: Sequence[int]) -> bytes:
     return np.asarray(tokens, np.int64).tobytes()
+
+
+def text_prefix_digests(text: str, chunk_bytes: int = TEXT_CHUNK_BYTES) -> List[bytes]:
+    """Digest-chained keys over fixed-size byte chunks of `text` (complete
+    chunks only, so a shared prefix yields a shared key run)."""
+    raw = text.encode("utf-8", errors="replace")
+    keys: List[bytes] = []
+    digest = b""
+    for i in range(len(raw) // chunk_bytes):
+        h = hashlib.blake2b(digest, digest_size=16)
+        h.update(raw[i * chunk_bytes: (i + 1) * chunk_bytes])
+        digest = h.digest()
+        keys.append(digest)
+    return keys

@@ -58,6 +58,12 @@ def test_import_loads_no_jax_and_no_jax_package():
             "kserve_tpu_torch.protocol.openai.openai_model",
             "kserve_tpu_torch.protocol.rest.http_server", "kserve_tpu_torch.tracing",
             "kserve_tpu_torch.inference_client", "kserve_tpu_torch.graph.router",
+            "kserve_tpu_torch.scheduler.epp", "kserve_tpu_torch.scheduler.picker",
+            "kserve_tpu_torch.scheduler.health", "kserve_tpu_torch.scheduler.latency",
+            "kserve_tpu_torch.autoscale.signals", "kserve_tpu_torch.logging",
+            "kserve_tpu_torch.observability.spans",
+            "kserve_tpu_torch.observability.introspection",
+            "kserve_tpu_torch.protocol.limits",
             } <= set(_port_modules())
     code = (
         "import importlib, sys\n"
@@ -285,6 +291,34 @@ def test_encoder_and_router_need_none_of_them(tmp_path):
         "    {'model': 'e', 'input': 'hello'})))\n"
         "assert len(out.data[0].embedding) == 32\n"
         "assert router.GraphRouter({'nodes': {}}).retry_policy.max_attempts == 2\n"
+    )
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_epp_and_tracer_need_none_of_them():
+    """The EPP, the picker and its health and latency layers, the span
+    tracer and exporter, logging and the profiler route load, and the
+    EPP's entry point parses its flags, with every package the card
+    machine lacks blocked (opentelemetry and grpc with them)."""
+    code = (
+        "import sys\n"
+        f"for name in {sorted(CARD_MISSING | {'opentelemetry', 'grpc'})!r}:\n"
+        "    sys.modules[name] = None\n"
+        "from kserve_tpu_torch.scheduler import epp, picker, health, latency\n"
+        "from kserve_tpu_torch.autoscale import signals\n"
+        "from kserve_tpu_torch import tracing, logging as tlogging\n"
+        "from kserve_tpu_torch.observability import introspection, spans\n"
+        "args = epp.build_arg_parser().parse_args(['--replicas', 'http://a:1'])\n"
+        "p = epp.build_picker(args)\n"
+        "assert list(p.replicas) == ['http://a:1'] and p.prefix_weight == 4.0\n"
+        "t = tracing.Tracer(None)\n"
+        "with t.start_as_current_span('x') as s:\n"
+        "    assert tracing.current_span() is s\n"
+        "assert tracing.otlp_request([s], 'svc')['resourceSpans'][0]['scopeSpans']\n"
+        "tlogging.configure_logging()\n"
     )
     env = dict(os.environ, PYTHONPATH=str(REPO))
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
