@@ -234,6 +234,25 @@ Phases, each printing JSON lines:
            stopped mid-wave: only 502 / 503 while its breaker opens, then
            every request on A; both stopped: 503 "no healthy replica"; no
            span dropped or lost by any exporter
+  scale    scale from zero and back (BASELINE config 5's "KPA scale 0->N"):
+           the EPP (a subprocess, --poll-interval 0.2, breaker window 1 s)
+           over two ports where no replica runs; the port's Activator and
+           an AutoscalerLoop (EPPSignalSource, ReactivePolicy: queue_high
+           8, idle_to_zero 5 s, down_cooldown 3 s, up_cooldown 0; 0..2
+           replicas; held requests fed in as held_requests, on_hold ->
+           notify_demand) in this process; the loop's actuator starts
+           `python -m kserve_tpu_torch.runtimes.generative_server` processes
+           (Llama-3-8B, full width and depth, bf16, seeded weights, cuda) and
+           SIGTERMs them.  8 completions into the zero window: one wake, one
+           process, replayed in arrival order, texts equal to the same 8
+           sent straight to the replica; 24 clients of ~500-token prompts:
+           1 -> 2 for queue_depth, B takes picks at the EPP, all 200; idle:
+           back to 0 (low_load, idle_zero), both exit 0, the card's free
+           memory back within 1 GB; a second zero window: a deadline shorter
+           than a start answers 504, a normal one wakes a replica (warm
+           start); every replica launched the ragged and decode kernels from
+           the cached build.  Cold and warm time to ready, wake latency,
+           scale-up reaction, time to zero, phase wall
 The line before the last is {"kernels": [...]}, the last is
 {"ok": true, "device": {...}}.  Any failure raises and exits non-zero;
 nothing falls back to the CPU or to the plain versions.
@@ -1117,6 +1136,9 @@ def main(argv=None) -> int:
                     help=argparse.SUPPRESS)
     ap.add_argument("--seed", type=int, default=0,
                     help="seed of the predictive phase's models and rows")
+    ap.add_argument("--scale-default-breaker", action="store_true",
+                    help="run the scale phase's EPP as shipped (its breakers' "
+                         "30 s open window) in place of a 1 s window")
     ap.add_argument("--decode-min-chunk", type=int, default=None,
                     help="keys per split of the decode kernel, at least "
                          "(a multiple of 64; default: the package's "
@@ -1152,7 +1174,9 @@ def main(argv=None) -> int:
     info = phase_device(torch)
     phase_build()
     phases = dict(SERVED_PHASES,
-                  predictive=functools.partial(phase_predictive, seed=args.seed))
+                  predictive=functools.partial(phase_predictive, seed=args.seed),
+                  scale=functools.partial(phase_scale, breaker_open_s=(
+                      None if args.scale_default_breaker else SCALE_BREAKER_OPEN_S)))
     if args.only:
         phases[args.only](torch)
         emit({"phase": "done", "wall_s": time.perf_counter() - t0})
@@ -1180,6 +1204,7 @@ def main(argv=None) -> int:
     phase_encoder(torch)
     phase_graph(torch)
     counts["epp"] = phase_epp(torch)
+    counts["scale"] = phases["scale"](torch)
     for name, row in rows.items():
         phase, key = KERNEL_PATH[name]
         row["launches"] = counts[phase].get(key, 0)
@@ -1269,13 +1294,18 @@ def _stream_chat(port: int, body: dict, t_send: list,
 
 
 def _scrape(port: int) -> dict:
-    """GET /metrics as {(sample name, sorted label pairs): value} (the text
-    format's sample lines; the card machine has no prometheus_client)."""
+    """GET /metrics as {(sample name, sorted label pairs): value}."""
     status, body = _http(port, "GET", "/metrics")
     if status != 200:
         raise AssertionError(f"/metrics answered {status}")
+    return _parse_metrics(body.decode())
+
+
+def _parse_metrics(text: str) -> dict:
+    """The text format's sample lines as {(sample name, sorted label pairs):
+    value} (the card machine has no prometheus_client)."""
     out = {}
-    for line in body.decode().splitlines():
+    for line in text.splitlines():
         if not line or line.startswith("#"):
             continue
         series, value = line.rsplit(" ", 1)
@@ -7278,6 +7308,714 @@ def phase_epp(torch) -> dict:
     return counts
 
 
+# ---------------------------------------------------------------- scale
+
+SCALE_DIR = os.path.join(REPO, "build", "scale_smoke")
+SCALE_HELD = 8
+SCALE_HELD_TOKENS = 32
+SCALE_LOAD_CLIENTS = 24
+# ~500 prompt tokens: the phase's tokenizer.json encodes a character a token
+SCALE_LOAD_CHARS = 500
+SCALE_LOAD_TOKENS = 32
+# requests replica B must have finished before the wave stops
+SCALE_B_SERVED = 8
+SCALE_EPP_POLL_S = 0.2
+# the EPP's breakers open on the failed polls of a replica that is down; a
+# replica restarted on the same static url then waits out the open window
+# (30 s by default) before it takes picks (ROADMAP C21): the phase runs the
+# EPP with a 1 s window, or as shipped with --scale-default-breaker
+SCALE_BREAKER_OPEN_S = 1.0
+# the loop's knobs: 8 queued per ready replica (a second full batch)
+# scales up, so a wake for the 8 held requests starts one replica
+SCALE_POLICY = dict(queue_high_per_replica=8.0, queue_low_per_replica=1.0,
+                    idle_to_zero_s=5.0, up_cooldown_s=0.0, down_cooldown_s=3.0)
+SCALE_INTERVAL_S = 0.25
+SCALE_MEM_TOL_GB = 1.0
+# shorter than a replica's start: held, then 504
+SCALE_SHORT_DEADLINE_S = 2.0
+# tries at sending the direct requests in the replayed ones' admission groups
+SCALE_DIRECT_ATTEMPTS = 3
+SCALE_WORDS = ("wake", "zero", "replica", "queue", "hold", "replay", "scale", "card",
+               "token", "page", "kernel", "drain", "budget", "signal")
+# the EPP with a shorter breaker window (argv: window, then the EPP's flags)
+SCALE_EPP = (
+    "import sys\n"
+    "from kserve_tpu_torch.resilience import BreakerConfig, BreakerRegistry\n"
+    "from kserve_tpu_torch.scheduler import epp\n"
+    "open_s = float(sys.argv.pop(1))\n"
+    "epp.BreakerRegistry = lambda **kw: BreakerRegistry(BreakerConfig(open_for_s=open_s), **kw)\n"
+    "epp.main(sys.argv[1:])\n")
+# a replica: `python -m kserve_tpu_torch.runtimes.generative_server` whose
+# kernel launches from ready to exit, whether its kernel library came from
+# the build cache, and its metrics at exit land in the file named first
+# (argv: file, then the server's flags)
+SCALE_REPLICA = (
+    "import atexit, json, runpy, sys\n"
+    "out = sys.argv.pop(1)\n"
+    "from kserve_tpu_torch.lifecycle import ReplicaLifecycle\n"
+    "from kserve_tpu_torch.metrics import generate_latest\n"
+    "from kserve_tpu_torch.ops import _build, paged_attention_cuda as K\n"
+    "mark_ready = ReplicaLifecycle.mark_ready\n"
+    "def ready(self):\n"
+    "    K.reset_launch_counts()  # the served path's launches, not the warm-up's\n"
+    "    mark_ready(self)\n"
+    "ReplicaLifecycle.mark_ready = ready\n"
+    "def report():\n"
+    "    with open(out, 'w') as f:\n"
+    "        json.dump({'launches': dict(K.LAUNCHES),\n"
+    "                   'build_cached': _build.last_build.get('cached'),\n"
+    "                   'metrics': generate_latest().decode()}, f)\n"
+    "atexit.register(report)\n"
+    "runpy.run_module('kserve_tpu_torch.runtimes.generative_server',\n"
+    "                 run_name='__main__', alter_sys=True)\n")
+
+
+class _AsyncThread:
+    """An event loop on a thread of its own; `run` waits for a coroutine."""
+
+    def __init__(self):
+        import asyncio
+        import threading
+
+        self.loop = asyncio.new_event_loop()
+        self.thread = threading.Thread(target=self.loop.run_forever, name="scale-loop",
+                                       daemon=True)
+        self.thread.start()
+
+    def run(self, coro, timeout: float = 600.0):
+        import asyncio
+
+        return asyncio.run_coroutine_threadsafe(coro, self.loop).result(timeout)
+
+    def close(self) -> None:
+        self.loop.call_soon_threadsafe(self.loop.stop)
+        self.thread.join(10)
+
+
+def _replica_actuator(ReplicaActuator, ports, on_zero):
+    """The loop's actuator over replica processes, one slot per reserved
+    port: `scale_to` starts a replica on the lowest free slot (after the
+    slot's last process has exited) or SIGTERMs the newest, and returns
+    without waiting for it; a thread per process records its direct
+    readiness and its exit.  `on_zero` runs when the last one is stopped."""
+    import asyncio
+    import signal
+    import threading
+
+    class Processes(ReplicaActuator):
+        def __init__(self):
+            self.live = []  # records, oldest first
+            self.records = []  # every process started
+            self.last_on = {}  # slot -> its latest record
+
+        async def current_replicas(self) -> int:
+            return len(self.live)
+
+        async def scale_to(self, n: int) -> None:
+            while len(self.live) < n:
+                slot = min(set(range(len(ports))) - {r["slot"] for r in self.live})
+                prev = self.last_on.get(slot)
+                if prev is not None:
+                    await asyncio.to_thread(prev["proc"].wait, 180)
+                self._start(slot)
+            while len(self.live) > n:
+                rec = self.live.pop()
+                rec["t_stop"] = time.monotonic()
+                rec["proc"].send_signal(signal.SIGTERM)
+                if not self.live:
+                    on_zero()
+
+        def _start(self, slot: int) -> None:
+            port = ports[slot]
+            k = len(self.records)
+            rec = {"slot": slot, "port": port, "label": f"{'AB'[slot]}{k}",
+                   "launches_path": os.path.join(SCALE_DIR, f"launches{k}.json"),
+                   "log_path": os.path.join(SCALE_DIR, f"replica{k}.log"),
+                   "t_start": time.monotonic(), "t_ready": None, "t_stop": None,
+                   "t_exit": None, "rc": None}
+            rec["log"] = open(rec["log_path"], "w")
+            rec["proc"] = subprocess.Popen(
+                [sys.executable, "-c", SCALE_REPLICA, rec["launches_path"],
+                 *SERVE_ARGS[:3], f"--model_dir={SCALE_DIR}", f"--http_port={port}",
+                 "--device=cuda"],
+                cwd=REPO, stdout=rec["log"], stderr=subprocess.STDOUT)
+            self.records.append(rec)
+            self.live.append(rec)
+            self.last_on[slot] = rec
+            threading.Thread(target=self._watch, args=(rec,), daemon=True).start()
+
+        @staticmethod
+        def _watch(rec) -> None:
+            proc = rec["proc"]
+            while proc.poll() is None and rec["t_ready"] is None:
+                try:
+                    if _http(rec["port"], "GET", "/v2/health/ready", timeout=2)[0] == 200:
+                        rec["t_ready"] = time.monotonic()
+                        break
+                except OSError:
+                    pass
+                time.sleep(0.05)
+            rec["rc"] = proc.wait()
+            rec["t_exit"] = time.monotonic()
+            rec["log"].close()
+
+    return Processes()
+
+
+def _scale_post(port: int, body: dict, rid: str, headers=None) -> dict:
+    t0 = time.monotonic()
+    status, resp_headers, raw = _http_h(port, "POST", "/openai/v1/completions", body,
+                                        dict({"x-request-id": rid}, **(headers or {})))
+    try:
+        payload = json.loads(raw)
+    except ValueError:
+        payload = {"raw": raw[:300].decode(errors="replace")}
+    return {"rid": rid, "status": status, "body": payload, "t_send": t0,
+            "t_done": time.monotonic(), "headers": resp_headers}
+
+
+def _at_once(port: int, calls) -> list:
+    """POST every (body, request id) of `calls` from a thread each, released
+    together by a barrier."""
+    import threading
+    from concurrent.futures import ThreadPoolExecutor
+
+    gate = threading.Barrier(len(calls))
+
+    def one(call):
+        gate.wait()
+        return _scale_post(port, *call)
+
+    with ThreadPoolExecutor(max_workers=len(calls)) as pool:
+        return list(pool.map(one, calls))
+
+
+def _traceparent() -> dict:
+    return {"traceparent": f"00-{os.urandom(16).hex()}-{os.urandom(8).hex()}-01"}
+
+
+def _trace_of(headers: dict) -> str:
+    return headers["traceparent"].split("-")[1]
+
+
+def _admission_groups(port: int, name: str, traces: dict) -> list:
+    """The requests of `traces` ({label: trace id}) grouped by the dispatch
+    that prefilled them (equal `prefill_start` in the replica's
+    /admin/telemetry timelines), in dispatch order."""
+    by_trace = {t: label for label, t in traces.items()}
+    starts = {}
+    t_end = time.monotonic() + 30
+    while len(starts) < len(traces):
+        if time.monotonic() > t_end:
+            raise AssertionError(f"scale: timelines of {sorted(set(traces) - set(starts))} "
+                                 "never appeared")
+        recent = json.loads(_http(port, "GET", "/admin/telemetry")[1])["models"][name][
+            "recent"]
+        starts.update({by_trace[tl["trace_id"]]: tl["prefill_start"] for tl in recent
+                       if tl.get("trace_id") in by_trace})
+        time.sleep(0.05)
+    groups = {}
+    for label, t in starts.items():
+        groups.setdefault(t, []).append(label)
+    return [sorted(groups[t]) for t in sorted(groups)]
+
+
+def _direct_in_groups(port: int, groups, calls: dict) -> dict:
+    """POST calls[label] = (body, request id, headers) straight to a replica,
+    each group at once, a group only after the replica has seated every
+    earlier one; {label: answer}."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    futures, seated = {}, 0
+    with ThreadPoolExecutor(max_workers=len(calls)) as pool:
+        for group in groups:
+            fut = pool.submit(_at_once, port, [calls[label] for label in group])
+            futures.update({label: (fut, k) for k, label in enumerate(group)})
+            seated += len(group)
+            t_end = time.monotonic() + 60
+            while json.loads(_http(port, "GET", "/v1/internal/scheduler/state")[1])[
+                    "inflight"] < seated:
+                if time.monotonic() > t_end:
+                    raise AssertionError(f"scale: {seated} direct requests never seated")
+                time.sleep(0.002)
+        return {label: fut.result()[k] for label, (fut, k) in futures.items()}
+
+
+def _completion(name: str, prompt: str, max_tokens: int) -> dict:
+    return {"model": name, "prompt": prompt, "max_tokens": max_tokens,
+            "temperature": 0, "ignore_eos": True}
+
+
+def phase_scale(torch, breaker_open_s=SCALE_BREAKER_OPEN_S) -> dict:
+    """Scale from zero and back on the card: the port's EPP (a subprocess,
+    `--poll-interval 0.2`, its breakers' open window `breaker_open_s`;
+    None runs `python -m kserve_tpu_torch.scheduler.epp` as shipped) over two
+    reserved ports where no replica runs; the port's `Activator` and an
+    `AutoscalerLoop` in this process (EPPSignalSource, ReactivePolicy
+    SCALE_POLICY, bounds 0..2, the activator's held count fed into the
+    signals as `held_requests` and its `on_hold` wired to
+    `notify_demand`); an actuator over processes of `python -m
+    kserve_tpu_torch.runtimes.generative_server` serving Llama-3-8B at full
+    width and depth, bf16, the same seeded weights, 2,048 pages each, on
+    cuda.  When the actuator stops the last replica it puts the activator
+    back in hold mode (the EPP in front of the replicas keeps accepting,
+    so the activator alone cannot see the zero window; ROADMAP C21).
+    Steps and gates: (1) 8 completions at once into the zero window: one
+    wake, one process, all held and replayed in arrival order, all 200
+    with 32 tokens, texts equal to the same 8 sent at once straight to the
+    replica; (2) 24 clients of ~500-token prompts in a closed loop: the
+    loop scales 1 -> 2 for `queue_depth`, B turns healthy at the EPP and
+    finishes SCALE_B_SERVED requests, every answer 200; (3) idle: back to
+    0 with reasons from REASONS (low_load, idle_zero), both processes exit
+    0, the card's free memory within 1 GB of its value before the phase;
+    (4) a second zero window: a request whose deadline is shorter than a
+    start gets 504 (expired), one with a normal budget wakes a replica and
+    is served; (5) every replica that served launched the ragged and
+    decode kernels, its kernel library from the build cache.  Returns
+    {"scale": launch counts summed over the replicas}."""
+    import asyncio
+    import dataclasses
+    import random
+    import shutil
+    import signal
+    import threading
+
+    from kserve_tpu_torch.activator import Activator
+    from kserve_tpu_torch.autoscale import (
+        REASONS,
+        AutoscalerLoop,
+        ReactiveConfig,
+        ReactivePolicy,
+        ReplicaActuator,
+    )
+    from kserve_tpu_torch.autoscale.__main__ import EPPSignalSource
+    from kserve_tpu_torch.engine.tokenizer import load_tokenizer
+    from kserve_tpu_torch.models.llama import LlamaConfig
+
+    class RecordingActivator(Activator):
+        """The port's Activator, noting the order requests enter and leave
+        the hold (by x-request-id) and the time of each."""
+
+        def __init__(self, *args, **kw):
+            super().__init__(*args, **kw)
+            self.entered, self.left = [], []
+
+        async def _hold(self, headers):
+            rid = headers.get("x-request-id", "")
+            self.entered.append((rid, time.monotonic()))
+            terminal = await super()._hold(headers)
+            self.left.append((rid, time.monotonic(), None if terminal is None
+                              else terminal[0]))
+            return terminal
+
+    t_phase = time.perf_counter()
+    shutil.rmtree(SCALE_DIR, ignore_errors=True)
+    os.makedirs(SCALE_DIR)
+    mc = LlamaConfig.llama3_8b()
+    _write_mixtral_tokenizer(SCALE_DIR, mc.vocab_size)
+    tok = load_tokenizer(SCALE_DIR, mc.vocab_size)
+    name = SERVE_ARGS[0].split("=", 1)[1]
+    free0, total = torch.cuda.mem_get_info()
+    ports = [_free_port(), _free_port()]
+    urls = [f"http://127.0.0.1:{p}" for p in ports]
+    out = {"phase": "scale", "model": f"{name} (random weights, seed 1, bf16), "
+           "replica processes", "policy": SCALE_POLICY, "ports": ports,
+           "free_gb_before": free0 / 1e9,
+           "epp_breaker_open_s": breaker_open_s or "default (as shipped)"}
+    steps, t_step = {}, [t_phase]
+
+    def lap(label: str) -> None:
+        now = time.perf_counter()
+        steps[label] = now - t_step[0]
+        t_step[0] = now
+
+    epp_port = _free_port()
+    epp_log = open(os.path.join(SCALE_DIR, "epp.log"), "w")
+    epp_cmd = ([sys.executable, "-m", "kserve_tpu_torch.scheduler.epp"]
+               if breaker_open_s is None
+               else [sys.executable, "-c", SCALE_EPP, str(breaker_open_s)])
+    epp = subprocess.Popen(
+        epp_cmd + ["--replicas", ",".join(urls), "--poll-interval", str(SCALE_EPP_POLL_S),
+                   "--port", str(epp_port)],
+        cwd=REPO, stdout=epp_log, stderr=subprocess.STDOUT)
+    aloop = _AsyncThread()
+    box = {}
+    actuator = _replica_actuator(ReplicaActuator, ports,
+                                 on_zero=lambda: box["activator"].scaled_to_zero())
+    epp_url = f"http://127.0.0.1:{epp_port}"
+
+    def epp_state() -> dict:
+        status, raw = _http(epp_port, "GET", "/state", timeout=10)
+        if status != 200:
+            raise AssertionError(f"scale: EPP /state answered {status}")
+        return json.loads(raw)
+
+    def replica_log(rec) -> str:
+        with open(rec["log_path"]) as f:
+            return f.read()[-3000:]
+
+    def check_alive(what: str) -> None:
+        if box.get("loop_task") is not None and box["loop_task"].done():
+            box["loop_task"].result()  # raises the loop's failure
+            raise AssertionError(f"scale: the autoscaler loop ended during {what}")
+        for rec in actuator.records:
+            if rec["t_stop"] is None and rec["proc"].poll() is not None:
+                raise AssertionError(f"scale: replica {rec['label']} exited "
+                                     f"{rec['proc'].returncode} during {what}: "
+                                     f"{replica_log(rec)}")
+
+    def background(fn, *args):
+        """fn(*args) on a thread; a future (wait_for(fut.done, ...) meanwhile
+        fails fast when a replica or the loop dies)."""
+        from concurrent.futures import ThreadPoolExecutor
+
+        pool = ThreadPoolExecutor(max_workers=1)
+        fut = pool.submit(fn, *args)
+        pool.shutdown(wait=False)
+        return fut
+
+    def wait_for(cond, what: str, timeout: float) -> float:
+        t0 = time.monotonic()
+        while time.monotonic() - t0 < timeout:
+            if cond():
+                return time.monotonic() - t0
+            check_alive(what)
+            time.sleep(0.05)
+        raise AssertionError(f"scale: timed out ({timeout} s) waiting for {what}")
+
+    try:
+        def epp_up() -> bool:
+            if epp.poll() is not None:
+                raise AssertionError(f"scale: the EPP exited {epp.returncode}")
+            try:
+                st = epp_state()
+            except OSError:
+                return False
+            return (st["fleet"]["ready_replicas"] == 0
+                    and not any(r["healthy"] for r in st["replicas"]))
+
+        out["epp_ready_s"] = wait_for(epp_up, "the EPP with both replicas down", 60)
+
+        async def setup():
+            source = EPPSignalSource(epp_url, stale_s=10.0)
+            act = RecordingActivator(epp_url, port=0, poll_interval=0.1,
+                                     wake_timeout=300.0)
+            box["activator"] = act
+
+            async def signals():
+                # the requests parked at the gateway are demand the EPP
+                # cannot see
+                return dataclasses.replace(await source(), held_requests=act.holds.held)
+
+            loop = AutoscalerLoop(ReactivePolicy(ReactiveConfig(**SCALE_POLICY)), signals,
+                                  actuator, interval_s=SCALE_INTERVAL_S,
+                                  min_replicas=0, max_replicas=2)
+
+            async def scale_up():
+                box["wakes"] = box.get("wakes", 0) + 1
+                if await actuator.current_replicas() < 1:
+                    await actuator.scale_to(1)
+
+            act.scale_up = scale_up
+            act.holds.on_hold = loop.notify_demand
+            port = await act.start()
+            box.update(source=source, loop=loop, activator_running=act,
+                       loop_task=asyncio.get_running_loop().create_task(loop.run()))
+            return port
+
+        act_port = aloop.run(setup())
+        act, loop = box["activator"], box["loop"]
+        lap("setup")
+
+        # -- (1) the zero window: 8 completions at once, one wake
+        held_calls = [(_completion(name, f"Wake {i}: sea", SCALE_HELD_TOKENS), f"zero-{i}",
+                       _traceparent()) for i in range(SCALE_HELD)]
+        out["held_prompt_tokens"] = [len(tok.encode(b["prompt"])) for b, _, _ in held_calls]
+        held = background(_at_once, act_port, held_calls)
+        wait_for(held.done, "the zero window's answers", 600)
+        held = held.result()
+        bad = [(r["rid"], r["status"], r["body"]) for r in held
+               if r["status"] != 200
+               or r["body"]["usage"]["completion_tokens"] != SCALE_HELD_TOKENS]
+        if bad:
+            raise AssertionError(f"scale: zero-window answers {bad}")
+        if len(actuator.records) != 1 or box.get("wakes") != 1:
+            raise AssertionError(f"scale: {len(actuator.records)} replicas started, "
+                                 f"{box.get('wakes')} wakes for one zero window")
+        stats1 = dict(act.stats)
+        if stats1["buffered"] != SCALE_HELD or stats1["replayed"] != SCALE_HELD:
+            raise AssertionError(f"scale: activator stats {stats1}")
+        arrived = [rid for rid, _ in act.entered]
+        replayed = [rid for rid, _, st in act.left if st is None]
+        if replayed != arrived or sorted(arrived) != sorted(r for _, r, _ in held_calls):
+            raise AssertionError(f"scale: held in order {arrived}, replayed in {replayed}")
+        rec_a = actuator.records[0]
+        # bf16 greedy tokens depend on the prefill's batch (its packed
+        # length picks the GEMM kernels), so the direct requests go to the
+        # replica in the admission groups the replayed ones had, each group
+        # once the one before is seated (one dispatch later), until the
+        # replica's timelines show the same groups
+        groups = _admission_groups(rec_a["port"], name, {
+            rid: _trace_of(h) for _, rid, h in held_calls})
+        bodies = {rid: b for b, rid, _ in held_calls}
+        texts = {r["rid"]: r["body"]["choices"][0]["text"] for r in held}
+        for attempt in range(SCALE_DIRECT_ATTEMPTS):
+            calls = {rid: (bodies[rid], f"direct{attempt}-{rid}", _traceparent())
+                     for rid in bodies}
+            direct = _direct_in_groups(rec_a["port"], groups, calls)
+            direct_groups = _admission_groups(rec_a["port"], name, {
+                rid: _trace_of(calls[rid][2]) for rid in calls})
+            if direct_groups == groups:
+                break
+        else:
+            raise AssertionError(f"scale: the direct requests were admitted as "
+                                 f"{direct_groups}, never as the replayed {groups}")
+        differ = [(rid, texts[rid][:60], str(direct[rid]["body"])[:200])
+                  for rid in bodies
+                  if direct[rid]["status"] != 200
+                  or direct[rid]["body"]["choices"][0]["text"] != texts[rid]]
+        if differ:
+            raise AssertionError(f"scale: replayed texts differ from direct ones "
+                                 f"(admission groups {groups}): {differ}")
+        decisions1 = [d.to_dict() for d in loop.decisions]
+        if not any(d["reason"] == "hold_demand" for d in decisions1):
+            raise AssertionError(f"scale: no hold_demand decision: {decisions1}")
+        if any(d["reason"] == "idle_zero" for d in decisions1):
+            raise AssertionError(f"scale: idle_zero during the replay: {decisions1}")
+        t_first_in = min(t for _, t in act.entered)
+        out["zero_window"] = {
+            "requests": SCALE_HELD, "arrival_order": arrived,
+            "cold_start_s": stats1["cold_start_s"],
+            "replica_ready_s": rec_a["t_ready"] - rec_a["t_start"],
+            "wake_latency_s": min(t for _, t, st in act.left if st is None) - t_first_in,
+            "first_answer_s": min(r["t_done"] for r in held) - t_first_in,
+            "last_answer_s": max(r["t_done"] for r in held) - t_first_in,
+            "texts_equal_direct": True, "admission_groups": groups,
+            "direct_attempts": attempt + 1, "activator_stats": stats1}
+        lap("zero_window")
+
+        # -- (2) the scale-up wave: 24 clients in a closed loop
+        rng = random.Random(19)
+
+        def load_prompt(k: int, n: int) -> str:
+            words = [f"Load {k}.{n}:"]
+            while len(" ".join(words)) < SCALE_LOAD_CHARS:
+                words.append(rng.choice(SCALE_WORDS))
+            return " ".join(words)[:SCALE_LOAD_CHARS]
+
+        prompts = [[load_prompt(k, n) for n in range(64)] for k in range(SCALE_LOAD_CLIENTS)]
+        out["load_prompt_tokens"] = len(tok.encode(prompts[0][0]))
+        stop = threading.Event()
+        results, watch = [], []
+
+        def client(k: int) -> None:
+            n = 0
+            while not stop.is_set() and n < len(prompts[k]):
+                results.append(_scale_post(
+                    act_port, _completion(name, prompts[k][n], SCALE_LOAD_TOKENS),
+                    f"load-{k}-{n}"))
+                n += 1
+
+        def b_served() -> float:
+            recs = [r for r in actuator.records if r["slot"] == 1]
+            if not recs or recs[-1]["t_ready"] is None:
+                return 0.0
+            try:
+                return _metric(_scrape(recs[-1]["port"]), "request_e2e_seconds_count",
+                               model_name=name)
+            except OSError:  # stopped by the loop; check_alive sees a death
+                return 0.0
+
+        def monitor() -> None:
+            while not stop.is_set():
+                try:
+                    st = epp_state()
+                    watch.append((time.monotonic(), [
+                        {k: r[k] for k in ("healthy", "queue_depth", "inflight", "breaker")}
+                        for r in st["replicas"]], st["fleet"]["ready_replicas"]))
+                except OSError:
+                    pass
+                time.sleep(0.2)
+
+        t_wave = time.monotonic()
+        threads = [threading.Thread(target=client, args=(k,), daemon=True)
+                   for k in range(SCALE_LOAD_CLIENTS)]
+        mon = threading.Thread(target=monitor, daemon=True)
+        for th in threads + [mon]:
+            th.start()
+        try:
+            wait_for(lambda: b_served() >= SCALE_B_SERVED,
+                     f"replica B to finish {SCALE_B_SERVED} requests", 240)
+        finally:
+            stop.set()
+            for th in threads + [mon]:
+                th.join(600)
+        t_wave_end = time.monotonic()
+        bad = [(r["rid"], r["status"], str(r["body"])[:200]) for r in results
+               if r["status"] != 200
+               or r["body"]["usage"]["completion_tokens"] != SCALE_LOAD_TOKENS]
+        if bad:
+            raise AssertionError(f"scale: wave answers not 200: {bad[:8]} of {len(bad)}")
+        ups = [d for d in loop.decisions if d.action == "scale_up" and d.current == 1]
+        if not ups or (ups[0].target, ups[0].reason) != (2, "queue_depth"):
+            raise AssertionError(f"scale: no 1 -> 2 queue_depth decision: "
+                                 f"{[d.to_dict() for d in loop.decisions][-20:]}")
+        if len(actuator.records) != 2 or actuator.records[1]["slot"] != 1:
+            raise AssertionError("scale: replica B was not started once")
+        rec_b = actuator.records[1]
+        b_picks = [t for t, reps, _ in watch
+                   if reps[1]["healthy"] and reps[1]["inflight"] + reps[1]["queue_depth"] > 0]
+        if not b_picks:
+            raise AssertionError(f"scale: the EPP never showed B with work: {watch[-5:]}")
+        out["scale_up"] = {
+            "requests": len(results), "wall_s": t_wave_end - t_wave,
+            "decision": ups[0].to_dict(), "reaction_s": ups[0].at_s - t_wave,
+            "replica_b_start_to_ready_s": rec_b["t_ready"] - rec_b["t_start"],
+            "decision_to_b_ready_s": rec_b["t_ready"] - ups[0].at_s,
+            "b_first_work_at_epp_s": b_picks[0] - t_wave,
+            "tok_per_s": len(results) * SCALE_LOAD_TOKENS / (t_wave_end - t_wave)}
+        lap("scale_up")
+
+        # -- (3) idle: back to zero, every process out, the memory back
+        t_idle = time.monotonic()
+        wait_for(lambda: len(actuator.live) == 0 and all(
+            r["t_exit"] is not None for r in actuator.records), "scale to zero", 180)
+        downs = [d.to_dict() for d in loop.decisions if d.action == "scale_down"]
+        reasons = [d["reason"] for d in downs]
+        if (not downs or downs[-1]["target"] != 0 or any(r not in REASONS for r in reasons)
+                or not set(reasons) <= {"low_load", "idle_zero"}):
+            raise AssertionError(f"scale: scale-downs {downs}")
+        rcs = {r["label"]: r["rc"] for r in actuator.records}
+        if any(rc != 0 for rc in rcs.values()):
+            raise AssertionError(f"scale: replicas exited {rcs}: "
+                                 f"{[replica_log(r) for r in actuator.records if r['rc']]}")
+        free1, _ = torch.cuda.mem_get_info()
+        if abs(free1 - free0) > SCALE_MEM_TOL_GB * 1e9:
+            raise AssertionError(f"scale: free memory {free1 / 1e9:.2f} GB after, "
+                                 f"{free0 / 1e9:.2f} before")
+        zero_at = max(r["t_exit"] for r in actuator.records)
+        last_answer = max(r["t_done"] for r in results)
+        out["to_zero"] = {
+            "scale_downs": downs, "exit_codes": rcs,
+            "last_answer_to_zero_s": zero_at - last_answer,
+            "last_answer_to_idle_zero_s": downs[-1]["at_s"] - last_answer,
+            "drain_to_exit_s": {r["label"]: r["t_exit"] - r["t_stop"]
+                                for r in actuator.records},
+            "waited_s": time.monotonic() - t_idle, "free_gb_after": free1 / 1e9}
+        lap("to_zero")
+
+        # -- (4) a second zero window: a deadline shorter than a start, then
+        # a normal budget
+        short, normal = {}, {}
+
+        def send(into: dict, rid: str, headers) -> None:
+            into.update(_scale_post(act_port, _completion(name, "Warm: sea", 16), rid,
+                                    headers))
+
+        f_short = background(send, short, "second-short",
+                             {"x-request-deadline": str(SCALE_SHORT_DEADLINE_S)})
+        time.sleep(0.1)
+        f_normal = background(send, normal, "second-normal", None)
+        wait_for(lambda: f_short.done() and f_normal.done(), "the second wake's answers",
+                 600)
+        f_short.result()
+        f_normal.result()
+        stats2 = dict(act.stats)
+        if (short.get("status") != 504 or "expired" not in str(short.get("body"))
+                or stats2["expired"] != 1):
+            raise AssertionError(f"scale: the short deadline answered "
+                                 f"{short.get('status')} {short.get('body')} ({stats2})")
+        if normal.get("status") != 200 or normal["body"]["usage"]["completion_tokens"] != 16:
+            raise AssertionError(f"scale: the second wake answered {normal}")
+        if len(actuator.records) != 3 or box.get("wakes") != 2:
+            raise AssertionError(f"scale: {len(actuator.records)} replicas started, "
+                                 f"{box.get('wakes')} wakes")
+        rec_w = actuator.records[2]
+        out["second_wake"] = {
+            "short_status": short["status"], "short_wait_s": short["t_done"] - short["t_send"],
+            "normal_wait_s": normal["t_done"] - normal["t_send"],
+            "warm_start_s": stats2["cold_start_s"],
+            "replica_ready_s": rec_w["t_ready"] - rec_w["t_start"]}
+        lap("second_wake")
+
+        # -- (5) shut down; the launches of every replica
+        aloop.run(_stop_scale(box))
+        aloop.run(actuator.scale_to(0))
+        wait_for(lambda: all(r["t_exit"] is not None for r in actuator.records),
+                 "the last replica's exit", 120)
+        counts = {}
+        for rec in actuator.records:
+            if rec["rc"] != 0:
+                raise AssertionError(f"scale: replica {rec['label']} exited {rec['rc']}")
+            with open(rec["launches_path"]) as f:
+                report = json.load(f)
+            if report["build_cached"] is not True:
+                raise AssertionError(f"scale: replica {rec['label']} built its kernels "
+                                     f"(build cache {report['build_cached']})")
+            _require_launches(f"scale {rec['label']}", report["launches"],
+                              ("ragged_paged_attention", "paged_decode_attention"))
+            rec["launches"] = report["launches"]
+            rec["served"] = _metric(_parse_metrics(report["metrics"]),
+                                    "request_e2e_seconds_count", model_name=name)
+            for k, v in report["launches"].items():
+                counts[k] = counts.get(k, 0) + v
+        # B's count from its exit report: the loop may stop it as soon as
+        # the wave ends
+        out["scale_up"]["b_served"] = rec_b["served"]
+        out["scale_up"]["a_served"] = len(results) - rec_b["served"]
+        out["replicas"] = [{k: rec[k] for k in ("label", "port", "rc", "served")}
+                           | {"ready_s": rec["t_ready"] - rec["t_start"],
+                              "launches": {k: v for k, v in rec["launches"].items() if v}}
+                           for rec in actuator.records]
+        out["decision_counts"] = loop.decision_counts()
+        out["activator_stats"] = dict(act.stats)
+        out["launches"] = counts
+        lap("launches")
+    finally:
+        try:
+            aloop.run(_stop_scale(box), timeout=30)
+        except Exception as exc:  # noqa: BLE001 — the phase's own error wins
+            print(f"scale: shutdown: {exc!r}", file=sys.stderr)
+        for rec in actuator.records:
+            if rec["proc"].poll() is None:
+                rec["proc"].send_signal(signal.SIGTERM)
+                try:
+                    rec["proc"].wait(60)
+                except subprocess.TimeoutExpired:
+                    rec["proc"].kill()
+                    rec["proc"].wait(30)
+        if epp.poll() is None:
+            epp.send_signal(signal.SIGTERM)
+            try:
+                epp.wait(30)
+            except subprocess.TimeoutExpired:
+                epp.kill()
+                epp.wait(30)
+        epp_log.close()
+        aloop.close()
+        shutil.rmtree(SCALE_DIR, ignore_errors=True)
+    out["steps_s"] = steps
+    out["phase_wall_s"] = time.perf_counter() - t_phase
+    emit(out)
+    return counts
+
+
+async def _stop_scale(box: dict) -> None:
+    """Stop the autoscaler loop (raising its failure, if it failed), the
+    activator and the signal source; idempotent."""
+    loop, task = box.pop("loop", None), box.pop("loop_task", None)
+    if loop is not None:
+        loop.stop()
+    if task is not None:
+        await task
+    act = box.pop("activator_running", None)
+    if act is not None:
+        await act.stop()
+    source = box.pop("source", None)
+    if source is not None:
+        await source.close()
+
+
 # the served phases --only can run alone
 SERVED_PHASES = {"serve": phase_serve, "d64": phase_d64, "spec": phase_spec,
                  "kvq": phase_kvq, "gemma2": phase_gemma2,
@@ -7287,7 +8025,7 @@ SERVED_PHASES = {"serve": phase_serve, "d64": phase_d64, "spec": phase_spec,
                  "wq": phase_wq, "checkpoint": phase_checkpoint,
                  "moe": phase_moe, "pd": phase_pd, "peer": phase_peer,
                  "predictive": phase_predictive, "encoder": phase_encoder,
-                 "graph": phase_graph, "epp": phase_epp}
+                 "graph": phase_graph, "epp": phase_epp, "scale": phase_scale}
 
 if __name__ == "__main__":
     sys.exit(main())

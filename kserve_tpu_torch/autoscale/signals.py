@@ -2,17 +2,17 @@
 of kserve_tpu/autoscale/signals.py:35-289, pure Python).
 
 - `ReplicaSignals` / `FleetSignals`: one EPP scrape cycle's view of a
-  replica / of the fleet, a value object;
+  replica / of the fleet, a value object; `demand` says whether the
+  fleet has (or is about to have) work;
 - `ArrivalHistory`: bucketed arrival counts over a rolling window:
   `rate()` for load-proportional sizing, `slope()` for burst onsets;
 - `RateTracker`: a cumulative counter -> a per-second rate between
   observations (shed counters are totals).
 
 The EPP builds `FleetSignals` from its picker's snapshot
-(`from_replica_states`) and exports it under `fleet` in its `/state`.
-The autoscaler that consumes it, with `FleetSignals.from_dict`,
-`demand` and the wall-clock anchor of `ArrivalHistory`, is still to port
-(ROADMAP A4).
+(`from_replica_states`) and exports it under `fleet` in its `/state`;
+the autoscaler CLI (autoscale/__main__.py) rebuilds it from that JSON
+with `FleetSignals.from_dict`.
 """
 
 from __future__ import annotations
@@ -72,8 +72,37 @@ class FleetSignals:
     held_requests: int = 0  # requests parked at the hold gateway
     replicas: Tuple[ReplicaSignals, ...] = field(default_factory=tuple)
 
+    @property
+    def demand(self) -> bool:
+        """Any evidence the fleet has (or is about to have) work."""
+        return (
+            self.held_requests > 0
+            or self.queue_depth > 0
+            or self.inflight > 0
+            or self.arrival_rate_per_s > 0.0
+        )
+
     def to_dict(self) -> Dict:
         return asdict(self)
+
+    @classmethod
+    def from_dict(cls, d: Dict) -> "FleetSignals":
+        """Rebuild from the EPP `/state` ``fleet`` JSON block (the
+        autoscaler's wire form).  Unknown keys are ignored, so an EPP of a
+        later version does not break an older autoscaler."""
+        reps = tuple(
+            ReplicaSignals(**{
+                k: v for k, v in r.items()
+                if k in ReplicaSignals.__dataclass_fields__
+            })
+            for r in d.get("replicas", ())
+            if isinstance(r, dict)
+        )
+        fields = {
+            k: v for k, v in d.items()
+            if k in cls.__dataclass_fields__ and k != "replicas"
+        }
+        return cls(replicas=reps, **fields)
 
     @classmethod
     def from_replica_states(
@@ -146,6 +175,7 @@ class ArrivalHistory:
     means the arrival process is accelerating (burst onset).  Purely
     arithmetic over (time, count) pairs: deterministic under virtual
     clocks and cheap enough for the proxy hot path.
+
     """
 
     def __init__(self, bucket_s: float = 1.0, window_s: float = 120.0):

@@ -12,7 +12,9 @@ load shedding, deadline rejections, breaker transitions and client
 retries, the lifecycle series (state,
 drain duration, checkpoints, resumes, tokens salvaged), and the KV
 hierarchy's and the peer page fabric's (tier events, prefix hit tokens by
-tier, page-in seconds, peer fetches and pages served).  The JAX package's
+tier, page-in seconds, peer fetches and pages served), and the
+autoscaler's (decisions, target replicas, signals, hold outcomes at the
+gateway).  The JAX package's
 other series come with their modules.  `GET /metrics`
 serves `generate_latest()`.
 
@@ -498,5 +500,36 @@ def record_quarantine_transition(transition: str) -> None:
 TRACING_SPANS = Counter(
     "tracing_spans_total",
     "finished spans by export outcome (exported | dropped | failed)",
+    ["outcome"],
+)
+
+
+# The autoscaler (kserve_tpu/metrics.py:332-355).  `action` and `reason`
+# come from the closed ACTIONS / REASONS sets of autoscale/policy.py;
+# `signal` is a fixed set of FleetSignals fields; `outcome` the hold
+# queue's closed set of ends.  No replica labels: per-replica detail lives
+# in the EPP's /state.
+AUTOSCALER_DECISIONS = Counter(
+    "autoscaler_decisions_total",
+    "scaling decisions taken by the EPP-signal autoscaler loop, by action "
+    "and policy reason",
+    ["action", "reason"],
+)
+AUTOSCALER_TARGET_REPLICAS = Gauge(
+    "autoscaler_target_replicas",
+    "replica count the autoscaler currently wants (post-clamp)",
+    [],
+)
+AUTOSCALER_SIGNAL = Gauge(
+    "autoscaler_signal",
+    "fleet-wide autoscaling signals at the latest decision tick "
+    "(ready_replicas | queue_depth | inflight | shed_rate_per_s | "
+    "arrival_rate_per_s | held_requests | ttft_p99_s)",
+    ["signal"],
+)
+GATEWAY_HOLDS = Counter(
+    "gateway_hold_outcomes_total",
+    "zero-window hold-and-replay outcomes at the gateway "
+    "(replayed | expired | overflow | failed)",
     ["outcome"],
 )

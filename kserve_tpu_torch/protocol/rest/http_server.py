@@ -4,8 +4,10 @@ bodies read, answers written whole or as chunked server-sent events.
 
 `HTTPServer` serves one connection's requests in turn and hands each to
 `_respond(method, path, query, headers, body, writer, keep_alive)`, which
-a server subclasses: the model server (server.py) and the graph router
-(graph/router.py) and the EPP (scheduler/epp.py) share this wire.  Every
+a server subclasses: the model server (server.py), the graph router
+(graph/router.py), the EPP (scheduler/epp.py) and the activator
+(activator.py) share this wire; the last two relay a streamed upstream
+answer through `_relay`.  Every
 request runs bound to its trace context and request id
 (tracing.request_scope: a child of the caller's `traceparent` or a new
 root; its `x-request-id` or a new one), and every answer echoes
@@ -34,6 +36,7 @@ import asyncio
 import contextvars
 import json
 import logging
+import time
 from typing import Dict, Optional, Tuple
 
 from ..limits import CHECKPOINT_FIELD_SIZE_LIMIT, MAX_HEAD_BYTES
@@ -51,6 +54,13 @@ from ..openai.types import error_body
 logger = logging.getLogger(__name__)
 
 MAX_BODY_BYTES = 16 << 20
+# hop-by-hop headers a proxy drops in both directions, and the framing
+# headers it writes anew
+HOP_HEADERS = frozenset({
+    "connection", "keep-alive", "proxy-authenticate", "proxy-authorization",
+    "te", "trailers", "transfer-encoding", "upgrade", "host",
+    "content-length",
+})
 # seconds an idle kept-alive connection waits for its next request
 # (aiohttp's keepalive_timeout, the JAX server's)
 IDLE_TIMEOUT_S = 75.0
@@ -318,6 +328,40 @@ class HTTPServer:
                          headers: Optional[Dict[str, str]] = None) -> None:
         await self._send(writer, status, "application/json",
                          json.dumps(obj).encode("utf-8"), keep_alive, headers)
+
+    async def _relay(self, upstream, writer, keep_alive: bool) -> Tuple[Optional[float], int]:
+        """Relay a streamed answer (http_client.StreamedResponse) as it
+        arrives: its status and headers less HOP_HEADERS, then its body
+        piece by piece (chunked unless it came with a length), and close
+        it.  Returns (monotonic time of the first piece or None, pieces).
+        A failure after the head is sent propagates: no second answer is
+        possible, so the caller cuts the connection.  The EPP's proxy and
+        the activator's relay through this."""
+        try:
+            out_headers = {k: v for k, v in upstream.headers.items()
+                           if k not in HOP_HEADERS}
+            ctype = out_headers.pop("content-type", "application/octet-stream")
+            length = upstream.headers.get("content-length")
+            chunked = length is None
+            writer.write(self._head(upstream.status, ctype,
+                                    None if chunked else int(length),
+                                    keep_alive, out_headers))
+            await writer.drain()
+            first, pieces = None, 0
+            async for piece in upstream.body():
+                if not piece:
+                    continue
+                if first is None:
+                    first = time.monotonic()
+                pieces += 1
+                writer.write(self._chunk(piece) if chunked else piece)
+                await writer.drain()
+            if chunked:
+                writer.write(b"0\r\n\r\n")
+                await writer.drain()
+            return first, pieces
+        finally:
+            await upstream.aclose()
 
     @staticmethod
     def _chunk(data: bytes) -> bytes:

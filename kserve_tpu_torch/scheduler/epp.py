@@ -49,7 +49,7 @@ from ..autoscale.signals import ArrivalHistory, FleetSignals, RateTracker
 from ..logging import configure_logging
 from ..metrics import record_breaker_transition
 from ..protocol.http_client import AsyncHTTPClient, HTTPError
-from ..protocol.rest.http_server import HTTPServer
+from ..protocol.rest.http_server import HOP_HEADERS, HTTPServer
 from ..resilience import BreakerRegistry, is_inference_path
 from ..tracing import (
     SPAN_KIND_CLIENT,
@@ -66,11 +66,6 @@ from .picker import EndpointPicker
 
 logger = logging.getLogger(__name__)
 
-HOP_HEADERS = {
-    "connection", "keep-alive", "proxy-authenticate", "proxy-authorization",
-    "te", "trailers", "transfer-encoding", "upgrade", "host",
-    "content-length",
-}
 # seconds a replica may take to accept the connection; its answer then
 # takes as long as the generation runs (aiohttp's sock_connect=10, total=None)
 CONNECT_TIMEOUT_S = 10.0
@@ -231,8 +226,6 @@ class EPPServer(HTTPServer):
         picked_depth = replica.queue_depth
         prompt_len = estimate_prompt_len(ids, text)
         t0 = time.monotonic()
-        ttft: Optional[float] = None
-        chunks = 0
         try:
             upstream = await self._client.stream(method, url, headers, body)
         except (HTTPError, OSError, asyncio.TimeoutError) as exc:
@@ -245,25 +238,7 @@ class EPPServer(HTTPServer):
                 writer, 502, {"error": f"upstream {replica.url} failed"}, keep_alive)
         status = upstream.status
         try:
-            out_headers = {k: v for k, v in upstream.headers.items()
-                           if k not in HOP_HEADERS}
-            ctype = out_headers.pop("content-type", "application/octet-stream")
-            length = upstream.headers.get("content-length")
-            chunked = length is None
-            writer.write(self._head(status, ctype, None if chunked else int(length),
-                                    keep_alive, out_headers))
-            await writer.drain()
-            async for piece in upstream.body():
-                if not piece:
-                    continue
-                if ttft is None:
-                    ttft = time.monotonic() - t0
-                chunks += 1
-                writer.write(self._chunk(piece) if chunked else piece)
-                await writer.drain()
-            if chunked:
-                writer.write(b"0\r\n\r\n")
-                await writer.drain()
+            first, chunks = await self._relay(upstream, writer, keep_alive)
         except (HTTPError, ConnectionError, asyncio.IncompleteReadError) as exc:
             # the head is sent: no second answer is possible, so the stream
             # is cut and the client sees the truncation.  Once headers flow
@@ -273,8 +248,7 @@ class EPPServer(HTTPServer):
             if is_canary:
                 self.picker.observe_canary(replica.url, False)
             raise ConnectionResetError(f"stream from {replica.url} cut") from exc
-        finally:
-            await upstream.aclose()
+        ttft = first - t0 if first is not None else None
         if 200 <= status < 300:
             # a served 2xx closes a half-open breaker and clears the streak
             self.picker.observe_success(replica.url)

@@ -64,6 +64,10 @@ def test_import_loads_no_jax_and_no_jax_package():
             "kserve_tpu_torch.observability.spans",
             "kserve_tpu_torch.observability.introspection",
             "kserve_tpu_torch.protocol.limits",
+            "kserve_tpu_torch.autoscale.policy", "kserve_tpu_torch.autoscale.hold",
+            "kserve_tpu_torch.autoscale.loop", "kserve_tpu_torch.autoscale.actuator",
+            "kserve_tpu_torch.autoscale.__main__", "kserve_tpu_torch.activator",
+            "kserve_tpu_torch.api.http_transport", "kserve_tpu_torch.controlplane.gvk",
             } <= set(_port_modules())
     code = (
         "import importlib, sys\n"
@@ -144,13 +148,15 @@ def test_engine_rejects_what_the_slice_does_not_run():
                   ByteTokenizer(512), device="cpu")
 
 
-# packages the card machine does not have: the port keeps its own
-# standard-library readers and writers instead (jinja2 is the one
-# optional import, for chat templates, and only where it is caught)
+# packages the card machine does not have, or is not promised: the port
+# keeps its own standard-library readers and writers instead (jinja2, for
+# chat templates, and yaml, for HTTPCluster.apply_yaml, are imported only
+# inside the function that needs them)
 CARD_MISSING = {"safetensors", "tokenizers", "regex", "prometheus_client",
-                "aiohttp", "httpx", "pydantic", "jinja2"}
+                "aiohttp", "httpx", "pydantic", "jinja2", "yaml"}
 OPTIONAL_IMPORTS = {("kserve_tpu_torch/engine/tokenizer.py", "jinja2"),
-                    ("chip_smoke.py", "jinja2")}
+                    ("chip_smoke.py", "jinja2"),
+                    ("kserve_tpu_torch/api/http_transport.py", "yaml")}
 
 
 @pytest.mark.parametrize("path", sorted(PKG.rglob("*.py")) + [REPO / "chip_smoke.py"],
@@ -324,3 +330,43 @@ def test_epp_and_tracer_need_none_of_them():
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_autoscaler_and_activator_need_none_of_them():
+    """The autoscaler (policies, hold queue, loop, actuator, CLI), the
+    Kubernetes transport and the activator load, parse their flags and
+    take one decision, with every package the card machine lacks blocked
+    (PyYAML with them: apply_yaml alone needs it, and says so); and
+    chip_smoke.py has the `scale` phase that drives them on the card."""
+    code = (
+        "import sys\n"
+        f"for name in {sorted(CARD_MISSING)!r}:\n"
+        "    sys.modules[name] = None\n"
+        "from kserve_tpu_torch import activator, autoscale\n"
+        "from kserve_tpu_torch.autoscale import __main__ as cli\n"
+        "from kserve_tpu_torch.api import http_transport\n"
+        "from kserve_tpu_torch.controlplane import gvk\n"
+        "args = cli.build_arg_parser().parse_args(['--epp-url', 'http://e', "
+        "'--deployment', 'd'])\n"
+        "policy = cli.build_policy(args)\n"
+        "d = policy.decide(autoscale.FleetSignals(held_requests=3), 0)\n"
+        "assert (d.action, d.reason) == ('scale_up', 'hold_demand'), d\n"
+        "a = activator.Activator('http://b:1', port=0)\n"
+        "assert a.holds.max_holds == 512 and a.stats['buffered'] == 0\n"
+        "assert gvk.object_path(gvk.BUILTIN_RESOURCES['Deployment'], 'ns', 'x') == "
+        "'/apis/apps/v1/namespaces/ns/deployments/x'\n"
+        "try:\n"
+        "    http_transport.HTTPCluster('http://127.0.0.1:9').apply_yaml('x.yaml')\n"
+        "except ImportError as e:\n"
+        "    assert 'PyYAML' in str(e)\n"
+        "else:\n"
+        "    raise AssertionError('apply_yaml ran without PyYAML')\n"
+    )
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    tree = ast.parse((REPO / "chip_smoke.py").read_text())
+    phases = next(node.value for node in tree.body if isinstance(node, ast.Assign)
+                  and getattr(node.targets[0], "id", "") == "SERVED_PHASES")
+    assert "scale" in {k.value for k in phases.keys}
