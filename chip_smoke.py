@@ -182,6 +182,40 @@ Phases, each printing JSON lines:
            float64, the SVC's decisions within 1e-4; both within 1e-6 of
            the CPU); then v2/infer p50 / p99 (binary form, 200
            requests per framework and batch, 50 for the softprob dump)
+  artifacts  model storage, the storage initializer and the multi-model
+           agent: the predictive phase's xgb-higgs and lgb-higgs dumps (from
+           --seed), a second XGBoost forest and the iris-SVC stand-in packed
+           as .tar.gz, .zip and a directory, served by a standard-library
+           http.server; `python -m kserve_tpu_torch.storage.initializer
+           --manifest` pulls all nine (http and file://): trees byte-equal
+           to the sources, manifests listing every file and size, MB/s;
+           `predictive_server --framework xgboost` over one pull on the card
+           against the port on the CPU (1e-6), left running for explain; a
+           ModelAgent (poll 0.2 s) over the port's REST server in this
+           process loads three models (http .tar.gz, file://, .zip) on cuda,
+           each V2 answer equal to the directly loaded model's; models.json
+           rewritten: the removed model 404 within two polls, the changed
+           storageUri serving the new forest (build/artifacts_smoke,
+           removed after)
+  explain  the explainer: two `python -m kserve_tpu_torch.runtimes.
+           explainer_server --model_name xgb-higgs` processes over that
+           XGBoost server, Kernel SHAP with 2,104 coalitions (shap's "auto"
+           at 28 features) and permutation with 64 repeats per feature, on 8
+           HIGGS rows against 100 background rows: attributions finite,
+           Kernel SHAP efficient within 1e-6 of the predictor's f(x) - f(mean
+           background), both within 1e-6 of the port on the CPU over the same
+           predictor, a request's method overriding the flag; :explain p50
+           of 5 calls
+  forecast the time-series forecaster: `python -m kserve_tpu_torch.
+           runtimes.timeseries_server` on the card; 370 seeded hourly load
+           curves of 2,016 steps (UCI ElectricityLoadDiagrams20112014's
+           clients, 12 weeks), horizon 168 with quantiles 0.1 / 0.5 / 0.9,
+           and one 7-column series of 720 steps, horizon 96 (ETTh1,
+           Informer's 720 -> 96): means within 1e-6 of the port on the CPU
+           and within float32 rounding of a float64 recomputation, season 24
+           picked for every load curve, quantiles ordered, start timestamps
+           advanced, /v1/timeseries/models listing the forecaster alone;
+           wall p50 of 5 calls each, launches per series under torch.profiler
   encoder  the BERT encoder runtime at BERT-base (768 wide, 12 layers, 12
            heads, vocabulary 30,522, 512 positions; ~110 M parameters,
            f32, TF32 off) from seeded random weights on cuda, served in
@@ -265,9 +299,9 @@ kernels are timed by the same cases and the same timing code.
 --decode-min-chunk N sets the decode kernel's least keys per split (the
 chunk sweep of PERF.md; the default is the package's own).  --skip-flex
 leaves out the flex_attention yardstick and its compiles (an A/B).
---only PHASE runs the device and build phases and one served phase (no
-kernel phase, no summary).  --seed N seeds the predictive phase's models
-and rows (default 0).  --cold-build-check is the lifecycle phase's
+--only PHASE[,PHASE...] runs the device and build phases and those served
+phases in order (no kernel phase, no summary).  --seed N seeds the predictive, artifacts,
+explain and forecast phases' models and data (default 0).  --cold-build-check is the lifecycle phase's
 subprocess.
 """
 
@@ -1130,12 +1164,14 @@ def main(argv=None) -> int:
     ap.add_argument("--skip-flex", action="store_true",
                     help="leave out the flex_attention yardstick (its "
                          "compiles), e.g. in a kernels-only A/B")
-    ap.add_argument("--only", default=None, choices=sorted(SERVED_PHASES),
-                    help="device, build and this one served phase")
+    ap.add_argument("--only", default=None,
+                    help="device, build and these served phases, comma-separated, "
+                         f"in order (of {', '.join(sorted(SERVED_PHASES))})")
     ap.add_argument("--cold-build-check", action="store_true",
                     help=argparse.SUPPRESS)
     ap.add_argument("--seed", type=int, default=0,
-                    help="seed of the predictive phase's models and rows")
+                    help="seed of the predictive, artifacts, explain and forecast "
+                         "phases' models and data")
     ap.add_argument("--scale-default-breaker", action="store_true",
                     help="run the scale phase's EPP as shipped (its breakers' "
                          "30 s open window) in place of a 1 s window")
@@ -1144,6 +1180,10 @@ def main(argv=None) -> int:
                          "(a multiple of 64; default: the package's "
                          "DECODE_MIN_CHUNK)")
     args = ap.parse_args(argv)
+    only = args.only.split(",") if args.only else []
+    unknown = [p for p in only if p not in SERVED_PHASES]
+    if unknown:
+        ap.error(f"--only: unknown phase(s) {unknown}")
     if args.package_root:
         root = os.path.abspath(args.package_root)
         if not os.path.isdir(os.path.join(root, "kserve_tpu_torch")):
@@ -1173,12 +1213,23 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     info = phase_device(torch)
     phase_build()
+    # the artifacts phase leaves its XGBoost server here for the explain phase
+    shared: dict = {}
     phases = dict(SERVED_PHASES,
                   predictive=functools.partial(phase_predictive, seed=args.seed),
+                  artifacts=functools.partial(phase_artifacts, seed=args.seed,
+                                              shared=shared),
+                  explain=functools.partial(phase_explain, seed=args.seed, shared=shared),
+                  forecast=functools.partial(phase_forecast, seed=args.seed),
                   scale=functools.partial(phase_scale, breaker_open_s=(
                       None if args.scale_default_breaker else SCALE_BREAKER_OPEN_S)))
-    if args.only:
-        phases[args.only](torch)
+    if only:
+        try:
+            for name in only:
+                phases[name](torch)
+        finally:
+            for server in shared.values():
+                server.stop()
         emit({"phase": "done", "wall_s": time.perf_counter() - t0})
         return 0
     rows = phase_kernels(torch, flex=not args.skip_flex)
@@ -1201,6 +1252,12 @@ def main(argv=None) -> int:
     counts.update(phase_pd(torch))
     counts.update(phase_peer(torch))
     phases["predictive"](torch)
+    try:
+        for name in ("artifacts", "explain", "forecast"):
+            phases[name](torch)
+    finally:
+        for server in shared.values():
+            server.stop()
     phase_encoder(torch)
     phase_graph(torch)
     counts["epp"] = phase_epp(torch)
@@ -5644,21 +5701,22 @@ def _free_port() -> int:
         return s.getsockname()[1]
 
 
-class _PredictiveServer:
-    """`python -m kserve_tpu_torch.runtimes.predictive_server` in a process
-    of its own (the normal CLI, on cuda by default), its log in a file."""
+class _ServerProcess:
+    """`python -m <module> <args> --http_port=<free port>` in a process of
+    its own (the normal CLI, on cuda by default), its log in a file; ready
+    once /v2/health/ready answers 200."""
 
-    def __init__(self, root: str, framework: str, name: str, model_dir: str,
-                 env: dict, log_dir: str):
-        self.name, self.framework = name, framework
+    def __init__(self, module: str, args, name: str, log_dir: str, env=None,
+                 cwd: str = REPO):
+        self.name = name
         self.port = _free_port()
         self.log_path = os.path.join(log_dir, f"{name}.log")
         self._log = open(self.log_path, "w")
+        self.t_start = time.perf_counter()
+        self.ready_after_s = None  # seconds from the start to ready
         self.proc = subprocess.Popen(
-            [sys.executable, "-m", "kserve_tpu_torch.runtimes.predictive_server",
-             f"--framework={framework}", f"--model_name={name}",
-             f"--model_dir={model_dir}", f"--http_port={self.port}"],
-            cwd=root, env=env, stdout=self._log, stderr=subprocess.STDOUT)
+            [sys.executable, "-m", module, *args, f"--http_port={self.port}"],
+            cwd=cwd, env=env, stdout=self._log, stderr=subprocess.STDOUT)
 
     def log(self) -> str:
         with open(self.log_path) as f:
@@ -5668,15 +5726,17 @@ class _PredictiveServer:
         t0 = time.perf_counter()
         while time.perf_counter() - t0 < timeout:
             if self.proc.poll() is not None:
-                raise AssertionError(f"predictive server {self.name} exited "
+                raise AssertionError(f"server {self.name} exited "
                                      f"{self.proc.returncode}: {self.log()[-3000:]}")
             try:
                 if _http(self.port, "GET", "/v2/health/ready", timeout=5)[0] == 200:
+                    if self.ready_after_s is None:
+                        self.ready_after_s = time.perf_counter() - self.t_start
                     return time.perf_counter() - t0
             except OSError:
                 pass
-            time.sleep(0.1)
-        raise AssertionError(f"predictive server {self.name} not ready in {timeout} s")
+            time.sleep(0.05)
+        raise AssertionError(f"server {self.name} not ready in {timeout} s")
 
     def stop(self) -> None:
         import signal
@@ -5689,6 +5749,18 @@ class _PredictiveServer:
                 self.proc.kill()
                 self.proc.wait(30)
         self._log.close()
+
+
+class _PredictiveServer(_ServerProcess):
+    """`python -m kserve_tpu_torch.runtimes.predictive_server` over one
+    model directory."""
+
+    def __init__(self, root: str, framework: str, name: str, model_dir: str,
+                 env: dict, log_dir: str):
+        self.framework = framework
+        super().__init__("kserve_tpu_torch.runtimes.predictive_server",
+                         [f"--framework={framework}", f"--model_name={name}",
+                          f"--model_dir={model_dir}"], name, log_dir, env, cwd=root)
 
 
 class _Client:
@@ -6015,6 +6087,721 @@ def phase_predictive(torch, seed: int = 0) -> dict:
           "served_checks": checks, "sklearn": sk, "v2_infer_binary": latency,
           "phase_wall_s": time.perf_counter() - t_phase})
     return latency
+
+
+# ---------------------------------------------------------------- artifacts
+
+ARTIFACTS_DIR = os.path.join(REPO, "build", "artifacts_smoke")
+# the agent's mtime poll, and the rows of each served check
+AGENT_POLL_S = 0.2
+ARTIFACT_ROWS = 64
+
+
+def _file_tree(root: str) -> dict:
+    """{relative path: bytes} of every file under root."""
+    out = {}
+    for dirpath, _, names in os.walk(root):
+        for name in names:
+            path = os.path.join(dirpath, name)
+            with open(path, "rb") as f:
+                out[os.path.relpath(path, root)] = f.read()
+    return out
+
+
+def _higgs_artifacts(np, root: str, seed: int) -> dict:
+    """The predictive phase's xgb-higgs and lgb-higgs dumps (drawn from `seed` as
+    phase_predictive draws them), a second XGBoost forest of the same size
+    (the agent's changed storageUri) and an iris-SVC stand-in pickle (its
+    module written to root, which goes on the path), each in a directory of
+    its own under root/src: {name: (framework, dir)}."""
+    import importlib
+    import pickle
+
+    rng = np.random.default_rng(seed)
+    docs = {
+        "xgb-higgs": ("xgboost", "model.json",
+                      xgb_dump(rng, PREDICTIVE_TREES, XGB_DEPTH, HIGGS_FEATURES)),
+        "lgb-higgs": ("lightgbm", "model.txt",
+                      lgb_dump(rng, PREDICTIVE_TREES, LGB_LEAVES, HIGGS_FEATURES)),
+        "xgb-higgs-v2": ("xgboost", "model.json",
+                         xgb_dump(np.random.default_rng(seed + 1), PREDICTIVE_TREES,
+                                  XGB_DEPTH, HIGGS_FEATURES)),
+    }
+    out = {}
+    for name, (framework, file_name, doc) in docs.items():
+        d = os.path.join(root, "src", name)
+        os.makedirs(d)
+        with open(os.path.join(d, file_name), "w") as f:
+            if isinstance(doc, dict):
+                json.dump(doc, f, separators=(",", ":"))
+            else:
+                f.write(doc)
+        out[name] = (framework, d)
+    with open(os.path.join(root, STANDINS_MODULE + ".py"), "w") as f:
+        f.write(STANDINS_SOURCE)
+    if root not in sys.path:
+        sys.path.insert(0, root)
+    S = importlib.import_module(STANDINS_MODULE)
+    d = os.path.join(root, "src", "iris-svc")
+    os.makedirs(d)
+    with open(os.path.join(d, "model.pkl"), "wb") as f:
+        pickle.dump(_standins(np, np.random.default_rng(seed + 2), S)["svc"][0], f)
+    out["iris-svc"] = ("sklearn", d)
+    return out
+
+
+def _pack(src_dir: str, www: str, name: str) -> None:
+    """src_dir's files as www/<name>.tar.gz and www/<name>.zip."""
+    import tarfile
+    import zipfile
+
+    files = sorted(_file_tree(src_dir))
+    with tarfile.open(os.path.join(www, f"{name}.tar.gz"), "w:gz", compresslevel=1) as tar:
+        for rel in files:
+            tar.add(os.path.join(src_dir, rel), arcname=rel)
+    with zipfile.ZipFile(os.path.join(www, f"{name}.zip"), "w",
+                         zipfile.ZIP_DEFLATED, compresslevel=1) as z:
+        for rel in files:
+            z.write(os.path.join(src_dir, rel), arcname=rel)
+
+
+class _FileServer:
+    """A standard-library HTTP server over a directory, on a thread."""
+
+    def __init__(self, root: str):
+        import functools as ft
+        import http.server
+        import threading
+
+        class Quiet(http.server.SimpleHTTPRequestHandler):
+            def log_message(self, *args):
+                pass
+
+        self.httpd = http.server.ThreadingHTTPServer(
+            ("127.0.0.1", 0), ft.partial(Quiet, directory=root))
+        self.port = self.httpd.server_address[1]
+        self.thread = threading.Thread(target=self.httpd.serve_forever, daemon=True)
+        self.thread.start()
+
+    def stop(self) -> None:
+        self.httpd.shutdown()
+        self.httpd.server_close()
+        self.thread.join(10)
+
+
+def _served_v2(np, port: int, name: str, X):
+    """The first output of POST /v2/models/{name}/infer (JSON) of rows X;
+    the status and body when it is not 200."""
+    (body, headers), _ = _v2_bodies(np, name, X)
+    client = _Client(port)
+    try:
+        status, out_headers, raw = client.post(f"/v2/models/{name}/infer", body, headers)
+    finally:
+        client.close()
+    if status != 200:
+        return status, raw
+    return status, _v2_output(np, status, out_headers, raw)
+
+
+def phase_artifacts(torch, seed: int = 0, shared: Optional[dict] = None) -> dict:
+    """Model storage, the storage initializer and the multi-model agent on
+    the card: the predictive phase's HIGGS forests and an iris-SVC stand-in packed as
+    .tar.gz, .zip and a directory, pulled over http and file:// by
+    `python -m kserve_tpu_torch.storage.initializer --manifest`, one pull
+    served by a predictive_server process, then a ModelAgent in this
+    process hot-loading three of them over the port's REST server and
+    following a rewritten models.json.  With `shared` (a dict), the
+    predictive_server is left running there, under "xgb", for the explain
+    phase; its caller stops it."""
+    import asyncio
+    import shutil
+
+    import numpy as np
+
+    import kserve_tpu_torch
+    from kserve_tpu_torch.agent.watcher import ModelAgent
+    from kserve_tpu_torch.model_repository import ModelRepository
+    from kserve_tpu_torch.protocol.rest.server import RESTServer
+    from kserve_tpu_torch.runtimes.gbdt_server import XGBoostModel
+    from kserve_tpu_torch.runtimes.predictive_server import build_model
+    from kserve_tpu_torch.storage.initializer import MANIFEST_NAME
+
+    t_phase = time.perf_counter()
+    split = _Split()
+    pkg_root = os.path.dirname(os.path.dirname(os.path.abspath(kserve_tpu_torch.__file__)))
+    shutil.rmtree(ARTIFACTS_DIR, ignore_errors=True)
+    os.makedirs(ARTIFACTS_DIR)
+    root = ARTIFACTS_DIR
+    www = os.path.join(root, "www")
+    os.makedirs(www)
+    fsrv = aloop = predictor = rest = agent = None
+    try:
+        src = _higgs_artifacts(np, root, seed)
+        for name, (_, d) in src.items():
+            _pack(d, www, name)
+        split.mark("write_and_pack")
+        fsrv = _FileServer(www)
+        base = f"http://127.0.0.1:{fsrv.port}"
+
+        # the initializer, a process of its own: every model as .tar.gz and
+        # .zip over http and as a directory over file://
+        pulls = []
+        for name in ("xgb-higgs", "lgb-higgs", "iris-svc"):
+            for form, uri in (("tgz", f"{base}/{name}.tar.gz"), ("zip", f"{base}/{name}.zip"),
+                              ("dir", f"file://{src[name][1]}")):
+                pulls.append((name, form, uri, os.path.join(root, "pulled", f"{name}-{form}")))
+        env = dict(os.environ, PYTHONPATH=os.pathsep.join([pkg_root, root]),
+                   TORCH_ALLOW_TF32_CUBLAS_OVERRIDE="1")
+        cmd = [sys.executable, "-m", "kserve_tpu_torch.storage.initializer", "--manifest"]
+        for _, _, uri, dest in pulls:
+            cmd += [uri, dest]
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, cwd=pkg_root, env=env, capture_output=True, text=True,
+                              timeout=300)
+        init_wall = time.perf_counter() - t0
+        if proc.returncode != 0:
+            raise AssertionError(f"initializer exited {proc.returncode}: {proc.stderr[-3000:]}")
+        wire_bytes = sum(os.path.getsize(os.path.join(www, f"{n}.{ext}"))
+                         for n, form, _, _ in pulls if form != "dir"
+                         for ext in (("tar.gz",) if form == "tgz" else ("zip",)))
+        tree_bytes = 0
+        for name, form, uri, dest in pulls:
+            got = _file_tree(dest)
+            manifest = json.loads(got.pop(MANIFEST_NAME))
+            want = _file_tree(src[name][1])
+            if got != want:
+                raise AssertionError(f"{uri}: the pulled tree differs from the source")
+            if manifest != {"files": {k: len(v) for k, v in want.items()}}:
+                raise AssertionError(f"{uri}: manifest {manifest} does not list the tree")
+            tree_bytes += sum(len(v) for v in want.values())
+        initializer = {"pulls": len(pulls), "wall_s": init_wall,
+                       "wire_mb": wire_bytes / 1e6, "tree_mb": tree_bytes / 1e6,
+                       "tree_mb_per_s": tree_bytes / 1e6 / init_wall}
+        split.mark("initializer_and_checks")
+
+        # one pull served by predictive_server on the card (kept running
+        # for the explain phase), against the port on the CPU
+        d1 = os.path.join(root, "pulled", "xgb-higgs-tgz")
+        predictor = _PredictiveServer(pkg_root, "xgboost", "xgb-higgs", d1, env, root)
+        rng = np.random.default_rng(seed + 3)
+        X = rng.normal(size=(ARTIFACT_ROWS, HIGGS_FEATURES)).astype(np.float32)
+        iris_X = _iris_rows(np, rng, ARTIFACT_ROWS)
+        cpu = XGBoostModel("xgb-higgs", d1, device="cpu")
+        cpu.load()
+        cpu_out = np.asarray(asyncio.run(cpu({"instances": X.tolist()}))["predictions"])
+        split.mark("cpu_reference")
+
+        # the agent: three models over http (.tar.gz), file:// and a .zip
+        cfg = os.path.join(root, "agent", "models.json")
+        os.makedirs(os.path.dirname(cfg))
+        entries = [
+            {"modelName": "xgb-higgs", "modelSpec": {
+                "framework": "xgboost", "storageUri": f"{base}/xgb-higgs.tar.gz",
+                "memory": "1Gi"}},
+            {"modelName": "lgb-higgs", "modelSpec": {
+                "framework": "lightgbm", "storageUri": f"file://{src['lgb-higgs'][1]}"}},
+            {"modelName": "iris-svc", "modelSpec": {
+                "framework": "sklearn", "storageUri": f"{base}/iris-svc.zip"}},
+        ]
+        with open(cfg, "w") as f:
+            json.dump(entries, f)
+        direct = {}
+        for name in ("xgb-higgs", "lgb-higgs", "iris-svc", "xgb-higgs-v2"):
+            framework, d = src[name]
+            direct[name] = build_model(framework, name, d, device="cuda")
+            direct[name].load()
+        rows = {"xgb-higgs": X, "lgb-higgs": X, "iris-svc": iris_X, "xgb-higgs-v2": X}
+        want = {name: np.asarray(asyncio.run(m({"instances": rows[name].tolist()}))[
+            "predictions"], dtype=np.float64) for name, m in direct.items()}
+        split.mark("direct_models")
+        aloop = _AsyncThread()
+        repo = ModelRepository()
+        rest = RESTServer(repo, "127.0.0.1", 0)
+        port = aloop.run(rest.start())
+        agent = ModelAgent(repo, config_file=cfg, models_dir=os.path.join(root, "agent", "models"),
+                           poll_interval=AGENT_POLL_S)
+        t0 = time.perf_counter()
+        aloop.run(agent.start())
+        load_s = time.perf_counter() - t0
+        if set(repo.models) != {"xgb-higgs", "lgb-higgs", "iris-svc"}:
+            raise AssertionError(f"the agent loaded {sorted(repo.models)}")
+        off = {n: str(m.device) for n, m in repo.models.items() if m.device.type != "cuda"}
+        if off:
+            raise AssertionError(f"the agent's models off the card: {off}")
+        for name in ("xgb-higgs", "lgb-higgs", "iris-svc"):
+            status, got = _served_v2(np, port, name, rows[name])
+            if status != 200 or not np.array_equal(np.asarray(got, dtype=np.float64).ravel(),
+                                                   want[name].ravel()):
+                raise AssertionError(f"agent-served {name} differs from the direct model "
+                                     f"({status})")
+        split.mark("agent_boot")
+
+        # models.json rewritten: lgb-higgs gone, xgb-higgs on a new forest
+        svc_model = repo.get_model("iris-svc")
+        entries = [dict(entries[0], modelSpec=dict(entries[0]["modelSpec"],
+                                                   storageUri=f"{base}/xgb-higgs-v2.zip")),
+                   entries[2]]
+        mtime = os.path.getmtime(cfg)
+        with open(cfg, "w") as f:
+            json.dump(entries, f)
+        os.utime(cfg, (mtime + 10, mtime + 10))  # an mtime the poll cannot miss
+        t_write = time.perf_counter()
+        gone_s = new_s = None
+        while time.perf_counter() - t_write < 60 and (gone_s is None or new_s is None):
+            if gone_s is None and _served_v2(np, port, "lgb-higgs", X)[0] == 404:
+                gone_s = time.perf_counter() - t_write
+            if new_s is None:
+                status, got = _served_v2(np, port, "xgb-higgs", X)
+                if status == 200 and np.array_equal(np.asarray(got, dtype=np.float64),
+                                                    want["xgb-higgs-v2"]):
+                    new_s = time.perf_counter() - t_write
+            time.sleep(0.01)
+        if gone_s is None or gone_s > 2 * AGENT_POLL_S + 0.3:
+            raise AssertionError(f"lgb-higgs still served {gone_s} s after the rewrite")
+        if new_s is None or new_s > 2 * AGENT_POLL_S + load_s:
+            raise AssertionError(f"xgb-higgs not on its new forest {new_s} s after the "
+                                 f"rewrite (boot load {load_s} s)")
+        if repo.get_model("iris-svc") is not svc_model or set(repo.models) != {
+                "xgb-higgs", "iris-svc"}:
+            raise AssertionError("the agent reloaded an unchanged model or kept a removed one")
+        split.mark("agent_rewrite")
+
+        ready_s = predictor.wait_ready()
+        status, served = _served_v2(np, predictor.port, "xgb-higgs", X)
+        if status != 200:
+            raise AssertionError(f"predictive_server over the pull answered {status}")
+        cpu_err = float(np.abs(np.asarray(served, dtype=np.float64) - cpu_out).max())
+        if cpu_err > CPU_TOL or "on cuda" not in predictor.log():
+            raise AssertionError(f"predictive_server over the pull: vs cpu {cpu_err}")
+        start_to_ready = predictor.ready_after_s
+        if shared is not None:
+            shared["xgb"], predictor = predictor, None
+        split.mark("predictor")
+    finally:
+        if agent is not None:
+            aloop.run(agent.stop())
+        if rest is not None:
+            aloop.run(rest.stop())
+        if aloop is not None:
+            aloop.close()
+        if predictor is not None:
+            predictor.stop()
+        if fsrv is not None:
+            fsrv.stop()
+        shutil.rmtree(root, ignore_errors=True)
+    split.mark("stop")
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True).stdout.strip()
+    out = {"phase": "artifacts", "nvidia_smi": smi, "initializer": initializer,
+           "predictor_start_to_ready_s": start_to_ready, "predictor_ready_wait_s": ready_s,
+           "predictor_vs_cpu": cpu_err, "agent_boot_load_s": load_s,
+           "agent_models": 3, "rewrite_gone_s": gone_s, "rewrite_new_forest_s": new_s,
+           "split_s": split.s, "phase_wall_s": time.perf_counter() - t_phase}
+    emit(out)
+    return out
+
+
+# ---------------------------------------------------------------- explain
+
+EXPLAIN_DIR = os.path.join(REPO, "build", "explain_smoke")
+EXPLAIN_ROWS = 8
+# ~100 background rows: shap's advice is to summarize the background
+EXPLAIN_BACKGROUND = 100
+# shap's "auto" for 28 features: 2 * 28 + 2,048 coalitions
+KERNELSHAP_SAMPLES = 2 * HIGGS_FEATURES + 2048
+# 64 repeats per feature
+PERMUTATION_SAMPLES = 64 * HIGGS_FEATURES
+EXPLAIN_TIMED = 5
+# sum(phi) against f(x) - f(mean background): the predictor's float32
+# outputs bound it, not the float64 solve
+EFFICIENCY_TOL = 1e-6
+# the card against the port on the CPU over the same predictor: Kernel
+# SHAP of max|phi| (both solve by QR in float64), permutation relative
+SHAP_CPU_TOL = 1e-6
+PERM_CPU_TOL = 1e-6
+
+
+def phase_explain(torch, seed: int = 0, shared: Optional[dict] = None) -> dict:
+    """The explainer on the card: two `python -m kserve_tpu_torch.runtimes.
+    explainer_server --model_name xgb-higgs` processes (Kernel SHAP with
+    2,104 coalitions, permutation with 64 repeats per feature) over the
+    artifacts phase's XGBoost server, 8 HIGGS rows against 100 background
+    rows: finite attributions, Kernel SHAP's efficiency against the
+    predictor's own outputs, both methods against the port on the CPU over
+    the same predictor (computed while the explainers start), a request's
+    method overriding the flag, and :explain p50 over 5 calls.  The
+    predictor is `shared["xgb"]` where the artifacts phase left one (this
+    phase stops it), else one started here over the same forest."""
+    import asyncio
+    import shutil
+
+    import numpy as np
+
+    import kserve_tpu_torch
+    from kserve_tpu_torch.runtimes.explainer_server import ExplainerModel
+
+    t_phase = time.perf_counter()
+    split = _Split()
+    pkg_root = os.path.dirname(os.path.dirname(os.path.abspath(kserve_tpu_torch.__file__)))
+    shutil.rmtree(EXPLAIN_DIR, ignore_errors=True)
+    os.makedirs(EXPLAIN_DIR)
+    env = dict(os.environ, PYTHONPATH=pkg_root)
+    predictor = (shared or {}).pop("xgb", None)
+    from_artifacts = predictor is not None
+    procs = []
+    try:
+        if predictor is None:  # --only explain: the artifacts phase's forest
+            src = _higgs_artifacts(np, EXPLAIN_DIR, seed)
+            predictor = _PredictiveServer(pkg_root, "xgboost", "xgb-higgs",
+                                          src["xgb-higgs"][1], env, EXPLAIN_DIR)
+        host = f"127.0.0.1:{predictor.port}"
+        methods = {"kernelshap": KERNELSHAP_SAMPLES, "permutation": PERMUTATION_SAMPLES}
+        servers = {m: _ServerProcess(
+            "kserve_tpu_torch.runtimes.explainer_server",
+            ["--model_name=xgb-higgs", f"--predictor_host={host}", f"--method={m}",
+             f"--n_samples={n}"], f"explainer-{m}", EXPLAIN_DIR, env, cwd=pkg_root)
+            for m, n in methods.items()}
+        procs = list(servers.values())
+        rng = np.random.default_rng(seed + 4)
+        X = rng.normal(size=(EXPLAIN_ROWS, HIGGS_FEATURES)).astype(np.float32)
+        bg = rng.normal(size=(EXPLAIN_BACKGROUND, HIGGS_FEATURES)).astype(np.float32)
+        body = {"instances": X.tolist(), "background": bg.tolist()}
+        predictor.wait_ready()
+        split.mark("predictor")
+
+        # while the explainers start: the predictor's own f(x) and f(mean
+        # background), and the port on the CPU in this process over the
+        # same predictor
+        status, raw = _http(predictor.port, "POST", "/v1/models/xgb-higgs:predict",
+                            {"instances": X.astype(np.float64).tolist()
+                             + [bg.astype(np.float64).mean(axis=0).tolist()]})
+        if status != 200:
+            raise AssertionError(f"predictor answered {status}")
+        f = np.asarray(json.loads(raw)["predictions"], dtype=np.float64)
+        cpu = {}
+        for m, n in methods.items():
+            model = ExplainerModel("xgb-higgs", host, method=m, n_samples=n, device="cpu")
+            cpu[m] = np.asarray(asyncio.run(model.explain(dict(body, method=m)))[
+                "explanations"])
+        split.mark("cpu_reference")
+        ready_s = {m: s.wait_ready() for m, s in servers.items()}
+        split.mark("explainers_ready_wait")
+
+        path = "/v1/models/xgb-higgs:explain"
+        out, p50, walls = {}, {}, {}
+        for m, server in servers.items():
+            answers, walls[m] = _timed_posts(server.port, path, dict(body, method=m),
+                                             EXPLAIN_TIMED)
+            if any(a != answers[0] for a in answers):
+                raise AssertionError(f"{m}: repeated :explain calls answered differently")
+            if answers[0]["method"] != m:
+                raise AssertionError(f"{m}: answered {answers[0]['method']}")
+            out[m] = np.asarray(answers[0]["explanations"])
+            p50[m] = statistics.median(walls[m])
+            if out[m].shape != X.shape or not np.isfinite(out[m]).all():
+                raise AssertionError(f"{m}: attributions {out[m].shape}, not all finite")
+        # a request's method overrides the process's flag
+        (override,), _ = _timed_posts(servers["kernelshap"].port, path,
+                                      dict(body, instances=body["instances"][:1],
+                                           method="permutation"), 1)
+        if override["method"] != "permutation":
+            raise AssertionError("the request's method did not override the flag")
+        split.mark("requests")
+
+        gap = np.abs(out["kernelshap"].sum(axis=1) - (f[:-1] - f[-1]))
+        if gap.max() > EFFICIENCY_TOL:
+            raise AssertionError(f"Kernel SHAP efficiency gap {gap.max()}")
+        cpu_err = {
+            "kernelshap": float(np.abs(out["kernelshap"] - cpu["kernelshap"]).max()
+                                / np.abs(cpu["kernelshap"]).max()),
+            "permutation": float((np.abs(out["permutation"] - cpu["permutation"])
+                                  / np.maximum(np.abs(cpu["permutation"]), 1e-30)).max())}
+        if cpu_err["kernelshap"] > SHAP_CPU_TOL or cpu_err["permutation"] > PERM_CPU_TOL:
+            raise AssertionError(f"card vs cpu {cpu_err}")
+        logs = {m: s.log() for m, s in servers.items()}
+        if not all("on cuda" in log for log in logs.values()):
+            raise AssertionError(f"an explainer is not on cuda: {logs}")
+    finally:
+        for server in procs:
+            server.stop()
+        if predictor is not None:
+            predictor.stop()
+        shutil.rmtree(EXPLAIN_DIR, ignore_errors=True)
+    split.mark("stop")
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True).stdout.strip()
+    res = {"phase": "explain", "nvidia_smi": smi, "rows": EXPLAIN_ROWS,
+           "background": EXPLAIN_BACKGROUND, "predictor_from_artifacts": from_artifacts,
+           "predictor_rows_per_row": {"kernelshap": KERNELSHAP_SAMPLES + 1,
+                                      "permutation": PERMUTATION_SAMPLES + 1},
+           "explainer_start_to_ready_s": {m: s.ready_after_s for m, s in servers.items()},
+           "explainer_ready_wait_s": ready_s, "explain_p50_ms": p50, "explain_ms": walls,
+           "efficiency_max_gap": float(gap.max()), "card_vs_cpu": cpu_err,
+           "max_abs_phi": {m: float(np.abs(v).max()) for m, v in out.items()},
+           "split_s": split.s, "phase_wall_s": time.perf_counter() - t_phase}
+    emit(res)
+    return res
+
+
+# ---------------------------------------------------------------- forecast
+
+FORECAST_DIR = os.path.join(REPO, "build", "forecast_smoke")
+# UCI ElectricityLoadDiagrams20112014: 370 clients, hourly; 12 weeks of
+# history, a week ahead
+LOAD_SERIES = 370
+LOAD_STEPS = 2016
+LOAD_HORIZON = 168
+QUANTILES = [0.1, 0.5, 0.9]
+# ETTh1: 7 columns, Informer's 720 -> 96 setting
+ETT_VARS = 7
+ETT_STEPS = 720
+ETT_HORIZON = 96
+FORECAST_TIMED = 5
+FORECAST_START = "2026-01-01T00:00:00"
+FORECAST_REL_TOL = 1e-6
+
+
+def _load_curves(np, rng, n: int, steps: int):
+    """[n, steps] hourly loads: a daily season (amplitude 20-200), a weekly
+    one a tenth of it, a trend of up to a tenth over the window and noise
+    of 0.15 of the amplitude, around a level 3-10 amplitudes up."""
+    t = np.arange(steps)
+    amp = rng.uniform(20, 200, size=(n, 1))
+    phase = rng.uniform(0, 2 * np.pi, size=(n, 1))
+    return (amp * rng.uniform(3, 10, size=(n, 1))
+            + amp * np.sin(2 * np.pi * t / 24 + phase)
+            + 0.1 * amp * np.sin(2 * np.pi * t / 168 + 2 * phase)
+            + 0.1 * amp * rng.uniform(-1, 1, size=(n, 1)) * t / steps
+            + 0.15 * amp * rng.normal(size=(n, steps)))
+
+
+def _season_f64(np, y) -> int:
+    """The season of best lag autocorrelation among 1, 4, 7, 12, 24 (the
+    forecaster's candidates), recomputed here."""
+    yc = y - y.mean()
+    denom = float(yc @ yc) or 1.0
+    best, best_r = 1, -np.inf
+    for m in (1, 4, 7, 12, 24):
+        if m < len(y):
+            r = float(yc[m:] @ yc[:-m]) / denom
+            if r > best_r:
+                best, best_r = m, r
+    return best
+
+
+def _naive_f64(np, y, m: int, horizon: int):
+    """(means, their float32 rounding bound) of seasonal-naive with drift in
+    float64 over the float32-rounded series the device reads."""
+    y32 = np.asarray(y, dtype=np.float32).astype(np.float64)
+    T = len(y32)
+    t = np.arange(horizon)
+    if m < T:
+        drift = (y32[T - 1] - y32[T - 1 - m]) / m
+        base = y32[T - m + t % m]
+    else:
+        drift, base = 0.0, np.full(horizon, y32[T - 1])
+    step = drift * (t // m + 1)
+    mean = base + step
+    return mean, 4 * 2.0 ** -24 * (np.abs(mean) + 3 * np.abs(step))
+
+
+def _forecast_checks(np, name, served, cpu, series, freq_hours, horizon, want_m=None):
+    """One input's gates; returns its picked seasons."""
+    from datetime import datetime, timedelta
+
+    _close_rel(np, name, served["mean_forecast"], cpu["mean_forecast"])
+    for q in served["quantiles"]:
+        _close_rel(np, name, served["quantiles"][q], cpu["quantiles"][q])
+    mean = np.asarray(served["mean_forecast"], dtype=np.float64)
+    cols = series[:, None] if series.ndim == 1 else series
+    mean = mean[:, None] if mean.ndim == 1 else mean
+    picks = []
+    for v in range(cols.shape[1]):
+        m = _season_f64(np, cols[:, v])
+        picks.append(m)
+        ref, bound = _naive_f64(np, cols[:, v], m, horizon)
+        if (np.abs(mean[:, v] - ref) > bound).any():
+            raise AssertionError(f"{name}[{v}]: means off the float64 recomputation "
+                                 f"(season {m}) by {np.abs(mean[:, v] - ref).max()}")
+    if want_m is not None and set(picks) != {want_m}:
+        raise AssertionError(f"{name}: seasons {picks}, not {want_m}")
+    q = [np.asarray(served["quantiles"][str(p)]) for p in QUANTILES]
+    if not ((q[0] <= q[1]).all() and (q[1] <= q[2]).all()):
+        raise AssertionError(f"{name}: quantiles out of order")
+    start = (datetime.fromisoformat(FORECAST_START)
+             + timedelta(hours=freq_hours * len(series))).isoformat()
+    if served["start_timestamp"] != start:
+        raise AssertionError(f"{name}: start {served['start_timestamp']}, not {start}")
+    return picks
+
+
+def _close_rel(np, what, got, want) -> None:
+    got, want = np.asarray(got, dtype=np.float64), np.asarray(want, dtype=np.float64)
+    err = np.abs(got - want) / np.maximum(np.abs(want), 1.0)
+    if got.shape != want.shape or err.max() > FORECAST_REL_TOL:
+        raise AssertionError(f"{what}: card vs cpu {err.max()}")
+
+
+class _Split:
+    """Seconds between successive marks of a phase ("where the time goes")."""
+
+    def __init__(self):
+        self.t = time.perf_counter()
+        self.s: dict = {}
+
+    def mark(self, name: str) -> None:
+        now = time.perf_counter()
+        self.s[name] = self.s.get(name, 0.0) + now - self.t
+        self.t = now
+
+
+def _forecast_profile(torch, body: dict) -> dict:
+    """Kernels, copies and device busy time per series of one request
+    through a forecaster on the card in this process, under
+    torch.profiler (after one warm request)."""
+    import asyncio
+
+    from kserve_tpu_torch.protocol.timeseries import ForecastRequest
+    from kserve_tpu_torch.runtimes.timeseries_server import SeasonalNaiveForecaster
+
+    card = SeasonalNaiveForecaster("forecaster")
+    card.load()
+    req = ForecastRequest.from_json(body)
+    asyncio.run(card.create_forecast(req))
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        asyncio.run(card.create_forecast(req))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    kernels = copies = 0
+    busy_us = 0.0
+    for ev in prof.key_averages():
+        if ev.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        if "memcpy" in ev.key.lower():
+            copies += ev.count
+        else:
+            kernels += ev.count
+        busy_us += ev.self_device_time_total
+    if kernels == 0:
+        raise AssertionError("the profiled forecast ran no CUDA kernel")
+    n = len(req.inputs)
+    return {"series": n, "kernels_per_series": kernels / n, "copies_per_series": copies / n,
+            "device_busy_ms": busy_us / 1e3, "wall_ms": wall * 1e3,
+            "device_idle_share": max(0.0, 1 - busy_us / 1e3 / (wall * 1e3))}
+
+
+def phase_forecast(torch, seed: int = 0) -> dict:
+    """The time-series forecaster on the card: `python -m kserve_tpu_torch.
+    runtimes.timeseries_server` in a process of its own; 370 hourly load
+    curves of 12 weeks, a week ahead with quantiles 0.1 / 0.5 / 0.9, and
+    one 7-column ETTh1-shaped series of 720 steps, 96 ahead: means against
+    the port on the CPU and a float64 recomputation, season 24 picked,
+    quantiles ordered, start timestamps advanced; wall p50 over 5 calls of
+    each, and launches per series from one torch.profiler capture (taken
+    in this process while the server starts)."""
+    import asyncio
+    import shutil
+
+    import numpy as np
+
+    import kserve_tpu_torch
+    from kserve_tpu_torch.protocol.timeseries import ForecastRequest
+    from kserve_tpu_torch.runtimes.timeseries_server import SeasonalNaiveForecaster
+
+    t_phase = time.perf_counter()
+    split = _Split()
+    pkg_root = os.path.dirname(os.path.dirname(os.path.abspath(kserve_tpu_torch.__file__)))
+    shutil.rmtree(FORECAST_DIR, ignore_errors=True)
+    os.makedirs(FORECAST_DIR)
+    server = _ServerProcess("kserve_tpu_torch.runtimes.timeseries_server",
+                            ["--model_name=forecaster"], "forecaster", FORECAST_DIR,
+                            dict(os.environ, PYTHONPATH=pkg_root), cwd=pkg_root)
+    try:
+        rng = np.random.default_rng(seed + 5)
+        loads = _load_curves(np, rng, LOAD_SERIES, LOAD_STEPS)
+        ett = _load_curves(np, rng, ETT_VARS, ETT_STEPS).T  # [720, 7]
+        options = {"horizon": LOAD_HORIZON, "quantiles": QUANTILES}
+        bodies = {
+            "electricity": {"model": "forecaster", "options": options, "inputs": [
+                {"type": "univariate_time_series", "name": f"MT_{i + 1:03d}",
+                 "series": loads[i].tolist(), "frequency": "H",
+                 "start_timestamp": FORECAST_START} for i in range(LOAD_SERIES)]},
+            "etth1": {"model": "forecaster",
+                      "options": dict(options, horizon=ETT_HORIZON), "inputs": [
+                          {"type": "multivariate_time_series", "name": "ETTh1",
+                           "series": ett.tolist(), "frequency": "H",
+                           "start_timestamp": FORECAST_START}]},
+        }
+        raw = {k: json.dumps(b).encode() for k, b in bodies.items()}
+        split.mark("data")
+        cpu_model = SeasonalNaiveForecaster("forecaster", device="cpu")
+        cpu_model.load()
+        cpu = {k: asyncio.run(cpu_model.create_forecast(ForecastRequest.from_json(b)))
+               .to_dict() for k, b in bodies.items()}
+        split.mark("cpu_reference")
+        profile = _forecast_profile(torch, bodies["electricity"])
+        split.mark("profile")
+        ready_s = server.wait_ready()
+        split.mark("server_ready_wait")
+        walls, served = {}, {}
+        client = _Client(server.port)
+        try:
+            for k, body in raw.items():
+                walls[k] = []
+                for i in range(FORECAST_TIMED):
+                    t0 = time.perf_counter()
+                    status, _, out = client.post("/v1/timeseries/forecast", body,
+                                                 {"Content-Type": "application/json"})
+                    walls[k].append((time.perf_counter() - t0) * 1e3)
+                    if status != 200:
+                        raise AssertionError(f"{k}: forecast answered {status}: {out[:300]!r}")
+                    if i == 0:
+                        served[k] = json.loads(out)
+            status, _, out = client.request("GET", "/v1/timeseries/models", None, {})
+        finally:
+            client.close()
+        split.mark("requests")
+        if status != 200 or json.loads(out) != ["forecaster"]:
+            raise AssertionError(f"/v1/timeseries/models answered {status} {out!r}")
+        picks = {}
+        for k in bodies:
+            if served[k]["status"] != "completed" or served[k]["model"] != "forecaster":
+                raise AssertionError(f"{k}: {served[k]['status']}")
+            content = served[k]["outputs"][0]["content"]
+            cpu_content = cpu[k]["outputs"][0]["content"]
+            if len(content) != len(bodies[k]["inputs"]):
+                raise AssertionError(f"{k}: {len(content)} outputs")
+            series = loads if k == "electricity" else [ett]
+            picks[k] = []
+            for i, (got, want) in enumerate(zip(content, cpu_content)):
+                picks[k] += _forecast_checks(
+                    np, f"{k}/{got['name']}", got, want, np.asarray(series[i]), 1,
+                    len(got["mean_forecast"]), want_m=24 if k == "electricity" else None)
+        if "on cuda" not in server.log():
+            raise AssertionError(f"the forecaster is not on cuda: {server.log()[-2000:]}")
+        split.mark("checks")
+    finally:
+        server.stop()
+        shutil.rmtree(FORECAST_DIR, ignore_errors=True)
+    split.mark("stop")
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True).stdout.strip()
+    res = {"phase": "forecast", "nvidia_smi": smi,
+           "server_start_to_ready_s": server.ready_after_s, "ready_wait_s": ready_s,
+           "request_mb": {k: len(v) / 1e6 for k, v in raw.items()},
+           "wall_p50_ms": {k: statistics.median(v) for k, v in walls.items()},
+           "wall_ms": walls, "seasons": {k: sorted(set(v)) for k, v in picks.items()},
+           "profile": profile, "split_s": split.s,
+           "phase_wall_s": time.perf_counter() - t_phase}
+    emit(res)
+    return res
 
 
 # ---------------------------------------------------------------- encoder
@@ -8024,7 +8811,9 @@ SERVED_PHASES = {"serve": phase_serve, "d64": phase_d64, "spec": phase_spec,
                  "lifecycle": phase_lifecycle, "lora": phase_lora,
                  "wq": phase_wq, "checkpoint": phase_checkpoint,
                  "moe": phase_moe, "pd": phase_pd, "peer": phase_peer,
-                 "predictive": phase_predictive, "encoder": phase_encoder,
+                 "predictive": phase_predictive, "artifacts": phase_artifacts,
+                 "explain": phase_explain, "forecast": phase_forecast,
+                 "encoder": phase_encoder,
                  "graph": phase_graph, "epp": phase_epp, "scale": phase_scale}
 
 if __name__ == "__main__":

@@ -15,6 +15,9 @@ Routes:
   GET  /v2/health/live   200, or 503 once a model's engine is wedged
   GET  /v2/health/ready  503 with {"ready", "lifecycle"} unless READY, else
        503 {"ready": false} unless every model is healthy
+  POST /v1/timeseries/forecast, GET /v1/timeseries/models  the
+       forecasting head (protocol/timeseries.py; kserve_tpu/protocol/rest/
+       server.py:239-245), on every server as in the JAX package
   GET  /openai/v1/models
   POST /openai/v1/completions, /openai/v1/chat/completions
        (JSON, or text/event-stream with `"stream": true`, ending
@@ -65,7 +68,8 @@ on an event {"error": {"type": "generation_preempted", ...},
 "checkpoint": ...} without [DONE] (kserve_tpu/protocol/openai/
 endpoints.py:73-88).  The request head may carry a checkpoint header of
 up to CHECKPOINT_FIELD_SIZE_LIMIT bytes.  On `/`, `/v1/models...` and
-`/v2...` an error's body is the JAX server's {"error": reason}; on the
+`/v2...` and `/v1/timeseries/...` an error's body is the JAX server's
+{"error": reason}; on the
 other routes it is the OpenAI form {"error": {"message", "type"}}.
 
 The wire (keep-alive, bodies, the request's trace context and span and
@@ -131,6 +135,7 @@ from ..openai.types import (
     error_body,
 )
 from ..pd import KV_META_HEADER, PREFILL_ROUTE, parse_prefill_body
+from ..timeseries import ForecastRequest, TimeSeriesDataPlane
 from .http_server import (  # noqa: F401 — MAX_HEAD_BYTES: tests read it here
     IDLE_TIMEOUT_S,
     MAX_HEAD_BYTES,
@@ -160,7 +165,8 @@ _OPENAI_ROUTES = {
 _FIXED_ROUTES = frozenset({
     "/", "/v2/health/live", "/v2/health/ready", "/openai/v1/models", "/metrics",
     "/admin/telemetry", "/admin/profile", "/admin/drain",
-    "/v1/internal/scheduler/state", *_OPENAI_ROUTES})
+    "/v1/internal/scheduler/state", "/v1/timeseries/forecast",
+    "/v1/timeseries/models", *_OPENAI_ROUTES})
 # a V1 / V2 pattern's name groups, in order
 _GROUP_NAMES = ("{model_name}", "{model_version}")
 
@@ -173,7 +179,8 @@ def _template_of(pattern: "re.Pattern") -> str:
 
 def _jax_error_form(path: str) -> bool:
     """The routes whose error bodies are the JAX server's {"error": reason}."""
-    return path == "/" or path == "/v2" or path.startswith(("/v1/models", "/v2/"))
+    return path == "/" or path == "/v2" or path.startswith(
+        ("/v1/models", "/v2/", "/v1/timeseries/"))
 
 
 class RESTServer(HTTPServer):
@@ -198,6 +205,7 @@ class RESTServer(HTTPServer):
         super().__init__(host, port, idle_timeout)
         self.repository = repository
         self.dataplane = DataPlane(self.repository)
+        self.timeseries = TimeSeriesDataPlane(self.repository)
         # (method, path pattern, handler) of the V1 and V2 heads
         self._dataplane_routes = (
             V1Endpoints(self.dataplane).routes
@@ -404,6 +412,15 @@ class RESTServer(HTTPServer):
             ready = await self.dataplane.ready()
             return await self._send_json(writer, 200 if ready else 503,
                                          {"ready": ready}, keep_alive)
+        if path == "/v1/timeseries/forecast":
+            self._expect(method, "POST")
+            result = await self.timeseries.forecast(
+                ForecastRequest.from_json(self._json(body)))
+            return await self._send_json(writer, 200, result.to_dict(), keep_alive)
+        if path == "/v1/timeseries/models":
+            self._expect(method, "GET")
+            return await self._send_json(writer, 200, await self.timeseries.models(),
+                                         keep_alive)
         if _jax_error_form(path):
             return await self._dataplane_route(method, path, headers, body, writer,
                                                keep_alive)

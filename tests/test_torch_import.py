@@ -68,6 +68,10 @@ def test_import_loads_no_jax_and_no_jax_package():
             "kserve_tpu_torch.autoscale.loop", "kserve_tpu_torch.autoscale.actuator",
             "kserve_tpu_torch.autoscale.__main__", "kserve_tpu_torch.activator",
             "kserve_tpu_torch.api.http_transport", "kserve_tpu_torch.controlplane.gvk",
+            "kserve_tpu_torch.storage.storage", "kserve_tpu_torch.storage.initializer",
+            "kserve_tpu_torch.agent.watcher", "kserve_tpu_torch.protocol.timeseries",
+            "kserve_tpu_torch.runtimes.timeseries_server",
+            "kserve_tpu_torch.runtimes.explainer_server",
             } <= set(_port_modules())
     code = (
         "import importlib, sys\n"
@@ -370,3 +374,52 @@ def test_autoscaler_and_activator_need_none_of_them():
     phases = next(node.value for node in tree.body if isinstance(node, ast.Assign)
                   and getattr(node.targets[0], "id", "") == "SERVED_PHASES")
     assert "scale" in {k.value for k in phases.keys}
+
+
+def test_storage_agent_forecaster_and_explainer_need_none_of_them(tmp_path):
+    """Storage and the initializer (urllib in place of httpx), the agent,
+    the time-series protocol and forecaster and the explainer load and
+    run on the CPU with every package the card machine lacks blocked
+    (the SDK-gated providers with them); and chip_smoke.py has the phases
+    that drive them on the card."""
+    code = (
+        "import asyncio, json, os, sys\n"
+        f"for name in {sorted(CARD_MISSING | {'boto3', 'huggingface_hub', 'grpc'})!r}:\n"
+        "    sys.modules[name] = None\n"
+        "import numpy as np\n"
+        "from kserve_tpu_torch.storage import storage, initializer\n"
+        "from kserve_tpu_torch.agent import watcher\n"
+        "from kserve_tpu_torch.protocol import timeseries\n"
+        "from kserve_tpu_torch.runtimes import timeseries_server, explainer_server\n"
+        f"d = {str(tmp_path)!r}\n"
+        "os.makedirs(d + '/src/sub')\n"
+        "open(d + '/src/sub/w.bin', 'wb').write(b'w' * 10)\n"
+        "assert initializer.main(['--manifest', d + '/src', d + '/out']) == 0\n"
+        "m = json.load(open(d + '/out/.kserve_manifest.json'))\n"
+        "assert m == {'files': {'sub/w.bin': 10}}, m\n"
+        "try:\n"
+        "    storage.Storage.download('hf://org/repo', d + '/hf')\n"
+        "except storage.StorageError as e:\n"
+        "    assert 'huggingface_hub' in str(e)\n"
+        "else:\n"
+        "    raise AssertionError('hf:// ran without huggingface_hub')\n"
+        "fc = timeseries_server.SeasonalNaiveForecaster('fc', device='cpu')\n"
+        "fc.load()\n"
+        "req = timeseries.ForecastRequest.from_json({'model': 'fc', 'inputs': [\n"
+        "    {'type': 'univariate_time_series', 'name': 's', 'frequency': 'H',\n"
+        "     'series': [1.0, 5.0, 2.0, 8.0] * 4}], 'options': {'horizon': 4}})\n"
+        "out = asyncio.run(fc.create_forecast(req)).to_dict()\n"
+        "assert out['outputs'][0]['content'][0]['mean_forecast'] == [1.0, 5.0, 2.0, 8.0]\n"
+        "masks = np.array([[0, 0], [1, 1], [1, 0], [0, 1]], dtype=np.float64)\n"
+        "w = explainer_server._shapley_kernel_weights(masks.sum(1), 2)\n"
+        "phi = explainer_server.kernelshap_solve(masks, masks @ [2.0, 1.0], w, 'cpu')\n"
+        "assert np.allclose(phi, [2.0, 1.0], atol=1e-5), phi\n"
+    )
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    tree = ast.parse((REPO / "chip_smoke.py").read_text())
+    phases = next(node.value for node in tree.body if isinstance(node, ast.Assign)
+                  and getattr(node.targets[0], "id", "") == "SERVED_PHASES")
+    assert {"artifacts", "explain", "forecast"} <= {k.value for k in phases.keys}
